@@ -1,0 +1,405 @@
+"""Smoke run of the PyTorch port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+1. device: prints the card's name and power limit (``nvidia-smi``) and
+   requires compute capability 9.0;
+2. build: compiles the port's CUDA kernels with ``nvcc`` for ``sm_90a``
+   and prints the build time and the compiler's register/spill summary;
+3. kernel vs plain version: the fused decode-attention kernel against its
+   plain PyTorch version on the card, at the Llama-2-7B decode shape, a
+   GQA shape (kvh 8, group 8) and with a float32 cache, with ragged
+   lengths; times the kernel, the plain version and one
+   ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls) at the serving run's shape, beside the bandwidth bound;
+4. reference: a tiny float32 Llama served through the engine and the
+   kernel on the card; every served token must be the greedy choice of
+   a no-cache forward over the same sequence;
+5. engine: Llama-2-7B width (random bf16 weights from a seed), 8 requests
+   of 120 tokens, 32 new tokens each, through
+   ``ContinuousBatchingEngine.run``; requires one kernel launch per layer
+   per decode forward, then serves the same prompts with
+   ``PT_FLAGS_fused_decode=off`` and requires the same first tokens.
+
+The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with
+no result, when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
+L2_FLUSH_BYTES = 128 << 20   # larger than the 50 MB L2
+HOLD_CYCLES = 5_000_000      # about 2.5 ms at the H100's 1.98 GHz boost
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, flush, iters=100, warmup=10) -> float:
+    """Median device time of ``fn`` over ``iters`` launches, from CUDA
+    events around each, after an L2 flush (the serving path meets a cold
+    cache: a layer's KV was last touched a whole step earlier).
+
+    A spin kernel holds the stream busy while the host enqueues the flush,
+    the events and ``fn``, so that the events bracket the device's work
+    and not the host's launch overhead; raises when the spin ended before
+    the host had finished enqueueing in a quarter of the launches."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    late = 0
+    for _ in range(iters):
+        torch.cuda._sleep(HOLD_CYCLES)
+        held = torch.cuda.Event()
+        held.record()
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        late += held.query()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    if late > iters // 4:
+        raise RuntimeError(f"the host outran the spin in {late} of {iters} "
+                           "launches: the times would include host overhead")
+    return float(np.median(times))
+
+
+def decode_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
+                  cache_dtype, seed):
+    from paddle_tpu_torch.kernels.rope import rope_frequencies
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    cos, sin = rope_frequencies(d, 2048, device="cuda")
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return dict(q=randn(slots, kvh, group, d, dtype=act_dtype),
+                k_new=randn(slots, kvh, d, dtype=act_dtype),
+                v_new=randn(slots, kvh, d, dtype=act_dtype),
+                ck=randn(slots, max_len, kvh, d, dtype=cache_dtype),
+                cv=randn(slots, max_len, kvh, d, dtype=cache_dtype),
+                seq_lens=lens_t, positions=lens_t.clone(), cos=cos,
+                sin=sin)
+
+
+def bound(inp):
+    """Least time for the fused decode call at these inputs: the bytes it
+    must move (cache rows 0..len-1 read, the appended row written, q,
+    k_new, v_new, cos/sin rows read, out written) over the HBM rate, and
+    its float32 operations over the float32 rate; the larger of the two."""
+    slots, kvh, group, d = inp["q"].shape
+    lens = inp["seq_lens"].cpu().numpy().astype(np.int64)
+    ce = inp["ck"].element_size()
+    ae = inp["q"].element_size()
+    nbytes = (int(lens.sum()) * kvh * d * 2 * ce      # cache rows read
+              + slots * kvh * d * 2 * ce              # appended rows
+              + 2 * slots * kvh * group * d * ae      # q in, out
+              + 2 * slots * kvh * d * ae              # k_new, v_new
+              + 2 * slots * (d // 2) * 4)             # cos/sin rows
+    flops = int((lens + 1).sum()) * kvh * group * (4 * d + 5)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def library_call(inp):
+    """One ``scaled_dot_product_attention`` over the masked cache: the
+    attention part of the fused function (no RoPE, no append)."""
+    q, ck, cv = inp["q"], inp["ck"], inp["cv"]
+    slots, kvh, group, d = q.shape
+    qh = q.reshape(slots, kvh * group, 1, d).to(ck.dtype)
+    kh = ck.permute(0, 2, 1, 3)
+    vh = cv.permute(0, 2, 1, 3)
+    mask = (torch.arange(ck.shape[1], device="cuda")[None, :]
+            <= inp["seq_lens"][:, None].long())[:, None, None, :]
+    kw = {"enable_gqa": True} if group > 1 else {}
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, **kw)
+
+
+def check_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
+               cache_dtype, tol, seed):
+    """Kernel vs plain version on one input set: outputs within ``tol``,
+    appended rows within one bf16 ulp, every other row bit-identical."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    inp = decode_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
+                        cache_dtype, seed)
+    ref_inp = {k: v.clone() for k, v in inp.items()}
+    out, ck, cv = da.fused_contiguous_decode_attention(**inp)
+    ref, ckr, cvr = da.fused_contiguous_decode_plain(**ref_inp)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: kernel output differs from the "
+                             f"plain version, max abs err {err}")
+    rows = torch.arange(slots, device="cuda")
+    lens_l = inp["seq_lens"].long()
+    for a, b, which in ((ck, ckr, "K"), (cv, cvr, "V")):
+        new_a, new_b = a[rows, lens_l].float(), b[rows, lens_l].float()
+        if not torch.allclose(new_a, new_b, rtol=2.0 ** -7, atol=1e-6):
+            raise AssertionError(f"{name}: appended {which} rows differ by "
+                                 "more than one bf16 ulp")
+        keep = torch.ones(a.shape[:2], dtype=torch.bool, device="cuda")
+        keep[rows, lens_l] = False
+        if not torch.equal(a[keep], b[keep]):
+            raise AssertionError(f"{name}: the kernel changed {which} rows "
+                                 "other than the appended ones")
+    print(f"kernel check {name}: slots={slots} kvh={kvh} group={group} "
+          f"d={d} max_len={max_len} cache={cache_dtype} lens={lens} "
+          f"max_abs_err={err:.3e} (tol {tol}) ok", flush=True)
+    return err
+
+
+def kernel_phase():
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    # bf16 outputs: one bf16 ulp of an O(1) value is 2^-7 ~ 8e-3, and the
+    # plain version rounds the rotated q to bf16 where the kernel keeps it
+    # in float32, so 2e-2 covers a few ulps. float32: the two sum the
+    # softmax in different orders (online per warp vs one pass), ~1e-6
+    # relative; 1e-4 leaves room at these lengths.
+    ragged = [0, 63, 64, 1022, 150, 1, 300, 700]
+    errs = [
+        check_case("7b_bf16", 8, 32, 1, 128, 1024, ragged,
+                   torch.bfloat16, torch.bfloat16, 2e-2, seed=1),
+        check_case("gqa8_bf16", 8, 8, 8, 128, 1024, ragged,
+                   torch.bfloat16, torch.bfloat16, 2e-2, seed=2),
+        check_case("7b_f32_cache", 8, 32, 1, 128, 1024, ragged,
+                   torch.float32, torch.float32, 1e-4, seed=3),
+    ]
+    # timing at the serving run's shape: Llama-2-7B decode, 8 slots with
+    # about 150 cached rows each (120-token prompts, 32 new tokens)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    serve_lens = [120 + 4 * i for i in range(8)]
+    inp = decode_inputs(8, 32, 1, 128, 1024, serve_lens, torch.bfloat16,
+                        torch.bfloat16, seed=7)
+    kernel_ms = time_ms(lambda: da.fused_contiguous_decode_attention(**inp),
+                        flush)
+    plain_ms = time_ms(lambda: da.fused_contiguous_decode_plain(**inp),
+                       flush)
+    library_ms = time_ms(library_call(inp), flush)
+    bound_ms, bound_by = bound(inp)
+    print(f"kernel timing 7b decode lens={serve_lens}: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return dict(name="fused_contiguous_decode_attention", route="cuda",
+                source="paddle_tpu_torch/kernels/csrc/decode_attention.cu",
+                replaces="paddle_tpu/kernels/decode_attention.py:118",
+                shape="slots=8 kvh=32 group=1 d=128 max_len=1024 bf16 "
+                      f"lens={serve_lens}",
+                max_abs_err=max(errs), ms=kernel_ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def reference_phase():
+    """Small-input reference: a tiny float32 Llama (head_dim 64, group 2)
+    on the card serves 5 queued prompts over 2 slots in 16-token prefill
+    chunks through the fused kernel. One no-cache forward over each
+    prompt and its output (the model's plain causal path: no KV cache, no
+    kernel) must rank every served token first: its logit within 1e-4 of
+    the row's maximum, so a float32 near-tie cannot fail the check."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (3, 40, 17, 9, 33)]
+    saved = flags.flag("prefill_chunk")
+    flags.set_flags({"fused_decode": "auto", "prefill_chunk": 16})
+    try:
+        eng = ContinuousBatchingEngine(
+            model, EngineConfig(max_slots=2, max_len=128,
+                                cache_dtype=torch.float32), device="cuda")
+        reqs = eng.run(prompts, max_new_tokens=12, max_chunk=4)
+    finally:
+        flags.set_flags({"prefill_chunk": saved})
+    worst = 0.0
+    for p, r in zip(prompts, reqs):
+        if len(r.output) != 12:
+            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens")
+        ids = torch.as_tensor(np.concatenate([p, r.output[:-1]]),
+                              device="cuda")[None]
+        rows = model(ids)[0, len(p) - 1:].float()
+        if not torch.isfinite(rows).all():
+            raise AssertionError("the no-cache forward gave non-finite "
+                                 "logits")
+        served = torch.as_tensor(r.output, device="cuda")
+        gap = (rows.max(dim=-1).values
+               - rows.gather(1, served[:, None])[:, 0]).max().item()
+        worst = max(worst, gap)
+        if gap > 1e-4:
+            raise AssertionError(
+                f"request {r.rid}: served tokens {r.output} are not the "
+                f"no-cache forward's greedy choice (logit gap {gap})")
+    print(f"reference check: tiny float32 Llama on the card, "
+          f"{len(reqs)} requests x 12 tokens, {eng.stats['decode_forwards']} "
+          f"decode forwards through the kernel, served tokens are the "
+          f"no-cache forward's greedy choice (max logit gap {worst:.2e})",
+          flush=True)
+
+
+def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8):
+    """Serve ``prompts`` through a fresh engine; returns the requests,
+    the wall time and the engine's forward counts."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    flags.set_flags({"fused_decode": fused})
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=1024), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=max_new_tokens,
+                   max_chunk=max_chunk)
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, dict(eng.stats)
+
+
+def engine_phase():
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(max_position_embeddings=2048,
+                                dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"engine: Llama-2-7B width, {cfg.num_hidden_layers} layers, "
+          f"{n_params} parameters in bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, 120) for _ in range(8)]
+
+    # warm-up on a short request (library handles, allocator), not counted
+    serve(model, prompts[:2], "auto", max_new_tokens=4, max_chunk=4)
+
+    torch.cuda.reset_peak_memory_stats()
+    da.LAUNCHES = 0
+    reqs, wall, stats = serve(model, prompts, "auto")
+    launches = da.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reqs_off, wall_off, _ = serve(model, prompts, "off")
+    launches_off = da.LAUNCHES - launches
+    for r in reqs:
+        if len(r.output) != 32 or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.rid}: bad output {r.output}")
+    ttft = [r.ttft_ms for r in reqs]
+    ttft_p50 = float(np.median(ttft))
+    decode_tokens = sum(len(r.output) - 1 for r in reqs)
+    decode_wall = wall - max(ttft) / 1e3
+    decode_tps = decode_tokens / decode_wall
+    decode_forwards = stats["decode_forwards"]
+    expected = cfg.num_hidden_layers * decode_forwards
+    print(f"engine fused: 8 requests served in {wall:.3f} s, TTFT p50 "
+          f"{ttft_p50:.2f} ms, decode {decode_tps:.1f} tok/s "
+          f"({decode_tokens} tokens in {decode_wall:.3f} s), peak memory "
+          f"{peak_gb:.2f} GB, kernel launches {launches} = "
+          f"{cfg.num_hidden_layers} layers x {decode_forwards} decode "
+          f"forwards", flush=True)
+    if launches <= 0 or launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected} (> 0)")
+    if launches_off != 0:
+        raise AssertionError(f"fused_decode=off launched the kernel "
+                             f"{launches_off} times")
+    fused_outs = [r.output for r in reqs]
+    off_outs = [r.output for r in reqs_off]
+    divergence = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       None) for a, b in zip(fused_outs, off_outs)]
+    print(json.dumps({"engine": {
+        "model": "llama2_7b width, random bf16 weights (seed 0)",
+        "requests": 8, "prompt_tokens": 120, "max_new_tokens": 32,
+        "max_chunk": 8, "ttft_ms": ttft, "ttft_p50_ms": ttft_p50,
+        "decode_tokens_per_s": decode_tps, "peak_memory_gb": peak_gb,
+        "kernel_launches": launches, "decode_forwards": decode_forwards,
+        "wall_s": wall, "unfused_wall_s": wall_off,
+        "outputs_match": fused_outs == off_outs,
+        "first_divergence": divergence}}), flush=True)
+    if any(a[0] != b[0] for a, b in zip(fused_outs, off_outs)):
+        raise AssertionError("the first generated token differs between "
+                             "fused and unfused decode")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
+    from paddle_tpu_torch.kernels import _build
+
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda,
+          flush=True)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        raise RuntimeError(f"needs compute capability 9.0; got {cap}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    log = str(_build.BUILD_INFO.get("log", ""))
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    print(f"build: {path} in {time.perf_counter() - t0:.1f} s (nvcc "
+          f"sm_90a); {len(regs)} kernels, registers max "
+          f"{max(regs, default=0)}, spill stores max "
+          f"{max(spills, default=0)} bytes", flush=True)
+
+    row = kernel_phase()
+    reference_phase()
+    row["launches"] = engine_phase()
+    kernels = {"kernels": [{k: row[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "shape")}]}
+    for r in kernels["kernels"]:
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            if not math.isfinite(r[key]):
+                raise AssertionError(f"{key} is not finite: {r[key]}")
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

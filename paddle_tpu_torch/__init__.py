@@ -1,0 +1,17 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu`` for one
+NVIDIA H100.
+
+It mirrors the JAX package's layout module for module and is held
+against it: the same weights go in and the same numbers come out. Where
+the JAX package has a Pallas kernel on the path, the port has a kernel
+written by hand for Hopper (``kernels/csrc``), built with ``nvcc`` at
+first use. The port imports neither JAX nor anything of ``paddle_tpu``.
+
+This slice serves Llama through the continuous-batching engine with
+contiguous KV caches (``inference/serving.py``); ROADMAP.md lists what
+comes next.
+"""
+
+from . import flags
+
+__all__ = ["flags"]

@@ -1,0 +1,33 @@
+"""Explicit random generators (counterpart of ``paddle_tpu/core/random.py``
+and the ``Normal`` initializer of ``paddle_tpu/core/initializer.py``).
+
+The JAX package threads ``jax.random`` keys; the port threads
+``torch.Generator`` objects that the caller creates from a seed. Nothing
+here touches PyTorch's global generator. The two frameworks give
+different numbers from one seed, so tests that compare them make their
+inputs with numpy and carry weights across (``convert.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def make_generator(seed: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def normal_(tensor: torch.Tensor, mean: float, std: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Fill ``tensor`` in place from Normal(mean, std). As in the JAX
+    initializer, the sample is drawn in float32 and then cast, since
+    drawing straight in bfloat16 loses entropy."""
+    if tensor.dtype == torch.float32:
+        return tensor.normal_(mean, std, generator=generator)
+    tmp = torch.empty(tensor.shape, dtype=torch.float32,
+                      device=tensor.device)
+    tmp.normal_(mean, std, generator=generator)
+    return tensor.copy_(tmp)

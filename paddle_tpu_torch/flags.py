@@ -1,0 +1,61 @@
+"""Process-level flag registry of the PyTorch port.
+
+Counterpart of ``paddle_tpu/flags.py``: the same ``define_flag`` /
+``flag`` / ``set_flags`` surface and the same
+``PT_FLAGS_<name>`` environment prefix. It holds only the flags the
+serving slice reads, under the JAX package's names and defaults, so an
+environment that configures one package configures the other alike.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+_REGISTRY: Dict[str, Dict[str, Any]] = {}
+
+
+def define_flag(name: str, default, help_: str = ""):
+    env = os.environ.get(f"PT_FLAGS_{name}")
+    value = default
+    if env is not None:
+        if isinstance(default, bool):
+            value = env.lower() in ("1", "true", "yes", "on")
+        elif isinstance(default, int):
+            value = int(env)
+        elif isinstance(default, float):
+            value = float(env)
+        else:
+            value = env
+    _REGISTRY[name] = {"value": value, "default": default, "help": help_}
+    return value
+
+
+def set_flags(flags: Dict[str, Any]):
+    """Parity: paddle.set_flags({"FLAGS_x": v})."""
+    for name, value in flags.items():
+        key = name.removeprefix("FLAGS_")
+        if key not in _REGISTRY:
+            raise KeyError(f"unknown flag {name!r}")
+        _REGISTRY[key]["value"] = value
+
+
+def flag(name: str):
+    return _REGISTRY[name]["value"]
+
+
+define_flag("fused_decode", "auto",
+            "fused single-pass decode attention (RoPE + KV append + "
+            "length-pruned attention in one kernel): auto and on = the "
+            "Hopper kernel for CUDA tensors, its plain version for CPU "
+            "tensors; off = the unfused llama branch")
+define_flag("prefill_chunk", 256,
+            "serving prefill chunk length: one fixed [slots, C] chunk "
+            "forward driven in a host loop, clamped to [2, max_len] (a "
+            "1-token chunk would enter the decode branch). 0 selects the "
+            "JAX package's legacy bucketed prefill, which the port does "
+            "not have")
+define_flag("kv_cache_dtype", "auto",
+            "serving KV-cache dtype when EngineConfig.cache_dtype is "
+            "'auto': auto = bfloat16 on the card, float32 on the CPU; or "
+            "explicit bfloat16|float16|float32")

@@ -1,0 +1,553 @@
+"""Continuous-batching decode engine (counterpart of
+``paddle_tpu/inference/serving.py: ContinuousBatchingEngine``).
+
+Slot-based continuous batching over a causal LM with contiguous per-slot
+KV caches. Sequences enter and leave as data: per-slot lengths, an active
+mask and a FIFO heap of free slots live on the host, and three forwards
+run on the device:
+
+- ``prefill_chunk``: one fixed ``[slots, C]`` chunk written straight into
+  the live caches at per-slot offsets, driven in a host loop; slots not
+  prefilling carry the ``start = max_len`` sentinel and their rows drop;
+- ``decode_step``: one ``[slots, 1]`` token per slot;
+- ``decode_chunk``: K decode steps in a Python loop whose sampled tokens
+  stay on the device, with one host sync per chunk.
+
+Admission in ``step_chunk`` is queued on the stream behind the in-flight
+decode chunk, as in the JAX engine. Caches are updated in place (JAX
+donates them). Greedy tokens match the JAX engine's.
+
+This slice runs the default configuration: contiguous caches
+(``paged=False``), chunked prefill, float caches and the model's own
+weights. Prefix caching, speculative decoding, telemetry, tracing,
+resilience, the sanitizer, the profiler and the router are later slices
+(ROADMAP.md Queue A).
+"""
+
+from __future__ import annotations
+
+import collections
+import heapq
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import flags
+from ..core.device import resolve_device
+from ..core.random import make_generator
+from ..generation import process_logits_batch
+
+_TODO = "see ROADMAP.md Queue A"
+
+
+@dataclass
+class EngineConfig:
+    """The JAX engine's configuration, field for field and default for
+    default. Fields outside this slice must keep values that select the
+    ported path; the engine raises at init otherwise."""
+    max_slots: int = 4
+    max_len: int = 1024
+    # legacy bucketed prefill only (not ported)
+    seq_buckets: Sequence[int] = (64, 128, 256, 512, 1024)
+    paged: bool = False
+    page_size: int = 64
+    n_pages: Optional[int] = None
+    # "auto" resolves through PT_FLAGS_kv_cache_dtype: bfloat16 on the
+    # card, float32 on the CPU; explicit dtypes win
+    cache_dtype: object = "auto"
+    # "auto" and "bf16" serve the model's own weights
+    weight_dtype: str = "auto"
+    weight_group_size: int = 128
+    quantize_inplace: bool = False
+    prefix_cache_blocks: Optional[int] = None
+    greedy: bool = True
+    temperature: float = 1.0
+    seed: int = 0
+    spec_k: int = 4
+    max_retries: int = 2
+
+
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                 "float16": torch.float16, "fp16": torch.float16,
+                 "float32": torch.float32, "fp32": torch.float32}
+
+
+def _resolve_cache_dtype(requested, device: torch.device) -> torch.dtype:
+    """EngineConfig.cache_dtype -> torch dtype. ``"auto"`` defers to
+    ``PT_FLAGS_kv_cache_dtype``, whose ``auto`` means bfloat16 on the card
+    and float32 on the CPU; int8 caches are not ported yet."""
+
+    def lookup(val, origin):
+        if val == "int8":
+            raise NotImplementedError(
+                f"int8 KV caches are not ported yet ({_TODO}, quantized "
+                "serving)")
+        if val not in _CACHE_DTYPES:
+            raise ValueError(f"{origin} must be 'auto' or one of "
+                             f"{sorted(_CACHE_DTYPES)}; got {val!r}")
+        return _CACHE_DTYPES[val]
+
+    if isinstance(requested, torch.dtype):
+        if not requested.is_floating_point:
+            raise NotImplementedError(
+                f"int8 KV caches are not ported yet ({_TODO}, quantized "
+                "serving)")
+        return requested
+    if requested not in (None, "auto"):
+        return lookup(str(requested), "EngineConfig.cache_dtype")
+    val = str(flags.flag("kv_cache_dtype")).lower()
+    if val == "auto":
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    return lookup(val, "PT_FLAGS_kv_cache_dtype")
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_token_id: Optional[int] = None
+    output: List[int] = field(default_factory=list)
+    ttft_ms: Optional[float] = None
+    slot: Optional[int] = None
+    done: bool = False
+    cancelled: bool = False
+    # why the request left its slot: eos | max_new_tokens | max_len |
+    # cancel (None while in flight)
+    finish_reason: Optional[str] = None
+    # per-request sampling params (None = the engine-global config); any
+    # explicit temperature/top_k/top_p implies sampling unless ``greedy``
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    greedy: Optional[bool] = None
+    _submit_t: float = 0.0
+
+
+def build_request(rid: int, prompt, max_new_tokens: int = 32,
+                  eos_token_id: Optional[int] = None,
+                  temperature: Optional[float] = None,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None,
+                  greedy: Optional[bool] = None,
+                  *, max_len: int) -> Request:
+    """Validate request arguments and build a :class:`Request` (the JAX
+    engine's admission checks)."""
+    prompt = np.asarray(prompt).reshape(-1)
+    if prompt.size == 0:
+        raise ValueError("add_request needs a non-empty prompt")
+    if prompt.size + max_new_tokens > max_len:
+        raise ValueError(
+            f"prompt({prompt.size}) + max_new_tokens({max_new_tokens}) "
+            f"exceeds max_len={max_len}")
+    if temperature is not None and temperature <= 0:
+        raise ValueError(f"temperature must be > 0; got {temperature}")
+    if top_k is not None and top_k < 0:
+        raise ValueError(f"top_k must be >= 0; got {top_k}")
+    if top_p is not None and not 0 < top_p <= 1:
+        raise ValueError(f"top_p must be in (0, 1]; got {top_p}")
+    return Request(rid, prompt, max_new_tokens, eos_token_id,
+                   temperature=temperature, top_k=top_k, top_p=top_p,
+                   greedy=greedy, _submit_t=time.perf_counter())
+
+
+class ContinuousBatchingEngine:
+    """Slot-based continuous batching over a causal LM that exposes
+    ``init_kv_caches`` and takes ``kv_caches`` / vector ``cache_index``
+    in its forward, as ``models/llama.py`` does.
+
+    ``device`` defaults to ``"cuda"`` and must be where the model's
+    weights are; with no CUDA device the engine raises unless the caller
+    passes ``device="cpu"``."""
+
+    def __init__(self, model, config: Optional[EngineConfig] = None,
+                 device="cuda"):
+        self.cfg = config or EngineConfig()
+        cfg = self.cfg
+        self.device = resolve_device(device)
+        if model.device.type != self.device.type:
+            raise ValueError(f"the model is on {model.device}; the engine "
+                             f"was asked for {self.device}")
+        self._check_slice(cfg)
+        self.cache_dtype = _resolve_cache_dtype(cfg.cache_dtype,
+                                                self.device)
+        self.model = model
+        model.eval()
+
+        self.seq_lens = np.zeros((cfg.max_slots,), np.int64)
+        self.active = np.zeros((cfg.max_slots,), bool)
+        self.last_tok = np.zeros((cfg.max_slots,), np.int64)
+        # free slots, lowest index first
+        self._free_heap = list(range(cfg.max_slots))
+        self._slot_req: Dict[int, Request] = {}
+        self._queue: collections.deque = collections.deque()
+        self._next_rid = 0
+        self._finished: Dict[int, Request] = {}
+        self._gen = make_generator(cfg.seed, self.device)
+        self.caches = model.init_kv_caches(cfg.max_slots, cfg.max_len,
+                                           dtype=self.cache_dtype)
+        # the chunk length floors at 2: a 1-token chunk would enter the
+        # model's s == 1 decode branch, which has no sentinel drop
+        self._chunk_len = max(2, min(int(flags.flag("prefill_chunk")),
+                                     cfg.max_len))
+        # forwards run per program (host counters: a decode forward is one
+        # [slots, 1] model call, so kernel launches per run are
+        # num_hidden_layers x decode_forwards on the fused path)
+        self.stats = {"prefill_chunk": 0, "decode_forwards": 0}
+
+    @staticmethod
+    def _check_slice(cfg: EngineConfig):
+        """Configurations outside this slice raise at init."""
+        if cfg.paged:
+            raise NotImplementedError(
+                f"paged KV caches are not ported yet ({_TODO}, paged "
+                "serving)")
+        if str(cfg.weight_dtype).lower() not in ("auto", "bf16",
+                                                 "bfloat16"):
+            raise NotImplementedError(
+                f"weight_dtype={cfg.weight_dtype!r}: weight-only "
+                f"quantized serving is not ported yet ({_TODO}, quantized "
+                "serving)")
+        if int(flags.flag("prefill_chunk")) <= 0:
+            raise NotImplementedError(
+                "PT_FLAGS_prefill_chunk=0 selects the legacy bucketed "
+                f"prefill, which is not ported ({_TODO})")
+        if cfg.max_slots < 1 or cfg.max_len < 2:
+            raise ValueError("EngineConfig needs max_slots >= 1 and "
+                             "max_len >= 2")
+
+    # ---------------- requests ----------------
+    def add_request(self, prompt, max_new_tokens: int = 32,
+                    eos_token_id: Optional[int] = None,
+                    temperature: Optional[float] = None,
+                    top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    greedy: Optional[bool] = None) -> int:
+        """Queue a request; returns its id. Setting any of
+        ``temperature``/``top_k``/``top_p`` makes this request sample
+        (``greedy=True`` overrides back to argmax)."""
+        req = build_request(self._next_rid, prompt, max_new_tokens,
+                            eos_token_id, temperature=temperature,
+                            top_k=top_k, top_p=top_p, greedy=greedy,
+                            max_len=self.cfg.max_len)
+        self._next_rid += 1
+        self._queue.append(req)
+        return req.rid
+
+    def _req_greedy(self, req: Request) -> bool:
+        if req.greedy is not None:
+            return req.greedy
+        if (req.temperature is not None or req.top_k is not None
+                or req.top_p is not None):
+            return False
+        return self.cfg.greedy
+
+    def _req_nondefault(self, req: Request) -> bool:
+        """True when the request's next-token selection differs from the
+        engine-global config, so the per-slot sampling arm must run."""
+        g = self._req_greedy(req)
+        if g != bool(self.cfg.greedy):
+            return True
+        if g:
+            return False
+        return ((req.temperature is not None
+                 and req.temperature != self.cfg.temperature)
+                or bool(req.top_k)
+                or (req.top_p is not None and req.top_p < 1.0))
+
+    def _slot_sampling(self, reqs=None):
+        """(use_samp, per-slot (greedy, temperature, top_k, top_p)
+        tensors) for the forwards; ``reqs``: explicit (slot, Request)
+        pairs, default the active slot map."""
+        cfg = self.cfg
+        items = list(self._slot_req.items()) if reqs is None else reqs
+        greedy = np.full((cfg.max_slots,), bool(cfg.greedy))
+        temp = np.full((cfg.max_slots,), max(cfg.temperature, 1e-6),
+                       np.float32)
+        tk = np.zeros((cfg.max_slots,), np.int64)
+        tp = np.ones((cfg.max_slots,), np.float32)
+        use = False
+        for slot, req in items:
+            use = use or self._req_nondefault(req)
+            greedy[slot] = self._req_greedy(req)
+            if req.temperature is not None:
+                temp[slot] = max(req.temperature, 1e-6)
+            if req.top_k is not None:
+                tk[slot] = req.top_k
+            if req.top_p is not None:
+                tp[slot] = req.top_p
+        if not use:
+            return False, None
+        dev = self.device
+        return True, (torch.as_tensor(greedy, device=dev),
+                      torch.as_tensor(temp, device=dev),
+                      torch.as_tensor(tk, device=dev),
+                      torch.as_tensor(tp, device=dev))
+
+    def _sample_rows(self, rows, samp, use_samp):
+        """Next token per row of ``[slots, vocab]`` logits, on the device.
+        Greedy is argmax over float32 logits (the first maximum, as
+        ``jnp.argmax``); sampling draws from the engine's generator, so
+        sampled tokens differ from the JAX engine's."""
+        rows = rows.float()
+        if use_samp:
+            greedy_mask, temp, tk, tp = samp
+            g = torch.argmax(rows, dim=-1)
+            probs = torch.softmax(process_logits_batch(rows, temp, tk, tp),
+                                  dim=-1)
+            s = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+            return torch.where(greedy_mask, g, s)
+        if self.cfg.greedy:
+            return torch.argmax(rows, dim=-1)
+        probs = torch.softmax(rows / self.cfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+
+    # ---------------- device programs ----------------
+    def _prefill_chunk(self, ids, start, last_idx, samp, use_samp):
+        """THE prefill program: one ``[slots, C]`` chunk written into the
+        live caches at per-slot offsets ``start`` (sentinel ``max_len``
+        for slots not prefilling). Samples one token per slot from its
+        ``last_idx`` row; only the final chunk's sample is used."""
+        self.stats["prefill_chunk"] += 1
+        C = ids.shape[1]
+        pos = start[:, None] + torch.arange(C, dtype=start.dtype,
+                                            device=start.device)
+        logits, _ = self.model(ids, position_ids=pos, kv_caches=self.caches,
+                               cache_index=start)
+        rows = logits[torch.arange(logits.shape[0], device=logits.device),
+                      last_idx]
+        return self._sample_rows(rows, samp, use_samp)
+
+    def _decode_forward(self, toks, lens, samp, use_samp):
+        """One ``[slots, 1]`` decode forward at per-slot lengths ``lens``;
+        returns the sampled next token per slot, on the device."""
+        self.stats["decode_forwards"] += 1
+        logits, _ = self.model(toks, position_ids=lens[:, None],
+                               kv_caches=self.caches, cache_index=lens)
+        return self._sample_rows(logits[:, -1, :], samp, use_samp)
+
+    def _decode_chunk(self, toks, lens, active, budget, K, samp,
+                      use_samp):
+        """K decode steps with the sampled token fed back on the device.
+        A slot advances only while active and under its budget; frozen
+        slots rewrite their own row with discarded values. Returns the
+        ``[K, slots]`` tokens, still on the device."""
+        out = []
+        for k in range(K):
+            nxt = self._decode_forward(toks, lens, samp, use_samp)
+            advance = active & (k < budget)
+            lens = lens + advance.to(lens.dtype)
+            toks = torch.where(advance[:, None], nxt[:, None].to(toks.dtype),
+                               toks)
+            out.append(nxt)
+        return torch.stack(out)
+
+    # ---------------- admission ----------------
+    def _admit_dispatch(self):
+        """Claim free slots for queued requests (FIFO) and queue their
+        chunked prefill on the device without a host sync. Returns the
+        pending (req, slot, n_ctx, first_token) list for
+        ``_admit_integrate``. A failure rolls every claimed request back
+        into the queue before propagating."""
+        if not self._queue:
+            return []
+        jobs = []  # [req, slot, cursor, ids]
+        try:
+            while self._free_heap and self._queue:
+                req = self._queue.popleft()
+                slot = heapq.heappop(self._free_heap)
+                self.active[slot] = True
+                req.slot = slot
+                self._slot_req[slot] = req
+                jobs.append([req, slot, 0, req.prompt])
+            return self._drive_prefill_chunks(jobs)
+        except BaseException:
+            for req, slot, *_ in reversed(jobs):
+                self.active[slot] = False
+                self._slot_req.pop(slot, None)
+                req.slot = None
+                heapq.heappush(self._free_heap, slot)
+                self._queue.appendleft(req)
+            raise
+
+    def _drive_prefill_chunks(self, jobs):
+        """Host loop over prompt chunks for a wave of claimed requests:
+        each iteration packs every still-prefilling request's next C
+        tokens into one ``[slots, C]`` call."""
+        C = self._chunk_len
+        cfg = self.cfg
+        dev = self.device
+        pending = []
+        remaining = list(jobs)
+        use_samp, samp = self._slot_sampling(
+            [(job[1], job[0]) for job in jobs])
+        while remaining:
+            ids = np.zeros((cfg.max_slots, C), np.int64)
+            start = np.full((cfg.max_slots,), cfg.max_len, np.int64)
+            last_idx = np.zeros((cfg.max_slots,), np.int64)
+            finishing = []
+            for job in remaining:
+                slot, p, job_ids = job[1], job[2], job[3]
+                take = min(C, job_ids.size - p)
+                ids[slot, :take] = job_ids[p:p + take]
+                start[slot] = p
+                if p + take >= job_ids.size:
+                    last_idx[slot] = job_ids.size - 1 - p
+                    finishing.append(job)
+                job[2] = p + take
+            toks = self._prefill_chunk(
+                torch.as_tensor(ids, device=dev),
+                torch.as_tensor(start, device=dev),
+                torch.as_tensor(last_idx, device=dev), samp, use_samp)
+            for job in finishing:
+                pending.append((job[0], job[1], job[3].size, toks[job[1]]))
+            done = {job[1] for job in finishing}
+            remaining = [job for job in remaining if job[1] not in done]
+        return pending
+
+    def _admit_integrate(self, pending):
+        """Sync each admitted request's first token (a scalar) and finish
+        its bookkeeping; the sequence joins the next decode step."""
+        for req, slot, n_ctx, first_dev in pending:
+            first = int(first_dev)
+            req.ttft_ms = (time.perf_counter() - req._submit_t) * 1e3
+            req.output.append(first)
+            self.seq_lens[slot] = n_ctx
+            self.last_tok[slot] = first
+            self._maybe_finish(slot, first)
+
+    def _admit(self):
+        self._admit_integrate(self._admit_dispatch())
+
+    # ---------------- finish / cancel ----------------
+    def _release_slot(self, slot: int):
+        """Return a slot to the free heap; the one teardown path finish
+        and cancel share."""
+        self.active[slot] = False
+        self.seq_lens[slot] = 0
+        heapq.heappush(self._free_heap, slot)
+        del self._slot_req[slot]
+
+    def _finish(self, req: Request, reason: str):
+        req.done = True
+        req.finish_reason = reason
+        self._finished[req.rid] = req
+
+    def _maybe_finish(self, slot: int, tok: int):
+        req = self._slot_req.get(slot)
+        if req is None:
+            return
+        if req.eos_token_id is not None and tok == req.eos_token_id:
+            reason = "eos"
+        elif len(req.output) >= req.max_new_tokens:
+            reason = "max_new_tokens"
+        elif self.seq_lens[slot] + 1 >= self.cfg.max_len:
+            reason = "max_len"
+        else:
+            return
+        self._release_slot(slot)
+        self._finish(req, reason)
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a queued or active request; False for unknown or
+        finished ids. An active request's slot is freed at once: tokens
+        an in-flight chunk still computes for it are discarded."""
+        req = next((r for r in self._queue if r.rid == request_id), None)
+        if req is not None:
+            self._queue.remove(req)
+        else:
+            slot = next((s for s, r in self._slot_req.items()
+                         if r.rid == request_id), None)
+            if slot is None:
+                return False
+            req = self._slot_req[slot]
+            self._release_slot(slot)
+        req.cancelled = True
+        self._finish(req, "cancel")
+        return True
+
+    # ---------------- scheduler ticks ----------------
+    def step(self) -> bool:
+        """Admit waiting requests, then one decode step for every active
+        slot. Returns False when there is nothing left to do."""
+        self._admit()
+        if not self.active.any():
+            return bool(self._queue)
+        use_samp, samp = self._slot_sampling()
+        dev = self.device
+        toks = torch.as_tensor(self.last_tok[:, None], device=dev)
+        lens = torch.as_tensor(self.seq_lens, device=dev)
+        nxt = self._decode_forward(toks, lens, samp, use_samp).cpu().numpy()
+        for slot in range(self.cfg.max_slots):
+            if not self.active[slot]:
+                continue
+            tok = int(nxt[slot])
+            self._slot_req[slot].output.append(tok)
+            self.seq_lens[slot] += 1
+            self.last_tok[slot] = tok
+            self._maybe_finish(slot, tok)
+        return True
+
+    def _slot_budgets(self) -> np.ndarray:
+        """Per-slot remaining token budget (max_new_tokens and max_len
+        caps); frozen slots stop advancing inside the chunk."""
+        budget = np.zeros((self.cfg.max_slots,), np.int64)
+        for slot, req in self._slot_req.items():
+            budget[slot] = max(0, min(
+                req.max_new_tokens - len(req.output),
+                self.cfg.max_len - 1 - int(self.seq_lens[slot])))
+        return budget
+
+    def step_chunk(self, max_chunk: int = 8) -> bool:
+        """``max_chunk`` decode steps with one host sync, with admission
+        queued on the device behind the in-flight chunk: newly admitted
+        slots join the next chunk."""
+        if not self.active.any():
+            self._admit()
+            if not self.active.any():
+                return bool(self._queue)
+        K = max_chunk
+        chunk_slots = self.active.copy()
+        chunk_reqs = {s: self._slot_req[s]
+                      for s in range(self.cfg.max_slots) if chunk_slots[s]}
+        budget = self._slot_budgets()
+        use_samp, samp = self._slot_sampling()
+        dev = self.device
+        toks_all = self._decode_chunk(
+            torch.as_tensor(self.last_tok[:, None], device=dev),
+            torch.as_tensor(self.seq_lens, device=dev),
+            torch.as_tensor(chunk_slots, device=dev),
+            torch.as_tensor(budget, device=dev), K, samp, use_samp)
+        pending = self._admit_dispatch()
+        toks_np = toks_all.cpu().numpy()  # one sync for K tokens
+        for k in range(K):
+            for slot in range(self.cfg.max_slots):
+                # the slot advances only while its chunk-time occupant
+                # still owns it (not finished at an earlier k, not
+                # cancelled)
+                req = chunk_reqs.get(slot)
+                if (req is None or k >= budget[slot]
+                        or self._slot_req.get(slot) is not req):
+                    continue
+                tok = int(toks_np[k, slot])
+                req.output.append(tok)
+                self.seq_lens[slot] += 1
+                self.last_tok[slot] = tok
+                self._maybe_finish(slot, tok)
+        self._admit_integrate(pending)
+        return True
+
+    def run(self, prompts: Sequence, max_new_tokens: int = 32,
+            eos_token_id: Optional[int] = None,
+            max_chunk: int = 8) -> List[Request]:
+        """Submit all prompts, drive ``step_chunk`` until every request
+        finishes, and return the Requests in submission order."""
+        rids = [self.add_request(p, max_new_tokens, eos_token_id)
+                for p in prompts]
+        while self.step_chunk(max_chunk) or self._queue or \
+                self.active.any():
+            pass
+        return [self._finished[r] for r in rids]

@@ -1,0 +1,193 @@
+"""Fused single-pass decode attention over contiguous per-slot KV caches
+(counterpart of ``paddle_tpu/kernels/decode_attention.py``).
+
+One call per decoder layer and decode step rotates the new token's query
+and key (RoPE), appends its K/V row in place at each slot's length, and
+attends over rows ``0..seq_lens[i]``. On the card the wrapper launches the
+hand-written Hopper kernel in ``csrc/decode_attention.cu``; for tensors on
+the CPU it runs the plain PyTorch version beside it, a port of the JAX
+package's unfused reference ``fused_contiguous_decode_reference``. A CUDA
+tensor never falls back to the plain version: the wrapper launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import flags
+from .rope import apply_rope
+
+NEG_INF = -1e30  # paddle_tpu/kernels/paged_attention.py: NEG_INF
+
+# kernel launches by ``fused_contiguous_decode_attention`` in this
+# process: one per call on CUDA tensors, none for the plain version
+LAUNCHES = 0
+
+_ACT_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_CACHE_TAG = {torch.float32: "f32", torch.float16: "f16",
+              torch.bfloat16: "bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def contiguous_chunk(max_len: int) -> int:
+    """The JAX kernel's streaming granularity over the cache rows,
+    gcd(max_len, 128). The Hopper kernel walks single rows and needs no
+    chunk; tests use it to place ragged lengths on chunk boundaries of
+    the reference."""
+    return math.gcd(max_len, 128)
+
+
+def fused_decode_active() -> bool:
+    """The ``PT_FLAGS_fused_decode`` gate. ``auto`` and ``on`` take the
+    fused path: the kernel for CUDA tensors, the plain fused version for
+    CPU tensors. ``off`` takes the unfused llama branch on either device,
+    the JAX package's own parity oracle."""
+    val = str(flags.flag("fused_decode")).lower()
+    if val in ("off", "0", "false", "no"):
+        return False
+    if val in ("auto", "on", "1", "true", "yes"):
+        return True
+    raise ValueError(f"PT_FLAGS_fused_decode must be auto|on|off; got {val!r}")
+
+
+def _rope_rotate(x, positions, cos, sin):
+    """x: [slots, heads, d], one token per slot, rotated at each slot's
+    position through ``rope.apply_rope`` (the model path's convention)."""
+    x4 = x[:, None]
+    out, _ = apply_rope(x4, x4, cos, sin, positions[:, None])
+    return out[:, 0]
+
+
+def fused_contiguous_decode_plain(q, k_new, v_new, ck, cv, seq_lens,
+                                  positions, cos, sin, scale=None):
+    """Plain PyTorch version of the fused kernel, ported from the JAX
+    package's ``fused_contiguous_decode_reference``: rope, per-slot
+    append, then dense masked attention in float32 over the whole
+    ``[slots, max_len]`` cache. ``ck``/``cv`` are updated in place (the
+    JAX version returns updated copies); returns ``(out, ck, cv)``."""
+    slots, kvh, group, d = q.shape
+    max_len = ck.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    qr = _rope_rotate(q.reshape(slots, kvh * group, d), positions,
+                      cos, sin).reshape(slots, kvh, group, d)
+    kr = _rope_rotate(k_new, positions, cos, sin)
+    lens = seq_lens.long()
+    rows = torch.arange(slots, device=q.device)
+    ck[rows, lens] = kr.to(ck.dtype)
+    cv[rows, lens] = v_new.to(cv.dtype)
+    k = ck.float().repeat_interleave(group, dim=2)
+    v = cv.float().repeat_interleave(group, dim=2)
+    qf = qr.reshape(slots, kvh * group, 1, d).float() * scale
+    s = torch.einsum("shqd,skhd->shqk", qf, k)
+    mask = torch.arange(max_len, device=q.device)[None, :] <= lens[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("shqk,skhd->shqd", p, v)
+    out = out[:, :, 0].reshape(slots, kvh, group, d).to(q.dtype)
+    return out, ck, cv
+
+
+def _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin):
+    slots, kvh, group, d = q.shape
+    dev = q.device
+    named = dict(q=q, k_new=k_new, v_new=v_new, ck=ck, cv=cv,
+                 seq_lens=seq_lens, positions=positions, cos=cos, sin=sin)
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _ACT_CODE or k_new.dtype != q.dtype \
+            or v_new.dtype != q.dtype:
+        raise ValueError(
+            f"q/k_new/v_new must share one of {list(_ACT_CODE)}; got "
+            f"{q.dtype}, {k_new.dtype}, {v_new.dtype}")
+    if ck.dtype not in _CACHE_TAG or cv.dtype != ck.dtype:
+        raise ValueError(
+            f"ck/cv must share one of {list(_CACHE_TAG)}; got {ck.dtype}, "
+            f"{cv.dtype}")
+    if d % 32 or not 32 <= d <= 256:
+        raise ValueError(f"head_dim must be a multiple of 32 in "
+                         f"[32, 256]; got {d}")
+    if not 1 <= group <= 16:
+        raise ValueError(f"group must be in [1, 16]; got {group}")
+    max_len = ck.shape[1]
+    if tuple(k_new.shape) != (slots, kvh, d) \
+            or tuple(v_new.shape) != (slots, kvh, d):
+        raise ValueError("k_new/v_new must be [slots, kv_heads, d]")
+    if tuple(ck.shape) != (slots, max_len, kvh, d) \
+            or tuple(cv.shape) != tuple(ck.shape):
+        raise ValueError("ck/cv must be [slots, max_len, kv_heads, d]")
+    for name, t in (("seq_lens", seq_lens), ("positions", positions)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (slots,):
+            raise ValueError(f"{name} must be int32 [slots]")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.dtype != torch.float32 or t.dim() != 2 \
+                or t.shape[1] != d // 2:
+            raise ValueError(f"{name} must be float32 [max_pos, d/2]")
+    if cos.shape != sin.shape:
+        raise ValueError("cos and sin must have one shape")
+    for name, t in (("ck", ck), ("cv", cv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def fused_contiguous_decode_attention(q, k_new, v_new, ck, cv, seq_lens,
+                                      positions, cos, sin, scale=None):
+    """RoPE(q, k_new) + append (k_new, v_new) at each slot's length +
+    attention over rows ``0..seq_lens[i]``, one kernel per layer.
+
+    q: [slots, kv_heads, group, d], unrotated; k_new/v_new:
+    [slots, kv_heads, d]; ck/cv: [slots, max_len, kv_heads, d] in bf16,
+    f16 or f32, UPDATED IN PLACE (JAX gets the same effect from donation
+    and ``input_output_aliases``); seq_lens: [slots] int32, tokens already
+    cached; positions: [slots] int32 RoPE positions; cos/sin:
+    [max_pos, d/2] float32. The appended row is rounded to the cache
+    dtype and attention reads the rounded values.
+
+    Precondition (the serving engine guarantees it, and the wrapper
+    cannot check it without a device sync): ``seq_lens[i] < max_len`` and
+    ``positions[i] < max_pos``; the kernel clamps values outside.
+
+    Returns ``(out [slots, kv_heads, group, d] in q's dtype, ck, cv)``.
+    CPU tensors run ``fused_contiguous_decode_plain``; CUDA tensors launch
+    the kernel on the current stream without synchronising, or raise.
+    """
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return fused_contiguous_decode_plain(q, k_new, v_new, ck, cv,
+                                             seq_lens, positions, cos, sin,
+                                             scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin)
+    from . import _build
+
+    slots, kvh, group, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    fn = getattr(_build.library(),
+                 f"pt_fused_contig_decode_{_CACHE_TAG[ck.dtype]}")
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 _ACT_CODE[q.dtype], ck.data_ptr(), cv.data_ptr(),
+                 seq_lens.data_ptr(), positions.data_ptr(), cos.data_ptr(),
+                 sin.data_ptr(), out.data_ptr(), slots, kvh, group, d,
+                 ck.shape[1], cos.shape[0], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused decode attention kernel failed to launch: CUDA error "
+            f"{err}")
+    LAUNCHES += 1
+    return out, ck, cv

@@ -1,0 +1,341 @@
+"""Llama-family causal LM (counterpart of ``paddle_tpu/models/llama.py``).
+
+Parameter names and shapes match the JAX model one to one, with weights
+in the JAX layout ``[in_features, out_features]``, so a JAX
+``state_dict`` loads through ``convert.load_numpy_state_dict``. This
+slice carries the serving path: the no-cache forward (plain causal
+attention) and the two contiguous per-slot cache branches the continuous
+batching engine drives, chunked prefill (``s > 1``) and decode
+(``s == 1``, fused or unfused). KV caches are updated in place, where the
+JAX model returns new arrays that its engine donates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from ..core.random import make_generator
+from ..distributed.parallel_layers import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from ..kernels import decode_attention as da
+from ..kernels.rope import apply_rope, rope_frequencies
+from ..nn import functional as F
+from ..nn.layer.norm import RMSNorm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+_TODO = "see ROADMAP.md Queue A"
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    # the port's no-cache branch is plain causal attention until the
+    # flash-attention kernel is ported (ROADMAP.md Queue B); the flag is
+    # kept so configurations carry across unchanged
+    use_flash_attention: bool = True
+    # sequence-parallel attention needs a mesh, which the port lacks yet
+    sep_attention: str = "ulysses"
+    # training features (ROADMAP.md Queue A, train step): must stay off
+    use_recompute: bool = False
+    recompute_policy: str = "dots_with_no_batch_dims_saveable"
+    fused_head_loss_chunk: int = 0
+    dtype: str = "float32"
+    initializer_range: float = 0.02
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"LlamaConfig.dtype must be one of "
+                             f"{sorted(_DTYPES)}; got {self.dtype!r}")
+        return _DTYPES[self.dtype]
+
+    @classmethod
+    def llama2_7b(cls, **kw):
+        return cls(hidden_size=4096, intermediate_size=11008,
+                   num_hidden_layers=32, num_attention_heads=32, **kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Test config, as in the JAX package."""
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("hidden_size", 64)
+        kw.setdefault("intermediate_size", 128)
+        kw.setdefault("num_hidden_layers", 2)
+        kw.setdefault("num_attention_heads", 4)
+        kw.setdefault("num_key_value_heads", 2)
+        kw.setdefault("max_position_embeddings", 128)
+        return cls(**kw)
+
+
+def _chunk_history_mask(cache_index, s, ctx_len):
+    """Chunked-prefill causal mask: slot b's chunk occupies rows
+    ``cache_index[b] .. +s-1``, and query row r attends every cache row
+    ``<= r``. Returns ``(rows [b, s], kv_mask [b, 1, s, ctx_len])``."""
+    rows = cache_index[:, None] + torch.arange(
+        s, dtype=cache_index.dtype, device=cache_index.device)[None, :]
+    kv_idx = torch.arange(ctx_len, device=cache_index.device)
+    kv_mask = kv_idx[None, None, None, :] <= rows[:, None, :, None]
+    return rows, kv_mask
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator):
+        super().__init__()
+        self.config = config
+        h, d = config.hidden_size, config.head_dim
+        kw = dict(std=config.initializer_range, has_bias=False,
+                  dtype=config.torch_dtype, device=device,
+                  generator=generator)
+        self.q_proj = ColumnParallelLinear(
+            h, config.num_attention_heads * d, **kw)
+        self.k_proj = ColumnParallelLinear(
+            h, config.num_key_value_heads * d, **kw)
+        self.v_proj = ColumnParallelLinear(
+            h, config.num_key_value_heads * d, **kw)
+        self.o_proj = RowParallelLinear(
+            config.num_attention_heads * d, h, **kw)
+
+    def forward(self, x, cos, sin, position_ids=None, kv_cache=None,
+                cache_index=None):
+        cfg = self.config
+        b, s, _ = x.shape
+        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim)
+        q = self.q_proj(x).reshape(b, s, nh, hd)
+        k = self.k_proj(x).reshape(b, s, kvh, hd)
+        v = self.v_proj(x).reshape(b, s, kvh, hd)
+        if kv_cache is None:
+            q, k = apply_rope(q, k, cos, sin, position_ids)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        else:
+            out = self._cached(q, k, v, cos, sin, position_ids, kv_cache,
+                               cache_index)
+        out = self.o_proj(out.reshape(b, s, nh * hd))
+        return (out, kv_cache) if kv_cache is not None else out
+
+    def _cached(self, q, k, v, cos, sin, position_ids, kv_cache,
+                cache_index):
+        """The contiguous per-slot cache branches. ``kv_cache`` is a
+        ``(ck, cv)`` pair of [slots, max_len, kv_heads, d] tensors,
+        written in place; ``cache_index`` is the [slots] vector of
+        per-slot lengths (prefill: each slot's chunk start)."""
+        cfg = self.config
+        b, s = q.shape[:2]
+        ck, cv = kv_cache
+        if not isinstance(ck, torch.Tensor) or not ck.is_floating_point():
+            raise NotImplementedError(
+                "only float contiguous KV caches are ported; paged and "
+                f"int8 (QuantizedKV) caches are not yet ({_TODO})")
+        if not (isinstance(cache_index, torch.Tensor)
+                and cache_index.dim() == 1):
+            raise NotImplementedError(
+                "only per-slot vector cache_index is ported; the legacy "
+                f"shared-index prefill is not ({_TODO})")
+        if s == 1 and da.fused_decode_active():
+            pos = (position_ids[:, 0] if position_ids is not None
+                   else cache_index).to(torch.int32).contiguous()
+            qg = q[:, 0].reshape(b, cfg.num_key_value_heads,
+                                 cfg.num_attention_heads
+                                 // cfg.num_key_value_heads, cfg.head_dim)
+            og, _, _ = da.fused_contiguous_decode_attention(
+                qg.contiguous(), k[:, 0].contiguous(),
+                v[:, 0].contiguous(), ck, cv,
+                cache_index.to(torch.int32).contiguous(), pos,
+                cos.float().contiguous(), sin.float().contiguous())
+            return og.reshape(b, 1, cfg.num_attention_heads, cfg.head_dim)
+        q, k = apply_rope(q, k, cos, sin, position_ids)
+        k = k.to(ck.dtype)
+        v = v.to(cv.dtype)
+        max_len = ck.shape[1]
+        if s > 1:
+            # chunked prefill: slot b's rows land at cache_index[b]..+s-1.
+            # Rows at or past max_len (the engine's "not prefilling this
+            # call" sentinel) are dropped, as JAX's mode="drop" drops
+            # them; a clamp would overwrite the last row instead. Without
+            # a host sync: each slot rewrites the in-range window of s
+            # rows ending where its chunk would, and window rows before
+            # its start keep their old values.
+            if s > max_len:
+                raise ValueError(f"chunk of {s} rows exceeds max_len "
+                                 f"{max_len}")
+            start = cache_index.long()
+            _, kv_mask = _chunk_history_mask(start, s, max_len)
+            ar = torch.arange(s, device=q.device)
+            win = start.clamp(max=max_len - s)[:, None] + ar[None, :]
+            src = win - start[:, None]  # chunk row per window row
+            take = (src >= 0)[..., None, None]
+            bidx = torch.arange(b, device=q.device)[:, None]
+            src = src.clamp(min=0)
+            ck[bidx, win] = torch.where(take, k[bidx, src], ck[bidx, win])
+            cv[bidx, win] = torch.where(take, v[bidx, src], cv[bidx, win])
+        else:
+            # unfused decode: each slot appends at its own length and
+            # attends to its own history
+            idx = cache_index.long()
+            bi = torch.arange(b, device=q.device)
+            ck[bi, idx] = k[:, 0]
+            cv[bi, idx] = v[:, 0]
+            kv_idx = torch.arange(max_len, device=q.device)
+            kv_mask = (kv_idx[None, :] <= idx[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q, ck, cv, attn_mask=kv_mask)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator):
+        super().__init__()
+        kw = dict(std=config.initializer_range, has_bias=False,
+                  dtype=config.torch_dtype, device=device,
+                  generator=generator)
+        self.gate_proj = ColumnParallelLinear(
+            config.hidden_size, config.intermediate_size, **kw)
+        self.up_proj = ColumnParallelLinear(
+            config.hidden_size, config.intermediate_size, **kw)
+        self.down_proj = RowParallelLinear(
+            config.intermediate_size, config.hidden_size, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, device, generator)
+        self.mlp = LlamaMLP(config, device, generator)
+        kw = dict(dtype=config.torch_dtype, device=device)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps, **kw)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps, **kw)
+
+    def forward(self, x, cos, sin, position_ids=None, kv_cache=None,
+                cache_index=None):
+        h = self.input_layernorm(x)
+        if kv_cache is not None:
+            h, kv_cache = self.self_attn(h, cos, sin, position_ids,
+                                         kv_cache, cache_index)
+        else:
+            h = self.self_attn(h, cos, sin, position_ids)
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return (x, kv_cache) if kv_cache is not None else x
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size,
+            std=config.initializer_range, dtype=config.torch_dtype,
+            device=device, generator=generator)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, generator)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            dtype=config.torch_dtype, device=device)
+        cos, sin = rope_frequencies(
+            config.head_dim, config.max_position_embeddings,
+            config.rope_theta, device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids, position_ids=None, kv_caches=None,
+                cache_index=None):
+        h = self.embed_tokens(input_ids)
+        cos, sin = self.rope_cos, self.rope_sin
+        for i, layer in enumerate(self.layers):
+            if kv_caches is not None:
+                h, _ = layer(h, cos, sin, position_ids, kv_caches[i],
+                             cache_index)
+            else:
+                h = layer(h, cos, sin, position_ids)
+        h = self.norm(h)
+        return (h, kv_caches) if kv_caches is not None else h
+
+
+class LlamaForCausalLM(nn.Module):
+    """The Llama causal LM on ``device`` (default ``"cuda"``; raises when
+    no CUDA device is present unless ``device="cpu"`` is passed).
+    Weights are drawn from Normal(0, ``initializer_range``) with a
+    ``torch.Generator`` seeded from ``seed`` on that device; parameters
+    are frozen (serving only)."""
+
+    def __init__(self, config: LlamaConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        if config.use_recompute or config.fused_head_loss_chunk:
+            raise NotImplementedError(
+                "use_recompute and fused_head_loss_chunk are training "
+                f"features, not ported yet ({_TODO}, train step)")
+        dev = resolve_device(device)
+        gen = make_generator(seed, dev)
+        self.config = config
+        self.model = LlamaModel(config, dev, gen)
+        self.lm_head = None if config.tie_word_embeddings else \
+            ColumnParallelLinear(
+                config.hidden_size, config.vocab_size,
+                std=config.initializer_range, has_bias=False,
+                dtype=config.torch_dtype, device=dev, generator=gen)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    def logits(self, hidden):
+        if self.lm_head is not None:
+            return self.lm_head(hidden)
+        return F.linear(hidden, self.model.embed_tokens.weight.T)
+
+    @torch.no_grad()
+    def forward(self, input_ids, position_ids=None, kv_caches=None,
+                cache_index=None):
+        """Logits ``[b, s, vocab]``; with ``kv_caches`` (a list of
+        per-layer ``(ck, cv)`` pairs, written in place) returns
+        ``(logits, kv_caches)``."""
+        if kv_caches is not None:
+            hidden, kv_caches = self.model(input_ids, position_ids,
+                                           kv_caches, cache_index)
+            return self.logits(hidden), kv_caches
+        return self.logits(self.model(input_ids, position_ids))
+
+    def init_kv_caches(self, batch_size: int, max_len: int,
+                       dtype=torch.bfloat16
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Zeroed contiguous caches, one ``(ck, cv)`` pair per layer, each
+        [batch, max_len, kv_heads, head_dim], on the model's device."""
+        if not dtype.is_floating_point:
+            raise NotImplementedError(
+                f"int8 (QuantizedKV) caches are not ported yet ({_TODO}, "
+                "quantized serving)")
+        cfg = self.config
+        shape = (batch_size, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dtype, device=self.device),
+                 torch.zeros(shape, dtype=dtype, device=self.device))
+                for _ in range(cfg.num_hidden_layers)]

@@ -1,0 +1,90 @@
+"""Rules of the PyTorch port: ``paddle_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor anything of the JAX package (checked in the source
+and in a fresh interpreter), and the entry points that default to the
+card raise where there is none instead of running on the CPU."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "paddle_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files()[1:]:
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        mods.append(rel.removesuffix(".__init__"))
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_port_sources_import_no_jax_and_no_jax_package():
+    bad = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+    assert len(_port_files()) > 15
+
+
+def test_importing_the_port_loads_no_jax_module():
+    """A fresh interpreter imports every port module; the modules it adds
+    to sys.modules include nothing of JAX or the JAX package."""
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(set(sys.modules) - before)))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    added = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "paddle_tpu_torch.inference.serving" in added
+    assert [m for m in added if _forbidden(m)] == []
+
+
+def test_default_device_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    cpu_model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatchingEngine(cpu_model)
+    # an engine asked for a device its model is not on refuses too
+    with pytest.raises(ValueError):
+        ContinuousBatchingEngine(cpu_model, device="meta")
