@@ -14,14 +14,30 @@ Phases, each of which raises on failure:
    lengths; times the kernel, the plain version and one
    ``scaled_dot_product_attention`` call (a yardstick the port never
    calls) at the serving run's shape, beside the bandwidth bound;
-4. reference: a tiny float32 Llama served through the engine and the
+4. paged kernels vs plain versions: the fused paged decode kernel and the
+   block-table decode kernel, each against its plain PyTorch version on
+   the card at the same three shapes over a pool of 64-row pages with a
+   permuted block table; timed the same way at the paged serving run's
+   shape, with one ``scaled_dot_product_attention`` over a pre-gathered
+   dense view as the yardstick of the attention part;
+5. reference: a tiny float32 Llama served through the engine and the
    kernel on the card; every served token must be the greedy choice of
    a no-cache forward over the same sequence;
-5. engine: Llama-2-7B width (random bf16 weights from a seed), 8 requests
+6. paged reference: the same through the paged engine, with an
+   oversubscribed pool so that admission waits on pages;
+7. engine: Llama-2-7B width (random bf16 weights from a seed), 8 requests
    of 120 tokens, 32 new tokens each, through
    ``ContinuousBatchingEngine.run``; requires one kernel launch per layer
    per decode forward, then serves the same prompts with
-   ``PT_FLAGS_fused_decode=off`` and requires the same first tokens.
+   ``PT_FLAGS_fused_decode=off`` and requires the same first tokens;
+8. paged engine: the same model and prompts through
+   ``EngineConfig(paged=True, page_size=64)`` with a bf16 pool; requires
+   one fused paged launch per layer per decode forward, and with
+   ``PT_FLAGS_fused_decode=off`` as many block-table launches, and the
+   same first tokens both ways.
+
+Every kernel's launch count is set to 0 just before the engine run that
+reports it and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with
 no result, when no CUDA device is present.
@@ -53,7 +69,7 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, flush, iters=100, warmup=10) -> float:
+def time_ms(fn, flush, iters=100, warmup=10, hold=HOLD_CYCLES) -> float:
     """Median device time of ``fn`` over ``iters`` launches, from CUDA
     events around each, after an L2 flush (the serving path meets a cold
     cache: a layer's KV was last touched a whole step earlier).
@@ -67,7 +83,7 @@ def time_ms(fn, flush, iters=100, warmup=10) -> float:
     times = []
     late = 0
     for _ in range(iters):
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         held = torch.cuda.Event()
         held.record()
         flush.zero_()
@@ -219,13 +235,209 @@ def kernel_phase():
                 library_ms=library_ms)
 
 
-def reference_phase():
+PAGE = 64  # the paged serving run's page size (bench_serve7b)
+
+
+def paged_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
+                 pool_dtype, seed):
+    """Random inputs for the paged kernels: a pool of ``slots * max_len /
+    PAGE`` pages plus the sink page 0, and a permuted block table over
+    pages 1.., so that no slot's pages are contiguous."""
+    from paddle_tpu_torch.kernels.rope import rope_frequencies
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    max_pages = max_len // PAGE
+    n_pages = slots * max_pages + 1
+    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
+    bt = torch.tensor(perm.reshape(slots, max_pages).astype(np.int32),
+                      device="cuda")
+    cos, sin = rope_frequencies(d, 2048, device="cuda")
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return dict(q=randn(slots, kvh, group, d, dtype=act_dtype),
+                k_new=randn(slots, kvh, d, dtype=act_dtype),
+                v_new=randn(slots, kvh, d, dtype=act_dtype),
+                k_pages=randn(kvh, n_pages, PAGE, d, dtype=pool_dtype),
+                v_pages=randn(kvh, n_pages, PAGE, d, dtype=pool_dtype),
+                block_tables=bt, seq_lens=lens_t, positions=lens_t.clone(),
+                cos=cos, sin=sin)
+
+
+BLOCK_KEYS = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
+
+
+def paged_bound(inp, fused):
+    """Least time for one paged decode call at these inputs: the bytes it
+    must move (pool rows 0..len-1 read and the appended row written when
+    fused, rows 0..len read otherwise; q and out; k_new, v_new and the
+    rope rows when fused; the block-table entries of the pages read and
+    the per-slot lengths and positions) over the HBM rate, and its float32
+    operations over the float32 rate; the larger of the two."""
+    slots, kvh, group, d = inp["q"].shape
+    lens = inp["seq_lens"].cpu().numpy().astype(np.int64)
+    pe = inp["k_pages"].element_size()
+    ae = inp["q"].element_size()
+    rows_read = int(lens.sum()) if fused else int((lens + 1).sum())
+    nbytes = (rows_read * kvh * d * 2 * pe
+              + 2 * slots * kvh * group * d * ae
+              + int((lens // PAGE + 1).sum()) * 4
+              + slots * 4)
+    if fused:
+        nbytes += (slots * kvh * d * 2 * pe          # appended rows
+                   + 2 * slots * kvh * d * ae        # k_new, v_new
+                   + 2 * slots * (d // 2) * 4        # cos/sin rows
+                   + slots * 4)                      # positions
+    flops = int((lens + 1).sum()) * kvh * group * (4 * d + 5)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def paged_library_call(inp):
+    """One ``scaled_dot_product_attention`` over a dense view of each
+    slot's rows, gathered from the pool before the timing: the attention
+    part only (no page gather, no RoPE, no append), as no single PyTorch
+    call walks a block table."""
+    q, bt = inp["q"], inp["block_tables"].long()
+    slots, kvh, group, d = q.shape
+    ctx = bt.shape[1] * PAGE
+    # [kvh, slots, pages, PAGE, d] -> [slots, kvh, ctx, d]
+    kh = inp["k_pages"][:, bt].reshape(kvh, slots, ctx, d).transpose(0, 1)
+    vh = inp["v_pages"][:, bt].reshape(kvh, slots, ctx, d).transpose(0, 1)
+    kh, vh = kh.contiguous(), vh.contiguous()
+    qh = q.reshape(slots, kvh * group, 1, d).to(kh.dtype)
+    mask = (torch.arange(ctx, device="cuda")[None, :]
+            <= inp["seq_lens"][:, None].long())[:, None, None, :]
+    kw = {"enable_gqa": True} if group > 1 else {}
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, **kw)
+
+
+def check_paged_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
+                     pool_dtype, tol, seed):
+    """Both paged kernels vs their plain versions on one input set:
+    outputs within ``tol``; for the fused kernel the appended rows within
+    one bf16 ulp; every other pool row bit-identical (page 0, the sink,
+    excepted). Returns the two max abs errors (fused, block table)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    errs = []
+    for fused in (True, False):
+        inp = paged_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
+                           pool_dtype, seed)
+        ref_inp = {k: v.clone() for k, v in inp.items()}
+        if fused:
+            out, kp, vp = pa.fused_paged_decode_attention(**inp)
+            ref, kpr, vpr = pa.fused_paged_decode_plain(**ref_inp)
+        else:
+            out = pa.paged_decode_attention(**{k: inp[k]
+                                               for k in BLOCK_KEYS})
+            ref = pa.paged_decode_plain(**{k: ref_inp[k]
+                                           for k in BLOCK_KEYS})
+            kp, vp, kpr, vpr = (inp["k_pages"], inp["v_pages"],
+                                ref_inp["k_pages"], ref_inp["v_pages"])
+        torch.cuda.synchronize()
+        kind = "fused" if fused else "block-table"
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"{name} {kind}: kernel output differs "
+                                 f"from the plain version, max abs err "
+                                 f"{err}")
+        rows = torch.arange(slots, device="cuda")
+        lens_l = inp["seq_lens"].long()
+        page = inp["block_tables"].long()[rows, lens_l // PAGE]
+        off = lens_l % PAGE
+        for a, b, which in ((kp, kpr, "K"), (vp, vpr, "V")):
+            keep = torch.ones(a.shape[1:3], dtype=torch.bool, device="cuda")
+            keep[0] = False
+            if fused:
+                if not torch.allclose(a[:, page, off].float(),
+                                      b[:, page, off].float(),
+                                      rtol=2.0 ** -7, atol=1e-6):
+                    raise AssertionError(f"{name}: appended {which} rows "
+                                         "differ by more than one bf16 ulp")
+                keep[page, off] = False
+            if not torch.equal(a[:, keep], b[:, keep]):
+                raise AssertionError(f"{name} {kind}: the kernel changed "
+                                     f"{which} pool rows other than the "
+                                     "appended ones")
+        print(f"paged kernel check {name} {kind}: slots={slots} kvh={kvh} "
+              f"group={group} d={d} page={PAGE} pool={pool_dtype} "
+              f"lens={lens} max_abs_err={err:.3e} (tol {tol}) ok",
+              flush=True)
+        errs.append(err)
+    return errs
+
+
+def paged_kernel_phase():
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    # tolerances as in kernel_phase: bf16 outputs 2e-2 (a few ulps of an
+    # O(1) value), float32 1e-4 (two summation orders)
+    ragged = [0, 63, 64, 1022, 150, 1, 300, 700]
+    errs = [
+        check_paged_case("7b_bf16", 8, 32, 1, 128, 1024, ragged,
+                         torch.bfloat16, torch.bfloat16, 2e-2, seed=11),
+        check_paged_case("gqa8_bf16", 8, 8, 8, 128, 1024, ragged,
+                         torch.bfloat16, torch.bfloat16, 2e-2, seed=12),
+        check_paged_case("7b_f32_pool", 8, 32, 1, 128, 1024, ragged,
+                         torch.float32, torch.float32, 1e-4, seed=13),
+    ]
+    # timing at the paged serving run's shape: Llama-2-7B decode, 8 slots
+    # with about 150 cached rows each, 64-row pages
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    serve_lens = [120 + 4 * i for i in range(8)]
+    inp = paged_inputs(8, 32, 1, 128, 1024, serve_lens, torch.bfloat16,
+                       torch.bfloat16, seed=17)
+    block = {k: inp[k] for k in BLOCK_KEYS}
+    library_ms = time_ms(paged_library_call(inp), flush)
+    rows = []
+    for fused, (kernel, plain, body) in (
+            (True, (pa.fused_paged_decode_attention,
+                    pa.fused_paged_decode_plain, 210)),
+            (False, (pa.paged_decode_attention, pa.paged_decode_plain,
+                     49))):
+        args = inp if fused else block
+        kernel_ms = time_ms(lambda: kernel(**args), flush)
+        # the plain versions enqueue a few dozen ops: hold the stream
+        # eight times longer while the host does
+        plain_ms = time_ms(lambda: plain(**args), flush,
+                           hold=8 * HOLD_CYCLES)
+        bound_ms, bound_by = paged_bound(inp, fused)
+        name = kernel.__name__
+        print(f"paged kernel timing {name} 7b decode lens={serve_lens}: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"over a pre-gathered view {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+            replaces=f"paddle_tpu/kernels/paged_attention.py:{body}",
+            shape=f"slots=8 kvh=32 group=1 d=128 page={PAGE} pages/slot=16 "
+                  f"bf16 lens={serve_lens}",
+            max_abs_err=max(e[0 if fused else 1] for e in errs),
+            ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    return rows
+
+
+def reference_phase(paged=False):
     """Small-input reference: a tiny float32 Llama (head_dim 64, group 2)
     on the card serves 5 queued prompts over 2 slots in 16-token prefill
     chunks through the fused kernel. One no-cache forward over each
     prompt and its output (the model's plain causal path: no KV cache, no
     kernel) must rank every served token first: its logit within 1e-4 of
-    the row's maximum, so a float32 near-tie cannot fail the check."""
+    the row's maximum, so a float32 near-tie cannot fail the check.
+
+    ``paged``: the paged engine with 16-token pages and a pool of 4 usable
+    pages (plus the sink): the 40-token request needs 4 pages and cannot
+    join the first, so admission waits on the pool; at the end every page
+    is free again."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
@@ -235,15 +447,24 @@ def reference_phase():
     model = LlamaForCausalLM(cfg, device="cuda", seed=1)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n) for n in (3, 40, 17, 9, 33)]
+    extra = dict(paged=True, page_size=16, n_pages=5) if paged else {}
     saved = flags.flag("prefill_chunk")
     flags.set_flags({"fused_decode": "auto", "prefill_chunk": 16})
+    blocked = False
     try:
         eng = ContinuousBatchingEngine(
             model, EngineConfig(max_slots=2, max_len=128,
-                                cache_dtype=torch.float32), device="cuda")
-        reqs = eng.run(prompts, max_new_tokens=12, max_chunk=4)
+                                cache_dtype=torch.float32, **extra),
+            device="cuda")
+        rids = [eng.add_request(p, 12) for p in prompts]
+        while eng.step_chunk(4) or eng._queue or eng.active.any():
+            blocked = blocked or eng._pool_blocked
+        reqs = [eng._finished[r] for r in rids]
     finally:
         flags.set_flags({"prefill_chunk": saved})
+    if paged and not (blocked and eng.stats["free_pages"] == 4):
+        raise AssertionError(f"paged reference: pool blocked {blocked}, "
+                             f"free pages {eng.stats['free_pages']} of 4")
     worst = 0.0
     for p, r in zip(prompts, reqs):
         if len(r.output) != 12:
@@ -262,23 +483,44 @@ def reference_phase():
             raise AssertionError(
                 f"request {r.rid}: served tokens {r.output} are not the "
                 f"no-cache forward's greedy choice (logit gap {gap})")
-    print(f"reference check: tiny float32 Llama on the card, "
-          f"{len(reqs)} requests x 12 tokens, {eng.stats['decode_forwards']} "
-          f"decode forwards through the kernel, served tokens are the "
-          f"no-cache forward's greedy choice (max logit gap {worst:.2e})",
-          flush=True)
+    print(f"{'paged ' if paged else ''}reference check: tiny float32 Llama "
+          f"on the card, {len(reqs)} requests x 12 tokens, "
+          f"{eng.stats['decode_forwards']} decode forwards through the "
+          f"kernel, served tokens are the no-cache forward's greedy choice "
+          f"(max logit gap {worst:.2e})"
+          + (f", admission waited on the pool, {eng.stats['free_pages']} "
+             "pages free at the end" if paged else ""), flush=True)
 
 
-def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8):
-    """Serve ``prompts`` through a fresh engine; returns the requests,
-    the wall time and the engine's forward counts."""
+def reset_launches():
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    da.LAUNCHES = 0
+    for k in pa.LAUNCHES:
+        pa.LAUNCHES[k] = 0
+
+
+def read_launches():
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    return {"fused_contiguous_decode_attention": da.LAUNCHES, **pa.LAUNCHES}
+
+
+def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8,
+          **paged):
+    """Serve ``prompts`` through a fresh engine (``paged``: the paged
+    configuration's EngineConfig fields); returns the requests, the wall
+    time and the engine's counts."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
 
     flags.set_flags({"fused_decode": fused})
     eng = ContinuousBatchingEngine(
-        model, EngineConfig(max_slots=8, max_len=1024), device="cuda")
+        model, EngineConfig(max_slots=8, max_len=1024, **paged),
+        device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = eng.run(prompts, max_new_tokens=max_new_tokens,
@@ -287,8 +529,7 @@ def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8):
     return reqs, time.perf_counter() - t0, dict(eng.stats)
 
 
-def engine_phase():
-    from paddle_tpu_torch.kernels import decode_attention as da
+def build_7b():
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama2_7b(max_position_embeddings=2048,
@@ -302,17 +543,25 @@ def engine_phase():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, 120) for _ in range(8)]
+    return model, prompts
+
+
+def engine_phase(model, prompts):
+    """The contiguous engine at 7B width; returns its fused row-1 launch
+    count and the fused run's outputs."""
+    cfg = model.config
 
     # warm-up on a short request (library handles, allocator), not counted
     serve(model, prompts[:2], "auto", max_new_tokens=4, max_chunk=4)
 
     torch.cuda.reset_peak_memory_stats()
-    da.LAUNCHES = 0
+    reset_launches()
     reqs, wall, stats = serve(model, prompts, "auto")
-    launches = da.LAUNCHES
+    launches = read_launches()["fused_contiguous_decode_attention"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reset_launches()
     reqs_off, wall_off, _ = serve(model, prompts, "off")
-    launches_off = da.LAUNCHES - launches
+    launches_off = read_launches()["fused_contiguous_decode_attention"]
     for r in reqs:
         if len(r.output) != 32 or not all(
                 0 <= t < cfg.vocab_size for t in r.output):
@@ -352,7 +601,88 @@ def engine_phase():
     if any(a[0] != b[0] for a, b in zip(fused_outs, off_outs)):
         raise AssertionError("the first generated token differs between "
                              "fused and unfused decode")
-    return launches
+    return launches, fused_outs
+
+
+def paged_engine_phase(model, prompts, contiguous_outs):
+    """``bench_serve7b``'s shape through the paged engine: 64-token pages,
+    a bf16 pool of 8 * 16 + 1 pages. Fused decode must launch the fused
+    paged kernel once per layer per decode forward and nothing else;
+    with fused decode off, the block-table kernel as many times. Returns
+    the two launch counts."""
+    cfg = model.config
+    paged = dict(paged=True, page_size=PAGE)
+    layers = cfg.num_hidden_layers
+
+    serve(model, prompts[:2], "auto", max_new_tokens=4, max_chunk=4,
+          **paged)  # warm-up, not counted
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reqs, wall, stats = serve(model, prompts, "auto", **paged)
+    fused_counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reset_launches()
+    reqs_off, wall_off, stats_off = serve(model, prompts, "off", **paged)
+    off_counts = read_launches()
+    for r in reqs + reqs_off:
+        if len(r.output) != 32 or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"paged request {r.rid}: bad output "
+                                 f"{r.output}")
+    ttft = [r.ttft_ms for r in reqs]
+    ttft_p50 = float(np.median(ttft))
+    decode_tokens = sum(len(r.output) - 1 for r in reqs)
+    decode_wall = wall - max(ttft) / 1e3
+    decode_tps = decode_tokens / decode_wall
+    fused_want = {"fused_contiguous_decode_attention": 0,
+                  "fused_paged_decode_attention":
+                      layers * stats["decode_forwards"],
+                  "paged_decode_attention": 0}
+    off_want = {"fused_contiguous_decode_attention": 0,
+                "fused_paged_decode_attention": 0,
+                "paged_decode_attention":
+                    layers * stats_off["decode_forwards"]}
+    print(f"paged engine fused: 8 requests served in {wall:.3f} s, TTFT "
+          f"p50 {ttft_p50:.2f} ms, decode {decode_tps:.1f} tok/s "
+          f"({decode_tokens} tokens in {decode_wall:.3f} s), peak memory "
+          f"{peak_gb:.2f} GB, free pages {stats['free_pages']}, launches "
+          f"{fused_counts} ({layers} layers x {stats['decode_forwards']} "
+          f"decode forwards); unfused: launches {off_counts}", flush=True)
+    if fused_counts != fused_want \
+            or fused_want["fused_paged_decode_attention"] <= 0:
+        raise AssertionError(f"fused paged launches {fused_counts}, "
+                             f"expected {fused_want}")
+    if off_counts != off_want or off_want["paged_decode_attention"] <= 0:
+        raise AssertionError(f"unfused paged launches {off_counts}, "
+                             f"expected {off_want}")
+    n_pages = 8 * (1024 // PAGE) + 1
+    if stats["free_pages"] != n_pages - 1 \
+            or stats_off["free_pages"] != n_pages - 1:
+        raise AssertionError(f"pages not returned: {stats['free_pages']}, "
+                             f"{stats_off['free_pages']} of {n_pages - 1}")
+    fused_outs = [r.output for r in reqs]
+    off_outs = [r.output for r in reqs_off]
+    same_first_as_contiguous = sum(
+        a[0] == b[0] for a, b in zip(fused_outs, contiguous_outs))
+    print(json.dumps({"paged_engine": {
+        "model": "llama2_7b width, random bf16 weights (seed 0)",
+        "requests": 8, "prompt_tokens": 120, "max_new_tokens": 32,
+        "max_chunk": 8, "page_size": PAGE, "n_pages": n_pages,
+        "ttft_ms": ttft, "ttft_p50_ms": ttft_p50,
+        "decode_tokens_per_s": decode_tps, "peak_memory_gb": peak_gb,
+        "free_pages": stats["free_pages"], "launches": fused_counts,
+        "unfused_launches": off_counts,
+        "decode_forwards": stats["decode_forwards"], "wall_s": wall,
+        "unfused_wall_s": wall_off,
+        "outputs_match_unfused": fused_outs == off_outs,
+        "first_tokens_equal_to_contiguous": same_first_as_contiguous}}),
+        flush=True)
+    if any(a[0] != b[0] for a, b in zip(fused_outs, off_outs)):
+        raise AssertionError("the first generated token differs between "
+                             "fused and unfused paged decode")
+    return (fused_counts["fused_paged_decode_attention"],
+            off_counts["paged_decode_attention"])
 
 
 def main() -> int:
@@ -377,18 +707,26 @@ def main() -> int:
     log = str(_build.BUILD_INFO.get("log", ""))
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    spilled = re.findall(r"Function properties for (\S+)\n\s+\d+ bytes "
+                         r"stack frame, [1-9]\d* bytes spill stores", log)
     print(f"build: {path} in {time.perf_counter() - t0:.1f} s (nvcc "
           f"sm_90a); {len(regs)} kernels, registers max "
           f"{max(regs, default=0)}, spill stores max "
-          f"{max(spills, default=0)} bytes", flush=True)
+          f"{max(spills, default=0)} bytes in {len(spilled)} kernels "
+          f"{spilled}", flush=True)
 
     row = kernel_phase()
+    fused_row, block_row = paged_kernel_phase()
     reference_phase()
-    row["launches"] = engine_phase()
-    kernels = {"kernels": [{k: row[k] for k in (
+    reference_phase(paged=True)
+    model, prompts = build_7b()
+    row["launches"], contiguous_outs = engine_phase(model, prompts)
+    fused_row["launches"], block_row["launches"] = paged_engine_phase(
+        model, prompts, contiguous_outs)
+    kernels = {"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "shape")}]}
+        "library_ms", "shape")} for r in (row, fused_row, block_row)]}
     for r in kernels["kernels"]:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(r[key]):

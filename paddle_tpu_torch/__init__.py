@@ -7,9 +7,9 @@ the JAX package has a Pallas kernel on the path, the port has a kernel
 written by hand for Hopper (``kernels/csrc``), built with ``nvcc`` at
 first use. The port imports neither JAX nor anything of ``paddle_tpu``.
 
-This slice serves Llama through the continuous-batching engine with
-contiguous KV caches (``inference/serving.py``); ROADMAP.md lists what
-comes next.
+It serves Llama through the continuous-batching engine
+(``inference/serving.py``) with contiguous KV caches or a paged pool
+(``inference/paged.py``); ROADMAP.md lists what comes next.
 """
 
 from . import flags

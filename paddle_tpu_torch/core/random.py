@@ -12,10 +12,13 @@ from __future__ import annotations
 
 import torch
 
+from .device import resolve_device
 
-def make_generator(seed: int, device="cpu") -> torch.Generator:
-    """A generator on ``device`` seeded with ``seed``."""
-    gen = torch.Generator(device=torch.device(device))
+
+def make_generator(seed: int, device="cuda") -> torch.Generator:
+    """A generator on ``device`` (the card unless the caller asks for the
+    CPU) seeded with ``seed``."""
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     return gen
 

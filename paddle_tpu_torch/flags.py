@@ -55,6 +55,10 @@ define_flag("prefill_chunk", 256,
             "1-token chunk would enter the decode branch). 0 selects the "
             "JAX package's legacy bucketed prefill, which the port does "
             "not have")
+define_flag("prefix_cache", False,
+            "serving prefix KV reuse. Not ported yet: on raises at engine "
+            "init. The JAX package defaults it on; greedy tokens are the "
+            "same either way, since a cache hit only skips prefill work")
 define_flag("kv_cache_dtype", "auto",
             "serving KV-cache dtype when EngineConfig.cache_dtype is "
             "'auto': auto = bfloat16 on the card, float32 on the CPU; or "

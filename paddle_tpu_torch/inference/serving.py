@@ -1,14 +1,16 @@
 """Continuous-batching decode engine (counterpart of
 ``paddle_tpu/inference/serving.py: ContinuousBatchingEngine``).
 
-Slot-based continuous batching over a causal LM with contiguous per-slot
-KV caches. Sequences enter and leave as data: per-slot lengths, an active
-mask and a FIFO heap of free slots live on the host, and three forwards
-run on the device:
+Slot-based continuous batching over a causal LM, with contiguous per-slot
+KV caches or a paged pool (``EngineConfig.paged``). Sequences enter and
+leave as data: per-slot lengths, an active mask, a FIFO heap of free slots
+and, in paged mode, the page pool's block tables live on the host, and
+three forwards run on the device:
 
 - ``prefill_chunk``: one fixed ``[slots, C]`` chunk written straight into
   the live caches at per-slot offsets, driven in a host loop; slots not
-  prefilling carry the ``start = max_len`` sentinel and their rows drop;
+  prefilling carry the ``start = max_len`` sentinel and their rows drop
+  (paged: land on the sink page 0);
 - ``decode_step``: one ``[slots, 1]`` token per slot;
 - ``decode_chunk``: K decode steps in a Python loop whose sampled tokens
   stay on the device, with one host sync per chunk.
@@ -17,11 +19,15 @@ Admission in ``step_chunk`` is queued on the stream behind the in-flight
 decode chunk, as in the JAX engine. Caches are updated in place (JAX
 donates them). Greedy tokens match the JAX engine's.
 
-This slice runs the default configuration: contiguous caches
-(``paged=False``), chunked prefill, float caches and the model's own
-weights. Prefix caching, speculative decoding, telemetry, tracing,
-resilience, the sanitizer, the profiler and the router are later slices
-(ROADMAP.md Queue A).
+Paged mode claims ``pages_needed(prompt + max_new_tokens)`` pages per
+request at admission, waits for a finisher when the pool is short, frees
+the pages at finish or cancel, and uploads a snapshot of the block table
+once per prefill wave and once per decode step or chunk.
+
+This slice runs chunked prefill, float caches (contiguous or paged) and
+the model's own weights. Prefix caching, int8 caches, speculative
+decoding, telemetry, tracing, resilience, the sanitizer, the profiler and
+the router are later slices (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from .. import flags
 from ..core.device import resolve_device
 from ..core.random import make_generator
 from ..generation import process_logits_batch
+from .paged import PagedState, PagePool, init_paged_pool
 
 _TODO = "see ROADMAP.md Queue A"
 
@@ -52,6 +59,8 @@ class EngineConfig:
     max_len: int = 1024
     # legacy bucketed prefill only (not ported)
     seq_buckets: Sequence[int] = (64, 128, 256, 512, 1024)
+    # paged KV pool: page_size tokens per page; n_pages defaults to
+    # max_slots * (max_len // page_size) + 1 (page 0 is the write sink)
     paged: bool = False
     page_size: int = 64
     n_pages: Optional[int] = None
@@ -187,8 +196,23 @@ class ContinuousBatchingEngine:
         self._next_rid = 0
         self._finished: Dict[int, Request] = {}
         self._gen = make_generator(cfg.seed, self.device)
-        self.caches = model.init_kv_caches(cfg.max_slots, cfg.max_len,
-                                           dtype=self.cache_dtype)
+        if cfg.paged:
+            max_pages = cfg.max_len // cfg.page_size
+            n_pages = cfg.n_pages or cfg.max_slots * max_pages + 1
+            self.pool = PagePool(n_pages, cfg.page_size, cfg.max_slots,
+                                 max_pages, reserve_sink=True)
+            mcfg = model.config
+            self.caches = init_paged_pool(
+                mcfg.num_hidden_layers, n_pages, cfg.page_size,
+                mcfg.num_key_value_heads, mcfg.head_dim,
+                dtype=self.cache_dtype, device=self.device)
+        else:
+            self.pool = None
+            self.caches = model.init_kv_caches(cfg.max_slots, cfg.max_len,
+                                               dtype=self.cache_dtype)
+        # the last admission pass stopped because the pool could not fit
+        # the head request (it waits for a finisher)
+        self._pool_blocked = False
         # the chunk length floors at 2: a 1-token chunk would enter the
         # model's s == 1 decode branch, which has no sentinel drop
         self._chunk_len = max(2, min(int(flags.flag("prefill_chunk")),
@@ -197,14 +221,13 @@ class ContinuousBatchingEngine:
         # [slots, 1] model call, so kernel launches per run are
         # num_hidden_layers x decode_forwards on the fused path)
         self.stats = {"prefill_chunk": 0, "decode_forwards": 0}
+        self._note_free_pages()
 
     @staticmethod
     def _check_slice(cfg: EngineConfig):
-        """Configurations outside this slice raise at init."""
-        if cfg.paged:
-            raise NotImplementedError(
-                f"paged KV caches are not ported yet ({_TODO}, paged "
-                "serving)")
+        """Configurations outside this slice raise at init; paged
+        configurations the JAX engine refuses raise the same
+        ``ValueError``."""
         if str(cfg.weight_dtype).lower() not in ("auto", "bf16",
                                                  "bfloat16"):
             raise NotImplementedError(
@@ -215,9 +238,24 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "PT_FLAGS_prefill_chunk=0 selects the legacy bucketed "
                 f"prefill, which is not ported ({_TODO})")
+        if flags.flag("prefix_cache"):
+            raise NotImplementedError(
+                f"prefix caching is not ported yet ({_TODO}, prefix cache "
+                "and speculative decoding)")
         if cfg.max_slots < 1 or cfg.max_len < 2:
             raise ValueError("EngineConfig needs max_slots >= 1 and "
                              "max_len >= 2")
+        if cfg.page_size < 1:
+            raise ValueError(f"EngineConfig.page_size must be >= 1; got "
+                             f"{cfg.page_size}")
+        if cfg.paged:
+            if cfg.max_len % cfg.page_size:
+                raise ValueError("max_len must be divisible by page_size")
+            for bkt in cfg.seq_buckets:
+                if min(bkt, cfg.max_len) % cfg.page_size:
+                    raise ValueError(
+                        f"seq bucket {bkt} not divisible by page_size="
+                        f"{cfg.page_size}")
 
     # ---------------- requests ----------------
     def add_request(self, prompt, max_new_tokens: int = 32,
@@ -306,7 +344,24 @@ class ContinuousBatchingEngine:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
 
     # ---------------- device programs ----------------
-    def _prefill_chunk(self, ids, start, last_idx, samp, use_samp):
+    def _block_tables(self):
+        """A device copy of the pool's block table (None for contiguous
+        caches). ``torch.tensor`` copies the host buffer, so a later
+        ``alloc``/``free`` cannot reach work already queued."""
+        if self.pool is None:
+            return None
+        return torch.tensor(self.pool.block_tables, device=self.device)
+
+    def _layer_caches(self, bt, lens):
+        """What the model takes as ``kv_caches``: the contiguous
+        ``(ck, cv)`` pairs, or each layer's pool with the shared
+        ``PagedState(bt, lens)``."""
+        if bt is None:
+            return self.caches
+        state = PagedState(bt, lens.to(torch.int32))
+        return [(c, state) for c in self.caches]
+
+    def _prefill_chunk(self, ids, start, last_idx, samp, use_samp, bt):
         """THE prefill program: one ``[slots, C]`` chunk written into the
         live caches at per-slot offsets ``start`` (sentinel ``max_len``
         for slots not prefilling). Samples one token per slot from its
@@ -315,29 +370,32 @@ class ContinuousBatchingEngine:
         C = ids.shape[1]
         pos = start[:, None] + torch.arange(C, dtype=start.dtype,
                                             device=start.device)
-        logits, _ = self.model(ids, position_ids=pos, kv_caches=self.caches,
+        logits, _ = self.model(ids, position_ids=pos,
+                               kv_caches=self._layer_caches(bt, start),
                                cache_index=start)
         rows = logits[torch.arange(logits.shape[0], device=logits.device),
                       last_idx]
         return self._sample_rows(rows, samp, use_samp)
 
-    def _decode_forward(self, toks, lens, samp, use_samp):
+    def _decode_forward(self, toks, lens, samp, use_samp, bt):
         """One ``[slots, 1]`` decode forward at per-slot lengths ``lens``;
         returns the sampled next token per slot, on the device."""
         self.stats["decode_forwards"] += 1
         logits, _ = self.model(toks, position_ids=lens[:, None],
-                               kv_caches=self.caches, cache_index=lens)
+                               kv_caches=self._layer_caches(bt, lens),
+                               cache_index=lens)
         return self._sample_rows(logits[:, -1, :], samp, use_samp)
 
     def _decode_chunk(self, toks, lens, active, budget, K, samp,
-                      use_samp):
+                      use_samp, bt):
         """K decode steps with the sampled token fed back on the device.
         A slot advances only while active and under its budget; frozen
-        slots rewrite their own row with discarded values. Returns the
-        ``[K, slots]`` tokens, still on the device."""
+        slots rewrite their own row with discarded values (inactive paged
+        slots write the sink page). Returns the ``[K, slots]`` tokens,
+        still on the device."""
         out = []
         for k in range(K):
-            nxt = self._decode_forward(toks, lens, samp, use_samp)
+            nxt = self._decode_forward(toks, lens, samp, use_samp, bt)
             advance = active & (k < budget)
             lens = lens + advance.to(lens.dtype)
             toks = torch.where(advance[:, None], nxt[:, None].to(toks.dtype),
@@ -347,22 +405,33 @@ class ContinuousBatchingEngine:
 
     # ---------------- admission ----------------
     def _admit_dispatch(self):
-        """Claim free slots for queued requests (FIFO) and queue their
-        chunked prefill on the device without a host sync. Returns the
-        pending (req, slot, n_ctx, first_token) list for
-        ``_admit_integrate``. A failure rolls every claimed request back
-        into the queue before propagating."""
+        """Claim free slots (and, paged, pages) for queued requests (FIFO)
+        and queue their chunked prefill on the device without a host
+        sync. Returns the pending (req, slot, n_ctx, first_token) list
+        for ``_admit_integrate``. When the pool cannot fit the head
+        request the wave stops there and the request waits for a
+        finisher; with nothing running that would be forever, so it
+        raises. A failure rolls every claimed request back into the queue
+        (and frees its pages) before propagating."""
+        self._pool_blocked = False
         if not self._queue:
             return []
         jobs = []  # [req, slot, cursor, ids]
         try:
             while self._free_heap and self._queue:
-                req = self._queue.popleft()
-                slot = heapq.heappop(self._free_heap)
+                req = self._queue[0]
+                slot = self._free_heap[0]
+                if self.pool is not None and not self._claim_pages(
+                        req, slot, running=bool(jobs)):
+                    self._pool_blocked = True
+                    break
+                self._queue.popleft()
+                heapq.heappop(self._free_heap)
                 self.active[slot] = True
                 req.slot = slot
                 self._slot_req[slot] = req
                 jobs.append([req, slot, 0, req.prompt])
+            self._note_free_pages()
             return self._drive_prefill_chunks(jobs)
         except BaseException:
             for req, slot, *_ in reversed(jobs):
@@ -370,8 +439,29 @@ class ContinuousBatchingEngine:
                 self._slot_req.pop(slot, None)
                 req.slot = None
                 heapq.heappush(self._free_heap, slot)
+                if self.pool is not None:
+                    self.pool.free(slot)
                 self._queue.appendleft(req)
+            self._note_free_pages()
             raise
+
+    def _claim_pages(self, req: Request, slot: int, running: bool) -> bool:
+        """Give ``slot`` the pages for the request's prompt and new
+        tokens; False when the pool cannot fit them now. Raises when
+        nothing is running (no finisher will ever free a page)."""
+        need = req.prompt.size + req.max_new_tokens - len(req.output)
+        if self.pool.alloc(slot, need):
+            return True
+        if not running and not self.active.any():
+            raise RuntimeError(
+                f"request {req.rid} needs {self.pool.pages_needed(need)} "
+                f"pages but the pool has {self.pool.free_pages} free with "
+                "no request running — size n_pages up")
+        return False
+
+    def _note_free_pages(self):
+        if self.pool is not None:
+            self.stats["free_pages"] = self.pool.free_pages
 
     def _drive_prefill_chunks(self, jobs):
         """Host loop over prompt chunks for a wave of claimed requests:
@@ -382,6 +472,7 @@ class ContinuousBatchingEngine:
         dev = self.device
         pending = []
         remaining = list(jobs)
+        bt = self._block_tables()  # fixed for the wave: upload once
         use_samp, samp = self._slot_sampling(
             [(job[1], job[0]) for job in jobs])
         while remaining:
@@ -401,7 +492,7 @@ class ContinuousBatchingEngine:
             toks = self._prefill_chunk(
                 torch.as_tensor(ids, device=dev),
                 torch.as_tensor(start, device=dev),
-                torch.as_tensor(last_idx, device=dev), samp, use_samp)
+                torch.as_tensor(last_idx, device=dev), samp, use_samp, bt)
             for job in finishing:
                 pending.append((job[0], job[1], job[3].size, toks[job[1]]))
             done = {job[1] for job in finishing}
@@ -424,12 +515,15 @@ class ContinuousBatchingEngine:
 
     # ---------------- finish / cancel ----------------
     def _release_slot(self, slot: int):
-        """Return a slot to the free heap; the one teardown path finish
-        and cancel share."""
+        """Return a slot to the free heap, and its pages to the pool; the
+        one teardown path finish and cancel share."""
         self.active[slot] = False
         self.seq_lens[slot] = 0
         heapq.heappush(self._free_heap, slot)
         del self._slot_req[slot]
+        if self.pool is not None:
+            self.pool.free(slot)
+            self._note_free_pages()
 
     def _finish(self, req: Request, reason: str):
         req.done = True
@@ -480,7 +574,8 @@ class ContinuousBatchingEngine:
         dev = self.device
         toks = torch.as_tensor(self.last_tok[:, None], device=dev)
         lens = torch.as_tensor(self.seq_lens, device=dev)
-        nxt = self._decode_forward(toks, lens, samp, use_samp).cpu().numpy()
+        nxt = self._decode_forward(toks, lens, samp, use_samp,
+                                   self._block_tables()).cpu().numpy()
         for slot in range(self.cfg.max_slots):
             if not self.active[slot]:
                 continue
@@ -520,7 +615,8 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self.last_tok[:, None], device=dev),
             torch.as_tensor(self.seq_lens, device=dev),
             torch.as_tensor(chunk_slots, device=dev),
-            torch.as_tensor(budget, device=dev), K, samp, use_samp)
+            torch.as_tensor(budget, device=dev), K, samp, use_samp,
+            self._block_tables())
         pending = self._admit_dispatch()
         toks_np = toks_all.cpu().numpy()  # one sync for K tokens
         for k in range(K):

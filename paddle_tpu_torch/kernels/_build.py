@@ -7,7 +7,7 @@ in ``kernels/_build/<hash>/``, keyed on a hash of the sources and flags,
 so a fresh checkout builds once and a changed source builds anew. Each
 translation unit (one per cache element type) compiles in its own
 ``nvcc`` process, all started together, and the objects link into one
-library.
+library. Headers in ``csrc`` (``*.cuh``) are part of the hash.
 """
 
 from __future__ import annotations
@@ -36,6 +36,12 @@ UNITS: List[Tuple[str, str, List[str]]] = [
     ("decode_attention.cu", "decode_attention_f16",
      ["-DPT_CACHE_T=__half", "-DPT_CACHE_TAG=f16"]),
     ("decode_attention.cu", "decode_attention_bf16",
+     ["-DPT_CACHE_T=__nv_bfloat16", "-DPT_CACHE_TAG=bf16"]),
+    ("paged_attention.cu", "paged_attention_f32",
+     ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32"]),
+    ("paged_attention.cu", "paged_attention_f16",
+     ["-DPT_CACHE_T=__half", "-DPT_CACHE_TAG=f16"]),
+    ("paged_attention.cu", "paged_attention_bf16",
      ["-DPT_CACHE_T=__nv_bfloat16", "-DPT_CACHE_TAG=bf16"]),
 ]
 

@@ -1,0 +1,263 @@
+// Decode attention over the head-major paged KV pool, for NVIDIA Hopper
+// (sm_90a). Two kernels from one template:
+//
+// - fused (replaces paddle_tpu/kernels/paged_attention.py:
+//   _fused_decode_kernel, reached through fused_paged_decode_attention):
+//   per decoder layer and decode step, for every slot s and kv head h it
+//   rotates the group's query rows and the new key row (RoPE, float32) at
+//   positions[s], rounds the new K/V row to the pool dtype and writes it in
+//   place on page bt[s, L / page_size], row L % page_size (L = seq_lens[s]),
+//   and attends rows 0..L with the rounded new row rebuilt in registers;
+// - block-table (replaces paddle_tpu/kernels/paged_attention.py:
+//   _decode_kernel, reached through paged_decode_attention): the same
+//   attention over rows 0..seq_lens[s] of an already-appended pool, with no
+//   RoPE and no append.
+//
+// Row j of slot s, kv head h lives at
+//   pool + ((h * n_pages + bt[s, j / page_size]) * page_size
+//           + j % page_size) * d.
+// Pages past seq_lens[s] / page_size are never read.
+//
+// What bounds it: memory bandwidth, as for the contiguous kernel. Per layer
+// and step it reads sum_s (seq_lens[s] + 1) * kvh * d * 2 pool elements and
+// one block-table entry per row, and does about four floating-point
+// operations per element read.
+//
+// Design (first version, simple and right): the contiguous kernel's CTA
+// design and row loop (attend_rows in decode_common.cuh), one CTA of 128
+// threads per (slot, kv head, block of up to 8 query heads), with each row
+// addressed through the block table. Each warp reads the page id of every
+// row it walks (an L1-resident int32 per row). The fused kernel never reads
+// back the row it appends: every CTA rebuilds it from k_new / v_new, and
+// only the first head block of a (slot, kv head) writes it. So inactive
+// slots, which all append to the sink page 0 at row 0 in the same launch,
+// race only on a row nobody reads.
+//
+// Out-of-range indices are clamped as the Pallas index maps clamp them:
+// seq_lens to the table's span, page ids to the pool, positions to the rope
+// table. The engine guarantees all three are in range.
+//
+// Later redesign: split-K over pages so that few slots fill all 132 SMs,
+// and cp.async or TMA staging of whole pages.
+//
+// Built once per element type of the pool: compile with
+// -DPT_CACHE_T=<type> -DPT_CACHE_TAG=<suffix>; the exported C functions are
+// pt_fused_paged_decode_<suffix> and pt_paged_decode_<suffix>. Each returns
+// cudaGetLastError() after the launch.
+
+#include "decode_common.cuh"
+
+#ifndef PT_CACHE_T
+#error "compile with -DPT_CACHE_T=<cache element type> -DPT_CACHE_TAG=<tag>"
+#endif
+
+#define PT_CAT2(a, b) a##b
+#define PT_CAT(a, b) PT_CAT2(a, b)
+
+namespace {
+
+using namespace pt_decode;
+
+// Row j of one (slot, kv head) stream in a [kvh, n_pages, page_size, D]
+// pool, through the slot's block-table row.
+template <int D>
+struct PagedRows {
+  const int* bt_row;  // bt + s * max_pages
+  size_t head_page0;  // h * n_pages
+  int page_size;
+  int n_pages;
+  __device__ __forceinline__ size_t operator()(int j) const {
+    const int page = min(max(__ldg(bt_row + j / page_size), 0), n_pages - 1);
+    return ((head_page0 + page) * page_size + j % page_size) * D;
+  }
+};
+
+struct PagedArgs {
+  const void* q;
+  const void* k_new;  // fused only
+  const void* v_new;  // fused only
+  int act_dtype;
+  void* k_pages;
+  void* v_pages;
+  const int* bt;
+  const int* seq_lens;
+  const int* positions;  // fused only
+  const float* cos_t;    // fused only
+  const float* sin_t;    // fused only
+  void* out;
+  int kvh, group, n_pages, page_size, max_pages, max_pos;
+  float scale;
+};
+
+template <typename TC, int EPL, int HPB, bool FUSED>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(PagedArgs a) {
+  constexpr int D = 32 * EPL;
+  constexpr int HALF = D / 2;
+  const int h = blockIdx.x;
+  const int s = blockIdx.y;
+  const int g0 = blockIdx.z * HPB;
+  const int ng = min(HPB, a.group - g0);
+  const int tid = threadIdx.x;
+  TC* kp = static_cast<TC*>(a.k_pages);
+  TC* vp = static_cast<TC*>(a.v_pages);
+
+  __shared__ float q_s[HPB][D];
+  __shared__ float kn_s[FUSED ? D : 1];
+  __shared__ float vn_s[FUSED ? D : 1];
+
+  const int L = max(0, min(a.seq_lens[s], a.max_pages * a.page_size - 1));
+  const PagedRows<D> rows{a.bt + static_cast<size_t>(s) * a.max_pages,
+                          static_cast<size_t>(h) * a.n_pages, a.page_size,
+                          a.n_pages};
+  const size_t q_base =
+      ((static_cast<size_t>(s) * a.kvh + h) * a.group + g0) * D;
+
+  if constexpr (FUSED) {
+    // 1. rotate q rows of this head block; rebuild the new K/V row rounded
+    //    to the pool dtype, and (first head block only) append it in place.
+    const int pos = max(0, min(a.positions[s], a.max_pos - 1));
+    const float* crow = a.cos_t + static_cast<size_t>(pos) * HALF;
+    const float* srow = a.sin_t + static_cast<size_t>(pos) * HALF;
+    for (int i = tid; i < ng * D; i += kThreads) {
+      const int g = i / D;
+      const int c = i % D;
+      const bool first = c < HALF;
+      const int cc = first ? c : c - HALF;
+      const size_t row = q_base + static_cast<size_t>(g) * D;
+      const float x = load_act(a.q, a.act_dtype, row + c);
+      const float xp =
+          load_act(a.q, a.act_dtype, row + (first ? c + HALF : cc));
+      q_s[g][c] = rope_elem(x, xp, crow[cc], srow[cc], first);
+    }
+    const size_t kv_base = (static_cast<size_t>(s) * a.kvh + h) * D;
+    const size_t append = rows(L);
+    for (int c = tid; c < D; c += kThreads) {
+      const bool first = c < HALF;
+      const int cc = first ? c : c - HALF;
+      const float x = load_act(a.k_new, a.act_dtype, kv_base + c);
+      const float xp =
+          load_act(a.k_new, a.act_dtype, kv_base + (first ? c + HALF : cc));
+      const TC kr =
+          from_float<TC>(rope_elem(x, xp, crow[cc], srow[cc], first));
+      const TC vr =
+          from_float<TC>(load_act(a.v_new, a.act_dtype, kv_base + c));
+      kn_s[c] = to_float<TC>(kr);
+      vn_s[c] = to_float<TC>(vr);
+      if (blockIdx.z == 0) {
+        kp[append + c] = kr;
+        vp[append + c] = vr;
+      }
+    }
+  } else {
+    // 1. the query rows of this head block, as they are.
+    for (int i = tid; i < ng * D; i += kThreads)
+      q_s[i / D][i % D] = load_act(a.q, a.act_dtype, q_base + i);
+  }
+  __syncthreads();
+
+  // 2-4. online softmax over rows 0..L, merge of the four warps, output in
+  //      the query's dtype.
+  attend_rows<TC, EPL, HPB, FUSED>(q_s, kn_s, vn_s, kp, vp, rows, L, ng,
+                                   a.scale, a.out, a.act_dtype, q_base);
+}
+
+template <typename TC, int EPL, bool FUSED>
+cudaError_t launch_epl(int hpb, dim3 grid, cudaStream_t stream,
+                       const PagedArgs& a) {
+#define PT_LAUNCH(HPB)                                                      \
+  paged_decode_kernel<TC, EPL, HPB, FUSED><<<grid, kThreads, 0, stream>>>(a)
+  switch (hpb) {
+    case 1: PT_LAUNCH(1); break;
+    case 2: PT_LAUNCH(2); break;
+    case 4: PT_LAUNCH(4); break;
+    case 8: PT_LAUNCH(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef PT_LAUNCH
+  return cudaGetLastError();
+}
+
+template <bool FUSED>
+int launch(const PagedArgs& a, int slots, int d, void* stream) {
+  using TC = PT_CACHE_T;
+  if (d < 32 || d > 256 || d % 32 != 0 || a.group < 1 || a.group > 16 ||
+      slots < 1 || a.kvh < 1 || a.n_pages < 1 || a.page_size < 1 ||
+      a.max_pages < 1 || (FUSED && a.max_pos < 1) || a.act_dtype < 0 ||
+      a.act_dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hpb = a.group <= 1 ? 1 : a.group <= 2 ? 2 : a.group <= 4 ? 4 : 8;
+  const dim3 grid(a.kvh, slots, (a.group + hpb - 1) / hpb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define PT_EPL(E)                                      \
+  case E:                                              \
+    err = launch_epl<TC, E, FUSED>(hpb, grid, st, a); \
+    break
+  switch (d / 32) {
+    PT_EPL(1);
+    PT_EPL(2);
+    PT_EPL(3);
+    PT_EPL(4);
+    PT_EPL(5);
+    PT_EPL(6);
+    PT_EPL(7);
+    PT_EPL(8);
+    default:
+      err = cudaErrorInvalidValue;
+  }
+#undef PT_EPL
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" int PT_CAT(pt_fused_paged_decode_, PT_CACHE_TAG)(
+    const void* q, const void* k_new, const void* v_new, int act_dtype,
+    void* k_pages, void* v_pages, const int* bt, const int* seq_lens,
+    const int* positions, const float* cos_t, const float* sin_t, void* out,
+    int slots, int kvh, int group, int d, int n_pages, int page_size,
+    int max_pages, int max_pos, float scale, void* stream) {
+  PagedArgs a{};
+  a.q = q;
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.act_dtype = act_dtype;
+  a.k_pages = k_pages;
+  a.v_pages = v_pages;
+  a.bt = bt;
+  a.seq_lens = seq_lens;
+  a.positions = positions;
+  a.cos_t = cos_t;
+  a.sin_t = sin_t;
+  a.out = out;
+  a.kvh = kvh;
+  a.group = group;
+  a.n_pages = n_pages;
+  a.page_size = page_size;
+  a.max_pages = max_pages;
+  a.max_pos = max_pos;
+  a.scale = scale;
+  return launch<true>(a, slots, d, stream);
+}
+
+extern "C" int PT_CAT(pt_paged_decode_, PT_CACHE_TAG)(
+    const void* q, int act_dtype, const void* k_pages, const void* v_pages,
+    const int* bt, const int* seq_lens, void* out, int slots, int kvh,
+    int group, int d, int n_pages, int page_size, int max_pages, float scale,
+    void* stream) {
+  PagedArgs a{};  // no rope table, no new row: the pools are only read
+  a.q = q;
+  a.act_dtype = act_dtype;
+  a.k_pages = const_cast<void*>(k_pages);
+  a.v_pages = const_cast<void*>(v_pages);
+  a.bt = bt;
+  a.seq_lens = seq_lens;
+  a.out = out;
+  a.kvh = kvh;
+  a.group = group;
+  a.n_pages = n_pages;
+  a.page_size = page_size;
+  a.max_pages = max_pages;
+  a.scale = scale;
+  return launch<false>(a, slots, d, stream);
+}

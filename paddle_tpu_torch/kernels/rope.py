@@ -11,11 +11,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.device import resolve_device
+
 
 def rope_frequencies(head_dim: int, max_seq_len: int,
                      theta: float = 10000.0, dtype=torch.float32,
-                     scaling_factor: float = 1.0, device="cpu"):
-    """cos/sin tables [max_seq_len, head_dim // 2]."""
+                     scaling_factor: float = 1.0, device="cuda"):
+    """cos/sin tables [max_seq_len, head_dim // 2] on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     inv_freq = 1.0 / (theta ** (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
         / head_dim))

@@ -4,10 +4,11 @@ Parameter names and shapes match the JAX model one to one, with weights
 in the JAX layout ``[in_features, out_features]``, so a JAX
 ``state_dict`` loads through ``convert.load_numpy_state_dict``. This
 slice carries the serving path: the no-cache forward (plain causal
-attention) and the two contiguous per-slot cache branches the continuous
-batching engine drives, chunked prefill (``s > 1``) and decode
-(``s == 1``, fused or unfused). KV caches are updated in place, where the
-JAX model returns new arrays that its engine donates.
+attention) and the cache branches the continuous batching engine drives,
+over contiguous per-slot caches or the paged pool: chunked prefill
+(``s > 1``) and decode (``s == 1``, fused or unfused). KV caches are
+updated in place, where the JAX model returns new arrays that its engine
+donates.
 """
 
 from __future__ import annotations
@@ -25,7 +26,15 @@ from ..distributed.parallel_layers import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..inference.paged import (
+    PagedLayerCache,
+    append_kv,
+    append_kv_chunk,
+    gather_kv,
+    paged_attention,
+)
 from ..kernels import decode_attention as da
+from ..kernels import paged_attention as pa
 from ..kernels.rope import apply_rope, rope_frequencies
 from ..nn import functional as F
 from ..nn.layer.norm import RMSNorm
@@ -145,18 +154,21 @@ class LlamaAttention(nn.Module):
         ``(ck, cv)`` pair of [slots, max_len, kv_heads, d] tensors,
         written in place; ``cache_index`` is the [slots] vector of
         per-slot lengths (prefill: each slot's chunk start)."""
-        cfg = self.config
-        b, s = q.shape[:2]
-        ck, cv = kv_cache
-        if not isinstance(ck, torch.Tensor) or not ck.is_floating_point():
-            raise NotImplementedError(
-                "only float contiguous KV caches are ported; paged and "
-                f"int8 (QuantizedKV) caches are not yet ({_TODO})")
         if not (isinstance(cache_index, torch.Tensor)
                 and cache_index.dim() == 1):
             raise NotImplementedError(
                 "only per-slot vector cache_index is ported; the legacy "
                 f"shared-index prefill is not ({_TODO})")
+        if isinstance(kv_cache[0], PagedLayerCache):
+            return self._paged(q, k, v, cos, sin, position_ids, kv_cache,
+                               cache_index)
+        cfg = self.config
+        b, s = q.shape[:2]
+        ck, cv = kv_cache
+        if not isinstance(ck, torch.Tensor) or not ck.is_floating_point():
+            raise NotImplementedError(
+                "only float KV caches are ported; int8 (QuantizedKV) "
+                f"caches are not yet ({_TODO})")
         if s == 1 and da.fused_decode_active():
             pos = (position_ids[:, 0] if position_ids is not None
                    else cache_index).to(torch.int32).contiguous()
@@ -204,6 +216,48 @@ class LlamaAttention(nn.Module):
             kv_idx = torch.arange(max_len, device=q.device)
             kv_mask = (kv_idx[None, :] <= idx[:, None])[:, None, None, :]
         return F.scaled_dot_product_attention(q, ck, cv, attn_mask=kv_mask)
+
+    def _paged(self, q, k, v, cos, sin, position_ids, kv_cache,
+               cache_index):
+        """The paged-pool branches. ``kv_cache`` is the layer's
+        ``(PagedLayerCache, PagedState)`` pair; the pools are written in
+        place through ``PagedState.block_tables``."""
+        cfg = self.config
+        b, s = q.shape[:2]
+        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim)
+        cache, state = kv_cache
+        if s == 1 and da.fused_decode_active():
+            # fused decode: rope, append through the block table and
+            # attention over rows 0..seq_lens[i] in one kernel
+            lens = state.seq_lens
+            pos = (position_ids[:, 0] if position_ids is not None
+                   else lens).to(torch.int32).contiguous()
+            og, _, _ = pa.fused_paged_decode_attention(
+                q[:, 0].reshape(b, kvh, nh // kvh, hd).contiguous(),
+                k[:, 0].contiguous(), v[:, 0].contiguous(), cache.k_pages,
+                cache.v_pages, state.block_tables, lens, pos,
+                cos.float().contiguous(), sin.float().contiguous())
+            return og.reshape(b, 1, nh, hd)
+        q, k = apply_rope(q, k, cos, sin, position_ids)
+        if s > 1:
+            # chunked prefill: scatter the chunk's rows through the block
+            # table at each slot's own offset (rows past the table's span,
+            # the engine's max_len sentinel, go to the sink page), then
+            # attend over the gathered page view with a per-row causal
+            # history mask. The dense gather of the whole [slots, max_len]
+            # view per layer per chunk is the JAX reference's KNOWN TRADE,
+            # kept so the two sides match; a length-pruned paged prefill
+            # is later work.
+            append_kv_chunk(cache, state, k, v, cache_index)
+            kg, vg = gather_kv(cache, state)
+            _, kv_mask = _chunk_history_mask(cache_index, s, kg.shape[1])
+            return F.scaled_dot_product_attention(q, kg, vg,
+                                                  attn_mask=kv_mask)
+        # unfused decode: append this token's row at each slot's length,
+        # then block-table attention (the row-3 kernel on the card)
+        append_kv(cache, state, k, v)
+        return paged_attention(q, cache, state)
 
 
 class LlamaMLP(nn.Module):
@@ -317,7 +371,8 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None, kv_caches=None,
                 cache_index=None):
         """Logits ``[b, s, vocab]``; with ``kv_caches`` (a list of
-        per-layer ``(ck, cv)`` pairs, written in place) returns
+        per-layer contiguous ``(ck, cv)`` pairs or paged
+        ``(PagedLayerCache, PagedState)`` pairs, written in place) returns
         ``(logits, kv_caches)``."""
         if kv_caches is not None:
             hidden, kv_caches = self.model(input_ids, position_ids,

@@ -54,7 +54,7 @@ def _jax_args(x, cache_dtype):
 
 def _torch_args(x, cache_dtype):
     tdt = CACHE_DTYPES[cache_dtype][1]
-    cos, sin = rope_frequencies(x["q"].shape[-1], 128)
+    cos, sin = rope_frequencies(x["q"].shape[-1], 128, device="cpu")
     lens = torch.tensor(x["seq_lens"])
     # copies: the port updates the caches in place
     return (torch.tensor(x["q"]), torch.tensor(x["k_new"]),

@@ -100,13 +100,130 @@ def test_kernel_raises_on_shapes_it_does_not_take(card):
             **dict(inp, seq_lens=inp["seq_lens"].long()))
 
 
-def test_engine_fused_and_unfused_agree_on_the_card(card):
-    """The tiny model in float32 on the card: greedy tokens through the
-    kernel equal the unfused branch's, and the kernel ran once per layer
-    per decode forward."""
+def _paged_inputs(slots, kvh, group, d, page_size, max_pages, lens, act,
+                  pool, sink_slots=(), seed=0):
+    """A pool with one page more than the slots need (page 0, the sink),
+    a permuted block table of the other pages, and ragged lengths; the
+    slots in ``sink_slots`` are inactive (an all-zero table row and length
+    0), as the engine leaves them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    n_pages = slots * max_pages + 1
+    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
+    bt = perm.reshape(slots, max_pages).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    for s in sink_slots:
+        bt[s] = 0
+        lens[s] = 0
+    cos, sin = rope_frequencies(d, 2 * max_pages * page_size, device="cuda")
+    lens_t = torch.tensor(lens, device="cuda")
+    return dict(q=randn(slots, kvh, group, d, dtype=act),
+                k_new=randn(slots, kvh, d, dtype=act),
+                v_new=randn(slots, kvh, d, dtype=act),
+                k_pages=randn(kvh, n_pages, page_size, d, dtype=pool),
+                v_pages=randn(kvh, n_pages, page_size, d, dtype=pool),
+                block_tables=torch.tensor(bt, device="cuda"),
+                seq_lens=lens_t, positions=lens_t + 3, cos=cos, sin=sin)
+
+
+PAGED_CASES = [  # d, group, page_size, query dtype, pool dtype
+    (128, 1, 64, torch.bfloat16, torch.bfloat16),
+    (128, 8, 16, torch.bfloat16, torch.bfloat16),
+    (128, 16, 8, torch.bfloat16, torch.bfloat16),
+    (64, 2, 16, torch.float32, torch.float32),
+    (32, 3, 1, torch.float32, torch.bfloat16),
+    (96, 4, 5, torch.float16, torch.float16),
+    (256, 8, 32, torch.float32, torch.float16),
+]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("d,group,page_size,act,pool", PAGED_CASES)
+def test_paged_kernels_match_plain_versions(card, fused, d, group, page_size,
+                                            act, pool):
+    """Rows 2 (fused) and 3 (block table) against their plain versions:
+    outputs within TOL, the appended rows within one bf16 ulp, every other
+    pool row bit-identical. Slots 5 and 6 are inactive: both append to the
+    sink page's row 0 in one launch, and each attends its own new row."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    slots, kvh, max_pages = 7, 2, 200 // page_size + 1
+    span = max_pages * page_size
+    lens = [0, 63, 64, span - 1, 131, 0, 0]
+    inp = _paged_inputs(slots, kvh, group, d, page_size, max_pages, lens,
+                        act, pool, sink_slots=(5, 6) if fused else ())
+    ref_inp = {k: v.clone() for k, v in inp.items()}
+    name = ("fused_paged_decode_attention" if fused
+            else "paged_decode_attention")
+    before = pa.LAUNCHES[name]
+    if fused:
+        out, kp, vp = pa.fused_paged_decode_attention(**inp)
+        ref, kpr, vpr = pa.fused_paged_decode_plain(**ref_inp)
+    else:
+        keys = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
+        out = pa.paged_decode_attention(**{k: inp[k] for k in keys})
+        ref = pa.paged_decode_plain(**{k: ref_inp[k] for k in keys})
+        kp, vp, kpr, vpr = (inp["k_pages"], inp["v_pages"],
+                            ref_inp["k_pages"], ref_inp["v_pages"])
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[name] == before + 1
+    assert out.dtype == act and out.shape == inp["q"].shape
+    live = slice(0, 5)
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               rtol=TOL[act], atol=TOL[act])
+    bt = inp["block_tables"].long()
+    lens_l = inp["seq_lens"].long()
+    rows = torch.arange(slots, device="cuda")
+    page = bt[rows, lens_l // page_size]
+    off = lens_l % page_size
+    for a, b in ((kp, kpr), (vp, vpr)):
+        if fused:
+            torch.testing.assert_close(a[:, page[live], off[live]].float(),
+                                       b[:, page[live], off[live]].float(),
+                                       rtol=2.0 ** -7, atol=1e-6)
+        keep = torch.ones(a.shape[1:3], dtype=torch.bool, device="cuda")
+        keep[0] = False  # the sink page
+        if fused:
+            keep[page, off] = False
+        assert torch.equal(a[:, keep], b[:, keep])
+    if fused:
+        # an inactive slot attends only its own appended row: the output
+        # is its v_new rounded to the pool dtype
+        want = inp["v_new"][5:].to(pool).float()[:, :, None, :]
+        torch.testing.assert_close(out[5:].float(),
+                                   want.expand_as(out[5:]).to(act).float(),
+                                   rtol=TOL[act], atol=TOL[act])
+
+
+def test_paged_kernels_raise_on_what_they_do_not_take(card):
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    inp = _paged_inputs(2, 2, 2, 64, 16, 2, [1, 2], torch.float32,
+                        torch.float32)
+    keys = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(**{k: inp[k] for k in keys}
+                                  | {"seq_lens": inp["seq_lens"].long()})
+    with pytest.raises(ValueError):
+        pa.fused_paged_decode_attention(
+            **dict(inp, block_tables=inp["block_tables"].long()))
+    with pytest.raises(ValueError):
+        pa.fused_paged_decode_attention(
+            **dict(inp, k_pages=inp["k_pages"].transpose(1, 2)))
+
+
+def _serve_fused_and_unfused(paged):
+    """The tiny model in float32 on the card, served with fused decode on
+    and off: returns {mode: outputs} and asserts each mode's kernel ran
+    once per layer per decode forward (row 1 contiguous, row 2 fused
+    paged, row 3 unfused paged) and the other kernels not at all."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
+    from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
@@ -114,6 +231,9 @@ def test_engine_fused_and_unfused_agree_on_the_card(card):
     model = LlamaForCausalLM(cfg, device="cuda", seed=1)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 256, n) for n in (3, 40, 17, 9, 33)]
+    # paged: 16-token pages and a pool of 9 pages, two requests' worth
+    # and the sink, so admission waits on the pool
+    extra = dict(paged=True, page_size=16, n_pages=9) if paged else {}
     saved = flags.flag("fused_decode")
     outs = {}
     try:
@@ -121,14 +241,37 @@ def test_engine_fused_and_unfused_agree_on_the_card(card):
             flags.set_flags({"fused_decode": mode})
             eng = ContinuousBatchingEngine(
                 model, EngineConfig(max_slots=2, max_len=128,
-                                    cache_dtype=torch.float32))
-            before = da.LAUNCHES
+                                    cache_dtype=torch.float32, **extra))
+            counts = lambda: (da.LAUNCHES,  # noqa: E731
+                              pa.LAUNCHES["fused_paged_decode_attention"],
+                              pa.LAUNCHES["paged_decode_attention"])
+            before = counts()
             outs[mode] = [r.output for r in eng.run(
                 prompts, max_new_tokens=12, max_chunk=4)]
-            launched = da.LAUNCHES - before
-            want = (cfg.num_hidden_layers * eng.stats["decode_forwards"]
-                    if mode == "on" else 0)
+            launched = [b - a for a, b in zip(before, counts())]
+            want = [0, 0, 0]
+            kernel = {(False, "on"): 0, (True, "on"): 1,
+                      (True, "off"): 2}.get((paged, mode))
+            if kernel is not None:
+                want[kernel] = (cfg.num_hidden_layers
+                                * eng.stats["decode_forwards"])
             assert launched == want
+            if paged:
+                assert eng.stats["free_pages"] == 8
     finally:
         flags.set_flags({"fused_decode": saved})
+    return outs
+
+
+def test_engine_fused_and_unfused_agree_on_the_card(card):
+    """Contiguous caches: greedy tokens through the row-1 kernel equal the
+    unfused branch's."""
+    outs = _serve_fused_and_unfused(paged=False)
+    assert outs["on"] == outs["off"]
+
+
+def test_paged_engine_fused_and_unfused_agree_on_the_card(card):
+    """Paged pool: greedy tokens through the row-2 kernel equal those
+    through the row-3 kernel."""
+    outs = _serve_fused_and_unfused(paged=True)
     assert outs["on"] == outs["off"]

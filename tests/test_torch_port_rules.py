@@ -75,13 +75,28 @@ def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.core.random import make_generator
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.paged import PagePool, init_paged_pool
+    from paddle_tpu_torch.kernels.rope import rope_frequencies
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    # the helpers default to the card too, and give host tensors only
+    # when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rope_frequencies(32, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_generator(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_pool(1, 4, 4, 1, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagePool(4, 4, 1, 2).device_state([0])
+    assert rope_frequencies(32, 16, device="cpu")[0].device.type == "cpu"
+    assert make_generator(0, device="cpu").device.type == "cpu"
     cpu_model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousBatchingEngine(cpu_model)

@@ -169,11 +169,11 @@ def test_add_request_rejects_bad_requests(models, flags16):
     assert not eng._queue
 
 
-@pytest.mark.parametrize("bad", ["paged", "int8_weights", "int8_cache",
-                                 "legacy_prefill"])
+@pytest.mark.parametrize("bad", ["paged_int8_cache", "int8_weights",
+                                 "int8_cache", "legacy_prefill"])
 def test_configs_outside_the_slice_raise(models, flags16, bad):
     _, tmodel = models
-    kw = {"paged": dict(paged=True),
+    kw = {"paged_int8_cache": dict(paged=True, cache_dtype="int8"),
           "int8_weights": dict(weight_dtype="int8"),
           "int8_cache": dict(cache_dtype="int8"),
           "legacy_prefill": {}}[bad]
