@@ -25,16 +25,42 @@ Phases, each of which raises on failure:
    a no-cache forward over the same sequence;
 6. paged reference: the same through the paged engine, with an
    oversubscribed pool so that admission waits on pages;
-7. engine: Llama-2-7B width (random bf16 weights from a seed), 8 requests
+7. weight-only matmul vs plain version: the row-4 kernel against its
+   plain PyTorch version on the card, int8 and int4 weights with bf16 and
+   float32 activations at the four Llama-2-7B linear shapes, at decode
+   (m = 8) and prefill (m = 2048) and one ragged shape (m = 3, one
+   whole-column group); times the decode shapes and one prefill shape
+   beside the byte or operation bound, the plain version and one
+   ``torch.matmul`` over the pre-dequantized bf16 weight (a yardstick);
+8. int8 decode kernels vs plain versions: the int8 branches of the fused
+   contiguous and fused paged kernels on int8 caches and pools (payloads
+   equal or at most 1 apart, scales within rtol 1e-5, outputs at bf16
+   tolerance), timed at the 7B decode shape;
+9. quantized reference: a tiny float32 Llama with int8 weights and an int8
+   KV cache served on the card (kernels) and on the CPU (plain versions),
+   contiguous and paged: the greedy tokens are identical;
+10. engine: Llama-2-7B width (random bf16 weights from a seed), 8 requests
    of 120 tokens, 32 new tokens each, through
    ``ContinuousBatchingEngine.run``; requires one kernel launch per layer
    per decode forward, then serves the same prompts with
    ``PT_FLAGS_fused_decode=off`` and requires the same first tokens;
-8. paged engine: the same model and prompts through
+11. paged engine: the same model and prompts through
    ``EngineConfig(paged=True, page_size=64)`` with a bf16 pool; requires
    one fused paged launch per layer per decode forward, and with
    ``PT_FLAGS_fused_decode=off`` as many block-table launches, and the
-   same first tokens both ways.
+   same first tokens both ways;
+12. quantized engines, the same model and prompts: int8 weights over the
+   paged bf16 pool (``bench_serve7b``'s configuration), int8 weights over
+   an int8 paged pool, and an int8 contiguous cache with bf16 weights,
+   each with fused decode on and off. Requires 7 x 32 + 1 = 225 row-4
+   launches per forward (prefill chunks and decode forwards), the fused
+   kernel of the cache once per layer per decode forward and no other
+   decode kernel (no block-table launch for an int8 pool), every page
+   back, and the same first tokens both ways; reports the first index
+   where the tokens leave the bf16 engine's (measured, not asserted);
+13. profiles: device time by operation (``torch.profiler``) of the
+   prefill wave, and of the wave with 8 decode forwards, for the bf16
+   and the quantized engines.
 
 Every kernel's launch count is set to 0 just before the engine run that
 reports it and read just after.
@@ -122,17 +148,25 @@ def decode_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
                 sin=sin)
 
 
+def row_bytes(inp, payload, d):
+    """Bytes of one cached row of one kv head: d payload elements, plus a
+    float32 scale for an int8 cache."""
+    extra = 4 if inp.get("k_scale") is not None else 0
+    return d * inp[payload].element_size() + extra
+
+
 def bound(inp):
     """Least time for the fused decode call at these inputs: the bytes it
     must move (cache rows 0..len-1 read, the appended row written, q,
-    k_new, v_new, cos/sin rows read, out written) over the HBM rate, and
-    its float32 operations over the float32 rate; the larger of the two."""
+    k_new, v_new, cos/sin rows read, out written; an int8 row with its
+    scale) over the HBM rate, and its float32 operations over the float32
+    rate; the larger of the two."""
     slots, kvh, group, d = inp["q"].shape
     lens = inp["seq_lens"].cpu().numpy().astype(np.int64)
-    ce = inp["ck"].element_size()
+    rb = row_bytes(inp, "ck", d)
     ae = inp["q"].element_size()
-    nbytes = (int(lens.sum()) * kvh * d * 2 * ce      # cache rows read
-              + slots * kvh * d * 2 * ce              # appended rows
+    nbytes = (int(lens.sum()) * kvh * 2 * rb          # cache rows read
+              + slots * kvh * 2 * rb                  # appended rows
               + 2 * slots * kvh * group * d * ae      # q in, out
               + 2 * slots * kvh * d * ae              # k_new, v_new
               + 2 * slots * (d // 2) * 4)             # cos/sin rows
@@ -275,19 +309,20 @@ def paged_bound(inp, fused):
     must move (pool rows 0..len-1 read and the appended row written when
     fused, rows 0..len read otherwise; q and out; k_new, v_new and the
     rope rows when fused; the block-table entries of the pages read and
-    the per-slot lengths and positions) over the HBM rate, and its float32
-    operations over the float32 rate; the larger of the two."""
+    the per-slot lengths and positions; an int8 row with its scale) over
+    the HBM rate, and its float32 operations over the float32 rate; the
+    larger of the two."""
     slots, kvh, group, d = inp["q"].shape
     lens = inp["seq_lens"].cpu().numpy().astype(np.int64)
-    pe = inp["k_pages"].element_size()
+    rb = row_bytes(inp, "k_pages", d)
     ae = inp["q"].element_size()
     rows_read = int(lens.sum()) if fused else int((lens + 1).sum())
-    nbytes = (rows_read * kvh * d * 2 * pe
+    nbytes = (rows_read * kvh * 2 * rb
               + 2 * slots * kvh * group * d * ae
               + int((lens // PAGE + 1).sum()) * 4
               + slots * 4)
     if fused:
-        nbytes += (slots * kvh * d * 2 * pe          # appended rows
+        nbytes += (slots * kvh * 2 * rb              # appended rows
                    + 2 * slots * kvh * d * ae        # k_new, v_new
                    + 2 * slots * (d // 2) * 4        # cos/sin rows
                    + slots * 4)                      # positions
@@ -426,6 +461,274 @@ def paged_kernel_phase():
     return rows
 
 
+# ------------------------------------------------ row 4: weight-only matmul
+H100_BF16_FLOPS = 989e12     # dense bf16/fp16 tensor-core rate
+# the Llama-2-7B linears as (k, n) and their calls per layer: q, k, v, o;
+# gate, up; down; and lm_head once per forward
+SHAPES_7B = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1,
+             (4096, 32000): 0}
+GROUP = 128                  # EngineConfig.weight_group_size
+
+
+def qmm_inputs(m, k, n, g, wdt, act, seed):
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    x = torch.randn((m, k), generator=gen, device="cuda").to(act)
+    quant = (qmm.quantize_weight_int4_grouped if wdt == "int4"
+             else qmm.quantize_weight_int8_grouped)
+    qw, sc = quant(w, g)
+    return dict(x=x, qweight=qw, scale=sc, group_size=g, weight_dtype=wdt)
+
+
+def qmm_bound(inp):
+    """Least time for one weight-only matmul at these inputs: the bytes it
+    must move (W, its scales, x and y) over the HBM rate, and its
+    2 m k n operations over the tensor-core rate for 16-bit x (float32
+    rate for float32 x); the larger of the two."""
+    x, qw, sc = inp["x"], inp["qweight"], inp["scale"]
+    m, k = x.shape
+    n = qw.shape[1]
+    nbytes = qw.numel() + sc.numel() * 4 + (m * k + m * n) * x.element_size()
+    rate = H100_F32_FLOPS if x.dtype == torch.float32 else H100_BF16_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def qmm_check(m, k, n, g, wdt, act, seed):
+    """Kernel vs plain version on one input set: the max abs error and the
+    max error relative to the output's largest magnitude, which must stay
+    within 1e-5 for float32 x (two summation orders) and 2e-2 for bf16 x
+    (a few ulps of the rounded output; cuBLAS may reduce in bf16)."""
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+
+    inp = qmm_inputs(m, k, n, g, wdt, act, seed)
+    y = qmm.weight_only_matmul(**inp)
+    ref = qmm.weight_only_matmul_plain(**inp)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    tol = 1e-5 if act == torch.float32 else 2e-2
+    if not (y.shape == ref.shape and torch.isfinite(y).all() and rel <= tol):
+        raise AssertionError(f"weight-only matmul m={m} k={k} n={n} g={g} "
+                             f"{wdt} {act}: relative error {rel} > {tol}")
+    return err, rel
+
+
+def quant_kernel_phase():
+    """Row 4 against its plain version at the 7B shapes, then timed."""
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+
+    errs, rels = [], []
+    seed = 40
+    for wdt in ("int8", "int4"):
+        for act in (torch.bfloat16, torch.float32):
+            for (k, n) in SHAPES_7B:
+                for m in (8, 2048):
+                    seed += 1
+                    e, r = qmm_check(m, k, n, GROUP, wdt, act, seed)
+                    errs.append(e)
+                    rels.append(r)
+            e, r = qmm_check(3, 11008, 4096, 11008, wdt, act, seed + 100)
+            errs.append(e)
+            rels.append(r)
+            print(f"weight-only matmul check {wdt} x={act}: 7B shapes at "
+                  f"m=8 and m=2048, m=3 with g=k: max abs err "
+                  f"{max(errs[-9:]):.3e}, max rel err {max(rels[-9:]):.3e} "
+                  f"ok", flush=True)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = {}
+    for (k, n) in SHAPES_7B:
+        for wdt in ("int8", "int4"):
+            inp = qmm_inputs(8, k, n, GROUP, wdt, torch.bfloat16, 7)
+            t = time_ms(lambda: qmm.weight_only_matmul(**inp), flush)
+            b, by = qmm_bound(inp)
+            times[(k, n, wdt)] = (t, b)
+            print(f"weight-only matmul timing m=8 k={k} n={n} {wdt} bf16: "
+                  f"kernel {t:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
+    # the yardsticks at the row's headline shape (down_proj, m = 8) and at
+    # one prefill shape (gate/up, m = 2048 = 8 slots x 256-token chunk)
+    rows = {}
+    for label, (m, k, n) in (("decode", (8, 11008, 4096)),
+                             ("prefill", (2048, 4096, 11008))):
+        inp = qmm_inputs(m, k, n, GROUP, "int8", torch.bfloat16, 9)
+        w_bf16 = (inp["qweight"].float().reshape(k // GROUP, GROUP, n)
+                  * inp["scale"][:, None, :]).reshape(k, n).to(torch.bfloat16)
+        x = inp["x"]
+        kernel_ms = time_ms(lambda: qmm.weight_only_matmul(**inp), flush)
+        plain_ms = time_ms(lambda: qmm.weight_only_matmul_plain(**inp),
+                           flush, hold=8 * HOLD_CYCLES)
+        library_ms = time_ms(lambda: torch.matmul(x, w_bf16), flush)
+        bound_ms, bound_by = qmm_bound(inp)
+        print(f"weight-only matmul timing {label} m={m} k={k} n={n} int8 "
+              f"bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul over the dequantized bf16 W {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        rows[label] = (kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+    # one 7B decode forward: 32 layers of q, k, v, o, gate, up, down and
+    # the head, from the per-shape times above
+    fwd = {}
+    for wdt in ("int8", "int4"):
+        fwd[wdt] = [sum((32 * c if c else 1) * times[(k, n, wdt)][i]
+                        for (k, n), c in SHAPES_7B.items()) for i in (0, 1)]
+        print(f"weight-only matmul per 7B decode forward (225 calls, m=8, "
+              f"{wdt}): kernels {fwd[wdt][0]:.4f} ms, bound "
+              f"{fwd[wdt][1]:.4f} ms", flush=True)
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = rows["decode"]
+    pre = rows["prefill"]
+    return dict(name="weight_only_matmul", route="cuda",
+                source="paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+                replaces="paddle_tpu/kernels/quant_matmul.py:110",
+                shape="m=8 k=11008 n=4096 int8 g=128 bf16",
+                max_abs_err=max(errs), max_rel_err=max(rels), ms=kernel_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                prefill_ms=pre[0], prefill_plain_ms=pre[1],
+                prefill_library_ms=pre[2], prefill_bound_ms=pre[3],
+                int4_ms=times[(11008, 4096, "int4")][0],
+                int4_bound_ms=times[(11008, 4096, "int4")][1],
+                forward_int8_ms=fwd["int8"][0],
+                forward_int8_bound_ms=fwd["int8"][1],
+                forward_int4_ms=fwd["int4"][0],
+                forward_int4_bound_ms=fwd["int4"][1])
+
+
+# ------------------------------------------ int8 branches of rows 1 and 2
+def int8_side(shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    s = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.019 + 1e-3
+    return q, s
+
+
+def compare_int8_rows(name, got_q, want_q, got_s, want_s):
+    """Appended int8 rows: payloads equal or at most 1 apart (the share
+    that differs is printed), scales within rtol 1e-5."""
+    diff = (got_q.int() - want_q.int()).abs()
+    share = (diff > 0).float().mean().item()
+    if diff.max().item() > 1:
+        raise AssertionError(f"{name}: appended int8 payloads differ by "
+                             f"{diff.max().item()}")
+    if not torch.allclose(got_s, want_s, rtol=1e-5, atol=0):
+        raise AssertionError(f"{name}: appended scales differ beyond rtol "
+                             "1e-5")
+    return share
+
+
+def int8_contig_inputs(lens, act, seed, kvh=32, group=1):
+    inp = decode_inputs(8, kvh, group, 128, 1024, lens, act, torch.float32,
+                        seed)
+    inp["ck"], inp["k_scale"] = int8_side((8, 1024, kvh, 128), seed + 1)
+    inp["cv"], inp["v_scale"] = int8_side((8, 1024, kvh, 128), seed + 2)
+    return inp
+
+
+def int8_paged_inputs(lens, act, seed, kvh=32, group=1):
+    inp = paged_inputs(8, kvh, group, 128, 1024, lens, act, torch.float32,
+                       seed)
+    shape = tuple(inp["k_pages"].shape)
+    inp["k_pages"], ks = int8_side(shape, seed + 1)
+    inp["v_pages"], vs = int8_side(shape, seed + 2)
+    inp["k_scale"], inp["v_scale"] = ks[..., None], vs[..., None]
+    return inp
+
+
+def int8_decode_phase():
+    """The int8 branches of rows 1 and 2 against their plain versions at
+    the 7B decode shape (bf16 activations) and a GQA shape (float32
+    activations), then timed at the serving run's lengths."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    ragged = [0, 63, 64, 1022, 150, 1, 300, 700]
+    errs = {"contig": [], "paged": []}
+    for label, act, kvh, group, tol, seed in (
+            ("7b_bf16", torch.bfloat16, 32, 1, 2e-2, 51),
+            ("gqa8_f32", torch.float32, 8, 8, 1e-4, 52)):
+        for kind in ("contig", "paged"):
+            make = int8_contig_inputs if kind == "contig" \
+                else int8_paged_inputs
+            inp = make(ragged, act, seed, kvh, group)
+            ref_inp = {k: v.clone() for k, v in inp.items()}
+            if kind == "contig":
+                out, kq, vq, ks, vs = da.fused_contiguous_decode_attention(
+                    **inp)
+                ref, kqr, vqr, ksr, vsr = da.fused_contiguous_decode_plain(
+                    **ref_inp)
+                rows = torch.arange(8, device="cuda")
+                at = (rows, inp["seq_lens"].long())
+            else:
+                out, kq, vq, ks, vs = pa.fused_paged_decode_attention(**inp)
+                ref, kqr, vqr, ksr, vsr = pa.fused_paged_decode_plain(
+                    **ref_inp)
+                lens_l = inp["seq_lens"].long()
+                page = inp["block_tables"].long()[torch.arange(
+                    8, device="cuda"), lens_l // PAGE]
+                at = (slice(None), page, lens_l % PAGE)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not torch.allclose(out.float(), ref.float(), rtol=tol,
+                                  atol=tol):
+                raise AssertionError(f"int8 {kind} {label}: output max abs "
+                                     f"err {err} > {tol}")
+            shares = [compare_int8_rows(f"int8 {kind} {label}", a[at],
+                                        b[at], sa[at], sb[at])
+                      for a, b, sa, sb in ((kq, kqr, ks, ksr),
+                                           (vq, vqr, vs, vsr))]
+            errs[kind].append(err)
+            print(f"int8 kernel check {kind} {label}: kvh={kvh} "
+                  f"group={group} d=128 lens={ragged} max_abs_err="
+                  f"{err:.3e} (tol {tol}), appended payloads differing "
+                  f"K {shares[0]:.4f} V {shares[1]:.4f} ok", flush=True)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    serve_lens = [120 + 4 * i for i in range(8)]
+    out_rows = []
+    for kind in ("contig", "paged"):
+        make = int8_contig_inputs if kind == "contig" else int8_paged_inputs
+        inp = make(serve_lens, torch.bfloat16, 57)
+        if kind == "contig":
+            kernel, plain = (da.fused_contiguous_decode_attention,
+                             da.fused_contiguous_decode_plain)
+            deq = {k: (inp[c].float() * inp[s][..., None]).to(
+                torch.bfloat16) for k, c, s in (("ck", "ck", "k_scale"),
+                                                ("cv", "cv", "v_scale"))}
+            library_ms = time_ms(library_call(dict(inp, **deq)), flush)
+            bound_ms, bound_by = bound(inp)
+            name, body = "fused_contiguous_decode_attention", \
+                "paddle_tpu/kernels/decode_attention.py:118"
+            src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
+        else:
+            kernel, plain = (pa.fused_paged_decode_attention,
+                             pa.fused_paged_decode_plain)
+            deq = {k: (inp[c].float() * inp[s]).to(torch.bfloat16)
+                   for k, c, s in (("k_pages", "k_pages", "k_scale"),
+                                   ("v_pages", "v_pages", "v_scale"))}
+            library_ms = time_ms(paged_library_call(dict(inp, **deq)),
+                                 flush)
+            bound_ms, bound_by = paged_bound(inp, True)
+            name, body = "fused_paged_decode_attention", \
+                "paddle_tpu/kernels/paged_attention.py:210"
+            src = "paddle_tpu_torch/kernels/csrc/paged_attention.cu"
+        kernel_ms = time_ms(lambda: kernel(**inp), flush)
+        plain_ms = time_ms(lambda: plain(**inp), flush, hold=8 * HOLD_CYCLES)
+        print(f"int8 kernel timing {name} 7b decode lens={serve_lens}: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"over a pre-dequantized bf16 view {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        out_rows.append(dict(
+            name=f"{name}[int8]", route="cuda", source=src, replaces=body,
+            shape=f"slots=8 kvh=32 group=1 d=128 int8 cache, bf16 x, "
+                  f"lens={serve_lens}",
+            max_abs_err=max(errs[kind]), ms=kernel_ms, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
+    return out_rows
+
+
 def reference_phase(paged=False):
     """Small-input reference: a tiny float32 Llama (head_dim 64, group 2)
     on the card serves 5 queued prompts over 2 slots in 16-token prefill
@@ -492,11 +795,65 @@ def reference_phase(paged=False):
              "pages free at the end" if paged else ""), flush=True)
 
 
+def quant_reference_phase():
+    """A tiny float32 Llama (head_dim 64, group 2) with int8 weights and an
+    int8 KV cache, served on the card (row 4 and the int8 branches of the
+    fused kernels) and on the CPU (their plain versions) from the same
+    weights, contiguous and paged: the greedy tokens must be identical."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    host = LlamaForCausalLM(cfg, device="cpu", seed=1)
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (3, 40, 17, 9, 33)]
+    saved = flags.flag("prefill_chunk")
+    flags.set_flags({"fused_decode": "auto", "prefill_chunk": 16})
+    try:
+        for paged in (False, True):
+            extra = dict(paged=True, page_size=16) if paged else {}
+            outs = {}
+            for dev, m in (("cuda", model), ("cpu", host)):
+                reset_launches()
+                eng = ContinuousBatchingEngine(
+                    m, EngineConfig(max_slots=2, max_len=128,
+                                    weight_dtype="int8", cache_dtype="int8",
+                                    **extra), device=dev)
+                outs[dev] = [r.output for r in eng.run(
+                    prompts, max_new_tokens=12, max_chunk=4)]
+                counts = read_launches()
+                fused = "fused_paged_decode_attention" if paged \
+                    else "fused_contiguous_decode_attention"
+                ran = counts["weight_only_matmul"] > 0 and counts[fused] > 0
+                if ran != (dev == "cuda") or (dev == "cpu"
+                                              and any(counts.values())):
+                    raise AssertionError(f"{dev} engine launches {counts}")
+            if outs["cuda"] != outs["cpu"]:
+                raise AssertionError(
+                    f"quantized reference ({'paged' if paged else 'contig'}"
+                    f"): card tokens {outs['cuda']} differ from the plain "
+                    f"versions' {outs['cpu']} (first divergence "
+                    f"{first_divergence(outs['cuda'], outs['cpu'])})")
+            print(f"quantized reference {'paged' if paged else 'contig'}: "
+                  f"tiny float32 Llama, int8 weights x int8 KV, "
+                  f"{len(prompts)} requests x 12 tokens: greedy tokens on "
+                  f"the card equal the plain versions' on the CPU",
+                  flush=True)
+    finally:
+        flags.set_flags({"prefill_chunk": saved})
+
+
 def reset_launches():
     from paddle_tpu_torch.kernels import decode_attention as da
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
 
     da.LAUNCHES = 0
+    qmm.LAUNCHES = 0
     for k in pa.LAUNCHES:
         pa.LAUNCHES[k] = 0
 
@@ -504,29 +861,33 @@ def reset_launches():
 def read_launches():
     from paddle_tpu_torch.kernels import decode_attention as da
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
 
-    return {"fused_contiguous_decode_attention": da.LAUNCHES, **pa.LAUNCHES}
+    return {"fused_contiguous_decode_attention": da.LAUNCHES, **pa.LAUNCHES,
+            "weight_only_matmul": qmm.LAUNCHES}
 
 
 def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8,
-          **paged):
-    """Serve ``prompts`` through a fresh engine (``paged``: the paged
-    configuration's EngineConfig fields); returns the requests, the wall
-    time and the engine's counts."""
+          **config):
+    """Serve ``prompts`` through a fresh engine (``config``: further
+    EngineConfig fields); returns the requests, the wall time and the
+    engine's counts, with its init time (quantization included) under
+    ``init_s``."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
 
     flags.set_flags({"fused_decode": fused})
+    t0 = time.perf_counter()
     eng = ContinuousBatchingEngine(
-        model, EngineConfig(max_slots=8, max_len=1024, **paged),
+        model, EngineConfig(max_slots=8, max_len=1024, **config),
         device="cuda")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     reqs = eng.run(prompts, max_new_tokens=max_new_tokens,
                    max_chunk=max_chunk)
     torch.cuda.synchronize()
-    return reqs, time.perf_counter() - t0, dict(eng.stats)
+    return reqs, time.perf_counter() - t1, dict(eng.stats, init_s=t1 - t0)
 
 
 def build_7b():
@@ -638,11 +999,12 @@ def paged_engine_phase(model, prompts, contiguous_outs):
     fused_want = {"fused_contiguous_decode_attention": 0,
                   "fused_paged_decode_attention":
                       layers * stats["decode_forwards"],
-                  "paged_decode_attention": 0}
+                  "paged_decode_attention": 0, "weight_only_matmul": 0}
     off_want = {"fused_contiguous_decode_attention": 0,
                 "fused_paged_decode_attention": 0,
                 "paged_decode_attention":
-                    layers * stats_off["decode_forwards"]}
+                    layers * stats_off["decode_forwards"],
+                "weight_only_matmul": 0}
     print(f"paged engine fused: 8 requests served in {wall:.3f} s, TTFT "
           f"p50 {ttft_p50:.2f} ms, decode {decode_tps:.1f} tok/s "
           f"({decode_tokens} tokens in {decode_wall:.3f} s), peak memory "
@@ -682,7 +1044,143 @@ def paged_engine_phase(model, prompts, contiguous_outs):
         raise AssertionError("the first generated token differs between "
                              "fused and unfused paged decode")
     return (fused_counts["fused_paged_decode_attention"],
-            off_counts["paged_decode_attention"])
+            off_counts["paged_decode_attention"], fused_outs)
+
+
+def first_divergence(outs, ref_outs):
+    """Per request, the first index where ``outs`` leaves ``ref_outs``
+    (None where they agree throughout)."""
+    return [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            for a, b in zip(outs, ref_outs)]
+
+
+def quant_engine_phase(label, model, prompts, ref_outs, **config):
+    """One quantized configuration at 7B width, fused decode on and off.
+    Requires exact launch counts: 225 row-4 launches per forward (prefill
+    chunks and decode forwards) with quantized weights, the fused kernel
+    of the cache once per layer per decode forward with fused decode on,
+    the block-table kernel as often with it off on a float pool and never
+    on an int8 pool; every page back; the same first tokens both ways.
+    Reports TTFT, decode rate, peak memory and the first index where the
+    tokens leave the bf16 engine's ``ref_outs``. Returns the fused run's
+    launch counts."""
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    paged = bool(config.get("paged"))
+    int8_kv = config.get("cache_dtype") == "int8"
+    quant_w = config.get("weight_dtype", "bf16") != "bf16"
+
+    serve(model, prompts[:2], "auto", max_new_tokens=4, max_chunk=4,
+          **config)  # warm-up, not counted
+
+    runs = {}
+    for fused in ("auto", "off"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reqs, wall, stats = serve(model, prompts, fused, **config)
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        decode = layers * stats["decode_forwards"]
+        forwards = stats["prefill_chunk"] + stats["decode_forwards"]
+        want = {"fused_contiguous_decode_attention":
+                    decode if fused == "auto" and not paged else 0,
+                "fused_paged_decode_attention":
+                    decode if fused == "auto" and paged else 0,
+                "paged_decode_attention":
+                    decode if fused == "off" and paged and not int8_kv
+                    else 0,
+                "weight_only_matmul":
+                    (7 * layers + 1) * forwards if quant_w else 0}
+        if counts != want or (quant_w and want["weight_only_matmul"] <= 0):
+            raise AssertionError(f"{label} fused={fused}: launches {counts}, "
+                                 f"expected {want}")
+        for r in reqs:
+            if len(r.output) != 32 or not all(
+                    0 <= t < cfg.vocab_size for t in r.output):
+                raise AssertionError(f"{label}: request {r.rid} bad output "
+                                     f"{r.output}")
+        if paged and stats["free_pages"] != 8 * (1024 // PAGE):
+            raise AssertionError(f"{label}: pages not returned, "
+                                 f"{stats['free_pages']} free")
+        runs[fused] = (reqs, wall, stats, counts, peak_gb)
+    reqs, wall, stats, counts, peak_gb = runs["auto"]
+    outs = [r.output for r in reqs]
+    off_outs = [r.output for r in runs["off"][0]]
+    ttft = [r.ttft_ms for r in reqs]
+    ttft_p50 = float(np.median(ttft))
+    decode_tokens = sum(len(o) - 1 for o in outs)
+    decode_wall = wall - max(ttft) / 1e3
+    decode_tps = decode_tokens / decode_wall
+    print(f"{label}: 8 requests served in {wall:.3f} s (engine init "
+          f"{stats['init_s']:.2f} s), TTFT p50 {ttft_p50:.2f} ms, decode "
+          f"{decode_tps:.1f} tok/s, peak memory {peak_gb:.2f} GB, launches "
+          f"{counts} ({stats['prefill_chunk']} prefill chunks, "
+          f"{stats['decode_forwards']} decode forwards); unfused: launches "
+          f"{runs['off'][3]}", flush=True)
+    print(json.dumps({label: {
+        "model": "llama2_7b width, random bf16 weights (seed 0)",
+        "config": {k: str(v) for k, v in config.items()},
+        "requests": 8, "prompt_tokens": 120, "max_new_tokens": 32,
+        "max_chunk": 8, "ttft_ms": ttft, "ttft_p50_ms": ttft_p50,
+        "decode_tokens_per_s": decode_tps, "peak_memory_gb": peak_gb,
+        "engine_init_s": stats["init_s"], "launches": counts,
+        "unfused_launches": runs["off"][3],
+        "prefill_chunks": stats["prefill_chunk"],
+        "decode_forwards": stats["decode_forwards"], "wall_s": wall,
+        "unfused_wall_s": runs["off"][1],
+        "outputs_match_unfused": outs == off_outs,
+        "first_divergence_vs_bf16": first_divergence(outs, ref_outs)}}),
+        flush=True)
+    if any(a[0] != b[0] for a, b in zip(outs, off_outs)):
+        raise AssertionError(f"{label}: the first generated token differs "
+                             "between fused and unfused decode")
+    return counts
+
+
+def wave_profile(model, prompts, label, max_new_tokens=1, **config):
+    """Device time by operation of one run of the 8 prompts through a
+    fresh engine, from ``torch.profiler``: with ``max_new_tokens=1`` the
+    prefill wave alone (one 256-token chunk), with 9 the wave and one
+    chunk of 8 decode forwards. Prints the run's wall time, the device
+    time summed over operations and the heaviest operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    flags.set_flags({"fused_decode": "auto"})
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=1024, **config),
+        device="cuda")
+    eng.run(prompts[:2], max_new_tokens=max_new_tokens)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(prompts, max_new_tokens=max_new_tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # each kernel's time shows twice: on its own event and on the operator
+    # that launched it; the total sums kernels, the top list operators
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    ops = sorted((e for e in events
+                  if e.device_type != torch.autograd.DeviceType.CUDA),
+                 key=dev_us, reverse=True)
+    top = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
+           for e in ops[:6]]
+    print(f"profile {label} (max_new_tokens={max_new_tokens}): wall "
+          f"{wall_ms:.2f} ms, kernel time {total_ms:.2f} ms; heaviest "
+          f"operators (name, device ms, calls): {top}", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=total_ms, top=top)
 
 
 def main() -> int:
@@ -717,20 +1215,49 @@ def main() -> int:
 
     row = kernel_phase()
     fused_row, block_row = paged_kernel_phase()
+    qmm_row = quant_kernel_phase()
+    row_i8, fused_row_i8 = int8_decode_phase()
     reference_phase()
     reference_phase(paged=True)
+    quant_reference_phase()
     model, prompts = build_7b()
     row["launches"], contiguous_outs = engine_phase(model, prompts)
-    fused_row["launches"], block_row["launches"] = paged_engine_phase(
-        model, prompts, contiguous_outs)
-    kernels = {"kernels": [{k: r[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "shape")} for r in (row, fused_row, block_row)]}
+    fused_row["launches"], block_row["launches"], paged_outs = \
+        paged_engine_phase(model, prompts, contiguous_outs)
+    paged = dict(paged=True, page_size=PAGE)
+    counts = quant_engine_phase("quant_engine_int8w_paged", model, prompts,
+                                paged_outs, weight_dtype="int8", **paged)
+    qmm_row["launches"] = counts["weight_only_matmul"]
+    counts = quant_engine_phase("quant_engine_int8w_int8kv_paged", model,
+                                prompts, paged_outs, weight_dtype="int8",
+                                cache_dtype="int8", **paged)
+    fused_row_i8["launches"] = counts["fused_paged_decode_attention"]
+    counts = quant_engine_phase("quant_engine_int8kv_contig", model,
+                                prompts, contiguous_outs, cache_dtype="int8")
+    row_i8["launches"] = counts["fused_contiguous_decode_attention"]
+    # where the time goes: the prefill wave alone, and with one chunk of
+    # 8 decode forwards, for the bf16 and the quantized engines
+    profiles = {}
+    for label, config in (("bf16_contig", {}),
+                          ("int8kv_contig", dict(cache_dtype="int8")),
+                          ("bf16_paged", paged),
+                          ("int8w_paged", dict(paged, weight_dtype="int8")),
+                          ("int8w_int8kv_paged",
+                           dict(paged, weight_dtype="int8",
+                                cache_dtype="int8"))):
+        for n in (1, 9):
+            profiles[f"{label}_new{n}"] = wave_profile(
+                model, prompts, label, max_new_tokens=n, **config)
+    print(json.dumps({"profiles": profiles}), flush=True)
+    kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
+                           qmm_row]}
     for r in kernels["kernels"]:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(r[key]):
                 raise AssertionError(f"{key} is not finite: {r[key]}")
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was not launched on its "
+                                 "path")
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,4 +62,13 @@ define_flag("prefix_cache", False,
 define_flag("kv_cache_dtype", "auto",
             "serving KV-cache dtype when EngineConfig.cache_dtype is "
             "'auto': auto = bfloat16 on the card, float32 on the CPU; or "
-            "explicit bfloat16|float16|float32")
+            "explicit bfloat16|float16|float32|int8 (int8: per-row float32 "
+            "scales beside the cache, quantize on append, dequantize in "
+            "the decode kernels)")
+define_flag("serve_weight_dtype", "bf16",
+            "serving weight stream when EngineConfig.weight_dtype is "
+            "'auto': bf16 = serve the model's own weights; int8|int4 = "
+            "group-wise weight-only quantization at engine init "
+            "(quantization.quantize_model_weight_only); every grouped "
+            "quantized linear runs the Hopper weight-only matmul kernel "
+            "on the card")

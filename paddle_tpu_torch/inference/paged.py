@@ -13,9 +13,11 @@ prefilling" sentinel) are redirected here to the sink page 0, which the
 engine's pool keeps out of circulation (``reserve_sink``): torch has no
 drop-mode scatter, and a boolean mask would sync the host.
 
-This slice ports float pools. The int8 pools of the JAX package (per-row
-scales indexed by page id) raise ``NotImplementedError``; ``k_scale`` and
-``v_scale`` stay as fields that must be ``None``.
+Int8 pools carry per-row float32 scales ``[kv_heads, n_pages, page_size,
+1]`` beside the payload, indexed by the same page ids, so a page's scale
+rows travel with it. Rows are quantized on append and dequantized where
+they are read (``gather_kv`` here, the fused decode kernels on the card).
+Int8 contiguous caches are ``QuantizedKV`` pairs (``models/llama.py``).
 """
 
 from __future__ import annotations
@@ -27,18 +29,60 @@ import torch
 
 from ..core.device import resolve_device
 
-_TODO = "see ROADMAP.md Queue A"
 NEG_INF = -1e30  # the JAX dense_paged_attention's mask fill
 SINK_PAGE = 0    # write sink for inactive slots and dropped rows
+# the JAX package's int8-KV quantization epsilon: scale = max(absmax /
+# 127, eps), one constant for every append path and both fused kernels
+KV_QUANT_EPS = 1e-8
 
 
 class PagedLayerCache(NamedTuple):
-    """Per-layer page pool, updated in place."""
+    """Per-layer page pool, updated in place. ``k_scale``/``v_scale`` are
+    present only for int8 pools: float32 ``[kv_heads, n_pages, page_size,
+    1]``, one dequantization scale per stored row and head."""
 
     k_pages: torch.Tensor  # [kv_heads, n_pages, page_size, head_dim]
     v_pages: torch.Tensor  # [kv_heads, n_pages, page_size, head_dim]
-    k_scale: Optional[torch.Tensor] = None  # int8 pools only: not ported
+    k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+
+class QuantizedKV(NamedTuple):
+    """One side (K or V) of an int8 contiguous cache: ``q`` int8
+    [slots, max_len, kv_heads, head_dim] and ``scale`` float32
+    [slots, max_len, kv_heads], one symmetric scale per row and head
+    (dequantized ``q * scale[..., None]``). ``shape``/``dtype`` mirror
+    the payload, as in the JAX package."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+
+def quantize_kv_rows(x):
+    """Symmetric per-row int8 over the last axis: x [..., d] -> (q int8
+    [..., d], scale float32 [...]). The one quantization rule of every
+    append path and of both fused kernels (absmax / 127, round half to
+    even, clip), as JAX's ``quantize_kv_rows``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / 127.0, min=KV_QUANT_EPS)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(c):
+    """``QuantizedKV`` (or a plain tensor, returned as is) -> float32."""
+    if isinstance(c, QuantizedKV):
+        return c.q.float() * c.scale[..., None]
+    return c
 
 
 class PagedState(NamedTuple):
@@ -48,28 +92,56 @@ class PagedState(NamedTuple):
     seq_lens: torch.Tensor      # [slots] int32, tokens already in cache
 
 
-def _float_pool(cache: PagedLayerCache):
-    if cache.k_scale is not None or cache.v_scale is not None \
-            or not cache.k_pages.is_floating_point():
-        raise NotImplementedError(
-            f"int8 paged pools are not ported yet ({_TODO}, quantized "
-            "serving)")
+def _quantized(cache: PagedLayerCache) -> bool:
+    """Whether ``cache`` is an int8 pool; raises on a pool whose payload
+    and scales disagree."""
+    quant = cache.k_scale is not None
+    if quant != (cache.v_scale is not None) \
+            or quant != (cache.k_pages.dtype == torch.int8):
+        raise ValueError("an int8 pool needs k_scale and v_scale, and a "
+                         "float pool neither")
+    return quant
 
 
 def init_paged_pool(n_layers: int, n_pages: int, page_size: int,
                     kv_heads: int, head_dim: int, dtype=torch.bfloat16,
                     device="cuda"):
-    """Zeroed float pools, one ``PagedLayerCache`` per layer, each
-    ``[kv_heads, n_pages, page_size, head_dim]`` on ``device``."""
-    if not dtype.is_floating_point:
-        raise NotImplementedError(
-            f"int8 paged pools are not ported yet ({_TODO}, quantized "
-            "serving)")
+    """Zeroed pools, one ``PagedLayerCache`` per layer, each
+    ``[kv_heads, n_pages, page_size, head_dim]`` on ``device``. An int8
+    ``dtype`` adds zeroed float32 scale arrays ``[kv_heads, n_pages,
+    page_size, 1]`` (a zero payload times a zero scale reads as the zeros
+    a float pool starts with; every row read is appended first)."""
+    if dtype != torch.int8 and not dtype.is_floating_point:
+        raise ValueError(f"pool dtype must be a float dtype or int8; got "
+                         f"{dtype}")
     dev = resolve_device(device)
     shape = (kv_heads, n_pages, page_size, head_dim)
+    sshape = (kv_heads, n_pages, page_size, 1)
+
+    def scale():
+        return (torch.zeros(sshape, dtype=torch.float32, device=dev)
+                if dtype == torch.int8 else None)
+
     return [PagedLayerCache(torch.zeros(shape, dtype=dtype, device=dev),
-                            torch.zeros(shape, dtype=dtype, device=dev))
+                            torch.zeros(shape, dtype=dtype, device=dev),
+                            scale(), scale())
             for _ in range(n_layers)]
+
+
+def _store(cache: PagedLayerCache, pages, offs, k, v):
+    """Write rows ``k``/``v`` [kvh, *idx, d] (head-major) at pool
+    positions ``[:, pages, offs]``: rounded to a float pool's dtype, or
+    quantized with their scales into an int8 pool."""
+    if _quantized(cache):
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        cache.k_pages[:, pages, offs] = kq
+        cache.v_pages[:, pages, offs] = vq
+        cache.k_scale[:, pages, offs, 0] = ks
+        cache.v_scale[:, pages, offs, 0] = vs
+    else:
+        cache.k_pages[:, pages, offs] = k.to(cache.k_pages.dtype)
+        cache.v_pages[:, pages, offs] = v.to(cache.v_pages.dtype)
 
 
 def append_kv(cache: PagedLayerCache, state: PagedState, k, v
@@ -79,8 +151,8 @@ def append_kv(cache: PagedLayerCache, state: PagedState, k, v
     k, v: [slots, 1, kv_heads, head_dim]. Slot i's row lands on page
     ``block_tables[i, len_i // page_size]`` at offset ``len_i %
     page_size``; a block index past the table reads its last entry, as
-    JAX's gather clamps it."""
-    _float_pool(cache)
+    JAX's gather clamps it. An int8 pool stores the quantized row and its
+    scale at the same (page, offset)."""
     page_size = cache.k_pages.shape[2]
     bt = state.block_tables
     lens = state.seq_lens.long()
@@ -89,10 +161,8 @@ def append_kv(cache: PagedLayerCache, state: PagedState, k, v
                page_idx].long()
     offs = lens % page_size
     # destination [kvh, pages[i], offs[i]] <- k[i, 0, h], head-major
-    cache.k_pages[:, pages, offs] = \
-        k[:, 0].to(cache.k_pages.dtype).transpose(0, 1)
-    cache.v_pages[:, pages, offs] = \
-        v[:, 0].to(cache.v_pages.dtype).transpose(0, 1)
+    _store(cache, pages, offs, k[:, 0].transpose(0, 1),
+           v[:, 0].transpose(0, 1))
     return cache
 
 
@@ -103,12 +173,12 @@ def append_kv_chunk(cache: PagedLayerCache, state: PagedState, k, v,
     k, v: [slots, s, kv_heads, head_dim]; ``start``: [slots], slot i's
     rows land at positions ``start[i] .. start[i]+s-1``. Rows past the
     block table's span (the engine's ``start = max_len`` sentinel, the
-    tail of a chunk crossing ``max_len``) go to the sink page 0, where
-    JAX drops them: without a host sync, and never onto a real page."""
-    _float_pool(cache)
+    tail of a chunk crossing ``max_len``) go to the sink page 0, scale
+    rows included, where JAX drops them: without a host sync, and never
+    onto a real page."""
     page_size = cache.k_pages.shape[2]
     bt = state.block_tables
-    slots, s = k.shape[0], k.shape[1]
+    s = k.shape[1]
     max_pages = bt.shape[1]
     pos = start.long()[:, None] + torch.arange(s, device=k.device)[None, :]
     page_idx = pos // page_size
@@ -117,23 +187,26 @@ def append_kv_chunk(cache: PagedLayerCache, state: PagedState, k, v,
     pages = torch.gather(bt.long(), 1, page_idx.clamp(max=max_pages - 1))
     pages = torch.where(valid, pages, SINK_PAGE)
     # value laid out head-major to match the pool: [kvh, slots, s, d]
-    cache.k_pages[:, pages, offs] = \
-        k.to(cache.k_pages.dtype).permute(2, 0, 1, 3)
-    cache.v_pages[:, pages, offs] = \
-        v.to(cache.v_pages.dtype).permute(2, 0, 1, 3)
+    _store(cache, pages, offs, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3))
     return cache
 
 
 def gather_kv(cache: PagedLayerCache, state: PagedState
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each slot's logical KV view, [slots, max_pages * page_size,
-    kv_heads, d] (a dense copy; the attention mask hides the tail)."""
-    _float_pool(cache)
+    kv_heads, d] (a dense copy; the attention mask hides the tail). An
+    int8 pool is dequantized (payload times its row scale, float32)."""
+    quant = _quantized(cache)
     bt = state.block_tables.long()
     slots, max_pages = bt.shape
     kvh, _, page_size, d = cache.k_pages.shape
-    k = cache.k_pages[:, bt].reshape(kvh, slots, max_pages * page_size, d)
-    v = cache.v_pages[:, bt].reshape(kvh, slots, max_pages * page_size, d)
+    k = cache.k_pages[:, bt]  # [kvh, slots, max_pages, page_size, d]
+    v = cache.v_pages[:, bt]
+    if quant:
+        k = k.float() * cache.k_scale[:, bt]
+        v = v.float() * cache.v_scale[:, bt]
+    k = k.reshape(kvh, slots, max_pages * page_size, d)
+    v = v.reshape(kvh, slots, max_pages * page_size, d)
     return k.permute(1, 2, 0, 3), v.permute(1, 2, 0, 3)
 
 
@@ -144,12 +217,16 @@ def paged_attention(q, cache: PagedLayerCache, state: PagedState,
     q: [slots, 1, heads, head_dim] (heads a multiple of kv_heads). The
     current token's K/V must already be appended: slot i attends rows
     ``0..seq_lens[i]`` inclusive. Returns [slots, 1, heads, head_dim].
-    CUDA tensors launch the block-table kernel (``kernels/
-    paged_attention.py: paged_decode_attention``) or raise; CPU tensors
-    run ``dense_paged_attention``."""
+    Float pools launch the block-table kernel on CUDA tensors
+    (``kernels/paged_attention.py: paged_decode_attention``) or raise, and
+    run ``dense_paged_attention`` on CPU tensors. Int8 pools take
+    ``dense_paged_attention`` on either device, as the JAX dispatch does:
+    the block-table kernel has no dequantization path, and the fused
+    kernel is the int8 decode path."""
     from ..kernels.paged_attention import paged_decode_attention
 
-    _float_pool(cache)
+    if _quantized(cache):
+        return dense_paged_attention(q, cache, state, scale=scale)
     slots, _, h, d = q.shape
     kvh = cache.k_pages.shape[0]
     if h % kvh:

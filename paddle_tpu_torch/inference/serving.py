@@ -24,8 +24,15 @@ request at admission, waits for a finisher when the pool is short, frees
 the pages at finish or cancel, and uploads a snapshot of the block table
 once per prefill wave and once per decode step or chunk.
 
-This slice runs chunked prefill, float caches (contiguous or paged) and
-the model's own weights. Prefix caching, int8 caches, speculative
+Quantized serving: ``EngineConfig(weight_dtype="int8"|"int4")`` swaps
+every linear of (a deep copy of, unless ``quantize_inplace``) the model for
+a group-wise ``WeightOnlyLinear`` at init, so every forward's linears run
+the weight-only matmul kernel on the card; ``cache_dtype="int8"`` gives
+int8 caches or pools with per-row float32 scales, quantized on append and
+dequantized in the fused decode kernels.
+
+This slice runs chunked prefill, float or int8 caches (contiguous or
+paged) and bf16, int8 or int4 weights. Prefix caching, speculative
 decoding, telemetry, tracing, resilience, the sanitizer, the profiler and
 the router are later slices (ROADMAP.md Queue A).
 """
@@ -33,6 +40,7 @@ the router are later slices (ROADMAP.md Queue A).
 from __future__ import annotations
 
 import collections
+import copy
 import heapq
 import time
 from dataclasses import dataclass, field
@@ -65,11 +73,17 @@ class EngineConfig:
     page_size: int = 64
     n_pages: Optional[int] = None
     # "auto" resolves through PT_FLAGS_kv_cache_dtype: bfloat16 on the
-    # card, float32 on the CPU; explicit dtypes win
+    # card, float32 on the CPU; explicit dtypes win. "int8" keeps per-row
+    # float32 scales beside the cache (quantize on append)
     cache_dtype: object = "auto"
-    # "auto" and "bf16" serve the model's own weights
+    # "auto" resolves through PT_FLAGS_serve_weight_dtype; "bf16" serves
+    # the model's own weights, "int8"/"int4" quantize them group-wise at
+    # init (layers whose in_features weight_group_size does not divide
+    # take one whole-column group)
     weight_dtype: str = "auto"
     weight_group_size: int = 128
+    # quantize the caller's model in place (frees its float linears as
+    # they are replaced); by default the engine quantizes a deep copy
     quantize_inplace: bool = False
     prefix_cache_blocks: Optional[int] = None
     greedy: bool = True
@@ -81,29 +95,27 @@ class EngineConfig:
 
 _CACHE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                  "float16": torch.float16, "fp16": torch.float16,
-                 "float32": torch.float32, "fp32": torch.float32}
+                 "float32": torch.float32, "fp32": torch.float32,
+                 "int8": torch.int8}
+_WEIGHT_DTYPES = ("bf16", "int8", "int4")
 
 
 def _resolve_cache_dtype(requested, device: torch.device) -> torch.dtype:
     """EngineConfig.cache_dtype -> torch dtype. ``"auto"`` defers to
     ``PT_FLAGS_kv_cache_dtype``, whose ``auto`` means bfloat16 on the card
-    and float32 on the CPU; int8 caches are not ported yet."""
+    and float32 on the CPU; ``"int8"`` selects quantized caches."""
 
     def lookup(val, origin):
-        if val == "int8":
-            raise NotImplementedError(
-                f"int8 KV caches are not ported yet ({_TODO}, quantized "
-                "serving)")
         if val not in _CACHE_DTYPES:
             raise ValueError(f"{origin} must be 'auto' or one of "
                              f"{sorted(_CACHE_DTYPES)}; got {val!r}")
         return _CACHE_DTYPES[val]
 
     if isinstance(requested, torch.dtype):
-        if not requested.is_floating_point:
-            raise NotImplementedError(
-                f"int8 KV caches are not ported yet ({_TODO}, quantized "
-                "serving)")
+        if requested not in _CACHE_DTYPES.values():
+            raise ValueError(f"EngineConfig.cache_dtype must be one of "
+                             f"{sorted(set(_CACHE_DTYPES.values()), key=str)}"
+                             f"; got {requested}")
         return requested
     if requested not in (None, "auto"):
         return lookup(str(requested), "EngineConfig.cache_dtype")
@@ -111,6 +123,24 @@ def _resolve_cache_dtype(requested, device: torch.device) -> torch.dtype:
     if val == "auto":
         return torch.bfloat16 if device.type == "cuda" else torch.float32
     return lookup(val, "PT_FLAGS_kv_cache_dtype")
+
+
+def _resolve_weight_dtype(requested) -> str:
+    """EngineConfig.weight_dtype -> "bf16" | "int8" | "int4". ``"auto"``
+    defers to ``PT_FLAGS_serve_weight_dtype``; "bf16" (or "bfloat16")
+    serves the model's weights as they are."""
+    origin = "EngineConfig.weight_dtype"
+    if requested in (None, "auto"):
+        requested = flags.flag("serve_weight_dtype")
+        origin = "PT_FLAGS_serve_weight_dtype"
+    val = str(requested).lower()
+    if val == "bfloat16":
+        val = "bf16"
+    if val not in _WEIGHT_DTYPES:
+        raise ValueError(
+            f"{origin} must be 'auto' or one of {list(_WEIGHT_DTYPES)}; "
+            f"got {requested!r}")
+    return val
 
 
 @dataclass
@@ -170,7 +200,9 @@ class ContinuousBatchingEngine:
 
     ``device`` defaults to ``"cuda"`` and must be where the model's
     weights are; with no CUDA device the engine raises unless the caller
-    passes ``device="cpu"``."""
+    passes ``device="cpu"``. With int8/int4 weights ``self.model`` is the
+    quantized model (a deep copy of ``model`` unless
+    ``quantize_inplace``)."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  device="cuda"):
@@ -180,9 +212,29 @@ class ContinuousBatchingEngine:
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}; the engine "
                              f"was asked for {self.device}")
-        self._check_slice(cfg)
+        # quantized-serving validation first, with the JAX engine's errors
+        self.weight_dtype = _resolve_weight_dtype(cfg.weight_dtype)
         self.cache_dtype = _resolve_cache_dtype(cfg.cache_dtype,
                                                 self.device)
+        g = cfg.weight_group_size
+        if not isinstance(g, (int, np.integer)) or isinstance(g, bool) \
+                or g < 1:
+            raise ValueError(f"EngineConfig.weight_group_size must be a "
+                             f"positive int; got {g!r}")
+        if self.cache_dtype == torch.int8 \
+                and int(flags.flag("prefill_chunk")) <= 0:
+            raise ValueError(
+                "cache_dtype='int8' requires the chunked prefill path "
+                "(PT_FLAGS_prefill_chunk > 0): the legacy per-bucket "
+                "prefill has no quantize-on-append path")
+        self._check_slice(cfg)
+        if self.weight_dtype != "bf16":
+            from ..quantization import quantize_model_weight_only
+
+            if not cfg.quantize_inplace:
+                model = copy.deepcopy(model)
+            model = quantize_model_weight_only(
+                model, weight_dtype=self.weight_dtype, group_size=int(g))
         self.model = model
         model.eval()
 
@@ -228,12 +280,6 @@ class ContinuousBatchingEngine:
         """Configurations outside this slice raise at init; paged
         configurations the JAX engine refuses raise the same
         ``ValueError``."""
-        if str(cfg.weight_dtype).lower() not in ("auto", "bf16",
-                                                 "bfloat16"):
-            raise NotImplementedError(
-                f"weight_dtype={cfg.weight_dtype!r}: weight-only "
-                f"quantized serving is not ported yet ({_TODO}, quantized "
-                "serving)")
         if int(flags.flag("prefill_chunk")) <= 0:
             raise NotImplementedError(
                 "PT_FLAGS_prefill_chunk=0 selects the legacy bucketed "

@@ -8,6 +8,8 @@ so a fresh checkout builds once and a changed source builds anew. Each
 translation unit (one per cache element type) compiles in its own
 ``nvcc`` process, all started together, and the objects link into one
 library. Headers in ``csrc`` (``*.cuh``) are part of the hash.
+``nvcc`` keeps IEEE division and square roots (no ``--use_fast_math``):
+the int8 quantize-on-append must round as the plain versions do.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ LIB_NAME = "libpt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# (source, object name, extra defines): one object per cache element type
+# (source, object name, extra defines): one object per cache element type,
+# and one for the weight-only matmul
 UNITS: List[Tuple[str, str, List[str]]] = [
     ("decode_attention.cu", "decode_attention_f32",
      ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32"]),
@@ -37,12 +40,17 @@ UNITS: List[Tuple[str, str, List[str]]] = [
      ["-DPT_CACHE_T=__half", "-DPT_CACHE_TAG=f16"]),
     ("decode_attention.cu", "decode_attention_bf16",
      ["-DPT_CACHE_T=__nv_bfloat16", "-DPT_CACHE_TAG=bf16"]),
+    ("decode_attention.cu", "decode_attention_i8",
+     ["-DPT_CACHE_T=int8_t", "-DPT_CACHE_TAG=i8"]),
     ("paged_attention.cu", "paged_attention_f32",
      ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32"]),
     ("paged_attention.cu", "paged_attention_f16",
      ["-DPT_CACHE_T=__half", "-DPT_CACHE_TAG=f16"]),
     ("paged_attention.cu", "paged_attention_bf16",
      ["-DPT_CACHE_T=__nv_bfloat16", "-DPT_CACHE_TAG=bf16"]),
+    ("paged_attention.cu", "paged_attention_i8",
+     ["-DPT_CACHE_T=int8_t", "-DPT_CACHE_TAG=i8", "-DPT_CACHE_INT8"]),
+    ("quant_matmul.cu", "quant_matmul", []),
 ]
 
 # the last build of this process: seconds spent compiling (0.0 when the

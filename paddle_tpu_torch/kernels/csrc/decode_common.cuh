@@ -1,7 +1,7 @@
 // Device helpers shared by the port's decode-attention kernels
 // (decode_attention.cu, paged_attention.cu): element conversions, vector
-// row loads, the RoPE half-rotation, and the attention row loop with its
-// four-warp merge.
+// row loads, the RoPE half-rotation, the int8 quantize-on-append of one
+// row, and the attention row loop with its four-warp merge.
 //
 // The row loop is the design of the first decode kernel: one CTA of 128
 // threads per (slot, kv head, block of up to HPB query heads); each of the
@@ -9,7 +9,12 @@
 // its lanes splitting d (EPL elements each) with vector loads, and keeps
 // its own online-softmax state (m, l, acc) per query head; the warps merge
 // in shared memory at the end. Where the stream's rows live is the
-// caller's: a RowAt functor maps a row index to its element offset.
+// caller's: a RowAt functor maps a row index j to the row's number in its
+// array, whose elements start at number * D. Int8 caches keep one float32
+// scale per row and head, and both layouts place it at the same number in
+// the scale array ([slots, max_len, kvh] beside [slots, max_len, kvh, D];
+// [kvh, n_pages, page_size, 1] beside [kvh, n_pages, page_size, D]), so
+// the one functor addresses the payload and its scale.
 
 #pragma once
 
@@ -18,14 +23,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pt_decode {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
 
+constexpr float kQuantEps = 1e-8f;  // KV_QUANT_EPS of the JAX kernels
+
 // Element-type codes of q / k_new / v_new / out, shared with the wrappers.
 enum ActDtype { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
+// Whether a cache element type is the int8 payload of a quantized cache.
+template <typename TC>
+constexpr bool kQuantCache = std::is_same<TC, int8_t>::value;
 
 __device__ __forceinline__ float load_act(const void* p, int dtype,
                                           size_t i) {
@@ -99,6 +112,13 @@ struct Raw<__nv_bfloat16> {
     return __bfloat162float(__ushort_as_bfloat16(b));
   }
 };
+template <>
+struct Raw<int8_t> {
+  using type = signed char;
+  static __device__ __forceinline__ float value(type b) {
+    return static_cast<float>(b);
+  }
+};
 
 // N consecutive elements at p (aligned to N * sizeof(T) bytes) as floats,
 // read with the widest vector load that divides the span.
@@ -112,6 +132,7 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p,
     uint2 v8[(kBytes + 7) / 8];
     unsigned int v4[(kBytes + 3) / 4];
     unsigned short v2[(kBytes + 1) / 2];
+    unsigned char v1[kBytes];
   } buf;
   if constexpr (kBytes % 16 == 0) {
 #pragma unroll
@@ -125,10 +146,14 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p,
 #pragma unroll
     for (int i = 0; i < kBytes / 4; ++i)
       buf.v4[i] = reinterpret_cast<const unsigned int*>(p)[i];
-  } else {
+  } else if constexpr (kBytes % 2 == 0) {
 #pragma unroll
     for (int i = 0; i < kBytes / 2; ++i)
       buf.v2[i] = reinterpret_cast<const unsigned short*>(p)[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBytes; ++i)
+      buf.v1[i] = reinterpret_cast<const unsigned char*>(p)[i];
   }
 #pragma unroll
   for (int e = 0; e < N; ++e) out[e] = Raw<T>::value(buf.r[e]);
@@ -143,17 +168,55 @@ __device__ __forceinline__ float rope_elem(float x, float partner, float c,
                     : __fadd_rn(__fmul_rn(x, c), __fmul_rn(partner, s));
 }
 
+// Quantize-on-append of one D-wide row held in shared memory as float32
+// (the rotated key, or the value): scale = max(absmax / 127, eps) over the
+// row, q = clip(rint(x / scale), -127, 127) with an IEEE division and
+// round-half-to-even, as the JAX package's kernel_quant_rows. row_s is
+// overwritten with the dequantized values q * scale that attention reads;
+// when ``write`` is set the payload goes to dst[0..D) and the scale to
+// *dst_scale. Called by every thread of the block (it synchronises);
+// red_s is one float of shared scratch per warp.
+template <int D>
+__device__ __forceinline__ void quantize_row(float* row_s, float* red_s,
+                                             int8_t* dst, float* dst_scale,
+                                             bool write) {
+  const int tid = threadIdx.x;
+  float amax = 0.f;
+  for (int c = tid; c < D; c += kThreads) amax = fmaxf(amax, fabsf(row_s[c]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (tid % 32 == 0) red_s[tid / 32] = amax;
+  __syncthreads();
+  amax = red_s[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, red_s[w]);
+  const float scale = fmaxf(__fdiv_rn(amax, 127.f), kQuantEps);
+  for (int c = tid; c < D; c += kThreads) {
+    const float q =
+        fminf(fmaxf(rintf(__fdiv_rn(row_s[c], scale)), -127.f), 127.f);
+    row_s[c] = __fmul_rn(q, scale);
+    if (write) dst[c] = static_cast<int8_t>(q);
+  }
+  if (write && tid == 0) *dst_scale = scale;
+  __syncthreads();  // red_s is free again, row_s final
+}
+
 // Attention of the ng (<= HPB) query rows in q_s over rows 0..L of one
 // (slot, kv head) stream, written to out[q_base + g * D + c] in the
-// activation dtype. row_at(j) is the element offset of row j in kp / vp.
-// With kNewInShared, row L is taken from kn_s / vn_s (the appended row,
-// already rounded to the cache dtype) and never read from memory; without
-// it, every row 0..L is read from memory. Rows past L are never read.
-// The caller has filled q_s (and kn_s / vn_s) and synchronised the block.
+// activation dtype. row_at(j) is the number of row j in kp / vp (its
+// elements start at row_at(j) * D); for an int8 cache it is also the
+// index of the row's scale in ks / vs, and attention reads the
+// dequantized values q * scale. With kNewInShared, row L is taken from
+// kn_s / vn_s (the appended row, already rounded to the cache dtype or
+// quantized and dequantized) and never read from memory; without it,
+// every row 0..L is read from memory. Rows past L are never read. The
+// caller has filled q_s (and kn_s / vn_s) and synchronised the block.
 template <typename TC, int EPL, int HPB, bool kNewInShared, typename RowAt>
 __device__ __forceinline__ void attend_rows(
     const float (&q_s)[HPB][32 * EPL], const float* kn_s, const float* vn_s,
-    const TC* __restrict__ kp, const TC* __restrict__ vp, RowAt row_at,
+    const TC* __restrict__ kp, const TC* __restrict__ vp,
+    const float* __restrict__ ks, const float* __restrict__ vs, RowAt row_at,
     int L, int ng, float scale, void* __restrict__ out, int act_dtype,
     size_t q_base) {
   constexpr int D = 32 * EPL;
@@ -191,9 +254,18 @@ __device__ __forceinline__ void attend_rows(
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u * kWarps;
       if (j <= last_loaded) {
-        const size_t off = row_at(j);
-        load_row<TC, EPL>(klane + off, kf[u]);
-        load_row<TC, EPL>(vlane + off, vf[u]);
+        const size_t row = row_at(j);
+        load_row<TC, EPL>(klane + row * D, kf[u]);
+        load_row<TC, EPL>(vlane + row * D, vf[u]);
+        if constexpr (kQuantCache<TC>) {
+          const float ksc = __ldg(ks + row);
+          const float vsc = __ldg(vs + row);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) {
+            kf[u][e] = __fmul_rn(kf[u][e], ksc);
+            vf[u][e] = __fmul_rn(vf[u][e], vsc);
+          }
+        }
       } else if (kNewInShared && j == L) {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {

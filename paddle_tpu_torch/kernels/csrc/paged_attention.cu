@@ -7,11 +7,17 @@
 //   rotates the group's query rows and the new key row (RoPE, float32) at
 //   positions[s], rounds the new K/V row to the pool dtype and writes it in
 //   place on page bt[s, L / page_size], row L % page_size (L = seq_lens[s]),
-//   and attends rows 0..L with the rounded new row rebuilt in registers;
+//   and attends rows 0..L with the rounded new row rebuilt in registers.
+//   An int8 pool (the int8 branch of the TPU kernel) carries float32 scales
+//   [kvh, n_pages, page_size, 1] indexed by the same page ids: the kernel
+//   quantizes the new row per head (scale = max(absmax / 127, 1e-8) over
+//   d, round half to even), writes payload and scale together, and
+//   attends over the dequantized rows (q * scale), the new one included;
 // - block-table (replaces paddle_tpu/kernels/paged_attention.py:
 //   _decode_kernel, reached through paged_decode_attention): the same
-//   attention over rows 0..seq_lens[s] of an already-appended pool, with no
-//   RoPE and no append.
+//   attention over rows 0..seq_lens[s] of an already-appended float pool,
+//   with no RoPE and no append. As in the JAX package, it has no int8
+//   path: int8 pools decode through the fused kernel.
 //
 // Row j of slot s, kv head h lives at
 //   pool + ((h * n_pages + bt[s, j / page_size]) * page_size
@@ -31,7 +37,7 @@
 // back the row it appends: every CTA rebuilds it from k_new / v_new, and
 // only the first head block of a (slot, kv head) writes it. So inactive
 // slots, which all append to the sink page 0 at row 0 in the same launch,
-// race only on a row nobody reads.
+// race only on a row (and, int8, its scale) that nobody reads.
 //
 // Out-of-range indices are clamped as the Pallas index maps clamp them:
 // seq_lens to the table's span, page ids to the pool, positions to the rope
@@ -40,10 +46,12 @@
 // Later redesign: split-K over pages so that few slots fill all 132 SMs,
 // and cp.async or TMA staging of whole pages.
 //
-// Built once per element type of the pool: compile with
-// -DPT_CACHE_T=<type> -DPT_CACHE_TAG=<suffix>; the exported C functions are
-// pt_fused_paged_decode_<suffix> and pt_paged_decode_<suffix>. Each returns
-// cudaGetLastError() after the launch.
+// Built once per element type of the pool (float, __half, __nv_bfloat16,
+// int8_t): compile with -DPT_CACHE_T=<type> -DPT_CACHE_TAG=<suffix>, and
+// -DPT_CACHE_INT8 for int8_t; the exported C functions are
+// pt_fused_paged_decode_<suffix> and, for float pools,
+// pt_paged_decode_<suffix>. k_scale and v_scale must be null for a float
+// pool and set for int8. Each returns cudaGetLastError() after the launch.
 
 #include "decode_common.cuh"
 
@@ -58,9 +66,10 @@ namespace {
 
 using namespace pt_decode;
 
-// Row j of one (slot, kv head) stream in a [kvh, n_pages, page_size, D]
-// pool, through the slot's block-table row.
-template <int D>
+// Number of row j of one (slot, kv head) stream in a [kvh, n_pages,
+// page_size, D] pool, through the slot's block-table row (its elements
+// start at number * D); also the index of its scale in a [kvh, n_pages,
+// page_size, 1] scale array.
 struct PagedRows {
   const int* bt_row;  // bt + s * max_pages
   size_t head_page0;  // h * n_pages
@@ -68,7 +77,7 @@ struct PagedRows {
   int n_pages;
   __device__ __forceinline__ size_t operator()(int j) const {
     const int page = min(max(__ldg(bt_row + j / page_size), 0), n_pages - 1);
-    return ((head_page0 + page) * page_size + j % page_size) * D;
+    return (head_page0 + page) * page_size + j % page_size;
   }
 };
 
@@ -79,6 +88,8 @@ struct PagedArgs {
   int act_dtype;
   void* k_pages;
   void* v_pages;
+  float* k_scale;  // int8 pools only
+  float* v_scale;
   const int* bt;
   const int* seq_lens;
   const int* positions;  // fused only
@@ -104,17 +115,19 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(PagedArgs a) {
   __shared__ float q_s[HPB][D];
   __shared__ float kn_s[FUSED ? D : 1];
   __shared__ float vn_s[FUSED ? D : 1];
+  __shared__ float red_s[kWarps];
 
   const int L = max(0, min(a.seq_lens[s], a.max_pages * a.page_size - 1));
-  const PagedRows<D> rows{a.bt + static_cast<size_t>(s) * a.max_pages,
-                          static_cast<size_t>(h) * a.n_pages, a.page_size,
-                          a.n_pages};
+  const PagedRows rows{a.bt + static_cast<size_t>(s) * a.max_pages,
+                       static_cast<size_t>(h) * a.n_pages, a.page_size,
+                       a.n_pages};
   const size_t q_base =
       ((static_cast<size_t>(s) * a.kvh + h) * a.group + g0) * D;
 
   if constexpr (FUSED) {
     // 1. rotate q rows of this head block; rebuild the new K/V row rounded
-    //    to the pool dtype, and (first head block only) append it in place.
+    //    to the pool dtype (int8: quantized), and (first head block only)
+    //    append it in place.
     const int pos = max(0, min(a.positions[s], a.max_pos - 1));
     const float* crow = a.cos_t + static_cast<size_t>(pos) * HALF;
     const float* srow = a.sin_t + static_cast<size_t>(pos) * HALF;
@@ -137,16 +150,29 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(PagedArgs a) {
       const float x = load_act(a.k_new, a.act_dtype, kv_base + c);
       const float xp =
           load_act(a.k_new, a.act_dtype, kv_base + (first ? c + HALF : cc));
-      const TC kr =
-          from_float<TC>(rope_elem(x, xp, crow[cc], srow[cc], first));
-      const TC vr =
-          from_float<TC>(load_act(a.v_new, a.act_dtype, kv_base + c));
-      kn_s[c] = to_float<TC>(kr);
-      vn_s[c] = to_float<TC>(vr);
-      if (blockIdx.z == 0) {
-        kp[append + c] = kr;
-        vp[append + c] = vr;
+      const float kx = rope_elem(x, xp, crow[cc], srow[cc], first);
+      const float vx = load_act(a.v_new, a.act_dtype, kv_base + c);
+      if constexpr (kQuantCache<TC>) {
+        kn_s[c] = kx;
+        vn_s[c] = vx;
+      } else {
+        const TC kr = from_float<TC>(kx);
+        const TC vr = from_float<TC>(vx);
+        kn_s[c] = to_float<TC>(kr);
+        vn_s[c] = to_float<TC>(vr);
+        if (blockIdx.z == 0) {
+          kp[append * D + c] = kr;
+          vp[append * D + c] = vr;
+        }
       }
+    }
+    if constexpr (kQuantCache<TC>) {
+      __syncthreads();
+      const bool write = blockIdx.z == 0;
+      quantize_row<D>(kn_s, red_s, kp + append * D, a.k_scale + append,
+                      write);
+      quantize_row<D>(vn_s, red_s, vp + append * D, a.v_scale + append,
+                      write);
     }
   } else {
     // 1. the query rows of this head block, as they are.
@@ -157,8 +183,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(PagedArgs a) {
 
   // 2-4. online softmax over rows 0..L, merge of the four warps, output in
   //      the query's dtype.
-  attend_rows<TC, EPL, HPB, FUSED>(q_s, kn_s, vn_s, kp, vp, rows, L, ng,
-                                   a.scale, a.out, a.act_dtype, q_base);
+  attend_rows<TC, EPL, HPB, FUSED>(q_s, kn_s, vn_s, kp, vp, a.k_scale,
+                                   a.v_scale, rows, L, ng, a.scale, a.out,
+                                   a.act_dtype, q_base);
 }
 
 template <typename TC, int EPL, bool FUSED>
@@ -183,7 +210,8 @@ int launch(const PagedArgs& a, int slots, int d, void* stream) {
   if (d < 32 || d > 256 || d % 32 != 0 || a.group < 1 || a.group > 16 ||
       slots < 1 || a.kvh < 1 || a.n_pages < 1 || a.page_size < 1 ||
       a.max_pages < 1 || (FUSED && a.max_pos < 1) || a.act_dtype < 0 ||
-      a.act_dtype > 2)
+      a.act_dtype > 2 || (a.k_scale != nullptr) != kQuantCache<TC> ||
+      (a.v_scale != nullptr) != kQuantCache<TC>)
     return static_cast<int>(cudaErrorInvalidValue);
   const int hpb = a.group <= 1 ? 1 : a.group <= 2 ? 2 : a.group <= 4 ? 4 : 8;
   const dim3 grid(a.kvh, slots, (a.group + hpb - 1) / hpb);
@@ -213,10 +241,11 @@ int launch(const PagedArgs& a, int slots, int d, void* stream) {
 
 extern "C" int PT_CAT(pt_fused_paged_decode_, PT_CACHE_TAG)(
     const void* q, const void* k_new, const void* v_new, int act_dtype,
-    void* k_pages, void* v_pages, const int* bt, const int* seq_lens,
-    const int* positions, const float* cos_t, const float* sin_t, void* out,
-    int slots, int kvh, int group, int d, int n_pages, int page_size,
-    int max_pages, int max_pos, float scale, void* stream) {
+    void* k_pages, void* v_pages, void* k_scale, void* v_scale,
+    const int* bt, const int* seq_lens, const int* positions,
+    const float* cos_t, const float* sin_t, void* out, int slots, int kvh,
+    int group, int d, int n_pages, int page_size, int max_pages, int max_pos,
+    float scale, void* stream) {
   PagedArgs a{};
   a.q = q;
   a.k_new = k_new;
@@ -224,6 +253,8 @@ extern "C" int PT_CAT(pt_fused_paged_decode_, PT_CACHE_TAG)(
   a.act_dtype = act_dtype;
   a.k_pages = k_pages;
   a.v_pages = v_pages;
+  a.k_scale = static_cast<float*>(k_scale);
+  a.v_scale = static_cast<float*>(v_scale);
   a.bt = bt;
   a.seq_lens = seq_lens;
   a.positions = positions;
@@ -240,6 +271,7 @@ extern "C" int PT_CAT(pt_fused_paged_decode_, PT_CACHE_TAG)(
   return launch<true>(a, slots, d, stream);
 }
 
+#ifndef PT_CACHE_INT8
 extern "C" int PT_CAT(pt_paged_decode_, PT_CACHE_TAG)(
     const void* q, int act_dtype, const void* k_pages, const void* v_pages,
     const int* bt, const int* seq_lens, void* out, int slots, int kvh,
@@ -261,3 +293,4 @@ extern "C" int PT_CAT(pt_paged_decode_, PT_CACHE_TAG)(
   a.scale = scale;
   return launch<false>(a, slots, d, stream);
 }
+#endif  // PT_CACHE_INT8

@@ -3,12 +3,14 @@
 
 One call per decoder layer and decode step rotates the new token's query
 and key (RoPE), appends its K/V row in place at each slot's length, and
-attends over rows ``0..seq_lens[i]``. On the card the wrapper launches the
-hand-written Hopper kernel in ``csrc/decode_attention.cu``; for tensors on
-the CPU it runs the plain PyTorch version beside it, a port of the JAX
-package's unfused reference ``fused_contiguous_decode_reference``. A CUDA
-tensor never falls back to the plain version: the wrapper launches the
-kernel or raises.
+attends over rows ``0..seq_lens[i]``. Int8 caches (``k_scale``/``v_scale``
+set) quantize the appended row per head and attend over the dequantized
+cache, as the JAX kernel's int8 branch does. On the card the wrapper
+launches the hand-written Hopper kernel in ``csrc/decode_attention.cu``;
+for tensors on the CPU it runs the plain PyTorch version beside it, a port
+of the JAX package's unfused reference ``fused_contiguous_decode_reference``.
+A CUDA tensor never falls back to the plain version: the wrapper launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import math
 import torch
 
 from .. import flags
+from ..inference.paged import quantize_kv_rows
 from .rope import apply_rope
 
 NEG_INF = -1e30  # paddle_tpu/kernels/paged_attention.py: NEG_INF
@@ -29,9 +32,9 @@ LAUNCHES = 0
 
 _ACT_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _CACHE_TAG = {torch.float32: "f32", torch.float16: "f16",
-              torch.bfloat16: "bf16"}
+              torch.bfloat16: "bf16", torch.int8: "i8"}
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-             + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -65,25 +68,46 @@ def _rope_rotate(x, positions, cos, sin):
 
 
 def fused_contiguous_decode_plain(q, k_new, v_new, ck, cv, seq_lens,
-                                  positions, cos, sin, scale=None):
+                                  positions, cos, sin, scale=None,
+                                  k_scale=None, v_scale=None):
     """Plain PyTorch version of the fused kernel, ported from the JAX
     package's ``fused_contiguous_decode_reference``: rope, per-slot
     append, then dense masked attention in float32 over the whole
-    ``[slots, max_len]`` cache. ``ck``/``cv`` are updated in place (the
-    JAX version returns updated copies); returns ``(out, ck, cv)``."""
+    ``[slots, max_len]`` cache. Int8 caches (``k_scale``/``v_scale``
+    float32 [slots, max_len, kv_heads]): the appended row is quantized
+    from its float32 rotation with ``quantize_kv_rows`` and attention
+    reads the dequantized cache.
+    Caches and scales are updated in place (the JAX version returns
+    updated copies); returns ``(out, ck, cv)``, plus ``(k_scale,
+    v_scale)`` for int8 caches."""
     slots, kvh, group, d = q.shape
     max_len = ck.shape[1]
     if scale is None:
         scale = d ** -0.5
+    quant = k_scale is not None
     qr = _rope_rotate(q.reshape(slots, kvh * group, d), positions,
                       cos, sin).reshape(slots, kvh, group, d)
-    kr = _rope_rotate(k_new, positions, cos, sin)
+    # int8: the row is quantized from its float32 rotation, as the kernel
+    # (and the JAX kernel) quantize it
+    kr = _rope_rotate(k_new.float() if quant else k_new, positions, cos,
+                      sin)
     lens = seq_lens.long()
     rows = torch.arange(slots, device=q.device)
-    ck[rows, lens] = kr.to(ck.dtype)
-    cv[rows, lens] = v_new.to(cv.dtype)
-    k = ck.float().repeat_interleave(group, dim=2)
-    v = cv.float().repeat_interleave(group, dim=2)
+    if quant:
+        kq, ks = quantize_kv_rows(kr)
+        vq, vs = quantize_kv_rows(v_new)
+        ck[rows, lens] = kq
+        cv[rows, lens] = vq
+        k_scale[rows, lens] = ks
+        v_scale[rows, lens] = vs
+        kf = ck.float() * k_scale[..., None]
+        vf = cv.float() * v_scale[..., None]
+    else:
+        ck[rows, lens] = kr.to(ck.dtype)
+        cv[rows, lens] = v_new.to(cv.dtype)
+        kf, vf = ck.float(), cv.float()
+    k = kf.repeat_interleave(group, dim=2)
+    v = vf.repeat_interleave(group, dim=2)
     qf = qr.reshape(slots, kvh * group, 1, d).float() * scale
     s = torch.einsum("shqd,skhd->shqk", qf, k)
     mask = torch.arange(max_len, device=q.device)[None, :] <= lens[:, None]
@@ -91,10 +115,31 @@ def fused_contiguous_decode_plain(q, k_new, v_new, ck, cv, seq_lens,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("shqk,skhd->shqd", p, v)
     out = out[:, :, 0].reshape(slots, kvh, group, d).to(q.dtype)
+    if quant:
+        return out, ck, cv, k_scale, v_scale
     return out, ck, cv
 
 
-def _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin):
+def _check_scales(payload, k_scale, v_scale, shape, what):
+    """Int8 payloads need float32 scales of ``shape``, float payloads
+    none; raises ``ValueError`` otherwise."""
+    if payload.dtype != torch.int8:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError(f"k_scale/v_scale are for int8 {what} only")
+        return
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None:
+            raise ValueError(f"int8 {what} need k_scale and v_scale")
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be float32 {list(shape)}; got "
+                             f"{t.dtype} {list(t.shape)}")
+        if t.device != payload.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on "
+                             f"{payload.device}")
+
+
+def _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin,
+           k_scale=None, v_scale=None):
     slots, kvh, group, d = q.shape
     dev = q.device
     named = dict(q=q, k_new=k_new, v_new=v_new, ck=ck, cv=cv,
@@ -137,37 +182,44 @@ def _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin):
     for name, t in (("ck", ck), ("cv", cv)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    _check_scales(ck, k_scale, v_scale, (slots, max_len, kvh), "caches")
 
 
 def fused_contiguous_decode_attention(q, k_new, v_new, ck, cv, seq_lens,
-                                      positions, cos, sin, scale=None):
+                                      positions, cos, sin, scale=None,
+                                      k_scale=None, v_scale=None):
     """RoPE(q, k_new) + append (k_new, v_new) at each slot's length +
     attention over rows ``0..seq_lens[i]``, one kernel per layer.
 
     q: [slots, kv_heads, group, d], unrotated; k_new/v_new:
     [slots, kv_heads, d]; ck/cv: [slots, max_len, kv_heads, d] in bf16,
-    f16 or f32, UPDATED IN PLACE (JAX gets the same effect from donation
-    and ``input_output_aliases``); seq_lens: [slots] int32, tokens already
-    cached; positions: [slots] int32 RoPE positions; cos/sin:
-    [max_pos, d/2] float32. The appended row is rounded to the cache
-    dtype and attention reads the rounded values.
+    f16, f32 or int8, UPDATED IN PLACE (JAX gets the same effect from
+    donation and ``input_output_aliases``); seq_lens: [slots] int32,
+    tokens already cached; positions: [slots] int32 RoPE positions;
+    cos/sin: [max_pos, d/2] float32. The appended row is rounded to the
+    cache dtype and attention reads the rounded values. Int8 caches need
+    ``k_scale``/``v_scale`` float32 [slots, max_len, kv_heads], also
+    updated in place: the appended row is quantized per head
+    (``quantize_kv_rows``) and attention reads ``q * scale``.
 
     Precondition (the serving engine guarantees it, and the wrapper
     cannot check it without a device sync): ``seq_lens[i] < max_len`` and
     ``positions[i] < max_pos``; the kernel clamps values outside.
 
-    Returns ``(out [slots, kv_heads, group, d] in q's dtype, ck, cv)``.
-    CPU tensors run ``fused_contiguous_decode_plain``; CUDA tensors launch
-    the kernel on the current stream without synchronising, or raise.
+    Returns ``(out [slots, kv_heads, group, d] in q's dtype, ck, cv)``,
+    plus ``(k_scale, v_scale)`` for int8 caches. CPU tensors run
+    ``fused_contiguous_decode_plain``; CUDA tensors launch the kernel on
+    the current stream without synchronising, or raise.
     """
     global LAUNCHES
     if q.device.type == "cpu":
         return fused_contiguous_decode_plain(q, k_new, v_new, ck, cv,
                                              seq_lens, positions, cos, sin,
-                                             scale)
+                                             scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin)
+    _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin, k_scale,
+           v_scale)
     from . import _build
 
     slots, kvh, group, d = q.shape
@@ -182,12 +234,21 @@ def fused_contiguous_decode_attention(q, k_new, v_new, ck, cv, seq_lens,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  _ACT_CODE[q.dtype], ck.data_ptr(), cv.data_ptr(),
-                 seq_lens.data_ptr(), positions.data_ptr(), cos.data_ptr(),
-                 sin.data_ptr(), out.data_ptr(), slots, kvh, group, d,
+                 _ptr(k_scale), _ptr(v_scale), seq_lens.data_ptr(),
+                 positions.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                 out.data_ptr(), slots, kvh, group, d,
                  ck.shape[1], cos.shape[0], float(scale), stream)
     if err != 0:
         raise RuntimeError(
             f"fused decode attention kernel failed to launch: CUDA error "
             f"{err}")
     LAUNCHES += 1
+    if k_scale is not None:
+        return out, ck, cv, k_scale, v_scale
     return out, ck, cv
+
+
+def _ptr(t):
+    """A tensor's device address, or None (a null pointer) for no
+    tensor."""
+    return None if t is None else t.data_ptr()

@@ -5,14 +5,18 @@ Two entry points, each with its plain PyTorch version beside it:
 
 - ``fused_paged_decode_attention``: per decoder layer and decode step,
   RoPE of the new token's query and key, an in-place append of its K/V
-  row through the block table, and attention over rows ``0..seq_lens[i]``.
-  Plain version: ``fused_paged_decode_plain``, a port of the JAX package's
+  row through the block table, and attention over rows ``0..seq_lens[i]``;
+  on int8 pools it quantizes the appended row and attends over the
+  dequantized pool, as the JAX kernel's int8 branch does. Plain version:
+  ``fused_paged_decode_plain``, a port of the JAX package's
   ``fused_paged_decode_reference`` (rope, ``append_kv``,
   ``dense_paged_attention``).
 - ``paged_decode_attention``: block-table decode attention over an
-  already-appended pool, no RoPE or append. Plain version:
+  already-appended float pool, no RoPE or append. Plain version:
   ``paged_decode_plain`` (``dense_paged_attention`` on the
-  ``[slots, kv_heads, group, d]`` view).
+  ``[slots, kv_heads, group, d]`` view). Like the JAX kernel it has no
+  int8 path and raises for int8 pools, which ``inference.paged.
+  paged_attention`` sends to ``dense_paged_attention``.
 
 On the card each wrapper launches its hand-written Hopper kernel in
 ``csrc/paged_attention.cu``; for tensors on the CPU it runs the plain
@@ -28,24 +32,27 @@ import ctypes
 
 import torch
 
-from ..inference.paged import (
+from ..inference.paged import (  # noqa: F401  (KV_QUANT_EPS: re-export)
+    KV_QUANT_EPS,
     PagedLayerCache,
     PagedState,
     append_kv,
     dense_paged_attention,
 )
-from .decode_attention import _ACT_CODE, _CACHE_TAG, _rope_rotate
-
-# the JAX package's int8-KV quantization epsilon (scale = max(absmax /
-# 127, eps)); int8 pools are not ported yet, and their append must use it
-KV_QUANT_EPS = 1e-8
+from .decode_attention import (
+    _ACT_CODE,
+    _CACHE_TAG,
+    _check_scales,
+    _ptr,
+    _rope_rotate,
+)
 
 # kernel launches in this process, by wrapper: one per call on CUDA
 # tensors, none for the plain versions
 LAUNCHES = {"fused_paged_decode_attention": 0, "paged_decode_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FUSED_ARGTYPES = [_P, _P, _P, _I] + [_P] * 8 + [_I] * 8 + [_F, _P]
+_FUSED_ARGTYPES = [_P, _P, _P, _I] + [_P] * 10 + [_I] * 8 + [_F, _P]
 _DECODE_ARGTYPES = [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P]
 
 
@@ -63,28 +70,38 @@ def paged_decode_plain(q, k_pages, v_pages, block_tables, seq_lens,
 
 def fused_paged_decode_plain(q, k_new, v_new, k_pages, v_pages,
                              block_tables, seq_lens, positions, cos, sin,
-                             scale=None):
+                             scale=None, k_scale=None, v_scale=None):
     """Plain version of the fused kernel, ported from the JAX package's
     ``fused_paged_decode_reference``: rope, ``append_kv`` through the
-    block table, then dense gathered attention in float32. The pools are
-    updated in place (the JAX version returns updated copies); returns
-    ``(out, k_pages, v_pages)``."""
+    block table (quantize-on-append for an int8 pool), then dense
+    gathered attention in float32 (over the dequantized pool). Pools and
+    scales are updated in place (the JAX version returns updated copies);
+    returns ``(out, k_pages, v_pages)``, plus ``(k_scale, v_scale)`` for
+    an int8 pool."""
     slots, kvh, group, d = q.shape
     qr = _rope_rotate(q.reshape(slots, kvh * group, d), positions,
                       cos, sin).reshape(slots, kvh, group, d)
-    kr = _rope_rotate(k_new, positions, cos, sin)
-    cache = PagedLayerCache(k_pages, v_pages)
+    # int8: the row is quantized from its float32 rotation, as the kernel
+    # (and the JAX kernel) quantize it
+    kr = _rope_rotate(k_new if k_scale is None else k_new.float(),
+                      positions, cos, sin)
+    cache = PagedLayerCache(k_pages, v_pages, k_scale, v_scale)
     state = PagedState(block_tables, seq_lens)
     append_kv(cache, state, kr[:, None], v_new[:, None])
     out = dense_paged_attention(qr.reshape(slots, 1, kvh * group, d),
                                 cache, state, scale=scale)
-    return out[:, 0].reshape(slots, kvh, group, d), k_pages, v_pages
+    out = out[:, 0].reshape(slots, kvh, group, d)
+    if k_scale is not None:
+        return out, k_pages, v_pages, k_scale, v_scale
+    return out, k_pages, v_pages
 
 
-def _check(q, k_pages, v_pages, block_tables, seq_lens, **fused):
+def _check(q, k_pages, v_pages, block_tables, seq_lens, k_scale=None,
+           v_scale=None, **fused):
     """The shapes, dtypes and layouts the kernels take; raises
     ``ValueError`` for anything else. ``fused`` holds k_new, v_new,
-    positions, cos and sin for the fused kernel."""
+    positions, cos and sin for the fused kernel; ``k_scale``/``v_scale``
+    the float32 scales of an int8 pool."""
     named = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                  block_tables=block_tables, seq_lens=seq_lens, **fused)
     for name, t in named.items():
@@ -119,6 +136,8 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens, **fused):
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    _check_scales(k_pages, k_scale, v_scale, (*k_pages.shape[:3], 1),
+                  "pools")
     if not fused:
         return
     for name in ("k_new", "v_new"):
@@ -160,7 +179,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
     ``0..seq_lens[i]`` inclusive (the current token already appended).
 
     q: [slots, kv_heads, group, d] in f32, bf16 or f16; k_pages/v_pages:
-    [kv_heads, n_pages, page_size, d] in bf16, f16 or f32, read only;
+    [kv_heads, n_pages, page_size, d] in bf16, f16 or f32, read only
+    (int8 pools raise: this kernel has no dequantization path);
     block_tables: [slots, max_pages] int32 page ids; seq_lens: [slots]
     int32. Precondition (the engine guarantees it; the kernel clamps
     values outside): ``seq_lens[i] < max_pages * page_size`` and page ids
@@ -173,6 +193,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
                                   seq_lens, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if k_pages.dtype == torch.int8:
+        raise ValueError("the block-table decode kernel takes float pools "
+                         "only; int8 pools decode through "
+                         "fused_paged_decode_attention or "
+                         "dense_paged_attention")
     _check(q, k_pages, v_pages, block_tables, seq_lens)
     slots, kvh, group, d = q.shape
     _, n_pages, page_size, _ = k_pages.shape
@@ -192,7 +217,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
 
 def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
                                  block_tables, seq_lens, positions, cos,
-                                 sin, scale=None):
+                                 sin, scale=None, k_scale=None,
+                                 v_scale=None):
     """RoPE(q, k_new) + append (k_new, v_new) through the block table +
     attention over rows ``0..seq_lens[i]``, one kernel per layer.
 
@@ -205,24 +231,27 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
     page_size]`` at row ``seq_lens[i] % page_size``; positions: [slots]
     int32 RoPE positions; cos/sin: [max_pos, d/2] float32. The appended
     row is rounded to the pool dtype and attention reads the rounded
-    values.
+    values. An int8 pool needs ``k_scale``/``v_scale`` float32
+    [kv_heads, n_pages, page_size, 1], updated in place: the appended row
+    is quantized per head (``quantize_kv_rows``) and its scale stored at
+    the same (page, row); attention reads ``q * scale``.
 
     Precondition (the engine guarantees it; the kernel clamps values
     outside): ``seq_lens[i] < max_pages * page_size``, page ids lie in the
     pool, and ``positions[i] < max_pos``.
 
     Returns ``(out [slots, kv_heads, group, d] in q's dtype, k_pages,
-    v_pages)``. CPU tensors run ``fused_paged_decode_plain``; CUDA
-    tensors launch the kernel on the current stream without
-    synchronising, or raise."""
+    v_pages)``, plus ``(k_scale, v_scale)`` for an int8 pool. CPU tensors
+    run ``fused_paged_decode_plain``; CUDA tensors launch the kernel on
+    the current stream without synchronising, or raise."""
     if q.device.type == "cpu":
         return fused_paged_decode_plain(q, k_new, v_new, k_pages, v_pages,
                                         block_tables, seq_lens, positions,
-                                        cos, sin, scale)
+                                        cos, sin, scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_pages, v_pages, block_tables, seq_lens, k_new=k_new,
-           v_new=v_new, positions=positions, cos=cos, sin=sin)
+    _check(q, k_pages, v_pages, block_tables, seq_lens, k_scale, v_scale,
+           k_new=k_new, v_new=v_new, positions=positions, cos=cos, sin=sin)
     slots, kvh, group, d = q.shape
     _, n_pages, page_size, _ = k_pages.shape
     fn = _kernel(f"pt_fused_paged_decode_{_CACHE_TAG[k_pages.dtype]}",
@@ -231,11 +260,13 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  _ACT_CODE[q.dtype], k_pages.data_ptr(), v_pages.data_ptr(),
-                 block_tables.data_ptr(), seq_lens.data_ptr(),
-                 positions.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                 out.data_ptr(), slots, kvh, group, d, n_pages, page_size,
-                 block_tables.shape[1], cos.shape[0],
+                 _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+                 seq_lens.data_ptr(), positions.data_ptr(), cos.data_ptr(),
+                 sin.data_ptr(), out.data_ptr(), slots, kvh, group, d,
+                 n_pages, page_size, block_tables.shape[1], cos.shape[0],
                  float(d ** -0.5 if scale is None else scale),
                  torch.cuda.current_stream().cuda_stream)
     _launched("fused_paged_decode_attention", err)
+    if k_scale is not None:
+        return out, k_pages, v_pages, k_scale, v_scale
     return out, k_pages, v_pages

@@ -6,9 +6,11 @@ in the JAX layout ``[in_features, out_features]``, so a JAX
 slice carries the serving path: the no-cache forward (plain causal
 attention) and the cache branches the continuous batching engine drives,
 over contiguous per-slot caches or the paged pool: chunked prefill
-(``s > 1``) and decode (``s == 1``, fused or unfused). KV caches are
-updated in place, where the JAX model returns new arrays that its engine
-donates.
+(``s > 1``) and decode (``s == 1``, fused or unfused). Caches are float
+or int8: int8 contiguous caches are ``QuantizedKV`` pairs and int8 pools
+carry scale arrays; rows are quantized on append and attention reads them
+dequantized. KV caches are updated in place, where the JAX model returns
+new arrays that its engine donates.
 """
 
 from __future__ import annotations
@@ -28,10 +30,13 @@ from ..distributed.parallel_layers import (
 )
 from ..inference.paged import (
     PagedLayerCache,
+    QuantizedKV,
     append_kv,
     append_kv_chunk,
+    dequantize_kv,
     gather_kv,
     paged_attention,
+    quantize_kv_rows,
 )
 from ..kernels import decode_attention as da
 from ..kernels import paged_attention as pa
@@ -151,9 +156,10 @@ class LlamaAttention(nn.Module):
     def _cached(self, q, k, v, cos, sin, position_ids, kv_cache,
                 cache_index):
         """The contiguous per-slot cache branches. ``kv_cache`` is a
-        ``(ck, cv)`` pair of [slots, max_len, kv_heads, d] tensors,
-        written in place; ``cache_index`` is the [slots] vector of
-        per-slot lengths (prefill: each slot's chunk start)."""
+        ``(ck, cv)`` pair of [slots, max_len, kv_heads, d] float tensors
+        or of ``QuantizedKV`` (int8), written in place; ``cache_index`` is
+        the [slots] vector of per-slot lengths (prefill: each slot's chunk
+        start)."""
         if not (isinstance(cache_index, torch.Tensor)
                 and cache_index.dim() == 1):
             raise NotImplementedError(
@@ -165,25 +171,31 @@ class LlamaAttention(nn.Module):
         cfg = self.config
         b, s = q.shape[:2]
         ck, cv = kv_cache
-        if not isinstance(ck, torch.Tensor) or not ck.is_floating_point():
-            raise NotImplementedError(
-                "only float KV caches are ported; int8 (QuantizedKV) "
-                f"caches are not yet ({_TODO})")
+        quant = isinstance(ck, QuantizedKV)
         if s == 1 and da.fused_decode_active():
             pos = (position_ids[:, 0] if position_ids is not None
                    else cache_index).to(torch.int32).contiguous()
             qg = q[:, 0].reshape(b, cfg.num_key_value_heads,
                                  cfg.num_attention_heads
                                  // cfg.num_key_value_heads, cfg.head_dim)
-            og, _, _ = da.fused_contiguous_decode_attention(
+            # int8: the kernel quantizes the appended row and writes its
+            # scale beside it
+            og = da.fused_contiguous_decode_attention(
                 qg.contiguous(), k[:, 0].contiguous(),
-                v[:, 0].contiguous(), ck, cv,
+                v[:, 0].contiguous(), ck.q if quant else ck,
+                cv.q if quant else cv,
                 cache_index.to(torch.int32).contiguous(), pos,
-                cos.float().contiguous(), sin.float().contiguous())
+                cos.float().contiguous(), sin.float().contiguous(),
+                k_scale=ck.scale if quant else None,
+                v_scale=cv.scale if quant else None)[0]
             return og.reshape(b, 1, cfg.num_attention_heads, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin, position_ids)
-        k = k.to(ck.dtype)
-        v = v.to(cv.dtype)
+        if quant:
+            # quantize-on-append: payload and per-row scales land together
+            (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            stores = ((ck.q, kq), (ck.scale, ks), (cv.q, vq), (cv.scale, vs))
+        else:
+            stores = ((ck, k.to(ck.dtype)), (cv, v.to(cv.dtype)))
         max_len = ck.shape[1]
         if s > 1:
             # chunked prefill: slot b's rows land at cache_index[b]..+s-1.
@@ -201,27 +213,35 @@ class LlamaAttention(nn.Module):
             ar = torch.arange(s, device=q.device)
             win = start.clamp(max=max_len - s)[:, None] + ar[None, :]
             src = win - start[:, None]  # chunk row per window row
-            take = (src >= 0)[..., None, None]
+            take = src >= 0
             bidx = torch.arange(b, device=q.device)[:, None]
             src = src.clamp(min=0)
-            ck[bidx, win] = torch.where(take, k[bidx, src], ck[bidx, win])
-            cv[bidx, win] = torch.where(take, v[bidx, src], cv[bidx, win])
+            for dst, val in stores:
+                keep = take.reshape(take.shape + (1,) * (dst.dim() - 2))
+                dst[bidx, win] = torch.where(keep, val[bidx, src],
+                                             dst[bidx, win])
         else:
             # unfused decode: each slot appends at its own length and
             # attends to its own history
             idx = cache_index.long()
             bi = torch.arange(b, device=q.device)
-            ck[bi, idx] = k[:, 0]
-            cv[bi, idx] = v[:, 0]
+            for dst, val in stores:
+                dst[bi, idx] = val[:, 0]
             kv_idx = torch.arange(max_len, device=q.device)
             kv_mask = (kv_idx[None, :] <= idx[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(q, ck, cv, attn_mask=kv_mask)
+        out = F.scaled_dot_product_attention(
+            q, dequantize_kv(ck), dequantize_kv(cv), attn_mask=kv_mask)
+        # dequantized rows are float32; the output keeps the model's dtype,
+        # as the fused kernels' and dense_paged_attention's do (the JAX
+        # model promotes it here: ROADMAP.md Queue C)
+        return out.to(q.dtype) if quant else out
 
     def _paged(self, q, k, v, cos, sin, position_ids, kv_cache,
                cache_index):
         """The paged-pool branches. ``kv_cache`` is the layer's
-        ``(PagedLayerCache, PagedState)`` pair; the pools are written in
-        place through ``PagedState.block_tables``."""
+        ``(PagedLayerCache, PagedState)`` pair; the pools (and an int8
+        pool's scales) are written in place through
+        ``PagedState.block_tables``."""
         cfg = self.config
         b, s = q.shape[:2]
         nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -233,11 +253,12 @@ class LlamaAttention(nn.Module):
             lens = state.seq_lens
             pos = (position_ids[:, 0] if position_ids is not None
                    else lens).to(torch.int32).contiguous()
-            og, _, _ = pa.fused_paged_decode_attention(
+            og = pa.fused_paged_decode_attention(
                 q[:, 0].reshape(b, kvh, nh // kvh, hd).contiguous(),
                 k[:, 0].contiguous(), v[:, 0].contiguous(), cache.k_pages,
                 cache.v_pages, state.block_tables, lens, pos,
-                cos.float().contiguous(), sin.float().contiguous())
+                cos.float().contiguous(), sin.float().contiguous(),
+                k_scale=cache.k_scale, v_scale=cache.v_scale)[0]
             return og.reshape(b, 1, nh, hd)
         q, k = apply_rope(q, k, cos, sin, position_ids)
         if s > 1:
@@ -252,10 +273,14 @@ class LlamaAttention(nn.Module):
             append_kv_chunk(cache, state, k, v, cache_index)
             kg, vg = gather_kv(cache, state)
             _, kv_mask = _chunk_history_mask(cache_index, s, kg.shape[1])
-            return F.scaled_dot_product_attention(q, kg, vg,
-                                                  attn_mask=kv_mask)
+            out = F.scaled_dot_product_attention(q, kg, vg,
+                                                 attn_mask=kv_mask)
+            # an int8 pool gathers float32 rows: keep the model's dtype,
+            # as in the contiguous branch
+            return out.to(q.dtype) if cache.k_scale is not None else out
         # unfused decode: append this token's row at each slot's length,
-        # then block-table attention (the row-3 kernel on the card)
+        # then block-table attention (the row-3 kernel on the card; an int8
+        # pool takes the dense dequantizing path, as in the JAX package)
         append_kv(cache, state, k, v)
         return paged_attention(q, cache, state)
 
@@ -381,16 +406,22 @@ class LlamaForCausalLM(nn.Module):
         return self.logits(self.model(input_ids, position_ids))
 
     def init_kv_caches(self, batch_size: int, max_len: int,
-                       dtype=torch.bfloat16
-                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                       dtype=torch.bfloat16) -> List[Tuple]:
         """Zeroed contiguous caches, one ``(ck, cv)`` pair per layer, each
-        [batch, max_len, kv_heads, head_dim], on the model's device."""
-        if not dtype.is_floating_point:
-            raise NotImplementedError(
-                f"int8 (QuantizedKV) caches are not ported yet ({_TODO}, "
-                "quantized serving)")
+        [batch, max_len, kv_heads, head_dim], on the model's device. An
+        int8 ``dtype`` gives ``QuantizedKV`` pairs, each with a zeroed
+        float32 scale array [batch, max_len, kv_heads]."""
+        if dtype != torch.int8 and not dtype.is_floating_point:
+            raise ValueError(f"cache dtype must be a float dtype or int8; "
+                             f"got {dtype}")
         cfg = self.config
         shape = (batch_size, max_len, cfg.num_key_value_heads, cfg.head_dim)
-        return [(torch.zeros(shape, dtype=dtype, device=self.device),
-                 torch.zeros(shape, dtype=dtype, device=self.device))
-                for _ in range(cfg.num_hidden_layers)]
+
+        def side():
+            q = torch.zeros(shape, dtype=dtype, device=self.device)
+            if dtype != torch.int8:
+                return q
+            return QuantizedKV(q, torch.zeros(shape[:3], dtype=torch.float32,
+                                              device=self.device))
+
+        return [(side(), side()) for _ in range(cfg.num_hidden_layers)]

@@ -275,3 +275,227 @@ def test_paged_engine_fused_and_unfused_agree_on_the_card(card):
     through the row-3 kernel."""
     outs = _serve_fused_and_unfused(paged=True)
     assert outs["on"] == outs["off"]
+
+
+# ------------------------------------------- int8 branches of rows 1 and 2
+INT8_CASES = [  # d, group, query dtype
+    (128, 1, torch.bfloat16),
+    (128, 8, torch.float32),
+    (64, 2, torch.float16),
+    (32, 3, torch.float32),
+    (96, 4, torch.bfloat16),
+    (256, 2, torch.float32),
+]
+
+
+def _int8_side(shape, seed):
+    """A random int8 payload and float32 scales of ``shape[:-1]`` (the
+    trailing 1 of a pool's scale kept by the caller)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    s = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.019 + 1e-3
+    return q, s
+
+
+def _check_int8_append(got_q, want_q, got_s, want_s):
+    """The kernel quantizes the appended row from the same float32
+    rotation as the plain version: payloads equal, scales equal to
+    float32 rounding."""
+    assert torch.equal(got_q, want_q)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("d,group,act", INT8_CASES)
+def test_int8_contiguous_kernel_matches_plain_version(card, d, group, act):
+    slots, kvh, max_len = 5, 4, 200
+    lens = [0, 63, 64, max_len - 1, 131]
+    inp = _inputs(slots, kvh, group, d, max_len, lens, act, torch.float32)
+    inp["ck"], inp["k_scale"] = _int8_side((slots, max_len, kvh, d), 1)
+    inp["cv"], inp["v_scale"] = _int8_side((slots, max_len, kvh, d), 2)
+    ref_inp = {k: v.clone() for k, v in inp.items()}
+    before = da.LAUNCHES
+    out, ck, cv, ks, vs = da.fused_contiguous_decode_attention(**inp)
+    assert da.LAUNCHES == before + 1
+    ref, ckr, cvr, ksr, vsr = da.fused_contiguous_decode_plain(**ref_inp)
+    torch.cuda.synchronize()
+    assert ks is inp["k_scale"] and ck is inp["ck"]  # in place
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[act],
+                               atol=TOL[act])
+    rows = torch.arange(slots, device="cuda")
+    lens_l = inp["seq_lens"].long()
+    for a, b, sa, sb in ((ck, ckr, ks, ksr), (cv, cvr, vs, vsr)):
+        _check_int8_append(a[rows, lens_l], b[rows, lens_l],
+                           sa[rows, lens_l], sb[rows, lens_l])
+        keep = torch.ones(a.shape[:2], dtype=torch.bool, device="cuda")
+        keep[rows, lens_l] = False
+        assert torch.equal(a[keep], b[keep]) and torch.equal(sa[keep],
+                                                             sb[keep])
+
+
+@pytest.mark.parametrize("d,group,act", INT8_CASES)
+def test_int8_paged_kernel_matches_plain_version(card, d, group, act):
+    """Row 2 on an int8 pool of 16-row pages: outputs within TOL, the
+    appended rows and their scales equal, every other row untouched.
+    Slots 5 and 6 are inactive and append to the sink page's row 0."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    slots, kvh, page_size = 7, 2, 16
+    max_pages = 200 // page_size + 1
+    lens = [0, 63, 64, max_pages * page_size - 1, 131, 0, 0]
+    inp = _paged_inputs(slots, kvh, group, d, page_size, max_pages, lens,
+                        act, torch.float32, sink_slots=(5, 6))
+    shape = tuple(inp["k_pages"].shape)
+    inp["k_pages"], ks0 = _int8_side(shape, 3)
+    inp["v_pages"], vs0 = _int8_side(shape, 4)
+    inp["k_scale"], inp["v_scale"] = ks0[..., None], vs0[..., None]
+    ref_inp = {k: v.clone() for k, v in inp.items()}
+    before = pa.LAUNCHES["fused_paged_decode_attention"]
+    out, kp, vp, ks, vs = pa.fused_paged_decode_attention(**inp)
+    ref, kpr, vpr, ksr, vsr = pa.fused_paged_decode_plain(**ref_inp)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["fused_paged_decode_attention"] == before + 1
+    live = slice(0, 5)
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               rtol=TOL[act], atol=TOL[act])
+    bt = inp["block_tables"].long()
+    lens_l = inp["seq_lens"].long()
+    rows = torch.arange(slots, device="cuda")
+    page = bt[rows, lens_l // page_size][live]
+    off = (lens_l % page_size)[live]
+    for a, b, sa, sb in ((kp, kpr, ks, ksr), (vp, vpr, vs, vsr)):
+        _check_int8_append(a[:, page, off], b[:, page, off],
+                           sa[:, page, off], sb[:, page, off])
+        keep = torch.ones(a.shape[1:3], dtype=torch.bool, device="cuda")
+        keep[0] = False  # the sink page
+        keep[page, off] = False
+        assert torch.equal(a[:, keep], b[:, keep])
+        assert torch.equal(sa[:, keep], sb[:, keep])
+    with pytest.raises(ValueError):  # row 3 has no int8 path
+        pa.paged_decode_attention(inp["q"], kp, vp, inp["block_tables"],
+                                  inp["seq_lens"])
+
+
+# ------------------------------------------------ row 4: weight-only matmul
+QMM_CASES = [  # m, k, n, group, weight dtype, x dtype
+    (8, 512, 384, 128, "int8", torch.bfloat16),
+    (8, 512, 384, 128, "int4", torch.bfloat16),
+    (3, 264, 200, 264, "int8", torch.float32),   # odd m, g = k
+    (3, 264, 200, 264, "int4", torch.float16),
+    (16, 1024, 96, 64, "int8", torch.float32),
+    (37, 264, 200, 88, "int8", torch.bfloat16),  # tiled, ragged tiles
+    (300, 512, 256, 128, "int4", torch.bfloat16),
+    (300, 512, 256, 128, "int8", torch.float16),
+    (40, 130, 100, 10, "int8", torch.bfloat16),  # n % 8, k % 8 != 0
+    (64, 96, 72, 32, "int4", torch.float32),
+]
+
+
+@pytest.mark.parametrize("m,k,n,g,wdt,act", QMM_CASES)
+def test_weight_only_matmul_matches_plain_version(card, m, k, n, g, wdt,
+                                                  act):
+    """Row 4 against its plain version on the card, relative to the
+    output's scale: float32 within 1e-5 (two summation orders), 16-bit
+    x within 2e-2 (a few ulps of the rounded output, and cuBLAS may
+    reduce in 16 bits)."""
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    x = torch.randn((m, k), generator=gen, device="cuda").to(act)
+    quant = (qmm.quantize_weight_int4_grouped if wdt == "int4"
+             else qmm.quantize_weight_int8_grouped)
+    qw, sc = quant(w, g)
+    before = qmm.LAUNCHES
+    y = qmm.weight_only_matmul(x, qw, sc, group_size=g, weight_dtype=wdt)
+    assert qmm.LAUNCHES == before + 1
+    ref = qmm.weight_only_matmul_plain(x, qw, sc, group_size=g,
+                                       weight_dtype=wdt)
+    again = qmm.weight_only_matmul(x, qw, sc, group_size=g,
+                                   weight_dtype=wdt)
+    torch.cuda.synchronize()
+    assert y.dtype == act and tuple(y.shape) == (m, n)
+    assert torch.equal(y, again)  # deterministic: no float atomics
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = 1e-5 if act == torch.float32 else 2e-2
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_weight_only_matmul_raises_on_what_it_does_not_take(card):
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+
+    x = torch.randn((4, 256), device="cuda")
+    qw, sc = qmm.quantize_weight_int8_grouped(
+        torch.randn((256, 64), device="cuda"), 128)
+    with pytest.raises(ValueError):  # a group that does not divide k
+        qmm.weight_only_matmul(x, qw, sc, group_size=96)
+    with pytest.raises(ValueError):
+        qmm.weight_only_matmul(x.double(), qw, sc, group_size=128)
+    with pytest.raises(ValueError):  # int4 needs k/2 packed rows
+        qmm.weight_only_matmul(x, qw, sc, group_size=128,
+                               weight_dtype="int4")
+
+
+def _serve_quantized(paged, weight_dtype, cache_dtype):
+    """The tiny float32 model served with quantized weights and/or cache,
+    fused decode on and off; returns {mode: outputs} and asserts the
+    launch counts: row 4 once per linear per forward (7 per layer and the
+    head), the fused kernel of the cache once per layer per decode
+    forward, and the block-table kernel never for an int8 pool."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2)  # head_dim 64
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, n) for n in (3, 40, 17, 9, 33)]
+    extra = dict(paged=True, page_size=16, n_pages=9) if paged else {}
+    saved = flags.flag("fused_decode")
+    outs = {}
+    try:
+        for mode in ("on", "off"):
+            flags.set_flags({"fused_decode": mode})
+            eng = ContinuousBatchingEngine(
+                model, EngineConfig(max_slots=2, max_len=128,
+                                    weight_dtype=weight_dtype,
+                                    weight_group_size=64,
+                                    cache_dtype=cache_dtype, **extra))
+            counts = lambda: (qmm.LAUNCHES, da.LAUNCHES,  # noqa: E731
+                              pa.LAUNCHES["fused_paged_decode_attention"],
+                              pa.LAUNCHES["paged_decode_attention"])
+            before = counts()
+            outs[mode] = [r.output for r in eng.run(
+                prompts, max_new_tokens=12, max_chunk=4)]
+            launched = [b - a for a, b in zip(before, counts())]
+            layers = cfg.num_hidden_layers
+            decode = layers * eng.stats["decode_forwards"]
+            forwards = eng.stats["decode_forwards"] \
+                + eng.stats["prefill_chunk"]
+            want = [0 if weight_dtype == "bf16"
+                    else (7 * layers + 1) * forwards, 0, 0, 0]
+            if mode == "on":
+                want[2 if paged else 1] = decode
+            elif paged and cache_dtype != "int8":
+                want[3] = decode
+            assert launched == want
+    finally:
+        flags.set_flags({"fused_decode": saved})
+    return outs
+
+
+@pytest.mark.parametrize("paged,weight_dtype,cache_dtype", [
+    (True, "int8", torch.float32),
+    (False, "int4", torch.float32),
+    (True, "int8", "int8"),
+    (False, "bf16", "int8"),
+])
+def test_quantized_engine_fused_and_unfused_agree_on_the_card(
+        card, paged, weight_dtype, cache_dtype):
+    outs = _serve_quantized(paged, weight_dtype, cache_dtype)
+    assert outs["on"] == outs["off"]
+    assert all(len(o) == 12 for o in outs["on"])

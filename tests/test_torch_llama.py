@@ -19,6 +19,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import generation as tgen
 from paddle_tpu_torch.convert import load_numpy_state_dict
+from paddle_tpu_torch.inference.paged import QuantizedKV
 from paddle_tpu_torch.kernels import rope as trope
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import functional as TF
@@ -207,9 +208,20 @@ def test_chunked_prefill_then_decode_match_jax(tiny_pair, fused):
 
 
 def test_unported_branches_raise(tiny_pair):
-    _, tmodel, _ = tiny_pair
-    with pytest.raises(NotImplementedError):
-        tmodel.init_kv_caches(2, 16, dtype=torch.int8)
+    jmodel, tmodel, _ = tiny_pair
+    # int8 caches are QuantizedKV pairs of the JAX shapes: an int8 payload
+    # [slots, max_len, kv_heads, d] and float32 scales [slots, max_len,
+    # kv_heads], zeroed
+    want = jmodel.init_kv_caches(2, 16, dtype=jnp.int8)
+    got = tmodel.init_kv_caches(2, 16, dtype=torch.int8)
+    assert len(got) == len(want) == 2
+    for (tk, tv), (jk, jv) in zip(got, want):
+        for t, j in ((tk, jk), (tv, jv)):
+            assert isinstance(t, QuantizedKV)
+            assert t.q.dtype == torch.int8 and t.scale.dtype == torch.float32
+            assert tuple(t.q.shape) == tuple(j.q.shape) == (2, 16, 2, 16)
+            assert tuple(t.scale.shape) == tuple(j.scale.shape) == (2, 16, 2)
+            assert not t.q.any() and not t.scale.any()
     caches = tmodel.init_kv_caches(2, 16, dtype=torch.float32)
     with pytest.raises(NotImplementedError):  # the legacy shared index
         tmodel(torch.ones((2, 4), dtype=torch.long), kv_caches=caches,

@@ -228,18 +228,34 @@ def test_gather_and_dense_attention_match_jax(dtype, kvh, group):
 
 
 def test_int8_pools_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpaged.init_paged_pool(1, 4, 4, 1, 32, dtype=torch.int8,
-                               device="cpu")
+    """An int8 pool carries zeroed float32 scale arrays of the JAX pool's
+    shape, [kv_heads, n_pages, page_size, 1]; a pool whose payload and
+    scales disagree (float pages with scales, or int8 pages without)
+    raises, as does a pool dtype that is neither float nor int8."""
+    want = jpaged.init_paged_pool(2, 5, 4, 3, 32, dtype=jnp.int8)
+    got = tpaged.init_paged_pool(2, 5, 4, 3, 32, dtype=torch.int8,
+                                 device="cpu")
+    for g, w in zip(got, want):
+        for gt, wt in zip(g, w):
+            assert tuple(gt.shape) == tuple(wt.shape)
+            assert str(gt.dtype).split(".")[-1] == str(wt.dtype)
+            assert not gt.any()
+    assert tuple(got[0].k_scale.shape) == (3, 5, 4, 1)
     x = _setup(1, 1)
     tc, ts = _torch_pool(x, "float32")
     quant = tc._replace(k_scale=torch.ones(1), v_scale=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError):
         tpaged.gather_kv(quant, ts)
+    with pytest.raises(ValueError):
+        tpaged.gather_kv(got[0]._replace(k_scale=None, v_scale=None), ts)
+    with pytest.raises(ValueError):
+        tpaged.init_paged_pool(1, 4, 4, 1, 32, dtype=torch.int32,
+                               device="cpu")
     pools = tpaged.init_paged_pool(2, 4, 4, 1, 32, dtype=torch.float32,
                                    device="cpu")
     assert len(pools) == 2 and not pools[1].v_pages.any()
     assert tuple(pools[0].k_pages.shape) == (1, 4, 4, 32)
+    assert pools[0].k_scale is None
 
 
 # ------------------------------------------- the two kernels' plain versions

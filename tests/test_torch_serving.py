@@ -169,17 +169,27 @@ def test_add_request_rejects_bad_requests(models, flags16):
     assert not eng._queue
 
 
-@pytest.mark.parametrize("bad", ["paged_int8_cache", "int8_weights",
-                                 "int8_cache", "legacy_prefill"])
+@pytest.mark.parametrize("bad", ["fp8_weights", "int4_cache",
+                                 "zero_group_size", "int8_cache_legacy",
+                                 "legacy_prefill"])
 def test_configs_outside_the_slice_raise(models, flags16, bad):
+    """Configurations the JAX engine refuses raise its ``ValueError`` at
+    init (tests/test_quant_serving.py); the legacy bucketed prefill, which
+    the port does not have, raises ``NotImplementedError`` naming
+    ROADMAP.md."""
     _, tmodel = models
-    kw = {"paged_int8_cache": dict(paged=True, cache_dtype="int8"),
-          "int8_weights": dict(weight_dtype="int8"),
-          "int8_cache": dict(cache_dtype="int8"),
-          "legacy_prefill": {}}[bad]
-    if bad == "legacy_prefill":
+    kw, match = {
+        "fp8_weights": (dict(weight_dtype="fp8"), "weight_dtype"),
+        "int4_cache": (dict(cache_dtype="int4"), "cache_dtype"),
+        "zero_group_size": (dict(weight_dtype="int8", weight_group_size=0),
+                            "weight_group_size"),
+        "int8_cache_legacy": (dict(paged=True, cache_dtype="int8"),
+                              "chunked prefill"),
+        "legacy_prefill": ({}, "ROADMAP")}[bad]
+    if bad in ("int8_cache_legacy", "legacy_prefill"):
         tflags.set_flags({"prefill_chunk": 0})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc = NotImplementedError if bad == "legacy_prefill" else ValueError
+    with pytest.raises(exc, match=match):
         ContinuousBatchingEngine(tmodel, EngineConfig(**kw), device="cpu")
 
 
