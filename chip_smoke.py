@@ -60,7 +60,32 @@ Phases, each of which raises on failure:
    where the tokens leave the bf16 engine's (measured, not asserted);
 13. profiles: device time by operation (``torch.profiler``) of the
    prefill wave, and of the wave with 8 decode forwards, for the bf16
-   and the quantized engines.
+   and the quantized engines;
+14. flash attention vs plain versions (rows 5-9, after phase 8): the
+   forward without and with LSE, the dq, dk/dv and fused backward
+   kernels against their plain PyTorch versions at the Llama-2-7B train
+   shape (b 4, s 2048, 32 heads, d 128, causal, bf16), a GQA shape (32
+   query heads over 8 kv heads), d 64 and 96, a sliding window of 512,
+   packed segments as one array and as a pair, non-causal and float32,
+   each backward with a nonzero LSE cotangent; the fused and the
+   two-pass backward must agree. Timed at the train shape beside the
+   bounds, the plain versions and ``scaled_dot_product_attention``
+   forward and backward (a yardstick the port never calls);
+15. train reference (after phase 9): a tiny float32 Llama trains 5 steps
+   on the card (kernels) and on the CPU (plain versions) from the same
+   weights, with the same losses; ``use_recompute`` leaves the card's
+   gradients unchanged; ``gradient_merge_k_steps=2`` equals one step
+   over the whole batch;
+16. train at 7B width (last): Llama-2-7B width cut to 4 layers, bf16,
+   ``TrainStep`` with AdamW, float32 masters, global-norm clipping and
+   ``master_residency="master_only"`` on batch 4 x 2048: 2 warm-up and 5
+   timed steps (step ms, tokens/s, MFU, peak memory; the loss falls)
+   with exactly 4 launches of the forward with LSE and of the fused
+   backward per step; one step with ``use_recompute`` (8 forward
+   launches); one from the same weights with
+   ``flash_attention_block_k=256`` (the dq and dk/dv kernels, 4 each,
+   and the same loss and grad norm); one ``no_grad`` eval forward (4
+   launches of the forward without LSE); a profile of one step.
 
 Every kernel's launch count is set to 0 just before the engine run that
 reports it and read just after.
@@ -71,6 +96,7 @@ no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -847,24 +873,568 @@ def quant_reference_phase():
         flags.set_flags({"prefill_chunk": saved})
 
 
+# ------------------------------------------------ rows 5-9: flash attention
+FA_FILE = "paddle_tpu/kernels/pallas_attention.py"
+FA_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+# rows 5-9 by launch-count name; the serving runs launch none of them
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_fused",
+                 "flash_attention_bwd_dkv")
+NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
+# the train shape of Llama-2-7B width: batch 4 x seq 2048, 32 heads of 128
+TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hk=32, d=128)
+
+
+def fa_inputs(b, s, hq, hk, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    return (randn(b, s, hq, d), randn(b, s, hk, d), randn(b, s, hk, d),
+            randn(b, s, hq, d),
+            torch.randn((b, hq, s), generator=gen, device="cuda"))
+
+
+def fa_segments(kind, b, s):
+    """Four packed sequences per row, as one [b, s] array or a pair."""
+    if kind is None:
+        return None
+    ids = (torch.arange(s, device="cuda") * 4 // s).to(torch.int32)
+    ids = ids.expand(b, s).contiguous()
+    return ids if kind == "one" else (ids, ids.clone())
+
+
+def fa_err(got, want):
+    """Max abs error, and the same over the reference's largest magnitude
+    (at least 1)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
+             segments=None, seed=0):
+    """Rows 5-9 against their plain versions on one input set: the
+    forward without and with LSE, then the dq, dk/dv and fused backward
+    from the plain statistics with a nonzero LSE cotangent folded into
+    delta; the fused and the two-pass backward must agree (dk, dv bit for
+    bit: the same sums in the same order). Returns the max abs errors by
+    kernel."""
+    from paddle_tpu_torch.kernels import mha as fa
+
+    q, k, v, do, dlse = fa_inputs(b, s, hq, hk, d, dtype, seed)
+    qseg, kseg = fa.split_segments(fa_segments(segments, b, s), q, k)
+    kw = dict(causal=causal, sm_scale=d ** -0.5, qseg=qseg, kseg=kseg,
+              window=window)
+    # bf16: p and ds are rounded to bf16 against other running maxima and
+    # summed in other orders, a few ulps (2^-7) of the largest value;
+    # float32: the kernels' FMA chains against the card's float32 matmuls
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    o5, _ = fa.flash_forward(q, k, v, **kw)
+    o6, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
+    ref_o, ref_lse = fa.mha_forward_plain(q, k, v, **kw)
+    delta = fa.attention_delta(ref_o, do, dlse)
+    args = (q, k, v, do, ref_lse, delta)
+    span = fa.fit_block(1024, s)
+    got = {"fwd": o5, "fwd_lse": o6, "lse": lse,
+           "bwd_dq": fa.flash_bwd_dq(*args, **kw)}
+    got["bwd_dk"], got["bwd_dv"] = fa.flash_bwd_dkv(*args, **kw)
+    got["fused_dq"], got["fused_dk"], got["fused_dv"] = \
+        fa.flash_bwd_fused(*args, span=span, **kw)
+    torch.cuda.synchronize()
+    want = {"fwd": ref_o, "fwd_lse": ref_o, "lse": ref_lse,
+            "bwd_dq": fa.mha_bwd_dq_plain(*args, **kw)}
+    want["bwd_dk"], want["bwd_dv"] = fa.mha_bwd_dkv_plain(*args, **kw)
+    want["fused_dq"], want["fused_dk"], want["fused_dv"] = \
+        fa.mha_bwd_fused_plain(*args, span=span, **kw)
+    errs = {}
+    for key in got:
+        err, rel = fa_err(got[key], want[key])
+        if not rel <= tol or not torch.isfinite(got[key]).all():
+            raise AssertionError(f"flash check {name}: {key} differs from "
+                                 f"the plain version, max abs err {err} "
+                                 f"({rel} of the largest value, tol {tol})")
+        errs[key] = err
+    if not torch.equal(o5, o6):
+        raise AssertionError(f"flash check {name}: the forward with and "
+                             "without LSE differ")
+    if not (torch.equal(got["fused_dk"], got["bwd_dk"])
+            and torch.equal(got["fused_dv"], got["bwd_dv"])):
+        raise AssertionError(f"flash check {name}: fused and two-pass "
+                             "dk/dv differ")
+    err, rel = fa_err(got["fused_dq"], got["bwd_dq"])
+    if not rel <= tol:
+        raise AssertionError(f"flash check {name}: fused and two-pass dq "
+                             f"differ by {err}")
+    # the same through mha_with_lse under autograd (the forward with LSE,
+    # then the backward its k_block picks), cotangents (do, dlse)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o, lse = fa.mha_with_lse(*leaves, causal=causal,
+                             segment_ids=fa_segments(segments, b, s),
+                             window=window)
+    torch.autograd.backward((o, lse), (do, dlse))
+    for key, leaf in zip(("fused_dq", "fused_dk", "fused_dv"), leaves):
+        e, r = fa_err(leaf.grad, want[key])
+        if not r <= tol:
+            raise AssertionError(f"flash check {name}: mha_with_lse "
+                                 f"gradient {key[-2:]} differs by {e}")
+        errs[f"autograd_{key[-2:]}"] = e
+    print(f"flash check {name}: b={b} s={s} hq={hq} hk={hk} d={d} {dtype} "
+          f"causal={causal} window={window} segments={segments}: max abs "
+          f"errs " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; fused vs two-pass dq {err:.3e} (tol {tol} of the largest "
+          "value) ok", flush=True)
+    return {"flash_attention_fwd": errs["fwd"],
+            "flash_attention_fwd_lse": max(errs["fwd_lse"], errs["lse"]),
+            "flash_attention_bwd_dq": errs["bwd_dq"],
+            "flash_attention_bwd_fused": max(errs["fused_dq"],
+                                             errs["fused_dk"],
+                                             errs["fused_dv"]),
+            "flash_attention_bwd_dkv": max(errs["bwd_dk"], errs["bwd_dv"])}
+
+
+def fa_pairs(sq, sk, causal, window):
+    """Visible (query, key) pairs of one head: the data-dependent work."""
+    i = np.arange(sq)[:, None] + (sk - sq)
+    j = np.arange(sk)[None, :]
+    vis = np.ones((sq, sk), bool)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= (i - j) < window
+    return int(vis.sum())
+
+
+def fa_bound(name, b, s, hq, hk, d, itemsize, pairs):
+    """Least time for the function on these inputs: its products over
+    the visible pairs (forward 2, dq pass 3, dk/dv pass 4, fused 5 of
+    2 * d operations each) at the tensor-core rate, against each input
+    read once and each output written once (lse and delta float32);
+    the larger of the two."""
+    qb = b * s * hq * d * itemsize      # q, o, do or dq
+    kvb = b * s * hk * d * itemsize     # k, v, dk or dv
+    rows = b * hq * s * 4               # lse or delta
+    products, nbytes = {
+        "flash_attention_fwd": (2, 2 * qb + 2 * kvb),
+        "flash_attention_fwd_lse": (2, 2 * qb + 2 * kvb + rows),
+        "flash_attention_bwd_dq": (3, 3 * qb + 2 * kvb + 2 * rows),
+        "flash_attention_bwd_dkv": (4, 2 * qb + 4 * kvb + 2 * rows),
+        "flash_attention_bwd_fused": (5, 3 * qb + 4 * kvb + 2 * rows),
+    }[name]
+    ops = products * 2 * d * pairs * b * hq
+    t_ops = ops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), ops
+
+
+def flash_kernel_phase():
+    """Rows 5-9 against their plain versions at the shapes of the train
+    path and its variants, then timed at the Llama-2-7B train shape beside
+    their bounds, their plain versions and ``scaled_dot_product_attention``
+    (forward, and its backward for the backward kernels: a yardstick the
+    port never calls)."""
+    from paddle_tpu_torch.kernels import mha as fa
+
+    t = TRAIN_SHAPE
+    cases = [
+        ("train_7b", t["b"], t["s"], t["hq"], t["hk"], t["d"],
+         torch.bfloat16, {}),
+        ("gqa_32_over_8", 2, 2048, 32, 8, 128, torch.bfloat16, {}),
+        ("d64", 2, 1024, 8, 8, 64, torch.bfloat16, {}),
+        ("d96", 2, 1024, 8, 4, 96, torch.bfloat16, {}),
+        ("window512", 2, 2048, 8, 8, 128, torch.bfloat16,
+         dict(window=512)),
+        ("segments_one", 2, 2048, 8, 8, 128, torch.bfloat16,
+         dict(segments="one")),
+        ("segments_pair", 2, 2048, 8, 2, 128, torch.bfloat16,
+         dict(segments="pair", causal=False)),
+        ("noncausal", 2, 1024, 8, 8, 128, torch.bfloat16,
+         dict(causal=False)),
+        ("float32", 1, 512, 4, 2, 128, torch.float32, {}),
+    ]
+    errs = {}
+    for i, (name, b, s, hq, hk, d, dtype, kw) in enumerate(cases):
+        for key, e in fa_check(name, b, s, hq, hk, d, dtype, seed=60 + i,
+                               **kw).items():
+            errs[key] = max(errs.get(key, 0.0), e)
+    # timing at the train shape, causal bf16
+    b, s, hq, hk, d = (t[x] for x in ("b", "s", "hq", "hk", "d"))
+    q, k, v, do, _ = fa_inputs(b, s, hq, hk, d, torch.bfloat16, seed=70)
+    kw = dict(causal=True)
+    o, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    span = fa.fit_block(1024, s)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    plain_hold = dict(iters=10, warmup=2, hold=8 * HOLD_CYCLES)
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    lib_fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True), flush,
+                      iters=30)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), doh, retain_graph=True), flush, iters=30)
+    calls = {
+        "flash_attention_fwd": (lambda: fa.flash_forward(q, k, v, **kw),
+                                lambda: fa.mha_forward_plain(q, k, v, **kw),
+                                lib_fwd, 250),
+        "flash_attention_fwd_lse": (
+            lambda: fa.flash_forward(q, k, v, with_lse=True, **kw),
+            lambda: fa.mha_forward_plain(q, k, v, **kw), lib_fwd, 263),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_bwd_dq(*args, **kw),
+            lambda: fa.mha_bwd_dq_plain(*args, **kw), lib_bwd, 550),
+        "flash_attention_bwd_fused": (
+            lambda: fa.flash_bwd_fused(*args, span=span, **kw),
+            lambda: fa.mha_bwd_fused_plain(*args, span=span, **kw),
+            lib_bwd, 595),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(*args, **kw),
+            lambda: fa.mha_bwd_dkv_plain(*args, **kw), lib_bwd, 628),
+    }
+    pairs = fa_pairs(s, s, True, 0)
+    rows = {}
+    for name, (kernel, plain, library_ms, line) in calls.items():
+        kernel_ms = time_ms(kernel, flush, iters=30)
+        plain_ms = time_ms(plain, flush, **plain_hold)
+        bound_ms, bound_by, ops = fa_bound(name, b, s, hq, hk, d, 2, pairs)
+        print(f"flash timing {name} b={b} s={s} h={hq} d={d} causal bf16: "
+              f"kernel {kernel_ms:.4f} ms ({ops / kernel_ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+              f"{'forward' if 'fwd' in name else 'backward'} "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        rows[name] = dict(
+            name=name, route="cuda", source=FA_SOURCE,
+            replaces=f"{FA_FILE}:{line}",
+            shape=f"b={b} s={s} hq={hq} hk={hk} d={d} causal bf16"
+                  + (f" span={span}" if "fused" in name else ""),
+            max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms)
+    return rows
+
+
+def tiny_train_pair(**cfg):
+    """A tiny float32 Llama on the CPU and the same weights on the card."""
+    from paddle_tpu_torch.convert import load_numpy_state_dict
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cpu = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu", seed=4)
+    card = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cuda")
+    load_numpy_state_dict(card, {k: v.detach().numpy()
+                                 for k, v in cpu.state_dict().items()})
+    return cpu, card
+
+
+def train_reference_phase():
+    """A tiny float32 Llama (seq 128, so the kernel path is taken) trained
+    5 steps on the card (kernels) and on the CPU (plain versions) from the
+    same weights; the card's gradients with ``use_recompute`` against
+    those without; a ``gradient_merge_k_steps=2`` step against one step
+    over the whole batch."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import DistributedStrategy
+    from paddle_tpu_torch.trainer import TrainStep
+
+    ids = np.random.default_rng(6).integers(0, 256, (4, 128))
+    batch = {"input_ids": ids, "labels": ids}
+
+    def step(model, merge_k=1, epsilon=1e-8):
+        strategy = DistributedStrategy(gradient_merge=merge_k > 1,
+                                       gradient_merge_k_steps=merge_k)
+        return TrainStep(model, topt.AdamW(
+            learning_rate=1e-3, weight_decay=0.01, epsilon=epsilon,
+            grad_clip=topt.ClipGradByGlobalNorm(1.0)), strategy=strategy)
+
+    cpu, card = tiny_train_pair()
+    layers = card.config.num_hidden_layers
+    ts_card, ts_cpu = step(card), step(cpu)
+    reset_launches()
+    card_losses = [float(ts_card.run(batch)) for _ in range(5)]
+    counts = read_launches()
+    cpu_losses = [float(ts_cpu.run(batch)) for _ in range(5)]
+    want = {"flash_attention_fwd_lse": 5 * layers,
+            "flash_attention_bwd_fused": 5 * layers,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    if {n: counts[n] for n in want} != want:
+        raise AssertionError(f"train reference launches {counts}, want "
+                             f"{want}")
+    # float32 both ways: the kernels' FMA order against the CPU's; five
+    # AdamW steps keep the losses within 1e-4 of each other
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    if not gap <= 1e-4 or not card_losses[-1] < card_losses[0]:
+        raise AssertionError(f"train reference: card losses {card_losses}, "
+                             f"CPU {cpu_losses} (rel gap {gap})")
+    print(f"train reference: tiny float32 Llama, batch 4 x 128, 5 AdamW "
+          f"steps: card {card_losses}, CPU {cpu_losses}, max rel gap "
+          f"{gap:.3e} (tol 1e-4); launches {want}", flush=True)
+
+    grads = {}
+    for recompute in (False, True):
+        _, model = tiny_train_pair(use_recompute=recompute)
+        reset_launches()
+        model(torch.as_tensor(ids, device="cuda"),
+              torch.as_tensor(ids, device="cuda")).backward()
+        fwd = read_launches()["flash_attention_fwd_lse"]
+        if fwd != (2 if recompute else 1) * layers:
+            raise AssertionError(f"recompute={recompute}: {fwd} forward "
+                                 "launches")
+        grads[recompute] = {n: p.grad for n, p in model.named_parameters()}
+    worst = max(fa_err(grads[True][n], grads[False][n])[1]
+                for n in grads[False])
+    if not worst <= 1e-6:
+        raise AssertionError(f"use_recompute changed the gradients by "
+                             f"{worst}")
+    print(f"train reference: use_recompute gradients equal those without "
+          f"(max rel err {worst:.3e}, tol 1e-6); forward launches "
+          f"{2 * layers} with it, {layers} without", flush=True)
+
+    # epsilon 1e-2: Adam's normalised update would otherwise turn the two
+    # sums' float32 rounding in a near-zero gradient into a step of its own
+    _, whole = tiny_train_pair()
+    _, merged = tiny_train_pair()
+    lw = float(step(whole, epsilon=1e-2).run(batch))
+    lm = float(step(merged, merge_k=2, epsilon=1e-2).run(batch))
+    worst = max(fa_err(a, b)[0] for a, b in zip(merged.parameters(),
+                                                whole.parameters()))
+    if not (abs(lm - lw) <= 1e-5 * abs(lw) and worst <= 1e-5):
+        raise AssertionError(f"gradient merge: loss {lm} vs {lw}, params "
+                             f"differ by {worst}")
+    print(f"train reference: gradient_merge_k_steps=2 equals one step over "
+          f"the whole batch: loss {lm:.6f} vs {lw:.6f}, params within "
+          f"{worst:.3e} (tol 1e-5)", flush=True)
+
+
+def train_flops(cfg, b, s):
+    """Model FLOPs of one train step: 6 * N * T for the N matmul weights
+    (the layers' projections and the head; the embedding is a lookup) over
+    T = b * s tokens, plus the attention products 3 * 4 * b * h * d * P
+    per layer (forward once, backward twice) over the P = s(s+1)/2 causal
+    pairs; recomputation not counted."""
+    h, f, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    hq, hk = cfg.num_attention_heads, cfg.num_key_value_heads
+    per_layer = h * hq * d * 2 + h * hk * d * 2 + 3 * h * f
+    n = cfg.num_hidden_layers * per_layer + h * cfg.vocab_size
+    attn = 12 * b * hq * d * (s * (s + 1) // 2) * cfg.num_hidden_layers
+    return 6 * n * b * s + attn, n
+
+
+def profile_step(ts, batch):
+    """Device time by operation of one train step (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.run(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    flash_ms = sum(dev_us(e) for e in kernels
+                   if "fwd_kernel" in e.key or "dq_kernel" in e.key
+                   or "dkv_kernel" in e.key) / 1e3
+    ops = sorted((e for e in events
+                  if e.device_type != torch.autograd.DeviceType.CUDA),
+                 key=dev_us, reverse=True)
+    top = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
+           for e in ops[:8]]
+    top_kernels = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
+                   for e in sorted(kernels, key=dev_us, reverse=True)[:8]]
+    print(f"profile train step: wall {wall_ms:.2f} ms, kernel time "
+          f"{total_ms:.2f} ms, flash-attention kernels {flash_ms:.2f} ms; "
+          f"heaviest operators (name, device ms, calls): {top}; heaviest "
+          f"kernels: {top_kernels}", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=total_ms, flash_ms=flash_ms,
+                top=top, top_kernels=top_kernels)
+
+
+def train_7b_phase():
+    """Llama-2-7B width cut to 4 layers, bf16 random weights from seed 0,
+    trained as ``bench.py`` trains: AdamW (lr 3e-4, weight decay 0.01,
+    float32 masters, global-norm clip 1.0), ``master_residency=
+    "master_only"``, batch 4 x 2048 of one seeded batch with labels equal
+    to the inputs. 2 warm-up and 5 timed steps with exact launch counts,
+    one step with ``use_recompute``, one from the same weights with
+    ``flash_attention_block_k=256`` (the two-pass backward), one
+    ``no_grad`` eval forward, and a profile of one step. Returns the
+    launch counts of rows 5-9, each from its own run."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    cfg = dataclasses.replace(
+        LlamaConfig.llama2_7b(max_position_embeddings=s, dtype="bfloat16"),
+        num_hidden_layers=4)
+    print(f"train 7b: Llama-2-7B width (hidden 4096, intermediate 11008, "
+          f"32 heads, 32 kv heads, d 128, vocab 32000) with depth cut from "
+          f"32 to {cfg.num_hidden_layers} layers: the masters, moments and "
+          f"gradients of all 32 under master_only (about 94 GB) exceed the "
+          f"80 GB card", flush=True)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    ts = TrainStep(model, topt.AdamW(
+        learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+        grad_clip=topt.ClipGradByGlobalNorm(1.0)),
+        master_residency="master_only")
+    torch.cuda.synchronize()
+    print(f"train 7b: {n_params} parameters, bf16 weights with float32 "
+          f"masters and moments, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    layers = cfg.num_hidden_layers
+    losses, norms = [], []
+    for _ in range(2):  # warm-up
+        losses.append(float(ts.run(batch)))
+        norms.append(float(ts.last_grad_norm))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = ts.run(batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        norms.append(float(ts.last_grad_norm))
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention_fwd_lse": 5 * layers,
+            "flash_attention_bwd_fused": 5 * layers,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    if {n: counts[n] for n in want} != want:
+        raise AssertionError(f"train 7b launches {counts}, want {want}")
+    if not (all(math.isfinite(x) for x in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train 7b: losses {losses}, grad norms "
+                             f"{norms}")
+    flops, n_matmul = train_flops(cfg, b, s)
+    med_ms = float(np.median(step_ms))
+    tokens_per_s = b * s / (med_ms / 1e3)
+    mfu = flops / (med_ms / 1e3) / H100_BF16_FLOPS
+    print(f"train 7b: 5 timed steps {[round(x, 3) for x in step_ms]} ms "
+          f"(median {med_ms:.3f} ms, CUDA events around TrainStep.run), "
+          f"{tokens_per_s:.1f} tokens/s, MFU {mfu:.4f} = (6 * {n_matmul} "
+          f"matmul weights * {b * s} tokens + 12 * b * h * d * s(s+1)/2 "
+          f"attention per layer = {flops / 1e12:.2f} TFLOP) / step time / "
+          f"989 TFLOP/s; peak {peak_gb:.2f} GB; losses {losses}; grad norms "
+          f"{norms}; launches per 5 steps {want}", flush=True)
+
+    # one step with use_recompute, and one from the same weights with the
+    # two-pass backward
+    masters = {n: m.clone() for n, m in ts.opt_state["master"].items()}
+    model.config.use_recompute = True
+    reset_launches()
+    loss_a, norm_a = float(ts.run(batch)), float(ts.last_grad_norm)
+    rec = read_launches()
+    model.config.use_recompute = False
+    if (rec["flash_attention_fwd_lse"], rec["flash_attention_bwd_fused"]) \
+            != (2 * layers, layers):
+        raise AssertionError(f"use_recompute step launches {rec}")
+    for n, m in ts.opt_state["master"].items():
+        m.copy_(masters[n])
+    del masters
+    flags.set_flags({"flash_attention_block_k": 256})
+    try:
+        reset_launches()
+        loss_b, norm_b = float(ts.run(batch)), float(ts.last_grad_norm)
+        two = read_launches()
+    finally:
+        flags.set_flags({"flash_attention_block_k": 1024})
+    want_two = {"flash_attention_fwd_lse": layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers,
+                "flash_attention_bwd_fused": 0, "flash_attention_fwd": 0}
+    if {n: two[n] for n in want_two} != want_two:
+        raise AssertionError(f"block_k=256 step launches {two}, want "
+                             f"{want_two}")
+    # the same weights and forward; the two backward passes differ only in
+    # how dq sums (float32 span partials or one pass)
+    if not (abs(loss_a - loss_b) <= 1e-3 * abs(loss_a)
+            and abs(norm_a - norm_b) <= 1e-2 * abs(norm_a)):
+        raise AssertionError(f"fused vs two-pass step: loss {loss_a} vs "
+                             f"{loss_b}, grad norm {norm_a} vs {norm_b}")
+    print(f"train 7b: use_recompute step launches {rec}; the two-pass step "
+          f"(flash_attention_block_k=256) from the same weights: loss "
+          f"{loss_b:.6f} vs {loss_a:.6f}, grad norm {norm_b:.6f} vs "
+          f"{norm_a:.6f} (tol 1e-3 and 1e-2 relative); launches {want_two}",
+          flush=True)
+
+    ts.sync_to_model()
+    reset_launches()
+    with torch.no_grad():
+        logits = model(ids)
+    evals = read_launches()
+    if evals["flash_attention_fwd"] != layers \
+            or evals["flash_attention_fwd_lse"] != 0 \
+            or tuple(logits.shape) != (b, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"eval forward: launches {evals}, logits "
+                             f"{tuple(logits.shape)}")
+    del logits
+    print(f"train 7b: no_grad eval forward: {layers} launches of the "
+          "forward without LSE, finite logits", flush=True)
+    prof = profile_step(ts, batch)
+    print(json.dumps({"train_7b": {
+        "model": "llama2_7b width, 4 layers, random bf16 weights (seed 0)",
+        "batch": b, "seq": s, "parameters": n_params,
+        "step_ms": step_ms, "step_ms_median": med_ms,
+        "tokens_per_s": tokens_per_s, "mfu": mfu,
+        "model_tflop_per_step": flops / 1e12, "peak_memory_gb": peak_gb,
+        "losses": losses, "grad_norms": norms,
+        "two_pass_loss": loss_b, "two_pass_grad_norm": norm_b,
+        "profile": prof}}), flush=True)
+    return {"flash_attention_fwd": evals["flash_attention_fwd"],
+            "flash_attention_fwd_lse": counts["flash_attention_fwd_lse"],
+            "flash_attention_bwd_fused": counts["flash_attention_bwd_fused"],
+            "flash_attention_bwd_dq": two["flash_attention_bwd_dq"],
+            "flash_attention_bwd_dkv": two["flash_attention_bwd_dkv"]}
+
+
 def reset_launches():
     from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import mha
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qmm
 
     da.LAUNCHES = 0
     qmm.LAUNCHES = 0
-    for k in pa.LAUNCHES:
-        pa.LAUNCHES[k] = 0
+    for counts in (pa.LAUNCHES, mha.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_launches():
     from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import mha
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qmm
 
     return {"fused_contiguous_decode_attention": da.LAUNCHES, **pa.LAUNCHES,
-            "weight_only_matmul": qmm.LAUNCHES}
+            "weight_only_matmul": qmm.LAUNCHES, **mha.LAUNCHES}
 
 
 def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8,
@@ -999,12 +1569,13 @@ def paged_engine_phase(model, prompts, contiguous_outs):
     fused_want = {"fused_contiguous_decode_attention": 0,
                   "fused_paged_decode_attention":
                       layers * stats["decode_forwards"],
-                  "paged_decode_attention": 0, "weight_only_matmul": 0}
+                  "paged_decode_attention": 0, "weight_only_matmul": 0,
+                  **NO_FLASH}
     off_want = {"fused_contiguous_decode_attention": 0,
                 "fused_paged_decode_attention": 0,
                 "paged_decode_attention":
                     layers * stats_off["decode_forwards"],
-                "weight_only_matmul": 0}
+                "weight_only_matmul": 0, **NO_FLASH}
     print(f"paged engine fused: 8 requests served in {wall:.3f} s, TTFT "
           f"p50 {ttft_p50:.2f} ms, decode {decode_tps:.1f} tok/s "
           f"({decode_tokens} tokens in {decode_wall:.3f} s), peak memory "
@@ -1090,7 +1661,8 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
                     decode if fused == "off" and paged and not int8_kv
                     else 0,
                 "weight_only_matmul":
-                    (7 * layers + 1) * forwards if quant_w else 0}
+                    (7 * layers + 1) * forwards if quant_w else 0,
+                **NO_FLASH}
         if counts != want or (quant_w and want["weight_only_matmul"] <= 0):
             raise AssertionError(f"{label} fused={fused}: launches {counts}, "
                                  f"expected {want}")
@@ -1217,9 +1789,11 @@ def main() -> int:
     fused_row, block_row = paged_kernel_phase()
     qmm_row = quant_kernel_phase()
     row_i8, fused_row_i8 = int8_decode_phase()
+    fa_rows = flash_kernel_phase()
     reference_phase()
     reference_phase(paged=True)
     quant_reference_phase()
+    train_reference_phase()
     model, prompts = build_7b()
     row["launches"], contiguous_outs = engine_phase(model, prompts)
     fused_row["launches"], block_row["launches"], paged_outs = \
@@ -1249,8 +1823,12 @@ def main() -> int:
             profiles[f"{label}_new{n}"] = wave_profile(
                 model, prompts, label, max_new_tokens=n, **config)
     print(json.dumps({"profiles": profiles}), flush=True)
+    del model, prompts
+    torch.cuda.empty_cache()
+    for name, n in train_7b_phase().items():
+        fa_rows[name]["launches"] = n
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
-                           qmm_row]}
+                           qmm_row, *fa_rows.values()]}
     for r in kernels["kernels"]:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(r[key]):

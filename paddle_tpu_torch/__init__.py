@@ -10,8 +10,9 @@ first use. The port imports neither JAX nor anything of ``paddle_tpu``.
 It serves Llama through the continuous-batching engine
 (``inference/serving.py``) with contiguous KV caches or a paged pool
 (``inference/paged.py``), float or int8, over bf16 weights or int8/int4
-weight-only quantized ones (``quantization``); ROADMAP.md lists what
-comes next.
+weight-only quantized ones (``quantization``), and trains it on one card
+(``trainer.TrainStep`` with ``optimizer.AdamW``, float32 masters and the
+flash-attention kernels); ROADMAP.md lists what comes next.
 """
 
 from . import flags

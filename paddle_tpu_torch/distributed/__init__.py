@@ -1,1 +1,6 @@
-"""Distributed layers of the PyTorch port (single device for now)."""
+"""Distributed layers and strategy of the PyTorch port (one device for
+now)."""
+
+from .strategy import DistributedStrategy, HybridConfig
+
+__all__ = ["DistributedStrategy", "HybridConfig"]

@@ -14,34 +14,37 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core.device import resolve_device
 from ...core.random import normal_
 from ...nn.functional import embedding, linear
 
 
 def _weight(shape, std: float, dtype, device,
             generator: torch.Generator) -> nn.Parameter:
-    """A frozen parameter drawn from Normal(0, std) with ``generator``
+    """A trainable parameter drawn from Normal(0, std) with ``generator``
     (on ``device``), as the JAX layers draw from ``I.Normal``."""
     w = torch.empty(shape, dtype=dtype, device=device)
     normal_(w, 0.0, std, generator)
-    return nn.Parameter(w, requires_grad=False)
+    return nn.Parameter(w)
 
 
 class ColumnParallelLinear(nn.Module):
-    """Weight [in, out]; at tp>1 the out dim would be sharded."""
+    """Weight [in, out]; at tp>1 the out dim would be sharded. ``device``
+    defaults to the card (raises without one unless ``"cpu"`` is passed);
+    ``generator`` must live on that device."""
 
     def __init__(self, in_features: int, out_features: int,
                  std: float = 0.02, has_bias: bool = True,
-                 dtype=torch.float32, device="cpu",
+                 dtype=torch.float32, device="cuda",
                  *, generator: torch.Generator):
         super().__init__()
+        device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
         self.weight = _weight((in_features, out_features), std, dtype,
                               device, generator)
         self.bias = (nn.Parameter(torch.zeros((out_features,), dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
                      if has_bias else None)
 
     def forward(self, x):
@@ -55,12 +58,13 @@ class RowParallelLinear(ColumnParallelLinear):
 
 class VocabParallelEmbedding(nn.Module):
     """Embedding table [vocab, hidden]; at tp>1 the vocab dim would be
-    sharded."""
+    sharded. ``device`` defaults to the card, as for the linears."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 std: float = 0.02, dtype=torch.float32, device="cpu",
+                 std: float = 0.02, dtype=torch.float32, device="cuda",
                  *, generator: torch.Generator):
         super().__init__()
+        device = resolve_device(device)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.weight = _weight((num_embeddings, embedding_dim), std, dtype,

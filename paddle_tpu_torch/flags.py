@@ -3,8 +3,9 @@
 Counterpart of ``paddle_tpu/flags.py``: the same ``define_flag`` /
 ``flag`` / ``set_flags`` surface and the same
 ``PT_FLAGS_<name>`` environment prefix. It holds only the flags the
-serving slice reads, under the JAX package's names and defaults, so an
-environment that configures one package configures the other alike.
+serving and training slices read, under the JAX package's names and
+defaults, so an environment that configures one package configures the
+other alike.
 """
 
 from __future__ import annotations
@@ -72,3 +73,14 @@ define_flag("serve_weight_dtype", "bf16",
             "(quantization.quantize_model_weight_only); every grouped "
             "quantized linear runs the Hopper weight-only matmul kernel "
             "on the card")
+define_flag("flash_attention_block_q", 1024,
+            "flash-attention q block length of the JAX package. In the "
+            "port it does not set the CUDA tiles (the kernels' own "
+            "constants); mha clamps it to the sequence (fit_block) and "
+            "refuses a sequence it cannot tile, as the JAX mha does")
+define_flag("flash_attention_block_k", 1024,
+            "flash-attention k/v block length of the JAX package, clamped "
+            "to the sequence (fit_block). In the port it chooses the "
+            "backward pass as on the TPU: the fused pass when "
+            "ceil(sk / block_k) <= 4 (one float32 dq partial per block_k "
+            "kv rows), else the dq and dk/dv passes")

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # (source, object name, extra defines): one object per cache element type,
-# and one for the weight-only matmul
+# one for the weight-only matmul, and one per element type of the flash
+# attention kernels
 UNITS: List[Tuple[str, str, List[str]]] = [
     ("decode_attention.cu", "decode_attention_f32",
      ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32"]),
@@ -51,6 +52,12 @@ UNITS: List[Tuple[str, str, List[str]]] = [
     ("paged_attention.cu", "paged_attention_i8",
      ["-DPT_CACHE_T=int8_t", "-DPT_CACHE_TAG=i8", "-DPT_CACHE_INT8"]),
     ("quant_matmul.cu", "quant_matmul", []),
+    ("flash_attention.cu", "flash_attention_f32",
+     ["-DPT_FA_T=float", "-DPT_FA_TAG=f32"]),
+    ("flash_attention.cu", "flash_attention_f16",
+     ["-DPT_FA_T=__half", "-DPT_FA_TAG=f16"]),
+    ("flash_attention.cu", "flash_attention_bf16",
+     ["-DPT_FA_T=__nv_bfloat16", "-DPT_FA_TAG=bf16"]),
 ]
 
 # the last build of this process: seconds spent compiling (0.0 when the

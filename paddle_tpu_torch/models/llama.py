@@ -2,24 +2,37 @@
 
 Parameter names and shapes match the JAX model one to one, with weights
 in the JAX layout ``[in_features, out_features]``, so a JAX
-``state_dict`` loads through ``convert.load_numpy_state_dict``. This
-slice carries the serving path: the no-cache forward (plain causal
-attention) and the cache branches the continuous batching engine drives,
-over contiguous per-slot caches or the paged pool: chunked prefill
-(``s > 1``) and decode (``s == 1``, fused or unfused). Caches are float
-or int8: int8 contiguous caches are ``QuantizedKV`` pairs and int8 pools
-carry scale arrays; rows are quantized on append and attention reads them
-dequantized. KV caches are updated in place, where the JAX model returns
-new arrays that its engine donates.
+``state_dict`` loads through ``convert.load_numpy_state_dict``.
+
+Training: parameters are trainable and ``train()``/``eval()`` are the
+caller's. The no-cache forward attends through
+``kernels/flash_attention.py: flash_attention`` (causal) when
+``use_flash_attention`` is on, the Hopper flash-attention kernels on the
+card, and through plain SDPA when it is off; with ``labels`` it returns
+the shifted next-token cross-entropy. ``use_recompute`` recomputes each
+decoder layer in the backward (``torch.utils.checkpoint``, non-reentrant)
+while training, keeping the matmul outputs under the JAX policy
+``"dots_with_no_batch_dims_saveable"``.
+
+Serving: the cache branches the continuous batching engine drives run
+under ``torch.no_grad()``, over contiguous per-slot caches or the paged
+pool: chunked prefill (``s > 1``) and decode (``s == 1``, fused or
+unfused). Caches are float or int8: int8 contiguous caches are
+``QuantizedKV`` pairs and int8 pools carry scale arrays; rows are
+quantized on append and attention reads them dequantized. KV caches are
+updated in place, where the JAX model returns new arrays that its engine
+donates.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.device import resolve_device
 from ..core.random import make_generator
@@ -39,6 +52,7 @@ from ..inference.paged import (
     quantize_kv_rows,
 )
 from ..kernels import decode_attention as da
+from ..kernels import flash_attention as fa
 from ..kernels import paged_attention as pa
 from ..kernels.rope import apply_rope, rope_frequencies
 from ..nn import functional as F
@@ -61,15 +75,15 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    # the port's no-cache branch is plain causal attention until the
-    # flash-attention kernel is ported (ROADMAP.md Queue B); the flag is
-    # kept so configurations carry across unchanged
+    # the no-cache branch: flash attention (the Hopper kernels on the
+    # card) or plain SDPA
     use_flash_attention: bool = True
     # sequence-parallel attention needs a mesh, which the port lacks yet
     sep_attention: str = "ulysses"
-    # training features (ROADMAP.md Queue A, train step): must stay off
     use_recompute: bool = False
     recompute_policy: str = "dots_with_no_batch_dims_saveable"
+    # the chunked head + loss is not ported (ROADMAP.md Queue A): must
+    # stay 0
     fused_head_loss_chunk: int = 0
     dtype: str = "float32"
     initializer_range: float = 0.02
@@ -146,7 +160,12 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(b, s, kvh, hd)
         if kv_cache is None:
             q, k = apply_rope(q, k, cos, sin, position_ids)
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            if cfg.use_flash_attention:
+                out = fa.flash_attention(q, k, v, causal=True,
+                                         training=self.training)
+            else:
+                out = F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=True)
         else:
             out = self._cached(q, k, v, cos, sin, position_ids, kv_cache,
                                cache_index)
@@ -326,6 +345,30 @@ class LlamaDecoderLayer(nn.Module):
         return (x, kv_cache) if kv_cache is not None else x
 
 
+# matmul outputs a recomputed layer keeps, by JAX checkpoint policy name;
+# any other name recomputes everything, as a policy JAX does not know
+# (``getattr(jax.checkpoint_policies, name, None)``) does
+_DOTS = ("mm", "addmm", "bmm")
+_SAVED_OPS = {"dots_with_no_batch_dims_saveable": _DOTS,
+              "dots_saveable": _DOTS, "checkpoint_dots": _DOTS}
+
+
+def _recompute_context(policy_name: str):
+    """The ``context_fn`` of a selective checkpoint that keeps the outputs
+    of the policy's ops, or None for full recompute."""
+    names = _SAVED_OPS.get(policy_name)
+    if names is None:
+        return None
+    ops = {getattr(torch.ops.aten, n).default for n in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
@@ -347,12 +390,18 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, kv_caches=None,
                 cache_index=None):
+        cfg = self.config
         h = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos, self.rope_sin
         for i, layer in enumerate(self.layers):
             if kv_caches is not None:
                 h, _ = layer(h, cos, sin, position_ids, kv_caches[i],
                              cache_index)
+            elif cfg.use_recompute and self.training:
+                ctx = _recompute_context(cfg.recompute_policy)
+                kw = {} if ctx is None else {"context_fn": ctx}
+                h = ckpt.checkpoint(layer, h, cos, sin, position_ids,
+                                    use_reentrant=False, **kw)
             else:
                 h = layer(h, cos, sin, position_ids)
         h = self.norm(h)
@@ -364,14 +413,14 @@ class LlamaForCausalLM(nn.Module):
     no CUDA device is present unless ``device="cpu"`` is passed).
     Weights are drawn from Normal(0, ``initializer_range``) with a
     ``torch.Generator`` seeded from ``seed`` on that device; parameters
-    are frozen (serving only)."""
+    are trainable."""
 
     def __init__(self, config: LlamaConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if config.use_recompute or config.fused_head_loss_chunk:
+        if config.fused_head_loss_chunk:
             raise NotImplementedError(
-                "use_recompute and fused_head_loss_chunk are training "
-                f"features, not ported yet ({_TODO}, train step)")
+                "fused_head_loss_chunk (the chunked head + cross-entropy) "
+                f"is not ported yet ({_TODO}, train step)")
         dev = resolve_device(device)
         gen = make_generator(seed, dev)
         self.config = config
@@ -381,7 +430,6 @@ class LlamaForCausalLM(nn.Module):
                 config.hidden_size, config.vocab_size,
                 std=config.initializer_range, has_bias=False,
                 dtype=config.torch_dtype, device=dev, generator=gen)
-        self.eval()
 
     @property
     def device(self) -> torch.device:
@@ -392,18 +440,27 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(hidden)
         return F.linear(hidden, self.model.embed_tokens.weight.T)
 
-    @torch.no_grad()
-    def forward(self, input_ids, position_ids=None, kv_caches=None,
-                cache_index=None):
-        """Logits ``[b, s, vocab]``; with ``kv_caches`` (a list of
-        per-layer contiguous ``(ck, cv)`` pairs or paged
-        ``(PagedLayerCache, PagedState)`` pairs, written in place) returns
-        ``(logits, kv_caches)``."""
+    def forward(self, input_ids, labels=None, position_ids=None,
+                kv_caches=None, cache_index=None):
+        """Logits ``[b, s, vocab]``; with ``labels`` [b, s] the mean
+        next-token cross-entropy of ``logits[:, :-1]`` against
+        ``labels[:, 1:]`` (float32; ids of -100 are ignored). With
+        ``kv_caches`` (a list of per-layer contiguous ``(ck, cv)`` pairs
+        or paged ``(PagedLayerCache, PagedState)`` pairs, written in
+        place, under ``torch.no_grad()``) returns ``(logits,
+        kv_caches)``."""
         if kv_caches is not None:
-            hidden, kv_caches = self.model(input_ids, position_ids,
-                                           kv_caches, cache_index)
-            return self.logits(hidden), kv_caches
-        return self.logits(self.model(input_ids, position_ids))
+            with torch.no_grad():
+                hidden, kv_caches = self.model(input_ids, position_ids,
+                                               kv_caches, cache_index)
+                return self.logits(hidden), kv_caches
+        hidden = self.model(input_ids, position_ids)
+        if labels is None:
+            return self.logits(hidden)
+        # next-token LM loss, float32 softmax over the vocabulary
+        shift_logits = self.logits(hidden)[:, :-1, :]
+        return F.cross_entropy(shift_logits, labels[:, 1:],
+                               ignore_index=-100)
 
     def init_kv_caches(self, batch_size: int, max_len: int,
                        dtype=torch.bfloat16) -> List[Tuple]:

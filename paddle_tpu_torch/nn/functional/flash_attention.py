@@ -45,3 +45,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     dv = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dv), v.to(dv))
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False, *,
+                    training=True, **kw):
+    """Parity: paddle.nn.functional.flash_attention.flash_attention.
+    Delegates to ``kernels/flash_attention.py: flash_attention`` (the
+    Hopper kernels for CUDA tensors of aligned shapes, the dense
+    reference otherwise); like the JAX function it ignores further
+    keyword arguments."""
+    from ...kernels import flash_attention as fa
+
+    return fa.flash_attention(query, key, value, causal=causal,
+                              dropout_p=dropout, training=training)

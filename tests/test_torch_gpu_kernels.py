@@ -499,3 +499,151 @@ def test_quantized_engine_fused_and_unfused_agree_on_the_card(
     outs = _serve_quantized(paged, weight_dtype, cache_dtype)
     assert outs["on"] == outs["off"]
     assert all(len(o) == 12 for o in outs["on"])
+
+
+# --- flash attention (rows 5-9) ---------------------------------------------
+
+from paddle_tpu_torch.kernels import mha as fa  # noqa: E402
+
+# kernel vs plain version, relative to the plain version's largest
+# magnitude (at least 1). 16-bit: p and ds are rounded to the input dtype
+# against different running maxima and summed in other orders, a few ulps
+# of bf16 (2^-7) or fp16 (2^-10); float32: the kernel's FMA chains against
+# the card's matmuls, about 1e-6.
+FA_TOL = {torch.float32: 2e-5, torch.float16: 4e-3, torch.bfloat16: 2e-2}
+
+FA_CASES = [  # b, sq, sk, hq, hk, d, dtype, causal, window, segments
+    (2, 256, 256, 4, 4, 128, torch.bfloat16, True, 0, None),
+    (1, 384, 384, 8, 2, 128, torch.bfloat16, True, 0, None),
+    (1, 256, 256, 6, 2, 64, torch.float16, False, 0, None),
+    (1, 256, 256, 5, 1, 96, torch.bfloat16, True, 0, None),
+    (1, 512, 512, 2, 2, 128, torch.bfloat16, True, 64, None),
+    (2, 256, 256, 2, 2, 128, torch.bfloat16, True, 0, "one"),
+    (2, 256, 256, 4, 2, 64, torch.bfloat16, False, 0, "pair"),
+    (1, 256, 256, 2, 1, 64, torch.float32, True, 0, None),
+    (1, 256, 256, 2, 2, 128, torch.float32, False, 0, None),
+    (1, 128, 128, 2, 2, 256, torch.float32, True, 32, None),
+    (1, 128, 128, 4, 2, 256, torch.bfloat16, True, 0, None),
+    (1, 200, 200, 3, 1, 8, torch.bfloat16, True, 0, None),
+    (1, 100, 300, 2, 2, 40, torch.float16, True, 0, None),
+    (2, 128, 320, 4, 4, 64, torch.float32, True, 0, None),
+]
+
+
+def _fa_inputs(b, sq, sk, hq, hk, d, dtype, segments, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = randn(b, sq, hq, d), randn(b, sk, hk, d), \
+        randn(b, sk, hk, d), randn(b, sq, hq, d)
+    qseg = kseg = None
+    if segments is not None:
+        # sorted segments; every query's segment has keys at or before it
+        qseg = (torch.arange(sq, device="cuda") * 4 // sq).to(torch.int32)
+        kseg = (torch.arange(sk, device="cuda") * 4 // sk).to(torch.int32)
+        qseg, kseg = qseg.expand(b, sq).contiguous(), \
+            kseg.expand(b, sk).contiguous()
+    return q, k, v, do, qseg, kseg
+
+
+def _fa_close(name, got, want, tol):
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * scale, f"{name}: max abs err {err} > {tol * scale}"
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hk,d,dtype,causal,window,segments",
+                         FA_CASES)
+def test_flash_attention_kernels_match_plain_versions(
+        card, b, sq, sk, hq, hk, d, dtype, causal, window, segments):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, qseg, kseg = _fa_inputs(b, sq, sk, hq, hk, d, dtype,
+                                         segments)
+    kw = dict(causal=causal, sm_scale=d ** -0.5, qseg=qseg, kseg=kseg,
+              window=window)
+    tol = FA_TOL[dtype]
+    before = dict(fa.LAUNCHES)
+    o5, none = fa.flash_forward(q, k, v, **kw)
+    o6, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
+    o_ref, lse_ref = fa.mha_forward_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(o5, o6)
+    _fa_close("o", o6, o_ref, tol)
+    _fa_close("lse", lse, lse_ref, tol)
+    # the backward from the plain statistics, with an LSE cotangent
+    dlse = torch.randn(lse_ref.shape, device="cuda")
+    delta = fa.attention_delta(o_ref, do, dlse)
+    args = (q, k, v, do, lse_ref, delta)
+    dq7 = fa.flash_bwd_dq(*args, **kw)
+    dk9, dv9 = fa.flash_bwd_dkv(*args, **kw)
+    span = fa.fit_block(128, sk)
+    dq8, dk8, dv8 = fa.flash_bwd_fused(*args, span=span, **kw)
+    want_dq = fa.mha_bwd_dq_plain(*args, **kw)
+    want_dk, want_dv = fa.mha_bwd_dkv_plain(*args, **kw)
+    fq, fk, fv = fa.mha_bwd_fused_plain(*args, span=span, **kw)
+    torch.cuda.synchronize()
+    for name, got, want in (("dq", dq7, want_dq), ("dk", dk9, want_dk),
+                            ("dv", dv9, want_dv), ("fused dq", dq8, fq),
+                            ("fused dk", dk8, fk), ("fused dv", dv8, fv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _fa_close(name, got, want, tol)
+    # the fused and the two-pass backward agree; dk/dv bit for bit (the
+    # same sums in the same order)
+    _fa_close("fused vs two-pass dq", dq8, dq7, tol)
+    assert torch.equal(dk8, dk9) and torch.equal(dv8, dv9)
+    # run-to-run identical
+    again = fa.flash_bwd_fused(*args, span=span, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (dq8, dk8, dv8)))
+    assert torch.equal(fa.flash_bwd_dq(*args, **kw), dq7)
+    want_counts = {"flash_attention_fwd": 1, "flash_attention_fwd_lse": 1,
+                   "flash_attention_bwd_dq": 2,
+                   "flash_attention_bwd_fused": 2,
+                   "flash_attention_bwd_dkv": 1}
+    assert {n: fa.LAUNCHES[n] - before[n] for n in want_counts} \
+        == want_counts
+
+
+def test_flash_attention_autograd_matches_plain_gradients(card):
+    """``mha_with_lse`` under autograd (row 6, then the fused or the
+    two-pass backward by ``k_block``), with cotangents for both outputs,
+    against the plain versions' gradients."""
+    q, k, v, do, _, _ = _fa_inputs(2, 512, 512, 4, 2, 128, torch.bfloat16,
+                                   None, seed=3)
+    dlse = torch.randn((2, 4, 512), device="cuda")
+    grads = {}
+    # one kv span (fused), four spans (fused), eight (the two passes)
+    for blk in (1024, 128, 64):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = fa.mha_with_lse(*ts, causal=True, k_block=blk)
+        torch.autograd.backward((o, lse), (do, dlse))
+        grads[blk] = [t.grad for t in ts]
+    o, lse = fa.mha_forward_plain(q, k, v, causal=True)
+    delta = fa.attention_delta(o, do, dlse)
+    want = fa.mha_bwd_fused_plain(q, k, v, do, lse, delta, causal=True)
+    for blk, got in grads.items():
+        for name, g, w in zip("qkv", got, want):
+            _fa_close(f"d{name} (k_block {blk})", g, w, FA_TOL[q.dtype])
+
+
+def test_flash_attention_kernels_raise_on_what_they_do_not_take(card):
+    q, k, v, do, _, _ = _fa_inputs(1, 128, 128, 4, 2, 64, torch.bfloat16,
+                                   None)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        fa.flash_forward(q, k[:, :, :1].expand(1, 128, 3, 64).contiguous(),
+                         v[:, :, :1].expand(1, 128, 3, 64).contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                         v[..., :12].contiguous())
+    big = torch.zeros((1, 128, 2, 264), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="share one of"):
+        fa.flash_forward(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="share one of"):
+        fa.flash_forward(q, k.half(), v)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_forward(q, k.cpu(), v)

@@ -78,11 +78,31 @@ def test_default_device_entry_points_raise_without_a_card():
     from paddle_tpu_torch.core.random import make_generator
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.inference.paged import PagePool, init_paged_pool
+    from paddle_tpu_torch.distributed.parallel_layers import (
+        ColumnParallelLinear,
+        RowParallelLinear,
+        VocabParallelEmbedding,
+    )
     from paddle_tpu_torch.kernels.rope import rope_frequencies
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import RMSNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.trainer import TrainStep
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaForCausalLM(LlamaConfig.tiny())
+    # the public layers default to the card too
+    gen = torch.Generator()
+    for make in (lambda **kw: RMSNorm(8, **kw),
+                 lambda **kw: ColumnParallelLinear(8, 4, generator=gen, **kw),
+                 lambda **kw: RowParallelLinear(8, 4, generator=gen, **kw),
+                 lambda **kw: VocabParallelEmbedding(16, 8, generator=gen,
+                                                     **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        layer = make(device="cpu")
+        assert all(p.device.type == "cpu" and p.requires_grad
+                   for p in layer.parameters())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     # the helpers default to the card too, and give host tensors only
@@ -98,6 +118,12 @@ def test_default_device_entry_points_raise_without_a_card():
     assert rope_frequencies(32, 16, device="cpu")[0].device.type == "cpu"
     assert make_generator(0, device="cpu").device.type == "cpu"
     cpu_model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    # a train step runs where its model lives: on the CPU only when the
+    # model was asked for it
+    ts = TrainStep(cpu_model, AdamW())
+    assert ts.device.type == "cpu" and ts.generator.device.type == "cpu"
+    assert all(t.device.type == "cpu"
+               for t in ts.opt_state["slots"]["lm_head.weight"].values())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousBatchingEngine(cpu_model)
     # an engine asked for a device its model is not on refuses too

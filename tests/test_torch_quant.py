@@ -46,7 +46,7 @@ from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
 
 def _np(t):
-    return t.float().numpy() if isinstance(t, torch.Tensor) \
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t, np.float32)
 
 
@@ -138,7 +138,8 @@ def test_weight_only_linear_layouts_match_jax():
 
     pt.seed(3)
     jlin = JLinear(96, 40, has_bias=False)
-    tlin = TLinear(96, 40, has_bias=False, generator=torch.Generator())
+    tlin = TLinear(96, 40, has_bias=False, device="cpu",
+                   generator=torch.Generator())
     load_numpy_state_dict(tlin, {"weight": np.asarray(jlin.weight.value)})
     x = np.random.default_rng(5).standard_normal((2, 3, 96)) \
         .astype(np.float32)
