@@ -913,6 +913,51 @@ def fa_err(got, want):
     return err, err / max(1.0, want.float().abs().max().item())
 
 
+# Kernel against plain version, row by row: the norm of each [d] row's
+# difference over the norm of the plain version's row (taken as at least
+# 1e-3 of the tensor's root-mean-square row norm, so that a row the
+# plain version cancels to near zero is held to the tensor's scale).
+# bf16: p and ds are rounded to bf16 (2^-8 relative) against other
+# running maxima and summed in other orders, and the outputs are rounded
+# once more: a few tenths of a percent of a row, so 2e-2 holds them with
+# room and rejects a kernel that skips a kv tile (fa_planted_fault).
+# float32: the kernels' FMA chains against the card's float32 matmuls.
+# lse is float32 on both sides, held absolutely.
+FA_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+FA_LSE_TOL = 1e-5
+
+
+def fa_row_err(got, want):
+    """The largest relative error of a [d] row (see FA_ROW_TOL) and the
+    max abs error."""
+    g, w = got.float(), want.float()
+    num = (g - w).norm(dim=-1)
+    den = w.norm(dim=-1)
+    floor = 1e-3 * den.square().mean().sqrt()
+    rel = (num / torch.maximum(den, floor)).max().item()
+    return rel, (g - w).abs().max().item()
+
+
+def fa_compare(name, got, want, tol):
+    """Hold each output against its reference: lse (a [b, h, s] float32
+    tensor) within FA_LSE_TOL absolutely, the others row by row within
+    ``tol``. Returns {key: (row err, max abs err)} and the keys that
+    failed."""
+    errs, failed = {}, []
+    for key in got:
+        g = got[key]
+        if key == "lse":
+            err = (g.float() - want[key].float()).abs().max().item()
+            errs[key] = (err, err)
+            bad = not err <= FA_LSE_TOL
+        else:
+            errs[key] = fa_row_err(g, want[key])
+            bad = not errs[key][0] <= tol
+        if bad or not torch.isfinite(g).all():
+            failed.append(key)
+    return errs, failed
+
+
 def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
              segments=None, seed=0):
     """Rows 5-9 against their plain versions on one input set: the
@@ -927,10 +972,7 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
     qseg, kseg = fa.split_segments(fa_segments(segments, b, s), q, k)
     kw = dict(causal=causal, sm_scale=d ** -0.5, qseg=qseg, kseg=kseg,
               window=window)
-    # bf16: p and ds are rounded to bf16 against other running maxima and
-    # summed in other orders, a few ulps (2^-7) of the largest value;
-    # float32: the kernels' FMA chains against the card's float32 matmuls
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    tol = FA_ROW_TOL[dtype]
     o5, _ = fa.flash_forward(q, k, v, **kw)
     o6, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
     ref_o, ref_lse = fa.mha_forward_plain(q, k, v, **kw)
@@ -948,14 +990,13 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
     want["bwd_dk"], want["bwd_dv"] = fa.mha_bwd_dkv_plain(*args, **kw)
     want["fused_dq"], want["fused_dk"], want["fused_dv"] = \
         fa.mha_bwd_fused_plain(*args, span=span, **kw)
-    errs = {}
-    for key in got:
-        err, rel = fa_err(got[key], want[key])
-        if not rel <= tol or not torch.isfinite(got[key]).all():
-            raise AssertionError(f"flash check {name}: {key} differs from "
-                                 f"the plain version, max abs err {err} "
-                                 f"({rel} of the largest value, tol {tol})")
-        errs[key] = err
+    errs, failed = fa_compare(name, got, want, tol)
+    if failed:
+        raise AssertionError(f"flash check {name}: {failed} differ from "
+                             f"the plain versions: " + ", ".join(
+                                 f"{k} row err {errs[k][0]:.3e} max abs "
+                                 f"{errs[k][1]:.3e}" for k in failed)
+                             + f" (tol {tol} of a row, lse {FA_LSE_TOL})")
     if not torch.equal(o5, o6):
         raise AssertionError(f"flash check {name}: the forward with and "
                              "without LSE differ")
@@ -963,10 +1004,10 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
             and torch.equal(got["fused_dv"], got["bwd_dv"])):
         raise AssertionError(f"flash check {name}: fused and two-pass "
                              "dk/dv differ")
-    err, rel = fa_err(got["fused_dq"], got["bwd_dq"])
-    if not rel <= tol:
+    pass_rel, _ = fa_row_err(got["fused_dq"], got["bwd_dq"])
+    if not pass_rel <= tol:
         raise AssertionError(f"flash check {name}: fused and two-pass dq "
-                             f"differ by {err}")
+                             f"differ by {pass_rel} of a row")
     # the same through mha_with_lse under autograd (the forward with LSE,
     # then the backward its k_block picks), cotangents (do, dlse)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -975,23 +1016,94 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
                              window=window)
     torch.autograd.backward((o, lse), (do, dlse))
     for key, leaf in zip(("fused_dq", "fused_dk", "fused_dv"), leaves):
-        e, r = fa_err(leaf.grad, want[key])
-        if not r <= tol:
+        rel, e = fa_row_err(leaf.grad, want[key])
+        if not rel <= tol:
             raise AssertionError(f"flash check {name}: mha_with_lse "
-                                 f"gradient {key[-2:]} differs by {e}")
-        errs[f"autograd_{key[-2:]}"] = e
+                                 f"gradient {key[-2:]} differs by {rel} "
+                                 "of a row")
+        errs[f"autograd_{key[-2:]}"] = (rel, e)
     print(f"flash check {name}: b={b} s={s} hq={hq} hk={hk} d={d} {dtype} "
-          f"causal={causal} window={window} segments={segments}: max abs "
-          f"errs " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-          + f"; fused vs two-pass dq {err:.3e} (tol {tol} of the largest "
-          "value) ok", flush=True)
-    return {"flash_attention_fwd": errs["fwd"],
-            "flash_attention_fwd_lse": max(errs["fwd_lse"], errs["lse"]),
-            "flash_attention_bwd_dq": errs["bwd_dq"],
-            "flash_attention_bwd_fused": max(errs["fused_dq"],
-                                             errs["fused_dk"],
-                                             errs["fused_dv"]),
-            "flash_attention_bwd_dkv": max(errs["bwd_dk"], errs["bwd_dv"])}
+          f"causal={causal} window={window} segments={segments}: row err / "
+          f"max abs err " + ", ".join(f"{k} {r:.2e}/{e:.2e}"
+                                      for k, (r, e) in errs.items())
+          + f"; fused vs two-pass dq row err {pass_rel:.2e} (tol {tol} of "
+          f"a row, lse {FA_LSE_TOL}) ok", flush=True)
+    ab = {k: e for k, (_, e) in errs.items()}
+    return {"flash_attention_fwd": ab["fwd"],
+            "flash_attention_fwd_lse": max(ab["fwd_lse"], ab["lse"]),
+            "flash_attention_bwd_dq": ab["bwd_dq"],
+            "flash_attention_bwd_fused": max(ab["fused_dq"], ab["fused_dk"],
+                                             ab["fused_dv"]),
+            "flash_attention_bwd_dkv": max(ab["bwd_dk"], ab["bwd_dv"])}
+
+
+def fa_dense(q, k, v, do, dlse, vis, scale):
+    """Dense float32 attention under ``vis`` ([s, s], True = attend; kv
+    heads equal to query heads), and its gradients by autograd for the
+    cotangents (do, dlse): an independent reference, with no rounding of
+    p or ds."""
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    sc = sc.masked_fill(~vis, -1e30)
+    lse = torch.logsumexp(sc, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(sc - lse[..., None]), vf)
+    dq, dk, dv = torch.autograd.grad((o, lse), (qf, kf, vf),
+                                     (do.float(), dlse))
+    return {"o": o.detach(), "lse": lse.detach(), "dq": dq, "dk": dk,
+            "dv": dv}
+
+
+def fa_planted_fault():
+    """The check has teeth: at the train shape, the kernels' forward and
+    fused backward are held, through ``fa_compare``, against a dense
+    float32 reference (``fa_dense``). With the true causal mask every
+    output must pass; with a planted fault (each query in the second half
+    of the sequence skips its last visible 64-key tile, the diagonal one,
+    as a kernel whose causal bound stopped a tile early would) every
+    output must fail. The backward kernel takes its ``delta`` from the
+    reference's float32 output: the kernels take delta as an input, and
+    one from the bf16 output would shift each row of ds by p times that
+    rounding, which in a row whose dq is small by chance is several
+    percent of the row (the caller's rounding, not the kernels')."""
+    from paddle_tpu_torch.kernels import mha as fa
+
+    t = TRAIN_SHAPE
+    b, s, hq, hk, d = (t[x] for x in ("b", "s", "hq", "hk", "d"))
+    q, k, v, do, dlse = fa_inputs(b, s, hq, hk, d, torch.bfloat16, seed=80)
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    true_vis = j <= i
+    fault_vis = true_vis & ~((i >= s // 2) & (j >= i // 64 * 64))
+    want_true = fa_dense(q, k, v, do, dlse, true_vis, d ** -0.5)
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    o, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
+    delta = fa.attention_delta(want_true["o"], do, dlse)
+    dq, dk, dv = fa.flash_bwd_fused(q, k, v, do, lse, delta,
+                                    span=fa.fit_block(1024, s), **kw)
+    got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    tol = FA_ROW_TOL[torch.bfloat16]
+    out = {}
+    for label, vis, must_pass in (("true mask", true_vis, True),
+                                  ("planted fault", fault_vis, False)):
+        want = (want_true if must_pass
+                else fa_dense(q, k, v, do, dlse, vis, d ** -0.5))
+        errs, failed = fa_compare(label, got, want, tol)
+        del want
+        want_true = None
+        ok = not failed if must_pass else set(failed) == set(got)
+        print(f"flash planted fault: kernels vs dense float32 with the "
+              f"{label}: row err / max abs err " + ", ".join(
+                  f"{k} {r:.2e}/{e:.2e}" for k, (r, e) in errs.items())
+              + f"; failed {failed} (tol {tol} of a row, lse "
+              f"{FA_LSE_TOL}): {'as required' if ok else 'WRONG'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(
+                f"flash planted fault: with the {label} the check "
+                f"{'failed' if must_pass else 'passed'} "
+                f"{failed if must_pass else set(got) - set(failed)}")
+        out[label] = {k: r for k, (r, _) in errs.items()}
+    return out
 
 
 def fa_pairs(sq, sk, causal, window):
@@ -1053,12 +1165,16 @@ def flash_kernel_phase():
         ("noncausal", 2, 1024, 8, 8, 128, torch.bfloat16,
          dict(causal=False)),
         ("float32", 1, 512, 4, 2, 128, torch.float32, {}),
+        # ragged: no multiple of the kernels' tiles or of 128, nine
+        # 128-row spans in the fused pass
+        ("ragged_1100", 1, 1100, 8, 2, 128, torch.bfloat16, {}),
     ]
     errs = {}
     for i, (name, b, s, hq, hk, d, dtype, kw) in enumerate(cases):
         for key, e in fa_check(name, b, s, hq, hk, d, dtype, seed=60 + i,
                                **kw).items():
             errs[key] = max(errs.get(key, 0.0), e)
+    fa_planted_fault()
     # timing at the train shape, causal bf16
     b, s, hq, hk, d = (t[x] for x in ("b", "s", "hq", "hk", "d"))
     q, k, v, do, _ = fa_inputs(b, s, hq, hk, d, torch.bfloat16, seed=70)

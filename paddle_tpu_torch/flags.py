@@ -73,11 +73,6 @@ define_flag("serve_weight_dtype", "bf16",
             "(quantization.quantize_model_weight_only); every grouped "
             "quantized linear runs the Hopper weight-only matmul kernel "
             "on the card")
-define_flag("flash_attention_block_q", 1024,
-            "flash-attention q block length of the JAX package. In the "
-            "port it does not set the CUDA tiles (the kernels' own "
-            "constants); mha clamps it to the sequence (fit_block) and "
-            "refuses a sequence it cannot tile, as the JAX mha does")
 define_flag("flash_attention_block_k", 1024,
             "flash-attention k/v block length of the JAX package, clamped "
             "to the sequence (fit_block). In the port it chooses the "

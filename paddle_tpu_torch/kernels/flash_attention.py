@@ -1,14 +1,14 @@
 """Flash-attention dispatch (counterpart of
 ``paddle_tpu/kernels/flash_attention.py``).
 
-``flash_attention`` sends a CUDA tensor of a shape the JAX package would
-send to its Pallas kernel on a TPU (``_use_pallas``: sequence a multiple
-of 128 and head dim a multiple of 8; here also the kv sequence, whose
-misfit the JAX package meets with a silent fall-back, and a head dim of
-at most 256, the kernels' limit) to the Hopper kernels of ``mha.py``.
-Every other shape, and every CPU tensor, takes the dense references
-below, as the JAX package does off the TPU. There is no ``try`` around
-the kernel: a CUDA tensor that reaches it launches it or raises.
+``flash_attention`` sends every CUDA tensor to the Hopper kernels of
+``mha.py``, which take any sequence lengths (ragged tiles are masked in
+the kernels) and raise on what they cannot take (a head dim that is not
+a multiple of 8 or is over 256). Only CPU tensors take the dense
+references below. The JAX package also sends a sequence that is not a
+multiple of 128 to its dense reference on a TPU; on the card that would
+be a silent fall-back to O(s^2) memory, so the port does not. There is
+no ``try`` around the kernel: a CUDA tensor launches it or raises.
 
 All paths align the causal mask bottom-right (key j visible to query i
 iff ``j <= i + sk - sq``), the convention of ``_reference_attention``;
@@ -74,17 +74,10 @@ def _segment_reference_attention(q, k, v, segment_ids, causal=False,
                                 bias=bias, window=window)
 
 
-def kernel_shape(q, k) -> bool:
-    """The dispatch rule's shapes: both sequences multiples of 128 and a
-    head dim that is a multiple of 8, at most 256."""
-    d = q.shape[-1]
-    return (q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
-            and d % 8 == 0 and d <= 256)
-
-
-def use_kernel(q, k) -> bool:
-    """The dispatch rule: a CUDA tensor of a ``kernel_shape``."""
-    return q.device.type == "cuda" and kernel_shape(q, k)
+def use_kernel(q) -> bool:
+    """The dispatch rule: every tensor that is not on the CPU goes to the
+    kernels (``mha`` raises for a device other than the card)."""
+    return q.device.type != "cpu"
 
 
 def flash_attention(q, k, v, causal: bool = False, dropout_p: float = 0.0,
@@ -101,9 +94,8 @@ def flash_attention(q, k, v, causal: bool = False, dropout_p: float = 0.0,
         raise NotImplementedError(
             f"attention dropout is not ported ({_TODO}); the JAX package "
             "runs it through the dense path, and Llama uses none")
-    if use_kernel(q, k):
+    if use_kernel(q):
         return mha(q, k, v, causal=causal, sm_scale=scale,
-                   q_block=int(flags.flag("flash_attention_block_q")),
                    k_block=int(flags.flag("flash_attention_block_k")),
                    segment_ids=segment_ids, window=window_size)
     if segment_ids is not None:

@@ -3,10 +3,13 @@
 
 ``mha`` and ``mha_with_lse`` take ``[batch, seq, heads, head_dim]``
 tensors with the JAX functions' arguments: ``causal``, ``sm_scale``,
-``q_block``/``k_block``, ``segment_ids`` (one ``[b, s]`` array or a
-``(q_ids, kv_ids)`` pair; tokens attend only where ids match) and a
-sliding ``window``. Grouped-query attention (fewer kv heads) is native:
-K/V are never repeated in device memory on the kernel path.
+``k_block``, ``segment_ids`` (one ``[b, s]`` array or a ``(q_ids,
+kv_ids)`` pair; tokens attend only where ids match) and a sliding
+``window``. The JAX ``q_block`` is not taken: it sets only the TPU's
+tiling, and the CUDA tiles are the kernels' own. Any sequence lengths
+are taken (the kernels mask their ragged last tiles). Grouped-query
+attention (fewer kv heads) is native: K/V are never repeated in device
+memory on the kernel path.
 
 Four Hopper kernels (``csrc/flash_attention.cu``) carry it, each beside
 its plain PyTorch version in this module:
@@ -45,7 +48,6 @@ from typing import Optional, Tuple
 
 import torch
 
-DEFAULT_Q_BLOCK = 1024
 DEFAULT_K_BLOCK = 1024
 NEG_INF = -1e30
 FUSED_BWD_MAX_KB = 4  # paddle_tpu/kernels/pallas_attention.py: _FUSED_BWD_MAX_KB
@@ -422,8 +424,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
-def _prepare(q, k, v, sm_scale, q_block, k_block, segment_ids, causal,
-             window):
+def _prepare(q, k, v, sm_scale, k_block, segment_ids, causal, window):
     if window and not causal:
         raise ValueError("sliding window requires causal=True")
     if q.dim() != 4 or k.dim() != 4:
@@ -431,10 +432,7 @@ def _prepare(q, k, v, sm_scale, q_block, k_block, segment_ids, causal,
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv "
                          f"heads {k.shape[2]}")
-    sq, sk = q.shape[1], k.shape[1]
-    qb, kb = fit_block(q_block, sq), fit_block(k_block, sk)
-    if sq % qb or sk % kb:
-        raise ValueError(f"seq lens ({sq}, {sk}) must be multiples of 128")
+    kb = fit_block(k_block, k.shape[1])
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     qseg, kseg = split_segments(segment_ids, q, k)
     return (q.contiguous(), k.contiguous(), v.contiguous(), qseg, kseg,
@@ -446,13 +444,13 @@ def _needs_grad(*ts):
 
 
 def mha(q, k, v, causal: bool = False, sm_scale: Optional[float] = None,
-        q_block: int = DEFAULT_Q_BLOCK, k_block: int = DEFAULT_K_BLOCK,
-        segment_ids=None, window: int = 0) -> torch.Tensor:
+        k_block: int = DEFAULT_K_BLOCK, segment_ids=None,
+        window: int = 0) -> torch.Tensor:
     """Flash attention over [batch, seq, heads, head_dim]; differentiable.
     Under autograd the forward runs with LSE (row 6) for the backward;
     otherwise without (row 5)."""
     q, k, v, qseg, kseg, scale, kb = _prepare(
-        q, k, v, sm_scale, q_block, k_block, segment_ids, causal, window)
+        q, k, v, sm_scale, k_block, segment_ids, causal, window)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, qseg, kseg, causal, scale,
                                      window, kb)[0]
@@ -461,14 +459,13 @@ def mha(q, k, v, causal: bool = False, sm_scale: Optional[float] = None,
 
 def mha_with_lse(q, k, v, causal: bool = False,
                  sm_scale: Optional[float] = None,
-                 q_block: int = DEFAULT_Q_BLOCK,
                  k_block: int = DEFAULT_K_BLOCK, segment_ids=None,
                  window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention that also returns logsumexp [b, heads, sq] (float32),
     the statistic ring/context-parallel callers merge partial results
     with; differentiable in both outputs."""
     q, k, v, qseg, kseg, scale, kb = _prepare(
-        q, k, v, sm_scale, q_block, k_block, segment_ids, causal, window)
+        q, k, v, sm_scale, k_block, segment_ids, causal, window)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, qseg, kseg, causal, scale,
                                      window, kb)

@@ -51,9 +51,9 @@ def flash_attention(query, key, value, dropout=0.0, causal=False, *,
                     training=True, **kw):
     """Parity: paddle.nn.functional.flash_attention.flash_attention.
     Delegates to ``kernels/flash_attention.py: flash_attention`` (the
-    Hopper kernels for CUDA tensors of aligned shapes, the dense
-    reference otherwise); like the JAX function it ignores further
-    keyword arguments."""
+    Hopper kernels for CUDA tensors, the dense reference for CPU
+    tensors); like the JAX function it ignores further keyword
+    arguments."""
     from ...kernels import flash_attention as fa
 
     return fa.flash_attention(query, key, value, causal=causal,

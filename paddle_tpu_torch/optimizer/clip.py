@@ -3,7 +3,9 @@ ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue).
 
 Functional: each clipper maps a ``{name: grad}`` dict to a new dict, in
 float32 math cast back to each gradient's dtype, as the JAX clippers map
-a pytree.
+a pytree. A caller that already holds the gradients' global norm passes
+it as ``norm``, and the global-norm clipper then does not compute it
+again; the other clippers ignore it.
 """
 
 from __future__ import annotations
@@ -19,8 +21,13 @@ def _norm_sq(g: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(g.float()))
 
 
+def global_norm(grads: Grads) -> torch.Tensor:
+    """The float32 norm of all of ``grads`` together."""
+    return torch.sqrt(sum(_norm_sq(g) for g in grads.values()))
+
+
 class ClipGradBase:
-    def __call__(self, grads: Grads) -> Grads:
+    def __call__(self, grads: Grads, norm=None) -> Grads:
         raise NotImplementedError
 
 
@@ -28,16 +35,17 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def __init__(self, clip_norm: float = 1.0):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, grads: Grads) -> Grads:
+    def __call__(self, grads: Grads, norm=None) -> Grads:
         if not grads:
             return grads
-        scale = torch.clamp(
-            self.clip_norm / torch.clamp(self.global_norm(grads), min=1e-12),
-            max=1.0)
+        if norm is None:
+            norm = self.global_norm(grads)
+        scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
+                            max=1.0)
         return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}
 
     def global_norm(self, grads: Grads) -> torch.Tensor:
-        return torch.sqrt(sum(_norm_sq(g) for g in grads.values()))
+        return global_norm(grads)
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -52,7 +60,7 @@ class ClipGradByNorm(ClipGradBase):
                             max=1.0)
         return (g.float() * scale).to(g.dtype)
 
-    def __call__(self, grads: Grads) -> Grads:
+    def __call__(self, grads: Grads, norm=None) -> Grads:
         return {n: self._one(g) for n, g in grads.items()}
 
 
@@ -61,6 +69,6 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def __call__(self, grads: Grads) -> Grads:
+    def __call__(self, grads: Grads, norm=None) -> Grads:
         return {n: torch.clamp(g, self.min, self.max)
                 for n, g in grads.items()}

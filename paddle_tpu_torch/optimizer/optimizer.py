@@ -66,20 +66,23 @@ class Optimizer:
                             device=step.device)
 
     @torch.no_grad()
-    def update(self, grads, state, params, scale=None):
+    def update(self, grads, state, params, scale=None, grad_norm=None):
         """One optimizer step; ``scale`` is an optional gradient divisor
-        (GradScaler parity). ``params`` may hold only some of the state's
-        parameters: a name whose parameter is absent (the master-only
-        residency of ``TrainStep``) is updated through its master alone,
-        and its low-precision value is left to the caller. Returns
-        ``(new_params, new_state)``, both updated in place."""
+        (GradScaler parity), and ``grad_norm`` the global norm of
+        ``grads / scale`` where the caller already has it (the global-norm
+        clip then uses it and does not compute its own). ``params`` may
+        hold only some of the state's parameters: a name whose parameter
+        is absent (the master-only residency of ``TrainStep``) is updated
+        through its master alone, and its low-precision value is left to
+        the caller. Returns ``(new_params, new_state)``, both updated in
+        place."""
         step = state["step"]
         step += 1
         lr = self._lr_value(step)
         if scale is not None:
             grads = {n: g.float() / scale for n, g in grads.items()}
         if self.grad_clip is not None:
-            grads = self.grad_clip(grads)
+            grads = self.grad_clip(grads, norm=grad_norm)
         master = state.get("master", {})
         for name in state["slots"]:
             g = grads.get(name)

@@ -3,9 +3,11 @@
 
 ``TrainStep(model, optimizer)`` runs forward, backward, the optimizer's
 clip and update, in that order, eagerly: PyTorch has no single compiled
-program to build, and the JAX step's mesh, sharding and donation have
-nothing to do on one device. Its arguments are the JAX ones; ``mesh``
-must be ``None`` and the strategy must ask for one device.
+program to build. Its arguments are the JAX ones, held to what one card
+does: ``mesh`` must be ``None``, the strategy must ask for one device,
+``batch_seq_axis`` may be 1 or ``None`` (nothing is sharded, so the two
+are the same), ``donate`` must stay on (the update runs in place, which
+is what donation gives the JAX step) and ``run(sharded=True)`` raises.
 
 - ``loss_fn``: ``None`` calls ``model(**batch)`` for a scalar loss (a
   Llama batch ``{"input_ids", "labels"}``); otherwise
@@ -21,13 +23,15 @@ must be ``None`` and the strategy must ask for one device.
   batch is split into k micro-batches along its first axis, their
   gradients summed into float32 accumulators, and one update applied
   with the mean gradient and the mean loss.
-- ``rng_seed`` seeds ``self.generator`` on the model's device, the
-  stream a step's random operations would draw from; no operation of
-  this slice draws (Llama has no dropout).
+- ``rng_seed`` is taken for the JAX signature and has no effect: no
+  operation of the port's step draws random numbers (Llama has no
+  dropout, and attention dropout raises); the JAX step's key feeds
+  only the model's random operations.
 
 ``run`` returns the step's loss as a 0-d tensor without a host sync and
 keeps the global norm of the gradients before clipping, in float32, as
-``last_grad_norm``. Telemetry and ``check_nan_inf`` are not ported
+``last_grad_norm``; the global-norm clip uses that norm and does not
+compute it again. Telemetry and ``check_nan_inf`` are not ported
 (ROADMAP.md Queue A).
 """
 
@@ -40,6 +44,7 @@ import torch
 from torch import nn
 
 from ..distributed.strategy import DistributedStrategy
+from ..optimizer.clip import global_norm
 from ..optimizer.optimizer import Optimizer
 
 _TODO = "see ROADMAP.md Queue A"
@@ -77,6 +82,14 @@ class TrainStep:
         if telemetry:
             raise NotImplementedError(
                 f"train telemetry is not ported ({_TODO})")
+        if batch_seq_axis not in (1, None):
+            raise NotImplementedError(
+                f"batch_seq_axis={batch_seq_axis}: on one card the batch "
+                f"is not sharded; 1 or None ({_TODO}, distributed)")
+        if not donate:
+            raise NotImplementedError(
+                "donate=False: the port's update writes the parameters "
+                "and the optimizer state in place")
         if master_residency not in ("paired", "master_only"):
             raise ValueError(
                 f"master_residency must be 'paired' or 'master_only', "
@@ -86,7 +99,6 @@ class TrainStep:
         self.strategy = strategy or DistributedStrategy()
         self.strategy.check_one_device()
         self.loss_fn = loss_fn
-        self.batch_seq_axis = batch_seq_axis
         self.master_residency = master_residency
         self._param_objs: Dict[str, nn.Parameter] = {
             n: p for n, p in model.named_parameters() if p.requires_grad}
@@ -110,8 +122,6 @@ class TrainStep:
         if self.gradient_merge_k < 1:
             raise ValueError(f"gradient_merge_k_steps must be >= 1; got "
                              f"{self.gradient_merge_k}")
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(rng_seed))
         self.step_count = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
 
@@ -150,7 +160,13 @@ class TrainStep:
 
     def run(self, batch: Dict, sharded: bool = False) -> torch.Tensor:
         """One optimizer step over ``batch`` (numpy arrays or tensors,
-        moved to the model's device); returns the loss."""
+        moved to the model's device); returns the loss. ``sharded``
+        (a batch already laid out over a mesh) has no meaning on one card
+        and raises."""
+        if sharded:
+            raise NotImplementedError(
+                f"run(sharded=True): the step runs on one card ({_TODO}, "
+                "distributed)")
         batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
         params = self._param_objs
         self._cast_from_masters()
@@ -182,11 +198,11 @@ class TrainStep:
             grads = {n: a / k for n, a in acc.items()}
             loss = loss_sum / k
         with torch.no_grad():
-            self.last_grad_norm = torch.sqrt(sum(
-                torch.sum(torch.square(g.float())) for g in grads.values()))
+            self.last_grad_norm = global_norm(grads)
             carried = {n: p.detach() for n, p in params.items()
                        if n not in self._master_dtypes}
-            self.optimizer.update(grads, self.opt_state, carried)
+            self.optimizer.update(grads, self.opt_state, carried,
+                                  grad_norm=self.last_grad_norm)
         for p in params.values():
             p.grad = None
         del grads

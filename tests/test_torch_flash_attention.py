@@ -168,18 +168,18 @@ def test_dispatch_matches_jax_flash_attention_on_the_cpu(kw):
 
 
 def test_dispatch_rules():
-    def t(s, d, sk=None):
-        return (torch.zeros((1, s, 2, d)), torch.zeros((1, sk or s, 2, d)))
+    def t(s, d, device="cpu"):
+        return torch.zeros((1, s, 2, d), device=device)
 
-    # CPU tensors never reach the kernels
-    assert not tfa.use_kernel(*t(256, 128))
-    # the shape rule, as JAX's _use_pallas (plus the kv sequence and the
-    # kernels' head-dim limit)
-    assert tfa.kernel_shape(*t(256, 128)) and tfa.kernel_shape(*t(128, 8))
-    assert not tfa.kernel_shape(*t(100, 128))
-    assert not tfa.kernel_shape(*t(256, 128, sk=200))
-    assert not tfa.kernel_shape(*t(256, 12))
-    assert not tfa.kernel_shape(*t(256, 264))
+    # CPU tensors never reach the kernels; every other tensor does, at any
+    # shape: a sequence of 100 rows on a device that is not the card
+    # reaches the kernel wrapper, which refuses the device, and never the
+    # dense reference
+    assert not tfa.use_kernel(t(256, 128))
+    assert tfa.use_kernel(t(100, 12, "meta"))
+    meta = t(100, 32, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention(meta, meta, meta, causal=True)
     q = torch.zeros((1, 128, 2, 32))
     with pytest.raises(ValueError, match="requires causal"):
         tfa.flash_attention(q, q, q, causal=False, window_size=16)
@@ -192,10 +192,20 @@ def test_dispatch_rules():
     # dropout outside training is a no-op, as in JAX
     _close(tfa.flash_attention(q, q, q, dropout_p=0.1, training=False),
            tfa._reference_attention(q, q, q).numpy(), 0)
-    # mha refuses what the JAX mha's block fitting refuses
-    long = torch.zeros((1, 1100, 2, 32))
-    with pytest.raises(ValueError, match="multiples of 128"):
-        tm.mha(long, long, long)
+    # mha takes sequences that are no multiple of 128 (the JAX mha
+    # refuses them; the kernels mask their ragged tiles), here through
+    # its plain versions, with gradients
+    rng = np.random.default_rng(5)
+    lq, lk, lv = (torch.tensor(_rand(rng, 1, 300, 4 // n, 32),
+                               requires_grad=True) for n in (1, 2, 2))
+    o, lse = tm.mha_with_lse(lq, lk, lv, causal=True)
+    want = tfa._reference_attention(lq, lk, lv, causal=True)
+    _close(o, want.detach().numpy(), 1e-5)
+    assert lse.shape == (1, 4, 300)
+    got = torch.autograd.grad(o.sum(), (lq, lk, lv))
+    ref = torch.autograd.grad(want.sum(), (lq, lk, lv))
+    for g, r in zip(got, ref):
+        _close(g, r.numpy(), 1e-4)
 
 
 @pytest.mark.parametrize("blk,sl", [(1024, 2048), (1024, 256), (768, 2048),

@@ -133,9 +133,13 @@ def test_clippers_match_jax(make):
     got = make(topt)({k: torch.tensor(v) for k, v in g.items()})
     # bf16 gradients keep their dtype
     got16 = make(topt)({k: torch.tensor(v).bfloat16() for k, v in g.items()})
+    # a norm the caller already holds gives the same clip
+    tg = {k: torch.tensor(v) for k, v in g.items()}
+    given = make(topt)(tg, norm=topt.clip.global_norm(tg))
     for k in g:
         _close(got[k], want[k], 1e-6)
         assert got16[k].dtype == torch.bfloat16
+        assert torch.equal(given[k], got[k])
     clip = topt.ClipGradByGlobalNorm(1.0)
     _close(clip.global_norm({k: torch.tensor(v) for k, v in g.items()}),
            jopt.ClipGradByGlobalNorm(1.0).global_norm(
@@ -363,3 +367,37 @@ def test_train_step_refuses_what_it_does_not_run():
         TrainStep(tmodel, topt.AdamW(), master_residency="master_only")
     with pytest.raises(ValueError, match="master_residency"):
         TrainStep(tmodel, topt.AdamW(), master_residency="offload")
+    # options that mean nothing on one card refuse a value that would
+    # change something on a mesh
+    with pytest.raises(NotImplementedError, match="batch_seq_axis"):
+        TrainStep(tmodel, topt.AdamW(), batch_seq_axis=0)
+    with pytest.raises(NotImplementedError, match="donate"):
+        TrainStep(tmodel, topt.AdamW(), donate=False)
+    ts = TrainStep(tmodel, topt.AdamW(), batch_seq_axis=None)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        ts.run(_batch(), sharded=True)
+
+
+def test_train_step_computes_the_grad_norm_once(monkeypatch):
+    """The step's norm is the one the global-norm clip uses: the clip
+    does not compute its own."""
+    def no_second_norm(self, grads):
+        raise AssertionError("the clip computed the norm again")
+
+    monkeypatch.setattr(topt.ClipGradByGlobalNorm, "global_norm",
+                        no_second_norm)
+    _, tmodel = _pair(seed=12)
+    grads_seen = {}
+    ts = _port_step(tmodel, **dict(
+        _OPT, grad_clip=topt.ClipGradByGlobalNorm(1.0)))
+    update = ts.optimizer.update
+
+    def spy(grads, *a, **kw):
+        grads_seen.update({n: g.clone() for n, g in grads.items()})
+        return update(grads, *a, **kw)
+
+    monkeypatch.setattr(ts.optimizer, "update", spy)
+    ts.run(_batch(seed=3))
+    want = torch.sqrt(sum(torch.sum(g.double() ** 2)
+                          for g in grads_seen.values()))
+    _close(ts.last_grad_norm, want, 1e-6)
