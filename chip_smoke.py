@@ -85,10 +85,39 @@ Phases, each of which raises on failure:
    launches); one from the same weights with
    ``flash_attention_block_k=256`` (the dq and dk/dv kernels, 4 each,
    and the same loss and grad norm); one ``no_grad`` eval forward (4
-   launches of the forward without LSE); a profile of one step.
+   launches of the forward without LSE); a profile of one step;
+17. selective scan vs plain versions (after phase 14): row 10 without and
+   with states and row 11 against their plain PyTorch versions, row by row
+   within 1e-5 (float32), at the Mamba-130m train shape (b 4, s 1024, d
+   1536, n 16, chunk 128), a ragged s of 1000, d 200 and n 8; timed at the
+   train shape beside the bounds and the plain versions (no PyTorch call
+   computes the scan: no library time);
+18. GroupNorm vs plain versions: rows 12 and 13 against their plain
+   versions at every distinct GroupNorm site of the SD UNet at
+   sample_size 32, batch 4, and one shape over the JAX kernel's VMEM
+   budget, bf16 and float32, with and without the SiLU; timed at the
+   largest site beside the bounds, the plain versions and
+   ``torch.nn.functional.group_norm`` + ``silu`` forward and backward (a
+   yardstick the port never calls);
+19. Mamba reference (after phase 15): a tiny float32 Mamba trains 5 steps
+   on the card (rows 10-11) and on the CPU (plain versions) from the same
+   weights, with the same losses;
+20. UNet reference: the same for a tiny float32 UNet, channels-last on
+   both sides (rows 12-13; cuDNN convolutions without TF32);
+21. Mamba-130m train (after phase 16): ``bench_mamba``'s step at the
+   published widths, float32, batch 4 x 1024, ``TrainStep`` with
+   ``AdamW(1e-4, multi_precision=True)``: 2 warm-up and 5 timed steps
+   (step ms, tokens/s, peak memory; the loss falls) with exactly 24
+   launches of row 10 with states and of row 11 per step, a ``no_grad``
+   eval forward (24 of row 10 without states), a profile of one step;
+22. SD-UNet train (last): ``bench_unet``'s step, ``UNetConfig(
+   sample_size=32)``, bf16 weights with float32 masters, batch 4, the
+   denoising MSE: 2 warm-up and 5 timed steps (step ms, samples/s, peak
+   memory; the loss falls) with exactly 56 launches of row 12 and of row
+   13 per step, a profile of one step.
 
-Every kernel's launch count is set to 0 just before the engine run that
-reports it and read just after.
+Each phase prints its wall time. Every kernel's launch count is set to 0
+just before the run that reports it and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with
 no result, when no CUDA device is present.
@@ -129,13 +158,17 @@ def time_ms(fn, flush, iters=100, warmup=10, hold=HOLD_CYCLES) -> float:
     A spin kernel holds the stream busy while the host enqueues the flush,
     the events and ``fn``, so that the events bracket the device's work
     and not the host's launch overhead; raises when the spin ended before
-    the host had finished enqueueing in a quarter of the launches."""
+    the host had finished enqueueing in a quarter of the launches. With
+    ``hold=0`` there is no spin, and the events bracket the host's
+    enqueueing too: for a call of thousands of small launches, more than
+    the card's launch queue holds behind a spin."""
     for _ in range(warmup):
         fn()
     times = []
     late = 0
     for _ in range(iters):
-        torch.cuda._sleep(hold)
+        if hold:
+            torch.cuda._sleep(hold)
         held = torch.cuda.Event()
         held.record()
         flush.zero_()
@@ -144,7 +177,7 @@ def time_ms(fn, flush, iters=100, warmup=10, hold=HOLD_CYCLES) -> float:
         a.record()
         fn()
         b.record()
-        late += held.query()
+        late += bool(hold) and held.query()
         b.synchronize()
         times.append(a.elapsed_time(b))
     if late > iters // 4:
@@ -876,11 +909,10 @@ def quant_reference_phase():
 # ------------------------------------------------ rows 5-9: flash attention
 FA_FILE = "paddle_tpu/kernels/pallas_attention.py"
 FA_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
-# rows 5-9 by launch-count name; the serving runs launch none of them
+# rows 5-9 by launch-count name
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_fused",
                  "flash_attention_bwd_dkv")
-NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
 # the train shape of Llama-2-7B width: batch 4 x seq 2048, 32 heads of 128
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hk=32, d=128)
 
@@ -933,7 +965,7 @@ def fa_row_err(got, want):
     g, w = got.float(), want.float()
     num = (g - w).norm(dim=-1)
     den = w.norm(dim=-1)
-    floor = 1e-3 * den.square().mean().sqrt()
+    floor = (1e-3 * den.square().mean().sqrt()).clamp_min(1e-30)
     rel = (num / torch.maximum(den, floor)).max().item()
     return rel, (g - w).abs().max().item()
 
@@ -1234,16 +1266,34 @@ def flash_kernel_phase():
     return rows
 
 
-def tiny_train_pair(**cfg):
-    """A tiny float32 Llama on the CPU and the same weights on the card."""
+def card_and_cpu(make, seed):
+    """A model built on the CPU by ``make(device, seed)`` and the same
+    weights on the card."""
     from paddle_tpu_torch.convert import load_numpy_state_dict
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cpu = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu", seed=4)
-    card = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cuda")
+    cpu = make("cpu", seed)
+    card = make("cuda", 0)
     load_numpy_state_dict(card, {k: v.detach().numpy()
                                  for k, v in cpu.state_dict().items()})
     return cpu, card
+
+
+def same_losses(label, card_losses, cpu_losses, tol=1e-4):
+    """float32 both ways, the kernels' sums against the CPU's: five AdamW
+    steps keep the losses within ``tol`` relative, and they fall."""
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    if not gap <= tol or not card_losses[-1] < card_losses[0]:
+        raise AssertionError(f"{label}: card losses {card_losses}, CPU "
+                             f"{cpu_losses} (rel gap {gap})")
+    return gap
+
+
+def tiny_train_pair(**cfg):
+    """A tiny float32 Llama on the CPU and the same weights on the card."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    return card_and_cpu(lambda dev, seed: LlamaForCausalLM(
+        LlamaConfig.tiny(**cfg), device=dev, seed=seed), 4)
 
 
 def train_reference_phase():
@@ -1280,12 +1330,7 @@ def train_reference_phase():
     if {n: counts[n] for n in want} != want:
         raise AssertionError(f"train reference launches {counts}, want "
                              f"{want}")
-    # float32 both ways: the kernels' FMA order against the CPU's; five
-    # AdamW steps keep the losses within 1e-4 of each other
-    gap = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
-    if not gap <= 1e-4 or not card_losses[-1] < card_losses[0]:
-        raise AssertionError(f"train reference: card losses {card_losses}, "
-                             f"CPU {cpu_losses} (rel gap {gap})")
+    gap = same_losses("train reference", card_losses, cpu_losses)
     print(f"train reference: tiny float32 Llama, batch 4 x 128, 5 AdamW "
           f"steps: card {card_losses}, CPU {cpu_losses}, max rel gap "
           f"{gap:.3e} (tol 1e-4); launches {want}", flush=True)
@@ -1340,8 +1385,40 @@ def train_flops(cfg, b, s):
     return 6 * n * b * s + attn, n
 
 
-def profile_step(ts, batch):
-    """Device time by operation of one train step (``torch.profiler``)."""
+def train_steps(ts, batch, warmup=2, timed=5):
+    """``warmup`` and ``timed`` steps of ``ts`` on one batch; the timed
+    ones between reset_launches and read_launches, each timed by CUDA
+    events. Returns the losses, the grad norms, the step ms, the launch
+    counts and the peak GB of the timed steps."""
+    losses, norms = [], []
+    for _ in range(warmup):
+        losses.append(float(ts.run(batch)))
+        norms.append(float(ts.last_grad_norm))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = ts.run(batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        norms.append(float(ts.last_grad_norm))
+    counts = read_launches()
+    return (losses, norms, step_ms, counts,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+
+def profile_step(label, ts, batch, kernel_names):
+    """Device time by operation of one train step (``torch.profiler``):
+    the wall, the card's kernel time, the time of the kernels whose names
+    contain one of ``kernel_names``, and the heaviest operators and
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1360,9 +1437,8 @@ def profile_step(ts, batch):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
-    flash_ms = sum(dev_us(e) for e in kernels
-                   if "fwd_kernel" in e.key or "dq_kernel" in e.key
-                   or "dkv_kernel" in e.key) / 1e3
+    ours_ms = sum(dev_us(e) for e in kernels
+                  if any(k in e.key for k in kernel_names)) / 1e3
     ops = sorted((e for e in events
                   if e.device_type != torch.autograd.DeviceType.CUDA),
                  key=dev_us, reverse=True)
@@ -1370,11 +1446,11 @@ def profile_step(ts, batch):
            for e in ops[:8]]
     top_kernels = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
                    for e in sorted(kernels, key=dev_us, reverse=True)[:8]]
-    print(f"profile train step: wall {wall_ms:.2f} ms, kernel time "
-          f"{total_ms:.2f} ms, flash-attention kernels {flash_ms:.2f} ms; "
-          f"heaviest operators (name, device ms, calls): {top}; heaviest "
-          f"kernels: {top_kernels}", flush=True)
-    return dict(wall_ms=wall_ms, device_ms=total_ms, flash_ms=flash_ms,
+    print(f"profile {label} step: wall {wall_ms:.2f} ms, kernel time "
+          f"{total_ms:.2f} ms, the port's kernels {kernel_names} "
+          f"{ours_ms:.2f} ms; heaviest operators (name, device ms, calls): "
+          f"{top}; heaviest kernels: {top_kernels}", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=total_ms, kernels_ms=ours_ms,
                 top=top, top_kernels=top_kernels)
 
 
@@ -1417,26 +1493,7 @@ def train_7b_phase():
         0, cfg.vocab_size, (b, s)), device="cuda")
     batch = {"input_ids": ids, "labels": ids}
     layers = cfg.num_hidden_layers
-    losses, norms = [], []
-    for _ in range(2):  # warm-up
-        losses.append(float(ts.run(batch)))
-        norms.append(float(ts.last_grad_norm))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    step_ms = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = ts.run(batch)
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-        norms.append(float(ts.last_grad_norm))
-    counts = read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
     want = {"flash_attention_fwd_lse": 5 * layers,
             "flash_attention_bwd_fused": 5 * layers,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
@@ -1513,7 +1570,8 @@ def train_7b_phase():
     del logits
     print(f"train 7b: no_grad eval forward: {layers} launches of the "
           "forward without LSE, finite logits", flush=True)
-    prof = profile_step(ts, batch)
+    prof = profile_step("train 7b", ts, batch,
+                        ("fwd_kernel", "dq_kernel", "dkv_kernel"))
     print(json.dumps({"train_7b": {
         "model": "llama2_7b width, 4 layers, random bf16 weights (seed 0)",
         "batch": b, "seq": s, "parameters": n_params,
@@ -1530,27 +1588,602 @@ def train_7b_phase():
             "flash_attention_bwd_dkv": two["flash_attention_bwd_dkv"]}
 
 
+# ---------------------------------------------------------------------------
+# rows 10-11: the selective scan, and the Mamba train path
+# ---------------------------------------------------------------------------
+SCAN_FILE = "paddle_tpu/kernels/selective_scan.py"
+SCAN_SOURCE = "paddle_tpu_torch/kernels/csrc/selective_scan.cu"
+SCAN_KERNELS = ("selective_scan_fwd", "selective_scan_fwd_states",
+                "selective_scan_bwd")
+# the Mamba-130m train shape: batch 4 x seq 1024, d_inner 1536, 16 states
+SCAN_SHAPE = dict(b=4, s=1024, d=1536, n=16, chunk=128)
+SCAN_ROW_TOL = 1e-5  # float32 both ways: FMA contraction and expf only
+
+
+def scan_inputs(b, s, d, n, seed):
+    """Inputs of the scan as the Mamba mixer makes them: delta through a
+    softplus, A = -exp(.) (negative), float32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u, B, C = randn(b, s, d), randn(b, s, n), randn(b, s, n)
+    delta = torch.nn.functional.softplus(randn(b, s, d) - 1.0)
+    at = (-torch.exp(randn(d, n) * 0.5)).t().contiguous()
+    return u, delta, B, C, at, randn(b, s, d)
+
+
+def scan_check(name, b, s, d, n, chunk, seed):
+    """Rows 10 (without and with states) and 11 against their plain
+    versions, row by row (fa_row_err) within SCAN_ROW_TOL; the forward
+    without states equal to the one with; returns the max abs errors."""
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    u, delta, B, C, at, g = scan_inputs(b, s, d, n, seed)
+    y0 = ss.selective_scan_fwd(u, delta, B, C, at, chunk, False)
+    y, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+    y_ref, h0s_ref = ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                                 True)
+    bwd = ss.selective_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
+    bwd_ref = ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s_ref, g,
+                                          chunk)
+    torch.cuda.synchronize()
+    pairs = {"y": (y, y_ref), "h0s": (h0s, h0s_ref)}
+    pairs.update({k: (a, w) for k, a, w in zip(
+        ("du", "ddelta", "dB", "dC", "dat"), bwd, bwd_ref)})
+    errs = {k: fa_row_err(a, w) for k, (a, w) in pairs.items()}
+    bad = [k for k, (rel, _) in errs.items()
+           if not rel <= SCAN_ROW_TOL or not torch.isfinite(pairs[k][0]).all()]
+    if bad or not torch.equal(y0, y):
+        raise AssertionError(f"scan check {name}: {bad} differ from the "
+                             f"plain versions ({errs}), or the forward "
+                             "with and without states differ")
+    print(f"scan check {name}: b={b} s={s} d={d} n={n} chunk={chunk}: row "
+          f"err / max abs err " + ", ".join(
+              f"{k} {r:.2e}/{e:.2e}" for k, (r, e) in errs.items())
+          + f" (tol {SCAN_ROW_TOL} of a row) ok", flush=True)
+    fwd = max(errs["y"][1], errs["h0s"][1])
+    return {"selective_scan_fwd": errs["y"][1],
+            "selective_scan_fwd_states": fwd,
+            "selective_scan_bwd": max(errs[k][1] for k in (
+                "du", "ddelta", "dB", "dC", "dat"))}
+
+
+def scan_bound(name, b, s, d, n, chunk):
+    """Least time for the function on these inputs: each input read once
+    and each output written once (float32) over the HBM rate, against its
+    float32 operations over the float32 rate (7 per (token, channel,
+    state) forward and 1 per (token, channel); the backward recomputes the
+    forward from h0s and does 15 more per (token, channel, state)); the
+    larger of the two."""
+    nc = -(-s // chunk)
+    bsd, bsn, nd, states = b * s * d, b * s * n, n * d, b * nc * n * d
+    nbytes, ops = {
+        "selective_scan_fwd": (3 * bsd + 2 * bsn + nd, bsd * (7 * n + 1)),
+        "selective_scan_fwd_states": (3 * bsd + 2 * bsn + nd + states,
+                                      bsd * (7 * n + 1)),
+        "selective_scan_bwd": (5 * bsd + 4 * bsn + 2 * nd + states,
+                               bsd * (20 * n + 3)),
+    }[name]
+    t_bytes = 4 * nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def scan_kernel_phase():
+    """Rows 10-11 against their plain versions at the Mamba-130m train
+    shape, a ragged s, a d that is no multiple of the 64-channel block and
+    n 8; then timed at the train shape beside their bounds and plain
+    versions. No single PyTorch call computes the scan, so library_ms is
+    None for these rows."""
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    t = SCAN_SHAPE
+    cases = [("mamba130m_train", t["b"], t["s"], t["d"], t["n"], t["chunk"]),
+             ("ragged_s1000", 2, 1000, 1536, 16, 128),
+             ("d200", 2, 512, 200, 16, 128),
+             ("n8", 2, 512, 512, 8, 128)]
+    errs = {}
+    for i, case in enumerate(cases):
+        for k, e in scan_check(*case, seed=80 + i).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    b, s, d, n, chunk = (t[x] for x in ("b", "s", "d", "n", "chunk"))
+    u, delta, B, C, at, g = scan_inputs(b, s, d, n, seed=90)
+    _, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    calls = {
+        "selective_scan_fwd": (
+            lambda: ss.selective_scan_fwd(u, delta, B, C, at, chunk, False),
+            lambda: ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                                False), 122),
+        "selective_scan_fwd_states": (
+            lambda: ss.selective_scan_fwd(u, delta, B, C, at, chunk, True),
+            lambda: ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                                True), 129),
+        "selective_scan_bwd": (
+            lambda: ss.selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk),
+            lambda: ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s, g,
+                                                chunk), 258),
+    }
+    rows = {}
+    for name, (kernel, plain, line) in calls.items():
+        kernel_ms = time_ms(kernel, flush, iters=30)
+        # the plain versions launch about 12,000 (forward) and 40,000
+        # (backward) small kernels a call, more than the launch queue
+        # holds behind a spin: timed without one, host enqueueing included
+        plain_ms = time_ms(plain, flush, iters=3, warmup=1, hold=0)
+        bound_ms, bound_by = scan_bound(name, b, s, d, n, chunk)
+        print(f"scan timing {name} b={b} s={s} d={d} n={n} chunk={chunk}: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (events "
+              f"around the call, no spin), bound {bound_ms:.4f} ms "
+              f"({bound_by}); no library call computes the scan", flush=True)
+        rows[name] = dict(
+            name=name, route="cuda", source=SCAN_SOURCE,
+            replaces=f"{SCAN_FILE}:{line}",
+            shape=f"b={b} s={s} d={d} n={n} chunk={chunk} float32",
+            max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+    return rows
+
+
+def check_counts(label, counts, want):
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label} launches {got}, want {want}")
+
+
+def mamba_reference_phase():
+    """A tiny float32 Mamba (chunked scan, chunk 32, batch 4 x 128) trains
+    5 AdamW steps on the card (rows 10-11) and on the CPU (their plain
+    versions) from the same weights: the same losses."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg = MambaConfig.tiny(use_chunked_scan=True, scan_chunk=32)
+    cpu, card = card_and_cpu(
+        lambda dev, seed: MambaForCausalLM(cfg, device=dev, seed=seed), 4)
+    ids = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 128))
+    batch = {"input_ids": ids, "labels": ids}
+
+    def step(model):
+        return TrainStep(model, topt.AdamW(learning_rate=1e-3,
+                                           weight_decay=0.01))
+
+    ts_card, ts_cpu = step(card), step(cpu)
+    reset_launches()
+    card_losses = [float(ts_card.run(batch)) for _ in range(5)]
+    counts = read_launches()
+    cpu_losses = [float(ts_cpu.run(batch)) for _ in range(5)]
+    layers = cfg.num_hidden_layers
+    want = {"selective_scan_fwd_states": 5 * layers,
+            "selective_scan_bwd": 5 * layers, "selective_scan_fwd": 0}
+    check_counts("mamba reference", counts, want)
+    gap = same_losses("mamba reference", card_losses, cpu_losses)
+    print(f"mamba reference: tiny float32 Mamba, chunk 32, batch 4 x 128, 5 "
+          f"AdamW steps: card {card_losses}, CPU {cpu_losses}, max rel gap "
+          f"{gap:.3e} (tol 1e-4); launches {want}", flush=True)
+
+
+class UNetLoss(torch.nn.Module):
+    """``benchmarks/suite.py: bench_unet``'s adapter: the denoising MSE of
+    the UNet's prediction against ``target``, in float32."""
+
+    def __init__(self, unet):
+        super().__init__()
+        self.unet = unet
+
+    def forward(self, sample, timestep, context, target):
+        pred = self.unet(sample, timestep, context)
+        return (pred.float() - target.float()).square().mean()
+
+
+def unet_gn_sites(cfg, size):
+    """(hw, channels, activation) of every GroupNorm of
+    ``UNet2DConditionModel(cfg).forward`` at a ``size`` x ``size`` sample,
+    in call order (the model's own channel and resolution walk)."""
+    ch = list(cfg.block_out_channels)
+    sites = []
+
+    def resnet(c_in, c_out, hw):
+        sites.extend([(hw, c_in, "silu"), (hw, c_out, "silu")])
+
+    def attn(c, hw):
+        sites.append((hw, c, None))
+
+    hw, cur, skips = size * size, ch[0], [ch[0]]
+    for level, out_c in enumerate(ch):
+        for _ in range(cfg.layers_per_block):
+            resnet(cur, out_c, hw)
+            if level >= len(ch) - 2:
+                attn(out_c, hw)
+            cur = out_c
+            skips.append(cur)
+        if level < len(ch) - 1:
+            hw //= 4
+            skips.append(cur)
+    resnet(cur, cur, hw)
+    attn(cur, hw)
+    resnet(cur, cur, hw)
+    for level, out_c in enumerate(reversed(ch)):
+        for _ in range(cfg.layers_per_block + 1):
+            resnet(cur + skips.pop(), out_c, hw)
+            if level < 2:
+                attn(out_c, hw)
+            cur = out_c
+        if level < len(ch) - 1:
+            hw *= 4
+    sites.append((hw, cur, "silu"))
+    return sites
+
+
+def unet_reference_phase():
+    """A tiny float32 UNet with ``channels_last=True`` on both sides trains
+    5 AdamW steps on the card (rows 12-13, cuDNN convolutions without
+    TF32) and on the CPU (their plain versions) from the same weights: the
+    same losses."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg = UNetConfig.tiny(channels_last=True)
+    cpu, card = card_and_cpu(lambda dev, seed: UNetLoss(
+        UNet2DConditionModel(cfg, device=dev, seed=seed)), 4)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 4, 16, 16)).astype(np.float32)
+    batch = {"sample": x, "timestep": rng.integers(0, 1000, (2,)),
+             "context": rng.standard_normal(
+                 (2, 7, cfg.cross_attention_dim)).astype(np.float32),
+             "target": x}
+
+    def step(model):
+        return TrainStep(model, topt.AdamW(learning_rate=1e-3,
+                                           weight_decay=0.01))
+
+    ts_card, ts_cpu = step(card), step(cpu)
+    reset_launches()
+    card_losses = [float(ts_card.run(batch)) for _ in range(5)]
+    counts = read_launches()
+    cpu_losses = [float(ts_cpu.run(batch)) for _ in range(5)]
+    per_step = len(unet_gn_sites(cfg, 16))
+    want = {"group_norm_fwd": 5 * per_step, "group_norm_bwd": 5 * per_step}
+    check_counts("unet reference", counts, want)
+    gap = same_losses("unet reference", card_losses, cpu_losses)
+    print(f"unet reference: tiny float32 UNet, channels_last, batch 2 x 4 x "
+          f"16 x 16, 5 AdamW steps: card {card_losses}, CPU {cpu_losses}, "
+          f"max rel gap {gap:.3e} (tol 1e-4); launches {want}", flush=True)
+
+
+def mamba_train_phase():
+    """``bench_mamba``'s train step at the published Mamba-130m widths
+    (``MambaConfig(use_chunked_scan=True)`` defaults: 24 layers, hidden
+    768, d_inner 1536, 16 states, vocab 50277), float32 random weights
+    from seed 0, batch 4 x 1024 seeded tokens with labels equal to the
+    inputs, ``TrainStep(model, AdamW(1e-4, multi_precision=True))``: 2
+    warm-up and 5 timed steps (24 launches of row 10 with states and 24
+    of row 11 each), one ``no_grad`` eval forward (24 of row 10 without
+    states), a profile of one step. Returns the launch counts."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    b, s = SCAN_SHAPE["b"], SCAN_SHAPE["s"]
+    cfg = MambaConfig(use_chunked_scan=True)
+    t0 = time.perf_counter()
+    model = MambaForCausalLM(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    ts = TrainStep(model, topt.AdamW(1e-4, multi_precision=True))
+    torch.cuda.synchronize()
+    print(f"mamba 130m: {n_params} parameters, float32, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    losses, _, step_ms, counts, peak_gb = train_steps(ts, batch)
+    layers = cfg.num_hidden_layers
+    check_counts("mamba 130m", counts, {
+        "selective_scan_fwd_states": 5 * layers,
+        "selective_scan_bwd": 5 * layers, "selective_scan_fwd": 0})
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"mamba 130m: losses {losses}")
+    med_ms = float(np.median(step_ms))
+    tokens_per_s = b * s / (med_ms / 1e3)
+    print(f"mamba 130m: 5 timed steps {[round(x, 3) for x in step_ms]} ms "
+          f"(median {med_ms:.3f} ms, CUDA events around TrainStep.run), "
+          f"{tokens_per_s:.1f} tokens/s, peak {peak_gb:.2f} GB; losses "
+          f"{losses}; launches per 5 steps: {5 * layers} of row 10 with "
+          f"states and of row 11", flush=True)
+    reset_launches()
+    with torch.no_grad():
+        logits = model(ids)
+    evals = read_launches()
+    check_counts("mamba 130m eval forward", evals, {
+        "selective_scan_fwd": layers, "selective_scan_fwd_states": 0,
+        "selective_scan_bwd": 0})
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"mamba 130m eval logits {tuple(logits.shape)}")
+    del logits
+    print(f"mamba 130m: no_grad eval forward: {layers} launches of row 10 "
+          "without states, finite logits", flush=True)
+    prof = profile_step("mamba 130m", ts, batch,
+                            ("scan_fwd_kernel", "scan_bwd_kernel"))
+    print(json.dumps({"train_mamba130m": {
+        "model": "mamba-130m widths, 24 layers, random float32 weights "
+                 "(seed 0)", "batch": b, "seq": s, "parameters": n_params,
+        "step_ms": step_ms, "step_ms_median": med_ms,
+        "tokens_per_s": tokens_per_s, "peak_memory_gb": peak_gb,
+        "losses": losses, "profile": prof}}), flush=True)
+    return {"selective_scan_fwd": evals["selective_scan_fwd"],
+            "selective_scan_fwd_states": counts["selective_scan_fwd_states"],
+            "selective_scan_bwd": counts["selective_scan_bwd"]}
+
+
+# ---------------------------------------------------------------------------
+# rows 12-13: the fused GroupNorm, and the SD-UNet train path
+# ---------------------------------------------------------------------------
+GN_FILE = "paddle_tpu/kernels/group_norm.py"
+GN_SOURCE = "paddle_tpu_torch/kernels/csrc/group_norm.cu"
+GN_KERNELS = ("group_norm_fwd", "group_norm_bwd")
+# the serving runs launch none of the train kernels (rows 5-13)
+NO_TRAIN_KERNELS = dict.fromkeys(FLASH_KERNELS + SCAN_KERNELS + GN_KERNELS,
+                                 0)
+UNET_BATCH, UNET_SIZE = 4, 32  # bench_unet: UNetConfig(sample_size=32)
+# the outputs in x's dtype within one rounding of the same float32 value
+# (bf16 2^-7 relative: one ulp; float32: the sums' order), over a floor
+# of 1e-5 of the largest value; mean/rstd and the dgamma/dbeta partials
+# within 1e-5 of the largest value
+GN_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def gn_err(got, want, rtol):
+    """(worst |got - want| over rtol |want| + 1e-5 max|want|, max abs err):
+    the first at most 1 passes."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    allowed = rtol * w.abs() + 1e-5 * w.abs().max()
+    return (diff / allowed.clamp_min(1e-30)).max().item(), diff.max().item()
+
+
+def gn_inputs(n, hw, c, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((n, hw, c), generator=gen, device="cuda") * 2
+         + 0.5).to(dtype)
+    dy = torch.randn((n, hw, c), generator=gen, device="cuda").to(dtype)
+    gamma = 1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x, dy, gamma, beta
+
+
+def gn_check(n, hw, c, g, dtype, act, seed):
+    """Rows 12 and 13 against their plain versions on one input set;
+    returns the max abs errors (outputs, statistics and partials)."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+
+    x, dy, gamma, beta = gn_inputs(n, hw, c, dtype, seed)
+    y, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, act)
+    y_r, mean_r, rstd_r = gn.group_norm_fwd_plain(x, gamma, beta, g, 1e-5,
+                                                  act)
+    bwd = gn.group_norm_bwd(x, dy, gamma, beta, mean_r, rstd_r, g, act)
+    bwd_r = gn.group_norm_bwd_plain(x, dy, gamma, beta, mean_r, rstd_r, g,
+                                    act)
+    torch.cuda.synchronize()
+    rt = GN_RTOL[dtype]
+    errs = {"y": gn_err(y, y_r, rt), "mean": gn_err(mean, mean_r, 0.0),
+            "rstd": gn_err(rstd, rstd_r, 0.0),
+            "dx": gn_err(bwd[0], bwd_r[0], rt),
+            "dgamma": gn_err(bwd[1], bwd_r[1], 0.0),
+            "dbeta": gn_err(bwd[2], bwd_r[2], 0.0)}
+    bad = [k for k, (r, _) in errs.items() if not r <= 1.0]
+    if bad or y.dtype != dtype or bwd[0].dtype != dtype:
+        raise AssertionError(f"group norm check n={n} hw={hw} c={c} g={g} "
+                             f"{dtype} {act}: {bad} differ from the plain "
+                             f"versions ({errs})")
+    return ({"group_norm_fwd": max(errs[k][1] for k in ("y", "mean",
+                                                         "rstd")),
+             "group_norm_bwd": max(errs[k][1] for k in ("dx", "dgamma",
+                                                         "dbeta"))},
+            max(r for r, _ in errs.values()))
+
+
+def gn_bound(name, n, hw, c, g, itemsize, silu):
+    """Least time for the function on these inputs: x (and dy) read, y
+    (dx) written in their dtype, gamma/beta and the [n, g] statistics and
+    [n, c] partials in float32, over the HBM rate; against its float32
+    operations (forward 8 per element, 12 with the SiLU; backward 20, 32
+    with it) over the float32 rate; the larger."""
+    e = n * hw * c
+    if name == "group_norm_fwd":
+        nbytes = 2 * e * itemsize + 2 * c * 4 + 2 * n * g * 4
+        ops = e * (12 if silu else 8)
+    else:
+        nbytes = 3 * e * itemsize + 2 * c * 4 + 2 * n * g * 4 + 2 * n * c * 4
+        ops = e * (32 if silu else 20)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def gn_kernel_phase():
+    """Rows 12-13 against their plain versions at every distinct
+    GroupNorm site of the SD UNet at sample_size 32, batch 4 (bf16 and
+    float32, activation None and silu) and at a shape over the JAX
+    kernel's VMEM budget (n 1, 128 x 128, c 1024, g 32); then timed at the
+    largest site beside their bounds, their plain versions and
+    ``torch.nn.functional.group_norm`` (+ ``silu``) forward and backward
+    on the NCHW view (a yardstick the port never calls)."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+    from paddle_tpu_torch.models import UNetConfig
+
+    cfg = UNetConfig(sample_size=UNET_SIZE)
+    g = cfg.norm_num_groups
+    sites = sorted({(hw, c) for hw, c, _ in unet_gn_sites(cfg, UNET_SIZE)})
+    cases = [(UNET_BATCH, hw, c) for hw, c in sites] + [(1, 128 * 128, 1024)]
+    errs, worst, seed = {}, 0.0, 100
+    for n, hw, c in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            for act in (None, "silu"):
+                e, r = gn_check(n, hw, c, g, dtype, act, seed)
+                seed += 1
+                worst = max(worst, r)
+                for k, v in e.items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+    print(f"group norm check: {len(cases)} shapes (the UNet's distinct "
+          f"(hw, c) sites {sites} at batch {UNET_BATCH}, and n=1 hw=16384 "
+          f"c=1024) x bf16/float32 x None/silu: worst error {worst:.3f} of "
+          f"its allowance, max abs err {errs} ok", flush=True)
+    # timing at the largest site, bf16 with the SiLU
+    n = UNET_BATCH
+    hw, c = max(sites, key=lambda s: s[0] * s[1])
+    x, dy, gamma, beta = gn_inputs(n, hw, c, torch.bfloat16, seed=200)
+    _, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, "silu")
+    side = int(math.isqrt(hw))
+    x4 = x.view(n, side, side, c).permute(0, 3, 1, 2)
+    dy4 = dy.view(n, side, side, c).permute(0, 3, 1, 2)
+    wb = [t.to(torch.bfloat16).requires_grad_() for t in (gamma, beta)]
+    xg = x4.detach().requires_grad_()
+    fn = torch.nn.functional
+
+    def lib_fwd():
+        return fn.silu(fn.group_norm(x4, g, wb[0], wb[1], 1e-5))
+
+    out = fn.silu(fn.group_norm(xg, g, wb[0], wb[1], 1e-5))
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    library = {"group_norm_fwd": time_ms(lib_fwd, flush, iters=30),
+               "group_norm_bwd": time_ms(lambda: torch.autograd.grad(
+                   out, [xg, *wb], dy4, retain_graph=True), flush,
+                   iters=30)}
+    calls = {
+        "group_norm_fwd": (
+            lambda: gn.group_norm_fwd(x, gamma, beta, g, 1e-5, "silu"),
+            lambda: gn.group_norm_fwd_plain(x, gamma, beta, g, 1e-5, "silu"),
+            160),
+        "group_norm_bwd": (
+            lambda: gn.group_norm_bwd(x, dy, gamma, beta, mean, rstd, g,
+                                      "silu"),
+            lambda: gn.group_norm_bwd_plain(x, dy, gamma, beta, mean, rstd,
+                                            g, "silu"), 194),
+    }
+    rows = {}
+    for name, (kernel, plain, line) in calls.items():
+        kernel_ms = time_ms(kernel, flush, iters=30)
+        plain_ms = time_ms(plain, flush, iters=30)
+        bound_ms, bound_by = gn_bound(name, n, hw, c, g, 2, True)
+        kind = "forward" if "fwd" in name else "backward"
+        print(f"group norm timing {name} n={n} hw={hw} c={c} g={g} bf16 "
+              f"silu: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.group_norm + silu {kind} {library[name]:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        rows[name] = dict(
+            name=name, route="cuda", source=GN_SOURCE,
+            replaces=f"{GN_FILE}:{line}",
+            shape=f"n={n} hw={hw} c={c} g={g} bf16 silu",
+            max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library[name])
+    return rows
+
+
+def unet_train_phase():
+    """``bench_unet``'s train step at the SD-1.x UNet widths
+    (``UNetConfig(sample_size=32)``: 320/640/1280/1280 channels, 2 layers
+    per block, cross-attention 768, 32 groups), bf16 random weights from
+    seed 0 with float32 masters (``AdamW(1e-4, multi_precision=True)``),
+    channels-last on the card ("auto"), batch 4: a seeded sample [4, 4,
+    32, 32], timesteps in [0, 1000), context [4, 77, 768], the denoising
+    MSE against the sample. 2 warm-up and 5 timed steps with exactly 56
+    launches of row 12 and of row 13 per step, and a profile of one step.
+    Returns the launch counts."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.nn import layout
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg = UNetConfig(sample_size=UNET_SIZE)
+    b, size = UNET_BATCH, cfg.sample_size
+    t0 = time.perf_counter()
+    unet = UNet2DConditionModel(cfg, device="cuda", seed=0).to(
+        torch.bfloat16)
+    model = UNetLoss(unet)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    ts = TrainStep(model, topt.AdamW(1e-4, multi_precision=True))
+    torch.cuda.synchronize()
+    fmt = "NHWC" if layout.decide(cfg.channels_last, "cuda") else "NCHW"
+    print(f"unet: {n_params} parameters in {n_tensors} tensors, bf16 with "
+          f"float32 masters, built in {time.perf_counter() - t0:.2f} s; "
+          f"layout {fmt}", flush=True)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal(
+        (b, cfg.in_channels, size, size)), device="cuda").to(torch.bfloat16)
+    batch = {"sample": x,
+             "timestep": torch.as_tensor(np.random.default_rng(1).integers(
+                 0, 1000, (b,)), device="cuda"),
+             "context": torch.as_tensor(np.random.default_rng(2)
+                                        .standard_normal(
+                                            (b, 77, cfg.cross_attention_dim)),
+                                        device="cuda").to(torch.bfloat16),
+             "target": x}
+    losses, _, step_ms, counts, peak_gb = train_steps(ts, batch)
+    sites = unet_gn_sites(cfg, size)
+    per_step = len(sites)
+    n_silu = sum(act == "silu" for _, _, act in sites)
+    check_counts("unet", counts, {"group_norm_fwd": 5 * per_step,
+                                  "group_norm_bwd": 5 * per_step})
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"unet: losses {losses}")
+    med_ms = float(np.median(step_ms))
+    samples_per_s = b / (med_ms / 1e3)
+    print(f"unet: 5 timed steps {[round(v, 3) for v in step_ms]} ms "
+          f"(median {med_ms:.3f} ms, CUDA events around TrainStep.run), "
+          f"{samples_per_s:.2f} samples/s, peak {peak_gb:.2f} GB; losses "
+          f"{losses}; launches per step {per_step} of row 12 ({n_silu} "
+          f"with the SiLU, {per_step - n_silu} without) and {per_step} of "
+          "row 13", flush=True)
+    prof = profile_step("unet", ts, batch,
+                            ("gn_fwd_kernel", "gn_bwd_kernel"))
+    print(json.dumps({"train_unet": {
+        "model": "SD-1.x UNet widths, sample_size 32, random bf16 weights "
+                 "(seed 0), float32 masters", "batch": b,
+        "parameters": n_params, "step_ms": step_ms,
+        "step_ms_median": med_ms, "samples_per_s": samples_per_s,
+        "peak_memory_gb": peak_gb, "losses": losses, "profile": prof}}),
+        flush=True)
+    return {k: counts[k] for k in GN_KERNELS}
+
+
 def reset_launches():
     from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import group_norm as gn
     from paddle_tpu_torch.kernels import mha
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qmm
+    from paddle_tpu_torch.kernels import selective_scan as ss
 
     da.LAUNCHES = 0
     qmm.LAUNCHES = 0
-    for counts in (pa.LAUNCHES, mha.LAUNCHES):
+    for counts in (pa.LAUNCHES, mha.LAUNCHES, ss.LAUNCHES, gn.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
     from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import group_norm as gn
     from paddle_tpu_torch.kernels import mha
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qmm
+    from paddle_tpu_torch.kernels import selective_scan as ss
 
     return {"fused_contiguous_decode_attention": da.LAUNCHES, **pa.LAUNCHES,
-            "weight_only_matmul": qmm.LAUNCHES, **mha.LAUNCHES}
+            "weight_only_matmul": qmm.LAUNCHES, **mha.LAUNCHES,
+            **ss.LAUNCHES, **gn.LAUNCHES}
 
 
 def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8,
@@ -1686,12 +2319,12 @@ def paged_engine_phase(model, prompts, contiguous_outs):
                   "fused_paged_decode_attention":
                       layers * stats["decode_forwards"],
                   "paged_decode_attention": 0, "weight_only_matmul": 0,
-                  **NO_FLASH}
+                  **NO_TRAIN_KERNELS}
     off_want = {"fused_contiguous_decode_attention": 0,
                 "fused_paged_decode_attention": 0,
                 "paged_decode_attention":
                     layers * stats_off["decode_forwards"],
-                "weight_only_matmul": 0, **NO_FLASH}
+                "weight_only_matmul": 0, **NO_TRAIN_KERNELS}
     print(f"paged engine fused: 8 requests served in {wall:.3f} s, TTFT "
           f"p50 {ttft_p50:.2f} ms, decode {decode_tps:.1f} tok/s "
           f"({decode_tokens} tokens in {decode_wall:.3f} s), peak memory "
@@ -1778,7 +2411,7 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
                     else 0,
                 "weight_only_matmul":
                     (7 * layers + 1) * forwards if quant_w else 0,
-                **NO_FLASH}
+                **NO_TRAIN_KERNELS}
         if counts != want or (quant_w and want["weight_only_matmul"] <= 0):
             raise AssertionError(f"{label} fused={fused}: launches {counts}, "
                                  f"expected {want}")
@@ -1871,6 +2504,17 @@ def wave_profile(model, prompts, label, max_new_tokens=1, **config):
     return dict(wall_ms=wall_ms, device_ms=total_ms, top=top)
 
 
+T_START = time.perf_counter()
+
+
+def phase(name, fn, *args, **kw):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1901,32 +2545,41 @@ def main() -> int:
           f"{max(spills, default=0)} bytes in {len(spilled)} kernels "
           f"{spilled}", flush=True)
 
-    row = kernel_phase()
-    fused_row, block_row = paged_kernel_phase()
-    qmm_row = quant_kernel_phase()
-    row_i8, fused_row_i8 = int8_decode_phase()
-    fa_rows = flash_kernel_phase()
-    reference_phase()
-    reference_phase(paged=True)
-    quant_reference_phase()
-    train_reference_phase()
-    model, prompts = build_7b()
-    row["launches"], contiguous_outs = engine_phase(model, prompts)
-    fused_row["launches"], block_row["launches"], paged_outs = \
-        paged_engine_phase(model, prompts, contiguous_outs)
+    row = phase("decode kernel", kernel_phase)
+    fused_row, block_row = phase("paged kernels", paged_kernel_phase)
+    qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)
+    row_i8, fused_row_i8 = phase("int8 decode kernels", int8_decode_phase)
+    fa_rows = phase("flash kernels", flash_kernel_phase)
+    scan_rows = phase("scan kernels", scan_kernel_phase)
+    gn_rows = phase("group norm kernels", gn_kernel_phase)
+    phase("reference", reference_phase)
+    phase("paged reference", reference_phase, True)
+    phase("quant reference", quant_reference_phase)
+    phase("train reference", train_reference_phase)
+    phase("mamba reference", mamba_reference_phase)
+    phase("unet reference", unet_reference_phase)
+    model, prompts = phase("build 7b", build_7b)
+    row["launches"], contiguous_outs = phase("engine", engine_phase, model,
+                                             prompts)
+    fused_row["launches"], block_row["launches"], paged_outs = phase(
+        "paged engine", paged_engine_phase, model, prompts, contiguous_outs)
     paged = dict(paged=True, page_size=PAGE)
-    counts = quant_engine_phase("quant_engine_int8w_paged", model, prompts,
-                                paged_outs, weight_dtype="int8", **paged)
+    counts = phase("quant engine int8w paged", quant_engine_phase,
+                   "quant_engine_int8w_paged", model, prompts, paged_outs,
+                   weight_dtype="int8", **paged)
     qmm_row["launches"] = counts["weight_only_matmul"]
-    counts = quant_engine_phase("quant_engine_int8w_int8kv_paged", model,
-                                prompts, paged_outs, weight_dtype="int8",
-                                cache_dtype="int8", **paged)
+    counts = phase("quant engine int8w int8kv paged", quant_engine_phase,
+                   "quant_engine_int8w_int8kv_paged", model, prompts,
+                   paged_outs, weight_dtype="int8", cache_dtype="int8",
+                   **paged)
     fused_row_i8["launches"] = counts["fused_paged_decode_attention"]
-    counts = quant_engine_phase("quant_engine_int8kv_contig", model,
-                                prompts, contiguous_outs, cache_dtype="int8")
+    counts = phase("quant engine int8kv contig", quant_engine_phase,
+                   "quant_engine_int8kv_contig", model, prompts,
+                   contiguous_outs, cache_dtype="int8")
     row_i8["launches"] = counts["fused_contiguous_decode_attention"]
     # where the time goes: the prefill wave alone, and with one chunk of
     # 8 decode forwards, for the bf16 and the quantized engines
+    t0 = time.perf_counter()
     profiles = {}
     for label, config in (("bf16_contig", {}),
                           ("int8kv_contig", dict(cache_dtype="int8")),
@@ -1939,19 +2592,34 @@ def main() -> int:
             profiles[f"{label}_new{n}"] = wave_profile(
                 model, prompts, label, max_new_tokens=n, **config)
     print(json.dumps({"profiles": profiles}), flush=True)
+    print(f"phase serving profiles: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     del model, prompts
     torch.cuda.empty_cache()
-    for name, n in train_7b_phase().items():
+    for name, n in phase("train 7b", train_7b_phase).items():
         fa_rows[name]["launches"] = n
+    torch.cuda.empty_cache()
+    for name, n in phase("train mamba 130m", mamba_train_phase).items():
+        scan_rows[name]["launches"] = n
+    torch.cuda.empty_cache()
+    for name, n in phase("train unet", unet_train_phase).items():
+        gn_rows[name]["launches"] = n
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
-                           qmm_row, *fa_rows.values()]}
+                           qmm_row, *fa_rows.values(), *scan_rows.values(),
+                           *gn_rows.values()]}
     for r in kernels["kernels"]:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            # no single PyTorch call computes the scan (rows 10-11)
+            if r[key] is None and key == "library_ms" \
+                    and r["name"] in SCAN_KERNELS:
+                continue
             if not math.isfinite(r[key]):
                 raise AssertionError(f"{key} is not finite: {r[key]}")
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its "
                                  "path")
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all",
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ It serves Llama through the continuous-batching engine
 (``inference/paged.py``), float or int8, over bf16 weights or int8/int4
 weight-only quantized ones (``quantization``), and trains it on one card
 (``trainer.TrainStep`` with ``optimizer.AdamW``, float32 masters and the
-flash-attention kernels); ROADMAP.md lists what comes next.
+flash-attention kernels), as it trains Mamba (the selective-scan
+kernels) and the SD UNet (channels-last, the fused GroupNorm kernels);
+ROADMAP.md lists what comes next.
 """
 
 from . import flags

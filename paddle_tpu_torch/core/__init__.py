@@ -1,6 +1,7 @@
 """Device placement and explicit random generators of the PyTorch port."""
 
 from .device import resolve_device
-from .random import make_generator, normal_
+from .random import fan_in_out, make_generator, normal_, uniform_
 
-__all__ = ["resolve_device", "make_generator", "normal_"]
+__all__ = ["fan_in_out", "make_generator", "normal_", "resolve_device",
+           "uniform_"]

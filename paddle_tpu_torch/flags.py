@@ -79,3 +79,8 @@ define_flag("flash_attention_block_k", 1024,
             "backward pass as on the TPU: the fused pass when "
             "ceil(sk / block_k) <= 4 (one float32 dq partial per block_k "
             "kv rows), else the dq and dk/dv passes")
+define_flag("fused_group_norm", True,
+            "NHWC GroupNorm(+SiLU) through the fused kernels: on = rows "
+            "12/13 (the Hopper kernels for CUDA tensors, whatever the "
+            "shape; their plain versions for CPU tensors within the JAX "
+            "package's VMEM budget); off = the plain reference")

@@ -32,8 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # (source, object name, extra defines): one object per cache element type,
-# one for the weight-only matmul, and one per element type of the flash
-# attention kernels
+# one for the weight-only matmul, one per element type of the flash
+# attention kernels, one for the selective scan (float32 only: JAX casts
+# every operand to float32) and one per activation type of the GroupNorm
+# kernels
 UNITS: List[Tuple[str, str, List[str]]] = [
     ("decode_attention.cu", "decode_attention_f32",
      ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32"]),
@@ -58,6 +60,13 @@ UNITS: List[Tuple[str, str, List[str]]] = [
      ["-DPT_FA_T=__half", "-DPT_FA_TAG=f16"]),
     ("flash_attention.cu", "flash_attention_bf16",
      ["-DPT_FA_T=__nv_bfloat16", "-DPT_FA_TAG=bf16"]),
+    ("selective_scan.cu", "selective_scan", []),
+    ("group_norm.cu", "group_norm_f32",
+     ["-DPT_GN_T=float", "-DPT_GN_TAG=f32"]),
+    ("group_norm.cu", "group_norm_f16",
+     ["-DPT_GN_T=__half", "-DPT_GN_TAG=f16"]),
+    ("group_norm.cu", "group_norm_bf16",
+     ["-DPT_GN_T=__nv_bfloat16", "-DPT_GN_TAG=bf16"]),
 ]
 
 # the last build of this process: seconds spent compiling (0.0 when the

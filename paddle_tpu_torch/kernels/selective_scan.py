@@ -1,0 +1,324 @@
+"""Chunked selective scan (S6 linear recurrence) for Mamba, with its
+backward (counterpart of ``paddle_tpu/kernels/selective_scan.py``).
+
+``h_t = exp(delta_t * A) * h_{t-1} + (delta_t u_t) B_t``, ``y_t = C_t .
+h_t``, plus the ``u * D`` skip outside the kernels; u, delta ``[b, s, d]``,
+B, C ``[b, s, n]``, A ``[d, n]`` (negative), D ``[d]``, every operand cast
+to float32 as in JAX.
+
+Two Hopper kernels (``csrc/selective_scan.cu``) carry it, each beside
+its plain PyTorch version in this module:
+
+- row 10, the forward (``_scan_kernel`` through ``_scan_fwd_pallas``):
+  y, and with states the state entering each ``chunk`` of steps,
+  ``h0s [b, ceil(s / chunk), n, d]``, the backward's only input about the
+  forward. Without states it serves a ``no_grad`` forward;
+- row 11, the backward (``_scan_bwd_kernel`` through
+  ``_scan_bwd_pallas``): chunks in reverse, each chunk's states
+  recomputed from its anchor, then the reverse cotangent recurrence; du,
+  ddelta, dB and dC (the kernel writes per-d-block partials of the sums
+  over d, summed here in block order) and dA^T (per-batch partials,
+  summed here).
+
+No ``[b, s, d, n]`` tensor exists on either path, as in JAX.
+``_ChunkedScan`` (a ``torch.autograd.Function``) runs the forward with
+states and saves ``(u, delta, A, B, C, D, h0s)``; its backward adds the
+D-skip terms outside the kernel, as ``_chunked_bwd`` does.
+
+Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches
+the kernels or raises (no fall-back). On the card the kernels take any
+sequence length (the kernels mask a ragged last chunk: ``chunk`` only
+sets where states are saved and the backward's recompute span); on the
+CPU ``chunked_selective_scan`` requires ``s % chunk == 0``, as JAX does.
+Each wrapper adds one to ``LAUNCHES[name]`` per launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches in this process: row 10 without states (a no_grad
+# forward) and with states (the training forward), row 11
+LAUNCHES = {"selective_scan_fwd": 0, "selective_scan_fwd_states": 0,
+            "selective_scan_bwd": 0}
+MAX_STATE = 16  # the kernels keep n <= 16 states of a channel in registers
+SCAN_THREADS = 64  # channels (d) per CTA (csrc/selective_scan.cu: kThreads)
+
+_F32 = torch.float32
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _n_chunks(s: int, chunk: int) -> int:
+    return -(-s // chunk)
+
+
+def _step(h, t, u, delta, B, at):
+    """One step of the recurrence on h [b, n, d], in the JAX kernel's
+    order: ``da * h + (dt * u) * B``."""
+    dt = delta[:, t][:, None, :]
+    da = torch.exp(dt * at)
+    dbu = (dt * u[:, t][:, None, :]) * B[:, t][:, :, None]
+    return da * h + dbu
+
+
+def selective_scan_fwd_plain(u, delta, B, C, at, chunk: int,
+                             with_states: bool):
+    """Plain version of row 10, step by step as the JAX kernel: y [b, s,
+    d] float32, and with ``with_states`` also ``h0s`` [b, ceil(s / chunk),
+    n, d], the state entering each chunk. Inputs float32, ``at = A.T``
+    [n, d]."""
+    b, s, d = u.shape
+    n = at.shape[0]
+    h = torch.zeros((b, n, d), dtype=_F32, device=u.device)
+    y = torch.empty((b, s, d), dtype=_F32, device=u.device)
+    h0s = (torch.empty((b, _n_chunks(s, chunk), n, d), dtype=_F32,
+                       device=u.device) if with_states else None)
+    for t in range(s):
+        if with_states and t % chunk == 0:
+            h0s[:, t // chunk] = h
+        h = _step(h, t, u, delta, B, at)
+        y[:, t] = (h * C[:, t][:, :, None]).sum(dim=1)
+    return (y, h0s) if with_states else y
+
+
+def selective_scan_bwd_plain(u, delta, B, C, at, h0s, g, chunk: int):
+    """Plain version of row 11, step by step as the JAX kernel: chunks
+    in reverse, the chunk's states recomputed from ``h0s``, then the
+    reverse cotangent recurrence ``gh_t = C_t g_t + dA_{t+1} gh_{t+1}``.
+    Returns du, ddelta [b, s, d], dB, dC [b, s, n] and dat [n, d] (the
+    gradient of ``at``), all float32."""
+    b, s, d = u.shape
+    n = at.shape[0]
+    du = torch.empty_like(u)
+    ddelta = torch.empty_like(u)
+    dB = torch.empty((b, s, n), dtype=_F32, device=u.device)
+    dC = torch.empty_like(dB)
+    gh = torch.zeros((b, n, d), dtype=_F32, device=u.device)
+    dat = torch.zeros((b, n, d), dtype=_F32, device=u.device)
+    for ic in reversed(range(_n_chunks(s, chunk))):
+        t0, t1 = ic * chunk, min(s, (ic + 1) * chunk)
+        hs = [h0s[:, ic]]
+        for t in range(t0, t1):
+            hs.append(_step(hs[-1], t, u, delta, B, at))
+        for t in reversed(range(t0, t1)):
+            gt = g[:, t][:, None, :]
+            dt = delta[:, t][:, None, :]
+            bt = B[:, t][:, :, None]
+            ct = C[:, t][:, :, None]
+            ut = u[:, t][:, None, :]
+            h_t, h_prev = hs[t - t0 + 1], hs[t - t0]
+            da = torch.exp(dt * at)
+            dC[:, t] = (h_t * gt).sum(dim=2)
+            gh = gh + ct * gt
+            sum_ghb = (gh * bt).sum(dim=1)
+            du[:, t] = dt[:, 0] * sum_ghb
+            dB[:, t] = (gh * (dt * ut)).sum(dim=2)
+            ghh = gh * h_prev * da
+            ddelta[:, t] = ut[:, 0] * sum_ghb + (ghh * at).sum(dim=1)
+            dat = dat + ghh * dt
+            gh = da * gh
+    return du, ddelta, dB, dC, dat.sum(dim=0)
+
+
+def associative_selective_scan(u, delta, A, B, C, D):
+    """Plain reference of the other branch (``associative_selective_scan``
+    in JAX): the discretised operands ``[b, s, d, n]`` combined by
+    ``jax.lax.associative_scan``'s odd/even recursion along s, in its
+    order, then ``y = h . C + u D``. Differentiable by autograd."""
+    dA = torch.exp(delta[..., None] * A[None, None])
+    dBu = (delta * u)[..., None] * B[:, :, None, :]
+
+    def combine(x, y):
+        return y[0] * x[0], y[0] * x[1] + y[1]
+
+    def scan(a, bb):
+        num = a.shape[1]
+        if num < 2:
+            return a, bb
+        ra, rb = combine((a[:, 0:-1:2], bb[:, 0:-1:2]),
+                         (a[:, 1::2], bb[:, 1::2]))
+        oa, ob = scan(ra, rb)
+        if num % 2 == 0:
+            ea, eb = combine((oa[:, :-1], ob[:, :-1]),
+                             (a[:, 2::2], bb[:, 2::2]))
+        else:
+            ea, eb = combine((oa, ob), (a[:, 2::2], bb[:, 2::2]))
+        ea = torch.cat([a[:, :1], ea], dim=1)
+        eb = torch.cat([bb[:, :1], eb], dim=1)
+        return _interleave(ea, oa), _interleave(eb, ob)
+
+    _, h_all = scan(dA, dBu)
+    y = torch.einsum("bsdn,bsn->bsd", h_all, C)
+    return y + u * D[None, None]
+
+
+def _interleave(even, odd):
+    """Elements of ``even`` at even and of ``odd`` at odd positions along
+    axis 1 (``even`` has as many or one more)."""
+    s = even.shape[1] + odd.shape[1]
+    out = even.new_empty((even.shape[0], s) + tuple(even.shape[2:]))
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def _device_ok(t) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _check(u, delta, B, C, at, chunk, others=()):
+    b, s, d = u.shape
+    n = at.shape[0]
+    want = {"u": (b, s, d), "delta": (b, s, d), "B": (b, s, n),
+            "C": (b, s, n), "at": (n, d)}
+    for name, t in (("u", u), ("delta", delta), ("B", B), ("C", C),
+                    ("at", at)) + tuple(others):
+        if t.device != u.device:
+            raise ValueError(f"{name} is on {t.device}, u on {u.device}")
+        if t.dtype != _F32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}; got "
+                             f"{tuple(t.shape)}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state size {n} is outside [1, {MAX_STATE}]")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive; got {chunk}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds 65535")
+
+
+def _fn(name, argtypes):
+    from . import _build
+
+    fn = getattr(_build.library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
+    """Row 10: ``y``, or ``(y, h0s)`` with ``with_states``, as
+    ``selective_scan_fwd_plain``; float32 contiguous inputs."""
+    if not _device_ok(u):
+        return selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                        with_states)
+    _check(u, delta, B, C, at, chunk)
+    b, s, d = u.shape
+    n = at.shape[0]
+    y = torch.empty_like(u)
+    h0s = (torch.empty((b, _n_chunks(s, chunk), n, d), dtype=_F32,
+                       device=u.device) if with_states else None)
+    fn = _fn("pt_selective_scan_fwd", [_P] * 7 + [_I] * 5 + [_P])
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), delta.data_ptr(), B.data_ptr(), C.data_ptr(),
+                 at.data_ptr(), y.data_ptr(), _ptr(h0s), b, s, d, n,
+                 int(chunk), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective scan forward failed to launch: CUDA "
+                           f"error {err}")
+    LAUNCHES["selective_scan_fwd_states" if with_states
+             else "selective_scan_fwd"] += 1
+    return (y, h0s) if with_states else y
+
+
+def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
+    """Row 11: du, ddelta, dB, dC, dat as ``selective_scan_bwd_plain``;
+    the kernel's per-d-block dB/dC partials and per-batch dat partials
+    are summed here in a fixed order."""
+    if not _device_ok(u):
+        return selective_scan_bwd_plain(u, delta, B, C, at, h0s, g, chunk)
+    _check(u, delta, B, C, at, chunk, (("h0s", h0s), ("g", g)))
+    b, s, d = u.shape
+    n = at.shape[0]
+    if tuple(h0s.shape) != (b, _n_chunks(s, chunk), n, d) or \
+            tuple(g.shape) != (b, s, d):
+        raise ValueError(f"h0s {tuple(h0s.shape)} or g {tuple(g.shape)} do "
+                         f"not match u {(b, s, d)}, n {n}, chunk {chunk}")
+    nd = -(-d // SCAN_THREADS)
+    du, ddelta = torch.empty_like(u), torch.empty_like(u)
+    db_part = torch.empty((nd, b, s, n), dtype=_F32, device=u.device)
+    dc_part = torch.empty_like(db_part)
+    dat_part = torch.empty((b, n, d), dtype=_F32, device=u.device)
+    fn = _fn("pt_selective_scan_bwd", [_P] * 12 + [_I] * 5 + [_P])
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), delta.data_ptr(), B.data_ptr(), C.data_ptr(),
+                 at.data_ptr(), h0s.data_ptr(), g.data_ptr(), du.data_ptr(),
+                 ddelta.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+                 dat_part.data_ptr(), b, s, d, n, int(chunk),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective scan backward failed to launch: CUDA "
+                           f"error {err}")
+    LAUNCHES["selective_scan_bwd"] += 1
+    return du, ddelta, db_part.sum(dim=0), dc_part.sum(dim=0), \
+        dat_part.sum(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# autograd and entry point
+# ---------------------------------------------------------------------------
+def _f32(t):
+    return t.to(_F32).contiguous()
+
+
+class _ChunkedScan(torch.autograd.Function):
+    """The chunked scan with the kernels' backward (JAX ``_chunked_scan``
+    with ``_chunked_fwd``/``_chunked_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, chunk):
+        at = A.t().to(_F32).contiguous()
+        y, h0s = selective_scan_fwd(_f32(u), _f32(delta), _f32(B), _f32(C),
+                                    at, chunk, with_states=True)
+        ctx.save_for_backward(u, delta, A, B, C, D, h0s)
+        ctx.chunk = chunk
+        return y + u.to(_F32) * D.to(_F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, delta, A, B, C, D, h0s = ctx.saved_tensors
+        at = A.t().to(_F32).contiguous()
+        g32 = _f32(g)
+        du, ddelta, db, dc, dat = selective_scan_bwd(
+            _f32(u), _f32(delta), _f32(B), _f32(C), at, h0s, g32, ctx.chunk)
+        # the D-skip terms, outside the kernel (pure elementwise)
+        du = du + g32 * D.to(_F32)
+        dD = (g32 * u.to(_F32)).sum(dim=(0, 1))
+        return (du.to(u.dtype), ddelta.to(delta.dtype),
+                dat.t().to(A.dtype), db.to(B.dtype), dc.to(C.dtype),
+                dD.to(D.dtype), None)
+
+
+def chunked_selective_scan(u, delta, A, B, C, D, *, chunk: int = 128):
+    """y [b, s, d] float32 for ``h_t = exp(delta_t A) h_{t-1} + delta_t
+    u_t B_t``, ``y_t = C_t . h_t`` (+ ``u D``). Differentiable: under
+    autograd the forward saves the chunk-boundary states (row 10 with
+    states) for the recompute-based backward (row 11); otherwise row 10
+    runs without states."""
+    s = u.shape[1]
+    if u.device.type == "cpu" and s % chunk:
+        raise ValueError(f"seq len {s} not divisible by chunk {chunk}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, delta, A, B, C, D)):
+        return _ChunkedScan.apply(u, delta, A, B, C, D, chunk)
+    at = A.t().to(_F32).contiguous()
+    y = selective_scan_fwd(_f32(u), _f32(delta), _f32(B), _f32(C), at,
+                           chunk, with_states=False)
+    return y + u.to(_F32) * D.to(_F32)

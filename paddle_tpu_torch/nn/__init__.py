@@ -1,6 +1,7 @@
 """Neural-network building blocks of the PyTorch port."""
 
-from . import functional
-from .layer.norm import RMSNorm
+from . import functional, layout
+from .layer import Conv2D, GroupNorm, LayerNorm, Linear, RMSNorm, Upsample
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["Conv2D", "GroupNorm", "LayerNorm", "Linear", "RMSNorm",
+           "Upsample", "functional", "layout"]

@@ -1,12 +1,14 @@
-"""Functional ops on the Llama serving and training paths (counterparts of
+"""Functional ops on the port's paths (counterparts of
 ``paddle_tpu/nn/functional``)."""
 
-from .activation import swiglu
-from .common import linear
+from .activation import gelu, silu, softplus, swiglu
+from .common import interpolate, linear
+from .conv import conv2d
 from .flash_attention import flash_attention, scaled_dot_product_attention
 from .input import embedding
 from .loss import cross_entropy
-from .norm import rms_norm
+from .norm import group_norm, layer_norm, rms_norm
 
-__all__ = ["cross_entropy", "embedding", "flash_attention", "linear",
-           "rms_norm", "scaled_dot_product_attention", "swiglu"]
+__all__ = ["conv2d", "cross_entropy", "embedding", "flash_attention", "gelu",
+           "group_norm", "interpolate", "layer_norm", "linear", "rms_norm",
+           "scaled_dot_product_attention", "silu", "softplus", "swiglu"]

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import layout
+
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
     """y = x @ W (+ b). The weight keeps the JAX package's layout
@@ -15,3 +17,43 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
     if bias is not None:
         y = y + bias
     return y
+
+
+def _out_size(size, scale_factor, spatial):
+    """Output spatial sizes from ``size`` or ``scale_factor`` (JAX:
+    ``int(in * sf)``)."""
+    nd = len(spatial)
+    if size is not None:
+        return (size,) * nd if isinstance(size, int) else tuple(size)
+    sf = (scale_factor,) * nd if not isinstance(
+        scale_factor, (tuple, list)) else tuple(scale_factor)
+    return tuple(int(n * f) for n, f in zip(spatial, sf))
+
+
+def _nearest_index(out_len: int, in_len: int, device) -> torch.Tensor:
+    """The JAX (paddle/torch) nearest rule: floor(i * in / out), clamped."""
+    idx = torch.arange(out_len, device=device) * in_len // out_len
+    return idx.clamp(max=in_len - 1)
+
+
+def interpolate(x: torch.Tensor, size=None, scale_factor=None,
+                mode: str = "nearest",
+                data_format: str = "NCHW") -> torch.Tensor:
+    """Parity: paddle.nn.functional.interpolate, the 4-D nearest mode in
+    NCHW and NHWC (a declared NCHW resolves to NHWC inside a
+    ``layout.channels_last_scope``), indexing H and W directly with no
+    transposes. The other modes and ranks are not ported yet (ROADMAP.md
+    Queue A)."""
+    if mode != "nearest" or x.dim() != 4:
+        raise NotImplementedError(
+            f"interpolate: only 4-D nearest is ported; got mode {mode!r} "
+            f"on a {x.dim()}-D tensor (see ROADMAP.md Queue A)")
+    data_format = layout.resolve(data_format)
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"interpolate: unknown data_format {data_format!r}")
+    hw_axes = (1, 2) if data_format == "NHWC" else (2, 3)
+    h, w = (x.shape[a] for a in hw_axes)
+    oh, ow = _out_size(size, scale_factor, (h, w))
+    iy = _nearest_index(oh, h, x.device)
+    ix = _nearest_index(ow, w, x.device)
+    return x.index_select(hw_axes[0], iy).index_select(hw_axes[1], ix)

@@ -1,5 +1,8 @@
 """Layers of the PyTorch port."""
 
-from .norm import RMSNorm
+from .common import Linear, Upsample
+from .conv import Conv2D
+from .norm import GroupNorm, LayerNorm, RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["Conv2D", "GroupNorm", "LayerNorm", "Linear", "RMSNorm",
+           "Upsample"]

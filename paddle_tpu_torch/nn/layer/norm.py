@@ -1,4 +1,8 @@
-"""Normalisation layers (counterpart of ``paddle_tpu/nn/layer/norm.py``)."""
+"""Normalisation layers (counterpart of ``paddle_tpu/nn/layer/norm.py``:
+``RMSNorm``, ``LayerNorm``, ``GroupNorm``). Each takes ``device``, which
+defaults to the card (raises without one unless ``"cpu"`` is passed);
+weights start at ones and biases at zeros, as in the JAX layers, and are
+trainable."""
 
 from __future__ import annotations
 
@@ -6,14 +10,11 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
-from ..functional.norm import rms_norm
+from ..functional.norm import group_norm, layer_norm, rms_norm
 
 
 class RMSNorm(nn.Module):
-    """Parity: phi fusion rms_norm / PaddleNLP LlamaRMSNorm. The weight
-    starts at ones, as in the JAX layer, and is trainable. ``device``
-    defaults to the card (raises without one unless ``"cpu"`` is
-    passed)."""
+    """Parity: phi fusion rms_norm / PaddleNLP LlamaRMSNorm."""
 
     def __init__(self, hidden_size: int, epsilon: float = 1e-6,
                  dtype=torch.float32, device="cuda"):
@@ -29,3 +30,62 @@ class RMSNorm(nn.Module):
 
     def extra_repr(self):
         return f"hidden_size={self.hidden_size}, epsilon={self.epsilon}"
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing ``normalized_shape`` (the last axis is
+    what the functional normalises, as in JAX)."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        device = resolve_device(device)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+                                              dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
+                                             dtype=dtype, device=device))
+
+    def forward(self, x):
+        return layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                          self.epsilon)
+
+    def extra_repr(self):
+        return (f"normalized_shape={self.normalized_shape}, "
+                f"epsilon={self.epsilon}")
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over ``num_channels`` in ``num_groups``; ``activation``
+    ("silu" | None) fuses the following nonlinearity into the norm: under
+    NHWC the fused kernels (rows 12/13) apply it in the same pass, and on
+    the NCHW path it is applied functionally, so the layer means the same
+    in both layouts."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5, data_format: str = "NCHW",
+                 activation=None, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.epsilon = epsilon
+        self.data_format = data_format
+        self.activation = activation
+        self.weight = nn.Parameter(torch.ones((num_channels,), dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros((num_channels,), dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return group_norm(x, self.num_groups, self.weight, self.bias,
+                          self.epsilon, self.data_format,
+                          activation=self.activation)
+
+    def extra_repr(self):
+        return (f"num_groups={self.num_groups}, "
+                f"num_channels={self.num_channels}, "
+                f"activation={self.activation}")

@@ -700,3 +700,205 @@ def test_flash_attention_kernels_raise_on_what_they_do_not_take(card):
         fa.flash_forward(q, k.half(), v)
     with pytest.raises(ValueError, match="is on"):
         fa.flash_forward(q, k.cpu(), v)
+
+
+# ---------------------------------------------------------------------------
+# rows 10-11: the selective scan
+# ---------------------------------------------------------------------------
+SCAN_TOL = 1e-5  # float32 on both sides: FMA contraction and expf only
+
+
+def _row_err(got, want):
+    """The largest error of a last-axis row over the plain row's norm
+    (taken as at least 1e-3 of the tensor's root-mean-square row norm; an
+    all-zero tensor is held exactly)."""
+    g, w = got.float(), want.float()
+    den = w.norm(dim=-1)
+    floor = (1e-3 * den.square().mean().sqrt()).clamp_min(1e-30)
+    return ((g - w).norm(dim=-1) / torch.maximum(den, floor)).max().item()
+
+
+def _scan_inputs(b, s, d, n, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u, B, C = randn(b, s, d), randn(b, s, n), randn(b, s, n)
+    delta = torch.nn.functional.softplus(randn(b, s, d) - 1.0)
+    A = -torch.exp(randn(d, n) * 0.5)
+    return u, delta, A, B, C, randn(d), randn(b, s, d)
+
+
+# (b, s, d, n, chunk): the Mamba tiny and 130m widths at short lengths, a
+# ragged s, d no multiple of the 64-channel block, n 8 and 4, a chunk
+# longer than the backward's 128-step segment, a chunk longer than s, and
+# the smallest shapes (one step, one channel, one state; chunks of 2)
+SCAN_CASES = [(2, 256, 128, 8, 32), (2, 256, 1536, 16, 128),
+              (1, 200, 200, 16, 64), (2, 300, 96, 8, 128),
+              (1, 512, 64, 4, 320), (1, 130, 64, 16, 1000),
+              (1, 1, 1, 1, 128), (3, 5, 70, 3, 2)]
+
+
+@pytest.mark.parametrize("b,s,d,n,chunk", SCAN_CASES)
+def test_selective_scan_kernels_match_plain_versions(card, b, s, d, n,
+                                                     chunk):
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    u, delta, A, B, C, _, g = _scan_inputs(b, s, d, n)
+    at = A.t().contiguous()
+    before = dict(ss.LAUNCHES)
+    y0 = ss.selective_scan_fwd(u, delta, B, C, at, chunk, False)
+    y, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+    y_ref, h0s_ref = ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                                 True)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y) and h0s.shape == h0s_ref.shape
+    assert _row_err(y, y_ref) <= SCAN_TOL
+    assert _row_err(h0s, h0s_ref) <= SCAN_TOL
+    got = ss.selective_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
+    want = ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s_ref, g,
+                                       chunk)
+    torch.cuda.synchronize()
+    for name, x, w in zip(("du", "ddelta", "dB", "dC", "dat"), got, want):
+        assert x.shape == w.shape, name
+        assert _row_err(x, w) <= SCAN_TOL, (name, _row_err(x, w))
+    # run-to-run identical (no atomics)
+    again = ss.selective_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
+    assert all(torch.equal(x, z) for x, z in zip(got, again))
+    assert {k: ss.LAUNCHES[k] - before[k] for k in before} == {
+        "selective_scan_fwd": 1, "selective_scan_fwd_states": 1,
+        "selective_scan_bwd": 2}
+
+
+def test_selective_scan_autograd_matches_the_cpu(card):
+    """``chunked_selective_scan`` under autograd on the card (rows 10 and
+    11, the D-skip outside) against the same on the CPU (the plain
+    versions): the output and all six gradients."""
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    *args, g = _scan_inputs(2, 256, 96, 16, seed=1)
+    dev = [a.clone().requires_grad_() for a in args]
+    cpu = [a.detach().cpu().requires_grad_() for a in args]
+    out = ss.chunked_selective_scan(*dev, chunk=64)
+    ref = ss.chunked_selective_scan(*cpu, chunk=64)
+    out.backward(g)
+    ref.backward(g.cpu())
+    assert _row_err(out.cpu(), ref) <= SCAN_TOL
+    for name, a, c in zip("u delta A B C D".split(), dev, cpu):
+        assert _row_err(a.grad.cpu(), c.grad) <= SCAN_TOL, name
+    with torch.no_grad():
+        y = ss.chunked_selective_scan(*args, chunk=64)
+    assert torch.equal(y, out.detach())
+
+
+def test_selective_scan_kernels_raise_on_what_they_do_not_take(card):
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    u, delta, A, B, C, _, _ = _scan_inputs(1, 64, 32, 16)
+    at = A.t().contiguous()
+    with pytest.raises(ValueError, match="state size"):
+        big = torch.zeros((1, 64, 17), device="cuda")
+        ss.selective_scan_fwd(u, delta, big, big,
+                              torch.zeros((17, 32), device="cuda"), 16,
+                              False)
+    with pytest.raises(ValueError, match="float32"):
+        ss.selective_scan_fwd(u.half(), delta, B, C, at, 16, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.selective_scan_fwd(u.transpose(1, 2).contiguous().transpose(1, 2),
+                              delta, B, C, at, 16, False)
+    with pytest.raises(ValueError, match="is on"):
+        ss.selective_scan_fwd(u, delta.cpu(), B, C, at, 16, False)
+
+
+# ---------------------------------------------------------------------------
+# rows 12-13: the fused GroupNorm
+# ---------------------------------------------------------------------------
+# outputs in x's dtype within one rounding of the same float32 value
+# (2^-7 relative covers one bf16 ulp; float32: the sums' order), plus a
+# floor of 1e-5 of the tensor's largest value; statistics and the dgamma /
+# dbeta partials within 1e-5 of the largest value
+GN_RTOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -10,
+           torch.bfloat16: 2.0 ** -7}
+
+
+def _gn_close(name, got, want, rtol):
+    g, w = got.float(), want.float()
+    floor = 1e-5 * w.abs().max().item()
+    bad = (g - w).abs() > rtol * w.abs() + floor
+    assert not bad.any(), (f"{name}: {int(bad.sum())} elements off, max "
+                           f"abs err {(g - w).abs().max().item()}")
+
+
+# (n, h, w, c, groups, dtype, activation): UNet sites, an odd split, one
+# group of 2048 channels (more than one CTA's 1024 threads), a shape over
+# the JAX kernel's VMEM budget, one pixel, and one channel per group
+GN_CASES = [(1, 1, 1, 64, 32, torch.float32, "silu"),
+            (2, 3, 1, 64, 64, torch.bfloat16, None),(4, 32, 32, 320, 32, torch.bfloat16, "silu"),
+            (4, 8, 8, 1280, 32, torch.bfloat16, None),
+            (2, 4, 4, 2560, 32, torch.float16, "silu"),
+            (2, 16, 16, 640, 32, torch.float32, "silu"),
+            (1, 3, 5, 30, 3, torch.bfloat16, None),
+            (1, 2, 3, 4096, 2, torch.float32, "silu"),
+            (1, 128, 128, 1024, 32, torch.bfloat16, "silu")]
+
+
+@pytest.mark.parametrize("n,h,w,c,g,dtype,act", GN_CASES)
+def test_group_norm_kernels_match_plain_versions(card, n, h, w, c, g, dtype,
+                                                 act):
+    from paddle_tpu_torch.kernels import group_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(c + h)
+    x = (torch.randn((n, h * w, c), generator=gen, device="cuda") * 2
+         + 0.5).to(dtype)
+    dy = torch.randn((n, h * w, c), generator=gen, device="cuda").to(dtype)
+    gamma = 1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    before = dict(gn.LAUNCHES)
+    y, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, act)
+    y_ref, mean_ref, rstd_ref = gn.group_norm_fwd_plain(x, gamma, beta, g,
+                                                        1e-5, act)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    _gn_close("y", y, y_ref, GN_RTOL[dtype])
+    _gn_close("mean", mean, mean_ref, 0.0)
+    _gn_close("rstd", rstd, rstd_ref, 0.0)
+    got = gn.group_norm_bwd(x, dy, gamma, beta, mean_ref, rstd_ref, g, act)
+    want = gn.group_norm_bwd_plain(x, dy, gamma, beta, mean_ref, rstd_ref,
+                                   g, act)
+    torch.cuda.synchronize()
+    _gn_close("dx", got[0], want[0], GN_RTOL[dtype])
+    _gn_close("dgamma", got[1], want[1], 0.0)
+    _gn_close("dbeta", got[2], want[2], 0.0)
+    again = gn.group_norm_bwd(x, dy, gamma, beta, mean_ref, rstd_ref, g, act)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert {k: gn.LAUNCHES[k] - before[k] for k in before} == {
+        "group_norm_fwd": 1, "group_norm_bwd": 2}
+
+
+def test_group_norm_autograd_and_dispatch_on_the_card(card):
+    """``F.group_norm`` on an NHWC tensor on the card launches rows 12 and
+    13 (over the JAX VMEM budget too) and gives the CPU's gradients."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((1, 128, 128, 1024), generator=gen, device="cuda")
+    wt = torch.randn(1024, generator=gen, device="cuda")
+    bs = torch.randn(1024, generator=gen, device="cuda")
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (x, wt, bs)]
+    cpu = [t.detach().cpu().requires_grad_() for t in (x, wt, bs)]
+    before = dict(gn.LAUNCHES)
+    out = F.group_norm(leaves[0], 32, leaves[1], leaves[2],
+                       data_format="NHWC", activation="silu")
+    out.backward(cot)
+    assert {k: gn.LAUNCHES[k] - before[k] for k in before} == {
+        "group_norm_fwd": 1, "group_norm_bwd": 1}
+    ref = gn.fused_group_norm(*cpu, 32, 1e-5, "silu")
+    ref.backward(cot.cpu())
+    _gn_close("y", out.cpu(), ref, 1e-5)
+    for name, a, c in zip(("dx", "dgamma", "dbeta"), leaves, cpu):
+        _gn_close(name, a.grad.cpu(), c.grad, 1e-5)
+    with pytest.raises(ValueError, match="not divisible"):
+        F.group_norm(x[..., :1000].contiguous(), 32, data_format="NHWC")

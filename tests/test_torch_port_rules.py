@@ -68,6 +68,9 @@ def test_importing_the_port_loads_no_jax_module():
                          check=True)
     added = json.loads(res.stdout.strip().splitlines()[-1])
     assert "paddle_tpu_torch.inference.serving" in added
+    for mod in ("models.mamba", "models.unet", "kernels.selective_scan",
+                "kernels.group_norm", "nn.layout", "nn.functional.conv"):
+        assert f"paddle_tpu_torch.{mod}" in added
     assert [m for m in added if _forbidden(m)] == []
 
 
@@ -98,6 +101,25 @@ def test_default_device_entry_points_raise_without_a_card():
                  lambda **kw: RowParallelLinear(8, 4, generator=gen, **kw),
                  lambda **kw: VocabParallelEmbedding(16, 8, generator=gen,
                                                      **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        layer = make(device="cpu")
+        assert all(p.device.type == "cpu" and p.requires_grad
+                   for p in layer.parameters())
+    from paddle_tpu_torch.models import (
+        MambaConfig,
+        MambaForCausalLM,
+        UNet2DConditionModel,
+        UNetConfig,
+    )
+    from paddle_tpu_torch.nn import Conv2D, GroupNorm, LayerNorm, Linear
+
+    for make in (lambda **kw: MambaForCausalLM(MambaConfig.tiny(), **kw),
+                 lambda **kw: UNet2DConditionModel(UNetConfig.tiny(), **kw),
+                 lambda **kw: Linear(8, 4, **kw),
+                 lambda **kw: Conv2D(4, 8, 3, **kw),
+                 lambda **kw: GroupNorm(2, 8, **kw),
+                 lambda **kw: LayerNorm(8, **kw)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
         layer = make(device="cpu")
