@@ -917,14 +917,17 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hk=32, d=128)
 
 
-def fa_inputs(b, s, hq, hk, d, dtype, seed):
+def fa_inputs(b, s, hq, hk, d, dtype, seed, sk=None):
+    """q, k, v, do and an LSE cotangent; k and v have ``sk`` rows (``s``
+    when None)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sk = s if sk is None else sk
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    return (randn(b, s, hq, d), randn(b, s, hk, d), randn(b, s, hk, d),
+    return (randn(b, s, hq, d), randn(b, sk, hk, d), randn(b, sk, hk, d),
             randn(b, s, hq, d),
             torch.randn((b, hq, s), generator=gen, device="cuda"))
 
@@ -991,16 +994,17 @@ def fa_compare(name, got, want, tol):
 
 
 def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
-             segments=None, seed=0):
+             segments=None, seed=0, sk=None):
     """Rows 5-9 against their plain versions on one input set: the
     forward without and with LSE, then the dq, dk/dv and fused backward
     from the plain statistics with a nonzero LSE cotangent folded into
     delta; the fused and the two-pass backward must agree (dk, dv bit for
-    bit: the same sums in the same order). Returns the max abs errors by
-    kernel."""
+    bit: the same sums in the same order). ``sk`` (``s`` when None) is
+    the kv length. Returns the max abs errors by kernel."""
     from paddle_tpu_torch.kernels import mha as fa
 
-    q, k, v, do, dlse = fa_inputs(b, s, hq, hk, d, dtype, seed)
+    q, k, v, do, dlse = fa_inputs(b, s, hq, hk, d, dtype, seed, sk)
+    sk = k.shape[1]
     qseg, kseg = fa.split_segments(fa_segments(segments, b, s), q, k)
     kw = dict(causal=causal, sm_scale=d ** -0.5, qseg=qseg, kseg=kseg,
               window=window)
@@ -1010,7 +1014,7 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
     ref_o, ref_lse = fa.mha_forward_plain(q, k, v, **kw)
     delta = fa.attention_delta(ref_o, do, dlse)
     args = (q, k, v, do, ref_lse, delta)
-    span = fa.fit_block(1024, s)
+    span = fa.fit_block(1024, sk)
     got = {"fwd": o5, "fwd_lse": o6, "lse": lse,
            "bwd_dq": fa.flash_bwd_dq(*args, **kw)}
     got["bwd_dk"], got["bwd_dv"] = fa.flash_bwd_dkv(*args, **kw)
@@ -1054,7 +1058,8 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
                                  f"gradient {key[-2:]} differs by {rel} "
                                  "of a row")
         errs[f"autograd_{key[-2:]}"] = (rel, e)
-    print(f"flash check {name}: b={b} s={s} hq={hq} hk={hk} d={d} {dtype} "
+    print(f"flash check {name}: b={b} s={s} sk={sk} hq={hq} hk={hk} d={d} "
+          f"{dtype} "
           f"causal={causal} window={window} segments={segments}: row err / "
           f"max abs err " + ", ".join(f"{k} {r:.2e}/{e:.2e}"
                                       for k, (r, e) in errs.items())
@@ -1173,6 +1178,42 @@ def fa_bound(name, b, s, hq, hk, d, itemsize, pairs):
                                  else "bytes"), ops
 
 
+def flash_build_report(log):
+    """The ptxas registers and spills of the redesigned flash kernels
+    (``fwd_kernel`` and ``dkv_kernel`` at 16-bit DP 64 and 128) and the
+    dynamic shared memory each is launched with."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    pat = re.compile(r"Compiling entry function '\S*?\d+(fwd_kernel|dkv_kernel)"
+                     r"I(6__half|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?\S*' "
+                     r"for 'sm_90a'\n.*\n\s*(.*)\n(.*)\n")
+    passes = {("fwd_kernel", None): 0, ("dkv_kernel", "0"): 2,
+              ("dkv_kernel", "1"): 3}
+    rows = []
+    for m in pat.finditer(log):
+        kernel, tname, dp, fused = m.group(1), m.group(2), int(m.group(3)), \
+            m.group(5)
+        tag = "bf16" if "bfloat16" in tname else "f16"
+        fn = getattr(lib, f"pt_flash_smem_{tag}")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        smem = fn(passes[(kernel, fused)], dp)
+        label = kernel + ("" if fused is None else
+                          ("<FUSED>" if fused == "1" else "<two-pass>"))
+        regs = re.search(r"Used (\d+) registers", m.group(7))
+        line = (f"ptxas {label} {tag} DP {dp}: {regs.group(1)} registers, "
+                f"{m.group(6).strip()}, {smem} bytes of dynamic shared "
+                f"memory")
+        print(line, flush=True)
+        rows.append(line)
+    if len(rows) != 12:
+        raise AssertionError(f"expected the ptxas lines of 12 redesigned "
+                             f"flash instantiations, found {len(rows)}")
+    return rows
+
+
 def flash_kernel_phase():
     """Rows 5-9 against their plain versions at the shapes of the train
     path and its variants, then timed at the Llama-2-7B train shape beside
@@ -1200,6 +1241,16 @@ def flash_kernel_phase():
         # ragged: no multiple of the kernels' tiles or of 128, nine
         # 128-row spans in the fused pass
         ("ragged_1100", 1, 1100, 8, 2, 128, torch.bfloat16, {}),
+        # the edges of the redesigned tiling: s no multiple of the forward's
+        # 64-row q tile or the backward's 128-key kv tile; sq != sk, so a
+        # causal tile straddles the bottom-right diagonal; a window edge
+        # inside a tile; GQA with the fused pass over 3 spans of 1024
+        ("ragged_1000", 2, 1000, 8, 8, 128, torch.bfloat16, {}),
+        ("causal_sq_1000_sk_2048", 2, 1000, 8, 2, 128, torch.bfloat16,
+         dict(sk=2048)),
+        ("window_300", 2, 2048, 8, 8, 128, torch.bfloat16,
+         dict(window=300)),
+        ("gqa_3_spans", 1, 3072, 16, 4, 128, torch.bfloat16, {}),
     ]
     errs = {}
     for i, (name, b, s, hq, hk, d, dtype, kw) in enumerate(cases):
@@ -1616,16 +1667,17 @@ def scan_inputs(b, s, d, n, seed):
 
 def scan_check(name, b, s, d, n, chunk, seed):
     """Rows 10 (without and with states) and 11 against their plain
-    versions, row by row (fa_row_err) within SCAN_ROW_TOL; the forward
+    versions, row by row (fa_row_err) within SCAN_ROW_TOL, through
+    ``split_scan_*`` (over 16 states, one launch per block); the forward
     without states equal to the one with; returns the max abs errors."""
     from paddle_tpu_torch.kernels import selective_scan as ss
 
     u, delta, B, C, at, g = scan_inputs(b, s, d, n, seed)
-    y0 = ss.selective_scan_fwd(u, delta, B, C, at, chunk, False)
-    y, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+    y0 = ss.split_scan_fwd(u, delta, B, C, at, chunk, False)
+    y, h0s = ss.split_scan_fwd(u, delta, B, C, at, chunk, True)
     y_ref, h0s_ref = ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
                                                  True)
-    bwd = ss.selective_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
+    bwd = ss.split_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
     bwd_ref = ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s_ref, g,
                                           chunk)
     torch.cuda.synchronize()
@@ -1674,8 +1726,8 @@ def scan_bound(name, b, s, d, n, chunk):
 
 def scan_kernel_phase():
     """Rows 10-11 against their plain versions at the Mamba-130m train
-    shape, a ragged s, a d that is no multiple of the 64-channel block and
-    n 8; then timed at the train shape beside their bounds and plain
+    shape, a ragged s, a d that is no multiple of the 64-channel block, n
+    8 and n 32 (two blocks of 16 states); then timed at the train shape beside their bounds and plain
     versions. No single PyTorch call computes the scan, so library_ms is
     None for these rows."""
     from paddle_tpu_torch.kernels import selective_scan as ss
@@ -1684,7 +1736,9 @@ def scan_kernel_phase():
     cases = [("mamba130m_train", t["b"], t["s"], t["d"], t["n"], t["chunk"]),
              ("ragged_s1000", 2, 1000, 1536, 16, 128),
              ("d200", 2, 512, 200, 16, 128),
-             ("n8", 2, 512, 512, 8, 128)]
+             ("n8", 2, 512, 512, 8, 128),
+             # a state size over the kernels' 16: two blocks of 16
+             ("n32", 2, 512, 512, 32, 128)]
     errs = {}
     for i, case in enumerate(cases):
         for k, e in scan_check(*case, seed=80 + i).items():
@@ -2534,7 +2588,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path = _build.build()
-    log = str(_build.BUILD_INFO.get("log", ""))
+    # this build's compiler output, or the one saved beside a library an
+    # earlier process built
+    log = str(_build.BUILD_INFO.get("log", "")) or \
+        (path.parent / "build.log").read_text()
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
     spilled = re.findall(r"Function properties for (\S+)\n\s+\d+ bytes "
@@ -2545,6 +2602,7 @@ def main() -> int:
           f"{max(spills, default=0)} bytes in {len(spilled)} kernels "
           f"{spilled}", flush=True)
 
+    flash_build_report(log)
     row = phase("decode kernel", kernel_phase)
     fused_row, block_row = phase("paged kernels", paged_kernel_phase)
     qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)

@@ -37,35 +37,75 @@
 // of q, k, v and o (0.080 ms at 3.35 TB/s); the fused backward does 2.5x
 // the forward's products and the two-pass one 3.5x.
 //
-// Design (first version, simple and right): 128 threads per CTA; square
-// tiles of B = 64 rows (32 when a padded row holds more than 256 bytes)
-// staged in shared memory with the head dim zero-padded to DP = 64, 128 or
-// 256. Products go through nvcuda::wmma 16x16x16 fragments with float32
-// accumulators for 16-bit inputs, and a SIMT FMA loop for float32 inputs
-// (tile_mma); accumulators live in shared memory, so the online-softmax
-// rescale and the elementwise passes address them by row and column.
-//   - fwd_kernel: one CTA per (batch, query head, q tile), heaviest causal
-//     tiles first; walks the kv tiles that hold a visible key (causal stops
-//     at the diagonal tile, a window starts at its first tile).
-//   - dq_kernel: one CTA per (batch, query head, q tile); recomputes p from
-//     lse over the same kv tiles and accumulates dq.
-//   - dkv_kernel: one CTA per (batch, kv head, kv tile); loops over the
-//     group's query heads and the q tiles that see the kv tile, the GQA sum
-//     landing in the same dk/dv accumulators. FUSED: one CTA per (batch,
-//     kv head, kv span of the JAX k block); it walks the span's kv tiles in
-//     order and also accumulates ds k into the span's float32 dq partial
-//     [span, b, sq_pad, hq, DP] in device memory, which it alone writes; the
-//     caller sums the partials over spans in order.
-// No atomics: every sum runs in a fixed order, so the backward is
-// run-to-run identical.
+// Design. Two bodies share the file.
 //
-// Later redesign: wgmma fed by TMA through a multi-stage shared-memory
-// ring, accumulators in registers, warp specialisation.
+// The redesigned kernels (16-bit inputs at DP 64 and 128, every shape of
+// the Llama train path): products on mma.sync m16n8k16 with float32
+// accumulators in registers; operands read from shared-memory tiles by
+// ldmatrix (.trans for the transposed operands), rows padded by 16 bytes
+// so the eight rows of an 8x8 read fall in distinct banks; tiles filled by
+// cp.async, the next tile landing while the current one is multiplied;
+// fragment reads software-pipelined ahead of the products (gemm_pipe).
+//   - fwd_kernel: 4 warps, q tiles of 64 rows (16 a warp, their Q
+//     fragments in registers for the whole kv loop), kv tiles of 64 keys
+//     in a two-stage ring; grid (q tiles, batch x query head), a head's
+//     tiles side by side (sharing its K and V in L2), the heaviest causal
+//     tiles first. S stays in registers, the online
+//     softmax runs there (row max and sum across the 4 lanes of a row by
+//     shuffles, p = 2^(s sl2 - m sl2) by one FFMA and MUFU.EX2), p is
+//     rounded to T in registers and fed as the A operand of P V, O is
+//     rescaled in place. The mask is applied only on tiles that a mask
+//     touches (the diagonal, a window edge, a ragged tile, segment ids).
+//     O / l leaves through shared memory as 16-byte stores.
+//   - dkv_kernel: 8 warps, kv tiles of 128 keys (16 a warp, whose dK and
+//     dV rows accumulate in registers over the whole q loop), q tiles of 64
+//     rows with lse, delta and the segment ids in a two-stage ring. It
+//     computes S^T = K Q^T and dP^T = V dO^T, so p^T and ds^T, rounded to T
+//     in registers, are already the A operands of dV += P^T dO and dK +=
+//     dS^T Q. FUSED: dS^T is staged as a T tile and dq = dS K (ldmatrix
+//     .trans) goes to a fresh register accumulator, added to the span's
+//     float32 partial, which was prefetched into shared memory by cp.async
+//     at the start of the q tile and is stored back as 16-byte vectors.
+//     Grid (kv tiles, batch x kv head) for the two passes, a head's tiles
+//     side by side; (batch x kv head, spans) for FUSED, the low spans (the
+//     heaviest causal work) first. dk and dv leave through shared memory
+//     as 16-byte stores.
+// What bounds them now (ptxas, and the flash phase of chip_smoke.py, at
+// the train shape): about 190 TFLOP/s forward, 150 fused and 210 for the
+// dk/dv pass, a fifth of the tensor cores' rate. The forward takes 176
+// registers (two CTAs, 8 warps an SM), the backward the 255 cap with a
+// few spilled words at DP 128 (one CTA of 8 warps). mma.sync with
+// ldmatrix operands and 8 warps an SM is bound by operand reads from
+// shared memory and by the softmax or ds arithmetic issued between the
+// products, which nothing overlaps. The fused pass also reads and writes
+// its float32 partial once per (kv tile, q tile) pair: 2.2 GB at the
+// train shape (272 pairs of 64 KB per kv head), more than L2 holds. wgmma
+// fed by TMA in 128-byte swizzled tiles, with warp specialisation so that
+// the softmax overlaps the products, is what would pass SDPA.
+//
+// The first version's bodies (fwd_kernel_v1, dkv_kernel_v1) still serve
+// float32 (the 1e-5 references: a SIMT FMA loop, no TF32) and DP 256, and
+// dq_kernel (row 7) serves every type: 128 threads, square tiles of
+// B = 64 rows (32 when a padded row holds more than 256 bytes) in shared
+// memory, nvcuda::wmma 16x16x16 fragments for 16-bit inputs, accumulators
+// in shared memory (tile_mma). fwd_kernel_v1 and dq_kernel: one CTA per
+// (batch, query head, q tile); dkv_kernel_v1: one per (batch, kv head, kv
+// tile or span). dkv_kernel and dkv_kernel_v1 loop over the group's query
+// heads and the q tiles that see the kv tile, the GQA sum landing in the
+// same dk/dv accumulators. FUSED: one CTA per (batch, kv head, kv span of
+// the JAX k block) walks the span's kv tiles in order and adds ds k into
+// the span's float32 dq partial [span, b, sq_pad, hq, DP] in device
+// memory, which it alone writes; the caller sums the partials over spans
+// in order.
+// No atomics: every sum runs in a fixed order, so the backward is
+// run-to-run identical, and the fused and two-pass dk/dv are bit for bit
+// the same (one loop, the same tiles: spans are whole kv tiles).
 //
 // Built once per element type: compile with -DPT_FA_T=<type>
 // -DPT_FA_TAG=<suffix>; the exported C functions are
 // pt_flash_{fwd,bwd_dq,bwd_dkv,bwd_fused}_<suffix>. Each returns
-// cudaGetLastError() after its launch.
+// cudaGetLastError() after its launch. pt_flash_smem_<suffix>(pass, dp)
+// gives the dynamic shared memory a pass's kernel is launched with.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -256,7 +296,7 @@ __device__ __forceinline__ bool masked(const Args& a, int i, int j, int qs,
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) fwd_kernel_v1(Args a) {
   using G = Geo<T, DP>;
   constexpr int B = G::B;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -493,7 +533,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 }
 
 template <typename T, int DP, bool FUSED>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) dkv_kernel_v1(Args a) {
   using G = Geo<T, DP>;
   constexpr int B = G::B;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -598,38 +638,798 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The redesigned kernels for 16-bit inputs at DP 64 and 128: mma.sync
+// m16n8k16 with float32 accumulators in registers, operands read from
+// padded shared-memory tiles by ldmatrix, tiles filled by cp.async.
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src, or zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8], float32 accumulators. Fragments as the PTX
+// ISA lays them out for m16n8k16 (lane = 4 g + t): c0, c1 at (g, 2t..2t+1),
+// c2, c3 at (g + 8, 2t..2t+1); a0..a3 the pairs at (g, 2t), (g + 8, 2t),
+// (g, 2t + 8), (g + 8, 2t + 8); b0, b1 the pairs at k (2t, 2t + 8), n g.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// two floats rounded to T, the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// The A fragment of a 16x16 operand whose rows are the accumulator rows of
+// c[2 kk] and c[2 kk + 1] (16 columns), rounded to T: an accumulator
+// turned into the next product's A operand without leaving registers.
+template <typename T, int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&c)[N][4], int kk) {
+  a[0] = pack2<T>(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack2<T>(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack2<T>(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack2<T>(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// acc[n] += A . B over KK steps of 16 (k) and NP pairs of n8 tiles,
+// software-pipelined so that shared-memory reads overlap the products: the
+// B fragments of each (k step, n pair) come from b_frag(kk, np, regs) PF - 1
+// pairs ahead through a ring of registers, the A fragment of each k step
+// from a_frag(kk, regs) one step ahead. With every loop unrolled the ring
+// indices are constants and the ring stays in registers.
+template <typename T, int KK, int NP, int PF, class FA, class FB>
+__device__ __forceinline__ void gemm_pipe(float (&acc)[2 * NP][4], FA a_frag,
+                                          FB b_frag) {
+  constexpr int NJ = KK * NP;
+  uint32_t aa[2][4];
+  uint32_t bb[PF][4];
+  a_frag(0, aa[0]);
+#pragma unroll
+  for (int j = 0; j < PF - 1; ++j)
+    if (j < NJ) b_frag(j / NP, j % NP, bb[j]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int kk = j / NP, np = j % NP;
+    if (np == 0 && kk + 1 < KK) a_frag(kk + 1, aa[(kk + 1) & 1]);
+    if (j + PF - 1 < NJ)
+      b_frag((j + PF - 1) / NP, (j + PF - 1) % NP, bb[(j + PF - 1) % PF]);
+    mma16816<T>(acc[2 * np], aa[kk & 1], bb[j % PF][0], bb[j % PF][1]);
+    mma16816<T>(acc[2 * np + 1], aa[kk & 1], bb[j % PF][2], bb[j % PF][3]);
+  }
+}
+
+// 2^x by the special-function unit (relative error about 2^-22; results
+// below 2^-126 flush to zero, far under what a bf16 or fp16 p can hold)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void copy4(uint32_t (&d)[4],
+                                      const uint32_t (&s)[4]) {
+  d[0] = s[0];
+  d[1] = s[1];
+  d[2] = s[2];
+  d[3] = s[3];
+}
+
+// Lane offsets (row, column) of the ldmatrix.x4 addresses:
+//   a_off: an A operand stored [m][k] (rows m0.., k0..);
+//   b_off: a B operand stored [n][k] (two n8 tiles of one 16-deep k step);
+//   bt_off: a B operand stored [k][n] read with .trans (two n8 tiles);
+//   at_off: an A operand stored [k][m] read with .trans.
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + ((lane >> 4) << 3);
+}
+__device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) * 8; }
+__device__ __forceinline__ int bt_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_col(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int at_row(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int at_col(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
+
+// Rows [0, valid) of a [*, d] slice (rows `stride` elements apart) into a
+// [ROWS, LD] tile by cp.async; columns d..DP-1 and rows valid..ROWS-1
+// become zeros. The caller commits and waits. A thread keeps one 16-byte
+// column and walks rows NTHREADS / (DP / 8) apart, so a copy costs a
+// pointer add and a compare.
+template <typename T, int ROWS, int DP, int LD, int NTHREADS>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+                                                size_t stride, int valid,
+                                                int d) {
+  constexpr int VPR = DP / 8, RSTEP = NTHREADS / VPR;
+  static_assert(NTHREADS % VPR == 0 && ROWS % RSTEP == 0, "tile shape");
+  const int c = (threadIdx.x % VPR) * 8, r0 = threadIdx.x / VPR;
+  const bool c_ok = c < d;
+  const T* sp = src + r0 * stride + c;
+  T* dp = dst + r0 * LD + c;
+#pragma unroll
+  for (int i = 0; i < ROWS / RSTEP; ++i) {
+    const bool ok = c_ok && r0 + i * RSTEP < valid;
+    cp_async16(dp + i * RSTEP * LD, ok ? sp : src, ok);
+    sp += RSTEP * stride;
+  }
+}
+
+// Forward geometry: NW warps, each owning 16 rows of the q tile (BM = 16
+// NW rows) with their Q fragments in registers; kv tiles of BN keys in a
+// ring of NST stages. At bf16 d 128: 174 registers and 88 KB, so two CTAs
+// (8 warps) share an SM. On the card, 8 warps a CTA, kv tiles of 32, three
+// to five stages, two 16-row slices a warp (which spilled) and a wgmma
+// version (Q K^T from shared memory, P V with P from registers) ran no
+// faster.
+template <typename T, int DP>
+struct FwdCfg {
+  static constexpr int NW = 4, NST = 2;
+  static constexpr int kThreads = 32 * NW, BM = 16 * NW, BN = 64;
+  static constexpr int LD = DP + 8;  // 16 bytes of padding: ldmatrix rows
+                                     // fall in distinct banks
+  static constexpr size_t kQ = al128(size_t(BM) * LD * sizeof(T));
+  static constexpr size_t kKV = al128(size_t(BN) * LD * sizeof(T));
+  static constexpr size_t kKseg = al128(BN * 4), kQseg = al128(BM * 4);
+  static constexpr size_t kStage = 2 * kKV + kKseg;  // K V kseg
+  static constexpr size_t kSmem = kQ + NST * kStage + kQseg;
+  static_assert(kSmem <= 232448, "shared memory over the per-block limit");
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(FwdCfg<T, DP>::kThreads)
+    fwd_kernel(Args a) {
+  using C = FwdCfg<T, DP>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, NST = C::NST,
+                NT = BN / 8, DT = DP / 8, NTH = C::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* const Qs = reinterpret_cast<T*>(smem);
+  unsigned char* const ring = smem + C::kQ;  // stage s at s * kStage
+  int* const qsg = reinterpret_cast<int*>(ring + NST * C::kStage);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane >> 2, t4 = lane & 3;
+  // grid (q tiles, b * hq): a head's q tiles run side by side and share
+  // its K and V in L2, the heaviest causal tiles first
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / a.hq, h = blockIdx.y % a.hq;
+  const int grp = h / a.rep;
+  const int q0 = qt * BM;
+  const int q_valid = min(BM, a.sq - q0);
+  const int off = a.sk - a.sq;
+  int lo = 0, hi = a.sk;
+  if (a.causal) hi = min(hi, q0 + q_valid + off);
+  if (a.window) lo = max(0, q0 + off - a.window + 1);
+
+  const size_t qrow = static_cast<size_t>(a.hq) * a.d;
+  const size_t kvrow = static_cast<size_t>(a.hk) * a.d;
+  const T* qp = static_cast<const T*>(a.q) +
+                (static_cast<size_t>(b) * a.sq + q0) * qrow +
+                static_cast<size_t>(h) * a.d;
+  load_tile_async<T, BM, DP, LD, NTH>(Qs, qp, qrow, q_valid, a.d);
+  cp_async_commit();
+  for (int r = tid; r < BM; r += NTH)
+    qsg[r] = (a.qseg != nullptr && r < q_valid)
+                 ? a.qseg[static_cast<size_t>(b) * a.sq + q0 + r]
+                 : 0;
+
+  const int kt0 = lo / BN, kt1 = hi > 0 ? (hi + BN - 1) / BN : 0;
+  auto load_kv = [&](int kt, int st) {
+    unsigned char* base = ring + st * C::kStage;
+    const int k0 = kt * BN, kv = min(BN, a.sk - k0);
+    const size_t kofs = (static_cast<size_t>(b) * a.sk + k0) * kvrow +
+                        static_cast<size_t>(grp) * a.d;
+    load_tile_async<T, BN, DP, LD, NTH>(reinterpret_cast<T*>(base),
+                                        static_cast<const T*>(a.k) + kofs,
+                                        kvrow, kv, a.d);
+    load_tile_async<T, BN, DP, LD, NTH>(reinterpret_cast<T*>(base + C::kKV),
+                                        static_cast<const T*>(a.v) + kofs,
+                                        kvrow, kv, a.d);
+    if (a.kseg != nullptr) {
+      int* ks = reinterpret_cast<int*>(base + 2 * C::kKV);
+      for (int c = tid; c < BN; c += NTH) {
+        const int* src = a.kseg + static_cast<size_t>(b) * a.sk + k0 + c;
+        cp_async4(ks + c, c < kv ? src : a.kseg, c < kv);
+      }
+    }
+  };
+  // the ring: tiles kt0 .. kt0 + NST - 2 in flight before the loop
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (kt0 + i < kt1) load_kv(kt0 + i, i);
+    cp_async_commit();
+  }
+  // the warp's Q fragments stay in registers for the whole kv loop
+  const int r0 = warp * 16 + gq;  // the thread's rows r0 and r0 + 8
+  uint32_t qf[DP / 16][4];
+  cp_async_wait<NST - 1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    ldsm_x4(qf[kk], Qs + (warp * 16 + a_row(lane)) * LD + kk * 16 +
+                        a_col(lane));
+
+  float o[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  // running max (of the unscaled scores) and the thread's part of the
+  // running sum, for rows r0 and r0 + 8. Hidden scores take -inf, not the
+  // -1e30 of the first version: the same result for every row that sees
+  // a key, with no 1e30-sized FFMA residue
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * kLog2e;
+  const int b_off = b_row(lane) * LD + b_col(lane);
+  const int bt_off = bt_row(lane) * LD + bt_col(lane);
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) % NST;
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    // refill the stage that tile kt - 1 used, NST - 1 tiles ahead
+    if (kt + NST - 1 < kt1) load_kv(kt + NST - 1, (kt - kt0 + NST - 1) % NST);
+    cp_async_commit();
+    const T* K = reinterpret_cast<const T*>(ring + st * C::kStage);
+    const T* V = K + C::kKV / sizeof(T);
+    const int* ks = reinterpret_cast<const int*>(ring + st * C::kStage +
+                                                 2 * C::kKV);
+    // S = Q K^T in registers
+    float s[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    gemm_pipe<T, DP / 16, NT / 2, 4>(
+        s, [&](int kk, uint32_t(&r)[4]) { copy4(r, qf[kk]); },
+        [&](int kk, int np, uint32_t(&r)[4]) {
+          ldsm_x4(r, K + np * 16 * LD + kk * 16 + b_off);
+        });
+    // the mask only on tiles that a mask touches
+    const int k0 = kt * BN, k_valid = min(BN, a.sk - k0);
+    const bool need =
+        k_valid < BN || a.qseg != nullptr ||
+        (a.causal && k0 + BN - 1 > q0 + off) ||
+        (a.window && q0 + q_valid - 1 + off - k0 >= a.window);
+    if (need) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + 2 * t4 + (e & 1), r = r0 + (e >> 1) * 8;
+          if (c >= k_valid || masked(a, q0 + r, k0 + c, qsg[r], ks[c]))
+            s[nt][e] = -INFINITY;
+        }
+    }
+    // online softmax: the 4 lanes of a row hold its BN scores
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    // p = exp(scale s - scale m) = 2^(s sl2 - m sl2), one FFMA and one
+    // MUFU.EX2 per score; a row with no visible key yet has m = -inf and
+    // takes 0 in its place, so every p and alpha is 0
+    float alpha[2], ml2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      ml2[i] = mx[i] == -INFINITY ? 0.f : mx[i] * sl2;
+      alpha[i] = ex2(fmaf(m[i], sl2, -ml2[i]));
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[nt][e], sl2, -ml2[e >> 1]));
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
+    // O += P V, p rounded to T in registers as the A operand
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<T>(pa[kk], s, kk);
+    gemm_pipe<T, BN / 16, DT / 2, 4>(
+        o, [&](int kk, uint32_t(&r)[4]) { copy4(r, pa[kk]); },
+        [&](int kk, int dp, uint32_t(&r)[4]) {
+          ldsm_x4_t(r, V + kk * 16 * LD + dp * 16 + bt_off);
+        });
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: o / l (l = 0 read as 1) through shared memory to 16-byte
+  // stores; lse = m + log(l)
+  T* Os = Qs;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (l[i] == 0.f) l[i] = 1.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    const int c = i * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(Os + r0 * LD + c) =
+        pack2<T>(o[i][0] / l[0], o[i][1] / l[0]);
+    *reinterpret_cast<uint32_t*>(Os + (r0 + 8) * LD + c) =
+        pack2<T>(o[i][2] / l[1], o[i][3] / l[1]);
+  }
+  if (a.lse != nullptr && t4 == 0) {
+    float* lp = a.lse + (static_cast<size_t>(b) * a.hq + h) * a.sq + q0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r0 + 8 * i < q_valid) lp[r0 + 8 * i] = m[i] * a.scale + logf(l[i]);
+  }
+  __syncthreads();
+  T* op = static_cast<T*>(a.out0) +
+          (static_cast<size_t>(b) * a.sq + q0) * qrow +
+          static_cast<size_t>(h) * a.d;
+  constexpr int VPR = DP / 8;
+  for (int e = tid; e < BM * VPR; e += NTH) {
+    const int r = e / VPR, c = (e % VPR) * 8;
+    if (r < q_valid && c < a.d)
+      *reinterpret_cast<uint4*>(op + r * qrow + c) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + c);
+  }
+}
+
+// dk/dv geometry: 8 warps, each owning 16 of the kv tile's 128 keys and
+// their dK, dV rows in registers; q tiles of 64 rows (Q, dO, lse, delta,
+// segment ids) in a two-stage ring. FUSED adds the T-typed dS^T tile and
+// a float32 [64, DP] staging tile of the dq partial.
+template <typename T, int DP>
+struct BwdCfg {
+  static constexpr int kThreads = 256, BN = 128, BQ = 64;
+  // the fused dq product's warps: QG groups of 16 queries x CG column
+  // blocks of DW columns
+  static constexpr int QG = BQ / 16, CG = 8 / QG, DW = DP / CG;
+  static_assert(DW % 16 == 0, "dq column blocks of whole 16-column pairs");
+  static constexpr int LD = DP + 8;   // K, V, Q, dO tiles (T)
+  static constexpr int LDS = BQ + 8;  // dS^T tile (T)
+  static constexpr int LDP = DP + 4;  // dq partial tile (float32)
+  static constexpr size_t kKV = al128(size_t(BN) * LD * sizeof(T));
+  static constexpr size_t kQ = al128(size_t(BQ) * LD * sizeof(T));
+  static constexpr size_t kRow = al128(BQ * 4);
+  static constexpr size_t kStage = 2 * kQ + 3 * kRow;  // Q dO | lse delta qseg
+  static constexpr size_t kKseg = al128(BN * 4);
+  static constexpr size_t kBase = 2 * kKV + kKseg + 2 * kStage;
+  static constexpr size_t kDs = al128(size_t(BN) * LDS * sizeof(T));
+  static constexpr size_t kPart = al128(size_t(BQ) * LDP * 4);
+  static constexpr size_t kFused = kBase + kDs + kPart;
+  static_assert(kFused <= 232448, "shared memory over the per-block limit");
+};
+
+template <typename T, int DP, bool FUSED>
+__global__ void __launch_bounds__(256, 1) dkv_kernel(Args a) {
+  using C = BwdCfg<T, DP>;
+  constexpr int BN = C::BN, BQ = C::BQ, LD = C::LD, LDS = C::LDS,
+                LDP = C::LDP, NQ = BQ / 8, DT = DP / 8, NTH = C::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sp = smem;
+  T* Ks = reinterpret_cast<T*>(carve(sp, C::kKV));
+  T* Vs = reinterpret_cast<T*>(carve(sp, C::kKV));
+  int* ksg = reinterpret_cast<int*>(carve(sp, C::kKseg));
+  // stage s at ring + s * kStage: Q, dO (T), lse, delta (float32), qseg
+  unsigned char* const ring = carve(sp, 2 * C::kStage);
+  auto q_of = [&](int s) { return reinterpret_cast<T*>(ring + s * C::kStage); };
+  auto do_of = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * C::kStage + C::kQ);
+  };
+  auto row_of = [&](int s, int which) {
+    return ring + s * C::kStage + 2 * C::kQ + which * C::kRow;
+  };
+  T* dSs = FUSED ? reinterpret_cast<T*>(carve(sp, C::kDs)) : nullptr;
+  float* Part = FUSED ? reinterpret_cast<float*>(carve(sp, C::kPart)) : nullptr;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane >> 2, t4 = lane & 3;
+  // two-pass: grid (kv tiles, b * hk), a head's kv tiles side by side
+  // sharing its Q and dO in L2; FUSED: grid (b * hk, spans), the low
+  // spans (the heaviest causal work) first
+  const int bg = FUSED ? blockIdx.x : blockIdx.y;
+  const int b = bg / a.hk, g = bg % a.hk;
+  const int off = a.sk - a.sq;
+  const int span_lo = FUSED ? blockIdx.y * a.span : blockIdx.x * BN;
+  const int span_hi = min(a.sk, span_lo + (FUSED ? a.span : BN));
+  const size_t qrow = static_cast<size_t>(a.hq) * a.d;
+  const size_t kvrow = static_cast<size_t>(a.hk) * a.d;
+  T* dk_out = static_cast<T*>(FUSED ? a.out1 : a.out0);
+  T* dv_out = static_cast<T*>(FUSED ? a.out2 : a.out1);
+  const size_t pld = static_cast<size_t>(a.hq) * DP;  // partial row stride
+  const float sl2 = a.scale * kLog2e;
+  const int kr = warp * 16;  // the warp's keys in the tile
+  const int a_off = (kr + a_row(lane)) * LD + a_col(lane);
+  const int b_off = b_row(lane) * LD + b_col(lane);
+  const int bt_off = bt_row(lane) * LD + bt_col(lane);
+
+  for (int k0 = span_lo; k0 < span_hi; k0 += BN) {
+    const int k_valid = min(BN, span_hi - k0);
+    const size_t kofs = (static_cast<size_t>(b) * a.sk + k0) * kvrow +
+                        static_cast<size_t>(g) * a.d;
+    load_tile_async<T, BN, DP, LD, NTH>(
+        Ks, static_cast<const T*>(a.k) + kofs, kvrow, k_valid, a.d);
+    load_tile_async<T, BN, DP, LD, NTH>(
+        Vs, static_cast<const T*>(a.v) + kofs, kvrow, k_valid, a.d);
+    if (a.kseg != nullptr)
+      for (int c = tid; c < BN; c += NTH) {
+        const int* src = a.kseg + static_cast<size_t>(b) * a.sk + k0 + c;
+        cp_async4(ksg + c, c < k_valid ? src : a.kseg, c < k_valid);
+      }
+    // the q rows that see a key of this tile, in q tiles of BQ rows, for
+    // each query head of the group: steps = rep * nq, heads outermost
+    int q_lo = 0, q_hi = a.sq;
+    if (a.causal) q_lo = max(0, k0 - off);
+    if (a.window) q_hi = min(a.sq, k0 + k_valid - 1 - off + a.window);
+    const int qt_lo = q_lo / BQ;
+    const int nq = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt_lo : 0;
+    const int steps = a.rep * nq;
+    auto load_q = [&](int step, int st) {
+      const int h = g * a.rep + step / nq;
+      const int q0 = (qt_lo + step % nq) * BQ;
+      const int qv = min(BQ, a.sq - q0);
+      const size_t qofs = (static_cast<size_t>(b) * a.sq + q0) * qrow +
+                          static_cast<size_t>(h) * a.d;
+      load_tile_async<T, BQ, DP, LD, NTH>(
+          q_of(st), static_cast<const T*>(a.q) + qofs, qrow, qv, a.d);
+      load_tile_async<T, BQ, DP, LD, NTH>(
+          do_of(st), static_cast<const T*>(a.dout) + qofs, qrow, qv, a.d);
+      const size_t row = (static_cast<size_t>(b) * a.hq + h) * a.sq + q0;
+      for (int c = tid; c < 3 * BQ; c += NTH) {
+        const int r = c % BQ, which = c / BQ;
+        const bool ok = r < qv && (which < 2 || a.qseg != nullptr);
+        const void* src =
+            which == 0 ? static_cast<const void*>(a.lse_in + row + r)
+            : which == 1
+                ? static_cast<const void*>(a.delta + row + r)
+                : static_cast<const void*>(
+                      a.qseg + static_cast<size_t>(b) * a.sq + q0 + r);
+        cp_async4(row_of(st, which) + 4 * r, ok ? src : a.lse_in, ok);
+      }
+    };
+    if (steps > 0) load_q(0, 0);
+    cp_async_commit();
+
+    float dk[DT][4], dv[DT][4];
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+    for (int step = 0; step < steps; ++step) {
+      const int st = step & 1;
+      const int h = g * a.rep + step / nq;
+      const int q0 = (qt_lo + step % nq) * BQ;
+      float* part = nullptr;
+      if constexpr (FUSED) {
+        // this q tile's float32 partial, read early: its latency hides
+        // behind the S and dP products
+        part = static_cast<float*>(a.out0) +
+               ((static_cast<size_t>(blockIdx.y) * a.b + b) * a.sq_pad + q0) *
+                   pld +
+               static_cast<size_t>(h) * DP;
+        for (int e = tid; e < BQ * DP / 4; e += NTH) {
+          const int r = e / (DP / 4), c = (e % (DP / 4)) * 4;
+          cp_async16(Part + r * LDP + c, part + r * pld + c, true);
+        }
+        cp_async_commit();
+      }
+      if (step + 1 < steps) load_q(step + 1, st ^ 1);
+      cp_async_commit();
+      if constexpr (FUSED)
+        cp_async_wait<2>();
+      else
+        cp_async_wait<1>();
+      __syncthreads();
+      const T* Q = q_of(st);
+      const T* dO = do_of(st);
+      const float* lse = reinterpret_cast<const float*>(row_of(st, 0));
+      const float* del = reinterpret_cast<const float*>(row_of(st, 1));
+      const int* qsg = reinterpret_cast<const int*>(row_of(st, 2));
+
+      // S^T = K Q^T for the warp's 16 keys and the tile's 64 queries
+      float pt[NQ][4];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        pt[i][0] = pt[i][1] = pt[i][2] = pt[i][3] = 0.f;
+      gemm_pipe<T, DP / 16, NQ / 2, 4>(
+          pt,
+          [&](int kk, uint32_t(&r)[4]) {
+            ldsm_x4(r, Ks + kk * 16 + a_off);
+          },
+          [&](int kk, int np, uint32_t(&r)[4]) {
+            ldsm_x4(r, Q + np * 16 * LD + kk * 16 + b_off);
+          });
+      // p = exp(s - lse), masked only on tiles that a mask touches
+      const bool need =
+          k_valid < BN || q0 + BQ > a.sq || a.qseg != nullptr ||
+          (a.causal && k0 + BN - 1 > q0 + off) ||
+          (a.window && min(q0 + BQ, a.sq) - 1 + off - k0 >= a.window);
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + 2 * t4 + (e & 1);
+          const int kl = kr + gq + (e >> 1) * 8;
+          float p = ex2(fmaf(pt[nt][e], sl2, -lse[c] * kLog2e));
+          if (need && (kl >= k_valid || q0 + c >= a.sq ||
+                       masked(a, q0 + c, k0 + kl, qsg[c], ksg[kl])))
+            p = 0.f;
+          pt[nt][e] = p;
+        }
+      // dP^T = V dO^T, then ds = p (dp - delta) scale in place
+      float dst[NQ][4];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        dst[i][0] = dst[i][1] = dst[i][2] = dst[i][3] = 0.f;
+      gemm_pipe<T, DP / 16, NQ / 2, 4>(
+          dst,
+          [&](int kk, uint32_t(&r)[4]) {
+            ldsm_x4(r, Vs + kk * 16 + a_off);
+          },
+          [&](int kk, int np, uint32_t(&r)[4]) {
+            ldsm_x4(r, dO + np * 16 * LD + kk * 16 + b_off);
+          });
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + 2 * t4 + (e & 1);
+          dst[nt][e] =
+              pt[nt][e] * (dst[nt][e] - del[c]) * a.scale;
+        }
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T, rounded to T, are
+      // already the A operands in registers
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        acc_to_a<T>(pa[kk], pt, kk);
+        acc_to_a<T>(da[kk], dst, kk);
+      }
+      gemm_pipe<T, BQ / 16, DT / 2, 4>(
+          dv, [&](int kk, uint32_t(&r)[4]) { copy4(r, pa[kk]); },
+          [&](int kk, int dp, uint32_t(&r)[4]) {
+            ldsm_x4_t(r, dO + kk * 16 * LD + dp * 16 + bt_off);
+          });
+      gemm_pipe<T, BQ / 16, DT / 2, 4>(
+          dk, [&](int kk, uint32_t(&r)[4]) { copy4(r, da[kk]); },
+          [&](int kk, int dp, uint32_t(&r)[4]) {
+            ldsm_x4_t(r, Q + kk * 16 * LD + dp * 16 + bt_off);
+          });
+      if constexpr (FUSED) {
+        // dS^T as a T tile, then dq = dS K (BQ queries x DP: warp w takes
+        // queries 16 (w % QG).. and columns DW (w / QG)..) into a fresh
+        // register accumulator, added to the staged partial, stored back
+        // with 16-byte stores
+#pragma unroll
+        for (int nt = 0; nt < NQ; ++nt) {
+          const int c = nt * 8 + 2 * t4;
+          *reinterpret_cast<uint32_t*>(dSs + (kr + gq) * LDS + c) =
+              pack2<T>(dst[nt][0], dst[nt][1]);
+          *reinterpret_cast<uint32_t*>(dSs + (kr + gq + 8) * LDS + c) =
+              pack2<T>(dst[nt][2], dst[nt][3]);
+        }
+        __syncthreads();
+        const int wq = (warp % C::QG) * 16, wn = (warp / C::QG) * C::DW;
+        float dq[C::DW / 8][4];
+#pragma unroll
+        for (int i = 0; i < C::DW / 8; ++i)
+          dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+        const int at_off = at_row(lane) * LDS + at_col(lane);
+        gemm_pipe<T, BN / 16, C::DW / 16, 4>(
+            dq,
+            [&](int kk, uint32_t(&r)[4]) {
+              ldsm_x4_t(r, dSs + kk * 16 * LDS + wq + at_off);
+            },
+            [&](int kk, int np, uint32_t(&r)[4]) {
+              ldsm_x4_t(r, Ks + kk * 16 * LD + wn + np * 16 + bt_off);
+            });
+        cp_async_wait<1>();
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < C::DW / 8; ++i) {
+          const int c = wn + i * 8 + 2 * t4;
+          float2* p0 = reinterpret_cast<float2*>(Part + (wq + gq) * LDP + c);
+          float2* p1 =
+              reinterpret_cast<float2*>(Part + (wq + gq + 8) * LDP + c);
+          p0->x += dq[i][0];
+          p0->y += dq[i][1];
+          p1->x += dq[i][2];
+          p1->y += dq[i][3];
+        }
+        __syncthreads();
+        for (int e = tid; e < BQ * DP / 4; e += NTH) {
+          const int r = e / (DP / 4), c = (e % (DP / 4)) * 4;
+          *reinterpret_cast<float4*>(part + r * pld + c) =
+              *reinterpret_cast<const float4*>(Part + r * LDP + c);
+        }
+      }
+      __syncthreads();  // stage st (and the dq staging) free again
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // dK, dV through the K and V tiles to 16-byte stores
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      const int c = i * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(Ks + (kr + gq) * LD + c) =
+          pack2<T>(dk[i][0], dk[i][1]);
+      *reinterpret_cast<uint32_t*>(Ks + (kr + gq + 8) * LD + c) =
+          pack2<T>(dk[i][2], dk[i][3]);
+      *reinterpret_cast<uint32_t*>(Vs + (kr + gq) * LD + c) =
+          pack2<T>(dv[i][0], dv[i][1]);
+      *reinterpret_cast<uint32_t*>(Vs + (kr + gq + 8) * LD + c) =
+          pack2<T>(dv[i][2], dv[i][3]);
+    }
+    __syncthreads();
+    constexpr int VPR = DP / 8;
+    for (int e = tid; e < BN * VPR; e += NTH) {
+      const int r = e / VPR, c = (e % VPR) * 8;
+      if (r < k_valid && c < a.d) {
+        const size_t o = kofs + r * kvrow + c;
+        *reinterpret_cast<uint4*>(dk_out + o) =
+            *reinterpret_cast<const uint4*>(Ks + r * LD + c);
+        *reinterpret_cast<uint4*>(dv_out + o) =
+            *reinterpret_cast<const uint4*>(Vs + r * LD + c);
+      }
+    }
+    __syncthreads();  // before the next kv tile's loads
+  }
+}
+
 enum Pass { kFwd = 0, kDq = 1, kDkv = 2, kFused = 3 };
 
 template <typename KernelT>
-cudaError_t launch_kernel(KernelT kernel, dim3 grid, size_t smem,
-                          const Args& a, cudaStream_t st) {
+cudaError_t launch_kernel(KernelT kernel, dim3 grid, int threads,
+                          size_t smem, const Args& a, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
+
+// The redesigned kernels take 16-bit T at DP 64 and 128; float32 and DP
+// 256 keep the first version's bodies (fwd_kernel_v1, dkv_kernel_v1).
+template <typename T, int DP>
+constexpr bool kRedesigned = !std::is_same<T, float>::value && DP <= 128;
 
 template <typename T, int DP>
 cudaError_t launch_dp(int pass, const Args& a, cudaStream_t st) {
   using G = Geo<T, DP>;
   constexpr int B = G::B;
-  if (pass == kFwd || pass == kDq) {
+  if (pass == kDq) {
     const dim3 grid((a.sq + B - 1) / B, a.b * a.hq);
-    if (pass == kFwd) return launch_kernel(fwd_kernel<T, DP>, grid, G::kFwd, a, st);
-    return launch_kernel(dq_kernel<T, DP>, grid, G::kDq, a, st);
+    return launch_kernel(dq_kernel<T, DP>, grid, kThreads, G::kDq, a, st);
   }
-  if (pass == kDkv) {
-    const dim3 grid((a.sk + B - 1) / B, a.b * a.hk);
-    return launch_kernel(dkv_kernel<T, DP, false>, grid, G::kDkv, a, st);
+  if constexpr (kRedesigned<T, DP>) {
+    using F = FwdCfg<T, DP>;
+    using W = BwdCfg<T, DP>;
+    if (pass == kFwd) {
+      const dim3 grid((a.sq + F::BM - 1) / F::BM, a.b * a.hq);
+      return launch_kernel(fwd_kernel<T, DP>, grid, F::kThreads, F::kSmem,
+                           a, st);
+    }
+    if (pass == kDkv) {
+      const dim3 grid((a.sk + W::BN - 1) / W::BN, a.b * a.hk);
+      return launch_kernel(dkv_kernel<T, DP, false>, grid, W::kThreads,
+                           W::kBase, a, st);
+    }
+    if (a.sq_pad % W::BQ != 0 || a.sq_pad < a.sq) return cudaErrorInvalidValue;
+    const dim3 grid(a.b * a.hk, (a.sk + a.span - 1) / a.span);
+    return launch_kernel(dkv_kernel<T, DP, true>, grid, W::kThreads,
+                         W::kFused, a, st);
+  } else {
+    if (pass == kFwd) {
+      const dim3 grid((a.sq + B - 1) / B, a.b * a.hq);
+      return launch_kernel(fwd_kernel_v1<T, DP>, grid, kThreads, G::kFwd, a,
+                           st);
+    }
+    if (pass == kDkv) {
+      const dim3 grid((a.sk + B - 1) / B, a.b * a.hk);
+      return launch_kernel(dkv_kernel_v1<T, DP, false>, grid, kThreads,
+                           G::kDkv, a, st);
+    }
+    if (a.sq_pad % B != 0 || a.sq_pad < a.sq) return cudaErrorInvalidValue;
+    const dim3 grid((a.sk + a.span - 1) / a.span, a.b * a.hk);
+    return launch_kernel(dkv_kernel_v1<T, DP, true>, grid, kThreads,
+                         G::kDkv, a, st);
   }
-  if (a.sq_pad % B != 0 || a.sq_pad < a.sq) return cudaErrorInvalidValue;
-  const dim3 grid((a.sk + a.span - 1) / a.span, a.b * a.hk);
-  return launch_kernel(dkv_kernel<T, DP, true>, grid, G::kDkv, a, st);
 }
 
 int padded_dim(int d) { return d <= 64 ? 64 : (d <= 128 ? 128 : 256); }
+
+template <typename T, int DP>
+int smem_dp(int pass) {
+  using G = Geo<T, DP>;
+  if (pass == kDq) return static_cast<int>(G::kDq);
+  if constexpr (kRedesigned<T, DP>) {
+    if (pass == kFwd) return static_cast<int>(FwdCfg<T, DP>::kSmem);
+    return static_cast<int>(pass == kDkv ? BwdCfg<T, DP>::kBase
+                                         : BwdCfg<T, DP>::kFused);
+  } else {
+    return static_cast<int>(pass == kFwd ? G::kFwd : G::kDkv);
+  }
+}
 
 int run(int pass, const void* q, const void* k, const void* v,
         const void* dout, const float* lse_in, const float* delta,
@@ -683,3 +1483,10 @@ PT_FA_ENTRY(pt_flash_fwd_, kFwd)
 PT_FA_ENTRY(pt_flash_bwd_dq_, kDq)
 PT_FA_ENTRY(pt_flash_bwd_dkv_, kDkv)
 PT_FA_ENTRY(pt_flash_bwd_fused_, kFused)
+
+extern "C" int PT_CAT(pt_flash_smem_, PT_FA_TAG)(int pass, int dp) {
+  using T = PT_FA_T;
+  if (dp == 64) return smem_dp<T, 64>(pass);
+  if (dp == 128) return smem_dp<T, 128>(pass);
+  return smem_dp<T, 256>(pass);
+}

@@ -25,6 +25,15 @@ No ``[b, s, d, n]`` tensor exists on either path, as in JAX.
 states and saves ``(u, delta, A, B, C, D, h0s)``; its backward adds the
 D-skip terms outside the kernel, as ``_chunked_bwd`` does.
 
+State sizes over 16: the kernels keep a channel's n <= 16 states in
+registers, and each state's recurrence is independent of the others, so
+``split_scan_fwd`` and ``split_scan_bwd`` cut the states into blocks of at
+most 16 and run each block through the kernels (the plain versions on
+the CPU): y, du and ddelta are summed over the blocks in block order, and
+h0s, dB, dC and dA^T are joined along the states. ``_ChunkedScan`` and
+``chunked_selective_scan`` go through them, so any state size runs on
+both devices.
+
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches
 the kernels or raises (no fall-back). On the card the kernels take any
 sequence length (the kernels mask a ragged last chunk: ``chunk`` only
@@ -271,6 +280,52 @@ def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
         dat_part.sum(dim=0)
 
 
+def _blocks(n: int):
+    """State blocks of at most MAX_STATE, in order."""
+    return [(i, min(n, i + MAX_STATE)) for i in range(0, n, MAX_STATE)]
+
+
+def split_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
+    """Row 10 for any state size: one call of ``selective_scan_fwd`` per
+    block of at most 16 states; y summed over the blocks in block order,
+    h0s joined along the states."""
+    blocks = _blocks(at.shape[0])
+    if len(blocks) == 1:
+        return selective_scan_fwd(u, delta, B, C, at, chunk, with_states)
+    y, h0s = None, []
+    for n0, n1 in blocks:
+        out = selective_scan_fwd(u, delta, B[..., n0:n1].contiguous(),
+                                 C[..., n0:n1].contiguous(),
+                                 at[n0:n1].contiguous(), chunk, with_states)
+        yb = out[0] if with_states else out
+        y = yb if y is None else y + yb
+        if with_states:
+            h0s.append(out[1])
+    return (y, torch.cat(h0s, dim=2)) if with_states else y
+
+
+def split_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
+    """Row 11 for any state size: one call of ``selective_scan_bwd`` per
+    block of at most 16 states; du and ddelta summed over the blocks in
+    block order, dB, dC and dat joined along the states."""
+    blocks = _blocks(at.shape[0])
+    if len(blocks) == 1:
+        return selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk)
+    du = ddelta = None
+    dB, dC, dat = [], [], []
+    for n0, n1 in blocks:
+        dub, ddb, dBb, dCb, datb = selective_scan_bwd(
+            u, delta, B[..., n0:n1].contiguous(), C[..., n0:n1].contiguous(),
+            at[n0:n1].contiguous(), h0s[:, :, n0:n1].contiguous(), g, chunk)
+        du = dub if du is None else du + dub
+        ddelta = ddb if ddelta is None else ddelta + ddb
+        dB.append(dBb)
+        dC.append(dCb)
+        dat.append(datb)
+    return (du, ddelta, torch.cat(dB, dim=-1), torch.cat(dC, dim=-1),
+            torch.cat(dat, dim=0))
+
+
 # ---------------------------------------------------------------------------
 # autograd and entry point
 # ---------------------------------------------------------------------------
@@ -285,8 +340,8 @@ class _ChunkedScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, chunk):
         at = A.t().to(_F32).contiguous()
-        y, h0s = selective_scan_fwd(_f32(u), _f32(delta), _f32(B), _f32(C),
-                                    at, chunk, with_states=True)
+        y, h0s = split_scan_fwd(_f32(u), _f32(delta), _f32(B), _f32(C), at,
+                                chunk, with_states=True)
         ctx.save_for_backward(u, delta, A, B, C, D, h0s)
         ctx.chunk = chunk
         return y + u.to(_F32) * D.to(_F32)
@@ -296,7 +351,7 @@ class _ChunkedScan(torch.autograd.Function):
         u, delta, A, B, C, D, h0s = ctx.saved_tensors
         at = A.t().to(_F32).contiguous()
         g32 = _f32(g)
-        du, ddelta, db, dc, dat = selective_scan_bwd(
+        du, ddelta, db, dc, dat = split_scan_bwd(
             _f32(u), _f32(delta), _f32(B), _f32(C), at, h0s, g32, ctx.chunk)
         # the D-skip terms, outside the kernel (pure elementwise)
         du = du + g32 * D.to(_F32)
@@ -319,6 +374,6 @@ def chunked_selective_scan(u, delta, A, B, C, D, *, chunk: int = 128):
             t.requires_grad for t in (u, delta, A, B, C, D)):
         return _ChunkedScan.apply(u, delta, A, B, C, D, chunk)
     at = A.t().to(_F32).contiguous()
-    y = selective_scan_fwd(_f32(u), _f32(delta), _f32(B), _f32(C), at,
-                           chunk, with_states=False)
+    y = split_scan_fwd(_f32(u), _f32(delta), _f32(B), _f32(C), at, chunk,
+                       with_states=False)
     return y + u.to(_F32) * D.to(_F32)

@@ -133,7 +133,8 @@ class CrossAttnBlock(nn.Module):
         qh = q.reshape(b, sq, self.n_heads, self.head_dim)
         kh = k.reshape(b, sk, self.n_heads, self.head_dim)
         vh = v.reshape(b, sk, self.n_heads, self.head_dim)
-        out = F.scaled_dot_product_attention(qh, kh, vh)
+        out = F.scaled_dot_product_attention(qh, kh, vh,
+                                             training=self.training)
         return out.reshape(b, sq, c)
 
     def forward(self, x, context):

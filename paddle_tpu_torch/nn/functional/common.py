@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import layout
@@ -17,6 +19,31 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
     if bias is not None:
         y = y + bias
     return y
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train",
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Parity: paddle.nn.functional.dropout, the JAX function's rules: the
+    identity when not training or ``p == 0`` (``downscale_in_infer`` scales
+    by ``1 - p`` at inference), zeros at ``p == 1``, else each element kept
+    with probability ``1 - p`` (one ``torch.rand`` of x's shape from
+    ``generator``, kept where it is below ``1 - p``) and, under
+    ``upscale_in_train``, divided by ``1 - p`` in x's dtype. The random
+    bits are torch's, not JAX's: the two packages draw different masks
+    from the same seed."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == "upscale_in_train":
+        return torch.where(mask, x / keep, zero).to(x.dtype)
+    return torch.where(mask, x, zero)
 
 
 def _out_size(size, scale_factor, spatial):

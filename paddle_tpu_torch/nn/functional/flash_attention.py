@@ -8,19 +8,28 @@ from typing import Optional
 
 import torch
 
+from .common import dropout
+
 NEG_INF = -1e30
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 training: bool = True, *,
+                                 generator: Optional[torch.Generator] = None):
     """Attention over ``[batch, seq, heads, dim]`` tensors, in the JAX
-    reference's numerics: grouped-query heads are served by repeating
-    K/V, logits are taken in the inputs' promoted dtype and then upcast
-    to at least float32, a boolean mask (True = attend) and the causal
-    mask fill with -1e30, and the probabilities are cast to the query's
-    dtype before the product with V. The port's prefill and unfused
-    decode branches use it; it is no kernel and no library call."""
+    reference's numerics and argument order: grouped-query heads are
+    served by repeating K/V, logits are taken in the inputs' promoted
+    dtype and then upcast to at least float32, a boolean mask (True =
+    attend) and the causal mask fill with -1e30, and the probabilities are
+    cast to the query's dtype before the product with V. With
+    ``dropout_p > 0`` while ``training`` the cast probabilities go through
+    ``dropout`` (upscale in train; its keep-mask is one ``torch.rand`` of
+    the ``[b, heads, sq, sk]`` probabilities from ``generator``). The
+    port's prefill and unfused decode branches and the UNet's attention
+    use it; it is no kernel and no library call."""
     q, k, v = query, key, value
     b, sq, hq, d = q.shape
     hk = k.shape[2]
@@ -43,6 +52,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        probs = dropout(probs, dropout_p, training=True, generator=generator)
     dv = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dv), v.to(dv))
 

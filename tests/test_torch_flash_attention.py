@@ -231,3 +231,62 @@ def test_plain_backward_passes_agree():
     _close(dq.float(), tm.mha_bwd_dq_plain(*args, causal=True).float(), 2e-2)
     dk2, dv2 = tm.mha_bwd_dkv_plain(*args, causal=True)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(dropout_p=0.25, training=False),
+                                dict(dropout_p=0.0, training=True)])
+def test_sdpa_without_dropout_matches_jax(kw):
+    """``dropout_p`` and ``training`` in the JAX order and defaults: with no
+    dropout drawn (p 0, or not training) the output is JAX's at 1e-5, with
+    GQA, a boolean mask and the causal mask."""
+    from paddle_tpu.nn import functional as JF
+
+    q, k, v, rng = _qkv(11, 2, 7, 9, 4, 2, 16)
+    mask = rng.random((2, 1, 7, 9)) < 0.7
+    mask[..., 0] = True
+    for extra in (dict(attn_mask=mask), dict(is_causal=True)):
+        want = JF.scaled_dot_product_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            **{n: jnp.asarray(x) if n == "attn_mask" else x
+               for n, x in extra.items()}, **kw)
+        got = TF.scaled_dot_product_attention(
+            torch.tensor(q), torch.tensor(k), torch.tensor(v),
+            **{n: torch.tensor(x) if n == "attn_mask" else x
+               for n, x in extra.items()}, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sdpa_dropout_uses_the_generators_keep_mask(dtype):
+    """With ``dropout_p = 0.25`` while training, every output is the plain
+    product of V with the probabilities under the generator's own
+    keep-mask (one ``torch.rand`` of [b, heads, sq, sk] below 0.75),
+    scaled by 1 / 0.75 in the probabilities' dtype. JAX draws other bits
+    from its keys, so JAX is not the reference here; the probabilities
+    are the same function's with dropout off."""
+    q, k, v, _ = _qkv(12, 2, 6, 10, 4, 2, 8)
+    q, k, v = (torch.tensor(x).to(dtype) for x in (q, k, v))
+    got = TF.scaled_dot_product_attention(
+        q, k, v, dropout_p=0.25, is_causal=True,
+        generator=torch.Generator().manual_seed(5))
+    assert got.shape == q.shape and got.dtype == dtype
+    # the probabilities as the function casts them, and the keep-mask the
+    # same seed draws
+    vr = v.repeat_interleave(2, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(
+        2, dim=2)) * 8 ** -0.5
+    causal = torch.ones((6, 10), dtype=torch.bool).tril(4)
+    logits = logits.float().masked_fill(~causal, -1e30)
+    p = torch.softmax(logits, dim=-1).to(dtype)
+    keep = torch.rand(p.shape, generator=torch.Generator().manual_seed(5)) \
+        < 0.75
+    assert 0.6 < keep.float().mean().item() < 0.9
+    dropped = torch.where(keep, p / 0.75, torch.zeros((), dtype=dtype))
+    want = torch.einsum("bhqk,bkhd->bqhd", dropped, vr)
+    assert torch.equal(got, want)
+    # not training, or p 0: no draw, the plain function
+    assert torch.equal(
+        TF.scaled_dot_product_attention(q, k, v, dropout_p=0.25,
+                                        is_causal=True, training=False),
+        TF.scaled_dot_product_attention(q, k, v, is_causal=True))

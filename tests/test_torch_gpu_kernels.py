@@ -531,6 +531,16 @@ FA_CASES = [  # b, sq, sk, hq, hk, d, dtype, causal, window, segments
     (1, 200, 200, 3, 1, 8, torch.bfloat16, True, 0, None),
     (1, 100, 300, 2, 2, 40, torch.float16, True, 0, None),
     (2, 128, 320, 4, 4, 64, torch.float32, True, 0, None),
+    # edges of the redesigned 16-bit tiling (forward q tiles of 128 rows,
+    # kv tiles of 64; backward kv tiles of 128 keys, q tiles of 64): s no
+    # multiple of either tile, a causal tile straddling the bottom-right
+    # diagonal with sq != sk, a window edge inside a tile, and GQA with
+    # the fused pass over three 128-key spans
+    (2, 300, 300, 4, 4, 128, torch.bfloat16, True, 0, None),
+    (1, 190, 333, 4, 2, 128, torch.bfloat16, True, 0, None),
+    (1, 130, 333, 2, 2, 64, torch.float16, True, 0, None),
+    (1, 512, 512, 2, 2, 128, torch.bfloat16, True, 100, None),
+    (1, 384, 384, 8, 2, 64, torch.bfloat16, True, 0, None),
 ]
 
 
@@ -733,11 +743,12 @@ def _scan_inputs(b, s, d, n, seed=0):
 # (b, s, d, n, chunk): the Mamba tiny and 130m widths at short lengths, a
 # ragged s, d no multiple of the 64-channel block, n 8 and 4, a chunk
 # longer than the backward's 128-step segment, a chunk longer than s, and
-# the smallest shapes (one step, one channel, one state; chunks of 2)
+# the smallest shapes (one step, one channel, one state; chunks of 2),
+# and 32 states (two blocks of 16 through ``split_scan_*``)
 SCAN_CASES = [(2, 256, 128, 8, 32), (2, 256, 1536, 16, 128),
               (1, 200, 200, 16, 64), (2, 300, 96, 8, 128),
               (1, 512, 64, 4, 320), (1, 130, 64, 16, 1000),
-              (1, 1, 1, 1, 128), (3, 5, 70, 3, 2)]
+              (1, 1, 1, 1, 128), (3, 5, 70, 3, 2), (2, 256, 128, 32, 32)]
 
 
 @pytest.mark.parametrize("b,s,d,n,chunk", SCAN_CASES)
@@ -748,15 +759,15 @@ def test_selective_scan_kernels_match_plain_versions(card, b, s, d, n,
     u, delta, A, B, C, _, g = _scan_inputs(b, s, d, n)
     at = A.t().contiguous()
     before = dict(ss.LAUNCHES)
-    y0 = ss.selective_scan_fwd(u, delta, B, C, at, chunk, False)
-    y, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+    y0 = ss.split_scan_fwd(u, delta, B, C, at, chunk, False)
+    y, h0s = ss.split_scan_fwd(u, delta, B, C, at, chunk, True)
     y_ref, h0s_ref = ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
                                                  True)
     torch.cuda.synchronize()
     assert torch.equal(y0, y) and h0s.shape == h0s_ref.shape
     assert _row_err(y, y_ref) <= SCAN_TOL
     assert _row_err(h0s, h0s_ref) <= SCAN_TOL
-    got = ss.selective_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
+    got = ss.split_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
     want = ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s_ref, g,
                                        chunk)
     torch.cuda.synchronize()
@@ -764,11 +775,12 @@ def test_selective_scan_kernels_match_plain_versions(card, b, s, d, n,
         assert x.shape == w.shape, name
         assert _row_err(x, w) <= SCAN_TOL, (name, _row_err(x, w))
     # run-to-run identical (no atomics)
-    again = ss.selective_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
+    again = ss.split_scan_bwd(u, delta, B, C, at, h0s_ref, g, chunk)
     assert all(torch.equal(x, z) for x, z in zip(got, again))
+    blocks = -(-n // ss.MAX_STATE)  # one launch per block of <= 16 states
     assert {k: ss.LAUNCHES[k] - before[k] for k in before} == {
-        "selective_scan_fwd": 1, "selective_scan_fwd_states": 1,
-        "selective_scan_bwd": 2}
+        "selective_scan_fwd": blocks, "selective_scan_fwd_states": blocks,
+        "selective_scan_bwd": 2 * blocks}
 
 
 def test_selective_scan_autograd_matches_the_cpu(card):

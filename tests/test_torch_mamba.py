@@ -1,7 +1,7 @@
 """The port's Mamba (``paddle_tpu_torch/models/mamba.py``) against the JAX
 package on the CPU: the tiny model's logits, loss and every parameter's
 gradient after ``load_numpy_state_dict`` (the chunked scan and the
-associative branch), a 5-step ``TrainStep`` trajectory against the JAX
+associative branch, and the chunked scan over 32 states), a 5-step ``TrainStep`` trajectory against the JAX
 ``TrainStep`` on a one-device CPU mesh, the new activations, and the
 scan dispatch of the mixer. Inputs come from numpy with one seed."""
 
@@ -51,7 +51,19 @@ def _pair(seed=5, **cfg):
 
 @pytest.mark.parametrize("branch", list(CFGS))
 def test_tiny_mamba_logits_loss_and_every_gradient_match_jax(branch):
-    jmodel, tmodel = _pair(**CFGS[branch])
+    _check_logits_loss_and_gradients(**CFGS[branch])
+
+
+def test_state_size_over_16_matches_jax():
+    """32 states: the chunked scan splits them into two blocks of 16 (the
+    kernels' limit; the plain versions here), sums y, du and ddelta over
+    the blocks and joins the rest; the logits, loss and every gradient
+    match JAX's chunked scan over all 32 at once."""
+    _check_logits_loss_and_gradients(state_size=32, **CFGS["chunked"])
+
+
+def _check_logits_loss_and_gradients(**cfg):
+    jmodel, tmodel = _pair(**cfg)
     ids = np.random.default_rng(3).integers(0, 256, (2, 32))
 
     def jloss(p):

@@ -91,6 +91,41 @@ def test_gradients_match_jax_grad():
         _close(t.grad, w, 1e-5)
 
 
+def test_state_blocks_over_16_match_jax_grad():
+    """40 states go through ``_ChunkedScan`` as blocks of 16, 16 and 8
+    (the kernels take at most 16; the plain versions here): the output and
+    all six gradients against the JAX chunked scan over all 40 at once,
+    and the forward's h0s joined back into 40 states."""
+    args = _inputs(n=40, seed=4)
+    jargs = tuple(map(jnp.asarray, args))
+
+    def jloss(*a):
+        return jnp.sum(jnp.sin(jss.chunked_selective_scan(*a, chunk=16)))
+
+    want_out = jss.chunked_selective_scan(*jargs, chunk=16)
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*jargs)
+    targs = [torch.tensor(a, requires_grad=True) for a in args]
+    out = tss.chunked_selective_scan(*targs, chunk=16)
+    _close(out, want_out, 1e-5)
+    torch.sin(out).sum().backward()
+    # 1e-5 of each gradient's largest value: with 40 states the sums reach
+    # 125 (ddelta), where float32 sums in another order differ by 1e-4;
+    # the unsplit plain versions differ from JAX's by the same amounts
+    for name, t, w in zip("u delta A B C D".split(), targs, want):
+        assert t.grad.shape == w.shape, name
+        w = np.asarray(w)
+        err = np.abs(t.grad.numpy() - w).max()
+        assert err <= 1e-5 * max(1.0, np.abs(w).max()), (name, err)
+    u, delta, A, B, C, _ = _t(*args)
+    at = A.t().contiguous()
+    y, h0s = tss.split_scan_fwd(u, delta, B, C, at, 16, True)
+    y_all, h0s_all = tss.selective_scan_fwd_plain(u, delta, B, C, at, 16,
+                                                  True)
+    assert h0s.shape == (2, 4, 40, 32)
+    _close(h0s, h0s_all.numpy(), 1e-5)
+    _close(y, y_all.numpy(), 1e-5)
+
+
 def test_associative_reference_matches_jax():
     """The port's associative scan follows ``jax.lax.associative_scan``'s
     combine order: outputs and gradients within 1e-5. The chunked scan,
