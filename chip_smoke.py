@@ -7,7 +7,10 @@ Phases, each of which raises on failure:
 1. device: prints the card's name and power limit (``nvidia-smi``) and
    requires compute capability 9.0;
 2. build: compiles the port's CUDA kernels with ``nvcc`` for ``sm_90a``
-   and prints the build time and the compiler's register/spill summary;
+   and prints the build time and the compiler's register/spill summary,
+   then the registers, spills and dynamic shared memory of each
+   redesigned flash instantiation and of each body of row 4, and how many
+   clusters of row 4's decode body the card holds at once;
 3. kernel vs plain version: the fused decode-attention kernel against its
    plain PyTorch version on the card, at the Llama-2-7B decode shape, a
    GQA shape (kvh 8, group 8) and with a float32 cache, with ragged
@@ -28,10 +31,14 @@ Phases, each of which raises on failure:
 7. weight-only matmul vs plain version: the row-4 kernel against its
    plain PyTorch version on the card, int8 and int4 weights with bf16 and
    float32 activations at the four Llama-2-7B linear shapes, at decode
-   (m = 8) and prefill (m = 2048) and one ragged shape (m = 3, one
-   whole-column group); times the decode shapes and one prefill shape
-   beside the byte or operation bound, the plain version and one
-   ``torch.matmul`` over the pre-dequantized bf16 weight (a yardstick);
+   (m = 8) and prefill (m = 2048), one ragged shape (m = 3, one
+   whole-column group) and the edges of the tensor-core tilings (m no
+   multiple of the tile, g of 32, 64 and 96, uneven k splits at m 1 and
+   16, bf16 and fp16), each run twice identically; times every 7B shape
+   at decode and prefill beside the byte or operation bound (and one 7B
+   forward's 225 calls from them), and one decode and one prefill shape
+   beside the plain version and one ``torch.matmul`` over the
+   pre-dequantized bf16 weight (a yardstick);
 8. int8 decode kernels vs plain versions: the int8 branches of the fused
    contiguous and fused paged kernels on int8 caches and pools (payloads
    equal or at most 1 apart, scales within rtol 1e-5, outputs at bf16
@@ -50,8 +57,9 @@ Phases, each of which raises on failure:
    ``PT_FLAGS_fused_decode=off`` as many block-table launches, and the
    same first tokens both ways;
 12. quantized engines, the same model and prompts: int8 weights over the
-   paged bf16 pool (``bench_serve7b``'s configuration), int8 weights over
-   an int8 paged pool, and an int8 contiguous cache with bf16 weights,
+   paged bf16 pool (``bench_serve7b``'s configuration), int4 weights over
+   it, int8 weights over an int8 paged pool, and an int8 contiguous cache
+   with bf16 weights,
    each with fused decode on and off. Requires 7 x 32 + 1 = 225 row-4
    launches per forward (prefill chunks and decode forwards), the fused
    kernel of the cache once per layer per decode forward and no other
@@ -70,7 +78,9 @@ Phases, each of which raises on failure:
    each backward with a nonzero LSE cotangent; the fused and the
    two-pass backward must agree. Timed at the train shape beside the
    bounds, the plain versions and ``scaled_dot_product_attention``
-   forward and backward (a yardstick the port never calls);
+   forward and backward (a yardstick the port never calls); the dq and
+   dk/dv passes also at b 1, s 8192, where the default k block takes the
+   two-pass backward, beside SDPA's backward;
 15. train reference (after phase 9): a tiny float32 Llama trains 5 steps
    on the card (kernels) and on the CPU (plain versions) from the same
    weights, with the same losses; ``use_recompute`` leaves the card's
@@ -84,8 +94,9 @@ Phases, each of which raises on failure:
    backward per step; one step with ``use_recompute`` (8 forward
    launches); one from the same weights with
    ``flash_attention_block_k=256`` (the dq and dk/dv kernels, 4 each,
-   and the same loss and grad norm); one ``no_grad`` eval forward (4
-   launches of the forward without LSE); a profile of one step;
+   and the same loss and grad norm), then that two-pass step timed (2
+   warm-ups, the median of 3) beside the fused one; one ``no_grad`` eval
+   forward (4 launches of the forward without LSE); a profile of one step;
 17. selective scan vs plain versions (after phase 14): row 10 without and
    with states and row 11 against their plain PyTorch versions, row by row
    within 1e-5 (float32), at the Mamba-130m train shape (b 4, s 1024, d
@@ -567,6 +578,7 @@ def qmm_check(m, k, n, g, wdt, act, seed):
     inp = qmm_inputs(m, k, n, g, wdt, act, seed)
     y = qmm.weight_only_matmul(**inp)
     ref = qmm.weight_only_matmul_plain(**inp)
+    again = qmm.weight_only_matmul(**inp)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs().max().item()
     rel = err / max(ref.float().abs().max().item(), 1e-30)
@@ -574,11 +586,83 @@ def qmm_check(m, k, n, g, wdt, act, seed):
     if not (y.shape == ref.shape and torch.isfinite(y).all() and rel <= tol):
         raise AssertionError(f"weight-only matmul m={m} k={k} n={n} g={g} "
                              f"{wdt} {act}: relative error {rel} > {tol}")
+    if not torch.equal(y, again):  # no float atomics: run-to-run identical
+        raise AssertionError(f"weight-only matmul m={m} k={k} n={n} g={g} "
+                             f"{wdt} {act}: two runs differ")
     return err, rel
 
 
+# the edges of the tensor-core tilings (m, k, n, g, weight dtype, x dtype):
+# prefill m no multiple of the 128-row tile at both weight and both 16-bit
+# x types, g smaller than the 64-deep k tile (32, 64) and g = 96, n a
+# multiple of 8 but not of 128; decode over 8 k splits whose stored rows
+# do not divide by 8 (1100 int8 rows, 550 int4 rows), at m 1 and m 16
+QMM_EDGE_CASES = [
+    (200, 512, 384, 128, "int8", torch.bfloat16),
+    (77, 1024, 256, 128, "int4", torch.float16),
+    (129, 512, 136, 128, "int4", torch.bfloat16),
+    (260, 768, 384, 128, "int8", torch.float16),
+    (256, 512, 256, 32, "int8", torch.bfloat16),
+    (130, 768, 384, 64, "int4", torch.bfloat16),
+    (160, 576, 264, 96, "int8", torch.float16),
+    (96, 576, 256, 96, "int4", torch.bfloat16),
+    (1, 1100, 512, 100, "int8", torch.bfloat16),
+    (16, 1100, 384, 110, "int4", torch.float16),
+    (16, 1100, 256, 100, "int8", torch.float32),
+    (1, 2200, 200, 110, "int4", torch.bfloat16),
+]
+# the bodies of row 4 by their mangled names: T, NSUB and GAL (prefill and
+# decode on the tensor cores) or VEC (decode_kernel)
+QMM_BODIES = ("prefill_kernel", "decode_tc_kernel", "decode_kernel")
+
+
+def qmm_build_report(log):
+    """The ptxas registers and spills of row 4's bodies, the dynamic shared
+    memory each is launched with, and how many decode clusters of 8 CTAs
+    the card holds at once."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    smem = lib.pt_weight_only_matmul_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    clusters = lib.pt_weight_only_matmul_clusters
+    clusters.argtypes, clusters.restype = [ctypes.c_int], ctypes.c_int
+    pat = re.compile(r"Compiling entry function '\S*?\d+(prefill_kernel|"
+                     r"decode_tc_kernel|decode_kernel)I(6__half|13__nv_bfloat16"
+                     r"|f)Li(\d)EL(b|i)(\d)E\S*' for 'sm_90a'\n.*\n\s*(.*)"
+                     r"\n(.*)\n")
+    rows = []
+    for m in pat.finditer(log):
+        body, tname, nsub, kind, last = m.groups()[:5]
+        tag = {"6__half": "f16", "13__nv_bfloat16": "bf16", "f": "f32"}[tname]
+        wdt = "int4" if nsub == "2" else "int8"
+        if body == "decode_kernel":
+            nbytes = smem(2 if last == "8" else 3, 0)
+            var = f"VEC {last}"
+        else:
+            nbytes = smem(QMM_BODIES.index(body), int(nsub == "2"))
+            var = "g % 16 == 0" if last == "1" else "any g"
+        regs = re.search(r"Used (\d+) registers", m.group(7))
+        line = (f"ptxas {body} {tag} {wdt} {var}: {regs.group(1)} registers, "
+                f"{m.group(6).strip()}, {nbytes} bytes of dynamic shared "
+                f"memory")
+        print(line, flush=True)
+        rows.append(line)
+    if len(rows) != 28:
+        raise AssertionError(f"expected the ptxas lines of 28 row-4 "
+                             f"instantiations, found {len(rows)}")
+    for i4 in (0, 1):
+        print(f"weight-only matmul: {clusters(i4)} decode_tc_kernel clusters "
+              f"of 8 CTAs resident at once ({'int4' if i4 else 'int8'}, "
+              f"bf16)", flush=True)
+    return rows
+
+
 def quant_kernel_phase():
-    """Row 4 against its plain version at the 7B shapes, then timed."""
+    """Row 4 against its plain version at the 7B shapes and the edges of
+    its tilings, then timed."""
     from paddle_tpu_torch.kernels import quant_matmul as qmm
 
     errs, rels = [], []
@@ -598,16 +682,30 @@ def quant_kernel_phase():
                   f"m=8 and m=2048, m=3 with g=k: max abs err "
                   f"{max(errs[-9:]):.3e}, max rel err {max(rels[-9:]):.3e} "
                   f"ok", flush=True)
+    for i, (m, k, n, g, wdt, act) in enumerate(QMM_EDGE_CASES):
+        e, r = qmm_check(m, k, n, g, wdt, act, 200 + i)
+        errs.append(e)
+        rels.append(r)
+    bodies = sorted({qmm.kernel_body(m, n, k, a)
+                     for m, k, n, _, _, a in QMM_EDGE_CASES})
+    print(f"weight-only matmul check: {len(QMM_EDGE_CASES)} edge cases of "
+          f"the tilings ({', '.join(bodies)}): max rel err "
+          f"{max(rels[-len(QMM_EDGE_CASES):]):.3e}, each run twice "
+          f"identically ok", flush=True)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     times = {}
-    for (k, n) in SHAPES_7B:
-        for wdt in ("int8", "int4"):
-            inp = qmm_inputs(8, k, n, GROUP, wdt, torch.bfloat16, 7)
-            t = time_ms(lambda: qmm.weight_only_matmul(**inp), flush)
-            b, by = qmm_bound(inp)
-            times[(k, n, wdt)] = (t, b)
-            print(f"weight-only matmul timing m=8 k={k} n={n} {wdt} bf16: "
-                  f"kernel {t:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
+    for m in (8, 2048):
+        for (k, n) in SHAPES_7B:
+            for wdt in ("int8", "int4"):
+                inp = qmm_inputs(m, k, n, GROUP, wdt, torch.bfloat16, 7)
+                t = time_ms(lambda: qmm.weight_only_matmul(**inp), flush,
+                            iters=100 if m == 8 else 30)
+                b, by = qmm_bound(inp)
+                times[(m, k, n, wdt)] = (t, b)
+                print(f"weight-only matmul timing m={m} k={k} n={n} {wdt} "
+                      f"bf16 ({qmm.kernel_body(m, n, k, torch.bfloat16)}): "
+                      f"kernel {t:.4f} ms ({2 * m * k * n / t / 1e9:.1f} "
+                      f"TFLOP/s), bound {b:.4f} ms ({by})", flush=True)
     # the yardsticks at the row's headline shape (down_proj, m = 8) and at
     # one prefill shape (gate/up, m = 2048 = 8 slots x 256-token chunk)
     rows = {}
@@ -627,15 +725,19 @@ def quant_kernel_phase():
               f"torch.matmul over the dequantized bf16 W {library_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         rows[label] = (kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
-    # one 7B decode forward: 32 layers of q, k, v, o, gate, up, down and
-    # the head, from the per-shape times above
+    # one 7B forward: 32 layers of q, k, v, o, gate, up, down and the
+    # head, from the per-shape times above, at decode (8 slots) and over
+    # one prefill chunk (8 slots x 256 tokens)
     fwd = {}
-    for wdt in ("int8", "int4"):
-        fwd[wdt] = [sum((32 * c if c else 1) * times[(k, n, wdt)][i]
-                        for (k, n), c in SHAPES_7B.items()) for i in (0, 1)]
-        print(f"weight-only matmul per 7B decode forward (225 calls, m=8, "
-              f"{wdt}): kernels {fwd[wdt][0]:.4f} ms, bound "
-              f"{fwd[wdt][1]:.4f} ms", flush=True)
+    for m, label in ((8, "decode"), (2048, "prefill chunk")):
+        for wdt in ("int8", "int4"):
+            fwd[(m, wdt)] = [sum((32 * c if c else 1)
+                                 * times[(m, k, n, wdt)][i]
+                                 for (k, n), c in SHAPES_7B.items())
+                             for i in (0, 1)]
+            print(f"weight-only matmul per 7B {label} forward (225 calls, "
+                  f"m={m}, {wdt}): kernels {fwd[(m, wdt)][0]:.4f} ms, bound "
+                  f"{fwd[(m, wdt)][1]:.4f} ms", flush=True)
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = rows["decode"]
     pre = rows["prefill"]
     return dict(name="weight_only_matmul", route="cuda",
@@ -647,12 +749,16 @@ def quant_kernel_phase():
                 bound_by=bound_by, library_ms=library_ms,
                 prefill_ms=pre[0], prefill_plain_ms=pre[1],
                 prefill_library_ms=pre[2], prefill_bound_ms=pre[3],
-                int4_ms=times[(11008, 4096, "int4")][0],
-                int4_bound_ms=times[(11008, 4096, "int4")][1],
-                forward_int8_ms=fwd["int8"][0],
-                forward_int8_bound_ms=fwd["int8"][1],
-                forward_int4_ms=fwd["int4"][0],
-                forward_int4_bound_ms=fwd["int4"][1])
+                prefill_int4_ms=times[(2048, 4096, 11008, "int4")][0],
+                int4_ms=times[(8, 11008, 4096, "int4")][0],
+                int4_bound_ms=times[(8, 11008, 4096, "int4")][1],
+                forward_int8_ms=fwd[(8, "int8")][0],
+                forward_int8_bound_ms=fwd[(8, "int8")][1],
+                forward_int4_ms=fwd[(8, "int4")][0],
+                forward_int4_bound_ms=fwd[(8, "int4")][1],
+                prefill_forward_int8_ms=fwd[(2048, "int8")][0],
+                prefill_forward_int4_ms=fwd[(2048, "int4")][0],
+                prefill_forward_bound_ms=fwd[(2048, "int8")][1])
 
 
 # ------------------------------------------ int8 branches of rows 1 and 2
@@ -1180,18 +1286,18 @@ def fa_bound(name, b, s, hq, hk, d, itemsize, pairs):
 
 def flash_build_report(log):
     """The ptxas registers and spills of the redesigned flash kernels
-    (``fwd_kernel`` and ``dkv_kernel`` at 16-bit DP 64 and 128) and the
-    dynamic shared memory each is launched with."""
+    (``fwd_kernel``, ``dq_kernel`` and ``dkv_kernel`` at 16-bit DP 64 and
+    128) and the dynamic shared memory each is launched with."""
     import ctypes
 
     from paddle_tpu_torch.kernels import _build
 
     lib = _build.library()
-    pat = re.compile(r"Compiling entry function '\S*?\d+(fwd_kernel|dkv_kernel)"
-                     r"I(6__half|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?\S*' "
-                     r"for 'sm_90a'\n.*\n\s*(.*)\n(.*)\n")
-    passes = {("fwd_kernel", None): 0, ("dkv_kernel", "0"): 2,
-              ("dkv_kernel", "1"): 3}
+    pat = re.compile(r"Compiling entry function '\S*?\d+(fwd_kernel|dq_kernel|"
+                     r"dkv_kernel)I(6__half|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?"
+                     r"\S*' for 'sm_90a'\n.*\n\s*(.*)\n(.*)\n")
+    passes = {("fwd_kernel", None): 0, ("dq_kernel", None): 1,
+              ("dkv_kernel", "0"): 2, ("dkv_kernel", "1"): 3}
     rows = []
     for m in pat.finditer(log):
         kernel, tname, dp, fused = m.group(1), m.group(2), int(m.group(3)), \
@@ -1208,8 +1314,8 @@ def flash_build_report(log):
                 f"memory")
         print(line, flush=True)
         rows.append(line)
-    if len(rows) != 12:
-        raise AssertionError(f"expected the ptxas lines of 12 redesigned "
+    if len(rows) != 16:
+        raise AssertionError(f"expected the ptxas lines of 16 redesigned "
                              f"flash instantiations, found {len(rows)}")
     return rows
 
@@ -1314,7 +1420,61 @@ def flash_kernel_phase():
             max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms)
+    long_context_timing(rows, flush)
     return rows
+
+
+# a long-context train shape: b 1, s 8192, 32 heads of 128, causal, bf16
+LONG_SHAPE = dict(b=1, s=8192, hq=32, hk=32, d=128)
+
+
+def long_context_timing(rows, flush):
+    """Rows 7 and 9, the two-pass backward, timed where the default
+    dispatch takes them: at ``LONG_SHAPE`` the default k block of 1024
+    gives 8 kv blocks, more than the fused pass takes (``mha_backward``'s
+    rule), so every long-context train step runs them in every layer.
+    Beside them ``scaled_dot_product_attention``'s backward (a yardstick
+    the port never calls); the plain versions are not timed here (their
+    score tensors alone would be 8.6 GB)."""
+    from paddle_tpu_torch.kernels import mha as fa
+
+    t = LONG_SHAPE
+    b, s, hq, hk, d = (t[x] for x in ("b", "s", "hq", "hk", "d"))
+    k_blocks = -(-s // fa.fit_block(fa.DEFAULT_K_BLOCK, s))
+    if k_blocks <= fa.FUSED_BWD_MAX_KB:
+        raise AssertionError(f"s={s}: {k_blocks} kv blocks of the default "
+                             "k block take the fused pass, not rows 7 and 9")
+    q, k, v, do, _ = fa_inputs(b, s, hq, hk, d, torch.bfloat16, seed=71)
+    o, lse = fa.flash_forward(q, k, v, with_lse=True, causal=True)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), doh, retain_graph=True), flush, iters=20)
+    pairs = fa_pairs(s, s, True, 0)
+    two = 0.0
+    for name, fn in (
+            ("flash_attention_bwd_dq",
+             lambda: fa.flash_bwd_dq(*args, causal=True)),
+            ("flash_attention_bwd_dkv",
+             lambda: fa.flash_bwd_dkv(*args, causal=True))):
+        ms = time_ms(fn, flush, iters=20)
+        bound_ms, bound_by, ops = fa_bound(name, b, s, hq, hk, d, 2, pairs)
+        two += ms
+        print(f"flash timing {name} b={b} s={s} h={hq} d={d} causal bf16 "
+              f"({k_blocks} kv blocks of {fa.DEFAULT_K_BLOCK}: the default "
+              f"dispatch's two-pass backward): kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s), sdpa backward {lib_bwd:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        rows[name].update(long_shape=f"b={b} s={s} hq={hq} hk={hk} d={d} "
+                                     "causal bf16",
+                          long_ms=ms, long_bound_ms=bound_ms,
+                          long_library_ms=lib_bwd)
+    print(f"flash timing two-pass backward (rows 7 + 9) b={b} s={s}: "
+          f"{two:.4f} ms against sdpa backward {lib_bwd:.4f} ms", flush=True)
 
 
 def card_and_cpu(make, seed):
@@ -1586,6 +1746,9 @@ def train_7b_phase():
         reset_launches()
         loss_b, norm_b = float(ts.run(batch)), float(ts.last_grad_norm)
         two = read_launches()
+        # the two-pass step timed as the fused one was: 2 warm-ups, then
+        # the median of 3 (rows 7 and 9 once per layer a step)
+        _, _, two_ms, two_timed, _ = train_steps(ts, batch, timed=3)
     finally:
         flags.set_flags({"flash_attention_block_k": 1024})
     want_two = {"flash_attention_fwd_lse": layers,
@@ -1595,6 +1758,11 @@ def train_7b_phase():
     if {n: two[n] for n in want_two} != want_two:
         raise AssertionError(f"block_k=256 step launches {two}, want "
                              f"{want_two}")
+    if {n: two_timed[n] for n in want_two} \
+            != {n: 3 * c for n, c in want_two.items()}:
+        raise AssertionError(f"block_k=256 timed steps launches "
+                             f"{two_timed}, want 3 x {want_two}")
+    two_med = float(np.median(two_ms))
     # the same weights and forward; the two backward passes differ only in
     # how dq sums (float32 span partials or one pass)
     if not (abs(loss_a - loss_b) <= 1e-3 * abs(loss_a)
@@ -1606,6 +1774,10 @@ def train_7b_phase():
           f"{loss_b:.6f} vs {loss_a:.6f}, grad norm {norm_b:.6f} vs "
           f"{norm_a:.6f} (tol 1e-3 and 1e-2 relative); launches {want_two}",
           flush=True)
+    print(f"train 7b: two-pass step (block_k=256, rows 7 and 9) "
+          f"{[round(x, 3) for x in two_ms]} ms, median {two_med:.3f} ms, "
+          f"against the fused step's median {med_ms:.3f} ms (CUDA events "
+          f"around TrainStep.run, 2 warm-ups each)", flush=True)
 
     ts.sync_to_model()
     reset_launches()
@@ -1631,6 +1803,7 @@ def train_7b_phase():
         "model_tflop_per_step": flops / 1e12, "peak_memory_gb": peak_gb,
         "losses": losses, "grad_norms": norms,
         "two_pass_loss": loss_b, "two_pass_grad_norm": norm_b,
+        "two_pass_step_ms": two_ms, "two_pass_step_ms_median": two_med,
         "profile": prof}}), flush=True)
     return {"flash_attention_fwd": evals["flash_attention_fwd"],
             "flash_attention_fwd_lse": counts["flash_attention_fwd_lse"],
@@ -2603,6 +2776,7 @@ def main() -> int:
           f"{spilled}", flush=True)
 
     flash_build_report(log)
+    qmm_build_report(log)
     row = phase("decode kernel", kernel_phase)
     fused_row, block_row = phase("paged kernels", paged_kernel_phase)
     qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)
@@ -2626,6 +2800,9 @@ def main() -> int:
                    "quant_engine_int8w_paged", model, prompts, paged_outs,
                    weight_dtype="int8", **paged)
     qmm_row["launches"] = counts["weight_only_matmul"]
+    phase("quant engine int4w paged", quant_engine_phase,
+          "quant_engine_int4w_paged", model, prompts, paged_outs,
+          weight_dtype="int4", **paged)
     counts = phase("quant engine int8w int8kv paged", quant_engine_phase,
                    "quant_engine_int8w_int8kv_paged", model, prompts,
                    paged_outs, weight_dtype="int8", cache_dtype="int8",

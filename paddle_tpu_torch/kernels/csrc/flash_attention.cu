@@ -37,7 +37,7 @@
 // of q, k, v and o (0.080 ms at 3.35 TB/s); the fused backward does 2.5x
 // the forward's products and the two-pass one 3.5x.
 //
-// Design. Two bodies share the file.
+// Design. Two generations of bodies share the file.
 //
 // The redesigned kernels (16-bit inputs at DP 64 and 128, every shape of
 // the Llama train path): products on mma.sync m16n8k16 with float32
@@ -70,10 +70,22 @@
 //     side by side; (batch x kv head, spans) for FUSED, the low spans (the
 //     heaviest causal work) first. dk and dv leave through shared memory
 //     as 16-byte stores.
+//   - dq_kernel (row 7, the dq pass of the two-pass backward; redesigned
+//     after the others, on fwd_kernel's machinery): 4 warps, q tiles of 64
+//     rows with their dq rows in float32 registers, kv tiles of 64 keys
+//     and their segment ids in a two-stage ring; the warp's Q fragments in
+//     registers for the whole kv loop, its dO fragments too at DP 64 and
+//     read by ldmatrix at DP 128. S = Q K^T and dP = dO V^T are register
+//     accumulators; p and ds form in registers as dkv_kernel forms them
+//     (hidden scores p = 0), ds is rounded to T by acc_to_a into the A
+//     operand of dq += dS K, and K is the [key][d] B operand by ldmatrix
+//     .trans. Grid and tile order as fwd_kernel's; dq leaves through
+//     shared memory as 16-byte stores.
 // What bounds them now (ptxas, and the flash phase of chip_smoke.py, at
-// the train shape): about 190 TFLOP/s forward, 150 fused and 210 for the
-// dk/dv pass, a fifth of the tensor cores' rate. The forward takes 176
-// registers (two CTAs, 8 warps an SM), the backward the 255 cap with a
+// the train shape): about 190 TFLOP/s forward, 150 fused, 210 for the
+// dk/dv pass and 220 for the dq pass, a fifth of the tensor cores' rate.
+// The forward takes 176 registers and the dq pass 236 at DP 128, without
+// spills (two CTAs, 8 warps an SM), the dk/dv passes the 255 cap with a
 // few spilled words at DP 128 (one CTA of 8 warps). mma.sync with
 // ldmatrix operands and 8 warps an SM is bound by operand reads from
 // shared memory and by the softmax or ds arithmetic issued between the
@@ -83,14 +95,13 @@
 // fed by TMA in 128-byte swizzled tiles, with warp specialisation so that
 // the softmax overlaps the products, is what would pass SDPA.
 //
-// The first version's bodies (fwd_kernel_v1, dkv_kernel_v1) still serve
-// float32 (the 1e-5 references: a SIMT FMA loop, no TF32) and DP 256, and
-// dq_kernel (row 7) serves every type: 128 threads, square tiles of
-// B = 64 rows (32 when a padded row holds more than 256 bytes) in shared
-// memory, nvcuda::wmma 16x16x16 fragments for 16-bit inputs, accumulators
-// in shared memory (tile_mma). fwd_kernel_v1 and dq_kernel: one CTA per
-// (batch, query head, q tile); dkv_kernel_v1: one per (batch, kv head, kv
-// tile or span). dkv_kernel and dkv_kernel_v1 loop over the group's query
+// The first version's bodies (fwd_kernel_v1, dq_kernel_v1, dkv_kernel_v1)
+// still serve float32 (the 1e-5 references: a SIMT FMA loop, no TF32) and
+// DP 256: 128 threads, square tiles of B = 64 rows (32 when a padded row
+// holds more than 256 bytes) in shared memory, nvcuda::wmma 16x16x16
+// fragments for 16-bit inputs, accumulators in shared memory (tile_mma).
+// fwd_kernel_v1 and dq_kernel_v1: one CTA per (batch, query head, q
+// tile); dkv_kernel_v1: one per (batch, kv head, kv tile or span). dkv_kernel and dkv_kernel_v1 loop over the group's query
 // heads and the q tiles that see the kv tile, the GQA sum landing in the
 // same dk/dv accumulators. FUSED: one CTA per (batch, kv head, kv span of
 // the JAX k block) walks the span's kv tiles in order and adds ds k into
@@ -459,7 +470,7 @@ __device__ __forceinline__ void p_and_ds(const Args& a, int q0, int k0,
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) dq_kernel_v1(Args a) {
   using G = Geo<T, DP>;
   constexpr int B = G::B;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -845,6 +856,33 @@ struct FwdCfg {
   static_assert(kSmem <= 232448, "shared memory over the per-block limit");
 };
 
+// K, V and the kv segment ids of kv tile kt (batch b, kv head grp) into
+// a ring stage of the forward's geometry by cp.async; the caller commits.
+template <typename T, int DP>
+__device__ __forceinline__ void load_kv_stage(unsigned char* base,
+                                              const Args& a, int kt, int b,
+                                              int grp) {
+  using C = FwdCfg<T, DP>;
+  constexpr int BN = C::BN, LD = C::LD, NTH = C::kThreads;
+  const size_t kvrow = static_cast<size_t>(a.hk) * a.d;
+  const int k0 = kt * BN, kv = min(BN, a.sk - k0);
+  const size_t kofs = (static_cast<size_t>(b) * a.sk + k0) * kvrow +
+                      static_cast<size_t>(grp) * a.d;
+  load_tile_async<T, BN, DP, LD, NTH>(reinterpret_cast<T*>(base),
+                                      static_cast<const T*>(a.k) + kofs,
+                                      kvrow, kv, a.d);
+  load_tile_async<T, BN, DP, LD, NTH>(reinterpret_cast<T*>(base + C::kKV),
+                                      static_cast<const T*>(a.v) + kofs,
+                                      kvrow, kv, a.d);
+  if (a.kseg != nullptr) {
+    int* ks = reinterpret_cast<int*>(base + 2 * C::kKV);
+    for (int c = threadIdx.x; c < BN; c += NTH) {
+      const int* src = a.kseg + static_cast<size_t>(b) * a.sk + k0 + c;
+      cp_async4(ks + c, c < kv ? src : a.kseg, c < kv);
+    }
+  }
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(FwdCfg<T, DP>::kThreads)
     fwd_kernel(Args a) {
@@ -871,7 +909,6 @@ __global__ void __launch_bounds__(FwdCfg<T, DP>::kThreads)
   if (a.window) lo = max(0, q0 + off - a.window + 1);
 
   const size_t qrow = static_cast<size_t>(a.hq) * a.d;
-  const size_t kvrow = static_cast<size_t>(a.hk) * a.d;
   const T* qp = static_cast<const T*>(a.q) +
                 (static_cast<size_t>(b) * a.sq + q0) * qrow +
                 static_cast<size_t>(h) * a.d;
@@ -884,23 +921,7 @@ __global__ void __launch_bounds__(FwdCfg<T, DP>::kThreads)
 
   const int kt0 = lo / BN, kt1 = hi > 0 ? (hi + BN - 1) / BN : 0;
   auto load_kv = [&](int kt, int st) {
-    unsigned char* base = ring + st * C::kStage;
-    const int k0 = kt * BN, kv = min(BN, a.sk - k0);
-    const size_t kofs = (static_cast<size_t>(b) * a.sk + k0) * kvrow +
-                        static_cast<size_t>(grp) * a.d;
-    load_tile_async<T, BN, DP, LD, NTH>(reinterpret_cast<T*>(base),
-                                        static_cast<const T*>(a.k) + kofs,
-                                        kvrow, kv, a.d);
-    load_tile_async<T, BN, DP, LD, NTH>(reinterpret_cast<T*>(base + C::kKV),
-                                        static_cast<const T*>(a.v) + kofs,
-                                        kvrow, kv, a.d);
-    if (a.kseg != nullptr) {
-      int* ks = reinterpret_cast<int*>(base + 2 * C::kKV);
-      for (int c = tid; c < BN; c += NTH) {
-        const int* src = a.kseg + static_cast<size_t>(b) * a.sk + k0 + c;
-        cp_async4(ks + c, c < kv ? src : a.kseg, c < kv);
-      }
-    }
+    load_kv_stage<T, DP>(ring + st * C::kStage, a, kt, b, grp);
   };
   // the ring: tiles kt0 .. kt0 + NST - 2 in flight before the loop
 #pragma unroll
@@ -1049,6 +1070,190 @@ __global__ void __launch_bounds__(FwdCfg<T, DP>::kThreads)
     if (r < q_valid && c < a.d)
       *reinterpret_cast<uint4*>(op + r * qrow + c) =
           *reinterpret_cast<const uint4*>(Os + r * LD + c);
+  }
+}
+
+// dq geometry: the forward's, with dq in place of O. NW warps, each owning
+// 16 rows of the q tile (BM = 16 NW) and their dq rows in registers; kv
+// tiles of BN keys in a ring of NST stages. The warp's Q fragments stay in
+// registers for the whole kv loop; its dO fragments too at DP 64, while at
+// DP 128 they are read from the dO tile by ldmatrix for every kv tile
+// (holding them as well would pass the 255-register cap).
+template <typename T, int DP>
+struct DqCfg : FwdCfg<T, DP> {
+  using F = FwdCfg<T, DP>;
+  static constexpr bool HOLD_DO = DP <= 64;
+  static constexpr size_t kSmem = F::kSmem + F::kQ;  // the forward's + dO
+  static_assert(kSmem <= 232448, "shared memory over the per-block limit");
+};
+
+// Row 7: dq = sum over kv tiles of dS K, dS = p (dP - delta) scale with
+// p = exp(s scale - lse) and dP = dO V^T, for one q tile. S and dP are
+// register accumulators; p and ds are formed in registers exactly as
+// dkv_kernel forms them (one FFMA and ex2 for p, hidden scores p = 0), ds
+// is rounded to T by acc_to_a into the A operand of dS K, and K is read
+// as a [key][d] B operand by ldmatrix.trans. dq accumulates in float32
+// registers over the kv tiles in order: no atomics.
+template <typename T, int DP>
+__global__ void __launch_bounds__(DqCfg<T, DP>::kThreads)
+    dq_kernel(Args a) {
+  using C = DqCfg<T, DP>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, NST = C::NST,
+                NT = BN / 8, DT = DP / 8, NTH = C::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* const Qs = reinterpret_cast<T*>(smem);
+  T* const dOs = reinterpret_cast<T*>(smem + C::kQ);
+  unsigned char* const ring = smem + 2 * C::kQ;  // stage s at s * kStage
+  int* const qsg = reinterpret_cast<int*>(ring + NST * C::kStage);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane >> 2, t4 = lane & 3;
+  // grid (q tiles, b * hq): a head's q tiles side by side sharing its K
+  // and V in L2, the heaviest causal tiles first
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / a.hq, h = blockIdx.y % a.hq;
+  const int grp = h / a.rep;
+  const int q0 = qt * BM;
+  const int q_valid = min(BM, a.sq - q0);
+  const int off = a.sk - a.sq;
+  int lo = 0, hi = a.sk;
+  if (a.causal) hi = min(hi, q0 + q_valid + off);
+  if (a.window) lo = max(0, q0 + off - a.window + 1);
+
+  const size_t qrow = static_cast<size_t>(a.hq) * a.d;
+  const size_t qofs = (static_cast<size_t>(b) * a.sq + q0) * qrow +
+                      static_cast<size_t>(h) * a.d;
+  load_tile_async<T, BM, DP, LD, NTH>(Qs, static_cast<const T*>(a.q) + qofs,
+                                      qrow, q_valid, a.d);
+  load_tile_async<T, BM, DP, LD, NTH>(
+      dOs, static_cast<const T*>(a.dout) + qofs, qrow, q_valid, a.d);
+  cp_async_commit();
+  for (int r = tid; r < BM; r += NTH)
+    qsg[r] = (a.qseg != nullptr && r < q_valid)
+                 ? a.qseg[static_cast<size_t>(b) * a.sq + q0 + r]
+                 : 0;
+  // the thread's rows r0 and r0 + 8: lse (times log2 e) and delta in
+  // registers; a row past the sequence takes lse = +inf, so its p is 0
+  const int r0 = warp * 16 + gq;
+  float lse2[2], dl[2];
+  {
+    const size_t row = (static_cast<size_t>(b) * a.hq + h) * a.sq + q0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = r0 + 8 * i < q_valid;
+      lse2[i] = ok ? a.lse_in[row + r0 + 8 * i] * kLog2e : INFINITY;
+      dl[i] = ok ? a.delta[row + r0 + 8 * i] : 0.f;
+    }
+  }
+
+  const int kt0 = lo / BN, kt1 = hi > 0 ? (hi + BN - 1) / BN : 0;
+  auto load_kv = [&](int kt, int st) {
+    load_kv_stage<T, DP>(ring + st * C::kStage, a, kt, b, grp);
+  };
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (kt0 + i < kt1) load_kv(kt0 + i, i);
+    cp_async_commit();
+  }
+  const int a_off = (warp * 16 + a_row(lane)) * LD + a_col(lane);
+  uint32_t qf[DP / 16][4];
+  uint32_t dof[C::HOLD_DO ? DP / 16 : 1][4];
+  cp_async_wait<NST - 1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    ldsm_x4(qf[kk], Qs + kk * 16 + a_off);
+    if constexpr (C::HOLD_DO) ldsm_x4(dof[kk], dOs + kk * 16 + a_off);
+  }
+
+  float dq[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+    dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+  const int b_off = b_row(lane) * LD + b_col(lane);
+  const int bt_off = bt_row(lane) * LD + bt_col(lane);
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) % NST;
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + NST - 1 < kt1) load_kv(kt + NST - 1, (kt - kt0 + NST - 1) % NST);
+    cp_async_commit();
+    const T* K = reinterpret_cast<const T*>(ring + st * C::kStage);
+    const T* V = K + C::kKV / sizeof(T);
+    const int* ks = reinterpret_cast<const int*>(ring + st * C::kStage +
+                                                 2 * C::kKV);
+    // S = Q K^T and dP = dO V^T in registers
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    }
+    gemm_pipe<T, DP / 16, NT / 2, 4>(
+        s, [&](int kk, uint32_t(&r)[4]) { copy4(r, qf[kk]); },
+        [&](int kk, int np, uint32_t(&r)[4]) {
+          ldsm_x4(r, K + np * 16 * LD + kk * 16 + b_off);
+        });
+    gemm_pipe<T, DP / 16, NT / 2, 4>(
+        dp,
+        [&](int kk, uint32_t(&r)[4]) {
+          if constexpr (C::HOLD_DO)
+            copy4(r, dof[kk]);
+          else
+            ldsm_x4(r, dOs + kk * 16 + a_off);
+        },
+        [&](int kk, int np, uint32_t(&r)[4]) {
+          ldsm_x4(r, V + np * 16 * LD + kk * 16 + b_off);
+        });
+    // p = exp(s scale - lse), masked only on tiles that a mask touches;
+    // ds = p (dp - delta) scale in place of s
+    const int k0 = kt * BN, k_valid = min(BN, a.sk - k0);
+    const bool need =
+        k_valid < BN || a.qseg != nullptr ||
+        (a.causal && k0 + BN - 1 > q0 + off) ||
+        (a.window && q0 + q_valid - 1 + off - k0 >= a.window);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * t4 + (e & 1), r = r0 + (e >> 1) * 8;
+        float p = ex2(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
+        if (need && (c >= k_valid || masked(a, q0 + r, k0 + c, qsg[r], ks[c])))
+          p = 0.f;
+        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]) * a.scale;
+      }
+    // dq += dS K: ds, rounded to T in registers, is the A operand
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<T>(da[kk], s, kk);
+    gemm_pipe<T, BN / 16, DT / 2, 4>(
+        dq, [&](int kk, uint32_t(&r)[4]) { copy4(r, da[kk]); },
+        [&](int kk, int dpi, uint32_t(&r)[4]) {
+          ldsm_x4_t(r, K + kk * 16 * LD + dpi * 16 + bt_off);
+        });
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: dq through the Q tile to 16-byte stores
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    const int c = i * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(Qs + r0 * LD + c) =
+        pack2<T>(dq[i][0], dq[i][1]);
+    *reinterpret_cast<uint32_t*>(Qs + (r0 + 8) * LD + c) =
+        pack2<T>(dq[i][2], dq[i][3]);
+  }
+  __syncthreads();
+  T* dqp = static_cast<T*>(a.out0) + qofs;
+  constexpr int VPR = DP / 8;
+  for (int e = tid; e < BM * VPR; e += NTH) {
+    const int r = e / VPR, c = (e % VPR) * 8;
+    if (r < q_valid && c < a.d)
+      *reinterpret_cast<uint4*>(dqp + r * qrow + c) =
+          *reinterpret_cast<const uint4*>(Qs + r * LD + c);
   }
 }
 
@@ -1369,7 +1574,8 @@ cudaError_t launch_kernel(KernelT kernel, dim3 grid, int threads,
 }
 
 // The redesigned kernels take 16-bit T at DP 64 and 128; float32 and DP
-// 256 keep the first version's bodies (fwd_kernel_v1, dkv_kernel_v1).
+// 256 keep the first version's bodies (fwd_kernel_v1, dq_kernel_v1,
+// dkv_kernel_v1).
 template <typename T, int DP>
 constexpr bool kRedesigned = !std::is_same<T, float>::value && DP <= 128;
 
@@ -1377,13 +1583,15 @@ template <typename T, int DP>
 cudaError_t launch_dp(int pass, const Args& a, cudaStream_t st) {
   using G = Geo<T, DP>;
   constexpr int B = G::B;
-  if (pass == kDq) {
-    const dim3 grid((a.sq + B - 1) / B, a.b * a.hq);
-    return launch_kernel(dq_kernel<T, DP>, grid, kThreads, G::kDq, a, st);
-  }
   if constexpr (kRedesigned<T, DP>) {
     using F = FwdCfg<T, DP>;
+    using Q = DqCfg<T, DP>;
     using W = BwdCfg<T, DP>;
+    if (pass == kDq) {
+      const dim3 grid((a.sq + Q::BM - 1) / Q::BM, a.b * a.hq);
+      return launch_kernel(dq_kernel<T, DP>, grid, Q::kThreads, Q::kSmem, a,
+                           st);
+    }
     if (pass == kFwd) {
       const dim3 grid((a.sq + F::BM - 1) / F::BM, a.b * a.hq);
       return launch_kernel(fwd_kernel<T, DP>, grid, F::kThreads, F::kSmem,
@@ -1399,6 +1607,11 @@ cudaError_t launch_dp(int pass, const Args& a, cudaStream_t st) {
     return launch_kernel(dkv_kernel<T, DP, true>, grid, W::kThreads,
                          W::kFused, a, st);
   } else {
+    if (pass == kDq) {
+      const dim3 grid((a.sq + B - 1) / B, a.b * a.hq);
+      return launch_kernel(dq_kernel_v1<T, DP>, grid, kThreads, G::kDq, a,
+                           st);
+    }
     if (pass == kFwd) {
       const dim3 grid((a.sq + B - 1) / B, a.b * a.hq);
       return launch_kernel(fwd_kernel_v1<T, DP>, grid, kThreads, G::kFwd, a,
@@ -1421,12 +1634,13 @@ int padded_dim(int d) { return d <= 64 ? 64 : (d <= 128 ? 128 : 256); }
 template <typename T, int DP>
 int smem_dp(int pass) {
   using G = Geo<T, DP>;
-  if (pass == kDq) return static_cast<int>(G::kDq);
   if constexpr (kRedesigned<T, DP>) {
     if (pass == kFwd) return static_cast<int>(FwdCfg<T, DP>::kSmem);
+    if (pass == kDq) return static_cast<int>(DqCfg<T, DP>::kSmem);
     return static_cast<int>(pass == kDkv ? BwdCfg<T, DP>::kBase
                                          : BwdCfg<T, DP>::kFused);
   } else {
+    if (pass == kDq) return static_cast<int>(G::kDq);
     return static_cast<int>(pass == kFwd ? G::kFwd : G::kDkv);
   }
 }

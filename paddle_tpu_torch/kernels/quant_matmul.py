@@ -32,16 +32,12 @@ from .decode_attention import _ACT_CODE
 # on CUDA tensors, none for the plain version
 LAUNCHES = 0
 
-# decode rows per CTA of the kernel's small-m path (csrc/quant_matmul.cu:
-# kSkinnyRows), and the largest m that path takes for 16-bit x; larger m
-# goes to the tensor-core tiled path
-SKINNY_ROWS = 8
+# the largest m of the kernel's decode bodies for 16-bit x
+# (csrc/quant_matmul.cu: kDecMaxM); larger m takes the wgmma prefill body
 SKINNY_MAX_M = 16
-_TARGET_CTAS = 4 * 132  # four CTAs per SM of an H100
-_MIN_SPLIT_ROWS = 128   # stored weight rows per k split, at least
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P]
 
 
 def quantize_weight_int8_grouped(w: torch.Tensor, group_size: int = 128):
@@ -120,17 +116,14 @@ def weight_only_matmul_plain(x, qweight, scale, *, group_size=128,
     return torch.matmul(x, w.to(x.dtype))
 
 
-def k_splits(m: int, n: int, k: int, weight_dtype: str) -> int:
-    """How many k splits the small-m path runs: enough CTAs to fill the
-    card (``_TARGET_CTAS``), each split at least ``_MIN_SPLIT_ROWS``
-    stored weight rows. 1 for the tiled path."""
-    vec = 8 if n % 8 == 0 else 1
-    if m > SKINNY_MAX_M and vec == 8 and k % 8 == 0:
-        return 1  # the tensor-core tiled path (16-bit x) or one pass
-    rows = k // 2 if weight_dtype == "int4" else k
-    ctas = -(-n // (32 * vec)) * -(-m // SKINNY_ROWS)
-    want = -(-_TARGET_CTAS // ctas)
-    return max(1, min(want, rows // _MIN_SPLIT_ROWS))
+def kernel_body(m: int, n: int, k: int, dtype: torch.dtype) -> str:
+    """The body of the kernel that a call of these shapes launches on the
+    card (csrc/quant_matmul.cu: launch_t): prefill_kernel (wgmma) or
+    decode_tc_kernel (mma.sync over a cluster of k splits) for 16-bit x
+    with n and k multiples of 8, decode_kernel (SIMT FMAs) otherwise."""
+    if dtype != torch.float32 and n % 8 == 0 and k % 8 == 0:
+        return "prefill_kernel" if m > SKINNY_MAX_M else "decode_tc_kernel"
+    return "decode_kernel"
 
 
 def _check(x, qweight, scale, group_size, weight_dtype):
@@ -186,19 +179,14 @@ def weight_only_matmul(x, qweight, scale, *, group_size=128,
 
     m, k = x.shape
     n = qweight.shape[1]
-    splits = k_splits(m, n, k, weight_dtype)
     fn = _build.library().pt_weight_only_matmul
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = (torch.empty((splits, m, n), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _ACT_CODE[x.dtype], qweight.data_ptr(),
-                 int(weight_dtype == "int4"), scale.data_ptr(),
-                 None if part is None else part.data_ptr(), y.data_ptr(),
-                 m, n, k, group_size, splits,
-                 torch.cuda.current_stream().cuda_stream)
+                 int(weight_dtype == "int4"), scale.data_ptr(), y.data_ptr(),
+                 m, n, k, group_size, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"weight-only matmul kernel failed to launch: "
                            f"CUDA error {err}")

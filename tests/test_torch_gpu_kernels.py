@@ -388,6 +388,24 @@ QMM_CASES = [  # m, k, n, group, weight dtype, x dtype
     (300, 512, 256, 128, "int8", torch.float16),
     (40, 130, 100, 10, "int8", torch.bfloat16),  # n % 8, k % 8 != 0
     (64, 96, 72, 32, "int4", torch.float32),
+    # the edges of the tensor-core prefill tiling (128 x rows by 128 W
+    # columns, k stages of 64): m no multiple of 128 at both weight and
+    # both 16-bit x types; g smaller than the k stage (32, 64) and g = 96,
+    # no power of two; n a multiple of 8 but not of 128
+    (200, 512, 384, 128, "int8", torch.bfloat16),
+    (77, 1024, 256, 128, "int4", torch.float16),
+    (129, 512, 136, 128, "int4", torch.bfloat16),
+    (260, 768, 384, 128, "int8", torch.float16),
+    (256, 512, 256, 32, "int8", torch.bfloat16),
+    (130, 768, 384, 64, "int4", torch.bfloat16),
+    (160, 576, 264, 96, "int8", torch.float16),
+    (96, 576, 256, 96, "int4", torch.bfloat16),
+    # decode over a cluster of 8 k splits whose stored rows do not divide
+    # by 8 (1100 int8 rows, 550 int4 rows), at m 1 and m 16
+    (1, 1100, 512, 100, "int8", torch.bfloat16),
+    (16, 1100, 384, 110, "int4", torch.float16),
+    (16, 1100, 256, 100, "int8", torch.float32),
+    (1, 2200, 200, 110, "int4", torch.bfloat16),
 ]
 
 

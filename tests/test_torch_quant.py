@@ -101,6 +101,22 @@ def test_per_channel_quantizer_and_error_messages_match_jax():
     assert "group_size=64" in tmsg or "96" in tmsg
 
 
+@pytest.mark.parametrize("m,n,k,dtype,body", [
+    (8, 4096, 11008, torch.bfloat16, "decode_tc_kernel"),   # 7B decode
+    (16, 4096, 4096, torch.float16, "decode_tc_kernel"),
+    (17, 4096, 4096, torch.bfloat16, "prefill_kernel"),
+    (2048, 11008, 4096, torch.bfloat16, "prefill_kernel"),  # 7B prefill
+    (2048, 11008, 4096, torch.float32, "decode_kernel"),
+    (40, 100, 130, torch.bfloat16, "decode_kernel"),
+    (8, 4096, 4100, torch.bfloat16, "decode_kernel"),
+])
+def test_weight_only_matmul_body_by_shape(m, n, k, dtype, body):
+    """The body a call launches on the card (csrc/quant_matmul.cu:
+    launch_t): the tensor cores for 16-bit x with n and k multiples of 8,
+    wgmma above 16 rows and mma.sync at or below; SIMT FMAs otherwise."""
+    assert tqmm.kernel_body(m, n, k, dtype) == body
+
+
 # ------------------------------------------- row 4's plain version vs JAX
 @pytest.mark.parametrize("wdt", ["int8", "int4"])
 @pytest.mark.parametrize("m,k,g", [(16, 256, 64), (256, 512, 128)])
