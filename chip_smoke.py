@@ -9,8 +9,9 @@ Phases, each of which raises on failure:
 2. build: compiles the port's CUDA kernels with ``nvcc`` for ``sm_90a``
    and prints the build time and the compiler's register/spill summary,
    then the registers, spills and dynamic shared memory of each
-   redesigned flash instantiation and of each body of row 4, and how many
-   clusters of row 4's decode body the card holds at once;
+   redesigned flash instantiation and of each body of row 4, how many
+   clusters of row 4's decode body the card holds at once, and the
+   registers and spills of the GroupNorm kernels (rows 12-13);
 3. kernel vs plain version: the fused decode-attention kernel against its
    plain PyTorch version on the card, at the Llama-2-7B decode shape, a
    GQA shape (kvh 8, group 8) and with a float32 cache, with ragged
@@ -105,11 +106,18 @@ Phases, each of which raises on failure:
    computes the scan: no library time);
 18. GroupNorm vs plain versions: rows 12 and 13 against their plain
    versions at every distinct GroupNorm site of the SD UNet at
-   sample_size 32, batch 4, and one shape over the JAX kernel's VMEM
-   budget, bf16 and float32, with and without the SiLU; timed at the
-   largest site beside the bounds, the plain versions and
-   ``torch.nn.functional.group_norm`` + ``silu`` forward and backward (a
-   yardstick the port never calls);
+   sample_size 32, batch 4, one shape over the JAX kernel's VMEM budget
+   (the re-read path), a ragged hw of 1000 split across a cluster, one
+   pixel (a cluster of one CTA; with two channels a group dx is held
+   against float64, as it is the cancellation of much larger terms),
+   slabs of more groups than a CTA has threads, and inputs whose storage
+   offset breaks 16-byte alignment, bf16 and float32, with and without
+   the SiLU, each backward run twice identically; prints each kernel's
+   launch plan at the largest site; timed at the largest site beside the
+   bounds, the plain versions and ``torch.nn.functional.group_norm`` +
+   ``silu`` forward and backward (a yardstick the port never calls), and
+   summed over one UNet step's 56 calls (their shapes, SiLU or not,
+   bf16) beside the summed yardsticks and bounds;
 19. Mamba reference (after phase 15): a tiny float32 Mamba trains 5 steps
    on the card (rows 10-11) and on the CPU (plain versions) from the same
    weights, with the same losses;
@@ -2008,52 +2016,14 @@ class UNetLoss(torch.nn.Module):
         return (pred.float() - target.float()).square().mean()
 
 
-def unet_gn_sites(cfg, size):
-    """(hw, channels, activation) of every GroupNorm of
-    ``UNet2DConditionModel(cfg).forward`` at a ``size`` x ``size`` sample,
-    in call order (the model's own channel and resolution walk)."""
-    ch = list(cfg.block_out_channels)
-    sites = []
-
-    def resnet(c_in, c_out, hw):
-        sites.extend([(hw, c_in, "silu"), (hw, c_out, "silu")])
-
-    def attn(c, hw):
-        sites.append((hw, c, None))
-
-    hw, cur, skips = size * size, ch[0], [ch[0]]
-    for level, out_c in enumerate(ch):
-        for _ in range(cfg.layers_per_block):
-            resnet(cur, out_c, hw)
-            if level >= len(ch) - 2:
-                attn(out_c, hw)
-            cur = out_c
-            skips.append(cur)
-        if level < len(ch) - 1:
-            hw //= 4
-            skips.append(cur)
-    resnet(cur, cur, hw)
-    attn(cur, hw)
-    resnet(cur, cur, hw)
-    for level, out_c in enumerate(reversed(ch)):
-        for _ in range(cfg.layers_per_block + 1):
-            resnet(cur + skips.pop(), out_c, hw)
-            if level < 2:
-                attn(out_c, hw)
-            cur = out_c
-        if level < len(ch) - 1:
-            hw *= 4
-    sites.append((hw, cur, "silu"))
-    return sites
-
-
 def unet_reference_phase():
     """A tiny float32 UNet with ``channels_last=True`` on both sides trains
     5 AdamW steps on the card (rows 12-13, cuDNN convolutions without
     TF32) and on the CPU (their plain versions) from the same weights: the
     same losses."""
     from paddle_tpu_torch import optimizer as topt
-    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.models import (UNet2DConditionModel, UNetConfig,
+                                         unet_gn_sites)
     from paddle_tpu_torch.trainer import TrainStep
 
     cfg = UNetConfig.tiny(channels_last=True)
@@ -2176,35 +2146,95 @@ def gn_err(got, want, rtol):
     return (diff / allowed.clamp_min(1e-30)).max().item(), diff.max().item()
 
 
-def gn_inputs(n, hw, c, dtype, seed):
+def gn_inputs(n, hw, c, dtype, seed, offset=0):
+    """x, dy [n, hw, c] in dtype (contiguous views ``offset`` elements into
+    their storage), gamma and beta [c] float32."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn((n, hw, c), generator=gen, device="cuda") * 2
-         + 0.5).to(dtype)
-    dy = torch.randn((n, hw, c), generator=gen, device="cuda").to(dtype)
+
+    def view(t):
+        if not offset:
+            return t.to(dtype)
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(t.shape)
+
+    x = view(torch.randn((n, hw, c), generator=gen, device="cuda") * 2 + 0.5)
+    dy = view(torch.randn((n, hw, c), generator=gen, device="cuda"))
     gamma = 1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
     return x, dy, gamma, beta
 
 
-def gn_check(n, hw, c, g, dtype, act, seed):
-    """Rows 12 and 13 against their plain versions on one input set;
-    returns the max abs errors (outputs, statistics and partials)."""
+def gn_dx_f64(x, dy, gamma, beta, mean, rstd, g, act):
+    """dx = rstd (dxhat - m1 - xhat m2) in float64 from the same inputs and
+    saved statistics, and the size of the terms it is the difference of,
+    rstd (|dxhat| + |m1| + |xhat m2|)."""
+    n, hw, c = x.shape
+    cg, f = c // g, torch.float64
+
+    def per_channel(v):
+        return v.repeat_interleave(cg, dim=1)[:, None, :]
+
+    def group_mean(v):
+        return v.sum(dim=1).reshape(n, g, cg).sum(dim=-1) / (hw * cg)
+
+    rs = per_channel(rstd.to(f))
+    xh = (x.to(f) - per_channel(mean.to(f))) * rs
+    ga, be, dz = gamma.to(f), beta.to(f), dy.to(f)
+    if act == "silu":
+        z = xh * ga + be
+        sg = torch.sigmoid(z)
+        dz = dz * (sg * (1 + z * (1 - sg)))
+    dxh = dz * ga
+    m1 = per_channel(group_mean(dxh))
+    xm2 = xh * per_channel(group_mean(dxh * xh))
+    return rs * (dxh - m1 - xm2), rs * (dxh.abs() + m1.abs() + xm2.abs())
+
+
+def gn_check(n, hw, c, g, dtype, act, seed, offset=0, cancel=False):
+    """Rows 12 and 13 against their plain versions on one input set, the
+    backward twice with identical results; returns the max abs errors
+    (outputs, statistics and partials) and the worst error over its
+    allowance. With ``cancel`` (groups of two elements on one pixel, where
+    xhat is +-(1 - O(eps)) and dx the near-total cancellation of terms of
+    the size of dxhat) dx is held, the kernel's and the plain version's
+    alike, against float64 within the tolerance of the terms' size
+    (``gn_dx_f64``) instead of the plain version's value."""
     from paddle_tpu_torch.kernels import group_norm as gn
 
-    x, dy, gamma, beta = gn_inputs(n, hw, c, dtype, seed)
+    x, dy, gamma, beta = gn_inputs(n, hw, c, dtype, seed, offset)
     y, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, act)
     y_r, mean_r, rstd_r = gn.group_norm_fwd_plain(x, gamma, beta, g, 1e-5,
                                                   act)
     bwd = gn.group_norm_bwd(x, dy, gamma, beta, mean_r, rstd_r, g, act)
     bwd_r = gn.group_norm_bwd_plain(x, dy, gamma, beta, mean_r, rstd_r, g,
                                     act)
+    again = gn.group_norm_bwd(x, dy, gamma, beta, mean_r, rstd_r, g, act)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(bwd, again)):
+        raise AssertionError(f"group norm backward n={n} hw={hw} c={c} "
+                             f"{dtype} {act}: two runs differ")
     rt = GN_RTOL[dtype]
     errs = {"y": gn_err(y, y_r, rt), "mean": gn_err(mean, mean_r, 0.0),
             "rstd": gn_err(rstd, rstd_r, 0.0),
             "dx": gn_err(bwd[0], bwd_r[0], rt),
             "dgamma": gn_err(bwd[1], bwd_r[1], 0.0),
             "dbeta": gn_err(bwd[2], bwd_r[2], 0.0)}
+    if cancel:
+        ref, terms = gn_dx_f64(x, dy, gamma, beta, mean_r, rstd_r, g, act)
+        allowed = (rt * terms).clamp_min(1e-30)
+        kern, plain = ((d.double() - ref).abs()
+                       for d in (bwd[0], bwd_r[0]))
+        r_kern = (kern / allowed).max().item()
+        r_plain = (plain / allowed).max().item()
+        print(f"group norm cancellation witness n={n} hw={hw} c={c} g={g} "
+              f"{dtype} {act}: max |dx| {ref.abs().max().item():.4g} of "
+              f"terms up to {terms.max().item():.4g}; from float64 the "
+              f"kernel {kern.max().item():.4g} ({r_kern:.4f} of {rt:g} of "
+              f"the terms), the plain version {plain.max().item():.4g} "
+              f"({r_plain:.4f}); kernel against plain {errs['dx'][0]:.3f} "
+              f"of the plain-referenced allowance", flush=True)
+        errs["dx"] = (max(r_kern, r_plain), errs["dx"][1])
     bad = [k for k, (r, _) in errs.items() if not r <= 1.0]
     if bad or y.dtype != dtype or bwd[0].dtype != dtype:
         raise AssertionError(f"group norm check n={n} hw={hw} c={c} g={g} "
@@ -2236,37 +2266,120 @@ def gn_bound(name, n, hw, c, g, itemsize, silu):
                                  else "operations")
 
 
-def gn_kernel_phase():
-    """Rows 12-13 against their plain versions at every distinct
-    GroupNorm site of the SD UNet at sample_size 32, batch 4 (bf16 and
-    float32, activation None and silu) and at a shape over the JAX
-    kernel's VMEM budget (n 1, 128 x 128, c 1024, g 32); then timed at the
-    largest site beside their bounds, their plain versions and
-    ``torch.nn.functional.group_norm`` (+ ``silu``) forward and backward
-    on the NCHW view (a yardstick the port never calls)."""
-    from paddle_tpu_torch.kernels import group_norm as gn
-    from paddle_tpu_torch.models import UNetConfig
+# the GroupNorm kernels' instantiations by their mangled names: direction,
+# vector width V, resident tile, element type (csrc/group_norm.cu)
+GN_BODIES = ("gn_fwd_tile_kernel", "gn_bwd_tile_kernel")
+GN_TYPES = {"6__half": "f16", "13__nv_bfloat16": "bf16", "f": "f32"}
 
-    cfg = UNetConfig(sample_size=UNET_SIZE)
-    g = cfg.norm_num_groups
-    sites = sorted({(hw, c) for hw, c, _ in unet_gn_sites(cfg, UNET_SIZE)})
-    cases = [(UNET_BATCH, hw, c) for hw, c in sites] + [(1, 128 * 128, 1024)]
-    errs, worst, seed = {}, 0.0, 100
-    for n, hw, c in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            for act in (None, "silu"):
-                e, r = gn_check(n, hw, c, g, dtype, act, seed)
-                seed += 1
-                worst = max(worst, r)
-                for k, v in e.items():
-                    errs[k] = max(errs.get(k, 0.0), v)
-    print(f"group norm check: {len(cases)} shapes (the UNet's distinct "
-          f"(hw, c) sites {sites} at batch {UNET_BATCH}, and n=1 hw=16384 "
-          f"c=1024) x bf16/float32 x None/silu: worst error {worst:.3f} of "
-          f"its allowance, max abs err {errs} ok", flush=True)
-    # timing at the largest site, bf16 with the SiLU
-    n = UNET_BATCH
-    hw, c = max(sites, key=lambda s: s[0] * s[1])
+
+def gn_build_report(log):
+    """The ptxas registers and spills of rows 12-13: one line per kernel and
+    type at its widest vector (resident and re-read), and the worst over
+    all 44 instantiations."""
+    pat = re.compile(r"Compiling entry function '\S*?(gn_fwd_tile_kernel|"
+                     r"gn_bwd_tile_kernel)ILi(\d)ELb([01])EEEvPK(6__half|"
+                     r"13__nv_bfloat16|f)\S*' for 'sm_90a'\n.*\n\s*(.*)\n"
+                     r"(.*)\n")
+    found = []
+    for m in pat.finditer(log):
+        body, vec, res, tname, frame, used = m.groups()
+        tag = GN_TYPES[tname]
+        regs = int(re.search(r"Used (\d+) registers", used).group(1))
+        spill = int(re.search(r"(\d+) bytes spill stores", frame).group(1))
+        found.append((body, tag, int(vec), res == "1", regs, spill))
+        if int(vec) == (4 if tag == "f32" else 8):
+            print(f"ptxas {body} {tag} V {vec} "
+                  f"{'resident' if res == '1' else 're-read'}: {regs} "
+                  f"registers, {frame.strip()}", flush=True)
+    if len(found) != 44:
+        raise AssertionError(f"expected the ptxas lines of 44 GroupNorm "
+                             f"instantiations, found {len(found)}")
+    for body in GN_BODIES:
+        mine = [f for f in found if f[0] == body]
+        print(f"ptxas {body}: {len(mine)} instantiations, registers max "
+              f"{max(f[4] for f in mine)}, spill stores max "
+              f"{max(f[5] for f in mine)} bytes", flush=True)
+    return found
+
+
+def gn_step_timing(cfg, flush):
+    """Rows 12 and 13 summed over one UNet step's GroupNorm calls (its
+    sites in call order, SiLU or not, bf16, batch 4), each chain timed as
+    one call after one L2 flush, beside ``F.group_norm`` (+ ``silu``) on
+    the NCHW views, forward and backward, and the summed bounds."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+    from paddle_tpu_torch.models import unet_gn_sites
+
+    fn = torch.nn.functional
+    n, g = UNET_BATCH, cfg.norm_num_groups
+    sites = unet_gn_sites(cfg, UNET_SIZE)
+    calls = []
+    for k, (hw, c, act) in enumerate(sites):
+        x, dy, gamma, beta = gn_inputs(n, hw, c, torch.bfloat16, 300 + k)
+        _, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, act)
+        side = math.isqrt(hw)
+        x4 = x.view(n, side, side, c).permute(0, 3, 1, 2)
+        dy4 = dy.view(n, side, side, c).permute(0, 3, 1, 2)
+        wb = [t.to(torch.bfloat16).requires_grad_() for t in (gamma, beta)]
+        xg = x4.detach().requires_grad_()
+        out = fn.group_norm(xg, g, wb[0], wb[1], 1e-5)
+        if act == "silu":
+            out = fn.silu(out)
+        calls.append((x, dy, gamma, beta, mean, rstd, act, x4, dy4, wb, xg,
+                      out))
+
+    def kernel_fwd():
+        for x, _, gamma, beta, _, _, act, *_ in calls:
+            gn.group_norm_fwd(x, gamma, beta, g, 1e-5, act)
+
+    def kernel_bwd():
+        for x, dy, gamma, beta, mean, rstd, act, *_ in calls:
+            gn.group_norm_bwd(x, dy, gamma, beta, mean, rstd, g, act)
+
+    def lib_fwd():
+        for *_, act, x4, _, wb, _, _ in calls:
+            out = fn.group_norm(x4, g, wb[0], wb[1], 1e-5)
+            if act == "silu":
+                fn.silu(out)
+
+    def lib_bwd():
+        for *_, dy4, wb, xg, out in calls:
+            torch.autograd.grad(out, [xg, *wb], dy4, retain_graph=True)
+
+    # the host enqueues 56 calls (and autograd's graphs) behind the spin
+    hold = 40 * HOLD_CYCLES
+    times = {"group_norm_fwd": (time_ms(kernel_fwd, flush, 20, 3, hold),
+                                time_ms(lib_fwd, flush, 20, 3, hold)),
+             "group_norm_bwd": (time_ms(kernel_bwd, flush, 20, 3, hold),
+                                time_ms(lib_bwd, flush, 20, 3, hold))}
+    n_silu = sum(act == "silu" for _, _, act in sites)
+    out = {}
+    for name, (kernel_ms, library_ms) in times.items():
+        bound_ms = sum(gn_bound(name, n, hw, c, g, 2, act == "silu")[0]
+                       for hw, c, act in sites)
+        kind = "forward" if "fwd" in name else "backward"
+        print(f"group norm step timing {name}: one UNet step's {len(sites)} "
+              f"calls ({n_silu} with the SiLU), bf16, batch {n}: kernels "
+              f"{kernel_ms:.4f} ms, F.group_norm (+ silu) {kind} "
+              f"{library_ms:.4f} ms, summed bounds {bound_ms:.4f} ms",
+              flush=True)
+        out[name] = dict(step_calls=len(sites), step_ms=kernel_ms,
+                         step_library_ms=library_ms, step_bound_ms=bound_ms)
+    return out
+
+
+def gn_site_timing(cfg, flush):
+    """Rows 12-13 at the UNet's largest GroupNorm site (batch 4, bf16, the
+    SiLU) beside their bounds, their plain versions and
+    ``torch.nn.functional.group_norm`` + ``silu`` forward and backward on
+    the NCHW view (a yardstick the port never calls); returns the rows
+    of the ``kernels`` line without their errors and launches."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+    from paddle_tpu_torch.models import unet_gn_sites
+
+    n, g = UNET_BATCH, cfg.norm_num_groups
+    hw, c = max(((hw, c) for hw, c, _ in unet_gn_sites(cfg, UNET_SIZE)),
+                key=lambda s: s[0] * s[1])
     x, dy, gamma, beta = gn_inputs(n, hw, c, torch.bfloat16, seed=200)
     _, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, "silu")
     side = int(math.isqrt(hw))
@@ -2280,7 +2393,6 @@ def gn_kernel_phase():
         return fn.silu(fn.group_norm(x4, g, wb[0], wb[1], 1e-5))
 
     out = fn.silu(fn.group_norm(xg, g, wb[0], wb[1], 1e-5))
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     library = {"group_norm_fwd": time_ms(lib_fwd, flush, iters=30),
                "group_norm_bwd": time_ms(lambda: torch.autograd.grad(
                    out, [xg, *wb], dy4, retain_graph=True), flush,
@@ -2309,10 +2421,68 @@ def gn_kernel_phase():
         rows[name] = dict(
             name=name, route="cuda", source=GN_SOURCE,
             replaces=f"{GN_FILE}:{line}",
-            shape=f"n={n} hw={hw} c={c} g={g} bf16 silu",
-            max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library[name])
+            shape=f"n={n} hw={hw} c={c} g={g} bf16 silu", ms=kernel_ms,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library[name])
+    return rows
+
+
+def gn_kernel_phase():
+    """Rows 12-13 against their plain versions at every distinct
+    GroupNorm site of the SD UNet at sample_size 32, batch 4 (bf16 and
+    float32, activation None and silu), at a shape over the JAX kernel's
+    VMEM budget (n 1, 128 x 128, c 1024, g 32: the re-read path), a ragged
+    hw of 1000 split across a cluster, one pixel (16 channels a group; 2
+    a group held against float64, ``gn_check``'s ``cancel``), slabs of
+    more groups than a CTA has threads (one pixel, c 48 in 48 groups; c
+    296 in 296 groups), and inputs 1 and 4 elements into their storage;
+    prints the launch plans at the largest site; then timed there
+    (``gn_site_timing``) and summed over one UNet step's calls
+    (``gn_step_timing``)."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+    from paddle_tpu_torch.models import UNetConfig, unet_gn_sites
+
+    cfg = UNetConfig(sample_size=UNET_SIZE)
+    g = cfg.norm_num_groups
+    sites = sorted({(hw, c) for hw, c, _ in unet_gn_sites(cfg, UNET_SIZE)})
+    # (n, hw, c, groups, storage offset, dx against float64)
+    cases = [(UNET_BATCH, hw, c, g, 0, False) for hw, c in sites] + [
+        (1, 128 * 128, 1024, g, 0, False), (2, 1000, 640, g, 0, False),
+        (1, 1, 64, 4, 0, False), (1, 1, 64, 32, 0, True),
+        (1, 1, 48, 48, 0, False), (1, 16, 296, 296, 0, False),
+        (2, 256, 640, g, 1, False), (2, 256, 640, g, 4, False)]
+    errs, worst, seed = {}, 0.0, 100
+    for n, hw, c, groups, offset, cancel in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            for act in (None, "silu"):
+                e, r = gn_check(n, hw, c, groups, dtype, act, seed, offset,
+                                cancel)
+                seed += 1
+                worst = max(worst, r)
+                for k, v in e.items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+    print(f"group norm check: {len(cases)} shapes (the UNet's distinct "
+          f"(hw, c) sites {sites} at batch {UNET_BATCH}, n=1 hw=16384 "
+          f"c=1024, n=2 hw=1000 c=640, n=1 hw=1 c=64 g=4 and g=32 (dx "
+          f"against float64), n=1 hw=1 c=48 g=48, n=1 hw=16 c=296 g=296, "
+          f"and n=2 hw=256 c=640 1 and 4 elements into their storage) x "
+          f"bf16/float32 x "
+          f"None/silu: worst error {worst:.3f} of its allowance, max abs "
+          f"err {errs}, backward run-to-run identical: ok", flush=True)
+    n, (hw, c) = UNET_BATCH, max(sites, key=lambda s: s[0] * s[1])
+    held = gn._card_clusters("bf16", n, hw, c, g)
+    for backward in (False, True):
+        plan = gn._launch_plan(n, hw, c, g, 2, backward=backward,
+                               clusters=held)
+        at_once = held(plan, backward)
+        print(f"group norm plan {'backward' if backward else 'forward'} "
+              f"n={n} hw={hw} c={c} g={g} bf16: {plan._asdict()}, grid "
+              f"{(plan.ranks, c // plan.slab, n)}, the card holds "
+              f"{at_once} such clusters at once", flush=True)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = gn_site_timing(cfg, flush)
+    for name, step in gn_step_timing(cfg, flush).items():
+        rows[name].update(step, max_abs_err=errs[name])
     return rows
 
 
@@ -2327,7 +2497,8 @@ def unet_train_phase():
     launches of row 12 and of row 13 per step, and a profile of one step.
     Returns the launch counts."""
     from paddle_tpu_torch import optimizer as topt
-    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.models import (UNet2DConditionModel, UNetConfig,
+                                         unet_gn_sites)
     from paddle_tpu_torch.nn import layout
     from paddle_tpu_torch.trainer import TrainStep
 
@@ -2373,8 +2544,7 @@ def unet_train_phase():
           f"{losses}; launches per step {per_step} of row 12 ({n_silu} "
           f"with the SiLU, {per_step - n_silu} without) and {per_step} of "
           "row 13", flush=True)
-    prof = profile_step("unet", ts, batch,
-                            ("gn_fwd_kernel", "gn_bwd_kernel"))
+    prof = profile_step("unet", ts, batch, GN_BODIES)
     print(json.dumps({"train_unet": {
         "model": "SD-1.x UNet widths, sample_size 32, random bf16 weights "
                  "(seed 0), float32 masters", "batch": b,
@@ -2777,6 +2947,7 @@ def main() -> int:
 
     flash_build_report(log)
     qmm_build_report(log)
+    gn_build_report(log)
     row = phase("decode kernel", kernel_phase)
     fused_row, block_row = phase("paged kernels", paged_kernel_phase)
     qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)

@@ -19,15 +19,29 @@ in the parameters' dtype.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches
 the kernels or raises. The kernels take any NHWC shape with ``c % g ==
-0``; the JAX TPU VMEM budget (``supports_fused``, copied here) only
+0`` (``_launch_plan`` refuses only groups of more than about 9,000
+channels, whose partial sums overflow shared memory); the JAX TPU VMEM
+budget (``supports_fused``, copied here) only
 decides, for CPU tensors, whether ``nn.functional.group_norm`` takes
 this path or the reference, as in JAX. Each wrapper adds one to
 ``LAUNCHES[name]`` per launch.
+
+``_launch_plan`` chooses each launch's geometry here, where the CPU
+tests reach it: the slab of whole groups a cluster takes, the cluster's
+CTAs along the rows, the CTA's threads, the vector width and whether a
+CTA's tile stays in shared memory. On the card it asks the kernels'
+library how many clusters of each candidate the card holds at once, and
+the library sizes the candidate's shared memory as the launch does
+(``_card_clusters``: a plan whose size differs from the kernel's raises);
+the CPU tests use ``_clusters_model``. The kernels validate the plan and
+refuse one they do not take.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -64,6 +78,114 @@ def supports_fused(shape, num_groups: int) -> bool:
     if c % num_groups:
         return False
     return _pick_c_block(h * w, c, c // num_groups) is not None
+
+
+# the launch plan's limits on the H100 (csrc/group_norm.cu checks them)
+SMEM_LIMIT = 227 * 1024    # a CTA's dynamic shared memory
+SMEM_BUDGET = 113 * 1024   # a resident tile's CTA: two CTAs an SM
+SMS = 132                  # streaming multiprocessors
+ONE_WAVE_THREADS = SMS * 256  # more adds no speed (measured, PERF.md)
+MAX_RANKS = 8              # CTAs of a cluster: the portable size
+THREAD_CAPS = (256, 128)   # threads of a CTA, at most
+MIN_ROW_BYTES = 64         # a slab's row: two 32-byte sectors at least
+MIN_ROWS = 8               # rows of a CTA when the rows are split
+
+
+class LaunchPlan(NamedTuple):
+    slab: int       # channels of a cluster: whole groups and vectors
+    ranks: int      # CTAs of the cluster, each ceil(hw / ranks) rows
+    vec: int        # elements a thread moves at a time (16 bytes at most)
+    resident: bool  # the CTA's tile (x, and dy backward) in shared memory
+    threads: int    # threads of a CTA
+    smem: int       # dynamic shared memory bytes of a CTA
+
+
+def _clusters_model(plan: LaunchPlan, backward: bool) -> int:
+    """How many clusters of ``plan`` an H100 holds at once, modelled where
+    there is no card (the CPU tests): CTAs an SM by threads, shared memory
+    (1 KB reserved a CTA) and 128 registers a thread, over 132 SMs, less an
+    eighth for packing clusters into GPCs. On the card ``_card_clusters``
+    asks the card instead."""
+    per_sm = min(2048 // plan.threads, 32,
+                 (228 * 1024) // (plan.smem + 1024),
+                 65536 // (128 * plan.threads))
+    if plan.ranks == 1:
+        return SMS * per_sm
+    return SMS * per_sm // plan.ranks * 7 // 8
+
+
+def _plan_for(n, hw, c, g, itemsize, backward, align, ranks, cap):
+    """The geometry of a launch with clusters of ``ranks`` CTAs of at most
+    ``cap`` threads: the widest vector that c and the pointers allow; the
+    narrowest slab of whole groups and whole vectors whose rows are at
+    least ``MIN_ROW_BYTES``; threads along the slab's vectors times rows
+    of threads; resident when the tiles fit ``SMEM_BUDGET``. Mirrors the
+    shared-memory layout of ``csrc/group_norm.cu: make_geo``, to which
+    ``_card_clusters`` holds every plan on the card."""
+    cg = c // g
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or align % (vec * itemsize)):
+        vec //= 2
+    step = math.lcm(vec, cg)
+    slab = step
+    while slab * itemsize < MIN_ROW_BYTES and slab < c:
+        slab += step
+        while c % slab:
+            slab += step
+    cols = min(slab // vec, cap)
+    per = -(-hw // ranks)
+    threads = -(-cols * max(1, min(cap // cols, per)) // 32) * 32
+    tile = -(-per * slab * itemsize // 16) * 16
+    arrays = (2 if slab // vec <= cols else 4) if backward else 1
+    side = 4 * (arrays * (threads // cols) * slab + 2 * slab
+                + (6 if backward else 4) * (slab // cg))
+    with_tiles = (2 if backward else 1) * tile + side
+    resident = with_tiles <= SMEM_BUDGET
+    return LaunchPlan(slab, ranks, vec, resident, threads,
+                      with_tiles if resident else side)
+
+
+def _launch_plan(n: int, hw: int, c: int, g: int, itemsize: int,
+                 backward: bool = False, align: int = 16,
+                 clusters=None) -> LaunchPlan:
+    """The geometry of one kernel launch over ``[n, hw, c]`` in elements
+    of ``itemsize`` bytes, whose data pointers are all ``align``-byte
+    aligned. Among clusters of 1, 2, 4 or 8 CTAs (each at least
+    ``MIN_ROWS`` rows) of at most 256 or 128 threads (``_plan_for``): a
+    resident one if any; then the fewest waves of the grid's n x slabs
+    clusters, given how many the card holds at once (``clusters(plan,
+    backward)``, by default ``_clusters_model``; a plan over
+    ``SMEM_LIMIT`` holds none); then the most threads, up to
+    ``ONE_WAVE_THREADS``; then the most ranks."""
+    if g < 1 or c % g:
+        raise ValueError(f"channels {c} not divisible by groups {g}")
+    fit = clusters or _clusters_model
+
+    def score(p):
+        grid = n * (c // p.slab)
+        held = fit(p, backward) if p.smem <= SMEM_LIMIT else 0
+        waves = -(-grid // held) if held > 0 else grid + 1
+        work = min(grid * p.ranks * p.threads, ONE_WAVE_THREADS)
+        return (not p.resident, waves, -work, -p.ranks)
+
+    plans = [_plan_for(n, hw, c, g, itemsize, backward, align, ranks, cap)
+             for ranks in (1, 2, 4, 8) if ranks == 1 or hw >= ranks * MIN_ROWS
+             for cap in THREAD_CAPS]
+    plan = min(plans, key=score)
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"group norm: a slab of {plan.slab} channels needs "
+                         f"{plan.smem} bytes of shared memory (at most "
+                         f"{SMEM_LIMIT})")
+    return plan
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two, at most 16, dividing every data pointer."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
 
 
 def _check_act(act):
@@ -197,6 +319,50 @@ def _fn(name, argtypes):
     return fn
 
 
+def _card_clusters(tag, n, hw, c, g):
+    """``_launch_plan``'s ``clusters`` on the card for a launch over
+    ``[n, hw, c]`` in ``g`` groups: how many clusters of a plan's kernel
+    the card holds at once (cudaOccupancyMaxActiveClusters through
+    ``pt_group_norm_plan_<tag>``, which sizes the plan's shared memory as
+    the launch does and refuses a plan the kernels do not take). Raises
+    where the kernel's size differs from ``plan.smem``."""
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _fn(f"pt_group_norm_plan_{tag}", [_I] * 10 + [out, out])
+
+    def clusters(plan, backward):
+        smem, held = ctypes.c_int(), ctypes.c_int()
+        err = fn(n, hw, c, g, plan.slab, plan.ranks, plan.vec,
+                 int(plan.resident), plan.threads, int(backward),
+                 ctypes.byref(smem), ctypes.byref(held))
+        if err != 0:
+            raise RuntimeError(f"group norm plan {plan} refused by the "
+                               f"kernels: CUDA error {err}")
+        if smem.value != plan.smem:
+            raise RuntimeError(f"group norm plan {plan}: the kernel needs "
+                               f"{smem.value} bytes of shared memory")
+        return held.value
+
+    return clusters
+
+
+_PLANS = {}  # the card's plans by their arguments: each found once
+
+
+def _card_plan(x3, g, backward, *tensors):
+    """``_launch_plan`` for a launch over ``x3`` and ``tensors`` on the
+    card, computed once per shape, type, direction and alignment (it
+    costs tens of us of host time, and a UNet step makes 112 calls)."""
+    n, hw, c = x3.shape
+    key = (x3.device, x3.dtype, n, hw, c, g, backward,
+           _alignment(x3, *tensors))
+    if key not in _PLANS:
+        _PLANS[key] = _launch_plan(
+            n, hw, c, g, x3.element_size(), backward=backward,
+            align=key[-1],
+            clusters=_card_clusters(_TAG[x3.dtype], n, hw, c, g))
+    return _PLANS[key]
+
+
 def group_norm_fwd(x3, gamma, beta, num_groups: int, eps: float, act=None):
     """Row 12: y, mean, rstd as ``group_norm_fwd_plain``; x3 contiguous
     [n, hw, c], gamma and beta float32 [c]."""
@@ -210,12 +376,14 @@ def group_norm_fwd(x3, gamma, beta, num_groups: int, eps: float, act=None):
     y = torch.empty_like(x3)
     mean = torch.empty((n, num_groups), dtype=_F32, device=x3.device)
     rstd = torch.empty_like(mean)
+    plan = _card_plan(x3, num_groups, False, y)
     fn = _fn(f"pt_group_norm_fwd_{_TAG[x3.dtype]}",
-             [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P])
+             [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 6 + [_P])
     with torch.cuda.device(x3.device):
         err = fn(x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                  y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, hw, c,
-                 num_groups, float(eps), int(act == "silu"),
+                 num_groups, float(eps), int(act == "silu"), plan.slab,
+                 plan.ranks, plan.vec, int(plan.resident), plan.threads,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"group norm forward failed to launch: CUDA "
@@ -241,13 +409,15 @@ def group_norm_bwd(x3, dy3, gamma, beta, mean, rstd, num_groups: int,
     dx = torch.empty_like(x3)
     dgamma = torch.empty((n, c), dtype=_F32, device=x3.device)
     dbeta = torch.empty_like(dgamma)
+    plan = _card_plan(x3, g, True, dy3, dx)
     fn = _fn(f"pt_group_norm_bwd_{_TAG[x3.dtype]}",
-             [_P] * 9 + [_I] * 5 + [_P])
+             [_P] * 9 + [_I] * 10 + [_P])
     with torch.cuda.device(x3.device):
         err = fn(x3.data_ptr(), dy3.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                  dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, hw,
-                 c, g, int(act == "silu"),
+                 c, g, int(act == "silu"), plan.slab, plan.ranks, plan.vec,
+                 int(plan.resident), plan.threads,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"group norm backward failed to launch: CUDA "

@@ -14,6 +14,7 @@ import torch
 
 from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels.rope import rope_frequencies
+from torch_gn_cases import GN_CASES
 
 pytestmark = pytest.mark.gpu
 
@@ -860,30 +861,31 @@ def _gn_close(name, got, want, rtol):
                            f"abs err {(g - w).abs().max().item()}")
 
 
-# (n, h, w, c, groups, dtype, activation): UNet sites, an odd split, one
-# group of 2048 channels (more than one CTA's 1024 threads), a shape over
-# the JAX kernel's VMEM budget, one pixel, and one channel per group
-GN_CASES = [(1, 1, 1, 64, 32, torch.float32, "silu"),
-            (2, 3, 1, 64, 64, torch.bfloat16, None),(4, 32, 32, 320, 32, torch.bfloat16, "silu"),
-            (4, 8, 8, 1280, 32, torch.bfloat16, None),
-            (2, 4, 4, 2560, 32, torch.float16, "silu"),
-            (2, 16, 16, 640, 32, torch.float32, "silu"),
-            (1, 3, 5, 30, 3, torch.bfloat16, None),
-            (1, 2, 3, 4096, 2, torch.float32, "silu"),
-            (1, 128, 128, 1024, 32, torch.bfloat16, "silu")]
+def _gn_inputs(n, hw, c, dtype, seed, offset=0):
+    """x, dy [n, hw, c] in dtype (contiguous views ``offset`` elements into
+    their storage), gamma and beta [c] float32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
+    def view(t):
+        if not offset:
+            return t.to(dtype)
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(t.shape)
 
-@pytest.mark.parametrize("n,h,w,c,g,dtype,act", GN_CASES)
-def test_group_norm_kernels_match_plain_versions(card, n, h, w, c, g, dtype,
-                                                 act):
-    from paddle_tpu_torch.kernels import group_norm as gn
-
-    gen = torch.Generator(device="cuda").manual_seed(c + h)
-    x = (torch.randn((n, h * w, c), generator=gen, device="cuda") * 2
-         + 0.5).to(dtype)
-    dy = torch.randn((n, h * w, c), generator=gen, device="cuda").to(dtype)
+    x = view(torch.randn((n, hw, c), generator=gen, device="cuda") * 2 + 0.5)
+    dy = view(torch.randn((n, hw, c), generator=gen, device="cuda"))
     gamma = 1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x, dy, gamma, beta
+
+
+def _gn_check(x, dy, gamma, beta, g, act):
+    """Rows 12 and 13 against their plain versions, the backward run twice
+    identically; one launch of row 12 and two of row 13."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+
+    dtype = x.dtype
     before = dict(gn.LAUNCHES)
     y, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, act)
     y_ref, mean_ref, rstd_ref = gn.group_norm_fwd_plain(x, gamma, beta, g,
@@ -904,6 +906,58 @@ def test_group_norm_kernels_match_plain_versions(card, n, h, w, c, g, dtype,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert {k: gn.LAUNCHES[k] - before[k] for k in before} == {
         "group_norm_fwd": 1, "group_norm_bwd": 2}
+
+
+@pytest.mark.parametrize("n,h,w,c,g,dtype,act", GN_CASES)
+def test_group_norm_kernels_match_plain_versions(card, n, h, w, c, g, dtype,
+                                                 act):
+    x, dy, gamma, beta = _gn_inputs(n, h * w, c, dtype, seed=c + h)
+    _gn_check(x, dy, gamma, beta, g, act)
+
+
+# storage offsets that leave x and dy 2-byte (bf16: scalar accesses),
+# 8-byte (bf16: 4-element vectors) and 8-byte (float32: 2 elements) aligned
+@pytest.mark.parametrize("offset,dtype", [(1, torch.bfloat16),
+                                          (4, torch.bfloat16),
+                                          (2, torch.float32)])
+def test_group_norm_kernels_on_unaligned_views(card, offset, dtype):
+    from paddle_tpu_torch.kernels import group_norm as gn
+
+    x, dy, gamma, beta = _gn_inputs(2, 256, 640, dtype, seed=offset,
+                                    offset=offset)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    plan = gn._launch_plan(2, 256, 640, 32, x.element_size(),
+                           align=gn._alignment(x, dy))
+    assert plan.vec * x.element_size() < 16
+    _gn_check(x, dy, gamma, beta, 32, "silu")
+
+
+def test_group_norm_card_plans(card):
+    """On the card the launch plan asks the kernels' library how many
+    clusters of each candidate the card holds, and the library sizes the
+    candidate's shared memory as the launch does (a plan whose size
+    differs raises): every candidate at every card-test shape. At every
+    GroupNorm site of the SD UNet (sample_size 32, batch 4, bf16) the plan
+    keeps its tiles resident and the card holds its whole grid of
+    clusters at once."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+    from paddle_tpu_torch.models import UNetConfig, unet_gn_sites
+
+    for n, h, w, c, g, dtype, _ in GN_CASES:
+        held = gn._card_clusters(gn._TAG[dtype], n, h * w, c, g)
+        for backward in (False, True):
+            gn._launch_plan(n, h * w, c, g, dtype.itemsize,
+                            backward=backward, clusters=held)
+    cfg = UNetConfig(sample_size=32)
+    g = cfg.norm_num_groups
+    for hw, c in sorted({(hw, c) for hw, c, _ in unet_gn_sites(cfg, 32)}):
+        held = gn._card_clusters("bf16", 4, hw, c, g)
+        for backward in (False, True):
+            plan = gn._launch_plan(4, hw, c, g, 2, backward=backward,
+                                   clusters=held)
+            assert plan.resident
+            assert 4 * (c // plan.slab) <= held(plan, backward), (
+                hw, c, backward, plan)
 
 
 def test_group_norm_autograd_and_dispatch_on_the_card(card):

@@ -5,7 +5,9 @@ plain versions of rows 12 and 13 against ``_gn_fwd_pallas``/
 ``tests/test_group_norm_kernel.py`` runs them (activation None and silu,
 several channel/group splits, float32 and bf16 inputs); the autograd
 gradients against ``jax.grad``; the NHWC reference and the NCHW branch;
-and the dispatch rules. Inputs come from numpy with one seed."""
+the dispatch rules; and the kernels' launch plan at every UNet site and
+card-test shape, and the UNet's GroupNorm sites against the model's own
+calls. Inputs come from numpy with one seed."""
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +19,11 @@ from paddle_tpu.kernels import group_norm as jgn
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.kernels import group_norm as tgn
+from paddle_tpu_torch.models import (UNet2DConditionModel, UNetConfig,
+                                     unet_gn_sites)
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn import layout
+from torch_gn_cases import GN_CASES
 
 # (n, hw, c, groups): cg = 1, 2, 4, 10 (the UNet's 320 / 32) and 16
 SHAPES = [(2, 16, 8, 8), (2, 24, 16, 8), (1, 64, 32, 8), (2, 16, 320, 32),
@@ -191,3 +196,122 @@ def test_dispatch_rules(monkeypatch):
     assert out.shape == big and len(calls) == 3
     with pytest.raises(ValueError, match="activation"):
         real(small, torch.ones(64), torch.zeros(64), 32, activation="relu")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan (the card runs it; its geometry is checked here)
+# ---------------------------------------------------------------------------
+def _unet_shapes():
+    """(n, hw, c, g) of every GroupNorm site of the SD UNet at sample_size
+    32, batch 4 (``unet_gn_sites``)."""
+    cfg = UNetConfig(sample_size=32)
+    return list(dict.fromkeys((4, hw, c, cfg.norm_num_groups)
+                              for hw, c, _ in unet_gn_sites(cfg, 32)))
+
+
+UNET_SHAPES = _unet_shapes()
+CARD_SHAPES = [(n, h * w, c, g) for n, h, w, c, g, _, _ in GN_CASES]
+PLAN_SHAPES = list(dict.fromkeys(UNET_SHAPES + CARD_SHAPES))
+ITEMSIZE = {"float32": 4, "float16": 2, "bfloat16": 2}
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", list(ITEMSIZE))
+@pytest.mark.parametrize("n,hw,c,g", PLAN_SHAPES)
+def test_launch_plan_geometry(n, hw, c, g, dtype, backward):
+    """A slab holds whole groups and whole vectors; a vector is at most 16
+    bytes; every rank of a cluster of at most 16 CTAs has rows; a resident
+    tile fits the shared-memory budget, and every plan the H100's limit;
+    the grid (ranks, slabs, n) and the block stay within the limits.
+    (Which cluster size the card's occupancy picks is a card test:
+    ``test_group_norm_card_plans``.)"""
+    size = ITEMSIZE[dtype]
+    plan = tgn._launch_plan(n, hw, c, g, size, backward=backward)
+    cg = c // g
+    assert plan.slab % cg == 0 and c % plan.slab == 0
+    assert plan.vec & (plan.vec - 1) == 0 and plan.vec * size <= 16
+    assert plan.slab % plan.vec == 0 and c % plan.vec == 0
+    assert plan.slab * size >= min(tgn.MIN_ROW_BYTES, c * size)
+    assert plan.ranks in (1, 2, 4, 8, 16) and plan.ranks <= tgn.MAX_RANKS
+    per = -(-hw // plan.ranks)
+    assert (plan.ranks - 1) * per < hw
+    assert plan.ranks == 1 or per >= tgn.MIN_ROWS
+    assert 32 <= plan.threads <= max(tgn.THREAD_CAPS)
+    assert plan.threads % 32 == 0
+    assert plan.threads >= min(plan.slab // plan.vec, min(tgn.THREAD_CAPS))
+    tiles = (2 if backward else 1) * per * plan.slab * size
+    assert plan.smem <= tgn.SMEM_LIMIT
+    if plan.resident:
+        assert tiles <= plan.smem <= tgn.SMEM_BUDGET
+    else:
+        assert plan.smem + tiles > tgn.SMEM_BUDGET
+    assert c // plan.slab <= 65535 and n <= 65535
+
+
+def test_launch_plans_take_every_path():
+    """The card tests' shapes take clusters of 1, 2, 4 and 8 CTAs, slabs
+    of more groups than the CTA has threads (the kernels loop over a
+    slab's groups), the re-read path at n 1, 16384 rows in bf16 and
+    float32 (forward and backward), and every UNet site keeps its tiles
+    resident."""
+    ranks, wide = set(), set()
+    for n, h, w, c, g, dtype, _ in GN_CASES:
+        for backward in (False, True):
+            plan = tgn._launch_plan(n, h * w, c, g, dtype.itemsize,
+                                    backward=backward)
+            ranks.add(plan.ranks)
+            if plan.slab // (c // g) > plan.threads:
+                wide.add((h * w, c, g))
+    assert ranks == {1, 2, 4, 8}
+    assert wide == {(1, 48, 48), (16, 296, 296)}
+    for size in (2, 4):
+        for backward in (False, True):
+            assert not tgn._launch_plan(1, 16384, 1024, 32, size,
+                                        backward=backward).resident
+    for n, hw, c, g in UNET_SHAPES:
+        assert tgn._launch_plan(n, hw, c, g, 2, backward=True).resident
+
+
+def test_launch_plan_vector_follows_alignment():
+    """The vector narrows with c and with the pointers' alignment; a
+    contiguous view with a storage offset reports its own alignment."""
+    assert tgn._launch_plan(4, 256, 640, 32, 2).vec == 8
+    assert tgn._launch_plan(4, 256, 640, 32, 2, align=8).vec == 4
+    assert tgn._launch_plan(4, 256, 640, 32, 2, align=2).vec == 1
+    assert tgn._launch_plan(4, 256, 640, 32, 4, align=8).vec == 2
+    assert tgn._launch_plan(1, 15, 30, 3, 2).vec == 2   # 60-byte rows
+    buf = torch.empty(4096, dtype=torch.bfloat16)
+    assert tgn._alignment(buf) == 16
+    assert tgn._alignment(buf[1:]) == 2
+    assert tgn._alignment(buf[4:], buf) == 8
+    with pytest.raises(ValueError, match="not divisible"):
+        tgn._launch_plan(1, 4, 30, 4, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        tgn._launch_plan(1, 4, 120000, 1, 4)
+
+
+@pytest.mark.parametrize("channels", [(32, 64), (32, 64, 64, 64)])
+def test_unet_gn_sites_follow_the_model(monkeypatch, channels):
+    """``unet_gn_sites`` lists the (hw, channels, activation) of every
+    GroupNorm the UNet's forward calls, in call order: two and four levels
+    (cross-attention at the last two going down and the first two going
+    up), on an 8 x 8 sample."""
+    calls = []
+    real = tgn.fused_group_norm
+
+    def spy(x, gamma, beta, num_groups, epsilon=1e-5, activation=None):
+        n, h, w, c = x.shape
+        calls.append((h * w, c, activation))
+        return real(x, gamma, beta, num_groups, epsilon, activation)
+
+    monkeypatch.setattr(tgn, "fused_group_norm", spy)
+    cfg = UNetConfig.tiny(block_out_channels=channels, channels_last=True)
+    model = UNet2DConditionModel(cfg, device="cpu").eval()
+    size = 8
+    gen = torch.Generator().manual_seed(0)
+    sample = torch.randn(1, cfg.in_channels, size, size, generator=gen)
+    context = torch.randn(1, 4, cfg.cross_attention_dim, generator=gen)
+    with torch.no_grad():
+        model(sample, torch.tensor([10]), context)
+    assert calls == unet_gn_sites(cfg, size)
+    assert len(calls) > 10
