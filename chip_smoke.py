@@ -1636,8 +1636,8 @@ def train_steps(ts, batch, warmup=2, timed=5):
 def profile_step(label, ts, batch, kernel_names):
     """Device time by operation of one train step (``torch.profiler``):
     the wall, the card's kernel time, the time of the kernels whose names
-    contain one of ``kernel_names``, and the heaviest operators and
-    kernels."""
+    contain one of ``kernel_names`` (in all and by name), and the heaviest
+    operators and kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1658,6 +1658,8 @@ def profile_step(label, ts, batch, kernel_names):
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
     ours_ms = sum(dev_us(e) for e in kernels
                   if any(k in e.key for k in kernel_names)) / 1e3
+    by_name = {k: round(sum(dev_us(e) for e in kernels if k in e.key) / 1e3,
+                        3) for k in kernel_names}
     ops = sorted((e for e in events
                   if e.device_type != torch.autograd.DeviceType.CUDA),
                  key=dev_us, reverse=True)
@@ -1667,10 +1669,11 @@ def profile_step(label, ts, batch, kernel_names):
                    for e in sorted(kernels, key=dev_us, reverse=True)[:8]]
     print(f"profile {label} step: wall {wall_ms:.2f} ms, kernel time "
           f"{total_ms:.2f} ms, the port's kernels {kernel_names} "
-          f"{ours_ms:.2f} ms; heaviest operators (name, device ms, calls): "
+          f"{ours_ms:.2f} ms {by_name}; heaviest operators (name, device "
+          f"ms, calls): "
           f"{top}; heaviest kernels: {top_kernels}", flush=True)
     return dict(wall_ms=wall_ms, device_ms=total_ms, kernels_ms=ours_ms,
-                top=top, top_kernels=top_kernels)
+                by_name_ms=by_name, top=top, top_kernels=top_kernels)
 
 
 def train_7b_phase():
@@ -1905,62 +1908,257 @@ def scan_bound(name, b, s, d, n, chunk):
                                  else "operations")
 
 
+SCAN_BODIES = ("scan_fwd_kernel", "scan_bwd_kernel")
+# b 1 x seq 8192 at the 130m widths: 48 channel tiles, time split over a
+# cluster
+SCAN_LONG = dict(b=1, s=8192, d=1536, n=16, chunk=128)
+SCAN_WARPS = (4, 8, 16)  # one instantiation of each kernel per warp count
+
+
+def scan_build_report(log):
+    """The ptxas registers, stack frame and spills of rows 10-11's
+    kernels, one instantiation per warp count, beside each one's dynamic
+    shared memory."""
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    pat = re.compile(r"Compiling entry function '\S*?(scan_fwd_kernel|"
+                     r"scan_bwd_kernel)ILi(\d+)E\S*' for 'sm_90a'\n.*\n"
+                     r"\s*(.*)\n(.*)\n")
+    found = {}
+    for m in pat.finditer(log):
+        body, warps, frame, used = m.groups()
+        regs = int(re.search(r"Used (\d+) registers", used).group(1))
+        spill = int(re.search(r"(\d+) bytes spill stores", frame).group(1))
+        found[(body, int(warps))] = (regs, spill)
+        smem = ss._smem_bytes(int(warps), body == "scan_bwd_kernel")
+        print(f"ptxas {body} W {warps}: {regs} registers, {frame.strip()}; "
+              f"dynamic shared memory {smem} bytes", flush=True)
+    want = {(k, w) for k in SCAN_BODIES for w in SCAN_WARPS}
+    if set(found) != want:
+        raise AssertionError(f"expected the ptxas lines of {sorted(want)}, "
+                             f"found {sorted(found)}")
+    return found
+
+
+def sass_instructions(sass):
+    """(address, text) of each instruction of one function's SASS
+    (cuobjdump)."""
+    return [(int(a, 16), t.strip()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+
+
+def sass_branch(text):
+    """The target of a branch instruction, or None."""
+    m = re.search(r"\bBRA(?:\.\S+)?\s+(?:\S+,\s*)?0x([0-9a-f]+)", text)
+    return int(m.group(1), 16) if m else None
+
+
+def sass_loops(ins):
+    """The loops of one function: for each backward branch, its span
+    (lo, hi), the fewest instructions an iteration issues (the shortest
+    path from lo to the branch, inner loops not taken, predicated
+    instructions counted), and the MUFU.EX2 and SHFL in the span."""
+    out = []
+    for addr, text in ins:
+        target = sass_branch(text)
+        if target is None or target >= addr:
+            continue
+        body = [(a, t) for a, t in ins if target <= a <= addr]
+        index = {a: i for i, (a, _) in enumerate(body)}
+        dist = [math.inf] * len(body)
+        dist[0] = 1
+        for i, (a, t) in enumerate(body[:-1]):
+            to = sass_branch(t)
+            if not (t.startswith("BRA") or t.startswith("EXIT")):
+                dist[i + 1] = min(dist[i + 1], dist[i] + 1)
+            if to is not None and to > a and to in index:
+                dist[index[to]] = min(dist[index[to]], dist[i] + 1)
+        out.append(dict(span=(target, addr), issued=dist[-1],
+                        ex2=sum("MUFU.EX2" in t for _, t in body),
+                        shfl=sum("SHFL" in t for _, t in body)))
+    return out
+
+
+def scan_sass_report(obj, shapes):
+    """The instruction-issue and MUFU floors of rows 10-11 from their
+    SASS (cuobjdump of the scan unit's object ``obj``), at each shape's
+    card plan: per kernel instantiation
+    its state loops (one warp's 8 steps of one state, or of two for the
+    pairs loops of the forward sweeps), each with the fewest instructions
+    an iteration issues; the sweeps a launch runs (forward: its output
+    sweep, and the range sweep on all ranks but the last; backward: the
+    tile-state sweep, the main sweep, and the gh range sweep on all ranks
+    but the first) times their iterations, over an SM issuing 4 warp
+    instructions and 16 EX2 lanes a clock on every SM at the card's top
+    clock. Returns the floors by (kernel, shape), or None where
+    ``cuobjdump`` is missing."""
+    from paddle_tpu_torch.kernels import _card
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0])
+    except (OSError, subprocess.SubprocessError) as err:
+        print(f"sass scan: not measured ({err})", flush=True)
+        return None
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    loops = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        m = re.search(r"(scan_fwd_kernel|scan_bwd_kernel)ILi(\d+)E", name)
+        if m is None:
+            continue
+        found = [x for x in sass_loops(sass_instructions(body))
+                 if x["ex2"] >= ss.SCAN_STEPS]
+        # a state loop holds no other: keep the innermost of nested spans
+        found = [x for x in found if not any(
+            y is not x and x["span"][0] <= y["span"][0]
+            and y["span"][1] <= x["span"][1] for y in found)]
+        loops[(m.group(1), int(m.group(2)))] = found
+        print(f"sass {m.group(1)} W {m.group(2)}: state loops (fewest "
+              f"issued, MUFU.EX2, SHFL): "
+              f"{[(x['issued'], x['ex2'], x['shfl']) for x in found]}",
+              flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = _card.sm_count(dev)
+    rate = sms * mhz * 1e6
+    floors = {}
+    for label, t in shapes.items():
+        b, s, d, n, chunk = (t[x] for x in ("b", "s", "d", "n", "chunk"))
+        for kernel in SCAN_BODIES:
+            backward = kernel == "scan_bwd_kernel"
+            plan = ss._card_plan(dev, b, s, d, n, chunk, backward)
+            ctas = b * -(-d // 32) * plan.ranks
+            steps = ctas * plan.warps * plan.tiles  # warp-tiles a sweep
+            pairs = [x for x in loops[(kernel, plan.warps)]
+                     if x["ex2"] == 2 * ss.SCAN_STEPS]
+            singles = [x for x in loops[(kernel, plan.warps)]
+                       if x["ex2"] == ss.SCAN_STEPS]
+            share = (plan.ranks - 1) / plan.ranks  # ranks with a range scan
+            if backward:  # phase F (pairs); main (shuffles); gh range scan
+                sweeps = [(pairs[0], -(-n // 2), 1.0)] + [
+                    (x, n, 1.0 if x["shfl"] else share) for x in singles]
+            else:  # the output sweep is the larger pairs loop
+                out, *rest = sorted(pairs, key=lambda x: -x["issued"])
+                sweeps = [(out, -(-n // 2), 1.0)] + [
+                    (x, -(-n // 2), share) for x in rest]
+            issued = sum(x["issued"] * k * w for x, k, w in sweeps) * steps
+            ex2 = sum(x["ex2"] * k * w for x, k, w in sweeps) * steps * 32
+            issue_ms = issued / (4 * rate) * 1e3
+            mufu_ms = ex2 / (16 * rate) * 1e3
+            floors[(kernel, label)] = (issue_ms, mufu_ms)
+            print(f"sass floor {kernel} {label} ({plan.warps} warps, "
+                  f"{plan.ranks} ranks): issue {issue_ms:.4f} ms, MUFU "
+                  f"{mufu_ms:.4f} ms at {mhz:.0f} MHz", flush=True)
+    return floors
+
+
+def scan_plan_report():
+    """The card's launch plans for rows 10-11 at the train shape and at b
+    1, s 8192: warps a CTA, ranks a cluster, the clusters the card holds
+    at once, the grid's CTAs and the warps an SM holds on average."""
+    from paddle_tpu_torch.kernels import _card
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = _card.sm_count(dev)
+    for label, t in (("train", SCAN_SHAPE), ("b1_s8192", SCAN_LONG)):
+        b, s, d, n, chunk = (t[x] for x in ("b", "s", "d", "n", "chunk"))
+        fit = ss._card_clusters(b, s, d, n, chunk)
+        for backward in (False, True):
+            plan = ss._card_plan(dev, b, s, d, n, chunk, backward)
+            held = fit(plan, backward)
+            grid = b * -(-d // ss.SCAN_LANES) * plan.ranks
+            print(f"scan plan {label} {'bwd' if backward else 'fwd'}: "
+                  f"{plan}; the card holds {held} clusters ({held * plan.ranks}"
+                  f" CTAs) at once, the grid is {grid} CTAs: "
+                  f"{ss.resident_warps(plan, b, d, held, sms):.2f} warps "
+                  f"an SM ({sms} SMs)",
+                  flush=True)
+
+
 def scan_kernel_phase():
     """Rows 10-11 against their plain versions at the Mamba-130m train
-    shape, a ragged s, a d that is no multiple of the 64-channel block, n
-    8 and n 32 (two blocks of 16 states); then timed at the train shape beside their bounds and plain
-    versions. No single PyTorch call computes the scan, so library_ms is
-    None for these rows."""
+    shape, a ragged s over several time tiles, d no multiple of the
+    32-channel tile and d 33, n 8 and n 32 (two blocks of 16 states), a
+    chunk of 100 and b 1, s 8192 (the time split over a cluster); then
+    timed at the train shape beside their bounds and plain versions, and
+    at b 1, s 8192 beside their bounds. No single PyTorch call computes
+    the scan, so library_ms is None for these rows."""
     from paddle_tpu_torch.kernels import selective_scan as ss
 
     t = SCAN_SHAPE
+    long = SCAN_LONG
     cases = [("mamba130m_train", t["b"], t["s"], t["d"], t["n"], t["chunk"]),
              ("ragged_s1000", 2, 1000, 1536, 16, 128),
              ("d200", 2, 512, 200, 16, 128),
              ("n8", 2, 512, 512, 8, 128),
              # a state size over the kernels' 16: two blocks of 16
-             ("n32", 2, 512, 512, 32, 128)]
+             ("n32", 2, 512, 512, 32, 128),
+             ("ragged_s1063", 2, 1063, 1536, 16, 128),
+             ("chunk100", 2, 512, 256, 16, 100),
+             ("d33", 2, 256, 33, 16, 64),
+             ("b1_s8192", *(long[x] for x in ("b", "s", "d", "n", "chunk")))]
     errs = {}
     for i, case in enumerate(cases):
         for k, e in scan_check(*case, seed=80 + i).items():
             errs[k] = max(errs.get(k, 0.0), e)
-    b, s, d, n, chunk = (t[x] for x in ("b", "s", "d", "n", "chunk"))
-    u, delta, B, C, at, g = scan_inputs(b, s, d, n, seed=90)
-    _, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+    scan_plan_report()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    calls = {
-        "selective_scan_fwd": (
-            lambda: ss.selective_scan_fwd(u, delta, B, C, at, chunk, False),
-            lambda: ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
-                                                False), 122),
-        "selective_scan_fwd_states": (
-            lambda: ss.selective_scan_fwd(u, delta, B, C, at, chunk, True),
-            lambda: ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
-                                                True), 129),
-        "selective_scan_bwd": (
-            lambda: ss.selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk),
-            lambda: ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s, g,
-                                                chunk), 258),
-    }
     rows = {}
-    for name, (kernel, plain, line) in calls.items():
-        kernel_ms = time_ms(kernel, flush, iters=30)
-        # the plain versions launch about 12,000 (forward) and 40,000
-        # (backward) small kernels a call, more than the launch queue
-        # holds behind a spin: timed without one, host enqueueing included
-        plain_ms = time_ms(plain, flush, iters=3, warmup=1, hold=0)
-        bound_ms, bound_by = scan_bound(name, b, s, d, n, chunk)
-        print(f"scan timing {name} b={b} s={s} d={d} n={n} chunk={chunk}: "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (events "
-              f"around the call, no spin), bound {bound_ms:.4f} ms "
-              f"({bound_by}); no library call computes the scan", flush=True)
-        rows[name] = dict(
-            name=name, route="cuda", source=SCAN_SOURCE,
-            replaces=f"{SCAN_FILE}:{line}",
-            shape=f"b={b} s={s} d={d} n={n} chunk={chunk} float32",
-            max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None)
+    for label, shape in (("train", t), ("b1_s8192", long)):
+        b, s, d, n, chunk = (shape[x] for x in ("b", "s", "d", "n", "chunk"))
+        u, delta, B, C, at, g = scan_inputs(b, s, d, n, seed=90)
+        _, h0s = ss.selective_scan_fwd(u, delta, B, C, at, chunk, True)
+        calls = {
+            "selective_scan_fwd": (
+                lambda: ss.selective_scan_fwd(u, delta, B, C, at, chunk,
+                                              False),
+                lambda: ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                                    False), 122),
+            "selective_scan_fwd_states": (
+                lambda: ss.selective_scan_fwd(u, delta, B, C, at, chunk,
+                                              True),
+                lambda: ss.selective_scan_fwd_plain(u, delta, B, C, at, chunk,
+                                                    True), 129),
+            "selective_scan_bwd": (
+                lambda: ss.selective_scan_bwd(u, delta, B, C, at, h0s, g,
+                                              chunk),
+                lambda: ss.selective_scan_bwd_plain(u, delta, B, C, at, h0s, g,
+                                                    chunk), 258),
+        }
+        for name, (kernel, plain, line) in calls.items():
+            kernel_ms = time_ms(kernel, flush, iters=30)
+            bound_ms, bound_by = scan_bound(name, b, s, d, n, chunk)
+            if label != "train":
+                print(f"scan timing {name} b={b} s={s} d={d} n={n} "
+                      f"chunk={chunk}: kernel {kernel_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+                rows[name][f"{label}_ms"] = kernel_ms
+                rows[name][f"{label}_bound_ms"] = bound_ms
+                continue
+            # the plain versions launch about 12,000 (forward) and 40,000
+            # (backward) small kernels a call, more than the launch queue
+            # holds behind a spin: timed without one, host enqueueing
+            # included
+            plain_ms = time_ms(plain, flush, iters=3, warmup=1, hold=0)
+            print(f"scan timing {name} b={b} s={s} d={d} n={n} "
+                  f"chunk={chunk}: kernel {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (events around the call, no spin), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}); no library call "
+                  "computes the scan", flush=True)
+            rows[name] = dict(
+                name=name, route="cuda", source=SCAN_SOURCE,
+                replaces=f"{SCAN_FILE}:{line}",
+                shape=f"b={b} s={s} d={d} n={n} chunk={chunk} float32",
+                max_abs_err=errs[name], ms=kernel_ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+        del u, delta, B, C, at, g, h0s
     return rows
 
 
@@ -2107,8 +2305,8 @@ def mamba_train_phase():
     del logits
     print(f"mamba 130m: no_grad eval forward: {layers} launches of row 10 "
           "without states, finite logits", flush=True)
-    prof = profile_step("mamba 130m", ts, batch,
-                            ("scan_fwd_kernel", "scan_bwd_kernel"))
+    # rows 10 (with states) and 11 summed over the step, by kernel
+    prof = profile_step("mamba 130m", ts, batch, SCAN_BODIES)
     print(json.dumps({"train_mamba130m": {
         "model": "mamba-130m widths, 24 layers, random float32 weights "
                  "(seed 0)", "batch": b, "seq": s, "parameters": n_params,
@@ -2439,6 +2637,7 @@ def gn_kernel_phase():
     prints the launch plans at the largest site; then timed there
     (``gn_site_timing``) and summed over one UNet step's calls
     (``gn_step_timing``)."""
+    from paddle_tpu_torch.kernels import _card
     from paddle_tpu_torch.kernels import group_norm as gn
     from paddle_tpu_torch.models import UNetConfig, unet_gn_sites
 
@@ -2473,7 +2672,7 @@ def gn_kernel_phase():
     held = gn._card_clusters("bf16", n, hw, c, g)
     for backward in (False, True):
         plan = gn._launch_plan(n, hw, c, g, 2, backward=backward,
-                               clusters=held)
+                               clusters=held, sms=_card.sm_count(0))
         at_once = held(plan, backward)
         print(f"group norm plan {'backward' if backward else 'forward'} "
               f"n={n} hw={hw} c={c} g={g} bf16: {plan._asdict()}, grid "
@@ -2948,6 +3147,9 @@ def main() -> int:
     flash_build_report(log)
     qmm_build_report(log)
     gn_build_report(log)
+    scan_build_report(log)
+    phase("scan sass", scan_sass_report, path.parent / "selective_scan.o",
+          {"train": SCAN_SHAPE, "b1_s8192": SCAN_LONG})
     row = phase("decode kernel", kernel_phase)
     fused_row, block_row = phase("paged kernels", paged_kernel_phase)
     qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)

@@ -32,9 +32,10 @@ CTAs along the rows, the CTA's threads, the vector width and whether a
 CTA's tile stays in shared memory. On the card it asks the kernels'
 library how many clusters of each candidate the card holds at once, and
 the library sizes the candidate's shared memory as the launch does
-(``_card_clusters``: a plan whose size differs from the kernel's raises);
-the CPU tests use ``_clusters_model``. The kernels validate the plan and
-refuse one they do not take.
+(``_card_clusters``: a plan whose size differs from the kernel's raises),
+and reads the card's SM count; the CPU tests use
+``_card.clusters_model`` and the H100's 132. The kernels validate the
+plan and refuse one they do not take.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ._card import SMEM_LIMIT, SMS, clusters_model, held_clusters, sm_count
 
 # kernel launches in this process: row 12 (forward), row 13 (backward)
 LAUNCHES = {"group_norm_fwd": 0, "group_norm_bwd": 0}
@@ -81,10 +84,8 @@ def supports_fused(shape, num_groups: int) -> bool:
 
 
 # the launch plan's limits on the H100 (csrc/group_norm.cu checks them)
-SMEM_LIMIT = 227 * 1024    # a CTA's dynamic shared memory
 SMEM_BUDGET = 113 * 1024   # a resident tile's CTA: two CTAs an SM
-SMS = 132                  # streaming multiprocessors
-ONE_WAVE_THREADS = SMS * 256  # more adds no speed (measured, PERF.md)
+WAVE_THREADS_PER_SM = 256  # a wave's threads: more add no speed (PERF.md)
 MAX_RANKS = 8              # CTAs of a cluster: the portable size
 THREAD_CAPS = (256, 128)   # threads of a CTA, at most
 MIN_ROW_BYTES = 64         # a slab's row: two 32-byte sectors at least
@@ -98,20 +99,6 @@ class LaunchPlan(NamedTuple):
     resident: bool  # the CTA's tile (x, and dy backward) in shared memory
     threads: int    # threads of a CTA
     smem: int       # dynamic shared memory bytes of a CTA
-
-
-def _clusters_model(plan: LaunchPlan, backward: bool) -> int:
-    """How many clusters of ``plan`` an H100 holds at once, modelled where
-    there is no card (the CPU tests): CTAs an SM by threads, shared memory
-    (1 KB reserved a CTA) and 128 registers a thread, over 132 SMs, less an
-    eighth for packing clusters into GPCs. On the card ``_card_clusters``
-    asks the card instead."""
-    per_sm = min(2048 // plan.threads, 32,
-                 (228 * 1024) // (plan.smem + 1024),
-                 65536 // (128 * plan.threads))
-    if plan.ranks == 1:
-        return SMS * per_sm
-    return SMS * per_sm // plan.ranks * 7 // 8
 
 
 def _plan_for(n, hw, c, g, itemsize, backward, align, ranks, cap):
@@ -147,25 +134,31 @@ def _plan_for(n, hw, c, g, itemsize, backward, align, ranks, cap):
 
 def _launch_plan(n: int, hw: int, c: int, g: int, itemsize: int,
                  backward: bool = False, align: int = 16,
-                 clusters=None) -> LaunchPlan:
+                 clusters=None, sms: int = SMS) -> LaunchPlan:
     """The geometry of one kernel launch over ``[n, hw, c]`` in elements
     of ``itemsize`` bytes, whose data pointers are all ``align``-byte
-    aligned. Among clusters of 1, 2, 4 or 8 CTAs (each at least
-    ``MIN_ROWS`` rows) of at most 256 or 128 threads (``_plan_for``): a
-    resident one if any; then the fewest waves of the grid's n x slabs
-    clusters, given how many the card holds at once (``clusters(plan,
-    backward)``, by default ``_clusters_model``; a plan over
-    ``SMEM_LIMIT`` holds none); then the most threads, up to
-    ``ONE_WAVE_THREADS``; then the most ranks."""
+    aligned, on a card of ``sms`` SMs. Among clusters of 1, 2, 4 or 8 CTAs
+    (each at least ``MIN_ROWS`` rows) of at most 256 or 128 threads
+    (``_plan_for``): a resident one if any; then the fewest waves of the
+    grid's n x slabs clusters, given how many the card holds at once
+    (``clusters(plan, backward)``, by default ``_card.clusters_model``; a
+    plan over ``SMEM_LIMIT`` holds none); then the most threads, up to
+    ``WAVE_THREADS_PER_SM`` an SM; then the most ranks."""
     if g < 1 or c % g:
         raise ValueError(f"channels {c} not divisible by groups {g}")
-    fit = clusters or _clusters_model
+
+    def fit(p):
+        if p.smem > SMEM_LIMIT:
+            return 0
+        if clusters:
+            return clusters(p, backward)
+        return clusters_model(p.threads, p.smem, p.ranks, sms)
 
     def score(p):
         grid = n * (c // p.slab)
-        held = fit(p, backward) if p.smem <= SMEM_LIMIT else 0
+        held = fit(p)
         waves = -(-grid // held) if held > 0 else grid + 1
-        work = min(grid * p.ranks * p.threads, ONE_WAVE_THREADS)
+        work = min(grid * p.ranks * p.threads, sms * WAVE_THREADS_PER_SM)
         return (not p.resident, waves, -work, -p.ranks)
 
     plans = [_plan_for(n, hw, c, g, itemsize, backward, align, ranks, cap)
@@ -322,25 +315,16 @@ def _fn(name, argtypes):
 def _card_clusters(tag, n, hw, c, g):
     """``_launch_plan``'s ``clusters`` on the card for a launch over
     ``[n, hw, c]`` in ``g`` groups: how many clusters of a plan's kernel
-    the card holds at once (cudaOccupancyMaxActiveClusters through
-    ``pt_group_norm_plan_<tag>``, which sizes the plan's shared memory as
-    the launch does and refuses a plan the kernels do not take). Raises
-    where the kernel's size differs from ``plan.smem``."""
+    the card holds at once (``_card.held_clusters`` through
+    ``pt_group_norm_plan_<tag>``, which refuses a plan the kernels do not
+    take)."""
     out = ctypes.POINTER(ctypes.c_int)
     fn = _fn(f"pt_group_norm_plan_{tag}", [_I] * 10 + [out, out])
 
     def clusters(plan, backward):
-        smem, held = ctypes.c_int(), ctypes.c_int()
-        err = fn(n, hw, c, g, plan.slab, plan.ranks, plan.vec,
-                 int(plan.resident), plan.threads, int(backward),
-                 ctypes.byref(smem), ctypes.byref(held))
-        if err != 0:
-            raise RuntimeError(f"group norm plan {plan} refused by the "
-                               f"kernels: CUDA error {err}")
-        if smem.value != plan.smem:
-            raise RuntimeError(f"group norm plan {plan}: the kernel needs "
-                               f"{smem.value} bytes of shared memory")
-        return held.value
+        return held_clusters(fn, (n, hw, c, g, plan.slab, plan.ranks,
+                                  plan.vec, int(plan.resident), plan.threads,
+                                  int(backward)), plan, "group norm")
 
     return clusters
 
@@ -359,7 +343,8 @@ def _card_plan(x3, g, backward, *tensors):
         _PLANS[key] = _launch_plan(
             n, hw, c, g, x3.element_size(), backward=backward,
             align=key[-1],
-            clusters=_card_clusters(_TAG[x3.dtype], n, hw, c, g))
+            clusters=_card_clusters(_TAG[x3.dtype], n, hw, c, g),
+            sms=sm_count(x3.device))
     return _PLANS[key]
 
 

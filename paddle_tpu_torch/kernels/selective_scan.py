@@ -14,11 +14,22 @@ its plain PyTorch version in this module:
   ``h0s [b, ceil(s / chunk), n, d]``, the backward's only input about the
   forward. Without states it serves a ``no_grad`` forward;
 - row 11, the backward (``_scan_bwd_kernel`` through
-  ``_scan_bwd_pallas``): chunks in reverse, each chunk's states
-  recomputed from its anchor, then the reverse cotangent recurrence; du,
-  ddelta, dB and dC (the kernel writes per-d-block partials of the sums
-  over d, summed here in block order) and dA^T (per-batch partials,
-  summed here).
+  ``_scan_bwd_pallas``): the states recomputed from the ``h0s`` anchors,
+  then the reverse cotangent recurrence; du, ddelta, dB and dC (the
+  kernel writes per-channel-tile partials of the sums over d, summed here
+  in tile order) and dA^T (per-(batch, rank) partials, summed here).
+
+Both kernels run each recurrence along time as a two-level scan: time
+segments scanned from zero, their carries combined in order, each
+segment walked again from its true carry. ``_scan_plan`` chooses the
+geometry here, where the CPU tests reach it: 32 channels a CTA (one a
+lane), ``SCAN_STEPS`` consecutive steps a thread, the CTA's warps along
+time (a tile of warps x ``SCAN_STEPS`` steps) and the CTAs of a cluster
+along s (ranks, each a range of steps; backward ranges start at chunk
+starts). On the card it asks the kernels' library how many clusters of
+each candidate the card holds at once (``_card_clusters``; a plan whose
+shared memory differs from the kernel's raises) and reads the card's SM
+count; the CPU tests use ``_card.clusters_model`` and the H100's 132.
 
 No ``[b, s, d, n]`` tensor exists on either path, as in JAX.
 ``_ChunkedScan`` (a ``torch.autograd.Function``) runs the forward with
@@ -45,15 +56,33 @@ Each wrapper adds one to ``LAUNCHES[name]`` per launch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+
+from ._card import SMEM_LIMIT, SMS, clusters_model, held_clusters, sm_count
 
 # kernel launches in this process: row 10 without states (a no_grad
 # forward) and with states (the training forward), row 11
 LAUNCHES = {"selective_scan_fwd": 0, "selective_scan_fwd_states": 0,
             "selective_scan_bwd": 0}
-MAX_STATE = 16  # the kernels keep n <= 16 states of a channel in registers
-SCAN_THREADS = 64  # channels (d) per CTA (csrc/selective_scan.cu: kThreads)
+MAX_STATE = 16  # the kernels take n <= 16 states (their state loop's planes)
+
+# the launch plan's geometry on the H100 (csrc/selective_scan.cu checks it)
+SCAN_LANES = 32     # channels of a CTA, one a lane
+SCAN_STEPS = 8      # consecutive steps a thread holds (kL)
+WARP_CHOICES = (4, 8, 16)  # warps of a CTA along time (at most 16)
+RANK_CHOICES = (1, 2, 4, 8)  # CTAs of a cluster along s (the portable 8)
+# the plan's cost model, fitted to the card's times of every candidate at
+# the train shape and at b 1, s 8192 (PERF.md, section 6): an SM issues at its
+# rate from FULL_WARPS resident warps on; each warp a CTA adds CHAIN_COST
+# to a step (the carry chain over the warps before it, which grows with
+# the warps); the work of a rank in units of its main sweep: the
+# backward's forward sweep for the tile states and, with ranks, the
+# forward's range scan from zero and the backward's gh range scan
+FULL_WARPS = 12
+CHAIN_COST = 0.05
+SWEEP_WORK = {False: (1.0, 0.7), True: (1.35, 0.3)}
 
 _F32 = torch.float32
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -177,6 +206,108 @@ def _interleave(even, odd):
 
 
 # ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+class ScanPlan(NamedTuple):
+    warps: int     # warps of a CTA, each SCAN_STEPS steps of a time tile
+    ranks: int     # CTAs of a cluster along s
+    rank_len: int  # steps of a rank's range (the last one ragged)
+    tiles: int     # time tiles of a rank's range, warps x SCAN_STEPS each
+    smem: int      # dynamic shared memory bytes of a CTA
+
+
+def _smem_bytes(warps: int, backward: bool) -> int:
+    """A CTA's dynamic shared memory, as ``csrc/selective_scan.cu:
+    smem_floats`` sizes it: planes of [16 states][32 channels] (a, the
+    carries by tile parity, the range's product and its published pair;
+    the backward's reverse carry), a float4 exchange of two buffers per
+    warp, and per warp the staged B and C rows (backward: also its dB/dC
+    rows, its dat plane and the buffer of its sums over lanes)."""
+    plane = MAX_STATE * SCAN_LANES
+    if backward:  # and the buffer of the warp's sums over lanes
+        per_warp = (2 * 32 * 4 + 4 * MAX_STATE * SCAN_STEPS + plane
+                    + 32 * 20 + 16)
+        return 4 * (8 * plane + warps * per_warp)
+    return 4 * (6 * plane + warps * (2 * 32 * 4 + 2 * MAX_STATE * SCAN_STEPS))
+
+
+def _rank_len(s: int, chunk: int, warps: int, ranks: int, backward: bool):
+    """Steps of a rank's range: all of s for one rank; else s / ranks
+    rounded up to whole tiles (forward) or whole chunks (backward, so that
+    h0s anchors every range); None when the last rank would be empty."""
+    if ranks == 1:
+        return s
+    step = chunk if backward else warps * SCAN_STEPS
+    length = -(-(-(-s // ranks)) // step) * step
+    return length if length * (ranks - 1) < s else None
+
+
+def _plans(s: int, chunk: int, backward: bool):
+    """Every candidate plan for ``s`` steps (``WARP_CHOICES`` x
+    ``RANK_CHOICES`` where the ranges allow)."""
+    out = []
+    for ranks in RANK_CHOICES:
+        for warps in WARP_CHOICES:
+            length = _rank_len(s, chunk, warps, ranks, backward)
+            if length is not None:
+                out.append(ScanPlan(warps, ranks, length,
+                                    -(-length // (warps * SCAN_STEPS)),
+                                    _smem_bytes(warps, backward)))
+    return out
+
+
+def _plan_cost(plan: ScanPlan, b: int, d: int, backward: bool, held: int,
+               sms: int):
+    """The model's time of a plan (in steps of one CTA's sweep at an SM's
+    full issue rate), given the clusters the card holds at once and its
+    SMs: waves of the grid, times the CTAs of the busiest SM, times a CTA's
+    work (``SWEEP_WORK``, each step dearer by ``CHAIN_COST`` a warp), over
+    the SM's issue share at its warps (``FULL_WARPS`` saturate it)."""
+    grid = b * -(-d // SCAN_LANES) * plan.ranks
+    held_ctas = held * plan.ranks if plan.smem <= SMEM_LIMIT else 0
+    if held_ctas <= 0:
+        return float("inf")
+    waves = -(-grid // held_ctas)
+    per_sm = -(-min(grid, held_ctas) // sms)
+    share = min(1.0, per_sm * plan.warps / FULL_WARPS)
+    main, extra = SWEEP_WORK[backward]
+    work = plan.tiles * plan.warps * SCAN_STEPS * (
+        main + (extra if plan.ranks > 1 else 0.0)) * (
+            1.0 + CHAIN_COST * plan.warps)
+    return waves * per_sm * work / share
+
+
+def _scan_plan(b: int, s: int, d: int, n: int, chunk: int,
+               backward: bool = False, clusters=None,
+               sms: int = SMS) -> ScanPlan:
+    """The geometry of one launch over ``[b, s, d]`` with ``n`` states on
+    a card of ``sms`` SMs: among ``_plans``, the least ``_plan_cost`` given
+    how many clusters of each the card holds at once (``clusters(plan,
+    backward)``, by default ``_card.clusters_model``); then the fewest
+    waves, the fewest ranks (the least work) and the most warps."""
+    if not 1 <= n <= MAX_STATE or chunk < 1 or s < 1 or d < 1:
+        raise ValueError(f"no scan plan for s {s}, d {d}, n {n}, chunk "
+                         f"{chunk}")
+    def score(p):
+        held = (clusters(p, backward) if clusters else
+                clusters_model(32 * p.warps, p.smem, p.ranks, sms))
+        grid = b * -(-d // SCAN_LANES) * p.ranks
+        waves = -(-grid // max(1, held * p.ranks))
+        return (_plan_cost(p, b, d, backward, held, sms), waves, p.ranks,
+                -p.warps)
+
+    return min(_plans(s, chunk, backward), key=score)
+
+
+def resident_warps(plan: ScanPlan, b: int, d: int, held: int,
+                   sms: int) -> float:
+    """Warps an SM holds on average while the first wave of the grid runs,
+    given the clusters the card holds at once and its SMs."""
+    grid = b * -(-d // SCAN_LANES) * plan.ranks
+    return min(grid, held * plan.ranks) * plan.warps / sms
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _device_ok(t) -> bool:
@@ -222,6 +353,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _card_clusters(b, s, d, n, chunk):
+    """``_scan_plan``'s ``clusters`` on the card: how many clusters of a
+    plan's kernel the card holds at once (``_card.held_clusters`` through
+    ``pt_selective_scan_plan``, which refuses a plan the kernels do not
+    take)."""
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _fn("pt_selective_scan_plan", [_I] * 9 + [out, out])
+
+    def clusters(plan, backward):
+        return held_clusters(fn, (b, s, d, n, chunk, plan.warps, plan.ranks,
+                                  plan.rank_len, int(backward)), plan, "scan")
+
+    return clusters
+
+
+_PLANS = {}  # the card's plans by their arguments: each found once
+
+
+def _card_plan(device, b, s, d, n, chunk, backward):
+    """``_scan_plan`` for a launch over ``[b, s, d]`` on the card
+    ``device``, with its occupancy answers and SM count; computed once per
+    shape, state count, chunk and direction."""
+    key = (device, b, s, d, n, chunk, backward)
+    if key not in _PLANS:
+        _PLANS[key] = _scan_plan(b, s, d, n, chunk, backward,
+                                 _card_clusters(b, s, d, n, chunk),
+                                 sm_count(device))
+    return _PLANS[key]
+
+
 def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
     """Row 10: ``y``, or ``(y, h0s)`` with ``with_states``, as
     ``selective_scan_fwd_plain``; float32 contiguous inputs."""
@@ -234,11 +395,13 @@ def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
     y = torch.empty_like(u)
     h0s = (torch.empty((b, _n_chunks(s, chunk), n, d), dtype=_F32,
                        device=u.device) if with_states else None)
-    fn = _fn("pt_selective_scan_fwd", [_P] * 7 + [_I] * 5 + [_P])
+    fn = _fn("pt_selective_scan_fwd", [_P] * 7 + [_I] * 8 + [_P])
     with torch.cuda.device(u.device):
+        plan = _card_plan(u.device, b, s, d, n, int(chunk), False)
         err = fn(u.data_ptr(), delta.data_ptr(), B.data_ptr(), C.data_ptr(),
                  at.data_ptr(), y.data_ptr(), _ptr(h0s), b, s, d, n,
-                 int(chunk), torch.cuda.current_stream().cuda_stream)
+                 int(chunk), plan.warps, plan.ranks, plan.rank_len,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective scan forward failed to launch: CUDA "
                            f"error {err}")
@@ -249,8 +412,8 @@ def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
 
 def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
     """Row 11: du, ddelta, dB, dC, dat as ``selective_scan_bwd_plain``;
-    the kernel's per-d-block dB/dC partials and per-batch dat partials
-    are summed here in a fixed order."""
+    the kernel's per-channel-tile dB/dC partials and per-(batch, rank) dat
+    partials are summed here in a fixed order."""
     if not _device_ok(u):
         return selective_scan_bwd_plain(u, delta, B, C, at, h0s, g, chunk)
     _check(u, delta, B, C, at, chunk, (("h0s", h0s), ("g", g)))
@@ -260,24 +423,30 @@ def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
             tuple(g.shape) != (b, s, d):
         raise ValueError(f"h0s {tuple(h0s.shape)} or g {tuple(g.shape)} do "
                          f"not match u {(b, s, d)}, n {n}, chunk {chunk}")
-    nd = -(-d // SCAN_THREADS)
-    du, ddelta = torch.empty_like(u), torch.empty_like(u)
-    db_part = torch.empty((nd, b, s, n), dtype=_F32, device=u.device)
-    dc_part = torch.empty_like(db_part)
-    dat_part = torch.empty((b, n, d), dtype=_F32, device=u.device)
-    fn = _fn("pt_selective_scan_bwd", [_P] * 12 + [_I] * 5 + [_P])
     with torch.cuda.device(u.device):
+        plan = _card_plan(u.device, b, s, d, n, int(chunk), True)
+        nct = -(-d // SCAN_LANES)
+        du, ddelta = torch.empty_like(u), torch.empty_like(u)
+        db_part = torch.empty((nct, b, s, n), dtype=_F32, device=u.device)
+        dc_part = torch.empty_like(db_part)
+        dat_part = torch.empty((b, plan.ranks, n, d), dtype=_F32,
+                               device=u.device)
+        # the forward state entering each time tile (the kernel's scratch)
+        hst = torch.empty((b, plan.ranks * plan.tiles, n, d), dtype=_F32,
+                          device=u.device)
+        fn = _fn("pt_selective_scan_bwd", [_P] * 13 + [_I] * 8 + [_P])
         err = fn(u.data_ptr(), delta.data_ptr(), B.data_ptr(), C.data_ptr(),
                  at.data_ptr(), h0s.data_ptr(), g.data_ptr(), du.data_ptr(),
                  ddelta.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-                 dat_part.data_ptr(), b, s, d, n, int(chunk),
+                 dat_part.data_ptr(), hst.data_ptr(), b, s, d, n, int(chunk),
+                 plan.warps, plan.ranks, plan.rank_len,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective scan backward failed to launch: CUDA "
                            f"error {err}")
     LAUNCHES["selective_scan_bwd"] += 1
     return du, ddelta, db_part.sum(dim=0), dc_part.sum(dim=0), \
-        dat_part.sum(dim=0)
+        dat_part.sum(dim=(0, 1))
 
 
 def _blocks(n: int):

@@ -15,6 +15,7 @@ import torch
 from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels.rope import rope_frequencies
 from torch_gn_cases import GN_CASES
+from torch_scan_cases import SCAN_CASES, TRAIN_SHAPE
 
 pytestmark = pytest.mark.gpu
 
@@ -759,17 +760,6 @@ def _scan_inputs(b, s, d, n, seed=0):
     return u, delta, A, B, C, randn(d), randn(b, s, d)
 
 
-# (b, s, d, n, chunk): the Mamba tiny and 130m widths at short lengths, a
-# ragged s, d no multiple of the 64-channel block, n 8 and 4, a chunk
-# longer than the backward's 128-step segment, a chunk longer than s, and
-# the smallest shapes (one step, one channel, one state; chunks of 2),
-# and 32 states (two blocks of 16 through ``split_scan_*``)
-SCAN_CASES = [(2, 256, 128, 8, 32), (2, 256, 1536, 16, 128),
-              (1, 200, 200, 16, 64), (2, 300, 96, 8, 128),
-              (1, 512, 64, 4, 320), (1, 130, 64, 16, 1000),
-              (1, 1, 1, 1, 128), (3, 5, 70, 3, 2), (2, 256, 128, 32, 32)]
-
-
 @pytest.mark.parametrize("b,s,d,n,chunk", SCAN_CASES)
 def test_selective_scan_kernels_match_plain_versions(card, b, s, d, n,
                                                      chunk):
@@ -800,6 +790,29 @@ def test_selective_scan_kernels_match_plain_versions(card, b, s, d, n,
     assert {k: ss.LAUNCHES[k] - before[k] for k in before} == {
         "selective_scan_fwd": blocks, "selective_scan_fwd_states": blocks,
         "selective_scan_bwd": 2 * blocks}
+
+
+def test_selective_scan_card_plans(card):
+    """The card's launch plans (its own occupancy answers): every card-test
+    shape gets a plan the kernels take, with the kernel's shared memory;
+    at the Mamba-130m train shape the whole grid is resident at once with
+    8 or more warps an SM, forward and backward."""
+    from paddle_tpu_torch.kernels import _card
+    from paddle_tpu_torch.kernels import selective_scan as ss
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = _card.sm_count(dev)
+    for b, s, d, n, chunk in SCAN_CASES:
+        n = min(n, ss.MAX_STATE)
+        for backward in (False, True):
+            plan = ss._card_plan(dev, b, s, d, n, chunk, backward)
+            # raises if the sizes differ
+            held = ss._card_clusters(b, s, d, n, chunk)(plan, backward)
+            assert held > 0, (b, s, d, n, chunk, backward, plan)
+            if (b, s, d, n, chunk) == TRAIN_SHAPE:
+                grid = b * -(-d // ss.SCAN_LANES) * plan.ranks
+                assert grid <= held * plan.ranks, (backward, plan, held)
+                assert ss.resident_warps(plan, b, d, held, sms) >= 8, plan
 
 
 def test_selective_scan_autograd_matches_the_cpu(card):
