@@ -8,22 +8,30 @@ Phases, each of which raises on failure:
    requires compute capability 9.0;
 2. build: compiles the port's CUDA kernels with ``nvcc`` for ``sm_90a``
    and prints the build time and the compiler's register/spill summary,
-   then the registers, spills and dynamic shared memory of each
-   redesigned flash instantiation and of each body of row 4, how many
-   clusters of row 4's decode body the card holds at once, and the
-   registers and spills of the GroupNorm kernels (rows 12-13);
-3. kernel vs plain version: the fused decode-attention kernel against its
-   plain PyTorch version on the card, at the Llama-2-7B decode shape, a
-   GQA shape (kvh 8, group 8) and with a float32 cache, with ragged
-   lengths; times the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call (a yardstick the port never
-   calls) at the serving run's shape, beside the bandwidth bound;
-4. paged kernels vs plain versions: the fused paged decode kernel and the
-   block-table decode kernel, each against its plain PyTorch version on
-   the card at the same three shapes over a pool of 64-row pages with a
-   permuted block table; timed the same way at the paged serving run's
-   shape, with one ``scaled_dot_product_attention`` over a pre-gathered
-   dense view as the yardstick of the attention part;
+   then the registers, spills and shared memory of each of the 256
+   instantiations of rows 1-2's split kernel and of each redesigned flash
+   instantiation and each body of row 4, how many clusters of row 4's
+   decode body the card holds at once, and the registers and spills of the
+   GroupNorm kernels (rows 12-13); the card's launch plan of rows 1-2
+   (ranks a stream, CTAs, clusters held at once) at every timed shape;
+3. kernel vs plain version: the fused decode-attention kernel (row 1)
+   against its plain PyTorch version on the card, at the Llama-2-7B decode
+   shape, a GQA shape (kvh 8, group 8) and with a float32 cache, with
+   ragged lengths, then where the plan splits streams over cluster ranks:
+   one slot at 4095 rows, 8 slots at 3968-4095 rows of 4096, GQA at those
+   lengths, an empty slot beside a full one; each run twice identically.
+   Timed at the serving run's shape (plain version too) and at the long
+   points, beside the bandwidth bound and one
+   ``scaled_dot_product_attention`` call over the cache cut to
+   max(seq_lens) + 1 rows and over the whole cache (yardsticks the port
+   never calls);
+4. paged kernels vs plain versions: the fused paged decode kernel (row 2)
+   and the block-table decode kernel (row 3), each against its plain
+   PyTorch version on the card at the same shapes over a pool of 64-row
+   pages with a permuted block table, each run twice identically; timed
+   the same way at the paged serving run's shape, row 2 also at the long
+   points, with SDPA over a pre-gathered dense view (cut and whole) as the
+   yardstick of the attention part;
 5. reference: a tiny float32 Llama served through the engine and the
    kernel on the card; every served token must be the greedy choice of
    a no-cache forward over the same sequence;
@@ -43,7 +51,9 @@ Phases, each of which raises on failure:
 8. int8 decode kernels vs plain versions: the int8 branches of the fused
    contiguous and fused paged kernels on int8 caches and pools (payloads
    equal or at most 1 apart, scales within rtol 1e-5, outputs at bf16
-   tolerance), timed at the 7B decode shape;
+   tolerance) at the 7B decode shape, a GQA shape and one slot at 4095
+   rows, each run twice identically; timed at the 7B decode shape and the
+   long points;
 9. quantized reference: a tiny float32 Llama with int8 weights and an int8
    KV cache served on the card (kernels) and on the CPU (plain versions),
    contiguous and paged: the greedy tokens are identical;
@@ -69,7 +79,8 @@ Phases, each of which raises on failure:
    where the tokens leave the bf16 engine's (measured, not asserted);
 13. profiles: device time by operation (``torch.profiler``) of the
    prefill wave, and of the wave with 8 decode forwards, for the bf16
-   and the quantized engines;
+   and the quantized engines, with the fused decode kernels' device time
+   by name; each engine's JSON line carries a digest of its greedy tokens;
 14. flash attention vs plain versions (rows 5-9, after phase 8): the
    forward without and with LSE, the dq, dk/dv and fused backward
    kernels against their plain PyTorch versions at the Llama-2-7B train
@@ -145,6 +156,7 @@ no result, when no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -215,7 +227,7 @@ def decode_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    cos, sin = rope_frequencies(d, 2048, device="cuda")
+    cos, sin = rope_frequencies(d, max(2048, max_len), device="cuda")
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return dict(q=randn(slots, kvh, group, d, dtype=act_dtype),
                 k_new=randn(slots, kvh, d, dtype=act_dtype),
@@ -255,15 +267,18 @@ def bound(inp):
                                  else "operations")
 
 
-def library_call(inp):
+def library_call(inp, cut=False):
     """One ``scaled_dot_product_attention`` over the masked cache: the
-    attention part of the fused function (no RoPE, no append)."""
+    attention part of the fused function (no RoPE, no append). ``cut``:
+    over the cache cut to max(seq_lens) + 1 rows, the mask kept, so that
+    it reads no more rows than the longest slot attends."""
     q, ck, cv = inp["q"], inp["ck"], inp["cv"]
     slots, kvh, group, d = q.shape
+    rows = int(inp["seq_lens"].max()) + 1 if cut else ck.shape[1]
     qh = q.reshape(slots, kvh * group, 1, d).to(ck.dtype)
-    kh = ck.permute(0, 2, 1, 3)
-    vh = cv.permute(0, 2, 1, 3)
-    mask = (torch.arange(ck.shape[1], device="cuda")[None, :]
+    kh = ck[:, :rows].permute(0, 2, 1, 3)
+    vh = cv[:, :rows].permute(0, 2, 1, 3)
+    mask = (torch.arange(rows, device="cuda")[None, :]
             <= inp["seq_lens"][:, None].long())[:, None, None, :]
     kw = {"enable_gqa": True} if group > 1 else {}
     return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -273,15 +288,21 @@ def library_call(inp):
 def check_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
                cache_dtype, tol, seed):
     """Kernel vs plain version on one input set: outputs within ``tol``,
-    appended rows within one bf16 ulp, every other row bit-identical."""
+    appended rows within one bf16 ulp, every other row bit-identical, and
+    a second run on the same inputs ``torch.equal`` to the first."""
     from paddle_tpu_torch.kernels import decode_attention as da
 
     inp = decode_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
                         cache_dtype, seed)
     ref_inp = {k: v.clone() for k, v in inp.items()}
+    again = {k: v.clone() for k, v in inp.items()}
     out, ck, cv = da.fused_contiguous_decode_attention(**inp)
     ref, ckr, cvr = da.fused_contiguous_decode_plain(**ref_inp)
+    second = da.fused_contiguous_decode_attention(**again)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((out, ck, cv), second)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    del again, second
     err = (out.float() - ref.float()).abs().max().item()
     if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
         raise AssertionError(f"{name}: kernel output differs from the "
@@ -304,6 +325,144 @@ def check_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
     return err
 
 
+SERVE_LENS = [120 + 4 * i for i in range(8)]
+LONG_LENS = [3968 + 127 * i // 7 for i in range(8)]  # 3968 .. 4095
+# the timed shapes of rows 1-2 (d 128, bf16 activations): (slots, kvh,
+# group, max_len, lens); the serving run's (Llama-2-7B, 8 slots of about
+# 150 rows), and at Llama-2-7B's published 4096 positions one slot, 8
+# slots and GQA (8 kv heads of 8 query heads)
+DECODE_POINTS = {
+    "serve": (8, 32, 1, 1024, SERVE_LENS),
+    "one_slot_4095": (1, 32, 1, 4096, [4095]),
+    "slots8_4k": (8, 32, 1, 4096, LONG_LENS),
+    "gqa8_4k": (8, 8, 8, 4096, LONG_LENS),
+}
+# the split's checks at the long points and at an empty slot beside a
+# full one: (name, slots, kvh, group, max_len, lens)
+SPLIT_CHECKS = [
+    ("one_slot_4095", 1, 32, 1, 4096, [4095]),
+    ("slots8_4k", 8, 32, 1, 4096, LONG_LENS),
+    ("gqa8_4k", 8, 8, 8, 4096, LONG_LENS),
+    ("empty_and_full", 2, 4, 1, 1024, [0, 1023]),
+]
+
+
+def point_inputs(layout, quant, point, seed):
+    """Inputs of rows 1 (``layout`` "contig") or 2 ("paged") at one
+    ``DECODE_POINTS`` shape, bf16 activations, a bf16 or int8 cache."""
+    slots, kvh, group, max_len, lens = DECODE_POINTS[point]
+    if quant:
+        make = int8_contig_inputs if layout == "contig" \
+            else int8_paged_inputs
+        return make(lens, torch.bfloat16, seed, kvh, group, slots, max_len)
+    make = decode_inputs if layout == "contig" else paged_inputs
+    return make(slots, kvh, group, 128, max_len, lens, torch.bfloat16,
+                torch.bfloat16, seed)
+
+
+def dequantized(layout, inp):
+    """``inp`` with its int8 cache or pool replaced by a bf16 copy of the
+    dequantized values: what SDPA, the yardstick, reads."""
+    keys = (("ck", "cv"), ("k_scale", "v_scale")) if layout == "contig" \
+        else (("k_pages", "v_pages"), ("k_scale", "v_scale"))
+    out = dict(inp)
+    for c, sc in zip(*keys):
+        scale = inp[sc][..., None] if layout == "contig" else inp[sc]
+        out[c] = (inp[c].float() * scale).to(torch.bfloat16)
+    return out
+
+
+def point_timings(layout, quant, flush, seed):
+    """Rows 1 (``layout`` "contig") or 2 ("paged"), bf16 or int8 cache,
+    at every ``DECODE_POINTS`` shape: the kernel's time beside its bound
+    and one SDPA over the cache cut to max(seq_lens) + 1 rows and over the
+    whole cache (int8: over a pre-dequantized bf16 copy)."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    kernel = da.fused_contiguous_decode_attention if layout == "contig" \
+        else pa.fused_paged_decode_attention
+    call = library_call if layout == "contig" else paged_library_call
+    out = {}
+    for point in DECODE_POINTS:
+        inp = point_inputs(layout, quant, point, seed)
+        lib = dequantized(layout, inp) if quant else inp
+        bound_ms, bound_by = bound(inp) if layout == "contig" \
+            else paged_bound(inp, True)
+        res = dict(ms=time_ms(lambda: kernel(**inp), flush),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=time_ms(call(lib, cut=True), flush),
+                   library_full_ms=time_ms(call(lib), flush))
+        out[point] = res
+        print(f"decode timing {layout} {'int8' if quant else 'bf16'} "
+              f"{point}: kernel {res['ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {res['ms'] / bound_ms:.2f}x)"
+              f", sdpa cut {res['library_ms']:.4f} ms, full "
+              f"{res['library_full_ms']:.4f} ms", flush=True)
+        del inp, lib
+    return out
+
+
+def decode_plan_report():
+    """The card's launch plans of rows 1 and 2 at every timed shape: ranks
+    a stream, CTAs, and how many clusters the card holds at once."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for point, (slots, kvh, group, max_len, _) in DECODE_POINTS.items():
+        for layout in ("contig", "paged"):
+            for cache in (torch.bfloat16, torch.int8):
+                plan = da._card_plan(dev, layout, cache, slots, kvh, group,
+                                     128, max_len)
+                print(f"decode plan {layout} {cache} {point}: ranks "
+                      f"{plan.ranks}, {plan.clusters} clusters = "
+                      f"{plan.clusters * plan.ranks} CTAs of "
+                      f"{32 * plan.warps} threads, {plan.smem} B "
+                      f"dynamic shared memory, the card holds "
+                      f"{plan.held} clusters at once", flush=True)
+
+
+SPLIT_TYPES = {"f": ("f32", 4), "6__half": ("f16", 2),
+               "13__nv_bfloat16": ("bf16", 2), "a": ("i8", 1)}
+
+
+def decode_build_report(log):
+    """The ptxas registers, spills and shared memory of every
+    instantiation of rows 1-2's split kernel (2 layouts x 4 cache types x
+    8 head dims x 4 head blocks): one line per layout and cache type, an
+    entry ``d/heads: registers r, spill stores, static + dynamic shared
+    memory`` per instantiation."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    pat = re.compile(r"Compiling entry function '\S*?split_decode_kernelI"
+                     r"(f|6__half|13__nv_bfloat16|a)Li(\d+)ELi(\d+)E\S*?"
+                     r"(decode|paged)_attention_cu\S*' for 'sm_90a'\n.*\n"
+                     r"\s*(.*)\n(.*)\n")
+    found = {}
+    for m in pat.finditer(log):
+        tc, epl, hpb, layout, frame, used = m.groups()
+        tag, itemsize = SPLIT_TYPES[tc]
+        regs = int(re.search(r"Used (\d+) registers", used).group(1))
+        static = int(re.search(r"(\d+) bytes smem", used).group(1))
+        spill = int(re.search(r"(\d+) bytes spill stores", frame).group(1))
+        d = 32 * int(epl)
+        dyn = da._smem_bytes(d, itemsize, tag == "i8", int(hpb))
+        found[(layout, tag, d, int(hpb))] = (regs, spill, static, dyn)
+    for layout in ("decode", "paged"):
+        for tag, _ in SPLIT_TYPES.values():
+            entries = sorted((d, h, v) for (lay, t, d, h), v in found.items()
+                             if lay == layout and t == tag)
+            print(f"ptxas split_decode_kernel "
+                  f"{'contig' if layout == 'decode' else 'paged'} {tag}: "
+                  + ", ".join(f"{d}/{h}: {r}r {sp}B spill {st}+{dy}B smem"
+                              for d, h, (r, sp, st, dy) in entries),
+                  flush=True)
+    if len(found) != 2 * 4 * 8 * 4:
+        raise AssertionError(f"expected the ptxas lines of 256 split "
+                             f"instantiations, found {len(found)}")
+    return found
+
+
 def kernel_phase():
     from paddle_tpu_torch.kernels import decode_attention as da
 
@@ -321,30 +480,34 @@ def kernel_phase():
         check_case("7b_f32_cache", 8, 32, 1, 128, 1024, ragged,
                    torch.float32, torch.float32, 1e-4, seed=3),
     ]
-    # timing at the serving run's shape: Llama-2-7B decode, 8 slots with
-    # about 150 cached rows each (120-token prompts, 32 new tokens)
+    errs += [check_case(name, slots, kvh, group, 128, max_len, lens,
+                        torch.bfloat16, torch.bfloat16, 2e-2, seed=4)
+             for name, slots, kvh, group, max_len, lens in SPLIT_CHECKS]
+    # timing at the serving run's shape (Llama-2-7B decode, 8 slots with
+    # about 150 cached rows each: 120-token prompts, 32 new tokens) and at
+    # the long-context points
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    serve_lens = [120 + 4 * i for i in range(8)]
-    inp = decode_inputs(8, 32, 1, 128, 1024, serve_lens, torch.bfloat16,
+    inp = decode_inputs(8, 32, 1, 128, 1024, SERVE_LENS, torch.bfloat16,
                         torch.bfloat16, seed=7)
-    kernel_ms = time_ms(lambda: da.fused_contiguous_decode_attention(**inp),
-                        flush)
     plain_ms = time_ms(lambda: da.fused_contiguous_decode_plain(**inp),
                        flush)
-    library_ms = time_ms(library_call(inp), flush)
-    bound_ms, bound_by = bound(inp)
-    print(f"kernel timing 7b decode lens={serve_lens}: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+    del inp
+    points = point_timings("contig", False, flush, seed=7)
+    serve = points["serve"]
+    print(f"kernel timing 7b decode lens={SERVE_LENS}: kernel "
+          f"{serve['ms']:.4f} ms, plain {plain_ms:.4f} ms, sdpa cut "
+          f"{serve['library_ms']:.4f} ms, full {serve['library_full_ms']:.4f}"
+          f" ms, bound {serve['bound_ms']:.4f} ms ({serve['bound_by']})",
           flush=True)
     return dict(name="fused_contiguous_decode_attention", route="cuda",
                 source="paddle_tpu_torch/kernels/csrc/decode_attention.cu",
                 replaces="paddle_tpu/kernels/decode_attention.py:118",
                 shape="slots=8 kvh=32 group=1 d=128 max_len=1024 bf16 "
-                      f"lens={serve_lens}",
-                max_abs_err=max(errs), ms=kernel_ms, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                      f"lens={SERVE_LENS}",
+                max_abs_err=max(errs), ms=serve["ms"], kernel_ms=serve["ms"],
+                plain_ms=plain_ms, bound_ms=serve["bound_ms"],
+                bound_by=serve["bound_by"], library_ms=serve["library_ms"],
+                library_full_ms=serve["library_full_ms"], points=points)
 
 
 PAGE = 64  # the paged serving run's page size (bench_serve7b)
@@ -368,7 +531,7 @@ def paged_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
     perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
     bt = torch.tensor(perm.reshape(slots, max_pages).astype(np.int32),
                       device="cuda")
-    cos, sin = rope_frequencies(d, 2048, device="cuda")
+    cos, sin = rope_frequencies(d, max(2048, max_len), device="cuda")
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return dict(q=randn(slots, kvh, group, d, dtype=act_dtype),
                 k_new=randn(slots, kvh, d, dtype=act_dtype),
@@ -411,17 +574,21 @@ def paged_bound(inp, fused):
                                  else "operations")
 
 
-def paged_library_call(inp):
+def paged_library_call(inp, cut=False):
     """One ``scaled_dot_product_attention`` over a dense view of each
     slot's rows, gathered from the pool before the timing: the attention
     part only (no page gather, no RoPE, no append), as no single PyTorch
-    call walks a block table."""
+    call walks a block table. ``cut``: over rows 0..max(seq_lens) of the
+    view only, the mask kept."""
     q, bt = inp["q"], inp["block_tables"].long()
     slots, kvh, group, d = q.shape
     ctx = bt.shape[1] * PAGE
     # [kvh, slots, pages, PAGE, d] -> [slots, kvh, ctx, d]
     kh = inp["k_pages"][:, bt].reshape(kvh, slots, ctx, d).transpose(0, 1)
     vh = inp["v_pages"][:, bt].reshape(kvh, slots, ctx, d).transpose(0, 1)
+    if cut:
+        ctx = int(inp["seq_lens"].max()) + 1
+        kh, vh = kh[:, :, :ctx], vh[:, :, :ctx]
     kh, vh = kh.contiguous(), vh.contiguous()
     qh = q.reshape(slots, kvh * group, 1, d).to(kh.dtype)
     mask = (torch.arange(ctx, device="cuda")[None, :]
@@ -436,7 +603,8 @@ def check_paged_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
     """Both paged kernels vs their plain versions on one input set:
     outputs within ``tol``; for the fused kernel the appended rows within
     one bf16 ulp; every other pool row bit-identical (page 0, the sink,
-    excepted). Returns the two max abs errors (fused, block table)."""
+    excepted); a second run on the same inputs ``torch.equal`` to the
+    first. Returns the two max abs errors (fused, block table)."""
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     errs = []
@@ -444,9 +612,11 @@ def check_paged_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
         inp = paged_inputs(slots, kvh, group, d, max_len, lens, act_dtype,
                            pool_dtype, seed)
         ref_inp = {k: v.clone() for k, v in inp.items()}
+        again = {k: v.clone() for k, v in inp.items()}
         if fused:
             out, kp, vp = pa.fused_paged_decode_attention(**inp)
             ref, kpr, vpr = pa.fused_paged_decode_plain(**ref_inp)
+            second = pa.fused_paged_decode_attention(**again)
         else:
             out = pa.paged_decode_attention(**{k: inp[k]
                                                for k in BLOCK_KEYS})
@@ -454,8 +624,15 @@ def check_paged_case(name, slots, kvh, group, d, max_len, lens, act_dtype,
                                            for k in BLOCK_KEYS})
             kp, vp, kpr, vpr = (inp["k_pages"], inp["v_pages"],
                                 ref_inp["k_pages"], ref_inp["v_pages"])
+            second = (pa.paged_decode_attention(**{k: again[k]
+                                                   for k in BLOCK_KEYS}),
+                      again["k_pages"], again["v_pages"])
         torch.cuda.synchronize()
         kind = "fused" if fused else "block-table"
+        if not all(torch.equal(a, b) for a, b in zip((out, kp, vp), second)):
+            raise AssertionError(f"{name} {kind}: two runs on the same "
+                                 "inputs differ")
+        del again, second
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
             raise AssertionError(f"{name} {kind}: kernel output differs "
@@ -501,14 +678,18 @@ def paged_kernel_phase():
         check_paged_case("7b_f32_pool", 8, 32, 1, 128, 1024, ragged,
                          torch.float32, torch.float32, 1e-4, seed=13),
     ]
-    # timing at the paged serving run's shape: Llama-2-7B decode, 8 slots
-    # with about 150 cached rows each, 64-row pages
+    errs += [check_paged_case(name, slots, kvh, group, 128, max_len, lens,
+                              torch.bfloat16, torch.bfloat16, 2e-2, seed=14)
+             for name, slots, kvh, group, max_len, lens in SPLIT_CHECKS]
+    # timing at the paged serving run's shape (Llama-2-7B decode, 8 slots
+    # with about 150 cached rows each, 64-row pages) and, row 2, at the
+    # long-context points
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    serve_lens = [120 + 4 * i for i in range(8)]
-    inp = paged_inputs(8, 32, 1, 128, 1024, serve_lens, torch.bfloat16,
+    inp = paged_inputs(8, 32, 1, 128, 1024, SERVE_LENS, torch.bfloat16,
                        torch.bfloat16, seed=17)
     block = {k: inp[k] for k in BLOCK_KEYS}
-    library_ms = time_ms(paged_library_call(inp), flush)
+    library = {cut: time_ms(paged_library_call(inp, cut=cut), flush)
+               for cut in (True, False)}
     rows = []
     for fused, (kernel, plain, body) in (
             (True, (pa.fused_paged_decode_attention,
@@ -523,19 +704,23 @@ def paged_kernel_phase():
                            hold=8 * HOLD_CYCLES)
         bound_ms, bound_by = paged_bound(inp, fused)
         name = kernel.__name__
-        print(f"paged kernel timing {name} 7b decode lens={serve_lens}: "
+        print(f"paged kernel timing {name} 7b decode lens={SERVE_LENS}: "
               f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"over a pre-gathered view {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"over a pre-gathered view cut {library[True]:.4f} ms, full "
+              f"{library[False]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
         rows.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
             replaces=f"paddle_tpu/kernels/paged_attention.py:{body}",
             shape=f"slots=8 kvh=32 group=1 d=128 page={PAGE} pages/slot=16 "
-                  f"bf16 lens={serve_lens}",
+                  f"bf16 lens={SERVE_LENS}",
             max_abs_err=max(e[0 if fused else 1] for e in errs),
             ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library[True],
+            library_full_ms=library[False]))
+    del inp, block
+    rows[0]["points"] = point_timings("paged", False, flush, seed=17)
     return rows
 
 
@@ -792,17 +977,20 @@ def compare_int8_rows(name, got_q, want_q, got_s, want_s):
     return share
 
 
-def int8_contig_inputs(lens, act, seed, kvh=32, group=1):
-    inp = decode_inputs(8, kvh, group, 128, 1024, lens, act, torch.float32,
-                        seed)
-    inp["ck"], inp["k_scale"] = int8_side((8, 1024, kvh, 128), seed + 1)
-    inp["cv"], inp["v_scale"] = int8_side((8, 1024, kvh, 128), seed + 2)
+def int8_contig_inputs(lens, act, seed, kvh=32, group=1, slots=8,
+                       max_len=1024):
+    inp = decode_inputs(slots, kvh, group, 128, max_len, lens, act,
+                        torch.float32, seed)
+    shape = (slots, max_len, kvh, 128)
+    inp["ck"], inp["k_scale"] = int8_side(shape, seed + 1)
+    inp["cv"], inp["v_scale"] = int8_side(shape, seed + 2)
     return inp
 
 
-def int8_paged_inputs(lens, act, seed, kvh=32, group=1):
-    inp = paged_inputs(8, kvh, group, 128, 1024, lens, act, torch.float32,
-                       seed)
+def int8_paged_inputs(lens, act, seed, kvh=32, group=1, slots=8,
+                      max_len=1024):
+    inp = paged_inputs(slots, kvh, group, 128, max_len, lens, act,
+                       torch.float32, seed)
     shape = tuple(inp["k_pages"].shape)
     inp["k_pages"], ks = int8_side(shape, seed + 1)
     inp["v_pages"], vs = int8_side(shape, seed + 2)
@@ -812,37 +1000,46 @@ def int8_paged_inputs(lens, act, seed, kvh=32, group=1):
 
 def int8_decode_phase():
     """The int8 branches of rows 1 and 2 against their plain versions at
-    the 7B decode shape (bf16 activations) and a GQA shape (float32
-    activations), then timed at the serving run's lengths."""
+    the 7B decode shape (bf16 activations), a GQA shape (float32
+    activations) and one slot at 4095 rows beside one at 3000 (bf16), each
+    run twice identically; then timed at the serving run's lengths and the
+    long-context points."""
     from paddle_tpu_torch.kernels import decode_attention as da
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     ragged = [0, 63, 64, 1022, 150, 1, 300, 700]
     errs = {"contig": [], "paged": []}
-    for label, act, kvh, group, tol, seed in (
-            ("7b_bf16", torch.bfloat16, 32, 1, 2e-2, 51),
-            ("gqa8_f32", torch.float32, 8, 8, 1e-4, 52)):
+    for label, act, kvh, group, tol, seed, lens, slots, max_len in (
+            ("7b_bf16", torch.bfloat16, 32, 1, 2e-2, 51, ragged, 8, 1024),
+            ("gqa8_f32", torch.float32, 8, 8, 1e-4, 52, ragged, 8, 1024),
+            ("long_bf16", torch.bfloat16, 32, 1, 2e-2, 53, [4095, 3000], 2,
+             4096)):
         for kind in ("contig", "paged"):
             make = int8_contig_inputs if kind == "contig" \
                 else int8_paged_inputs
-            inp = make(ragged, act, seed, kvh, group)
+            inp = make(lens, act, seed, kvh, group, slots, max_len)
             ref_inp = {k: v.clone() for k, v in inp.items()}
+            again = {k: v.clone() for k, v in inp.items()}
+            kernel = da.fused_contiguous_decode_attention \
+                if kind == "contig" else pa.fused_paged_decode_attention
+            got = kernel(**inp)
+            second = kernel(**again)
             if kind == "contig":
-                out, kq, vq, ks, vs = da.fused_contiguous_decode_attention(
-                    **inp)
-                ref, kqr, vqr, ksr, vsr = da.fused_contiguous_decode_plain(
-                    **ref_inp)
-                rows = torch.arange(8, device="cuda")
+                ref = da.fused_contiguous_decode_plain(**ref_inp)
+                rows = torch.arange(slots, device="cuda")
                 at = (rows, inp["seq_lens"].long())
             else:
-                out, kq, vq, ks, vs = pa.fused_paged_decode_attention(**inp)
-                ref, kqr, vqr, ksr, vsr = pa.fused_paged_decode_plain(
-                    **ref_inp)
+                ref = pa.fused_paged_decode_plain(**ref_inp)
                 lens_l = inp["seq_lens"].long()
                 page = inp["block_tables"].long()[torch.arange(
-                    8, device="cuda"), lens_l // PAGE]
+                    slots, device="cuda"), lens_l // PAGE]
                 at = (slice(None), page, lens_l % PAGE)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, second)):
+                raise AssertionError(f"int8 {kind} {label}: two runs on the "
+                                     "same inputs differ")
+            out, kq, vq, ks, vs = got
+            ref, kqr, vqr, ksr, vsr = ref
             err = (out.float() - ref.float()).abs().max().item()
             if not torch.allclose(out.float(), ref.float(), rtol=tol,
                                   atol=tol):
@@ -854,51 +1051,44 @@ def int8_decode_phase():
                                            (vq, vqr, vs, vsr))]
             errs[kind].append(err)
             print(f"int8 kernel check {kind} {label}: kvh={kvh} "
-                  f"group={group} d=128 lens={ragged} max_abs_err="
+                  f"group={group} d=128 lens={lens} max_abs_err="
                   f"{err:.3e} (tol {tol}), appended payloads differing "
                   f"K {shares[0]:.4f} V {shares[1]:.4f} ok", flush=True)
+            del inp, ref_inp, again, got, second
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    serve_lens = [120 + 4 * i for i in range(8)]
     out_rows = []
     for kind in ("contig", "paged"):
-        make = int8_contig_inputs if kind == "contig" else int8_paged_inputs
-        inp = make(serve_lens, torch.bfloat16, 57)
+        inp = (int8_contig_inputs if kind == "contig"
+               else int8_paged_inputs)(SERVE_LENS, torch.bfloat16, 57)
         if kind == "contig":
-            kernel, plain = (da.fused_contiguous_decode_attention,
-                             da.fused_contiguous_decode_plain)
-            deq = {k: (inp[c].float() * inp[s][..., None]).to(
-                torch.bfloat16) for k, c, s in (("ck", "ck", "k_scale"),
-                                                ("cv", "cv", "v_scale"))}
-            library_ms = time_ms(library_call(dict(inp, **deq)), flush)
-            bound_ms, bound_by = bound(inp)
+            plain = da.fused_contiguous_decode_plain
             name, body = "fused_contiguous_decode_attention", \
                 "paddle_tpu/kernels/decode_attention.py:118"
             src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
         else:
-            kernel, plain = (pa.fused_paged_decode_attention,
-                             pa.fused_paged_decode_plain)
-            deq = {k: (inp[c].float() * inp[s]).to(torch.bfloat16)
-                   for k, c, s in (("k_pages", "k_pages", "k_scale"),
-                                   ("v_pages", "v_pages", "v_scale"))}
-            library_ms = time_ms(paged_library_call(dict(inp, **deq)),
-                                 flush)
-            bound_ms, bound_by = paged_bound(inp, True)
+            plain = pa.fused_paged_decode_plain
             name, body = "fused_paged_decode_attention", \
                 "paddle_tpu/kernels/paged_attention.py:210"
             src = "paddle_tpu_torch/kernels/csrc/paged_attention.cu"
-        kernel_ms = time_ms(lambda: kernel(**inp), flush)
         plain_ms = time_ms(lambda: plain(**inp), flush, hold=8 * HOLD_CYCLES)
-        print(f"int8 kernel timing {name} 7b decode lens={serve_lens}: "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"over a pre-dequantized bf16 view {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        del inp
+        points = point_timings(kind, True, flush, seed=57)
+        serve = points["serve"]
+        print(f"int8 kernel timing {name} 7b decode lens={SERVE_LENS}: "
+              f"kernel {serve['ms']:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"over a pre-dequantized bf16 view cut "
+              f"{serve['library_ms']:.4f} ms, full "
+              f"{serve['library_full_ms']:.4f} ms, bound "
+              f"{serve['bound_ms']:.4f} ms ({serve['bound_by']})", flush=True)
         out_rows.append(dict(
             name=f"{name}[int8]", route="cuda", source=src, replaces=body,
             shape=f"slots=8 kvh=32 group=1 d=128 int8 cache, bf16 x, "
-                  f"lens={serve_lens}",
-            max_abs_err=max(errs[kind]), ms=kernel_ms, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms))
+                  f"lens={SERVE_LENS}",
+            max_abs_err=max(errs[kind]), ms=serve["ms"],
+            kernel_ms=serve["ms"], plain_ms=plain_ms,
+            bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
+            library_ms=serve["library_ms"],
+            library_full_ms=serve["library_full_ms"], points=points))
     return out_rows
 
 
@@ -2873,7 +3063,9 @@ def engine_phase(model, prompts):
         "kernel_launches": launches, "decode_forwards": decode_forwards,
         "wall_s": wall, "unfused_wall_s": wall_off,
         "outputs_match": fused_outs == off_outs,
-        "first_divergence": divergence}}), flush=True)
+        "first_divergence": divergence,
+        "tokens_digest": tokens_digest(fused_outs),
+        "unfused_tokens_digest": tokens_digest(off_outs)}}), flush=True)
     if any(a[0] != b[0] for a, b in zip(fused_outs, off_outs)):
         raise AssertionError("the first generated token differs between "
                              "fused and unfused decode")
@@ -2954,13 +3146,20 @@ def paged_engine_phase(model, prompts, contiguous_outs):
         "decode_forwards": stats["decode_forwards"], "wall_s": wall,
         "unfused_wall_s": wall_off,
         "outputs_match_unfused": fused_outs == off_outs,
-        "first_tokens_equal_to_contiguous": same_first_as_contiguous}}),
+        "first_tokens_equal_to_contiguous": same_first_as_contiguous,
+        "tokens_digest": tokens_digest(fused_outs),
+        "unfused_tokens_digest": tokens_digest(off_outs)}}),
         flush=True)
     if any(a[0] != b[0] for a, b in zip(fused_outs, off_outs)):
         raise AssertionError("the first generated token differs between "
                              "fused and unfused paged decode")
     return (fused_counts["fused_paged_decode_attention"],
             off_counts["paged_decode_attention"], fused_outs)
+
+
+def tokens_digest(outs):
+    """A short digest of an engine's greedy tokens, to compare runs."""
+    return hashlib.sha1(json.dumps(outs).encode()).hexdigest()[:16]
 
 
 def first_divergence(outs, ref_outs):
@@ -3046,7 +3245,9 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
         "decode_forwards": stats["decode_forwards"], "wall_s": wall,
         "unfused_wall_s": runs["off"][1],
         "outputs_match_unfused": outs == off_outs,
-        "first_divergence_vs_bf16": first_divergence(outs, ref_outs)}}),
+        "first_divergence_vs_bf16": first_divergence(outs, ref_outs),
+        "tokens_digest": tokens_digest(outs),
+        "unfused_tokens_digest": tokens_digest(off_outs)}}),
         flush=True)
     if any(a[0] != b[0] for a, b in zip(outs, off_outs)):
         raise AssertionError(f"{label}: the first generated token differs "
@@ -3094,10 +3295,18 @@ def wave_profile(model, prompts, label, max_new_tokens=1, **config):
                  key=dev_us, reverse=True)
     top = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
            for e in ops[:6]]
+    # the fused decode kernels (rows 1-2; launched through ctypes, so
+    # under no operator), by kernel name
+    decode = [e for e in kernels if "decode_kernel" in e.key]
+    decode_ms = sum(dev_us(e) for e in decode) / 1e3
+    decode_launches = sum(e.count for e in decode)
     print(f"profile {label} (max_new_tokens={max_new_tokens}): wall "
           f"{wall_ms:.2f} ms, kernel time {total_ms:.2f} ms; heaviest "
-          f"operators (name, device ms, calls): {top}", flush=True)
-    return dict(wall_ms=wall_ms, device_ms=total_ms, top=top)
+          f"operators (name, device ms, calls): {top}; decode kernels "
+          f"{decode_ms:.3f} ms in {decode_launches} launches", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=total_ms, top=top,
+                decode_kernel_ms=decode_ms,
+                decode_kernel_launches=decode_launches)
 
 
 T_START = time.perf_counter()
@@ -3144,12 +3353,14 @@ def main() -> int:
           f"{max(spills, default=0)} bytes in {len(spilled)} kernels "
           f"{spilled}", flush=True)
 
+    decode_build_report(log)
     flash_build_report(log)
     qmm_build_report(log)
     gn_build_report(log)
     scan_build_report(log)
     phase("scan sass", scan_sass_report, path.parent / "selective_scan.o",
           {"train": SCAN_SHAPE, "b1_s8192": SCAN_LONG})
+    phase("decode plans", decode_plan_report)
     row = phase("decode kernel", kernel_phase)
     fused_row, block_row = phase("paged kernels", paged_kernel_phase)
     qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)

@@ -11,17 +11,26 @@ for tensors on the CPU it runs the plain PyTorch version beside it, a port
 of the JAX package's unfused reference ``fused_contiguous_decode_reference``.
 A CUDA tensor never falls back to the plain version: the wrapper launches
 the kernel or raises.
+
+The kernel (shared with the paged wrapper) splits each (slot, kv head,
+head block) stream over a thread-block cluster of ``ranks`` CTAs. The
+launch plan (``_decode_plan``) comes from the host's shapes and the card's
+occupancy only, never from ``seq_lens`` (reading them would synchronise
+every decode step); the rows each rank takes are computed on the device
+from the slot's length (``csrc/decode_common.cuh: split_decode_kernel``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import flags
 from ..inference.paged import quantize_kv_rows
+from ._card import SMS, clusters_model, held_clusters, sm_count
 from .rope import apply_rope
 
 NEG_INF = -1e30  # paddle_tpu/kernels/paged_attention.py: NEG_INF
@@ -35,15 +44,128 @@ _CACHE_TAG = {torch.float32: "f32", torch.float16: "f16",
               torch.bfloat16: "bf16", torch.int8: "i8"}
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
              + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+# The split kernel's geometry (csrc/decode_common.cuh: SplitGeo): CTAs of
+# 8 warps (4 where a cache row is over 512 bytes), each warp streaming
+# 8-row tiles through a ring of 2-4 of them; clusters of 1, 2, 4 or 8 CTAs
+# a stream
+TILE_ROWS = 8
+RING_BYTES = 8192  # a warp's ring of tiles, about
+RANK_CHOICES = (1, 2, 4, 8)
 
 
 def contiguous_chunk(max_len: int) -> int:
     """The JAX kernel's streaming granularity over the cache rows,
-    gcd(max_len, 128). The Hopper kernel walks single rows and needs no
-    chunk; tests use it to place ragged lengths on chunk boundaries of
-    the reference."""
+    gcd(max_len, 128). The Hopper kernel needs no chunk: it splits the
+    rows over its plan's cluster ranks in 8-row tiles; tests use it to
+    place ragged lengths on chunk boundaries of the reference."""
     return math.gcd(max_len, 128)
+
+
+# ---------------------------------------------------------------------------
+# launch plan of the split kernel (rows 1 and 2)
+# ---------------------------------------------------------------------------
+class DecodePlan(NamedTuple):
+    ranks: int     # CTAs of a cluster along a stream's rows
+    hpb: int       # query heads of a CTA
+    warps: int     # warps of a CTA
+    clusters: int  # streams: slots x kv heads x head blocks
+    smem: int      # dynamic shared memory bytes of a CTA
+    held: int      # clusters of this plan the card holds at once
+
+
+def heads_per_block(group: int) -> int:
+    """Query heads a CTA takes from a GQA group of ``group``: 1, 2, 4 or
+    8 (a group of 16 takes two CTAs)."""
+    return 1 if group <= 1 else 2 if group <= 2 else 4 if group <= 4 else 8
+
+
+def split_warps(d: int, itemsize: int) -> int:
+    """Warps of a split CTA: 8, or 4 where a cache row is over 512
+    bytes (so that the rings fit)."""
+    return 8 if d * itemsize <= 512 else 4
+
+
+def _smem_bytes(d: int, itemsize: int, quant: bool, hpb: int) -> int:
+    """A CTA's dynamic shared memory, as ``csrc/decode_common.cuh:
+    SplitGeo::smem`` sizes it: a ring a warp of 2-4 stages (about
+    ``RING_BYTES``) of an 8-row K tile, an 8-row V tile and, int8, their
+    16 scales; or, if larger, the merge after the row loop (each warp's
+    and the CTA's acc, m and l per query head)."""
+    warps = split_warps(d, itemsize)
+    stage = 2 * TILE_ROWS * d * itemsize + (2 * TILE_ROWS * 4 if quant else 0)
+    stages = min(4, max(2, RING_BYTES // stage))
+    merge = 4 * ((warps + 1) * hpb * d + 2 * (warps + 1) * hpb)
+    return max(warps * stages * stage, merge)
+
+
+def _decode_plan(slots: int, kvh: int, group: int, d: int, span: int,
+                 itemsize: int, quant: bool, clusters=None,
+                 sms: int = SMS) -> DecodePlan:
+    """The geometry of one split launch over ``slots`` slots, ``kvh`` kv
+    heads of ``group`` query heads, head dim ``d`` and streams of at most
+    ``span`` rows (``max_len``, or ``max_pages * page_size``) of
+    ``itemsize``-byte elements (``quant``: int8 with scales), on a card of
+    ``sms`` SMs: the most ranks (of ``RANK_CHOICES``, each with at least a
+    tile of the longest stream) whose clusters the card holds all at once
+    (``clusters(plan)``, by default ``_card.clusters_model``), else one.
+    A rank's rows run on its own warps at once, so more ranks shorten a
+    stream until a second wave of clusters costs as much as the first.
+    Only host shapes go in: never the lengths."""
+    hpb = heads_per_block(group)
+    warps = split_warps(d, itemsize)
+    streams = slots * kvh * -(-group // hpb)
+    smem = _smem_bytes(d, itemsize, quant, hpb)
+    best = None
+    for ranks in RANK_CHOICES:
+        if ranks > 1 and span < ranks * TILE_ROWS:
+            break
+        plan = DecodePlan(ranks, hpb, warps, streams, smem, 0)
+        held = (clusters(plan) if clusters else
+                clusters_model(32 * warps, smem, ranks, sms))
+        plan = plan._replace(held=held)
+        if best is None or streams <= held:
+            best = plan
+    return best
+
+
+def _card_clusters(layout: str, cache_dtype, group: int, d: int):
+    """``_decode_plan``'s ``clusters`` on the card: how many clusters of a
+    plan the card holds at once (``_card.held_clusters`` through
+    ``pt_fused_<layout>_decode_plan_<tag>``, which refuses a plan the
+    kernels do not take and sizes its shared memory as the launch does)."""
+    from . import _build
+
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = getattr(_build.library(), f"pt_fused_{layout}_decode_plan_"
+                                   f"{_CACHE_TAG[cache_dtype]}")
+    fn.argtypes = [ctypes.c_int] * 3 + [out, out]
+    fn.restype = ctypes.c_int
+
+    def held(plan):
+        return held_clusters(fn, (group, d, plan.ranks), plan,
+                             f"{layout} decode")
+
+    return held
+
+
+_PLANS = {}  # the card's plans by their arguments: each found once
+
+
+def _card_plan(device, layout: str, cache_dtype, slots: int, kvh: int,
+               group: int, d: int, span: int) -> DecodePlan:
+    """``_decode_plan`` for a launch on the card ``device`` (``layout``
+    ``"contig"`` or ``"paged"``), with its occupancy answers and SM count;
+    computed once per shape and cache dtype."""
+    key = (device, layout, cache_dtype, slots, kvh, group, d, span)
+    if key not in _PLANS:
+        itemsize = torch.empty((), dtype=cache_dtype).element_size()
+        _PLANS[key] = _decode_plan(
+            slots, kvh, group, d, span, itemsize,
+            cache_dtype == torch.int8,
+            _card_clusters(layout, cache_dtype, group, d), sm_count(device))
+    return _PLANS[key]
 
 
 def fused_decode_active() -> bool:
@@ -231,13 +353,16 @@ def fused_contiguous_decode_attention(q, k_new, v_new, ck, cv, seq_lens,
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        plan = _card_plan(q.device, "contig", ck.dtype, slots, kvh, group,
+                          d, ck.shape[1])
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  _ACT_CODE[q.dtype], ck.data_ptr(), cv.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), seq_lens.data_ptr(),
                  positions.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                  out.data_ptr(), slots, kvh, group, d,
-                 ck.shape[1], cos.shape[0], float(scale), stream)
+                 ck.shape[1], cos.shape[0], float(scale), plan.ranks,
+                 stream)
     if err != 0:
         raise RuntimeError(
             f"fused decode attention kernel failed to launch: CUDA error "

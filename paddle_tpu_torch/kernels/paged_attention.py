@@ -20,10 +20,13 @@ Two entry points, each with its plain PyTorch version beside it:
 
 On the card each wrapper launches its hand-written Hopper kernel in
 ``csrc/paged_attention.cu``; for tensors on the CPU it runs the plain
-version. A CUDA tensor never falls back to the plain version: the
-wrapper launches the kernel or raises. Unlike the TPU kernels, whose
-tiling rule sends untiled shapes to the dense path, the Hopper kernels
-take every supported shape (below) and the wrappers raise for the rest.
+version. The fused kernel is the split kernel of the contiguous wrapper
+over the block table, launched by the same plan
+(``decode_attention._decode_plan``). A CUDA tensor never falls back to
+the plain version: the wrapper launches the kernel or raises. Unlike the
+TPU kernels, whose tiling rule sends untiled shapes to the dense path,
+the Hopper kernels take every supported shape (below) and the wrappers
+raise for the rest.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from ..inference.paged import (  # noqa: F401  (KV_QUANT_EPS: re-export)
 from .decode_attention import (
     _ACT_CODE,
     _CACHE_TAG,
+    _card_plan,
     _check_scales,
     _ptr,
     _rope_rotate,
@@ -52,7 +56,7 @@ from .decode_attention import (
 LAUNCHES = {"fused_paged_decode_attention": 0, "paged_decode_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FUSED_ARGTYPES = [_P, _P, _P, _I] + [_P] * 10 + [_I] * 8 + [_F, _P]
+_FUSED_ARGTYPES = [_P, _P, _P, _I] + [_P] * 10 + [_I] * 8 + [_F, _I, _P]
 _DECODE_ARGTYPES = [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P]
 
 
@@ -258,13 +262,15 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
                  _FUSED_ARGTYPES)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        plan = _card_plan(q.device, "paged", k_pages.dtype, slots, kvh,
+                          group, d, block_tables.shape[1] * page_size)
         err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  _ACT_CODE[q.dtype], k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
                  seq_lens.data_ptr(), positions.data_ptr(), cos.data_ptr(),
                  sin.data_ptr(), out.data_ptr(), slots, kvh, group, d,
                  n_pages, page_size, block_tables.shape[1], cos.shape[0],
-                 float(d ** -0.5 if scale is None else scale),
+                 float(d ** -0.5 if scale is None else scale), plan.ranks,
                  torch.cuda.current_stream().cuda_stream)
     _launched("fused_paged_decode_attention", err)
     if k_scale is not None:

@@ -15,6 +15,8 @@ from paddle_tpu.kernels import decode_attention as jda
 from paddle_tpu.kernels.rope import rope_frequencies as j_rope_frequencies
 from paddle_tpu_torch.kernels import decode_attention as tda
 from paddle_tpu_torch.kernels.rope import rope_frequencies
+from torch_decode_cases import (check_plan_geometry, plan_shapes, rank_rows,
+                                split_model)
 
 # GQA ratios: kvh 1/4/8 at 8 query heads
 GQA = [(1, 8), (4, 2), (8, 1)]
@@ -166,3 +168,89 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take(bad):
         args.update(ck=ck.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError):
         tda._check(**args)
+
+
+# ---------------------------------------------------------------------------
+# the split kernel's launch plan and its rank split, on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", plan_shapes("contig"))
+def test_split_plan_geometry(shape):
+    check_plan_geometry(*shape)
+
+
+def test_split_plans_at_the_timed_shapes():
+    """The CPU model keeps the serving shape and 8 slots at 4096 rows at
+    one CTA a stream (256 clusters, held at once), and splits one slot at
+    4096 rows over 4 ranks and GQA (64 clusters) over 2."""
+    plan = tda._decode_plan
+    assert plan(8, 32, 1, 128, 1024, 2, False).ranks == 1
+    assert plan(8, 32, 1, 128, 4096, 2, False).ranks == 1
+    assert plan(1, 32, 1, 128, 4096, 2, False).ranks == 4
+    assert plan(8, 8, 8, 128, 4096, 2, False).ranks == 2
+    assert plan(8, 32, 1, 128, 1024, 1, True).ranks == 1
+
+
+SPLIT_LENS = [0, 7, 8, 64, 100, 127]
+
+
+def _contig_model_case(quant, seed=3, kvh=1, group=3, d=32, max_len=128):
+    rng = np.random.default_rng(seed)
+    slots = len(SPLIT_LENS)
+    f = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q, kn, vn = f(slots, kvh, group, d), f(slots, kvh, d), f(slots, kvh, d)
+    cos, sin = rope_frequencies(d, 256, device="cpu")
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32)
+    extra = {}
+    if quant:
+        ck = torch.tensor(rng.integers(-127, 128, (slots, max_len, kvh, d)),
+                          dtype=torch.int8)
+        cv = torch.tensor(rng.integers(-127, 128, (slots, max_len, kvh, d)),
+                          dtype=torch.int8)
+        extra = dict(k_scale=torch.rand(slots, max_len, kvh) * 0.02 + 1e-3,
+                     v_scale=torch.rand(slots, max_len, kvh) * 0.02 + 1e-3)
+    else:
+        ck, cv = f(slots, max_len, kvh, d), f(slots, max_len, kvh, d)
+    got = tda.fused_contiguous_decode_plain(q, kn, vn, ck, cv, lens,
+                                            lens + 2, cos, sin, **extra)
+    qr = tda._rope_rotate(q.reshape(slots, kvh * group, d), lens + 2, cos,
+                          sin).reshape(slots, kvh, group, d)
+    return got, qr, lens
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("ranks", tda.RANK_CHOICES)
+def test_split_model_matches_the_plain_version(ranks, quant):
+    """The rank split and its rank-ordered merge, modelled in plain torch
+    with CTAs of 4 and 8 warps, equal the plain version (dense masked
+    attention) at 1e-5, float32 and int8 caches, lengths at tile and rank
+    boundaries."""
+    got, qr, lens = _contig_model_case(quant)
+    out, ck, cv = got[:3]
+    slots, kvh, group, d = qr.shape
+    for s in range(slots):
+        L = int(lens[s])
+        for h in range(kvh):
+            k, v = ck[s, :L + 1, h].float(), cv[s, :L + 1, h].float()
+            scales = ((got[3][s, :L + 1, h], got[4][s, :L + 1, h]) if quant
+                      else (None, None))
+            for warps in (4, 8):  # the kernel's two CTA sizes
+                want = split_model(qr[s, h], k, v, L, ranks, d ** -0.5,
+                                   *scales, warps=warps)
+                torch.testing.assert_close(want, out[s, h], rtol=1e-5,
+                                           atol=1e-5)
+
+
+def test_split_model_without_one_rank_fails():
+    """The check has teeth: the model with rank 1's partial left out of
+    the merge differs from the plain version on every slot whose rank 1
+    holds rows."""
+    got, qr, lens = _contig_model_case(False)
+    out, ck, cv = got
+    d = qr.shape[-1]
+    for s, L in enumerate(lens.tolist()):
+        if rank_rows(L, 4)[1][0] == rank_rows(L, 4)[1][1]:
+            continue
+        bad = split_model(qr[s, 0], ck[s, :L + 1, 0], cv[s, :L + 1, 0], L, 4,
+                          d ** -0.5, drop=1)
+        assert not torch.allclose(bad, out[s, 0], rtol=1e-5, atol=1e-5)

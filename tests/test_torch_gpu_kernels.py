@@ -14,6 +14,8 @@ import torch
 
 from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels.rope import rope_frequencies
+from torch_decode_cases import (CASES, INT8_CASES, PAGED_CASES, SPLIT_CASES,
+                                boundary_lens)
 from torch_gn_cases import GN_CASES
 from torch_scan_cases import SCAN_CASES, TRAIN_SHAPE
 
@@ -49,19 +51,6 @@ def _inputs(slots, kvh, group, d, max_len, lens, act, cache, seed=0):
                 ck=randn(slots, max_len, kvh, d, dtype=cache),
                 cv=randn(slots, max_len, kvh, d, dtype=cache),
                 seq_lens=lens_t, positions=lens_t + 3, cos=cos, sin=sin)
-
-
-CASES = [  # d, group, query dtype, cache dtype
-    (128, 1, torch.bfloat16, torch.bfloat16),
-    (128, 8, torch.bfloat16, torch.bfloat16),
-    (128, 16, torch.bfloat16, torch.bfloat16),
-    (64, 2, torch.float32, torch.float32),
-    (32, 3, torch.float32, torch.bfloat16),
-    (96, 4, torch.float16, torch.float16),
-    (160, 5, torch.bfloat16, torch.float32),
-    (256, 8, torch.float32, torch.float16),
-    (224, 1, torch.float16, torch.bfloat16),
-]
 
 
 @pytest.mark.parametrize("d,group,act,cache", CASES)
@@ -129,17 +118,6 @@ def _paged_inputs(slots, kvh, group, d, page_size, max_pages, lens, act,
                 v_pages=randn(kvh, n_pages, page_size, d, dtype=pool),
                 block_tables=torch.tensor(bt, device="cuda"),
                 seq_lens=lens_t, positions=lens_t + 3, cos=cos, sin=sin)
-
-
-PAGED_CASES = [  # d, group, page_size, query dtype, pool dtype
-    (128, 1, 64, torch.bfloat16, torch.bfloat16),
-    (128, 8, 16, torch.bfloat16, torch.bfloat16),
-    (128, 16, 8, torch.bfloat16, torch.bfloat16),
-    (64, 2, 16, torch.float32, torch.float32),
-    (32, 3, 1, torch.float32, torch.bfloat16),
-    (96, 4, 5, torch.float16, torch.float16),
-    (256, 8, 32, torch.float32, torch.float16),
-]
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -280,15 +258,6 @@ def test_paged_engine_fused_and_unfused_agree_on_the_card(card):
 
 
 # ------------------------------------------- int8 branches of rows 1 and 2
-INT8_CASES = [  # d, group, query dtype
-    (128, 1, torch.bfloat16),
-    (128, 8, torch.float32),
-    (64, 2, torch.float16),
-    (32, 3, torch.float32),
-    (96, 4, torch.bfloat16),
-    (256, 2, torch.float32),
-]
-
 
 def _int8_side(shape, seed):
     """A random int8 payload and float32 scales of ``shape[:-1]`` (the
@@ -377,6 +346,143 @@ def test_int8_paged_kernel_matches_plain_version(card, d, group, act):
         pa.paged_decode_attention(inp["q"], kp, vp, inp["block_tables"],
                                   inp["seq_lens"])
 
+
+
+# ------------------------ rows 1 and 2 split across the ranks of a cluster
+def _split_inputs(layout, slots, kvh, group, d, span, page_size, lens,
+                  sinks, act, cache, seed):
+    """Inputs of one ``SPLIT_CASES`` case: a contiguous cache of ``span``
+    rows, or a pool of ``span // page_size`` pages a slot with a permuted
+    block table; int8 payloads with float32 scales for an int8 cache."""
+    quant = cache == torch.int8
+    base = torch.float32 if quant else cache
+    if layout == "contig":
+        inp = _inputs(slots, kvh, group, d, span, lens, act, base, seed)
+        if quant:
+            shape = (slots, span, kvh, d)
+            inp["ck"], inp["k_scale"] = _int8_side(shape, seed + 1)
+            inp["cv"], inp["v_scale"] = _int8_side(shape, seed + 2)
+        return inp
+    inp = _paged_inputs(slots, kvh, group, d, page_size, span // page_size,
+                        lens, act, base, sink_slots=sinks, seed=seed)
+    if quant:
+        shape = tuple(inp["k_pages"].shape)
+        inp["k_pages"], ks = _int8_side(shape, seed + 1)
+        inp["v_pages"], vs = _int8_side(shape, seed + 2)
+        inp["k_scale"], inp["v_scale"] = ks[..., None], vs[..., None]
+    return inp
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_split_kernels_match_plain_versions(card, case):
+    """Rows 1 and 2 where the card's plan splits streams over cluster
+    ranks: one slot at 4095 rows, an empty slot beside a full one, the
+    plan's rank and tile boundaries, GQA groups of 8 and 16, int8 at long
+    lengths, pages of 1, 16, 32 and 64 rows with sink slots. Outputs
+    within TOL of the plain version, appended rows within one bf16 ulp
+    (int8: equal payloads), every other cache row bit-identical, and a
+    second run on the same inputs ``torch.equal`` to the first."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    (_, layout, slots, kvh, group, d, span, page_size, lens, sinks, act,
+     cache) = case
+    quant = cache == torch.int8
+    if lens == "bounds":
+        plan = da._card_plan(card, layout, cache, slots, kvh, group, d, span)
+        assert plan.ranks > 1, plan
+        lens = boundary_lens(plan.ranks, da.TILE_ROWS, span, slots)
+    inp = _split_inputs(layout, slots, kvh, group, d, span, page_size, lens,
+                        sinks, act, cache, seed=7)
+    again = {k: v.clone() for k, v in inp.items()}
+    ref_inp = {k: v.clone() for k, v in inp.items()}
+    if layout == "contig":
+        kernel = da.fused_contiguous_decode_attention
+        plain = da.fused_contiguous_decode_plain
+        count = lambda: da.LAUNCHES  # noqa: E731
+    else:
+        kernel = pa.fused_paged_decode_attention
+        plain = pa.fused_paged_decode_plain
+        count = lambda: pa.LAUNCHES["fused_paged_decode_attention"]  # noqa
+    before = count()
+    got = kernel(**inp)
+    second = kernel(**again)
+    ref = plain(**ref_inp)
+    torch.cuda.synchronize()
+    assert count() == before + 2
+    # run-to-run identical (the sink page excepted: inactive slots race
+    # on its row 0, which nobody reads)
+    assert torch.equal(got[0], second[0])
+    for a, b in zip(got[1:], second[1:]):
+        if layout == "paged":
+            a, b = a[:, 1:], b[:, 1:]
+        assert torch.equal(a, b)
+    live = [i for i in range(slots) if i not in sinks]
+    torch.testing.assert_close(got[0][live].float(), ref[0][live].float(),
+                               rtol=TOL[act], atol=TOL[act])
+    lens_l = inp["seq_lens"].long()
+    rows = torch.arange(slots, device="cuda")
+    if layout == "contig":
+        at = (rows, lens_l)
+        keep = torch.ones((slots, span), dtype=torch.bool, device="cuda")
+        keep[at] = False
+        new_at, old_at = at, keep
+    else:
+        page = inp["block_tables"].long()[rows, lens_l // page_size]
+        off = lens_l % page_size
+        keep = torch.ones(inp["k_pages"].shape[1:3], dtype=torch.bool,
+                          device="cuda")
+        keep[0] = False  # the sink page
+        keep[page, off] = False
+        new_at = (slice(None), page[live], off[live])
+        old_at = (slice(None), keep)
+    pairs = list(zip(got[1:3], ref[1:3]))
+    scales = list(zip(got[3:], ref[3:]))
+    for a, b in pairs:
+        if quant:
+            assert torch.equal(a[new_at], b[new_at])
+        else:
+            torch.testing.assert_close(a[new_at].float(), b[new_at].float(),
+                                       rtol=2.0 ** -7, atol=1e-6)
+        assert torch.equal(a[old_at], b[old_at])
+    for a, b in scales:
+        torch.testing.assert_close(a[new_at], b[new_at], rtol=1e-5, atol=0)
+        assert torch.equal(a[old_at], b[old_at])
+
+
+def test_decode_card_plans(card):
+    """The card's launch plans for rows 1 and 2 (its own occupancy
+    answers): every card-test shape gets a plan the kernels take, with the
+    kernel's shared memory; at the serving shape (8 slots, 32 kv heads, d
+    128, 1024 rows, bf16 and int8) the card holds the whole grid at
+    once."""
+    from torch_decode_cases import CONTIG_SHAPE, PAGED_SHAPE
+
+    shapes = []
+    for d, group, _, cache in CASES:
+        shapes.append(("contig", cache, CONTIG_SHAPE["slots"],
+                       CONTIG_SHAPE["kvh"], group, d,
+                       CONTIG_SHAPE["max_len"]))
+    for d, group, page_size, _, pool in PAGED_CASES:
+        span = (PAGED_SHAPE["rows"] // page_size + 1) * page_size
+        shapes.append(("paged", pool, PAGED_SHAPE["slots"],
+                       PAGED_SHAPE["kvh"], group, d, span))
+    for d, group, _ in INT8_CASES:
+        shapes.append(("contig", torch.int8, CONTIG_SHAPE["slots"],
+                       CONTIG_SHAPE["kvh"], group, d,
+                       CONTIG_SHAPE["max_len"]))
+    for (_, layout, slots, kvh, group, d, span, _, _, _, _,
+         cache) in SPLIT_CASES:
+        shapes.append((layout, cache, slots, kvh, group, d, span))
+    for cache in (torch.bfloat16, torch.int8):
+        for layout in ("contig", "paged"):
+            shapes.append((layout, cache, 8, 32, 1, 128, 1024))
+    for layout, cache, slots, kvh, group, d, span in shapes:
+        plan = da._card_plan(card, layout, cache, slots, kvh, group, d, span)
+        # raises if the kernel's shared memory differs from the plan's
+        held = da._card_clusters(layout, cache, group, d)(plan)
+        assert held == plan.held > 0, (layout, cache, d, group, plan)
+        if (slots, kvh, group, d, span) == (8, 32, 1, 128, 1024):
+            assert plan.clusters <= plan.held, plan
 
 # ------------------------------------------------ row 4: weight-only matmul
 QMM_CASES = [  # m, k, n, group, weight dtype, x dtype

@@ -33,6 +33,7 @@ from paddle_tpu_torch.inference import paged as tpaged
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels.rope import rope_frequencies
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from torch_decode_cases import check_plan_geometry, plan_shapes, split_model
 
 # GQA ratios: kvh 1/4/8 at 8 query heads (tests/test_decode_attention.py)
 GQA = [(1, 8), (4, 2), (8, 1)]
@@ -380,6 +381,66 @@ def test_wrapper_checks_reject_what_the_kernels_do_not_take(bad):
 
 
 # ------------------------------------------------------ the paged Llama path
+@pytest.mark.parametrize("shape", plan_shapes("paged"))
+def test_split_plan_geometry_paged(shape):
+    """Row 2's plan at every paged card-test shape (the CPU model)."""
+    check_plan_geometry(*shape)
+
+
+@pytest.mark.parametrize("page_size", [1, 5, 16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_model_matches_the_paged_plain_version(page_size, quant):
+    """The split kernel's rank split and merge, modelled in plain torch
+    over each stream's rows gathered through a permuted block table (page
+    size 1, 5 and 16; float32 and int8 pools; an inactive slot on the sink
+    page), equal the plain version at 1e-5 for 1, 2, 4 and 8 ranks of
+    CTAs of 4 and 8 warps; with rank 1's partial left out the model
+    differs."""
+    rng = np.random.default_rng(page_size)
+    lens = [0, 8, 63, 100, 0]
+    slots, kvh, group, d, span = len(lens), 1, 2, 32, 112
+    max_pages = span // page_size + (span % page_size > 0)
+    n_pages = slots * max_pages + 1
+    bt = (rng.permutation(n_pages - 1) + 1).reshape(slots, max_pages)
+    bt[-1] = 0  # an inactive slot: the sink page
+    f = lambda *sh: torch.tensor(  # noqa: E731
+        rng.standard_normal(sh).astype(np.float32))
+    q, kn, vn = f(slots, kvh, group, d), f(slots, kvh, d), f(slots, kvh, d)
+    shape = (kvh, n_pages, page_size, d)
+    extra = {}
+    if quant:
+        kp = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+        vp = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+        extra = dict(k_scale=torch.rand(*shape[:3], 1) * 0.02 + 1e-3,
+                     v_scale=torch.rand(*shape[:3], 1) * 0.02 + 1e-3)
+    else:
+        kp, vp = f(*shape), f(*shape)
+    cos, sin = rope_frequencies(d, 256, device="cpu")
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    got = tpa.fused_paged_decode_plain(
+        q, kn, vn, kp, vp, torch.tensor(bt, dtype=torch.int32), lens_t,
+        lens_t + 1, cos, sin, **extra)
+    out = got[0]
+    qr = tpa._rope_rotate(q.reshape(slots, kvh * group, d), lens_t + 1, cos,
+                          sin).reshape(slots, kvh, group, d)
+    for s, L in enumerate(lens):
+        j = torch.arange(L + 1)
+        page, off = torch.as_tensor(bt[s])[j // page_size], j % page_size
+        k, v = got[1][0, page, off].float(), got[2][0, page, off].float()
+        scales = ((got[3][0, page, off, 0], got[4][0, page, off, 0])
+                  if quant else (None, None))
+        for ranks in (1, 2, 4, 8):
+            for warps in (4, 8):
+                want = split_model(qr[s, 0], k, v, L, ranks, d ** -0.5,
+                                   *scales, warps=warps)
+                torch.testing.assert_close(want, out[s, 0], rtol=1e-5,
+                                           atol=1e-5)
+        if L >= 8:  # rank 1 of 4 holds rows
+            bad = split_model(qr[s, 0], k, v, L, 4, d ** -0.5, *scales,
+                              drop=1)
+            assert not torch.allclose(bad, out[s, 0], rtol=1e-5, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def models():
     pt.seed(7)
