@@ -8,11 +8,12 @@ Phases, each of which raises on failure:
    requires compute capability 9.0;
 2. build: compiles the port's CUDA kernels with ``nvcc`` for ``sm_90a``
    and prints the build time and the compiler's register/spill summary,
-   then the registers, spills and shared memory of each of the 256
-   instantiations of rows 1-2's split kernel and of each redesigned flash
+   then the registers, spills and shared memory of each of the 352
+   instantiations of rows 1-3's split kernel (256 fused, 96 block-table)
+   and of each redesigned flash
    instantiation and each body of row 4, how many clusters of row 4's
    decode body the card holds at once, and the registers and spills of the
-   GroupNorm kernels (rows 12-13); the card's launch plan of rows 1-2
+   GroupNorm kernels (rows 12-13); the card's launch plan of rows 1-3
    (ranks a stream, CTAs, clusters held at once) at every timed shape;
 3. kernel vs plain version: the fused decode-attention kernel (row 1)
    against its plain PyTorch version on the card, at the Llama-2-7B decode
@@ -28,10 +29,12 @@ Phases, each of which raises on failure:
 4. paged kernels vs plain versions: the fused paged decode kernel (row 2)
    and the block-table decode kernel (row 3), each against its plain
    PyTorch version on the card at the same shapes over a pool of 64-row
-   pages with a permuted block table, each run twice identically; timed
-   the same way at the paged serving run's shape, row 2 also at the long
-   points, with SDPA over a pre-gathered dense view (cut and whole) as the
-   yardstick of the attention part;
+   pages with a permuted block table, each run twice identically, at the
+   serving shape, a GQA shape, a float32 pool and where the plan splits
+   streams over cluster ranks (the long points, an empty slot beside a
+   full one); timed the same way at the paged serving run's shape and at
+   the long points, with SDPA over a pre-gathered dense view (cut and
+   whole) as the yardstick of the attention part;
 5. reference: a tiny float32 Llama served through the engine and the
    kernel on the card; every served token must be the greedy choice of
    a no-cache forward over the same sequence;
@@ -79,8 +82,10 @@ Phases, each of which raises on failure:
    where the tokens leave the bf16 engine's (measured, not asserted);
 13. profiles: device time by operation (``torch.profiler``) of the
    prefill wave, and of the wave with 8 decode forwards, for the bf16
-   and the quantized engines, with the fused decode kernels' device time
-   by name; each engine's JSON line carries a digest of its greedy tokens;
+   and the quantized engines, with the decode kernels' device time by
+   row (and for the paged bf16 engine with fused decode off, row 3's time
+   per decode forward); each engine's JSON line carries a digest of its
+   greedy tokens;
 14. flash attention vs plain versions (rows 5-9, after phase 8): the
    forward without and with LSE, the dq, dk/dv and fused backward
    kernels against their plain PyTorch versions at the Llama-2-7B train
@@ -348,8 +353,9 @@ SPLIT_CHECKS = [
 
 
 def point_inputs(layout, quant, point, seed):
-    """Inputs of rows 1 (``layout`` "contig") or 2 ("paged") at one
-    ``DECODE_POINTS`` shape, bf16 activations, a bf16 or int8 cache."""
+    """Inputs of rows 1 (``layout`` "contig"), 2 ("paged") or 3 ("table")
+    at one ``DECODE_POINTS`` shape, bf16 activations, a bf16 or int8
+    cache (rows 1-2)."""
     slots, kvh, group, max_len, lens = DECODE_POINTS[point]
     if quant:
         make = int8_contig_inputs if layout == "contig" \
@@ -373,23 +379,26 @@ def dequantized(layout, inp):
 
 
 def point_timings(layout, quant, flush, seed):
-    """Rows 1 (``layout`` "contig") or 2 ("paged"), bf16 or int8 cache,
-    at every ``DECODE_POINTS`` shape: the kernel's time beside its bound
-    and one SDPA over the cache cut to max(seq_lens) + 1 rows and over the
-    whole cache (int8: over a pre-dequantized bf16 copy)."""
+    """Rows 1 (``layout`` "contig"), 2 ("paged") or 3 ("table"), bf16 or
+    int8 cache (rows 1-2), at every ``DECODE_POINTS`` shape: the kernel's
+    time beside its bound and one SDPA over the cache cut to max(seq_lens)
+    + 1 rows and over the whole cache (int8: over a pre-dequantized bf16
+    copy)."""
     from paddle_tpu_torch.kernels import decode_attention as da
     from paddle_tpu_torch.kernels import paged_attention as pa
 
-    kernel = da.fused_contiguous_decode_attention if layout == "contig" \
-        else pa.fused_paged_decode_attention
+    kernel = {"contig": da.fused_contiguous_decode_attention,
+              "paged": pa.fused_paged_decode_attention,
+              "table": pa.paged_decode_attention}[layout]
     call = library_call if layout == "contig" else paged_library_call
     out = {}
     for point in DECODE_POINTS:
         inp = point_inputs(layout, quant, point, seed)
         lib = dequantized(layout, inp) if quant else inp
         bound_ms, bound_by = bound(inp) if layout == "contig" \
-            else paged_bound(inp, True)
-        res = dict(ms=time_ms(lambda: kernel(**inp), flush),
+            else paged_bound(inp, layout == "paged")
+        args = {k: inp[k] for k in BLOCK_KEYS} if layout == "table" else inp
+        res = dict(ms=time_ms(lambda: kernel(**args), flush),
                    bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=time_ms(call(lib, cut=True), flush),
                    library_full_ms=time_ms(call(lib), flush))
@@ -399,19 +408,21 @@ def point_timings(layout, quant, flush, seed):
               f"{bound_ms:.4f} ms ({bound_by}, {res['ms'] / bound_ms:.2f}x)"
               f", sdpa cut {res['library_ms']:.4f} ms, full "
               f"{res['library_full_ms']:.4f} ms", flush=True)
-        del inp, lib
+        del inp, lib, args
     return out
 
 
 def decode_plan_report():
-    """The card's launch plans of rows 1 and 2 at every timed shape: ranks
-    a stream, CTAs, and how many clusters the card holds at once."""
+    """The card's launch plans of rows 1-3 at every timed shape: ranks a
+    stream, CTAs, and how many clusters the card holds at once."""
     from paddle_tpu_torch.kernels import decode_attention as da
 
     dev = torch.device("cuda", torch.cuda.current_device())
     for point, (slots, kvh, group, max_len, _) in DECODE_POINTS.items():
-        for layout in ("contig", "paged"):
-            for cache in (torch.bfloat16, torch.int8):
+        for layout in ("contig", "paged", "table"):
+            caches = (torch.bfloat16,) if layout == "table" \
+                else (torch.bfloat16, torch.int8)
+            for cache in caches:
                 plan = da._card_plan(dev, layout, cache, slots, kvh, group,
                                      128, max_len)
                 print(f"decode plan {layout} {cache} {point}: ranks "
@@ -424,23 +435,28 @@ def decode_plan_report():
 
 SPLIT_TYPES = {"f": ("f32", 4), "6__half": ("f16", 2),
                "13__nv_bfloat16": ("bf16", 2), "a": ("i8", 1)}
+# the split kernel's row policies: rows 1, 2 and 3
+SPLIT_ROWS = {"ContigRows": "contig", "PagedRows": "paged",
+              "TableRows": "table"}
 
 
 def decode_build_report(log):
     """The ptxas registers, spills and shared memory of every
-    instantiation of rows 1-2's split kernel (2 layouts x 4 cache types x
-    8 head dims x 4 head blocks): one line per layout and cache type, an
-    entry ``d/heads: registers r, spill stores, static + dynamic shared
-    memory`` per instantiation."""
+    instantiation of rows 1-3's split kernel (the fused rows 1-2: 2
+    layouts x 4 cache types, and the block-table row 3: 3 float pool
+    types; each x 8 head dims x 4 head blocks): one line per layout and
+    cache type, an entry ``d/heads: registers r, spill stores, static +
+    dynamic shared memory`` per instantiation."""
     from paddle_tpu_torch.kernels import decode_attention as da
 
     pat = re.compile(r"Compiling entry function '\S*?split_decode_kernelI"
                      r"(f|6__half|13__nv_bfloat16|a)Li(\d+)ELi(\d+)E\S*?"
-                     r"(decode|paged)_attention_cu\S*' for 'sm_90a'\n.*\n"
-                     r"\s*(.*)\n(.*)\n")
+                     r"(ContigRows|PagedRows|TableRows)\S*' for 'sm_90a'\n"
+                     r".*\n\s*(.*)\n(.*)\n")
     found = {}
     for m in pat.finditer(log):
-        tc, epl, hpb, layout, frame, used = m.groups()
+        tc, epl, hpb, rows, frame, used = m.groups()
+        layout = SPLIT_ROWS[rows]
         tag, itemsize = SPLIT_TYPES[tc]
         regs = int(re.search(r"Used (\d+) registers", used).group(1))
         static = int(re.search(r"(\d+) bytes smem", used).group(1))
@@ -448,17 +464,18 @@ def decode_build_report(log):
         d = 32 * int(epl)
         dyn = da._smem_bytes(d, itemsize, tag == "i8", int(hpb))
         found[(layout, tag, d, int(hpb))] = (regs, spill, static, dyn)
-    for layout in ("decode", "paged"):
+    for layout in SPLIT_ROWS.values():
         for tag, _ in SPLIT_TYPES.values():
+            if layout == "table" and tag == "i8":
+                continue
             entries = sorted((d, h, v) for (lay, t, d, h), v in found.items()
                              if lay == layout and t == tag)
-            print(f"ptxas split_decode_kernel "
-                  f"{'contig' if layout == 'decode' else 'paged'} {tag}: "
+            print(f"ptxas split_decode_kernel {layout} {tag}: "
                   + ", ".join(f"{d}/{h}: {r}r {sp}B spill {st}+{dy}B smem"
                               for d, h, (r, sp, st, dy) in entries),
                   flush=True)
-    if len(found) != 2 * 4 * 8 * 4:
-        raise AssertionError(f"expected the ptxas lines of 256 split "
+    if len(found) != (2 * 4 + 3) * 8 * 4:
+        raise AssertionError(f"expected the ptxas lines of 256 + 96 split "
                              f"instantiations, found {len(found)}")
     return found
 
@@ -682,7 +699,7 @@ def paged_kernel_phase():
                               torch.bfloat16, torch.bfloat16, 2e-2, seed=14)
              for name, slots, kvh, group, max_len, lens in SPLIT_CHECKS]
     # timing at the paged serving run's shape (Llama-2-7B decode, 8 slots
-    # with about 150 cached rows each, 64-row pages) and, row 2, at the
+    # with about 150 cached rows each, 64-row pages) and at the
     # long-context points
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     inp = paged_inputs(8, 32, 1, 128, 1024, SERVE_LENS, torch.bfloat16,
@@ -721,6 +738,7 @@ def paged_kernel_phase():
             library_full_ms=library[False]))
     del inp, block
     rows[0]["points"] = point_timings("paged", False, flush, seed=17)
+    rows[1]["points"] = point_timings("table", False, flush, seed=17)
     return rows
 
 
@@ -3255,24 +3273,29 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
     return counts
 
 
-def wave_profile(model, prompts, label, max_new_tokens=1, **config):
+def wave_profile(model, prompts, label, max_new_tokens=1, fused="auto",
+                 **config):
     """Device time by operation of one run of the 8 prompts through a
-    fresh engine, from ``torch.profiler``: with ``max_new_tokens=1`` the
-    prefill wave alone (one 256-token chunk), with 9 the wave and one
-    chunk of 8 decode forwards. Prints the run's wall time, the device
-    time summed over operations and the heaviest operations."""
+    fresh engine (``fused``: the ``fused_decode`` flag), from
+    ``torch.profiler``: with ``max_new_tokens=1`` the prefill wave alone
+    (one 256-token chunk), with 9 the wave and one chunk of 8 decode
+    forwards. Prints the run's wall time, the device time summed over
+    operations, the heaviest operations, and the decode kernels' device
+    time by row (the split kernel's row policy in its name) and per decode
+    forward."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
 
-    flags.set_flags({"fused_decode": "auto"})
+    flags.set_flags({"fused_decode": fused})
     eng = ContinuousBatchingEngine(
         model, EngineConfig(max_slots=8, max_len=1024, **config),
         device="cuda")
     eng.run(prompts[:2], max_new_tokens=max_new_tokens)  # warm-up
     torch.cuda.synchronize()
+    forwards0 = eng.stats["decode_forwards"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3295,18 +3318,27 @@ def wave_profile(model, prompts, label, max_new_tokens=1, **config):
                  key=dev_us, reverse=True)
     top = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
            for e in ops[:6]]
-    # the fused decode kernels (rows 1-2; launched through ctypes, so
-    # under no operator), by kernel name
+    # the decode kernels (rows 1-3; launched through ctypes, so under no
+    # operator), by kernel name, and by row
     decode = [e for e in kernels if "decode_kernel" in e.key]
     decode_ms = sum(dev_us(e) for e in decode) / 1e3
     decode_launches = sum(e.count for e in decode)
-    print(f"profile {label} (max_new_tokens={max_new_tokens}): wall "
-          f"{wall_ms:.2f} ms, kernel time {total_ms:.2f} ms; heaviest "
-          f"operators (name, device ms, calls): {top}; decode kernels "
-          f"{decode_ms:.3f} ms in {decode_launches} launches", flush=True)
+    by_row = {layout: sum(dev_us(e) for e in decode if rows in e.key) / 1e3
+              for rows, layout in SPLIT_ROWS.items()}
+    forwards = eng.stats["decode_forwards"] - forwards0
+    per_forward = decode_ms / forwards if forwards else None
+    print(f"profile {label} fused_decode={fused} (max_new_tokens="
+          f"{max_new_tokens}): wall {wall_ms:.2f} ms, kernel time "
+          f"{total_ms:.2f} ms; heaviest operators (name, device ms, calls):"
+          f" {top}; decode kernels {decode_ms:.3f} ms in {decode_launches} "
+          f"launches, by row {by_row}, {forwards} decode forwards"
+          + (f", {per_forward:.4f} ms a forward" if forwards else ""),
+          flush=True)
     return dict(wall_ms=wall_ms, device_ms=total_ms, top=top,
                 decode_kernel_ms=decode_ms,
-                decode_kernel_launches=decode_launches)
+                decode_kernel_launches=decode_launches,
+                decode_kernel_ms_by_row=by_row, decode_forwards=forwards,
+                decode_kernel_ms_per_forward=per_forward)
 
 
 T_START = time.perf_counter()
@@ -3410,6 +3442,16 @@ def main() -> int:
         for n in (1, 9):
             profiles[f"{label}_new{n}"] = wave_profile(
                 model, prompts, label, max_new_tokens=n, **config)
+    # the unfused paged engine: row 3 once per layer per decode forward
+    unfused = wave_profile(model, prompts, "bf16_paged", max_new_tokens=9,
+                           fused="off", **paged)
+    table_ms = unfused["decode_kernel_ms_by_row"]["table"]
+    if table_ms <= 0 or not math.isclose(table_ms,
+                                         unfused["decode_kernel_ms"]):
+        raise AssertionError(f"the unfused paged profile shows row 3 at "
+                             f"{table_ms} ms of {unfused['decode_kernel_ms']}"
+                             " ms of decode kernels")
+    profiles["bf16_paged_unfused_new9"] = unfused
     print(json.dumps({"profiles": profiles}), flush=True)
     print(f"phase serving profiles: {time.perf_counter() - t0:.1f} s",
           flush=True)

@@ -31,11 +31,12 @@ LIB_NAME = "libpt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# (source, object name, extra defines): one object per cache element type,
-# one for the weight-only matmul, one per element type of the flash
-# attention kernels, one for the selective scan (float32 only: JAX casts
-# every operand to float32) and one per activation type of the GroupNorm
-# kernels
+# (source, object name, extra defines): one object per cache element type
+# and decode kernel (the block-table kernel of paged_attention.cu takes
+# float pools only), one for the weight-only matmul, one per element type
+# of the flash attention kernels, one for the selective scan (float32
+# only: JAX casts every operand to float32) and one per activation type of
+# the GroupNorm kernels
 UNITS: List[Tuple[str, str, List[str]]] = [
     ("decode_attention.cu", "decode_attention_f32",
      ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32"]),
@@ -53,6 +54,13 @@ UNITS: List[Tuple[str, str, List[str]]] = [
      ["-DPT_CACHE_T=__nv_bfloat16", "-DPT_CACHE_TAG=bf16"]),
     ("paged_attention.cu", "paged_attention_i8",
      ["-DPT_CACHE_T=int8_t", "-DPT_CACHE_TAG=i8", "-DPT_CACHE_INT8"]),
+    ("paged_attention.cu", "paged_table_f32",
+     ["-DPT_CACHE_T=float", "-DPT_CACHE_TAG=f32", "-DPT_PAGED_TABLE"]),
+    ("paged_attention.cu", "paged_table_f16",
+     ["-DPT_CACHE_T=__half", "-DPT_CACHE_TAG=f16", "-DPT_PAGED_TABLE"]),
+    ("paged_attention.cu", "paged_table_bf16",
+     ["-DPT_CACHE_T=__nv_bfloat16", "-DPT_CACHE_TAG=bf16",
+      "-DPT_PAGED_TABLE"]),
     ("quant_matmul.cu", "quant_matmul", []),
     ("flash_attention.cu", "flash_attention_f32",
      ["-DPT_FA_T=float", "-DPT_FA_TAG=f32"]),

@@ -23,7 +23,8 @@
 // operations-per-byte balance point.
 //
 // Design: split-K flash decoding, split_decode_kernel in decode_common.cuh
-// (shared with the paged kernel, which differs only in where a row lives).
+// (shared with the paged kernels, which differ in where a row lives, and
+// for row 3 in reading every row from the pool with no RoPE or append).
 // Each (slot, kv head, block of up to 8 query heads) stream runs on a
 // thread-block cluster of R CTAs, R from the launch plan
 // (decode_attention.py: _decode_plan, from the host's shapes and the
@@ -66,6 +67,7 @@ using namespace pt_decode;
 // cache (its elements start at number * D); also the index of its scale
 // in a [slots, max_len, kvh] scale array.
 struct ContigRows {
+  static constexpr bool kFused = true;  // RoPE, append and attention
   size_t base;    // (s * max_len) * kvh + h
   size_t stride;  // kvh
   __device__ __forceinline__ size_t operator()(int j) const {

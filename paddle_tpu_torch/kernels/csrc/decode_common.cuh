@@ -1,26 +1,19 @@
-// Device helpers and kernels shared by the port's decode-attention
-// kernels (decode_attention.cu, paged_attention.cu): element conversions,
+// Device helpers and the one decode-attention kernel of the port's rows
+// 1-3 (decode_attention.cu, paged_attention.cu): element conversions,
 // vector row loads, the RoPE half-rotation, the int8 quantize-on-append of
-// one row, the row loop of the block-table kernel (attend_rows), and the
-// split-K fused decode kernel of rows 1 and 2 (split_decode_kernel, with
-// its launch and occupancy entries).
+// one row, and the split-K decode kernel (split_decode_kernel, with its
+// launch and occupancy entries).
 //
-// Where a stream's rows live is the caller's: a row functor maps a row
-// index j to the row's number in its array, whose elements start at
-// number * D. Int8 caches keep one float32 scale per row and head, and both
-// layouts place it at the same number in the scale array ([slots, max_len,
-// kvh] beside [slots, max_len, kvh, D]; [kvh, n_pages, page_size, 1]
-// beside [kvh, n_pages, page_size, D]), so the one functor addresses the
-// payload and its scale.
-//
-// attend_rows (the block-table kernel, row 3): one CTA of 128 threads per
-// (slot, kv head, block of up to HPB query heads); each of the four warps
-// walks rows j = warp (mod 4) of its stream up to L inclusive, its lanes
-// splitting d (EPL elements each) with vector loads, and keeps its own
-// online-softmax state (m, l, acc) per query head; the warps merge in
-// shared memory at the end.
-//
-// split_decode_kernel (rows 1 and 2): see the comment above it.
+// Where a stream's rows live is the caller's: a row policy maps a row index
+// j to the row's number in its array, whose elements start at number * D.
+// Int8 caches keep one float32 scale per row and head, and both layouts
+// place it at the same number in the scale array ([slots, max_len, kvh]
+// beside [slots, max_len, kvh, D]; [kvh, n_pages, page_size, 1] beside
+// [kvh, n_pages, page_size, D]), so the one policy addresses the payload
+// and its scale. The policy also says which function the kernel computes
+// (Rows::kFused): the fused decode of rows 1 (ContigRows) and 2
+// (PagedRows), RoPE and the append included, or the block-table decode of
+// row 3 (TableRows), which only reads an already-appended float pool.
 
 #pragma once
 
@@ -36,8 +29,6 @@ namespace pt_decode {
 
 namespace cg = cooperative_groups;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
 
 constexpr float kQuantEps = 1e-8f;  // KV_QUANT_EPS of the JAX kernels
@@ -200,137 +191,11 @@ __device__ __forceinline__ void quantize_row(const float* row_s, float* red_s,
   __syncthreads();  // red_s is free again, q_s and scale_s final
 }
 
-// Attention of the ng (<= HPB) query rows in q_s over rows 0..L of one
-// (slot, kv head) stream, written to out[q_base + g * D + c] in the
-// activation dtype. row_at(j) is the number of row j in kp / vp (its
-// elements start at row_at(j) * D); for an int8 cache it is also the
-// index of the row's scale in ks / vs, and attention reads the
-// dequantized values q * scale. With kNewInShared, row L is taken from
-// kn_s / vn_s (the appended row, already rounded to the cache dtype or
-// quantized and dequantized) and never read from memory; without it,
-// every row 0..L is read from memory. Rows past L are never read. The
-// caller has filled q_s (and kn_s / vn_s) and synchronised the block.
-template <typename TC, int EPL, int HPB, bool kNewInShared, typename RowAt>
-__device__ __forceinline__ void attend_rows(
-    const float (&q_s)[HPB][32 * EPL], const float* kn_s, const float* vn_s,
-    const TC* __restrict__ kp, const TC* __restrict__ vp,
-    const float* __restrict__ ks, const float* __restrict__ vs, RowAt row_at,
-    int L, int ng, float scale, void* __restrict__ out, int act_dtype,
-    size_t q_base) {
-  constexpr int D = 32 * EPL;
-  constexpr int kUnroll = EPL <= 4 ? 4 : 2;  // rows in flight per warp
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  __shared__ float m_s[kWarps][HPB];
-  __shared__ float l_s[kWarps][HPB];
-  __shared__ float acc_s[kWarps][HPB][D];
-
-  // each lane keeps its d-slice of the query rows
-  float qr[HPB][EPL];
-  float m[HPB], l[HPB], acc[HPB][EPL];
-#pragma unroll
-  for (int g = 0; g < HPB; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      qr[g][e] = g < ng ? q_s[g][lane * EPL + e] : 0.f;
-      acc[g][e] = 0.f;
-    }
-  }
-
-  // online softmax over this warp's rows j = warp (mod 4), j <= L
-  const int last_loaded = kNewInShared ? L - 1 : L;
-  const TC* klane = kp + lane * EPL;
-  const TC* vlane = vp + lane * EPL;
-  for (int j0 = warp; j0 <= L; j0 += kWarps * kUnroll) {
-    float kf[kUnroll][EPL];
-    float vf[kUnroll][EPL];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kWarps;
-      if (j <= last_loaded) {
-        const size_t row = row_at(j);
-        load_row<TC, EPL>(klane + row * D, kf[u]);
-        load_row<TC, EPL>(vlane + row * D, vf[u]);
-        if constexpr (kQuantCache<TC>) {
-          const float ksc = __ldg(ks + row);
-          const float vsc = __ldg(vs + row);
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) {
-            kf[u][e] = __fmul_rn(kf[u][e], ksc);
-            vf[u][e] = __fmul_rn(vf[u][e], vsc);
-          }
-        }
-      } else if (kNewInShared && j == L) {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          kf[u][e] = kn_s[lane * EPL + e];
-          vf[u][e] = vn_s[lane * EPL + e];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j0 + u * kWarps > L) break;
-#pragma unroll
-      for (int g = 0; g < HPB; ++g) {
-        if (g >= ng) break;
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(qr[g][e], kf[u][e], dot);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const float sc = dot * scale;
-        const float m_new = fmaxf(m[g], sc);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(sc - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          acc[g][e] = fmaf(p, vf[u][e], acc[g][e] * alpha);
-        m[g] = m_new;
-      }
-    }
-  }
-
-  // merge the four warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < HPB; ++g) {
-    if (lane == 0) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc_s[warp][g][lane * EPL + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < ng * D; i += kThreads) {
-    const int g = i / D;
-    const int c = i % D;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][g]);
-    float denom = 0.f;
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(m_s[w][g] - mx);
-      denom += l_s[w][g] * f;
-      o += acc_s[w][g][c] * f;
-    }
-    if (denom == 0.f) denom = 1.f;  // the JAX kernels' l == 0 -> 1 guard
-    store_act(out, act_dtype, q_base + static_cast<size_t>(g) * D + c,
-              o / denom);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// split_decode_kernel: the fused decode of rows 1 (contiguous caches) and 2
-// (paged pools) as split-K ("flash decoding") over a thread-block cluster.
+// split_decode_kernel: the decode attention of rows 1-3 as split-K ("flash
+// decoding") over a thread-block cluster: the fused decode of rows 1
+// (contiguous caches) and 2 (paged pools), and, with a read-only row policy
+// (Rows::kFused false), the block-table decode of row 3.
 //
 // For each (slot s, kv head h, block of up to HPB query heads) stream, a
 // cluster of R CTAs (R = 1, 2, 4 or 8, the launch plan's, from the host's
@@ -342,8 +207,8 @@ __device__ __forceinline__ void attend_rows(
 // streams them through its own ring of 2-4 tile buffers in shared memory
 // by 16-byte cp.async (an int8 tile also carries its rows' scales), the
 // next tiles in flight while it computes one, so no barrier of the CTA
-// sits in the row loop. A tile of a paged stream reads each row's page id
-// once, a tile ahead of its copy.
+// sits in the row loop. A tile of a paged stream (rows 2 and 3) reads each
+// row's page id once, a tile ahead of its copy.
 //
 // A tile's step, for a group of up to 8 query heads at a time (each K/V
 // row read from shared memory and converted once a group, the group's
@@ -354,18 +219,22 @@ __device__ __forceinline__ void attend_rows(
 // accumulator, and p v accumulated from shared memory with p broadcast by
 // shuffles. The softmax runs in base 2 (scores prescaled by log2(e),
 // ex2.approx). Int8: the row scale multiplies the score and p, not each
-// element. Row L is the rebuilt new row, copied from shared memory into its
-// tile slot, never read from the cache; rows past L are never read.
+// element. Fused: row L is the rebuilt new row, copied from shared memory
+// into its tile slot, never read from the cache. Block table: row L is
+// read from the pool like every other row. Rows past L are never read.
 //
-// Prologue, off the tiles' path: the slot's length and position come
-// first; then every load of the prologue (the query rows and their RoPE
-// partners, the new K/V row, the cos/sin rows) is issued at once, before
-// the first tiles are requested (their row numbers need only L); the
-// query rows are then rotated (float32) into shared memory, and the rank
-// that owns row L rebuilds the new K/V row, rounded to the cache dtype
+// Prologue of the fused decode, off the tiles' path: the slot's length and
+// position come first; then every load of the prologue (the query rows and
+// their RoPE partners, the new K/V row, the cos/sin rows) is issued at
+// once, before the first tiles are requested (their row numbers need only
+// L); the query rows are then rotated (float32) into shared memory, and the
+// rank that owns row L rebuilds the new K/V row, rounded to the cache dtype
 // (int8: quantized per head); that rank's first head block alone writes it
 // to the cache. Inactive paged slots all append to the sink page 0, row 0,
-// which nobody reads.
+// which nobody reads. The block-table decode has no positions, rope table
+// or new row (their pointers are null, and no load of them is compiled):
+// its prologue is the length and the query rows, as they are, and it
+// writes nothing but the output.
 //
 // Merge: the warps in warp order in shared memory; with R > 1 then the
 // cluster's ranks in rank order through distributed shared memory, each
@@ -539,6 +408,9 @@ __global__ void __launch_bounds__(SplitGeo<TC, 32 * EPL>::kThreads,
                          ? HPB
                          : (EPL <= 2 ? 8 : EPL <= 4 ? 4 : 2);
   constexpr int kNPer = (D + NT - 1) / NT;        // new-row elements
+  // fused decode (rows 1-2), or the read-only block-table decode (row 3)
+  constexpr bool kFused = Rows::kFused;
+  static_assert(kFused || !kQuant, "the block-table decode has no int8 path");
 
   const int R = static_cast<int>(gridDim.x);
   const int rank = static_cast<int>(blockIdx.x);
@@ -554,54 +426,66 @@ __global__ void __launch_bounds__(SplitGeo<TC, 32 * EPL>::kThreads,
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(16) float q_s[HPB][D];
-  __shared__ float kn_f[kQuant ? D : 1];  // int8: the rotated row, float32
-  __shared__ float vn_f[kQuant ? D : 1];
-  __shared__ __align__(16) TC kn_t[D];    // the new row in the cache dtype
-  __shared__ __align__(16) TC vn_t[D];
-  __shared__ float new_sc[2];             // int8: its K and V scales
-  __shared__ float red_s[W];
+  // the new row of the fused decode (one element where it is compiled out)
+  constexpr int kNew = kFused ? D : 1;
+  constexpr int kNewQ = kFused && kQuant ? D : 1;
+  __shared__ float kn_f[kNewQ];  // int8: the rotated row, float32
+  __shared__ float vn_f[kNewQ];
+  __shared__ __align__(16) TC kn_t[kNew];  // the new row in the cache dtype
+  __shared__ __align__(16) TC vn_t[kNew];
+  __shared__ float new_sc[2];              // int8: its K and V scales
+  __shared__ float red_s[kFused && kQuant ? W : 1];
 
   // 0. The engine guarantees 0 <= seq_lens[s] < span and positions[s] <
   // max_pos; values outside are clamped, as the Pallas index maps and XLA's
   // gathers clamp them, so a bad index can never write outside the cache.
   const int L = max(0, min(a.seq_lens[s], a.span - 1));
-  const int pos = max(0, min(a.positions[s], a.max_pos - 1));
 
   // 1. every load of the prologue at once: the query rows of this head
-  //    block with their RoPE partners, the new K/V row, the cos/sin rows
+  //    block (fused: with their RoPE partners, the new K/V row and the
+  //    cos/sin rows)
   const size_t q_base =
       ((static_cast<size_t>(s) * a.kvh + h) * a.group + g0) * D;
-  const size_t kv_base = (static_cast<size_t>(s) * a.kvh + h) * D;
-  const float* crow = a.cos_t + static_cast<size_t>(pos) * HALF;
-  const float* srow = a.sin_t + static_cast<size_t>(pos) * HALF;
   float qx[kQPer], qp[kQPer], qc[kQPer], qs[kQPer];
-#pragma unroll
-  for (int it = 0; it < kQPer; ++it) {
-    const int i = tid + it * NT;
-    if (i < ng * D) {
-      const int c = i % D;
-      const bool first = c < HALF;
-      const int cc = first ? c : c - HALF;
-      const size_t row = q_base + static_cast<size_t>(i / D) * D;
-      qx[it] = load_act(a.q, a.act_dtype, row + c);
-      qp[it] = load_act(a.q, a.act_dtype, row + (first ? c + HALF : cc));
-      qc[it] = crow[cc];
-      qs[it] = srow[cc];
-    }
-  }
   float kx[kNPer], kpart[kNPer], vx[kNPer], kc[kNPer], ks[kNPer];
+  if constexpr (kFused) {
+    const int pos = max(0, min(a.positions[s], a.max_pos - 1));
+    const size_t kv_base = (static_cast<size_t>(s) * a.kvh + h) * D;
+    const float* crow = a.cos_t + static_cast<size_t>(pos) * HALF;
+    const float* srow = a.sin_t + static_cast<size_t>(pos) * HALF;
 #pragma unroll
-  for (int it = 0; it < kNPer; ++it) {
-    const int c = tid + it * NT;
-    if (c < D) {
-      const bool first = c < HALF;
-      const int cc = first ? c : c - HALF;
-      kx[it] = load_act(a.k_new, a.act_dtype, kv_base + c);
-      kpart[it] =
-          load_act(a.k_new, a.act_dtype, kv_base + (first ? c + HALF : cc));
-      vx[it] = load_act(a.v_new, a.act_dtype, kv_base + c);
-      kc[it] = crow[cc];
-      ks[it] = srow[cc];
+    for (int it = 0; it < kQPer; ++it) {
+      const int i = tid + it * NT;
+      if (i < ng * D) {
+        const int c = i % D;
+        const bool first = c < HALF;
+        const int cc = first ? c : c - HALF;
+        const size_t row = q_base + static_cast<size_t>(i / D) * D;
+        qx[it] = load_act(a.q, a.act_dtype, row + c);
+        qp[it] = load_act(a.q, a.act_dtype, row + (first ? c + HALF : cc));
+        qc[it] = crow[cc];
+        qs[it] = srow[cc];
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kNPer; ++it) {
+      const int c = tid + it * NT;
+      if (c < D) {
+        const bool first = c < HALF;
+        const int cc = first ? c : c - HALF;
+        kx[it] = load_act(a.k_new, a.act_dtype, kv_base + c);
+        kpart[it] = load_act(a.k_new, a.act_dtype,
+                             kv_base + (first ? c + HALF : cc));
+        vx[it] = load_act(a.v_new, a.act_dtype, kv_base + c);
+        kc[it] = crow[cc];
+        ks[it] = srow[cc];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < kQPer; ++it) {
+      const int i = tid + it * NT;
+      if (i < ng * D) qx[it] = load_act(a.q, a.act_dtype, q_base + i);
     }
   }
 
@@ -610,8 +494,9 @@ __global__ void __launch_bounds__(SplitGeo<TC, 32 * EPL>::kThreads,
       ((L + R) / R + kTileRows - 1) / kTileRows * kTileRows;  // rows a rank
   const int r0 = min(rank * chunk, L + 1);
   const int r1 = min(r0 + chunk, L + 1);
-  const int lim = min(r1, L);  // rows [r0, lim) come from the cache
-  const bool owner = r0 <= L && L < r1;
+  // rows [r0, lim) come from memory: all of them for the block table; the
+  // fused decode takes row L from shared memory
+  const int lim = kFused ? min(r1, L) : r1;
   const Rows rows = Rows::of(a, s, h);
   const TC* kc_ptr = static_cast<const TC*>(a.k);
   const TC* vc_ptr = static_cast<const TC*>(a.v);
@@ -620,7 +505,7 @@ __global__ void __launch_bounds__(SplitGeo<TC, 32 * EPL>::kThreads,
   unsigned char* ring = smem + warp * S * Geo::kStageBytes;
 
   // lane l < kTileRows: the number of row l of the warp's i-th tile, or 0
-  // past the rows read from the cache
+  // past the rows read from memory
   auto row_num = [&](int i) -> unsigned {
     const int j = r0 + (warp + W * i) * kTileRows + lane;
     return (lane < kTileRows && i < my_n && j < lim) ? rows(j) : 0u;
@@ -666,47 +551,53 @@ __global__ void __launch_bounds__(SplitGeo<TC, 32 * EPL>::kThreads,
   }
   unsigned rn_next = rn[S - 1];
 
-  // 3. rotate the query rows into shared memory; the owner rebuilds the
-  //    new K/V row rounded to the cache dtype (int8: quantized), and its
-  //    first head block appends it in place
+  // 3. the query rows into shared memory (fused: rotated); the fused
+  //    decode's owner of row L rebuilds the new K/V row rounded to the
+  //    cache dtype (int8: quantized), and its first head block appends it
+  //    in place
 #pragma unroll
   for (int it = 0; it < kQPer; ++it) {
     const int i = tid + it * NT;
     if (i < ng * D) {
       const int c = i % D;
-      q_s[i / D][c] = rope_elem(qx[it], qp[it], qc[it], qs[it], c < HALF);
+      if constexpr (kFused)
+        q_s[i / D][c] = rope_elem(qx[it], qp[it], qc[it], qs[it], c < HALF);
+      else
+        q_s[i / D][c] = qx[it];
     }
   }
-  if (owner) {  // uniform over the CTA
-    const size_t append = rows(L);
-    const bool write = hb == 0;
-    TC* kd = static_cast<TC*>(a.k) + append * D;
-    TC* vd = static_cast<TC*>(a.v) + append * D;
+  if constexpr (kFused) {
+    if (r0 <= L && L < r1) {  // the owner; uniform over the CTA
+      const size_t append = rows(L);
+      const bool write = hb == 0;
+      TC* kd = static_cast<TC*>(a.k) + append * D;
+      TC* vd = static_cast<TC*>(a.v) + append * D;
 #pragma unroll
-    for (int it = 0; it < kNPer; ++it) {
-      const int c = tid + it * NT;
-      if (c < D) {
-        const float kr = rope_elem(kx[it], kpart[it], kc[it], ks[it],
-                                   c < HALF);
-        if constexpr (kQuant) {
-          kn_f[c] = kr;
-          vn_f[c] = vx[it];
-        } else {
-          kn_t[c] = from_float<TC>(kr);
-          vn_t[c] = from_float<TC>(vx[it]);
-          if (write) {
-            kd[c] = kn_t[c];
-            vd[c] = vn_t[c];
+      for (int it = 0; it < kNPer; ++it) {
+        const int c = tid + it * NT;
+        if (c < D) {
+          const float kr = rope_elem(kx[it], kpart[it], kc[it], ks[it],
+                                     c < HALF);
+          if constexpr (kQuant) {
+            kn_f[c] = kr;
+            vn_f[c] = vx[it];
+          } else {
+            kn_t[c] = from_float<TC>(kr);
+            vn_t[c] = from_float<TC>(vx[it]);
+            if (write) {
+              kd[c] = kn_t[c];
+              vd[c] = vn_t[c];
+            }
           }
         }
       }
-    }
-    if constexpr (kQuant) {
-      __syncthreads();
-      quantize_row<D, NT>(kn_f, red_s, kn_t, &new_sc[0], kd,
-                          a.k_scale + append, write);
-      quantize_row<D, NT>(vn_f, red_s, vn_t, &new_sc[1], vd,
-                          a.v_scale + append, write);
+      if constexpr (kQuant) {
+        __syncthreads();
+        quantize_row<D, NT>(kn_f, red_s, kn_t, &new_sc[0], kd,
+                            a.k_scale + append, write);
+        quantize_row<D, NT>(vn_f, red_s, vn_t, &new_sc[1], vd,
+                            a.v_scale + append, write);
+      }
     }
   }
   __syncthreads();
@@ -736,14 +627,16 @@ __global__ void __launch_bounds__(SplitGeo<TC, 32 * EPL>::kThreads,
     float* kst = reinterpret_cast<float*>(st + 2 * kTileRows * Geo::kRowBytes);
     const int t0 = r0 + (warp + W * i) * kTileRows;
     const int nvalid = min(kTileRows, r1 - t0);
-    const int new_r = L - t0;  // the tile's row of the new row, if any
-    if (new_r >= 0 && new_r < kTileRows) {  // the owner's last tile
-      for (int c = lane; c < D; c += 32) {
-        kt[new_r * D + c] = kn_t[c];
-        vt[new_r * D + c] = vn_t[c];
+    if constexpr (kFused) {
+      const int new_r = L - t0;  // the tile's row of the new row, if any
+      if (new_r >= 0 && new_r < kTileRows) {  // the owner's last tile
+        for (int c = lane; c < D; c += 32) {
+          kt[new_r * D + c] = kn_t[c];
+          vt[new_r * D + c] = vn_t[c];
+        }
+        if (kQuant && lane < 2) kst[lane * kTileRows + new_r] = new_sc[lane];
+        __syncwarp();
       }
-      if (kQuant && lane < 2) kst[lane * kTileRows + new_r] = new_sc[lane];
-      __syncwarp();
     }
     const bool valid = my_row < nvalid;
     float ksc = 1.f, vsc = 1.f;
@@ -982,7 +875,7 @@ template <typename TC, typename Rows>
 int launch_split(SplitArgs a, int slots, int d, int ranks, long long rows,
                  void* stream) {
   if (slots < 1 || slots > 65535 || a.kvh < 1 || a.span < 1 ||
-      a.max_pos < 1 || a.act_dtype < 0 || a.act_dtype > 2 ||
+      (Rows::kFused && a.max_pos < 1) || a.act_dtype < 0 || a.act_dtype > 2 ||
       !valid_ranks(ranks) || rows >= (1LL << 31) ||
       (a.k_scale != nullptr) != kQuantCache<TC> ||
       (a.v_scale != nullptr) != kQuantCache<TC>)

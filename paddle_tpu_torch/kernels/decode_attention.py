@@ -12,7 +12,7 @@ of the JAX package's unfused reference ``fused_contiguous_decode_reference``.
 A CUDA tensor never falls back to the plain version: the wrapper launches
 the kernel or raises.
 
-The kernel (shared with the paged wrapper) splits each (slot, kv head,
+The kernel (shared with the paged wrappers) splits each (slot, kv head,
 head block) stream over a thread-block cluster of ``ranks`` CTAs. The
 launch plan (``_decode_plan``) comes from the host's shapes and the card's
 occupancy only, never from ``seq_lens`` (reading them would synchronise
@@ -64,7 +64,7 @@ def contiguous_chunk(max_len: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# launch plan of the split kernel (rows 1 and 2)
+# launch plan of the split kernel (rows 1-3)
 # ---------------------------------------------------------------------------
 class DecodePlan(NamedTuple):
     ranks: int     # CTAs of a cluster along a stream's rows
@@ -130,16 +130,24 @@ def _decode_plan(slots: int, kvh: int, group: int, d: int, span: int,
     return best
 
 
+# the occupancy entry of each layout's kernel: rows 1 ("contig") and 2
+# ("paged"), and row 3 ("table", the block-table kernel), whose static
+# shared memory and registers differ from row 2's
+_PLAN_ENTRY = {"contig": "pt_fused_contig_decode_plan_",
+               "paged": "pt_fused_paged_decode_plan_",
+               "table": "pt_paged_decode_plan_"}
+
+
 def _card_clusters(layout: str, cache_dtype, group: int, d: int):
     """``_decode_plan``'s ``clusters`` on the card: how many clusters of a
-    plan the card holds at once (``_card.held_clusters`` through
-    ``pt_fused_<layout>_decode_plan_<tag>``, which refuses a plan the
-    kernels do not take and sizes its shared memory as the launch does)."""
+    plan the card holds at once (``_card.held_clusters`` through the
+    layout's ``_PLAN_ENTRY``, which refuses a plan the kernels do not take
+    and sizes its shared memory as the launch does)."""
     from . import _build
 
     out = ctypes.POINTER(ctypes.c_int)
-    fn = getattr(_build.library(), f"pt_fused_{layout}_decode_plan_"
-                                   f"{_CACHE_TAG[cache_dtype]}")
+    fn = getattr(_build.library(),
+                 _PLAN_ENTRY[layout] + _CACHE_TAG[cache_dtype])
     fn.argtypes = [ctypes.c_int] * 3 + [out, out]
     fn.restype = ctypes.c_int
 
@@ -156,8 +164,9 @@ _PLANS = {}  # the card's plans by their arguments: each found once
 def _card_plan(device, layout: str, cache_dtype, slots: int, kvh: int,
                group: int, d: int, span: int) -> DecodePlan:
     """``_decode_plan`` for a launch on the card ``device`` (``layout``
-    ``"contig"`` or ``"paged"``), with its occupancy answers and SM count;
-    computed once per shape and cache dtype."""
+    ``"contig"``, ``"paged"`` or ``"table"``: rows 1, 2 and 3), with its
+    occupancy answers and SM count; computed once per shape and cache
+    dtype."""
     key = (device, layout, cache_dtype, slots, kvh, group, d, span)
     if key not in _PLANS:
         itemsize = torch.empty((), dtype=cache_dtype).element_size()

@@ -20,10 +20,12 @@ Two entry points, each with its plain PyTorch version beside it:
 
 On the card each wrapper launches its hand-written Hopper kernel in
 ``csrc/paged_attention.cu``; for tensors on the CPU it runs the plain
-version. The fused kernel is the split kernel of the contiguous wrapper
-over the block table, launched by the same plan
-(``decode_attention._decode_plan``). A CUDA tensor never falls back to
-the plain version: the wrapper launches the kernel or raises. Unlike the
+version. Both kernels are the split kernel of the contiguous wrapper over
+the block table (the block-table one with no RoPE or append, every row
+read from the pool), launched by the same plan
+(``decode_attention._decode_plan``, asked of each kernel's own occupancy
+entry). A CUDA tensor never falls back to the plain version: the wrapper
+launches the kernel or raises. Unlike the
 TPU kernels, whose tiling rule sends untiled shapes to the dense path,
 the Hopper kernels take every supported shape (below) and the wrappers
 raise for the rest.
@@ -57,7 +59,7 @@ LAUNCHES = {"fused_paged_decode_attention": 0, "paged_decode_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUSED_ARGTYPES = [_P, _P, _P, _I] + [_P] * 10 + [_I] * 8 + [_F, _I, _P]
-_DECODE_ARGTYPES = [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P]
+_DECODE_ARGTYPES = [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _I, _P]
 
 
 def paged_decode_plain(q, k_pages, v_pages, block_tables, seq_lens,
@@ -209,11 +211,13 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
                  _DECODE_ARGTYPES)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        plan = _card_plan(q.device, "table", k_pages.dtype, slots, kvh,
+                          group, d, block_tables.shape[1] * page_size)
         err = fn(q.data_ptr(), _ACT_CODE[q.dtype], k_pages.data_ptr(),
                  v_pages.data_ptr(), block_tables.data_ptr(),
                  seq_lens.data_ptr(), out.data_ptr(), slots, kvh, group, d,
                  n_pages, page_size, block_tables.shape[1],
-                 float(d ** -0.5 if scale is None else scale),
+                 float(d ** -0.5 if scale is None else scale), plan.ranks,
                  torch.cuda.current_stream().cuda_stream)
     _launched("paged_decode_attention", err)
     return out

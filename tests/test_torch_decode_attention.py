@@ -14,6 +14,7 @@ import paddle_tpu.flags as jflags
 from paddle_tpu.kernels import decode_attention as jda
 from paddle_tpu.kernels.rope import rope_frequencies as j_rope_frequencies
 from paddle_tpu_torch.kernels import decode_attention as tda
+from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels.rope import rope_frequencies
 from torch_decode_cases import (check_plan_geometry, plan_shapes, rank_rows,
                                 split_model)
@@ -173,7 +174,8 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take(bad):
 # ---------------------------------------------------------------------------
 # the split kernel's launch plan and its rank split, on the CPU
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("shape", plan_shapes("contig"))
+@pytest.mark.parametrize("shape",
+                         plan_shapes("contig") + plan_shapes("table"))
 def test_split_plan_geometry(shape):
     check_plan_geometry(*shape)
 
@@ -254,3 +256,61 @@ def test_split_model_without_one_rank_fails():
         bad = split_model(qr[s, 0], ck[s, :L + 1, 0], cv[s, :L + 1, 0], L, 4,
                           d ** -0.5, drop=1)
         assert not torch.allclose(bad, out[s, 0], rtol=1e-5, atol=1e-5)
+
+
+def _table_model_case(page_size, seed=5, kvh=2, group=3, d=32):
+    """Row 3's plain version on a float32 pool addressed through a
+    permuted block table (one inactive slot on the sink page), at the
+    ``SPLIT_LENS`` lengths; returns its output and, per slot and kv head,
+    the query rows and the pool rows 0..L as the kernel reads them."""
+    rng = np.random.default_rng(seed)
+    slots, span = len(SPLIT_LENS) + 1, 128
+    max_pages = -(-span // page_size)
+    n_pages = slots * max_pages + 1
+    bt = (rng.permutation(n_pages - 1) + 1).reshape(slots, max_pages)
+    bt[-1] = 0  # an inactive slot: the sink page, length 0
+    f = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q = f(slots, kvh, group, d)
+    kp, vp = f(kvh, n_pages, page_size, d), f(kvh, n_pages, page_size, d)
+    lens = SPLIT_LENS + [0]
+    out = tpa.paged_decode_plain(q, kp, vp,
+                                 torch.tensor(bt, dtype=torch.int32),
+                                 torch.tensor(lens, dtype=torch.int32))
+    streams = []
+    for s, L in enumerate(lens):
+        j = torch.arange(L + 1)
+        page, off = torch.as_tensor(bt[s])[j // page_size], j % page_size
+        for h in range(kvh):
+            streams.append((q[s, h], kp[h, page, off], vp[h, page, off], L,
+                            out[s, h]))
+    return streams
+
+
+@pytest.mark.parametrize("page_size", [1, 16])
+@pytest.mark.parametrize("ranks", tda.RANK_CHOICES)
+def test_split_model_matches_the_block_table_plain_version(ranks,
+                                                           page_size):
+    """Row 3 on the split kernel: the rank split and merge modelled over
+    each stream's rows 0..L taken whole from the pool (no rotation, no
+    new row), with CTAs of 4 and 8 warps, equal ``paged_decode_plain`` at
+    1e-5 at lengths on tile and rank boundaries and on the sink page."""
+    for q, k, v, L, want in _table_model_case(page_size):
+        for warps in (4, 8):
+            got = split_model(q, k, v, L, ranks, q.shape[-1] ** -0.5,
+                              warps=warps)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_block_table_split_model_without_one_rank_fails():
+    """The block-table check has teeth: with rank 1's partial left out of
+    the merge, the model differs from ``paged_decode_plain`` on every
+    stream whose rank 1 holds rows."""
+    checked = 0
+    for q, k, v, L, want in _table_model_case(16):
+        if rank_rows(L, 4)[1][0] == rank_rows(L, 4)[1][1]:
+            continue
+        bad = split_model(q, k, v, L, 4, q.shape[-1] ** -0.5, drop=1)
+        assert not torch.allclose(bad, want, rtol=1e-5, atol=1e-5)
+        checked += 1
+    assert checked > 0

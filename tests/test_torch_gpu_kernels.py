@@ -26,6 +26,8 @@ pytestmark = pytest.mark.gpu
 # rounds the rotated query to that dtype where the kernel keeps float32,
 # and the two sum the softmax in different orders)
 TOL = {torch.float32: 1e-4, torch.float16: 5e-3, torch.bfloat16: 2e-2}
+# the arguments of row 3 (block-table decode attention)
+BLOCK_KEYS = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
 
 
 @pytest.fixture
@@ -143,9 +145,8 @@ def test_paged_kernels_match_plain_versions(card, fused, d, group, page_size,
         out, kp, vp = pa.fused_paged_decode_attention(**inp)
         ref, kpr, vpr = pa.fused_paged_decode_plain(**ref_inp)
     else:
-        keys = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
-        out = pa.paged_decode_attention(**{k: inp[k] for k in keys})
-        ref = pa.paged_decode_plain(**{k: ref_inp[k] for k in keys})
+        out = pa.paged_decode_attention(**{k: inp[k] for k in BLOCK_KEYS})
+        ref = pa.paged_decode_plain(**{k: ref_inp[k] for k in BLOCK_KEYS})
         kp, vp, kpr, vpr = (inp["k_pages"], inp["v_pages"],
                             ref_inp["k_pages"], ref_inp["v_pages"])
     torch.cuda.synchronize()
@@ -183,9 +184,8 @@ def test_paged_kernels_raise_on_what_they_do_not_take(card):
 
     inp = _paged_inputs(2, 2, 2, 64, 16, 2, [1, 2], torch.float32,
                         torch.float32)
-    keys = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
     with pytest.raises(ValueError):
-        pa.paged_decode_attention(**{k: inp[k] for k in keys}
+        pa.paged_decode_attention(**{k: inp[k] for k in BLOCK_KEYS}
                                   | {"seq_lens": inp["seq_lens"].long()})
     with pytest.raises(ValueError):
         pa.fused_paged_decode_attention(
@@ -348,7 +348,16 @@ def test_int8_paged_kernel_matches_plain_version(card, d, group, act):
 
 
 
-# ------------------------ rows 1 and 2 split across the ranks of a cluster
+# ---------------------- rows 1, 2 and 3 split across the ranks of a cluster
+def _table_call(fn):
+    """Row 3's kernel or plain version called as rows 1-2 are: on a whole
+    input dict, returning (out, k_pages, v_pages)."""
+    def call(**inp):
+        out = fn(**{k: inp[k] for k in BLOCK_KEYS})
+        return out, inp["k_pages"], inp["v_pages"]
+    return call
+
+
 def _split_inputs(layout, slots, kvh, group, d, span, page_size, lens,
                   sinks, act, cache, seed):
     """Inputs of one ``SPLIT_CASES`` case: a contiguous cache of ``span``
@@ -375,13 +384,15 @@ def _split_inputs(layout, slots, kvh, group, d, span, page_size, lens,
 
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
 def test_split_kernels_match_plain_versions(card, case):
-    """Rows 1 and 2 where the card's plan splits streams over cluster
-    ranks: one slot at 4095 rows, an empty slot beside a full one, the
-    plan's rank and tile boundaries, GQA groups of 8 and 16, int8 at long
-    lengths, pages of 1, 16, 32 and 64 rows with sink slots. Outputs
-    within TOL of the plain version, appended rows within one bf16 ulp
-    (int8: equal payloads), every other cache row bit-identical, and a
-    second run on the same inputs ``torch.equal`` to the first."""
+    """Rows 1-3 where the card's plan splits streams over cluster ranks:
+    one slot at 4095 rows, an empty slot beside a full one, the plan's
+    rank and tile boundaries, GQA groups of 8 and 16, int8 at long
+    lengths (rows 1-2), pages of 1, 16, 32 and 64 rows through permuted
+    block tables with sink slots, lengths up to span - 1. Outputs within
+    TOL of the plain version, appended rows within one bf16 ulp (int8:
+    equal payloads), every other cache row bit-identical (row 3: every
+    pool row, as it writes none), and a second run on the same inputs
+    ``torch.equal`` to the first."""
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     (_, layout, slots, kvh, group, d, span, page_size, lens, sinks, act,
@@ -399,10 +410,14 @@ def test_split_kernels_match_plain_versions(card, case):
         kernel = da.fused_contiguous_decode_attention
         plain = da.fused_contiguous_decode_plain
         count = lambda: da.LAUNCHES  # noqa: E731
-    else:
+    elif layout == "paged":
         kernel = pa.fused_paged_decode_attention
         plain = pa.fused_paged_decode_plain
         count = lambda: pa.LAUNCHES["fused_paged_decode_attention"]  # noqa
+    else:
+        kernel = _table_call(pa.paged_decode_attention)
+        plain = _table_call(pa.paged_decode_plain)
+        count = lambda: pa.LAUNCHES["paged_decode_attention"]  # noqa: E731
     before = count()
     got = kernel(**inp)
     second = kernel(**again)
@@ -416,9 +431,14 @@ def test_split_kernels_match_plain_versions(card, case):
         if layout == "paged":
             a, b = a[:, 1:], b[:, 1:]
         assert torch.equal(a, b)
-    live = [i for i in range(slots) if i not in sinks]
+    # row 3 appends nothing, so its sink slots attend the sink page's row 0
+    live = [i for i in range(slots) if layout == "table" or i not in sinks]
     torch.testing.assert_close(got[0][live].float(), ref[0][live].float(),
                                rtol=TOL[act], atol=TOL[act])
+    if layout == "table":  # the pool is only read
+        for a, b in zip(got[1:], ref[1:]):
+            assert torch.equal(a, b)
+        return
     lens_l = inp["seq_lens"].long()
     rows = torch.arange(slots, device="cuda")
     if layout == "contig":
@@ -450,11 +470,11 @@ def test_split_kernels_match_plain_versions(card, case):
 
 
 def test_decode_card_plans(card):
-    """The card's launch plans for rows 1 and 2 (its own occupancy
+    """The card's launch plans for rows 1-3 (each kernel's own occupancy
     answers): every card-test shape gets a plan the kernels take, with the
     kernel's shared memory; at the serving shape (8 slots, 32 kv heads, d
-    128, 1024 rows, bf16 and int8) the card holds the whole grid at
-    once."""
+    128, 1024 rows, bf16 and int8; row 3 bf16) the card holds the whole
+    grid at once."""
     from torch_decode_cases import CONTIG_SHAPE, PAGED_SHAPE
 
     shapes = []
@@ -464,8 +484,9 @@ def test_decode_card_plans(card):
                        CONTIG_SHAPE["max_len"]))
     for d, group, page_size, _, pool in PAGED_CASES:
         span = (PAGED_SHAPE["rows"] // page_size + 1) * page_size
-        shapes.append(("paged", pool, PAGED_SHAPE["slots"],
-                       PAGED_SHAPE["kvh"], group, d, span))
+        for layout in ("paged", "table"):
+            shapes.append((layout, pool, PAGED_SHAPE["slots"],
+                           PAGED_SHAPE["kvh"], group, d, span))
     for d, group, _ in INT8_CASES:
         shapes.append(("contig", torch.int8, CONTIG_SHAPE["slots"],
                        CONTIG_SHAPE["kvh"], group, d,
@@ -476,6 +497,7 @@ def test_decode_card_plans(card):
     for cache in (torch.bfloat16, torch.int8):
         for layout in ("contig", "paged"):
             shapes.append((layout, cache, 8, 32, 1, 128, 1024))
+    shapes.append(("table", torch.bfloat16, 8, 32, 1, 128, 1024))
     for layout, cache, slots, kvh, group, d, span in shapes:
         plan = da._card_plan(card, layout, cache, slots, kvh, group, d, span)
         # raises if the kernel's shared memory differs from the plan's

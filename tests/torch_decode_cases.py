@@ -1,5 +1,5 @@
-"""The fused decode kernels' card-test shapes (rows 1 and 2, and row 3's
-paged cases), shared by the card tests (``test_torch_gpu_kernels.py``) and
+"""The decode kernels' card-test shapes (rows 1-3), shared by the card
+tests (``test_torch_gpu_kernels.py``) and
 the CPU tests of their launch plan (``test_torch_decode_attention.py``,
 ``test_torch_paged.py``). Import as ``import torch_decode_cases`` (pytest
 puts tests/ on sys.path)."""
@@ -52,10 +52,12 @@ INT8_CASES = [
 
 # Cases only a split across ranks exercises: (name, layout, slots, kvh,
 # group, d, span, page_size, lens, sink slots, query dtype, cache dtype).
-# span is max_len (contiguous) or max_pages * page_size (paged); lens
-# "bounds" are the rank and tile boundaries of the card's plan
-# (``boundary_lens``); sink slots are inactive paged slots (an all-zero
-# table row, length 0).
+# layout "contig" is row 1, "paged" row 2 and "table" row 3 (the
+# block-table kernel over a float pool); span is max_len (contiguous) or
+# max_pages * page_size (paged, table); lens "bounds" are the rank and tile
+# boundaries of the card's plan (``boundary_lens``); sink slots are
+# inactive paged slots (an all-zero table row, length 0). Every paged pool
+# is addressed through a permuted block table.
 SPLIT_CASES = [
     ("one_slot_4095", "contig", 1, 32, 1, 128, 4096, 0, [4095], (),
      BF16, BF16),
@@ -80,6 +82,20 @@ SPLIT_CASES = [
      (1, 4), F16, F16),
     ("paged_page64", "paged", 4, 32, 1, 128, 4096, 64, [4095, 0, 1000, 64],
      (1,), BF16, BF16),
+    ("table_one_slot_4095", "table", 1, 32, 1, 128, 4096, 64, [4095], (),
+     BF16, BF16),
+    ("table_empty_and_full", "table", 2, 4, 1, 128, 1024, 64, [0, 1023],
+     (), BF16, BF16),
+    ("bounds_table", "table", 10, 2, 2, 64, 1024, 16, "bounds", (), F32,
+     F32),
+    ("table_gqa8_long", "table", 2, 8, 8, 128, 4096, 64, [4095, 3000], (),
+     BF16, BF16),
+    ("table_gqa16", "table", 3, 2, 16, 128, 512, 32, [300, 0, 511], (1,),
+     BF16, BF16),
+    ("table_page1", "table", 5, 2, 2, 128, 256, 1, [255, 0, 100, 7, 0],
+     (1, 4), BF16, BF16),
+    ("table_page16", "table", 5, 4, 1, 96, 1024, 16, [1023, 0, 16, 15, 0],
+     (1, 4), F16, F16),
 ]
 
 
@@ -113,7 +129,8 @@ def rank_rows(seq_len, ranks):
 
 def plan_shapes(layout):
     """(cache dtype, slots, kvh, group, d, span) of every card-test shape
-    of ``layout`` (``torch_decode_cases``), and the serving shape."""
+    of ``layout`` (``torch_decode_cases``: "contig", "paged" or "table"),
+    and the serving shape (row 3: float pools only)."""
     out = []
     if layout == "contig":
         c = CONTIG_SHAPE
@@ -126,13 +143,16 @@ def plan_shapes(layout):
         out += [(pool, p["slots"], p["kvh"], group, d,
                  (p["rows"] // ps + 1) * ps)
                 for d, group, ps, _, pool in PAGED_CASES]
-        out += [(torch.int8, p["slots"], p["kvh"], group, d,
-                 (p["rows"] // 16 + 1) * 16) for d, group, _ in INT8_CASES]
+        if layout == "paged":
+            out += [(torch.int8, p["slots"], p["kvh"], group, d,
+                     (p["rows"] // 16 + 1) * 16)
+                    for d, group, _ in INT8_CASES]
     out += [(cache, slots, kvh, group, d, span)
             for _, lay, slots, kvh, group, d, span, _, _, _, _, cache
             in SPLIT_CASES if lay == layout]
-    out += [(torch.bfloat16, 8, 32, 1, 128, 1024),
-            (torch.int8, 8, 32, 1, 128, 1024)]
+    out += [(torch.bfloat16, 8, 32, 1, 128, 1024)]
+    if layout != "table":
+        out += [(torch.int8, 8, 32, 1, 128, 1024)]
     return out
 
 
@@ -175,8 +195,9 @@ def check_plan_geometry(cache, slots, kvh, group, d, span):
 def split_model(q, k, v, seq_len, ranks, scale, ks=None, vs=None,
                 drop=None, warps=8):
     """The split kernel's arithmetic on one stream, in plain float32
-    torch: q [ng, d] rotated query rows; k, v [rows, d] the stream's rows
-    0..seq_len (the new row included), int8 payloads with scales ``ks``,
+    torch: q [ng, d] query rows (rows 1-2: rotated); k, v [rows, d] the
+    stream's rows 0..seq_len (rows 1-2: the new row included; row 3: all
+    from the pool), int8 payloads with scales ``ks``,
     ``vs`` [rows] folded into the score and p. Ranks take ``rank_rows``,
     a rank's tiles go to its ``warps`` warps in turn, each warp runs an online
     softmax a tile (one max, one rescale), the warps merge in warp order
