@@ -46,8 +46,9 @@ Phases, each of which raises on failure:
    (m = 8) and prefill (m = 2048), one ragged shape (m = 3, one
    whole-column group) and the edges of the tensor-core tilings (m no
    multiple of the tile, g of 32, 64 and 96, uneven k splits at m 1 and
-   16, bf16 and fp16), each run twice identically; times every 7B shape
-   at decode and prefill beside the byte or operation bound (and one 7B
+   16, bf16 and fp16) and the verify pass's m = 40 (8 slots x 5 rows) at
+   the 7B q/k/v/o shape, int8 and int4 (timed too), each run twice
+   identically; times every 7B shape at decode and prefill beside the byte or operation bound (and one 7B
    forward's 225 calls from them), and one decode and one prefill shape
    beside the plain version and one ``torch.matmul`` over the
    pre-dequantized bf16 weight (a yardstick);
@@ -78,15 +79,28 @@ Phases, each of which raises on failure:
    launches per forward (prefill chunks and decode forwards), the fused
    kernel of the cache once per layer per decode forward and no other
    decode kernel (no block-table launch for an int8 pool), every page
-   back, and the same first tokens both ways; reports the first index
-   where the tokens leave the bf16 engine's (measured, not asserted);
-13. profiles: device time by operation (``torch.profiler``) of the
+   back (free, or held by the prefix store alone and none shared: the
+   prefix cache is on, as by default, in every engine phase), and the
+   same first tokens both ways; reports the first index where the tokens
+   leave the bf16 engine's (measured, not asserted);
+13. prefix cache and speculative decoding, the same model: contiguous and
+   paged, the prefix cache on and off, one request publishes a seeded
+   512-token prompt and 8 requests of it plus 64 tokens of their own
+   take 32 new tokens (TTFT p50, ``prefix_snapshot()``, 8 hits of 512
+   tokens with the cache on, the first tokens equal both ways, the pool
+   identity); then 8 prompts of a seeded 16-token pattern repeated to
+   128 tokens take 64 new tokens, contiguous, with
+   ``PT_FLAGS_spec_decode=ngram`` and ``off`` (``spec_snapshot()``, decode
+   tok/s, verify passes taken, the first tokens equal). Each run must
+   launch the cache's decode kernel (row 1 or 2) once per layer per
+   decode forward and nothing else;
+14. profiles: device time by operation (``torch.profiler``) of the
    prefill wave, and of the wave with 8 decode forwards, for the bf16
    and the quantized engines, with the decode kernels' device time by
    row (and for the paged bf16 engine with fused decode off, row 3's time
    per decode forward); each engine's JSON line carries a digest of its
    greedy tokens;
-14. flash attention vs plain versions (rows 5-9, after phase 8): the
+15. flash attention vs plain versions (rows 5-9, after phase 8): the
    forward without and with LSE, the dq, dk/dv and fused backward
    kernels against their plain PyTorch versions at the Llama-2-7B train
    shape (b 4, s 2048, 32 heads, d 128, causal, bf16), a GQA shape (32
@@ -98,12 +112,12 @@ Phases, each of which raises on failure:
    forward and backward (a yardstick the port never calls); the dq and
    dk/dv passes also at b 1, s 8192, where the default k block takes the
    two-pass backward, beside SDPA's backward;
-15. train reference (after phase 9): a tiny float32 Llama trains 5 steps
+16. train reference (after phase 9): a tiny float32 Llama trains 5 steps
    on the card (kernels) and on the CPU (plain versions) from the same
    weights, with the same losses; ``use_recompute`` leaves the card's
    gradients unchanged; ``gradient_merge_k_steps=2`` equals one step
    over the whole batch;
-16. train at 7B width (last): Llama-2-7B width cut to 4 layers, bf16,
+17. train at 7B width (last): Llama-2-7B width cut to 4 layers, bf16,
    ``TrainStep`` with AdamW, float32 masters, global-norm clipping and
    ``master_residency="master_only"`` on batch 4 x 2048: 2 warm-up and 5
    timed steps (step ms, tokens/s, MFU, peak memory; the loss falls)
@@ -114,13 +128,13 @@ Phases, each of which raises on failure:
    and the same loss and grad norm), then that two-pass step timed (2
    warm-ups, the median of 3) beside the fused one; one ``no_grad`` eval
    forward (4 launches of the forward without LSE); a profile of one step;
-17. selective scan vs plain versions (after phase 14): row 10 without and
+18. selective scan vs plain versions (after phase 15): row 10 without and
    with states and row 11 against their plain PyTorch versions, row by row
    within 1e-5 (float32), at the Mamba-130m train shape (b 4, s 1024, d
    1536, n 16, chunk 128), a ragged s of 1000, d 200 and n 8; timed at the
    train shape beside the bounds and the plain versions (no PyTorch call
    computes the scan: no library time);
-18. GroupNorm vs plain versions: rows 12 and 13 against their plain
+19. GroupNorm vs plain versions: rows 12 and 13 against their plain
    versions at every distinct GroupNorm site of the SD UNet at
    sample_size 32, batch 4, one shape over the JAX kernel's VMEM budget
    (the re-read path), a ragged hw of 1000 split across a cluster, one
@@ -134,18 +148,18 @@ Phases, each of which raises on failure:
    ``silu`` forward and backward (a yardstick the port never calls), and
    summed over one UNet step's 56 calls (their shapes, SiLU or not,
    bf16) beside the summed yardsticks and bounds;
-19. Mamba reference (after phase 15): a tiny float32 Mamba trains 5 steps
+20. Mamba reference (after phase 16): a tiny float32 Mamba trains 5 steps
    on the card (rows 10-11) and on the CPU (plain versions) from the same
    weights, with the same losses;
-20. UNet reference: the same for a tiny float32 UNet, channels-last on
+21. UNet reference: the same for a tiny float32 UNet, channels-last on
    both sides (rows 12-13; cuDNN convolutions without TF32);
-21. Mamba-130m train (after phase 16): ``bench_mamba``'s step at the
+22. Mamba-130m train (after phase 17): ``bench_mamba``'s step at the
    published widths, float32, batch 4 x 1024, ``TrainStep`` with
    ``AdamW(1e-4, multi_precision=True)``: 2 warm-up and 5 timed steps
    (step ms, tokens/s, peak memory; the loss falls) with exactly 24
    launches of row 10 with states and of row 11 per step, a ``no_grad``
    eval forward (24 of row 10 without states), a profile of one step;
-22. SD-UNet train (last): ``bench_unet``'s step, ``UNetConfig(
+23. SD-UNet train (last): ``bench_unet``'s step, ``UNetConfig(
    sample_size=32)``, bf16 weights with float32 masters, batch 4, the
    denoising MSE: 2 warm-up and 5 timed steps (step ms, samples/s, peak
    memory; the loss falls) with exactly 56 launches of row 12 and of row
@@ -749,6 +763,7 @@ H100_BF16_FLOPS = 989e12     # dense bf16/fp16 tensor-core rate
 SHAPES_7B = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1,
              (4096, 32000): 0}
 GROUP = 128                  # EngineConfig.weight_group_size
+VERIFY_M = 8 * (4 + 1)       # 8 slots x (EngineConfig.spec_k + 1) rows
 
 
 def qmm_inputs(m, k, n, g, wdt, act, seed):
@@ -904,6 +919,22 @@ def quant_kernel_phase():
           f"{max(rels[-len(QMM_EDGE_CASES):]):.3e}, each run twice "
           f"identically ok", flush=True)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    # the verify pass of speculative decoding: 8 slots x (spec_k + 1) rows
+    m, (k, n) = VERIFY_M, (4096, 4096)
+    verify = {}
+    for wdt in ("int8", "int4"):
+        e, r = qmm_check(m, k, n, GROUP, wdt, torch.bfloat16, 300)
+        errs.append(e)
+        rels.append(r)
+        inp = qmm_inputs(m, k, n, GROUP, wdt, torch.bfloat16, 301)
+        t = time_ms(lambda: qmm.weight_only_matmul(**inp), flush)
+        b, by = qmm_bound(inp)
+        verify[wdt] = t
+        print(f"weight-only matmul check m={m} k={k} n={n} {wdt} bf16 "
+              f"({qmm.kernel_body(m, n, k, torch.bfloat16)}, the verify "
+              f"pass's m): max abs err {e:.3e}, max rel err {r:.3e}, run "
+              f"twice identically ok; kernel {t:.4f} ms, bound {b:.4f} ms "
+              f"({by})", flush=True)
     times = {}
     for m in (8, 2048):
         for (k, n) in SHAPES_7B:
@@ -961,6 +992,8 @@ def quant_kernel_phase():
                 prefill_ms=pre[0], prefill_plain_ms=pre[1],
                 prefill_library_ms=pre[2], prefill_bound_ms=pre[3],
                 prefill_int4_ms=times[(2048, 4096, 11008, "int4")][0],
+                verify_m40_int8_ms=verify["int8"],
+                verify_m40_int4_ms=verify["int4"],
                 int4_ms=times[(8, 11008, 4096, "int4")][0],
                 int4_bound_ms=times[(8, 11008, 4096, "int4")][1],
                 forward_int8_ms=fwd[(8, "int8")][0],
@@ -1113,15 +1146,17 @@ def int8_decode_phase():
 def reference_phase(paged=False):
     """Small-input reference: a tiny float32 Llama (head_dim 64, group 2)
     on the card serves 5 queued prompts over 2 slots in 16-token prefill
-    chunks through the fused kernel. One no-cache forward over each
+    chunks through the fused kernel, with the prefix cache on (the
+    default). One no-cache forward over each
     prompt and its output (the model's plain causal path: no KV cache, no
     kernel) must rank every served token first: its logit within 1e-4 of
     the row's maximum, so a float32 near-tie cannot fail the check.
 
     ``paged``: the paged engine with 16-token pages and a pool of 4 usable
     pages (plus the sink): the 40-token request needs 4 pages and cannot
-    join the first, so admission waits on the pool; at the end every page
-    is free again."""
+    join the first, so admission waits on the pool (and evicts the prefix
+    store's pages to fit); at the end every page is free or held by the
+    store alone."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
@@ -1146,9 +1181,11 @@ def reference_phase(paged=False):
         reqs = [eng._finished[r] for r in rids]
     finally:
         flags.set_flags({"prefill_chunk": saved})
-    if paged and not (blocked and eng.stats["free_pages"] == 4):
-        raise AssertionError(f"paged reference: pool blocked {blocked}, "
-                             f"free pages {eng.stats['free_pages']} of 4")
+    if paged:
+        check_pool("paged reference", eng)
+        if not blocked:
+            raise AssertionError("paged reference: admission never waited "
+                                 "on the pool")
     worst = 0.0
     for p, r in zip(prompts, reqs):
         if len(r.output) != 12:
@@ -1172,8 +1209,8 @@ def reference_phase(paged=False):
           f"{eng.stats['decode_forwards']} decode forwards through the "
           f"kernel, served tokens are the no-cache forward's greedy choice "
           f"(max logit gap {worst:.2e})"
-          + (f", admission waited on the pool, {eng.stats['free_pages']} "
-             "pages free at the end" if paged else ""), flush=True)
+          + (f", admission waited on the pool, pages at the end "
+             f"{pool_identity(eng)}" if paged else ""), flush=True)
 
 
 def quant_reference_phase():
@@ -2990,12 +3027,33 @@ def read_launches():
             **ss.LAUNCHES, **gn.LAUNCHES}
 
 
+def pool_identity(eng):
+    """A paged engine's pages: free, held by the prefix store alone,
+    shared (refcount > 1), and usable (all but the sink page)."""
+    pool = eng.pool
+    return {"free": pool.free_pages,
+            "store_only": (eng._prefix.evictable_pages(pool)
+                           if eng._prefix is not None else 0),
+            "shared": pool.shared_pages, "usable": pool.n_pages - 1}
+
+
+def check_pool(label, eng):
+    """After a run every usable page is free or held by the prefix store
+    alone (with the cache off: free), and none is shared."""
+    ident = pool_identity(eng)
+    if ident["free"] + ident["store_only"] != ident["usable"] \
+            or ident["shared"]:
+        raise AssertionError(f"{label}: pages not returned: {ident}")
+    return ident
+
+
 def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8,
           **config):
     """Serve ``prompts`` through a fresh engine (``config``: further
     EngineConfig fields); returns the requests, the wall time and the
     engine's counts, with its init time (quantization included) under
-    ``init_s``."""
+    ``init_s`` and, paged, its pool after the run (checked by
+    ``check_pool``) under ``pool``."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             EngineConfig)
@@ -3010,7 +3068,9 @@ def serve(model, prompts, fused: str, max_new_tokens=32, max_chunk=8,
     reqs = eng.run(prompts, max_new_tokens=max_new_tokens,
                    max_chunk=max_chunk)
     torch.cuda.synchronize()
-    return reqs, time.perf_counter() - t1, dict(eng.stats, init_s=t1 - t0)
+    wall = time.perf_counter() - t1
+    pool = check_pool("serve", eng) if eng.pool is not None else None
+    return reqs, wall, dict(eng.stats, init_s=t1 - t0, pool=pool)
 
 
 def build_7b():
@@ -3145,10 +3205,6 @@ def paged_engine_phase(model, prompts, contiguous_outs):
         raise AssertionError(f"unfused paged launches {off_counts}, "
                              f"expected {off_want}")
     n_pages = 8 * (1024 // PAGE) + 1
-    if stats["free_pages"] != n_pages - 1 \
-            or stats_off["free_pages"] != n_pages - 1:
-        raise AssertionError(f"pages not returned: {stats['free_pages']}, "
-                             f"{stats_off['free_pages']} of {n_pages - 1}")
     fused_outs = [r.output for r in reqs]
     off_outs = [r.output for r in reqs_off]
     same_first_as_contiguous = sum(
@@ -3159,7 +3215,8 @@ def paged_engine_phase(model, prompts, contiguous_outs):
         "max_chunk": 8, "page_size": PAGE, "n_pages": n_pages,
         "ttft_ms": ttft, "ttft_p50_ms": ttft_p50,
         "decode_tokens_per_s": decode_tps, "peak_memory_gb": peak_gb,
-        "free_pages": stats["free_pages"], "launches": fused_counts,
+        "free_pages": stats["free_pages"], "pool": stats["pool"],
+        "launches": fused_counts,
         "unfused_launches": off_counts,
         "decode_forwards": stats["decode_forwards"], "wall_s": wall,
         "unfused_wall_s": wall_off,
@@ -3193,7 +3250,8 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
     chunks and decode forwards) with quantized weights, the fused kernel
     of the cache once per layer per decode forward with fused decode on,
     the block-table kernel as often with it off on a float pool and never
-    on an int8 pool; every page back; the same first tokens both ways.
+    on an int8 pool; every page back (free, or held by the prefix store
+    alone); the same first tokens both ways.
     Reports TTFT, decode rate, peak memory and the first index where the
     tokens leave the bf16 engine's ``ref_outs``. Returns the fused run's
     launch counts."""
@@ -3214,7 +3272,8 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
         counts = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         decode = layers * stats["decode_forwards"]
-        forwards = stats["prefill_chunk"] + stats["decode_forwards"]
+        forwards = stats["prefill_chunk"] + stats["decode_forwards"] \
+            + stats["verify_forwards"]
         want = {"fused_contiguous_decode_attention":
                     decode if fused == "auto" and not paged else 0,
                 "fused_paged_decode_attention":
@@ -3233,9 +3292,6 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
                     0 <= t < cfg.vocab_size for t in r.output):
                 raise AssertionError(f"{label}: request {r.rid} bad output "
                                      f"{r.output}")
-        if paged and stats["free_pages"] != 8 * (1024 // PAGE):
-            raise AssertionError(f"{label}: pages not returned, "
-                                 f"{stats['free_pages']} free")
         runs[fused] = (reqs, wall, stats, counts, peak_gb)
     reqs, wall, stats, counts, peak_gb = runs["auto"]
     outs = [r.output for r in reqs]
@@ -3271,6 +3327,206 @@ def quant_engine_phase(label, model, prompts, ref_outs, **config):
         raise AssertionError(f"{label}: the first generated token differs "
                              "between fused and unfused decode")
     return counts
+
+
+# the prefix runs: one seeded 512-token shared prompt (8 blocks of 64)
+# plus 64 tokens of each request's own; the spec runs: 8 prompts, each a
+# seeded 16-token pattern repeated to 128 tokens
+PREFIX_SHARED, PREFIX_OWN, SPEC_PATTERN, SPEC_LEN = 512, 64, 16, 128
+
+
+def engine_run(model, prompts, max_new_tokens, label, publish=None,
+               drafter=None, **config):
+    """One timed run of ``prompts`` through a fresh 8-slot engine at the
+    current flags (``publish``: a request served first, untimed, so that
+    its prompt's blocks are in the prefix store; ``drafter``: the
+    engine's drafter when speculative decoding is on). The counts are set to 0
+    just before the timed run and read just after: the decode kernel of
+    the cache (row 1 contiguous, row 2 paged) must have run once per
+    layer per decode forward of that run (a verify forward launches
+    none) and no other kernel at all.
+    Returns the requests, wall time, decode forwards and verify forwards
+    of the run, the launches, and the engine."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    cfg = model.config
+    paged = bool(config.get("paged"))
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=1024, **config),
+        device="cuda", drafter=drafter)
+    if publish is not None:
+        eng.run([publish], max_new_tokens=1)
+    torch.cuda.synchronize()
+    forwards0 = eng.stats["decode_forwards"]
+    verify0 = eng.stats["verify_forwards"]
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=max_new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    forwards = eng.stats["decode_forwards"] - forwards0
+    verify = eng.stats["verify_forwards"] - verify0
+    decode = cfg.num_hidden_layers * forwards
+    want = {"fused_contiguous_decode_attention": 0 if paged else decode,
+            "fused_paged_decode_attention": decode if paged else 0,
+            "paged_decode_attention": 0, "weight_only_matmul": 0,
+            **NO_TRAIN_KERNELS}
+    if counts != want or forwards + verify <= 0:
+        raise AssertionError(f"{label}: launches {counts}, expected {want} "
+                             f"({cfg.num_hidden_layers} layers x {forwards} "
+                             "decode forwards)")
+    for r in reqs:
+        if len(r.output) != max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"{label}: request {r.rid} bad output "
+                                 f"{r.output}")
+    return dict(reqs=reqs, wall=wall, forwards=forwards, verify=verify,
+                launches=counts, engine=eng)
+
+
+def run_summary(run):
+    """TTFT p50 and decode tokens/s of one ``engine_run``."""
+    reqs = run["reqs"]
+    ttft = [r.ttft_ms for r in reqs]
+    decode_tokens = sum(len(r.output) - 1 for r in reqs)
+    return {"ttft_p50_ms": float(np.median(ttft)), "ttft_ms": ttft,
+            "decode_tokens_per_s":
+                decode_tokens / (run["wall"] - max(ttft) / 1e3),
+            "wall_s": run["wall"], "decode_forwards": run["forwards"],
+            "verify_forwards": run["verify"],
+            "decode_kernel_launches": sum(run["launches"].values())}
+
+
+class ReplayDrafter:
+    """Proposes, for a known prompt, the next tokens of a recorded greedy
+    run of it (the spec-off arm's outputs): the verify pass's best case,
+    where only a difference between the verify forward's and the decode
+    kernel's bf16 numbers rejects a draft."""
+
+    def __init__(self, prompts, outputs):
+        self.n_prompt = len(prompts[0])
+        self.runs = {np.asarray(p, np.int64).tobytes(): o
+                     for p, o in zip(prompts, outputs)}
+
+    def propose(self, history, k):
+        out = self.runs.get(np.asarray(history[:self.n_prompt],
+                                       np.int64).tobytes(), [])
+        n = len(history) - self.n_prompt
+        return np.asarray(out[n:n + k], np.int64)
+
+
+def prefix_spec_phase(model):
+    """Prefix caching and speculative decoding at 7B width, bf16.
+
+    Prefix runs, contiguous and paged (64-token pages), the cache on and
+    off: one request publishes the shared 512-token prompt, then 8
+    requests of it plus 64 tokens of their own take 32 new tokens each.
+    With the cache on every one of the 8 hits all 512 tokens (paged: it
+    adopts the 8 cached pages, and row 2 appends past them); the first
+    tokens must equal the cache-off run's, and every paged page must be
+    free or held by the store alone, none shared, after the run.
+
+    Spec runs, contiguous: the 8 repeated-pattern prompts take 64 new
+    tokens with ``PT_FLAGS_spec_decode`` off, ngram, and ngram with a
+    ``ReplayDrafter`` of the off run's tokens. A random-weight model does
+    not copy its prompt, so the n-gram drafter may find nothing to
+    propose (reported, not asserted); the replay run must take verify
+    passes. The first tokens of both must equal the off run's. Every run
+    launches only the cache's decode kernel, once per layer per decode
+    forward (a verify pass launches none)."""
+    from paddle_tpu_torch import flags
+
+    cfg = model.config
+    rng = np.random.default_rng(12)
+    shared = rng.integers(1, cfg.vocab_size, PREFIX_SHARED)
+    own = [rng.integers(1, cfg.vocab_size, PREFIX_OWN) for _ in range(9)]
+    prompts = [np.concatenate([shared, o]) for o in own]
+    out = {}
+    saved = {k: flags.flag(k) for k in ("prefix_cache", "spec_decode")}
+    try:
+        flags.set_flags({"fused_decode": "auto", "spec_decode": "off"})
+        for paged in (False, True):
+            layout = "paged" if paged else "contig"
+            config = dict(paged=True, page_size=PAGE) if paged else {}
+            runs = {}
+            for on in (True, False):
+                flags.set_flags({"prefix_cache": on})
+                label = f"prefix {layout} {'on' if on else 'off'}"
+                run = engine_run(model, prompts[1:], 32, label,
+                                 publish=prompts[0], **config)
+                eng = run["engine"]
+                summary = run_summary(run)
+                summary["prefix"] = eng.prefix_snapshot()
+                if paged:
+                    summary["pool"] = check_pool(label, eng)
+                runs[on] = (run, summary)
+                print(f"{label}: TTFT p50 {summary['ttft_p50_ms']:.2f} ms, "
+                      f"decode {summary['decode_tokens_per_s']:.1f} tok/s, "
+                      f"launches {summary['decode_kernel_launches']} = "
+                      f"{cfg.num_hidden_layers} layers x {run['forwards']} "
+                      f"decode forwards, prefix {summary['prefix']}"
+                      + (f", pool {summary['pool']}" if paged else ""),
+                      flush=True)
+            snap = runs[True][1]["prefix"]
+            if snap["hits"] != 8 or snap["hit_tokens"] != 8 * PREFIX_SHARED:
+                raise AssertionError(f"prefix {layout}: {snap}, expected 8 "
+                                     f"hits of {PREFIX_SHARED} tokens")
+            on_outs = [r.output for r in runs[True][0]["reqs"]]
+            off_outs = [r.output for r in runs[False][0]["reqs"]]
+            if [o[0] for o in on_outs] != [o[0] for o in off_outs]:
+                raise AssertionError(f"prefix {layout}: first tokens differ "
+                                     "between the cache on and off")
+            out[f"prefix_{layout}"] = {
+                "on": runs[True][1], "off": runs[False][1],
+                "first_tokens_equal": True,
+                "outputs_equal": on_outs == off_outs,
+                "first_divergence": first_divergence(on_outs, off_outs)}
+        flags.set_flags({"prefix_cache": True})
+        spec_prompts = [np.tile(rng.integers(1, cfg.vocab_size, SPEC_PATTERN),
+                                SPEC_LEN // SPEC_PATTERN) for _ in range(8)]
+        runs = {}
+        for arm in ("off", "ngram", "replay"):
+            flags.set_flags({"spec_decode": "off" if arm == "off"
+                             else "ngram"})
+            drafter = None
+            if arm == "replay":
+                drafter = ReplayDrafter(
+                    spec_prompts, [r.output for r in runs["off"][0]["reqs"]])
+            label = f"spec contig {arm}"
+            engine_run(model, spec_prompts[:2], 8, label + " warm-up",
+                       drafter=drafter)
+            run = engine_run(model, spec_prompts, 64, label,
+                             drafter=drafter)
+            summary = run_summary(run)
+            summary["spec"] = run["engine"].spec_snapshot()
+            outs = [r.output for r in run["reqs"]]
+            if arm != "off":
+                ref = [r.output for r in runs["off"][0]["reqs"]]
+                if [o[0] for o in outs] != [o[0] for o in ref]:
+                    raise AssertionError(f"{label}: first tokens differ "
+                                         "from spec off")
+                summary["outputs_equal_off"] = outs == ref
+                summary["first_divergence"] = first_divergence(outs, ref)
+            runs[arm] = (run, summary)
+            print(f"{label}: TTFT p50 {summary['ttft_p50_ms']:.2f} ms, "
+                  f"decode {summary['decode_tokens_per_s']:.1f} tok/s, "
+                  f"{run['forwards']} decode forwards and {run['verify']} "
+                  f"verify forwards, launches "
+                  f"{summary['decode_kernel_launches']}, spec "
+                  f"{summary['spec']}", flush=True)
+        if runs["replay"][1]["spec"]["verify_calls"] <= 0:
+            raise AssertionError("spec replay: no verify pass was taken")
+        out["spec_contig"] = {arm: runs[arm][1] for arm in runs}
+    finally:
+        flags.set_flags(saved)
+    print(json.dumps({"prefix_spec": {
+        "model": "llama2_7b width, random bf16 weights (seed 0)",
+        "prefix_prompt_tokens": PREFIX_SHARED + PREFIX_OWN,
+        "shared_tokens": PREFIX_SHARED, "spec_prompt_tokens": SPEC_LEN,
+        **out}}), flush=True)
+    return out
 
 
 def wave_profile(model, prompts, label, max_new_tokens=1, fused="auto",
@@ -3428,6 +3684,7 @@ def main() -> int:
                    "quant_engine_int8kv_contig", model, prompts,
                    contiguous_outs, cache_dtype="int8")
     row_i8["launches"] = counts["fused_contiguous_decode_attention"]
+    phase("prefix and spec", prefix_spec_phase, model)
     # where the time goes: the prefill wave alone, and with one chunk of
     # 8 decode forwards, for the bf16 and the quantized engines
     t0 = time.perf_counter()

@@ -56,10 +56,22 @@ define_flag("prefill_chunk", 256,
             "1-token chunk would enter the decode branch). 0 selects the "
             "JAX package's legacy bucketed prefill, which the port does "
             "not have")
-define_flag("prefix_cache", False,
-            "serving prefix KV reuse. Not ported yet: on raises at engine "
-            "init. The JAX package defaults it on; greedy tokens are the "
-            "same either way, since a cache hit only skips prefill work")
+define_flag("prefix_cache", True,
+            "serving prefix KV reuse: admission looks up the longest "
+            "cached block-aligned prompt prefix and prefills only the "
+            "suffix (paged mode shares pages copy-on-write; contiguous "
+            "mode copies cached token blocks into the slot). off = "
+            "every request recomputes its full prompt")
+define_flag("spec_decode", "off",
+            "speculative decoding in the serving engine: draft up to "
+            "spec_k candidate tokens per slot per step (host-side n-gram "
+            "prompt lookup, no draft model) and score them in one "
+            "[slots, spec_k+1] target-model pass with greedy acceptance, "
+            "so one weight stream buys accepted+1 tokens. ngram = draft "
+            "whenever the slot's history matches; auto = ngram with a "
+            "per-request throttle that stops drafting traffic that never "
+            "accepts; off = one token per decode pass (greedy outputs are "
+            "identical in every mode)")
 define_flag("kv_cache_dtype", "auto",
             "serving KV-cache dtype when EngineConfig.cache_dtype is "
             "'auto': auto = bfloat16 on the card, float32 on the CPU; or "

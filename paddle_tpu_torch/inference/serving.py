@@ -22,7 +22,23 @@ donates them). Greedy tokens match the JAX engine's.
 Paged mode claims ``pages_needed(prompt + max_new_tokens)`` pages per
 request at admission, waits for a finisher when the pool is short, frees
 the pages at finish or cancel, and uploads a snapshot of the block table
-once per prefill wave and once per decode step or chunk.
+once per prefill wave and once per decode step, chunk or verify pass.
+
+Prefix caching (``PT_FLAGS_prefix_cache``, on by default as in JAX):
+admission looks up the longest cached block-aligned prompt prefix
+(``prefix_cache.py``) and prefills only the suffix. Paged mode adopts the
+cached pages into the slot's block table and copies a shared page before
+any write can reach it (``_cow_block``: a full-cover hit's recomputed
+last token, and ``_cow_for_decode`` before every decode dispatch, ahead
+of the block-table upload, since the fused paged kernel appends through
+that table). Contiguous mode copies the cached blocks into the slot's
+rows. A wave publishes its prompts' full blocks once it has run.
+
+Speculative decoding (``PT_FLAGS_spec_decode=ngram|auto``): a host-side
+drafter proposes up to ``spec_k`` tokens per greedy slot, one ``[slots,
+spec_k+1]`` verify forward scores them through the models' s > 1 branches,
+and each slot advances by its accepted drafts plus one token; rows past
+that stay in the cache above every later causal mask.
 
 Quantized serving: ``EngineConfig(weight_dtype="int8"|"int4")`` swaps
 every linear of (a deep copy of, unless ``quantize_inplace``) the model for
@@ -31,10 +47,11 @@ the weight-only matmul kernel on the card; ``cache_dtype="int8"`` gives
 int8 caches or pools with per-row float32 scales, quantized on append and
 dequantized in the fused decode kernels.
 
-This slice runs chunked prefill, float or int8 caches (contiguous or
-paged) and bf16, int8 or int4 weights. Prefix caching, speculative
-decoding, telemetry, tracing, resilience, the sanitizer, the profiler and
-the router are later slices (ROADMAP.md Queue A).
+The port runs chunked prefill, float or int8 caches (contiguous or
+paged), bf16, int8 or int4 weights, prefix caching and speculative
+decoding. Telemetry, tracing, resilience, tenants, the degradation
+ladder, the sanitizer, the profiler and the router are later slices
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -53,7 +70,9 @@ from .. import flags
 from ..core.device import resolve_device
 from ..core.random import make_generator
 from ..generation import process_logits_batch
-from .paged import PagedState, PagePool, init_paged_pool
+from .paged import PagedState, PagePool, QuantizedKV, init_paged_pool
+from .prefix_cache import ContigPrefixStore, PagedPrefixStore, block_hashes
+from .spec_decode import Drafter, NgramDrafter
 
 _TODO = "see ROADMAP.md Queue A"
 
@@ -164,6 +183,13 @@ class Request:
     top_p: Optional[float] = None
     greedy: Optional[bool] = None
     _submit_t: float = 0.0
+    # the prompt's prefix-cache block digests (hashed once, at the first
+    # admission attempt)
+    _hashes: Optional[List[bytes]] = None
+    # speculative-decoding tallies (the ``auto`` mode's throttle reads
+    # them)
+    _spec_proposed: int = 0
+    _spec_accepted: int = 0
 
 
 def build_request(rid: int, prompt, max_new_tokens: int = 32,
@@ -202,10 +228,11 @@ class ContinuousBatchingEngine:
     weights are; with no CUDA device the engine raises unless the caller
     passes ``device="cpu"``. With int8/int4 weights ``self.model`` is the
     quantized model (a deep copy of ``model`` unless
-    ``quantize_inplace``)."""
+    ``quantize_inplace``). ``drafter`` replaces the n-gram drafter when
+    speculative decoding is on."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
-                 device="cuda"):
+                 device="cuda", drafter: Optional[Drafter] = None):
         self.cfg = config or EngineConfig()
         cfg = self.cfg
         self.device = resolve_device(device)
@@ -228,6 +255,22 @@ class ContinuousBatchingEngine:
                 "(PT_FLAGS_prefill_chunk > 0): the legacy per-bucket "
                 "prefill has no quantize-on-append path")
         self._check_slice(cfg)
+        # speculative decoding: host-side drafting and one [slots,
+        # spec_k+1] verify forward; "off" leaves the decode path as it is
+        mode = str(flags.flag("spec_decode")).lower()
+        if mode not in ("off", "ngram", "auto"):
+            raise ValueError(f"PT_FLAGS_spec_decode must be off|ngram|auto;"
+                             f" got {mode!r}")
+        if cfg.spec_k < 1:
+            raise ValueError(f"EngineConfig.spec_k must be >= 1; got "
+                             f"{cfg.spec_k}")
+        self._spec_mode = mode
+        self._drafter = None
+        if mode != "off":
+            self._drafter = drafter if drafter is not None \
+                else NgramDrafter()
+        self.spec_stats = {"proposed": 0, "accepted": 0, "emitted": 0,
+                           "verify_calls": 0, "fallback_steps": 0}
         if self.weight_dtype != "bf16":
             from ..quantization import quantize_model_weight_only
 
@@ -269,10 +312,29 @@ class ContinuousBatchingEngine:
         # model's s == 1 decode branch, which has no sentinel drop
         self._chunk_len = max(2, min(int(flags.flag("prefill_chunk")),
                                      cfg.max_len))
+        # prefix KV reuse, hashed in blocks of page_size tokens in both
+        # cache modes
+        self._prefix = None
+        self._prefix_block = cfg.page_size
+        if flags.flag("prefix_cache"):
+            if cfg.paged:
+                self._prefix = PagedPrefixStore()
+            else:
+                cap = cfg.prefix_cache_blocks
+                if cap is None:
+                    cap = max(cfg.max_slots * cfg.max_len
+                              // self._prefix_block // 4, 1)
+                self._prefix = ContigPrefixStore(cap)
+        self.prefix_stats = {"hits": 0, "misses": 0, "hit_tokens": 0,
+                             "prompt_tokens": 0, "evictions": 0,
+                             "cow_copies": 0}
         # forwards run per program (host counters: a decode forward is one
         # [slots, 1] model call, so kernel launches per run are
-        # num_hidden_layers x decode_forwards on the fused path)
-        self.stats = {"prefill_chunk": 0, "decode_forwards": 0}
+        # num_hidden_layers x decode_forwards on the fused path; a verify
+        # forward is one [slots, spec_k+1] call through the s > 1
+        # branches, which launch no decode kernel)
+        self.stats = {"prefill_chunk": 0, "decode_forwards": 0,
+                      "verify_forwards": 0}
         self._note_free_pages()
 
     @staticmethod
@@ -284,10 +346,6 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "PT_FLAGS_prefill_chunk=0 selects the legacy bucketed "
                 f"prefill, which is not ported ({_TODO})")
-        if flags.flag("prefix_cache"):
-            raise NotImplementedError(
-                f"prefix caching is not ported yet ({_TODO}, prefix cache "
-                "and speculative decoding)")
         if cfg.max_slots < 1 or cfg.max_len < 2:
             raise ValueError("EngineConfig needs max_slots >= 1 and "
                              "max_len >= 2")
@@ -449,34 +507,267 @@ class ContinuousBatchingEngine:
             out.append(nxt)
         return torch.stack(out)
 
+    def _verify_forward(self, ids, start, n_draft, samp, use_samp, bt):
+        """THE speculative-decoding program: one ``[slots, S]`` forward
+        (S = spec_k + 1) over each slot's last token and its drafts at
+        rows ``start..start+S-1``, through the s > 1 branches the prefill
+        chunk takes (slots not decoding carry the ``max_len`` sentinel).
+        Every row's K/V is written; the host advances ``seq_lens`` past
+        the accepted rows only. Greedy acceptance: draft j stands iff it
+        equals the argmax after rows 0..j and every earlier draft stood.
+        Row 0 of a sampling slot is sampled. Returns ``preds [slots, S]``
+        and ``accepted [slots]``, on the device."""
+        self.stats["verify_forwards"] += 1
+        S = ids.shape[1]
+        pos = start[:, None] + torch.arange(S, dtype=start.dtype,
+                                            device=start.device)
+        logits, _ = self.model(ids, position_ids=pos,
+                               kv_caches=self._layer_caches(bt, start),
+                               cache_index=start)
+        preds = torch.argmax(logits.float(), dim=-1)
+        match = (preds[:, :-1] == ids[:, 1:]) & (
+            torch.arange(S - 1, device=ids.device)[None, :]
+            < n_draft[:, None])
+        accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        if use_samp:
+            preds[:, 0] = self._sample_rows(logits[:, 0], samp, use_samp)
+        return preds, accepted
+
+    def _copy_page(self, src: int, dst: int):
+        """Copy-on-write's device copy: page ``src`` into ``dst`` in every
+        layer's pool, an int8 pool's scale rows with it."""
+        for cache in self.caches:
+            for t in cache:
+                if t is not None:
+                    t[:, dst] = t[:, src]
+
+    def _insert_prefix_contig(self, kblk, vblk, slot: int, start: int):
+        """Copy one cached block (``[n_layers, B, kvh, d]`` per side, or
+        ``QuantizedKV`` with its scale rows) into ``slot``'s contiguous
+        rows ``start..start+B-1``: the contiguous prefix hit is a copy."""
+        end = start + self._prefix_block
+        for i, pair in enumerate(self.caches):
+            for dst, blk in zip(pair, (kblk, vblk)):
+                if isinstance(dst, QuantizedKV):
+                    dst.q[slot, start:end] = blk.q[i]
+                    dst.scale[slot, start:end] = blk.scale[i]
+                else:
+                    dst[slot, start:end] = blk[i]
+
+    def _read_block_contig(self, slot: int, start: int):
+        """A copy of one block of ``slot``'s rows from every layer, stacked
+        ``[n_layers, B, kvh, d]`` per side (``QuantizedKV`` for int8
+        caches): the store's entry for a new prefix block."""
+        end = start + self._prefix_block
+
+        def stack(side):
+            rows = [pair[side] for pair in self.caches]
+            if isinstance(rows[0], QuantizedKV):
+                return QuantizedKV(
+                    torch.stack([r.q[slot, start:end] for r in rows]),
+                    torch.stack([r.scale[slot, start:end] for r in rows]))
+            return torch.stack([r[slot, start:end] for r in rows])
+
+        return stack(0), stack(1)
+
+    # ---------------- prefix cache ----------------
+    def _match_prefix(self, req: Request):
+        """The longest cached block-aligned prefix of the request's
+        prompt: (hashes, matched entries, prefix_len, full_cover). A
+        prompt cached whole still recomputes its last token, so that
+        prefill has a row to sample from (``full_cover``: that row lands
+        inside the last matched block)."""
+        if req._hashes is None:
+            req._hashes = block_hashes(req.prompt, self._prefix_block)
+        matched = self._prefix.match(req._hashes)
+        prefix_len = len(matched) * self._prefix_block
+        full_cover = prefix_len >= req.prompt.size
+        if full_cover:
+            prefix_len = req.prompt.size - 1
+        return req._hashes, matched, prefix_len, full_cover
+
+    def _note_prefix(self, prefix_len: int, n: int):
+        """Hit/miss counters of one admitted prompt of ``n`` tokens. A
+        prompt shorter than a block can never hit and is not counted."""
+        if n < self._prefix_block:
+            return
+        st = self.prefix_stats
+        st["prompt_tokens"] += n
+        if prefix_len > 0:
+            st["hits"] += 1
+            st["hit_tokens"] += prefix_len
+        else:
+            st["misses"] += 1
+
+    def _evict_pages(self, n_pages: int) -> int:
+        """Free up to ``n_pages`` pool pages from store-only entries
+        (LRU)."""
+        if self._prefix is None or self.pool is None:
+            return 0
+        freed = self._prefix.evict(self.pool, n_pages)
+        self.prefix_stats["evictions"] += freed
+        return freed
+
+    def _cow_block(self, slot: int, block_idx: int) -> bool:
+        """Copy-on-write the shared page at ``block_idx`` of ``slot``: a
+        fresh page (evicting one if the free list is empty), the device
+        copy, the block-table swap. False when no page can be had."""
+        old = int(self.pool.block_tables[slot, block_idx])
+        if self.pool.free_pages == 0 and not self._evict_pages(1):
+            return False
+        new = self.pool.cow(slot, block_idx)
+        if new is None:
+            return False
+        self._copy_page(old, new)
+        self.prefix_stats["cow_copies"] += 1
+        return True
+
+    def _cow_for_decode(self, k_steps: int):
+        """Before a decode dispatch, and before its block table is
+        uploaded: every page the next ``k_steps`` appends of an active
+        slot can reach must be the slot's alone. A shared page (the store
+        or another owner holds a reference) is copied first, so no decode
+        write reaches a cached prefix. Reads the pool's own refcounts, so
+        it catches sharing from any source."""
+        if self._prefix is None or self.pool is None \
+                or self.pool.shared_pages == 0:
+            return
+        ps = self.cfg.page_size
+        for slot in range(self.cfg.max_slots):
+            if not self.active[slot]:
+                continue
+            lo = int(self.seq_lens[slot]) // ps
+            hi = (int(self.seq_lens[slot]) + max(k_steps, 1) - 1) // ps
+            n_have = len(self.pool.pages_of[slot])
+            for b_idx in range(lo, min(hi, n_have - 1) + 1):
+                page = int(self.pool.block_tables[slot, b_idx])
+                if self.pool.ref.get(page, 0) > 1 \
+                        and not self._cow_block(slot, b_idx):
+                    raise RuntimeError(
+                        "copy-on-write needs a free page but the pool is "
+                        "exhausted — size n_pages up")
+        self._note_free_pages()
+
+    def _paged_prefix_admit(self, slot: int, req: Request, need: int):
+        """Claim pages for ``req`` in ``slot``, adopting the longest cached
+        prefix's pages. Returns ``prefix_len`` (the tokens prefill skips),
+        or None when the pool cannot fit the request even after eviction
+        (the slot left clean). A full-cover hit copies the last adopted
+        page before its recomputed row is written; when no page can be
+        had for that copy, the last block is recomputed into a fresh page
+        instead."""
+        pool = self.pool
+        store = self._prefix
+        shared: List[int] = []
+        prefix_len, full_cover = 0, False
+        if store is not None:
+            _, shared, prefix_len, full_cover = self._match_prefix(req)
+        # feasibility first: a pool-blocked request retries every tick,
+        # and must not pay adopt/release churn, a wasted copy or evictions
+        # that cannot cover the shortfall
+        required = pool.pages_needed(need) - len(shared)
+        if full_cover and shared:
+            required += 1  # the copy's private page
+        supply = pool.free_pages
+        if required > supply and store is not None:
+            supply += store.evictable_pages(pool, exclude=shared)
+            if full_cover and shared and pool.ref.get(shared[-1], 0) == 1:
+                # the copy leaves the last shared page to the store alone,
+                # and eviction can take it then
+                supply += 1
+        if required > supply:
+            return None
+        try:
+            if shared:
+                if not pool.adopt(slot, shared):
+                    raise RuntimeError(
+                        f"prefix share of {len(shared)} pages exceeds "
+                        f"max_pages_per_slot={pool.max_pages_per_slot}")
+                if full_cover and not self._cow_block(slot, len(shared) - 1):
+                    pool.release(pool.pages_of[slot].pop())
+                    pool.block_tables[slot, len(shared) - 1] = 0
+                    prefix_len = (len(shared) - 1) * self.cfg.page_size
+            if not pool.alloc(slot, need):
+                missing = pool.pages_needed(need) - len(pool.pages_of[slot])
+                self._evict_pages(missing - pool.free_pages)
+                if not pool.alloc(slot, need):
+                    pool.free(slot)  # releases the adopted pages too
+                    return None
+            return prefix_len
+        except BaseException:
+            # the slot never joined the wave, so the wave's rollback will
+            # not free it
+            pool.free(slot)
+            raise
+
+    def _prefix_store_insert(self, slot: int, hashes: List[bytes],
+                             n_matched: int):
+        """Publish a prefilled prompt's full blocks. Paged: the store takes
+        a reference to each of the slot's pages (no copy; the prefill
+        writes are already queued on the stream). Contiguous: copies of
+        the blocks the store lacks, read from the slot's rows."""
+        store = self._prefix
+        if store is None or not hashes:
+            return
+        if self.pool is not None:
+            for i, digest in enumerate(hashes):
+                store.insert(digest, int(self.pool.block_tables[slot, i]),
+                             self.pool)
+            return
+        for i in range(n_matched, len(hashes)):
+            if hashes[i] not in store:
+                k, v = self._read_block_contig(slot,
+                                               i * self._prefix_block)
+                store.insert(hashes[i], k, v, protect=hashes)
+        self.prefix_stats["evictions"] = store.evictions
+
     # ---------------- admission ----------------
     def _admit_dispatch(self):
-        """Claim free slots (and, paged, pages) for queued requests (FIFO)
-        and queue their chunked prefill on the device without a host
-        sync. Returns the pending (req, slot, n_ctx, first_token) list
-        for ``_admit_integrate``. When the pool cannot fit the head
-        request the wave stops there and the request waits for a
-        finisher; with nothing running that would be forever, so it
+        """Claim free slots (and, paged, pages, adopting cached prefixes)
+        for queued requests (FIFO) and queue their chunked prefill on the
+        device without a host sync. Returns the pending (req, slot, n_ctx,
+        first_token) list for ``_admit_integrate``. When the pool cannot
+        fit the head request the wave stops there and the request waits
+        for a finisher; with nothing running that would be forever, so it
         raises. A failure rolls every claimed request back into the queue
-        (and frees its pages) before propagating."""
+        (and frees its pages) before propagating. Within one wave a
+        request cannot hit the blocks of another request of the same
+        wave: a wave publishes once its prefill has run."""
         self._pool_blocked = False
         if not self._queue:
             return []
-        jobs = []  # [req, slot, cursor, ids]
+        B = self._prefix_block
+        jobs = []  # [req, slot, cursor, prefix_len, hashes, n_matched]
         try:
             while self._free_heap and self._queue:
                 req = self._queue[0]
                 slot = self._free_heap[0]
-                if self.pool is not None and not self._claim_pages(
-                        req, slot, running=bool(jobs)):
-                    self._pool_blocked = True
-                    break
+                prefix_len, hashes, n_matched = 0, [], 0
+                if self.pool is not None:
+                    need = req.prompt.size + req.max_new_tokens
+                    prefix_len = self._paged_prefix_admit(slot, req, need)
+                    if prefix_len is None:
+                        if not jobs and not self.active.any():
+                            raise RuntimeError(
+                                f"request {req.rid} needs "
+                                f"{self.pool.pages_needed(need)} pages but "
+                                f"the pool has {self.pool.free_pages} free "
+                                "with no request running — size n_pages up")
+                        self._pool_blocked = True
+                        break
+                    hashes = req._hashes or []
+                elif self._prefix is not None:
+                    hashes, matched, prefix_len, _ = self._match_prefix(req)
+                    n_matched = len(matched)
+                    for i, (kb, vb) in enumerate(matched):
+                        self._insert_prefix_contig(kb, vb, slot, i * B)
                 self._queue.popleft()
                 heapq.heappop(self._free_heap)
                 self.active[slot] = True
                 req.slot = slot
                 self._slot_req[slot] = req
-                jobs.append([req, slot, 0, req.prompt])
+                jobs.append([req, slot, prefix_len, prefix_len, hashes,
+                             n_matched])
             self._note_free_pages()
             return self._drive_prefill_chunks(jobs)
         except BaseException:
@@ -491,28 +782,16 @@ class ContinuousBatchingEngine:
             self._note_free_pages()
             raise
 
-    def _claim_pages(self, req: Request, slot: int, running: bool) -> bool:
-        """Give ``slot`` the pages for the request's prompt and new
-        tokens; False when the pool cannot fit them now. Raises when
-        nothing is running (no finisher will ever free a page)."""
-        need = req.prompt.size + req.max_new_tokens - len(req.output)
-        if self.pool.alloc(slot, need):
-            return True
-        if not running and not self.active.any():
-            raise RuntimeError(
-                f"request {req.rid} needs {self.pool.pages_needed(need)} "
-                f"pages but the pool has {self.pool.free_pages} free with "
-                "no request running — size n_pages up")
-        return False
-
     def _note_free_pages(self):
         if self.pool is not None:
             self.stats["free_pages"] = self.pool.free_pages
 
     def _drive_prefill_chunks(self, jobs):
-        """Host loop over prompt chunks for a wave of claimed requests:
-        each iteration packs every still-prefilling request's next C
-        tokens into one ``[slots, C]`` call."""
+        """Host loop over the suffix chunks of a wave of claimed requests
+        (each job's cursor starts at its prefix length): each iteration
+        packs every still-prefilling request's next C tokens into one
+        ``[slots, C]`` call. Then the wave's prompts publish their blocks
+        and count their hits."""
         C = self._chunk_len
         cfg = self.cfg
         dev = self.device
@@ -527,7 +806,7 @@ class ContinuousBatchingEngine:
             last_idx = np.zeros((cfg.max_slots,), np.int64)
             finishing = []
             for job in remaining:
-                slot, p, job_ids = job[1], job[2], job[3]
+                slot, p, job_ids = job[1], job[2], job[0].prompt
                 take = min(C, job_ids.size - p)
                 ids[slot, :take] = job_ids[p:p + take]
                 start[slot] = p
@@ -540,9 +819,14 @@ class ContinuousBatchingEngine:
                 torch.as_tensor(start, device=dev),
                 torch.as_tensor(last_idx, device=dev), samp, use_samp, bt)
             for job in finishing:
-                pending.append((job[0], job[1], job[3].size, toks[job[1]]))
+                pending.append((job[0], job[1], job[0].prompt.size,
+                                toks[job[1]]))
             done = {job[1] for job in finishing}
             remaining = [job for job in remaining if job[1] not in done]
+        if self._prefix is not None:
+            for req, slot, _, prefix_len, hashes, n_matched in jobs:
+                self._prefix_store_insert(slot, hashes, n_matched)
+                self._note_prefix(prefix_len, req.prompt.size)
         return pending
 
     def _admit_integrate(self, pending):
@@ -612,10 +896,17 @@ class ContinuousBatchingEngine:
     # ---------------- scheduler ticks ----------------
     def step(self) -> bool:
         """Admit waiting requests, then one decode step for every active
-        slot. Returns False when there is nothing left to do."""
+        slot, or one verify pass when speculative decoding is on and any
+        slot drafted. Returns False when there is nothing left to do."""
         self._admit()
         if not self.active.any():
             return bool(self._queue)
+        if self._spec_mode != "off":
+            drafts = self._propose_drafts()
+            if drafts:
+                return self._spec_step(drafts)
+            self.spec_stats["fallback_steps"] += 1
+        self._cow_for_decode(1)
         use_samp, samp = self._slot_sampling()
         dev = self.device
         toks = torch.as_tensor(self.last_tok[:, None], device=dev)
@@ -630,6 +921,100 @@ class ContinuousBatchingEngine:
             self.seq_lens[slot] += 1
             self.last_tok[slot] = tok
             self._maybe_finish(slot, tok)
+        return True
+
+    # ---------------- speculative decoding ----------------
+    def _draft_budget(self, slot: int) -> int:
+        """The most drafts ``slot`` may carry in a verify pass, 0 when it
+        may not draft: it must decode greedily, have room for a draft and
+        the bonus token, and (``auto``) not have proven undraftable (16
+        proposed tokens at under 1/8 accepted)."""
+        req = self._slot_req[slot]
+        if not self._req_greedy(req):
+            return 0
+        remaining = min(req.max_new_tokens - len(req.output),
+                        self.cfg.max_len - 1 - int(self.seq_lens[slot]))
+        max_d = min(self.cfg.spec_k, remaining - 1)
+        if max_d <= 0:
+            return 0
+        if self._spec_mode == "auto" and req._spec_proposed >= 16 \
+                and req._spec_accepted * 8 < req._spec_proposed:
+            return 0
+        return max_d
+
+    def _propose_drafts(self) -> Dict[int, np.ndarray]:
+        """slot -> proposed tokens (1..spec_k) of every eligible active
+        slot whose drafter proposes."""
+        out: Dict[int, np.ndarray] = {}
+        for slot in range(self.cfg.max_slots):
+            if not self.active[slot]:
+                continue
+            max_d = self._draft_budget(slot)
+            if max_d <= 0:
+                continue
+            req = self._slot_req[slot]
+            hist = np.concatenate([req.prompt,
+                                   np.asarray(req.output, np.int64)])
+            d = np.asarray(self._drafter.propose(hist, max_d)).reshape(-1)
+            if d.size:
+                out[slot] = d[:max_d]
+        return out
+
+    def _spec_step(self, drafts: Dict[int, np.ndarray]) -> bool:
+        """One verify pass over every active slot (slots without drafts
+        decode one token in it), admission queued behind it, then one
+        sync and each slot advanced by ``accepted + 1`` tokens. Leaving
+        ``seq_lens`` short of the rejected rows is the whole rollback. The
+        copy-on-write guard covers the whole ``spec_k + 1`` window, pad
+        rows included, before the block table is uploaded."""
+        cfg = self.cfg
+        S = cfg.spec_k + 1
+        # the pass's occupants: admission behind it may re-fill a slot
+        chunk_reqs = {s: self._slot_req[s]
+                      for s in range(cfg.max_slots) if self.active[s]}
+        self._cow_for_decode(S)
+        ids = np.zeros((cfg.max_slots, S), np.int64)
+        start = np.full((cfg.max_slots,), cfg.max_len, np.int64)
+        n_draft = np.zeros((cfg.max_slots,), np.int64)
+        for slot in chunk_reqs:
+            ids[slot, 0] = self.last_tok[slot]
+            d = drafts.get(slot)
+            if d is not None and d.size:
+                ids[slot, 1:1 + d.size] = d
+                n_draft[slot] = d.size
+            start[slot] = self.seq_lens[slot]
+        use_samp, samp = self._slot_sampling()
+        dev = self.device
+        preds, accepted = self._verify_forward(
+            torch.as_tensor(ids, device=dev),
+            torch.as_tensor(start, device=dev),
+            torch.as_tensor(n_draft, device=dev), samp, use_samp,
+            self._block_tables())
+        pending = self._admit_dispatch()
+        preds_np = preds.cpu().numpy()  # one sync for S tokens a slot
+        acc_np = accepted.cpu().numpy()
+        st = self.spec_stats
+        for slot, req in chunk_reqs.items():
+            if self._slot_req.get(slot) is not req:
+                continue
+            n = int(n_draft[slot])
+            a = min(int(acc_np[slot]), n)
+            for tok in [int(t) for t in ids[slot, 1:1 + a]] \
+                    + [int(preds_np[slot, a])]:
+                if req.done:
+                    break  # eos inside the chain: the rest is dropped
+                req.output.append(tok)
+                self.seq_lens[slot] += 1
+                self.last_tok[slot] = tok
+                st["emitted"] += 1
+                self._maybe_finish(slot, tok)
+            if n:
+                req._spec_proposed += n
+                req._spec_accepted += a
+                st["proposed"] += n
+                st["accepted"] += a
+        st["verify_calls"] += 1
+        self._admit_integrate(pending)
         return True
 
     def _slot_budgets(self) -> np.ndarray:
@@ -650,10 +1035,24 @@ class ContinuousBatchingEngine:
             self._admit()
             if not self.active.any():
                 return bool(self._queue)
+        if self._spec_mode != "off":
+            # a verify pass emits one token for a slot without drafts
+            # against the chunk's K, so it takes over the chunk only when
+            # at least half the active slots draft (the cheap eligibility
+            # count first, the drafter's scan only if it can pass)
+            n_active = int(self.active.sum())
+            eligible = sum(1 for s in range(self.cfg.max_slots)
+                           if self.active[s] and self._draft_budget(s) > 0)
+            drafts = (self._propose_drafts() if 2 * eligible >= n_active
+                      else {})
+            if drafts and 2 * len(drafts) >= n_active:
+                return self._spec_step(drafts)
+            self.spec_stats["fallback_steps"] += 1
         K = max_chunk
         chunk_slots = self.active.copy()
         chunk_reqs = {s: self._slot_req[s]
                       for s in range(self.cfg.max_slots) if chunk_slots[s]}
+        self._cow_for_decode(K)
         budget = self._slot_budgets()
         use_samp, samp = self._slot_sampling()
         dev = self.device
@@ -693,3 +1092,26 @@ class ContinuousBatchingEngine:
                 self.active.any():
             pass
         return [self._finished[r] for r in rids]
+
+    # ---------------- readers ----------------
+    def prefix_snapshot(self) -> dict:
+        """Prefix-cache counters, with ``enabled``, ``cached_blocks`` and
+        ``hit_rate_tokens`` (the JAX engine's keys)."""
+        st = dict(self.prefix_stats)
+        st["enabled"] = self._prefix is not None
+        st["cached_blocks"] = (self._prefix.cached_pages
+                               if self._prefix is not None else 0)
+        tot = st["prompt_tokens"]
+        st["hit_rate_tokens"] = st["hit_tokens"] / tot if tot else 0.0
+        return st
+
+    def spec_snapshot(self) -> dict:
+        """Speculative-decoding counters, with ``enabled``, ``mode``,
+        ``k`` and ``acceptance_rate`` (the JAX engine's keys)."""
+        st = dict(self.spec_stats)
+        st["enabled"] = self._spec_mode != "off"
+        st["mode"] = self._spec_mode
+        st["k"] = self.cfg.spec_k
+        st["acceptance_rate"] = (st["accepted"] / st["proposed"]
+                                 if st["proposed"] else 0.0)
+        return st

@@ -195,6 +195,15 @@ def test_paged_kernels_raise_on_what_they_do_not_take(card):
             **dict(inp, k_pages=inp["k_pages"].transpose(1, 2)))
 
 
+def _assert_pool_identity(eng):
+    """After a run with the prefix cache on: every usable page is free or
+    held by the store alone, and none is shared."""
+    pool = eng.pool
+    assert pool.free_pages + eng._prefix.evictable_pages(pool) \
+        == pool.n_pages - 1
+    assert pool.shared_pages == 0
+
+
 def _serve_fused_and_unfused(paged):
     """The tiny model in float32 on the card, served with fused decode on
     and off: returns {mode: outputs} and asserts each mode's kernel ran
@@ -236,8 +245,8 @@ def _serve_fused_and_unfused(paged):
                 want[kernel] = (cfg.num_hidden_layers
                                 * eng.stats["decode_forwards"])
             assert launched == want
-            if paged:
-                assert eng.stats["free_pages"] == 8
+            if paged:  # every page free or held by the prefix store alone
+                _assert_pool_identity(eng)
     finally:
         flags.set_flags({"fused_decode": saved})
     return outs
@@ -536,6 +545,10 @@ QMM_CASES = [  # m, k, n, group, weight dtype, x dtype
     (16, 1100, 384, 110, "int4", torch.float16),
     (16, 1100, 256, 100, "int8", torch.float32),
     (1, 2200, 200, 110, "int4", torch.bfloat16),
+    # the verify pass of speculative decoding at 8 slots x (spec_k + 1):
+    # m = 40 at the 7B q/k/v/o shape
+    (40, 4096, 4096, 128, "int8", torch.bfloat16),
+    (40, 4096, 4096, 128, "int4", torch.bfloat16),
 ]
 
 
@@ -647,6 +660,116 @@ def test_quantized_engine_fused_and_unfused_agree_on_the_card(
     outs = _serve_quantized(paged, weight_dtype, cache_dtype)
     assert outs["on"] == outs["off"]
     assert all(len(o) == 12 for o in outs["on"])
+
+
+# --- prefix cache and speculative decoding over rows 1-2 --------------------
+
+def _drain(eng, step=None):
+    step = step or (lambda: eng.step_chunk(4))
+    while step() or eng._queue or eng.active.any():
+        pass
+
+
+def _bf16_tiny():
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, dtype="bfloat16")
+    return LlamaForCausalLM(cfg, device="cuda", seed=1)
+
+
+def test_paged_prefix_hits_run_row_2_on_adopted_pages(card):
+    """bf16 on the card, 16-token pages: after one request publishes a
+    32-token prefix, four requests over it adopt its two pages; the fused
+    paged kernel (row 2) runs once per layer per decode forward over
+    block tables that hold the adopted pages, the cached pages' bytes are
+    unchanged after the run, and the first tokens equal those of an
+    engine with the prefix cache off."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    model = _bf16_tiny()
+    rng = np.random.default_rng(2)
+    shared = rng.integers(1, 256, 32)
+    prompts = [np.concatenate([shared, rng.integers(1, 256, n)])
+               for n in (5, 16, 9, 1)]
+    saved = {k: flags.flag(k) for k in ("prefix_cache", "prefill_chunk")}
+    outs = {}
+    try:
+        for on in (True, False):
+            flags.set_flags({"prefix_cache": on, "prefill_chunk": 16})
+            eng = ContinuousBatchingEngine(model, EngineConfig(
+                max_slots=4, max_len=128, paged=True, page_size=16))
+            eng.run([np.concatenate([shared, [7]])], max_new_tokens=2)
+            cached = eng._prefix.pages() if on else []
+            held = [[t[:, p].clone() for t in layer if t is not None]
+                    for layer in eng.caches for p in cached]
+            before = pa.LAUNCHES["fused_paged_decode_attention"]
+            forwards = eng.stats["decode_forwards"]
+            rids = [eng.add_request(p, 12) for p in prompts]
+            eng.step_chunk(4)  # admits all four
+            tables = eng.pool.block_tables.copy()
+            _drain(eng)
+            launched = pa.LAUNCHES["fused_paged_decode_attention"] - before
+            assert launched == model.config.num_hidden_layers * (
+                eng.stats["decode_forwards"] - forwards) > 0
+            outs[on] = [eng._finished[r].output for r in rids]
+            if on:
+                assert eng.prefix_snapshot()["hits"] == 4
+                assert all(tables[s, :2].tolist() == cached[:2]
+                           for s in range(4))
+                now = [[t[:, p] for t in layer if t is not None]
+                       for layer in eng.caches for p in cached]
+                for a, b in zip(held, now):
+                    assert all(torch.equal(x, y) for x, y in zip(a, b))
+                _assert_pool_identity(eng)
+    finally:
+        flags.set_flags(saved)
+    assert [o[0] for o in outs[True]] == [o[0] for o in outs[False]]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_decode_first_tokens_equal_spec_off_on_the_card(card, paged):
+    """bf16 on the card: repetitive prompts served with ``ngram`` drafting
+    take verify passes, their first tokens equal spec-off's, and the
+    decode kernel of the cache (row 1 or 2) runs once per layer per decode
+    forward (verify passes launch neither)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    model = _bf16_tiny()
+    rng = np.random.default_rng(3)
+    prompts = [np.concatenate([rng.integers(1, 256, 4)] * 6)
+               for _ in range(4)]
+    extra = dict(paged=True, page_size=16) if paged else {}
+    saved = {k: flags.flag(k) for k in ("spec_decode", "prefill_chunk")}
+    outs, snaps = {}, {}
+    try:
+        for mode in ("ngram", "off"):
+            flags.set_flags({"spec_decode": mode, "prefill_chunk": 16})
+            eng = ContinuousBatchingEngine(model, EngineConfig(
+                max_slots=4, max_len=128, **extra))
+            count = (lambda: pa.LAUNCHES["fused_paged_decode_attention"]) \
+                if paged else (lambda: da.LAUNCHES)
+            before = count()
+            for step in (eng.step, lambda: eng.step_chunk(4)):
+                rids = [eng.add_request(p, 16) for p in prompts]
+                _drain(eng, step)
+                outs.setdefault(mode, []).extend(
+                    eng._finished[r].output for r in rids)
+            assert count() - before == model.config.num_hidden_layers \
+                * eng.stats["decode_forwards"]
+            snaps[mode] = eng.spec_snapshot()
+    finally:
+        flags.set_flags(saved)
+    assert snaps["ngram"]["verify_calls"] > 0
+    assert snaps["off"]["verify_calls"] == 0
+    assert [o[0] for o in outs["ngram"]] == [o[0] for o in outs["off"]]
+    assert all(len(o) == 16 for o in outs["ngram"])
 
 
 # --- flash attention (rows 5-9) ---------------------------------------------

@@ -517,14 +517,15 @@ MAX_NEW = 12
 
 @pytest.fixture
 def flags16():
-    """16-token prefill chunks, no prefix cache and no speculative
-    decoding on the JAX side; restores every flag."""
+    """16-token prefill chunks, no prefix cache on either side and no
+    speculative decoding on the JAX side; restores every flag."""
     jkeys = ("prefix_cache", "spec_decode", "prefill_chunk")
     jsaved = {k: jflags.flag(k) for k in jkeys}
-    tsaved = {k: tflags.flag(k) for k in ("prefill_chunk", "fused_decode")}
+    tsaved = {k: tflags.flag(k)
+              for k in ("prefill_chunk", "fused_decode", "prefix_cache")}
     jflags.set_flags({"prefix_cache": False, "spec_decode": "off",
                       "prefill_chunk": 16})
-    tflags.set_flags({"prefill_chunk": 16})
+    tflags.set_flags({"prefill_chunk": 16, "prefix_cache": False})
     yield
     jflags.set_flags(jsaved)
     tflags.set_flags(tsaved)
@@ -656,12 +657,3 @@ def test_paged_configs_the_jax_engine_refuses_raise(models, flags16, bad):
                                  cache_dtype=torch.float32, **kw),
             device="cpu")
 
-
-def test_prefix_cache_flag_raises(models, flags16):
-    _, tmodel = models
-    tflags.set_flags({"prefix_cache": True})
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine(tmodel)
-    finally:
-        tflags.set_flags({"prefix_cache": False})

@@ -417,8 +417,10 @@ def test_quantized_engine_tokens_identical_to_jax(models, jax_outputs, arm,
     copy)."""
     _, tmodel = models
     paged, kw = ARMS[arm]
-    saved = {k: tflags.flag(k) for k in ("prefill_chunk", "fused_decode")}
-    tflags.set_flags({"prefill_chunk": 16, "fused_decode": fused})
+    saved = {k: tflags.flag(k)
+             for k in ("prefill_chunk", "fused_decode", "prefix_cache")}
+    tflags.set_flags({"prefill_chunk": 16, "fused_decode": fused,
+                      "prefix_cache": False})
     try:
         eng = ContinuousBatchingEngine(
             tmodel, EngineConfig(max_slots=2, max_len=128, seq_buckets=(32,),

@@ -3,9 +3,10 @@ against the JAX engine on the CPU: with the tiny Llama's weights carried
 across, greedy tokens are identical on a queued workload (5 prompts of
 3-40 tokens over 2 slots, prompts spanning several 16-token prefill
 chunks), driven through ``run(max_chunk=4)`` and through a ``step()``
-loop, with the port's fused decode on and off. The JAX engine runs with
-prefix caching and speculative decoding off (the port has neither yet)
-and its default CPU decode path."""
+loop, with the port's fused decode on and off. Both engines run with
+prefix caching off and speculative decoding off (their own tests are
+``test_torch_prefix_cache.py`` and ``test_torch_spec_decode.py``), the JAX
+engine with its default CPU decode path."""
 
 import numpy as np
 import pytest
@@ -41,10 +42,11 @@ def flags16():
     """16-token prefill chunks on both sides; restores every flag."""
     jkeys = ("prefix_cache", "spec_decode", "prefill_chunk")
     jsaved = {k: jflags.flag(k) for k in jkeys}
-    tsaved = {k: tflags.flag(k) for k in ("prefill_chunk", "fused_decode")}
+    tsaved = {k: tflags.flag(k)
+              for k in ("prefill_chunk", "fused_decode", "prefix_cache")}
     jflags.set_flags({"prefix_cache": False, "spec_decode": "off",
                       "prefill_chunk": 16})
-    tflags.set_flags({"prefill_chunk": 16})
+    tflags.set_flags({"prefill_chunk": 16, "prefix_cache": False})
     yield
     jflags.set_flags(jsaved)
     tflags.set_flags(tsaved)
