@@ -94,13 +94,31 @@ Phases, each of which raises on failure:
    tok/s, verify passes taken, the first tokens equal). Each run must
    launch the cache's decode kernel (row 1 or 2) once per layer per
    decode forward and nothing else;
-14. profiles: device time by operation (``torch.profiler``) of the
+14. predictor, the same model: ``create_predictor(model, Config())`` with
+   the defaults (2048 bf16 cache rows, buckets 128..2048), greedy over the
+   8 prompts with 32 new tokens (TTFT, decode tok/s, the first tokens
+   beside the contiguous engine's: reported, not asserted), sampling
+   twice from one seed (the same tokens), beam search 2 x 4 beams;
+   ``generate`` (the shared-index cache branch, plain SDPA) must launch
+   no kernel, and ``run`` on one prompt the flash forward (row 5) once per
+   layer and nothing else;
+15. legacy engines, the same model and prompts with
+   ``PT_FLAGS_prefill_chunk=0`` (each request prefilled alone as a [1,
+   128] bucket): contiguous (row 1), paged (row 2) and paged with fused
+   decode off (row 3), each launching its row once per layer per decode
+   forward and nothing else, 8 bucketed prefills, every page back; TTFT
+   p50, decode tok/s, the first tokens beside the chunked engines';
+16. legacy reference: a tiny float32 Llama on the card and the CPU from
+   the same weights: the Predictor's greedy and beam tokens identical
+   (beam scores within 1e-4); on the card the legacy engines' greedy
+   tokens equal the chunked engines', contiguous and paged;
+17. profiles: device time by operation (``torch.profiler``) of the
    prefill wave, and of the wave with 8 decode forwards, for the bf16
    and the quantized engines, with the decode kernels' device time by
    row (and for the paged bf16 engine with fused decode off, row 3's time
    per decode forward); each engine's JSON line carries a digest of its
    greedy tokens;
-15. flash attention vs plain versions (rows 5-9, after phase 8): the
+18. flash attention vs plain versions (rows 5-9, after phase 8): the
    forward without and with LSE, the dq, dk/dv and fused backward
    kernels against their plain PyTorch versions at the Llama-2-7B train
    shape (b 4, s 2048, 32 heads, d 128, causal, bf16), a GQA shape (32
@@ -112,12 +130,12 @@ Phases, each of which raises on failure:
    forward and backward (a yardstick the port never calls); the dq and
    dk/dv passes also at b 1, s 8192, where the default k block takes the
    two-pass backward, beside SDPA's backward;
-16. train reference (after phase 9): a tiny float32 Llama trains 5 steps
+19. train reference (after phase 9): a tiny float32 Llama trains 5 steps
    on the card (kernels) and on the CPU (plain versions) from the same
    weights, with the same losses; ``use_recompute`` leaves the card's
    gradients unchanged; ``gradient_merge_k_steps=2`` equals one step
    over the whole batch;
-17. train at 7B width (last): Llama-2-7B width cut to 4 layers, bf16,
+20. train at 7B width (last): Llama-2-7B width cut to 4 layers, bf16,
    ``TrainStep`` with AdamW, float32 masters, global-norm clipping and
    ``master_residency="master_only"`` on batch 4 x 2048: 2 warm-up and 5
    timed steps (step ms, tokens/s, MFU, peak memory; the loss falls)
@@ -128,13 +146,13 @@ Phases, each of which raises on failure:
    and the same loss and grad norm), then that two-pass step timed (2
    warm-ups, the median of 3) beside the fused one; one ``no_grad`` eval
    forward (4 launches of the forward without LSE); a profile of one step;
-18. selective scan vs plain versions (after phase 15): row 10 without and
+21. selective scan vs plain versions (after phase 18): row 10 without and
    with states and row 11 against their plain PyTorch versions, row by row
    within 1e-5 (float32), at the Mamba-130m train shape (b 4, s 1024, d
    1536, n 16, chunk 128), a ragged s of 1000, d 200 and n 8; timed at the
    train shape beside the bounds and the plain versions (no PyTorch call
    computes the scan: no library time);
-19. GroupNorm vs plain versions: rows 12 and 13 against their plain
+22. GroupNorm vs plain versions: rows 12 and 13 against their plain
    versions at every distinct GroupNorm site of the SD UNet at
    sample_size 32, batch 4, one shape over the JAX kernel's VMEM budget
    (the re-read path), a ragged hw of 1000 split across a cluster, one
@@ -148,18 +166,18 @@ Phases, each of which raises on failure:
    ``silu`` forward and backward (a yardstick the port never calls), and
    summed over one UNet step's 56 calls (their shapes, SiLU or not,
    bf16) beside the summed yardsticks and bounds;
-20. Mamba reference (after phase 16): a tiny float32 Mamba trains 5 steps
+23. Mamba reference (after phase 19): a tiny float32 Mamba trains 5 steps
    on the card (rows 10-11) and on the CPU (plain versions) from the same
    weights, with the same losses;
-21. UNet reference: the same for a tiny float32 UNet, channels-last on
+24. UNet reference: the same for a tiny float32 UNet, channels-last on
    both sides (rows 12-13; cuDNN convolutions without TF32);
-22. Mamba-130m train (after phase 17): ``bench_mamba``'s step at the
+25. Mamba-130m train (after phase 20): ``bench_mamba``'s step at the
    published widths, float32, batch 4 x 1024, ``TrainStep`` with
    ``AdamW(1e-4, multi_precision=True)``: 2 warm-up and 5 timed steps
    (step ms, tokens/s, peak memory; the loss falls) with exactly 24
    launches of row 10 with states and of row 11 per step, a ``no_grad``
    eval forward (24 of row 10 without states), a profile of one step;
-23. SD-UNet train (last): ``bench_unet``'s step, ``UNetConfig(
+26. SD-UNet train (last): ``bench_unet``'s step, ``UNetConfig(
    sample_size=32)``, bf16 weights with float32 masters, batch 4, the
    denoising MSE: 2 warm-up and 5 timed steps (step ms, samples/s, peak
    memory; the loss falls) with exactly 56 launches of row 12 and of row
@@ -3529,6 +3547,231 @@ def prefix_spec_phase(model):
     return out
 
 
+def predictor_phase(model, prompts, contiguous_outs):
+    """The Paddle Inference predictor at 7B width, bf16:
+    ``create_predictor(model, Config())`` with the defaults (2048 cache
+    rows at bf16, buckets 128..2048). Greedy over the 8 prompts, 32 new
+    tokens (TTFT, decode tok/s, first tokens beside the contiguous
+    engine's: reported, not asserted, as bf16 near-ties part them);
+    sampling (top_k 50, top_p 0.9, temperature 0.8, repetition penalty
+    1.2) twice from one seed, with the same tokens; beam search, 2 prompts
+    x 4 beams. ``generate`` decodes through the shared-index branch and
+    must launch no kernel; ``run`` on one prompt must launch the flash
+    forward (row 5) once per layer and nothing else."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    cfg = model.config
+    pred = create_predictor(model, Config())
+    ids = np.stack(prompts)
+    pred.generate(ids[:2], max_new_tokens=2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    greedy = pred.generate(ids, max_new_tokens=32)
+    wall = time.perf_counter() - t0
+    ttft = pred.last_ttft_ms
+    counts = read_launches()
+    if greedy.shape != (8, 32) or not ((greedy >= 0)
+                                       & (greedy < cfg.vocab_size)).all():
+        raise AssertionError(f"predictor greedy: bad tokens {greedy}")
+    if any(counts.values()):
+        raise AssertionError(f"predictor generate launched {counts}")
+    decode_tps = (greedy.size - len(ids)) / (wall - ttft / 1e3)
+    first_equal = int(sum(int(g) == o[0]
+                          for g, o in zip(greedy[:, 0], contiguous_outs)))
+    kw = dict(max_new_tokens=16, decode_strategy="sampling", top_k=50,
+              top_p=0.9, temperature=0.8, repetition_penalty=1.2, seed=5)
+    sampled = pred.generate(ids, **kw)
+    if not np.array_equal(sampled, pred.generate(ids, **kw)):
+        raise AssertionError("predictor sampling: one seed gave two "
+                             "token sequences")
+    t0 = time.perf_counter()
+    beam = pred.generate(ids[:2], max_new_tokens=16, num_beams=4)
+    beam_wall = time.perf_counter() - t0
+    beam_ttft = pred.last_ttft_ms
+    scores = pred._last_beam_scores
+    if beam.shape != (2, 16) or not np.isfinite(scores).all():
+        raise AssertionError(f"predictor beam: {beam.shape}, {scores}")
+    reset_launches()
+    logits = pred.run(ids[:1])
+    torch.cuda.synchronize()
+    run_counts = read_launches()
+    want = dict.fromkeys(run_counts, 0)
+    want["flash_attention_fwd"] = cfg.num_hidden_layers
+    if run_counts != want:
+        raise AssertionError(f"predictor run: launches {run_counts}, "
+                             f"expected {want}")
+    if tuple(logits.shape) != (1, ids.shape[1], cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("predictor run: bad logits")
+    out = {
+        "card": nvidia_smi_line(),
+        "model": "llama2_7b width, random bf16 weights (seed 0)",
+        "config": pred.config.summary(), "batch": len(ids),
+        "prompt_tokens": ids.shape[1], "max_new_tokens": 32,
+        "ttft_ms": ttft, "decode_tokens_per_s": decode_tps, "wall_s": wall,
+        "first_tokens_equal_to_contiguous_engine": first_equal,
+        "tokens_digest": tokens_digest(greedy.tolist()),
+        "sampling_reproducible": True,
+        "beam": {"batch": 2, "num_beams": 4, "max_new_tokens": 16,
+                 "ttft_ms": beam_ttft, "wall_s": beam_wall,
+                 "scores": scores.tolist()},
+        "run_flash_attention_fwd_launches": run_counts[
+            "flash_attention_fwd"],
+        "run_first_token_equal_to_greedy": int(
+            logits[0, -1].float().argmax()) == int(greedy[0, 0])}
+    print(f"predictor: greedy 8 x 32 tokens, TTFT {ttft:.2f} ms, decode "
+          f"{decode_tps:.1f} tok/s, {first_equal}/8 first tokens equal to "
+          f"the contiguous engine's; beam 2 x 4 in {beam_wall:.3f} s; run: "
+          f"{cfg.num_hidden_layers} row-5 launches", flush=True)
+    print(json.dumps({"predictor": out}), flush=True)
+    return out
+
+
+def legacy_engine_phase(model, prompts, contiguous_outs, paged_outs):
+    """The legacy bucketed prefill (``PT_FLAGS_prefill_chunk=0``) at 7B
+    width, bf16: the 8 prompts, 32 new tokens, each prefilled alone as a
+    ``[1, 128]`` bucket, through the contiguous engine (row 1), the paged
+    engine (row 2) and the paged engine with fused decode off (row 3).
+    Each run must launch its decode kernel once per layer per decode
+    forward and nothing else, take 8 bucketed prefills and no chunk, and
+    (paged) return every page. TTFT p50, decode tok/s and the first tokens
+    beside the chunked engines' (reported, not asserted)."""
+    from paddle_tpu_torch import flags
+
+    layers = model.config.num_hidden_layers
+    paged = dict(paged=True, page_size=PAGE)
+    saved = flags.flag("prefill_chunk")
+    flags.set_flags({"prefill_chunk": 0})
+    out = {"card": nvidia_smi_line()}
+    try:
+        serve(model, prompts[:2], "auto", max_new_tokens=4, max_chunk=4)
+        for label, fused, config, row, ref in (
+                ("contig", "auto", {}, "fused_contiguous_decode_attention",
+                 contiguous_outs),
+                ("paged", "auto", paged, "fused_paged_decode_attention",
+                 paged_outs),
+                ("paged_unfused", "off", paged, "paged_decode_attention",
+                 paged_outs)):
+            reset_launches()
+            reqs, wall, stats = serve(model, prompts, fused, **config)
+            counts = read_launches()
+            want = dict.fromkeys(counts, 0)
+            want[row] = layers * stats["decode_forwards"]
+            if counts != want or want[row] <= 0 \
+                    or stats["prefill_bucket"] != 8 \
+                    or stats["prefill_chunk"] != 0:
+                raise AssertionError(f"legacy {label}: launches {counts}, "
+                                     f"expected {want}; stats {stats}")
+            outs = [r.output for r in reqs]
+            for o in outs:
+                if len(o) != 32 or not all(0 <= t < model.config.vocab_size
+                                           for t in o):
+                    raise AssertionError(f"legacy {label}: bad output {o}")
+            ttft = [r.ttft_ms for r in reqs]
+            decode_tps = sum(len(o) - 1 for o in outs) / (
+                wall - max(ttft) / 1e3)
+            out[label] = {
+                "ttft_p50_ms": float(np.median(ttft)), "ttft_ms": ttft,
+                "decode_tokens_per_s": decode_tps, "wall_s": wall,
+                "decode_forwards": stats["decode_forwards"],
+                "launches": {row: counts[row]}, "pool": stats["pool"],
+                "first_tokens_equal_to_chunked": int(sum(
+                    a[0] == b[0] for a, b in zip(outs, ref))),
+                "first_divergence_from_chunked": first_divergence(outs, ref),
+                "tokens_digest": tokens_digest(outs)}
+            print(f"legacy {label}: TTFT p50 "
+                  f"{out[label]['ttft_p50_ms']:.2f} ms, decode "
+                  f"{decode_tps:.1f} tok/s, {row} launches {counts[row]} = "
+                  f"{layers} layers x {stats['decode_forwards']} decode "
+                  f"forwards, first tokens equal to chunked "
+                  f"{out[label]['first_tokens_equal_to_chunked']}/8"
+                  + (f", pool {stats['pool']}" if config else ""),
+                  flush=True)
+    finally:
+        flags.set_flags({"prefill_chunk": saved})
+    print(json.dumps({"legacy_engines": out}), flush=True)
+    return out
+
+
+def legacy_reference_phase():
+    """A tiny float32 Llama (head_dim 64, group 2) on the card and on the
+    CPU from the same weights: the Predictor's greedy and beam tokens
+    (``max_seq_len`` 64, buckets 16 and 32, float32 caches) are identical
+    and the beam scores agree to 1e-4; on the card, the legacy bucketed
+    engines' greedy tokens (contiguous and paged) equal the chunked
+    engines' for 5 queued prompts over 2 slots."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (Config,
+                                            ContinuousBatchingEngine,
+                                            EngineConfig, Predictor)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    host = LlamaForCausalLM(cfg, device="cpu", seed=1)
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, cfg.vocab_size, (2, 7))
+    pcfg = Config()
+    pcfg.max_seq_len, pcfg.seq_buckets = 64, (16, 32)
+    pcfg.decode_dtype = torch.float32
+    got = {}
+    for dev, m in (("cuda", model), ("cpu", host)):
+        pred = Predictor(m, pcfg)
+        got[dev] = (pred.generate(ids, max_new_tokens=12),
+                    pred.generate(ids, max_new_tokens=8, num_beams=3,
+                                  length_penalty=1.0, temperature=0.7),
+                    pred._last_beam_scores)
+    (g_card, b_card, s_card), (g_cpu, b_cpu, s_cpu) = got["cuda"], got["cpu"]
+    if not np.array_equal(g_card, g_cpu) or not np.array_equal(b_card,
+                                                               b_cpu):
+        raise AssertionError(f"legacy reference: predictor tokens on the "
+                             f"card {g_card} / {b_card} differ from the "
+                             f"CPU's {g_cpu} / {b_cpu}")
+    score_err = float(np.abs(s_card - s_cpu).max())
+    if score_err > 1e-4:
+        raise AssertionError(f"legacy reference: beam scores differ by "
+                             f"{score_err}")
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (3, 40, 17, 9, 33)]
+    saved = flags.flag("prefill_chunk")
+    try:
+        for paged in (False, True):
+            extra = dict(paged=True, page_size=16) if paged else {}
+            outs = {}
+            for chunk in (0, 16):
+                flags.set_flags({"prefill_chunk": chunk,
+                                 "fused_decode": "auto"})
+                reset_launches()
+                eng = ContinuousBatchingEngine(
+                    model, EngineConfig(max_slots=2, max_len=128,
+                                        seq_buckets=(32,),
+                                        cache_dtype=torch.float32, **extra),
+                    device="cuda")
+                outs[chunk] = [r.output for r in eng.run(
+                    prompts, max_new_tokens=12, max_chunk=4)]
+                row = "fused_paged_decode_attention" if paged \
+                    else "fused_contiguous_decode_attention"
+                if read_launches()[row] != cfg.num_hidden_layers \
+                        * eng.stats["decode_forwards"]:
+                    raise AssertionError(f"legacy reference: {row} "
+                                         f"launches {read_launches()}")
+                if paged:
+                    check_pool("legacy reference", eng)
+            if outs[0] != outs[16]:
+                raise AssertionError(
+                    f"legacy reference ({'paged' if paged else 'contig'}): "
+                    f"legacy tokens {outs[0]} differ from chunked "
+                    f"{outs[16]}")
+    finally:
+        flags.set_flags({"prefill_chunk": saved})
+    print(f"legacy reference: tiny float32 Llama, Predictor greedy 2 x 12 "
+          f"and beam 2 x 3 x 8 tokens equal on the card and the CPU (beam "
+          f"scores within {score_err:.2e}); legacy engines' tokens equal "
+          f"the chunked engines' on the card, contiguous and paged",
+          flush=True)
+
+
 def wave_profile(model, prompts, label, max_new_tokens=1, fused="auto",
                  **config):
     """Device time by operation of one run of the 8 prompts through a
@@ -3685,6 +3928,10 @@ def main() -> int:
                    contiguous_outs, cache_dtype="int8")
     row_i8["launches"] = counts["fused_contiguous_decode_attention"]
     phase("prefix and spec", prefix_spec_phase, model)
+    phase("predictor", predictor_phase, model, prompts, contiguous_outs)
+    phase("legacy engines", legacy_engine_phase, model, prompts,
+          contiguous_outs, paged_outs)
+    phase("legacy reference", legacy_reference_phase)
     # where the time goes: the prefill wave alone, and with one chunk of
     # 8 decode forwards, for the bf16 and the quantized engines
     t0 = time.perf_counter()

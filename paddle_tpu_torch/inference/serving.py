@@ -47,15 +47,24 @@ the weight-only matmul kernel on the card; ``cache_dtype="int8"`` gives
 int8 caches or pools with per-row float32 scales, quantized on append and
 dequantized in the fused decode kernels.
 
-The port runs chunked prefill, float or int8 caches (contiguous or
-paged), bf16, int8 or int4 weights, prefix caching and speculative
-decoding. Telemetry, tracing, resilience, tenants, the degradation
-ladder, the sanitizer, the profiler and the router are later slices
-(ROADMAP.md Queue A).
+Legacy bucketed prefill (``PT_FLAGS_prefill_chunk=0``, the JAX engine's
+parity oracle): each admitted request is prefilled alone, padded to its
+``seq_buckets`` bucket, in one ``[1, bucket]`` forward at the shared
+``cache_index`` 0 into a fresh contiguous cache, whose rows are then
+copied into the slot (paged: scattered into the slot's first ``bucket //
+page_size`` pages). Float caches only, and without the prefix cache, as
+in JAX; decode is the same as after chunked prefill.
+
+The port runs chunked and legacy prefill, float or int8 caches
+(contiguous or paged), bf16, int8 or int4 weights, prefix caching and
+speculative decoding. Telemetry, tracing, resilience, tenants, the
+degradation ladder, the sanitizer, the profiler and the router are later
+slices (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import copy
 import heapq
@@ -74,8 +83,6 @@ from .paged import PagedState, PagePool, QuantizedKV, init_paged_pool
 from .prefix_cache import ContigPrefixStore, PagedPrefixStore, block_hashes
 from .spec_decode import Drafter, NgramDrafter
 
-_TODO = "see ROADMAP.md Queue A"
-
 
 @dataclass
 class EngineConfig:
@@ -84,7 +91,7 @@ class EngineConfig:
     ported path; the engine raises at init otherwise."""
     max_slots: int = 4
     max_len: int = 1024
-    # legacy bucketed prefill only (not ported)
+    # legacy bucketed prefill only (PT_FLAGS_prefill_chunk=0)
     seq_buckets: Sequence[int] = (64, 128, 256, 512, 1024)
     # paged KV pool: page_size tokens per page; n_pages defaults to
     # max_slots * (max_len // page_size) + 1 (page 0 is the write sink)
@@ -142,6 +149,20 @@ def _resolve_cache_dtype(requested, device: torch.device) -> torch.dtype:
     if val == "auto":
         return torch.bfloat16 if device.type == "cuda" else torch.float32
     return lookup(val, "PT_FLAGS_kv_cache_dtype")
+
+
+def _validate_buckets(cfg: EngineConfig) -> List[int]:
+    """The working bucket table: entries must be positive ints; it is
+    sorted, deduplicated and clamped to max_len, as the JAX engine's."""
+    buckets = list(cfg.seq_buckets)
+    if not buckets:
+        raise ValueError("EngineConfig.seq_buckets must be non-empty")
+    for b in buckets:
+        if isinstance(b, bool) or not isinstance(b, (int, np.integer)) \
+                or b <= 0:
+            raise ValueError(f"EngineConfig.seq_buckets entries must be "
+                             f"positive ints; got {b!r}")
+    return sorted({min(int(b), cfg.max_len) for b in buckets})
 
 
 def _resolve_weight_dtype(requested) -> str:
@@ -221,8 +242,9 @@ def build_request(rid: int, prompt, max_new_tokens: int = 32,
 
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a causal LM that exposes
-    ``init_kv_caches`` and takes ``kv_caches`` / vector ``cache_index``
-    in its forward, as ``models/llama.py`` does.
+    ``init_kv_caches`` and takes ``kv_caches`` with a per-slot vector
+    ``cache_index`` (a shared scalar one for the legacy prefill) in its
+    forward, as ``models/llama.py`` does.
 
     ``device`` defaults to ``"cuda"`` and must be where the model's
     weights are; with no CUDA device the engine raises unless the caller
@@ -255,6 +277,7 @@ class ContinuousBatchingEngine:
                 "(PT_FLAGS_prefill_chunk > 0): the legacy per-bucket "
                 "prefill has no quantize-on-append path")
         self._check_slice(cfg)
+        self._buckets = _validate_buckets(cfg)
         # speculative decoding: host-side drafting and one [slots,
         # spec_k+1] verify forward; "off" leaves the decode path as it is
         mode = str(flags.flag("spec_decode")).lower()
@@ -309,14 +332,17 @@ class ContinuousBatchingEngine:
         # the head request (it waits for a finisher)
         self._pool_blocked = False
         # the chunk length floors at 2: a 1-token chunk would enter the
-        # model's s == 1 decode branch, which has no sentinel drop
-        self._chunk_len = max(2, min(int(flags.flag("prefill_chunk")),
-                                     cfg.max_len))
+        # model's s == 1 decode branch, which has no sentinel drop; 0 is
+        # the legacy bucketed prefill
+        chunk = int(flags.flag("prefill_chunk"))
+        self._chunk_len = max(2, min(chunk, cfg.max_len)) if chunk > 0 \
+            else 0
         # prefix KV reuse, hashed in blocks of page_size tokens in both
-        # cache modes
+        # cache modes; chunked prefill only (suffix-only prefill needs the
+        # per-slot chunk program, which the legacy path does not have)
         self._prefix = None
         self._prefix_block = cfg.page_size
-        if flags.flag("prefix_cache"):
+        if flags.flag("prefix_cache") and self._chunk_len:
             if cfg.paged:
                 self._prefix = PagedPrefixStore()
             else:
@@ -333,19 +359,13 @@ class ContinuousBatchingEngine:
         # num_hidden_layers x decode_forwards on the fused path; a verify
         # forward is one [slots, spec_k+1] call through the s > 1
         # branches, which launch no decode kernel)
-        self.stats = {"prefill_chunk": 0, "decode_forwards": 0,
-                      "verify_forwards": 0}
+        self.stats = {"prefill_chunk": 0, "prefill_bucket": 0,
+                      "decode_forwards": 0, "verify_forwards": 0}
         self._note_free_pages()
 
     @staticmethod
     def _check_slice(cfg: EngineConfig):
-        """Configurations outside this slice raise at init; paged
-        configurations the JAX engine refuses raise the same
-        ``ValueError``."""
-        if int(flags.flag("prefill_chunk")) <= 0:
-            raise NotImplementedError(
-                "PT_FLAGS_prefill_chunk=0 selects the legacy bucketed "
-                f"prefill, which is not ported ({_TODO})")
+        """Configurations the JAX engine refuses raise its ``ValueError``."""
         if cfg.max_slots < 1 or cfg.max_len < 2:
             raise ValueError("EngineConfig needs max_slots >= 1 and "
                              "max_len >= 2")
@@ -480,6 +500,55 @@ class ContinuousBatchingEngine:
         rows = logits[torch.arange(logits.shape[0], device=logits.device),
                       last_idx]
         return self._sample_rows(rows, samp, use_samp)
+
+    def _bucket(self, n: int) -> int:
+        """The smallest bucket that holds ``n`` tokens, else max_len."""
+        i = bisect.bisect_left(self._buckets, n)
+        return self._buckets[i] if i < len(self._buckets) \
+            else self.cfg.max_len
+
+    def _prefill_bucket(self, req: Request, bucket: int):
+        """THE legacy prefill program: ``req``'s prompt padded to
+        ``[1, bucket]``, one forward at the shared ``cache_index`` 0 into a
+        fresh ``[1, bucket]`` contiguous cache. Samples the first token
+        from row ``n - 1`` on the device; returns it and the filled
+        cache."""
+        self.stats["prefill_bucket"] += 1
+        n = req.prompt.size
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :n] = req.prompt
+        one = self.model.init_kv_caches(1, bucket, dtype=self.cache_dtype)
+        ids = torch.as_tensor(padded, device=self.device)
+        logits, one = self.model(
+            ids, position_ids=torch.arange(bucket, device=self.device)[None],
+            kv_caches=one, cache_index=0)
+        use_samp, samp = self._slot_sampling([(0, req)])
+        if use_samp:  # [1] vectors: the request's own params
+            samp = tuple(t[:1] for t in samp)
+        return self._sample_rows(logits[:, n - 1], samp, use_samp)[0], one
+
+    def _insert_contig(self, one, slot: int):
+        """Copy a ``[1, bucket]`` prefill cache into ``slot``'s rows of
+        every layer, padded with zero rows to max_len."""
+        for (gk, gv), (ok, ov) in zip(self.caches, one):
+            b = ok.shape[1]
+            for dst, src in ((gk, ok), (gv, ov)):
+                dst[slot, :b] = src[0]
+                dst[slot, b:] = 0
+
+    def _scatter_paged(self, one, slot: int):
+        """Scatter a ``[1, bucket]`` prefill cache into the first ``bucket
+        // page_size`` pages of ``slot``'s block table, head-major."""
+        ps = self.cfg.page_size
+        n_used = one[0][0].shape[1] // ps
+        pages = torch.as_tensor(self.pool.block_tables[slot, :n_used],
+                                dtype=torch.long, device=self.device)
+        for cache, (ok, ov) in zip(self.caches, one):
+            for dst, src in ((cache.k_pages, ok), (cache.v_pages, ov)):
+                # [1, bucket, kvh, d] -> [kvh, n_used, ps, d]
+                dst[:, pages] = src[0].reshape(
+                    n_used, ps, *src.shape[2:]).permute(2, 0, 1, 3) \
+                    .to(dst.dtype)
 
     def _decode_forward(self, toks, lens, samp, use_samp, bt):
         """One ``[slots, 1]`` decode forward at per-slot lengths ``lens``;
@@ -723,6 +792,65 @@ class ContinuousBatchingEngine:
 
     # ---------------- admission ----------------
     def _admit_dispatch(self):
+        """Queue the admission of waiting requests on the device, by the
+        chunked path or the legacy bucketed one; returns the pending (req,
+        slot, n_ctx, first_token) list for ``_admit_integrate``."""
+        self._pool_blocked = False
+        if not self._queue:
+            return []
+        if self._chunk_len:
+            return self._admit_dispatch_chunked()
+        return self._admit_dispatch_bucketed()
+
+    def _admit_dispatch_bucketed(self):
+        """Legacy admission (``PT_FLAGS_prefill_chunk=0``): FIFO, one
+        ``[1, bucket]`` prefill a request, whole prompt, copied into the
+        claimed slot (paged: the claim covers the whole bucket too, since
+        the scatter writes ``bucket // page_size`` whole pages). When the
+        pool cannot fit the head request the pass stops and it waits for
+        a finisher; with nothing running it raises. A failure gives the
+        request's slot and pages back, requeues it and integrates the
+        requests admitted before it in this pass, then propagates."""
+        pending = []
+        while self._queue and self._free_heap:
+            req = self._queue[0]
+            slot = self._free_heap[0]  # claimed only on success
+            n = req.prompt.size
+            bucket = self._bucket(n)
+            need = max(n + req.max_new_tokens, bucket)
+            if self.pool is not None and not self.pool.alloc(slot, need):
+                if not self.active.any() and not pending:
+                    raise RuntimeError(
+                        f"request {req.rid} needs "
+                        f"{self.pool.pages_needed(need)} pages but the pool "
+                        f"has {self.pool.free_pages} free with no request "
+                        "running — size n_pages up")
+                self._pool_blocked = True
+                break
+            self._queue.popleft()
+            heapq.heappop(self._free_heap)
+            try:
+                first, one = self._prefill_bucket(req, bucket)
+                if self.pool is not None:
+                    self._scatter_paged(one, slot)
+                else:
+                    self._insert_contig(one, slot)
+            except BaseException:
+                heapq.heappush(self._free_heap, slot)
+                if self.pool is not None:
+                    self.pool.free(slot)
+                self._queue.appendleft(req)
+                self._note_free_pages()
+                self._admit_integrate(pending)
+                raise
+            self.active[slot] = True
+            req.slot = slot
+            self._slot_req[slot] = req
+            pending.append((req, slot, n, first))
+        self._note_free_pages()
+        return pending
+
+    def _admit_dispatch_chunked(self):
         """Claim free slots (and, paged, pages, adopting cached prefixes)
         for queued requests (FIFO) and queue their chunked prefill on the
         device without a host sync. Returns the pending (req, slot, n_ctx,
@@ -733,9 +861,6 @@ class ContinuousBatchingEngine:
         (and frees its pages) before propagating. Within one wave a
         request cannot hit the blocks of another request of the same
         wave: a wave publishes once its prefill has run."""
-        self._pool_blocked = False
-        if not self._queue:
-            return []
         B = self._prefix_block
         jobs = []  # [req, slot, cursor, prefix_len, hashes, n_matched]
         try:

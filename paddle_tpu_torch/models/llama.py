@@ -17,7 +17,9 @@ while training, keeping the matmul outputs under the JAX policy
 Serving: the cache branches the continuous batching engine drives run
 under ``torch.no_grad()``, over contiguous per-slot caches or the paged
 pool: chunked prefill (``s > 1``) and decode (``s == 1``, fused or
-unfused). Caches are float or int8: int8 contiguous caches are
+unfused). A scalar ``cache_index`` shared by every row (the Predictor,
+the engine's legacy bucketed prefill) takes a float contiguous cache
+through plain SDPA. Caches are float or int8: int8 contiguous caches are
 ``QuantizedKV`` pairs and int8 pools carry scale arrays; rows are
 quantized on append and attention reads them dequantized. KV caches are
 updated in place, where the JAX model returns new arrays that its engine
@@ -178,12 +180,13 @@ class LlamaAttention(nn.Module):
         ``(ck, cv)`` pair of [slots, max_len, kv_heads, d] float tensors
         or of ``QuantizedKV`` (int8), written in place; ``cache_index`` is
         the [slots] vector of per-slot lengths (prefill: each slot's chunk
-        start)."""
+        start), or one index shared by every row (``_shared_index``)."""
         if not (isinstance(cache_index, torch.Tensor)
                 and cache_index.dim() == 1):
-            raise NotImplementedError(
-                "only per-slot vector cache_index is ported; the legacy "
-                f"shared-index prefill is not ({_TODO})")
+            # before the fused-decode test: JAX never fuses a shared-index
+            # decode
+            return self._shared_index(q, k, v, cos, sin, position_ids,
+                                      kv_cache, cache_index)
         if isinstance(kv_cache[0], PagedLayerCache):
             return self._paged(q, k, v, cos, sin, position_ids, kv_cache,
                                cache_index)
@@ -254,6 +257,43 @@ class LlamaAttention(nn.Module):
         # as the fused kernels' and dense_paged_attention's do (the JAX
         # model promotes it here: ROADMAP.md Queue C)
         return out.to(q.dtype) if quant else out
+
+    def _shared_index(self, q, k, v, cos, sin, position_ids, kv_cache,
+                      cache_index):
+        """The single shared index branch (the Predictor's prefill and
+        decode, the engine's legacy bucketed prefill): ``cache_index`` is
+        a Python int or a 0-dim tensor, and the block of ``s`` rows lands
+        at rows ``cache_index..+s-1`` of every batch row of a float
+        ``(ck, cv)`` cache. As ``lax.dynamic_update_slice_in_dim``, the
+        start is clamped to ``[0, max_len - s]``, so a decode at or past
+        ``max_len`` overwrites the last row; the causal mask is taken from
+        the unclamped index (query ``i`` sees rows ``<= cache_index +
+        i``). Attention is plain SDPA over all ``max_len`` rows, as in
+        JAX, and launches no kernel."""
+        ck, cv = kv_cache
+        if isinstance(ck, (PagedLayerCache, QuantizedKV)):
+            # the JAX model never takes these (its engine refuses int8
+            # caches without chunked prefill; paged caches go per slot)
+            raise NotImplementedError(
+                "a shared scalar cache_index takes float contiguous caches "
+                f"only; int8 and paged caches need a per-slot vector "
+                f"({_TODO})")
+        s, max_len = q.shape[1], ck.shape[1]
+        if s > max_len:
+            raise ValueError(f"a block of {s} rows exceeds max_len "
+                             f"{max_len}")
+        q, k = apply_rope(q, k, cos, sin, position_ids)
+        # on the device without a host copy or sync: query i sits at
+        # cache_index + i, and the write starts at the clamped index
+        ar = torch.arange(s, device=q.device)
+        q_pos = ar + cache_index
+        rows = ar + q_pos[:1].clamp(0, max_len - s)
+        ck.index_copy_(1, rows, k.to(ck.dtype))
+        cv.index_copy_(1, rows, v.to(cv.dtype))
+        kv_mask = torch.arange(max_len, device=q.device)[None, :] \
+            <= q_pos[:, None]
+        return F.scaled_dot_product_attention(q, ck, cv,
+                                              attn_mask=kv_mask[None, None])
 
     def _paged(self, q, k, v, cos, sin, position_ids, kv_cache,
                cache_index):

@@ -19,7 +19,8 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import generation as tgen
 from paddle_tpu_torch.convert import load_numpy_state_dict
-from paddle_tpu_torch.inference.paged import QuantizedKV
+from paddle_tpu_torch.inference.paged import (PagedState, QuantizedKV,
+                                               init_paged_pool)
 from paddle_tpu_torch.kernels import rope as trope
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import functional as TF
@@ -222,10 +223,15 @@ def test_unported_branches_raise(tiny_pair):
             assert tuple(t.q.shape) == tuple(j.q.shape) == (2, 16, 2, 16)
             assert tuple(t.scale.shape) == tuple(j.scale.shape) == (2, 16, 2)
             assert not t.q.any() and not t.scale.any()
-    caches = tmodel.init_kv_caches(2, 16, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):  # the legacy shared index
-        tmodel(torch.ones((2, 4), dtype=torch.long), kv_caches=caches,
-               cache_index=0)
+    # a shared scalar cache_index takes float contiguous caches only: the
+    # int8 pairs and a paged pool raise (the JAX model never takes them)
+    ids = torch.ones((2, 4), dtype=torch.long)
+    pool = init_paged_pool(2, 5, 8, 2, 16, dtype=torch.float32, device="cpu")
+    state = PagedState(torch.zeros((2, 2), dtype=torch.int32),
+                       torch.zeros(2, dtype=torch.int32))
+    for caches in (got, [(c, state) for c in pool]):
+        with pytest.raises(NotImplementedError, match="scalar cache_index"):
+            tmodel(ids, kv_caches=caches, cache_index=0)
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(LlamaConfig.tiny(fused_head_loss_chunk=64),
                          device="cpu")

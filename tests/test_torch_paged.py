@@ -646,6 +646,64 @@ def test_cancel_returns_pages(models, flags16):
     assert eng.pool.free_pages == 32 and not eng.pool.ref
 
 
+@pytest.fixture(scope="module")
+def jax_legacy(models):
+    """The JAX paged engine's greedy tokens under the legacy bucketed
+    prefill (``PT_FLAGS_prefill_chunk=0``, ``run`` loop)."""
+    jmodel, _ = models
+    saved = {k: jflags.flag(k) for k in ("spec_decode", "prefill_chunk")}
+    jflags.set_flags({"spec_decode": "off", "prefill_chunk": 0})
+    try:
+        eng = JEngine(jmodel, serving_utils.tiny_ecfg(paged=True))
+        return [r.output for r in eng.run(_prompts(), max_new_tokens=MAX_NEW,
+                                          max_chunk=4)]
+    finally:
+        jflags.set_flags(saved)
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+@pytest.mark.parametrize("loop", ["run", "step"])
+def test_legacy_prefill_paged_tokens_identical_to_jax(
+        models, jax_outputs, jax_legacy, flags16, loop, fused):
+    """``PT_FLAGS_prefill_chunk=0`` on the paged engine: each request
+    claims max(prompt + max_new_tokens, bucket) rows of pages and its
+    ``[1, bucket]`` prefill cache is scattered into the first bucket /
+    page_size of them. The tokens are the JAX legacy engine's and the
+    chunked engines'; every page returns, and the prefix cache stays off
+    though its flag is on."""
+    _, tmodel = models
+    assert jax_legacy == jax_outputs["run"]
+    tflags.set_flags({"fused_decode": fused, "prefill_chunk": 0,
+                      "prefix_cache": True})
+    eng = _port_engine(tmodel)
+    got, _ = _drive(eng, _prompts(), loop)
+    assert got == jax_outputs[loop]
+    assert eng.stats["prefill_bucket"] == 5
+    assert eng.stats["free_pages"] == eng.pool.free_pages == 32
+    assert not eng.pool.ref and sorted(eng._free_heap) == [0, 1]
+    snap = eng.prefix_snapshot()
+    assert not snap["enabled"] and snap["hits"] == snap["misses"] == 0
+
+
+def test_legacy_prefill_pool_waits_or_raises(models, jax_outputs, flags16):
+    """A pool of 17 usable pages: the 40-token request claims a whole
+    128-row bucket (16 pages) and cannot join the 3-token one, so
+    admission waits for a finisher with the tokens unchanged; a request
+    that can never fit raises, stays queued and leaves the pool whole."""
+    _, tmodel = models
+    tflags.set_flags({"prefill_chunk": 0})
+    eng = _port_engine(tmodel, n_pages=18)
+    got, blocked = _drive(eng, _prompts(), "run")
+    assert blocked and got == jax_outputs["run"]
+    assert eng.pool.free_pages == 17 and not eng.pool.ref
+    eng = _port_engine(tmodel, n_pages=4)  # 3 usable pages < the 32 bucket
+    eng.add_request(np.arange(1, 20), max_new_tokens=10)
+    with pytest.raises(RuntimeError, match="size n_pages up"):
+        eng.step_chunk(4)
+    assert len(eng._queue) == 1 and eng.pool.free_pages == 3
+    assert not eng.active.any() and sorted(eng._free_heap) == [0, 1]
+
+
 @pytest.mark.parametrize("bad", ["page_size", "max_len", "bucket"])
 def test_paged_configs_the_jax_engine_refuses_raise(models, flags16, bad):
     _, tmodel = models

@@ -3,10 +3,12 @@ against the JAX engine on the CPU: with the tiny Llama's weights carried
 across, greedy tokens are identical on a queued workload (5 prompts of
 3-40 tokens over 2 slots, prompts spanning several 16-token prefill
 chunks), driven through ``run(max_chunk=4)`` and through a ``step()``
-loop, with the port's fused decode on and off. Both engines run with
-prefix caching off and speculative decoding off (their own tests are
-``test_torch_prefix_cache.py`` and ``test_torch_spec_decode.py``), the JAX
-engine with its default CPU decode path."""
+loop, with the port's fused decode on and off, and under the legacy
+bucketed prefill (``PT_FLAGS_prefill_chunk=0``) against the JAX engine's
+legacy arm. Both engines run with prefix caching off and speculative
+decoding off (their own tests are ``test_torch_prefix_cache.py`` and
+``test_torch_spec_decode.py``), the JAX engine with its default CPU decode
+path."""
 
 import numpy as np
 import pytest
@@ -172,13 +174,11 @@ def test_add_request_rejects_bad_requests(models, flags16):
 
 
 @pytest.mark.parametrize("bad", ["fp8_weights", "int4_cache",
-                                 "zero_group_size", "int8_cache_legacy",
-                                 "legacy_prefill"])
+                                 "zero_group_size", "int8_cache_legacy"])
 def test_configs_outside_the_slice_raise(models, flags16, bad):
     """Configurations the JAX engine refuses raise its ``ValueError`` at
-    init (tests/test_quant_serving.py); the legacy bucketed prefill, which
-    the port does not have, raises ``NotImplementedError`` naming
-    ROADMAP.md."""
+    init (tests/test_quant_serving.py), an int8 cache under the legacy
+    bucketed prefill among them."""
     _, tmodel = models
     kw, match = {
         "fp8_weights": (dict(weight_dtype="fp8"), "weight_dtype"),
@@ -186,13 +186,69 @@ def test_configs_outside_the_slice_raise(models, flags16, bad):
         "zero_group_size": (dict(weight_dtype="int8", weight_group_size=0),
                             "weight_group_size"),
         "int8_cache_legacy": (dict(paged=True, cache_dtype="int8"),
-                              "chunked prefill"),
-        "legacy_prefill": ({}, "ROADMAP")}[bad]
-    if bad in ("int8_cache_legacy", "legacy_prefill"):
+                              "chunked prefill")}[bad]
+    if bad == "int8_cache_legacy":
         tflags.set_flags({"prefill_chunk": 0})
-    exc = NotImplementedError if bad == "legacy_prefill" else ValueError
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=match):
         ContinuousBatchingEngine(tmodel, EngineConfig(**kw), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_legacy(models):
+    """The JAX engine's greedy tokens under the legacy bucketed prefill
+    (``run`` loop; the prefix cache is off there by construction)."""
+    jmodel, _ = models
+    saved = {k: jflags.flag(k) for k in ("spec_decode", "prefill_chunk")}
+    jflags.set_flags({"spec_decode": "off", "prefill_chunk": 0})
+    try:
+        return _drive(JEngine(jmodel, serving_utils.tiny_ecfg(paged=False)),
+                      _prompts(), "run")
+    finally:
+        jflags.set_flags(saved)
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+@pytest.mark.parametrize("loop", ["run", "step"])
+def test_legacy_prefill_tokens_identical_to_jax(models, jax_outputs,
+                                                jax_legacy, flags16, loop,
+                                                fused):
+    """``PT_FLAGS_prefill_chunk=0``: one ``[1, bucket]`` prefill a request
+    (buckets 32 and max_len 128) at the shared index 0, copied into the
+    slot. The tokens are the JAX legacy engine's and the chunked
+    engines'; the prefix cache stays off though its flag is on."""
+    _, tmodel = models
+    assert jax_legacy == jax_outputs["run"]
+    tflags.set_flags({"fused_decode": fused, "prefill_chunk": 0,
+                      "prefix_cache": True})
+    eng = _port_engine(tmodel)
+    got = _drive(eng, _prompts(), loop)
+    assert got == jax_outputs[loop]
+    assert eng.stats["prefill_bucket"] == 5 and eng.stats["prefill_chunk"] == 0
+    snap = eng.prefix_snapshot()
+    assert not snap["enabled"] and snap["hits"] == snap["misses"] == 0
+    assert not eng.active.any() and sorted(eng._free_heap) == [0, 1]
+    # the working bucket table: 32, else max_len
+    assert eng._bucket(3) == 32 and eng._bucket(33) == 128
+
+
+def test_legacy_prefill_sampling_requests_run(models, flags16):
+    """A sampling request's first token is drawn in the bucketed prefill
+    from its own parameters: reproducible from the seed, and a greedy
+    neighbour keeps its chunked-engine tokens."""
+    _, tmodel = models
+    solo = _port_engine(tmodel).run([[9, 10, 11]], max_new_tokens=6,
+                                    max_chunk=4)[0].output
+    tflags.set_flags({"prefill_chunk": 0})
+    outs = []
+    for _ in range(2):
+        eng = _port_engine(tmodel, seed=3)
+        a = eng.add_request([5, 6, 7], 6, temperature=0.8, top_k=20,
+                            top_p=0.9)
+        b = eng.add_request([9, 10, 11], 6)
+        serving_utils.drain(eng, lambda: eng.step_chunk(4))
+        outs.append((eng._finished[a].output, eng._finished[b].output))
+    assert outs[0] == outs[1] and outs[0][1] == solo
+    assert all(0 <= t < 256 for t in outs[0][0]) and len(outs[0][0]) == 6
 
 
 def test_sampling_requests_run(models, flags16):
