@@ -181,7 +181,30 @@ Phases, each of which raises on failure:
    sample_size=32)``, bf16 weights with float32 masters, batch 4, the
    denoising MSE: 2 warm-up and 5 timed steps (step ms, samples/s, peak
    memory; the loss falls) with exactly 56 launches of row 12 and of row
-   13 per step, a profile of one step.
+   13 per step, a profile of one step;
+27. train 7b fused head loss (after phase 20): phase 20's configuration,
+   seed-0 weights, AdamW and batch with ``fused_head_loss_chunk=256``: 2
+   warm-up and 5 timed steps (step ms, tokens/s, peak memory beside the
+   unfused step's, which must be higher), the first loss within 1e-2
+   relative of the unfused step's, the losses finite and falling, exactly
+   4 launches of rows 6 and 8 per step;
+28. train 7b lamb: the same model and batch, 3 steps of ``Lamb`` (decay
+   off for the norms): step ms; the losses finite and falling; rows 6
+   and 8 per step as above;
+29. optimizers reference: a tiny float32 Llama (seq 128) trained 5
+   ``TrainStep`` steps on the card and on the CPU from the same weights
+   by each of the 12 optimizers beside Adam/AdamW, each with one of the
+   17 schedulers in turn (every other run with
+   ``fused_head_loss_chunk=32``), losses within 1e-4 relative and
+   falling; ``LBFGS`` with and without the strong-Wolfe line search, and
+   ``LookAhead(AdamW)``, ``ModelAverage`` and ``EMA`` over 6 updates, card
+   against CPU;
+30. dropout and nan checks: ``flash_attention(dropout_p=0.1)`` on bf16
+   tensors on the card takes the plain SDPA (no flash launch) and equals
+   it from the same generator state; ``PT_FLAGS_benchmark`` prints its
+   step line;
+   a step with an inf planted in a weight raises ``FloatingPointError``
+   under ``PT_FLAGS_check_nan_inf`` (the phase fails unless it does).
 
 Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
@@ -1748,6 +1771,19 @@ def long_context_timing(rows, flush):
           f"{two:.4f} ms against sdpa backward {lib_bwd:.4f} ms", flush=True)
 
 
+FLASH_TRAIN_ROWS = ("flash_attention_fwd_lse", "flash_attention_bwd_fused",
+                    "flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")
+
+
+def train_launches_want(n_steps, layers):
+    """Launches of rows 5-9 in ``n_steps`` train steps of ``layers``
+    layers at a sequence the fused backward takes (up to 4 k blocks):
+    rows 6 and 8 once per layer a step, the rest never."""
+    return {n: (n_steps * layers if n in FLASH_TRAIN_ROWS[:2] else 0)
+            for n in FLASH_TRAIN_ROWS}
+
+
 def card_and_cpu(make, seed):
     """A model built on the CPU by ``make(device, seed)`` and the same
     weights on the card."""
@@ -1805,10 +1841,7 @@ def train_reference_phase():
     card_losses = [float(ts_card.run(batch)) for _ in range(5)]
     counts = read_launches()
     cpu_losses = [float(ts_cpu.run(batch)) for _ in range(5)]
-    want = {"flash_attention_fwd_lse": 5 * layers,
-            "flash_attention_bwd_fused": 5 * layers,
-            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+    want = train_launches_want(5, layers)
     if {n: counts[n] for n in want} != want:
         raise AssertionError(f"train reference launches {counts}, want "
                              f"{want}")
@@ -1948,41 +1981,29 @@ def train_7b_phase():
     one step with ``use_recompute``, one from the same weights with
     ``flash_attention_block_k=256`` (the two-pass backward), one
     ``no_grad`` eval forward, and a profile of one step. Returns the
-    launch counts of rows 5-9, each from its own run."""
+    launch counts of rows 5-9, each from its own run, and the timed
+    steps' first loss, median ms and peak GB."""
     from paddle_tpu_torch import flags
-    from paddle_tpu_torch import optimizer as topt
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.trainer import TrainStep
 
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
-    cfg = dataclasses.replace(
-        LlamaConfig.llama2_7b(max_position_embeddings=s, dtype="bfloat16"),
-        num_hidden_layers=4)
+    cfg = train_7b_config()
     print(f"train 7b: Llama-2-7B width (hidden 4096, intermediate 11008, "
           f"32 heads, 32 kv heads, d 128, vocab 32000) with depth cut from "
           f"32 to {cfg.num_hidden_layers} layers: the masters, moments and "
           f"gradients of all 32 under master_only (about 94 GB) exceed the "
           f"80 GB card", flush=True)
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    ts = TrainStep(model, topt.AdamW(
-        learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
-        grad_clip=topt.ClipGradByGlobalNorm(1.0)),
-        master_residency="master_only")
+    model, ts, batch = train_7b_step(cfg)
+    ids = batch["input_ids"]
+    # master_only has released the bf16 copies: count the masters
+    n_params = sum(m.numel() for m in ts.opt_state["master"].values())
     torch.cuda.synchronize()
     print(f"train 7b: {n_params} parameters, bf16 weights with float32 "
           f"masters and moments, built in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    ids = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (b, s)), device="cuda")
-    batch = {"input_ids": ids, "labels": ids}
     layers = cfg.num_hidden_layers
     losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
-    want = {"flash_attention_fwd_lse": 5 * layers,
-            "flash_attention_bwd_fused": 5 * layers,
-            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+    want = train_launches_want(5, layers)
     if {n: counts[n] for n in want} != want:
         raise AssertionError(f"train 7b launches {counts}, want {want}")
     if not (all(math.isfinite(x) for x in losses + norms)
@@ -2079,11 +2100,418 @@ def train_7b_phase():
         "two_pass_loss": loss_b, "two_pass_grad_norm": norm_b,
         "two_pass_step_ms": two_ms, "two_pass_step_ms_median": two_med,
         "profile": prof}}), flush=True)
-    return {"flash_attention_fwd": evals["flash_attention_fwd"],
-            "flash_attention_fwd_lse": counts["flash_attention_fwd_lse"],
-            "flash_attention_bwd_fused": counts["flash_attention_bwd_fused"],
-            "flash_attention_bwd_dq": two["flash_attention_bwd_dq"],
-            "flash_attention_bwd_dkv": two["flash_attention_bwd_dkv"]}
+    return ({"flash_attention_fwd": evals["flash_attention_fwd"],
+             "flash_attention_fwd_lse": counts["flash_attention_fwd_lse"],
+             "flash_attention_bwd_fused":
+                 counts["flash_attention_bwd_fused"],
+             "flash_attention_bwd_dq": two["flash_attention_bwd_dq"],
+             "flash_attention_bwd_dkv": two["flash_attention_bwd_dkv"]},
+            dict(first_loss=losses[0], step_ms_median=med_ms,
+                 peak_gb=peak_gb))
+
+
+def train_7b_config(**kw):
+    """``train_7b_phase``'s configuration: Llama-2-7B width, 4 layers,
+    bf16, sequences of ``TRAIN_SHAPE["s"]``."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(
+        LlamaConfig.llama2_7b(max_position_embeddings=TRAIN_SHAPE["s"],
+                              dtype="bfloat16"),
+        num_hidden_layers=4, **kw)
+
+
+def train_7b_step(cfg, optimizer=None):
+    """The seed-0 model of ``cfg`` on the card, its ``TrainStep`` under
+    ``master_only`` (``optimizer``, by default ``bench.py``'s AdamW: lr
+    3e-4, weight decay 0.01, float32 masters, global-norm clip 1.0) and
+    one seeded batch of 4 x 2048 with labels equal to the inputs."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    if optimizer is None:
+        optimizer = topt.AdamW(
+            learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+            grad_clip=topt.ClipGradByGlobalNorm(1.0))
+    ts = TrainStep(model, optimizer, master_residency="master_only")
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_SHAPE["b"], TRAIN_SHAPE["s"])),
+        device="cuda")
+    return model, ts, {"input_ids": ids, "labels": ids}
+
+
+# ---------------------------------------------------------------------------
+# the train step's optimizer surface: the chunked head loss, Lamb, every
+# optimizer and scheduler, LBFGS, the incubate wrappers, attention dropout
+# and the debug flags
+# ---------------------------------------------------------------------------
+def train_7b_fused_head_phase(unfused):
+    """``train_7b_phase``'s configuration, weights, optimizer and batch
+    with ``fused_head_loss_chunk=256``: the vocabulary head and the loss a
+    256-position chunk at a time, never the [4, 2048, 32000] logits. 2
+    warm-up and 5 timed steps: the first loss within 1e-2 relative of the
+    unfused step's, losses finite and falling, exactly 5 x layers launches
+    of rows 6 and 8, and a peak below the unfused step's (which holds the
+    bf16 logits and their float32 log-softmax, about 1.5 GB, and their
+    gradients). Returns the launch counts."""
+    cfg = train_7b_config(fused_head_loss_chunk=256)
+    _, ts, batch = train_7b_step(cfg)
+    layers = cfg.num_hidden_layers
+    losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
+    want = train_launches_want(5, layers)
+    if {n: counts[n] for n in want} != want:
+        raise AssertionError(f"fused head loss launches {counts}, want "
+                             f"{want}")
+    gap = abs(losses[0] - unfused["first_loss"]) / abs(unfused["first_loss"])
+    if not (gap <= 1e-2 and all(math.isfinite(x) for x in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"fused head loss: losses {losses} (unfused "
+                             f"first {unfused['first_loss']}, rel gap "
+                             f"{gap}), grad norms {norms}")
+    if not peak_gb < unfused["peak_gb"]:
+        raise AssertionError(f"fused head loss peak {peak_gb:.2f} GB, not "
+                             f"below the unfused {unfused['peak_gb']:.2f}")
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    med_ms = float(np.median(step_ms))
+    print(f"train 7b fused head loss (chunk 256): 5 timed steps "
+          f"{[round(x, 3) for x in step_ms]} ms, median {med_ms:.3f} ms "
+          f"(unfused {unfused['step_ms_median']:.3f}), "
+          f"{b * s / (med_ms / 1e3):.1f} tokens/s; peak {peak_gb:.2f} GB "
+          f"against the unfused step's {unfused['peak_gb']:.2f} GB; first "
+          f"loss {losses[0]:.6f} against {unfused['first_loss']:.6f} (rel "
+          f"gap {gap:.3e}, tol 1e-2); losses {losses}; launches per 5 steps "
+          f"{want}; {nvidia_smi_line()}", flush=True)
+    print(json.dumps({"train_7b_fused_head_loss": {
+        "chunk": 256, "step_ms": step_ms, "step_ms_median": med_ms,
+        "unfused_step_ms_median": unfused["step_ms_median"],
+        "tokens_per_s": b * s / (med_ms / 1e3), "peak_memory_gb": peak_gb,
+        "unfused_peak_memory_gb": unfused["peak_gb"], "losses": losses,
+        "grad_norms": norms, "launches": want}}), flush=True)
+    return {n: counts[n] for n in want}
+
+
+def train_7b_lamb_phase():
+    """``train_7b_phase``'s configuration, weights and batch trained 3
+    steps with ``Lamb`` (lr 1e-2, decay 0.01 except the norms', float32
+    masters, global-norm clip 1.0): per-parameter trust ratios, two norms
+    over every weight a step. 1 warm-up and 2 timed steps; the losses are
+    finite and fall."""
+    from paddle_tpu_torch import optimizer as topt
+
+    cfg = train_7b_config()
+    lamb = topt.Lamb(learning_rate=1e-2, lamb_weight_decay=0.01,
+                     multi_precision=True,
+                     grad_clip=topt.ClipGradByGlobalNorm(1.0),
+                     exclude_from_weight_decay_fn=lambda n: "norm" in n)
+    _, ts, batch = train_7b_step(cfg, lamb)
+    layers = cfg.num_hidden_layers
+    losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch,
+                                                          warmup=1, timed=2)
+    want = train_launches_want(2, layers)
+    if {n: counts[n] for n in want} != want:
+        raise AssertionError(f"lamb launches {counts}, want {want}")
+    if not (all(math.isfinite(x) for x in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"lamb: losses {losses}, grad norms {norms}")
+    med_ms = float(np.median(step_ms))
+    print(f"train 7b lamb: 2 timed steps {[round(x, 3) for x in step_ms]} "
+          f"ms (median {med_ms:.3f} ms, after 1 warm-up), peak "
+          f"{peak_gb:.2f} GB; losses {losses}; grad norms {norms}; "
+          f"{nvidia_smi_line()}", flush=True)
+    print(json.dumps({"train_7b_lamb": {
+        "step_ms": step_ms, "step_ms_median": med_ms,
+        "peak_memory_gb": peak_gb, "losses": losses,
+        "grad_norms": norms}}), flush=True)
+
+
+# each optimizer of the slice with one of the 17 schedulers, in turn:
+# (optimizer, its arguments, the scheduler over the optimizer module)
+OPTIMIZER_RUNS = [
+    ("SGD", {}, lambda m: m.NoamDecay(d_model=64, warmup_steps=4,
+                                      learning_rate=1.0)),
+    ("Momentum", dict(momentum=0.9),
+     lambda m: m.ExponentialDecay(0.02, gamma=0.9)),
+    ("Adagrad", dict(initial_accumulator_value=0.1),
+     lambda m: m.StepDecay(0.02, step_size=2, gamma=0.5)),
+    ("Lamb", dict(exclude_from_weight_decay_fn=lambda n: "norm" in n),
+     lambda m: m.PiecewiseDecay([2, 4], [0.01, 0.005, 0.002])),
+    ("Lars", dict(lars_coeff=0.02, exclude_from_weight_decay=["norm"]),
+     lambda m: m.MultiStepDecay(1.0, milestones=[2, 4], gamma=0.5)),
+    ("RMSProp", dict(centered=True, momentum=0.5),
+     lambda m: m.NaturalExpDecay(1e-3, gamma=0.1)),
+    ("Adamax", {}, lambda m: m.InverseTimeDecay(5e-3, gamma=0.5)),
+    ("Adadelta", {}, lambda m: m.LambdaDecay(1.0, lambda e: 0.9 ** e)),
+    ("NAdam", {}, lambda m: m.MultiplicativeDecay(3e-3, lambda e: 0.9)),
+    ("RAdam", {}, lambda m: m.OneCycleLR(max_learning_rate=1e-2,
+                                         total_steps=10)),
+    ("ASGD", dict(batch_num=3),
+     lambda m: m.CyclicLR(0.01, 0.05, step_size_up=2)),
+    ("Rprop", {}, lambda m: m.CosineAnnealingWarmRestarts(1e-3, T_0=2,
+                                                          T_mult=2)),
+    ("SGD", {}, lambda m: m.ConstantLR(0.05)),
+    ("Momentum", dict(momentum=0.9, use_nesterov=True),
+     lambda m: m.LinearWarmup(m.CosineAnnealingDecay(0.02, T_max=10),
+                              warmup_steps=2, start_lr=0.0, end_lr=0.02)),
+    ("Adagrad", {}, lambda m: m.CosineAnnealingDecay(0.02, T_max=8)),
+    ("RMSProp", dict(momentum=0.9),
+     lambda m: m.PolynomialDecay(1e-3, decay_steps=8, end_lr=1e-4)),
+    ("Lamb", {}, lambda m: m.ReduceOnPlateau(0.01, patience=1)),
+]
+
+
+def optimizer_runs(device_models, batch):
+    """Five ``TrainStep`` steps of every entry of ``OPTIMIZER_RUNS`` (the
+    odd ones with ``fused_head_loss_chunk=32``) for each (label, make)
+    of ``device_models``, ``make(fused)`` giving the model; returns the
+    losses by run and label."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.trainer import TrainStep
+
+    out = []
+    for i, (kind, kw, sched) in enumerate(OPTIMIZER_RUNS):
+        losses = {}
+        for label, make in device_models:
+            opt = getattr(topt, kind)(
+                learning_rate=sched(topt),
+                grad_clip=topt.ClipGradByGlobalNorm(1.0), **kw)
+            ts = TrainStep(make(32 if i % 2 else 0), opt)
+            losses[label] = [float(ts.run(batch)) for _ in range(5)]
+        out.append(losses)
+    return out
+
+
+def lbfgs_losses(device, line_search):
+    """Three ``LBFGS`` steps (4 inner iterations, history 5) on a 32-wide
+    quartic-perturbed quadratic from seeded numpy; the closure calls
+    ``backward()``. Returns the loss at the start and after each step, and
+    the final point."""
+    from paddle_tpu_torch import optimizer as topt
+
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((32, 32)).astype(np.float32)
+    a = torch.tensor(a @ a.T / 32 + np.eye(32, dtype=np.float32),
+                     device=device)
+    b = torch.tensor(rng.standard_normal(32).astype(np.float32),
+                     device=device)
+    w = torch.nn.Parameter(torch.tensor(
+        rng.standard_normal(32).astype(np.float32), device=device))
+    opt = topt.LBFGS(learning_rate=1.0, max_iter=4, history_size=5,
+                     line_search_fn=line_search, parameters=[w])
+
+    def closure():
+        opt.clear_grad()
+        loss = 0.5 * w @ a @ w - b @ w + 0.05 * torch.sum(w ** 4)
+        loss.backward()
+        return loss
+
+    losses = [float(closure().detach())]
+    losses += [float(opt.step(closure)) for _ in range(3)]
+    return losses, w.detach().cpu()
+
+
+def wrapper_states(device):
+    """``LookAhead(AdamW)`` (k 3), ``ModelAverage(SGD)`` (window 4) and
+    ``EMA`` (warm-up decay) over 6 updates of seeded gradients on
+    ``device``; returns every tensor of their states and parameters."""
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch import optimizer as topt
+
+    rng = np.random.default_rng(22)
+    start = {n: rng.standard_normal(shape).astype(np.float32)
+             for n, shape in (("w", (64, 48)), ("b", (48,)))}
+    grads = [{n: rng.standard_normal(v.shape).astype(np.float32)
+              for n, v in start.items()} for _ in range(6)]
+    out = {}
+    wrappers = {
+        "lookahead": incubate.LookAhead(topt.AdamW(
+            learning_rate=1e-2, multi_precision=False), alpha=0.5, k=3),
+        "model_average": incubate.ModelAverage(
+            inner_optimizer=topt.SGD(learning_rate=0.05,
+                                     multi_precision=False),
+            max_average_window=4)}
+    for label, wrapper in wrappers.items():
+        p = {n: torch.tensor(v, device=device) for n, v in start.items()}
+        st = wrapper.init(p)
+        for g in grads:
+            wrapper.update({n: torch.tensor(v, device=device)
+                            for n, v in g.items()}, st, p)
+        out[label] = {**{f"param {n}": v for n, v in p.items()},
+                      **{f"slow {n}": v for n, v in st.get("slow",
+                                                            {}).items()},
+                      **{f"avg {n}": v for n, v in st.get("avg",
+                                                           {}).items()}}
+    ema = incubate.EMA(decay=0.99, thres_steps=True)
+    p = {n: torch.tensor(v, device=device) for n, v in start.items()}
+    st = ema.init(p)
+    for g in grads:
+        p = {n: v - 0.1 * torch.tensor(g[n], device=device)
+             for n, v in p.items()}
+        ema.update(st, p)
+    out["ema"] = ema.apply(st, p)
+    return out
+
+
+def optimizers_reference_phase():
+    """The slice's optimizer surface on the card against the CPU, float32:
+    a tiny Llama (seq 128, so rows 6 and 8 are taken) trained 5 steps by
+    each of the 12 optimizers beside Adam/AdamW, each run with one of the
+    17 schedulers in turn and every other run with
+    ``fused_head_loss_chunk=32``, from the same weights, within 1e-4
+    relative and falling; ``LBFGS`` with and without the strong-Wolfe line
+    search; ``LookAhead``, ``ModelAverage`` and ``EMA`` over 6 updates."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.convert import load_numpy_state_dict
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    ids = np.random.default_rng(23).integers(0, 256, (4, 128))
+    batch = {"input_ids": ids, "labels": ids}
+    cpu0 = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu", seed=4)
+    weights = {k: v.detach().numpy() for k, v in cpu0.state_dict().items()}
+
+    def maker(device):
+        def make(chunk):
+            model = LlamaForCausalLM(
+                LlamaConfig.tiny(fused_head_loss_chunk=chunk),
+                device=device, seed=0)
+            return load_numpy_state_dict(model, weights)
+        return make
+
+    reset_launches()
+    runs = optimizer_runs([("card", maker("cuda")), ("cpu", maker("cpu"))],
+                          batch)
+    counts = read_launches()
+    layers = cpu0.config.num_hidden_layers
+    want = train_launches_want(5 * len(OPTIMIZER_RUNS), layers)
+    if {n: counts[n] for n in want} != want:
+        raise AssertionError(f"optimizers reference launches {counts}, "
+                             f"want {want}")
+    gaps = []
+    for (kind, _, sched), losses in zip(OPTIMIZER_RUNS, runs):
+        label = f"{kind} + {type(sched(topt)).__name__}"
+        gaps.append((label, same_losses(label, losses["card"],
+                                        losses["cpu"])))
+    print(f"optimizers reference: 17 runs of 5 TrainStep steps, tiny "
+          f"float32 Llama, batch 4 x 128 (every other run with "
+          f"fused_head_loss_chunk=32), card vs CPU max rel gap "
+          f"{max(g for _, g in gaps):.3e} (tol 1e-4): "
+          f"{[(n, f'{g:.1e}') for n, g in gaps]}; launches {want}",
+          flush=True)
+
+    for line_search in (None, "strong_wolfe"):
+        (lc, wc), (lp, wp) = (lbfgs_losses(d, line_search)
+                              for d in ("cuda", "cpu"))
+        gap = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        werr = float((wc - wp).abs().max() / wp.abs().max())
+        if not (gap <= 1e-4 and werr <= 1e-4 and lc[-1] < lc[0]):
+            raise AssertionError(f"LBFGS {line_search}: card {lc}, CPU {lp}"
+                                 f", point rel err {werr}")
+        print(f"optimizers reference: LBFGS line_search={line_search}: "
+              f"card losses {lc}, CPU {lp}, max rel gap {gap:.3e}, final "
+              f"point rel err {werr:.3e} (tol 1e-4)", flush=True)
+
+    card, cpu = wrapper_states("cuda"), wrapper_states("cpu")
+    worst = 0.0
+    for label in card:
+        for n, t in card[label].items():
+            ref = cpu[label][n]
+            err = float((t.cpu() - ref).abs().max() / ref.abs().max())
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise AssertionError(f"{label} {n}: card vs CPU rel err "
+                                     f"{err}")
+    print(f"optimizers reference: LookAhead(AdamW) k 3, ModelAverage "
+          f"window 4 and EMA over 6 updates, card vs CPU max rel err "
+          f"{worst:.3e} (tol 1e-5)", flush=True)
+
+
+def dropout_and_nan_phase():
+    """Attention dropout on the card: ``flash_attention(dropout_p=0.1)``
+    at a bf16 train-like shape with a causal window takes the plain SDPA
+    (no flash kernel launched) and equals it given the same generator
+    state, within bf16 tolerance; the same call without dropout launches
+    row 5. Then the debug flags on a tiny Llama ``TrainStep``:
+    ``PT_FLAGS_benchmark`` prints its step line, and a step after an inf
+    is planted in one weight raises ``FloatingPointError`` under
+    ``PT_FLAGS_check_nan_inf`` (the phase fails unless it does)."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    from paddle_tpu_torch.trainer import TrainStep
+
+    b, s, h, d, window = 2, 1024, 16, 64, 256
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                           dtype=torch.float32).bfloat16() for _ in range(3))
+    reset_launches()
+    got = fa.flash_attention(q, k, v, causal=True, dropout_p=0.1,
+                             window_size=window,
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in read_launches().items()
+                if n in FLASH_TRAIN_ROWS and c}
+    i = torch.arange(s, device="cuda")
+    band = ((i[:, None] - i[None, :]) < window)[None, None]
+    want = scaled_dot_product_attention(
+        q, k, v, attn_mask=band, dropout_p=0.1, is_causal=True,
+        generator=torch.Generator(device="cuda").manual_seed(5))
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    reset_launches()
+    plain = fa.flash_attention(q, k, v, causal=True, window_size=window,
+                               dropout_p=0.1, training=False)
+    rows = read_launches()
+    changed = float((got != plain).float().mean())
+    if launched or not err <= 1e-2 or rows["flash_attention_fwd"] != 1 \
+            or got.shape != plain.shape or not changed > 0.5:
+        raise AssertionError(f"dropout attention: launches {launched}, rel "
+                             f"err {err} (tol 1e-2), eval launches {rows}, "
+                             f"share changed by dropout {changed}")
+    print(f"dropout: flash_attention(dropout_p=0.1) b={b} s={s} h={h} d={d} "
+          f"causal window {window} bf16 on the card: plain SDPA, no flash "
+          f"launch, max rel err {err:.3e} against SDPA from the same "
+          f"generator state (tol 1e-2), {changed:.3f} of the outputs moved "
+          f"by the dropout; without dropout one row-5 launch", flush=True)
+
+    _, model = tiny_train_pair()
+    ids = np.random.default_rng(24).integers(0, 256, (4, 128))
+    batch = {"input_ids": ids, "labels": ids}
+    ts = TrainStep(model, topt.AdamW(learning_rate=1e-3))
+    out = io.StringIO()
+    flags.set_flags({"benchmark": True})
+    try:
+        with contextlib.redirect_stdout(out):
+            loss = float(ts.run(batch))
+    finally:
+        flags.set_flags({"benchmark": False})
+    line = out.getvalue().strip()
+    if not re.fullmatch(r"\[pt-benchmark\] step 1: \d+\.\d\d ms  "
+                        r"loss=\S+  grad_norm=\S+", line) \
+            or not math.isfinite(loss):
+        raise AssertionError(f"benchmark line {line!r}, loss {loss}")
+    with torch.no_grad():
+        model.model.norm.weight[7] = float("inf")
+    flags.set_flags({"check_nan_inf": True})
+    try:
+        ts.run(batch)
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("check_nan_inf did not raise on a step with "
+                             "an inf weight")
+    finally:
+        flags.set_flags({"check_nan_inf": False})
+    if "at step 2" not in message:
+        raise AssertionError(f"check_nan_inf message {message!r}")
+    print(f"debug flags on the card: {line!r}; the step after an inf weight "
+          f"raised FloatingPointError({message!r})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3961,8 +4389,16 @@ def main() -> int:
           flush=True)
     del model, prompts
     torch.cuda.empty_cache()
-    for name, n in phase("train 7b", train_7b_phase).items():
+    counts, unfused = phase("train 7b", train_7b_phase)
+    for name, n in counts.items():
         fa_rows[name]["launches"] = n
+    torch.cuda.empty_cache()
+    phase("train 7b fused head loss", train_7b_fused_head_phase, unfused)
+    torch.cuda.empty_cache()
+    phase("train 7b lamb", train_7b_lamb_phase)
+    torch.cuda.empty_cache()
+    phase("optimizers reference", optimizers_reference_phase)
+    phase("dropout and nan checks", dropout_and_nan_phase)
     torch.cuda.empty_cache()
     for name, n in phase("train mamba 130m", mamba_train_phase).items():
         scan_rows[name]["launches"] = n

@@ -45,6 +45,15 @@ def flag(name: str):
     return _REGISTRY[name]["value"]
 
 
+define_flag("benchmark", False,
+            "print per-step wall timing + loss from TrainStep.run "
+            "(blocks on the step's outputs each step — a debug/bench "
+            "knob, not a production setting)")
+define_flag("check_nan_inf", False,
+            "debug-check each TrainStep's loss/grad-norm for NaN/Inf "
+            "and raise FloatingPointError at the offending step "
+            "(forces a per-step host sync; read at every run, since the "
+            "port's step always computes the grad norm)")
 define_flag("fused_decode", "auto",
             "fused single-pass decode attention (RoPE + KV append + "
             "length-pruned attention in one kernel): auto and on = the "

@@ -9,7 +9,8 @@ caller's. The no-cache forward attends through
 ``kernels/flash_attention.py: flash_attention`` (causal) when
 ``use_flash_attention`` is on, the Hopper flash-attention kernels on the
 card, and through plain SDPA when it is off; with ``labels`` it returns
-the shifted next-token cross-entropy. ``use_recompute`` recomputes each
+the shifted next-token cross-entropy, through the chunked head + loss
+when ``fused_head_loss_chunk`` is set. ``use_recompute`` recomputes each
 decoder layer in the backward (``torch.utils.checkpoint``, non-reentrant)
 while training, keeping the matmul outputs under the JAX policy
 ``"dots_with_no_batch_dims_saveable"``.
@@ -43,6 +44,7 @@ from ..distributed.parallel_layers import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..inference.paged import (
     PagedLayerCache,
     QuantizedKV,
@@ -84,8 +86,8 @@ class LlamaConfig:
     sep_attention: str = "ulysses"
     use_recompute: bool = False
     recompute_policy: str = "dots_with_no_batch_dims_saveable"
-    # the chunked head + loss is not ported (ROADMAP.md Queue A): must
-    # stay 0
+    # > 0: the train loss through the chunked head + cross-entropy with
+    # this many positions a chunk (incubate fused_linear_cross_entropy)
     fused_head_loss_chunk: int = 0
     dtype: str = "float32"
     initializer_range: float = 0.02
@@ -457,10 +459,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if config.fused_head_loss_chunk:
-            raise NotImplementedError(
-                "fused_head_loss_chunk (the chunked head + cross-entropy) "
-                f"is not ported yet ({_TODO}, train step)")
         dev = resolve_device(device)
         gen = make_generator(seed, dev)
         self.config = config
@@ -488,7 +486,10 @@ class LlamaForCausalLM(nn.Module):
         ``kv_caches`` (a list of per-layer contiguous ``(ck, cv)`` pairs
         or paged ``(PagedLayerCache, PagedState)`` pairs, written in
         place, under ``torch.no_grad()``) returns ``(logits,
-        kv_caches)``."""
+        kv_caches)``. With labels and ``fused_head_loss_chunk`` set, the
+        same loss comes from ``incubate.nn.functional.
+        fused_linear_cross_entropy`` a sequence chunk at a time, never
+        holding the ``[b, s, vocab]`` logits."""
         if kv_caches is not None:
             with torch.no_grad():
                 hidden, kv_caches = self.model(input_ids, position_ids,
@@ -497,10 +498,23 @@ class LlamaForCausalLM(nn.Module):
         hidden = self.model(input_ids, position_ids)
         if labels is None:
             return self.logits(hidden)
+        shift_labels = labels[:, 1:]
+        chunk = self.config.fused_head_loss_chunk
+        if chunk:
+            # the chunked head + cross-entropy: the same function as the
+            # full-logits path (the softmax is row-wise), peak memory one
+            # chunk's logits
+            shift_hidden = hidden[:, :-1, :]
+            if self.lm_head is not None:
+                return fused_linear_cross_entropy(
+                    shift_hidden, self.lm_head.weight, shift_labels,
+                    ignore_index=-100, seq_chunk=chunk)
+            return fused_linear_cross_entropy(
+                shift_hidden, self.model.embed_tokens.weight, shift_labels,
+                transpose_weight=True, ignore_index=-100, seq_chunk=chunk)
         # next-token LM loss, float32 softmax over the vocabulary
         shift_logits = self.logits(hidden)[:, :-1, :]
-        return F.cross_entropy(shift_logits, labels[:, 1:],
-                               ignore_index=-100)
+        return F.cross_entropy(shift_logits, shift_labels, ignore_index=-100)
 
     def init_kv_caches(self, batch_size: int, max_len: int,
                        dtype=torch.bfloat16) -> List[Tuple]:

@@ -13,6 +13,10 @@ def swiglu(x: torch.Tensor, y=None) -> torch.Tensor:
     return torch.nn.functional.silu(x) * y
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x), as ``jax.nn.silu``."""
     return torch.nn.functional.silu(x)

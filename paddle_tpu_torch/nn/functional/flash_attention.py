@@ -59,13 +59,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False, *,
-                    training=True, **kw):
+                    training=True, generator=None, **kw):
     """Parity: paddle.nn.functional.flash_attention.flash_attention.
     Delegates to ``kernels/flash_attention.py: flash_attention`` (the
     Hopper kernels for CUDA tensors, the dense reference for CPU
-    tensors); like the JAX function it ignores further keyword
-    arguments."""
+    tensors; with ``dropout`` while ``training``, the plain SDPA above
+    with its keep-mask drawn from ``generator``); like the JAX function
+    it ignores further keyword arguments."""
     from ...kernels import flash_attention as fa
 
     return fa.flash_attention(query, key, value, causal=causal,
-                              dropout_p=dropout, training=training)
+                              dropout_p=dropout, training=training,
+                              generator=generator)

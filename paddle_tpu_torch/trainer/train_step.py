@@ -25,24 +25,36 @@ is what donation gives the JAX step) and ``run(sharded=True)`` raises.
   with the mean gradient and the mean loss.
 - ``rng_seed`` is taken for the JAX signature and has no effect: no
   operation of the port's step draws random numbers (Llama has no
-  dropout, and attention dropout raises); the JAX step's key feeds
-  only the model's random operations.
+  dropout; attention dropout draws from a generator its caller passes);
+  the JAX step's key feeds only the model's random operations.
 
 ``run`` returns the step's loss as a 0-d tensor without a host sync and
 keeps the global norm of the gradients before clipping, in float32, as
 ``last_grad_norm``; the global-norm clip uses that norm and does not
-compute it again. Telemetry and ``check_nan_inf`` are not ported
-(ROADMAP.md Queue A).
+compute it again. Two debug flags, read at every ``run``, add one host
+sync a step on the loss and that norm: ``PT_FLAGS_benchmark`` prints
+``[pt-benchmark] step N: X ms loss=... grad_norm=...`` (X the wall time
+of the step up to that sync), and ``PT_FLAGS_check_nan_inf`` raises
+``FloatingPointError`` naming the step and the value that is not
+finite, after the update and before the scheduler steps, as in JAX.
+The JAX step computes the norm only when a flag was on when it was
+built, and warns when one is turned on later; the port always computes
+it, so it has no such warning. Train telemetry waits for the port's
+observability (ROADMAP.md Queue A, A5), and ``abstract=True`` and
+``lower()`` for the distributed stack (A7).
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import flags
 from ..distributed.strategy import DistributedStrategy
 from ..optimizer.clip import global_norm
 from ..optimizer.optimizer import Optimizer
@@ -167,6 +179,9 @@ class TrainStep:
             raise NotImplementedError(
                 f"run(sharded=True): the step runs on one card ({_TODO}, "
                 "distributed)")
+        bench = bool(flags.flag("benchmark"))
+        check = bool(flags.flag("check_nan_inf"))
+        t0 = time.perf_counter() if bench else 0.0
         batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
         params = self._param_objs
         self._cast_from_masters()
@@ -208,9 +223,30 @@ class TrainStep:
         del grads
         self._release_copies()
         self.step_count += 1
+        if bench or check:
+            self._debug_flags(loss, bench, check, t0)
         if self.optimizer._lr_scheduler is not None:
             self.optimizer._lr_scheduler.step()
         return loss
+
+    def _debug_flags(self, loss, bench, check, t0):
+        """``PT_FLAGS_benchmark`` and ``PT_FLAGS_check_nan_inf``: one host
+        sync on the loss and the grad norm, then JAX's line and check."""
+        loss_f, gnorm_f = torch.stack(
+            [loss.float(), self.last_grad_norm.float()]).tolist()
+        if bench:
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            print(f"[pt-benchmark] step {self.step_count}: "
+                  f"{wall_ms:.2f} ms  loss={loss_f:.6g}"
+                  f"  grad_norm={gnorm_f:.6g}", flush=True)
+        if check:
+            bad = [n for n, v in (("loss", loss_f), ("grad_norm", gnorm_f))
+                   if not math.isfinite(v)]
+            if bad:
+                raise FloatingPointError(
+                    f"PT_FLAGS_check_nan_inf: non-finite {'/'.join(bad)} "
+                    f"at step {self.step_count} (loss={loss_f}, "
+                    f"grad_norm={gnorm_f})")
 
     # ------------------------------------------------------------------
     def _materialized_params(self):

@@ -185,10 +185,16 @@ def test_dispatch_rules():
         tfa.flash_attention(q, q, q, causal=False, window_size=16)
     with pytest.raises(ValueError, match="requires causal"):
         tm.mha(q, q, q, causal=False, window=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, q, q, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.flash_attention(q, q, q, dropout=0.1, causal=True)
+    # dropout while training takes the plain SDPA on every device, as in
+    # JAX: the kernel wrapper is never reached, even on a device it refuses
+    gen = torch.Generator().manual_seed(1)
+    out = tfa.flash_attention(q, q, q, dropout_p=0.1, generator=gen)
+    assert out.shape == q.shape
+    out = TF.flash_attention(q, q, q, dropout=0.1, causal=True,
+                             generator=torch.Generator().manual_seed(1))
+    assert out.shape == q.shape
+    out = tfa.flash_attention(meta, meta, meta, causal=True, dropout_p=0.1)
+    assert out.device.type == "meta"  # the plain SDPA ran, not the kernel
     # dropout outside training is a no-op, as in JAX
     _close(tfa.flash_attention(q, q, q, dropout_p=0.1, training=False),
            tfa._reference_attention(q, q, q).numpy(), 0)
@@ -290,3 +296,70 @@ def test_sdpa_dropout_uses_the_generators_keep_mask(dtype):
         TF.scaled_dot_product_attention(q, k, v, dropout_p=0.25,
                                         is_causal=True, training=False),
         TF.scaled_dot_product_attention(q, k, v, is_causal=True))
+
+
+DROPOUT_CASES = [
+    dict(causal=True), dict(causal=False),
+    dict(causal=True, window_size=24),
+    dict(causal=True, segment_ids="one"),
+    dict(causal=False, segment_ids="pair"),
+    dict(causal=True, segment_ids="one", window_size=20),
+]
+
+
+def _dropout_masks(kw, b, s):
+    """The masks the dropout path must apply, built here on their own:
+    same segment, and for a window the band of the last ``window_size``
+    keys (the causal mask is SDPA's own)."""
+    mask = None
+    seg = kw.get("segment_ids")
+    if seg is not None:
+        ids = torch.tensor(np.repeat(np.arange(4), s // 4))
+        mask = (ids[:, None] == ids[None, :])[None, None].expand(b, 1, s, s)
+    if kw.get("window_size"):
+        i = torch.arange(s)
+        band = ((i[:, None] - i[None, :]) < kw["window_size"])[None, None]
+        mask = band if mask is None else mask & band
+    return mask
+
+
+@pytest.mark.parametrize("kw", DROPOUT_CASES)
+def test_flash_attention_dropout_is_the_sdpa_with_the_same_generator(kw):
+    """``dropout_p > 0`` while training: the port's SDPA with the segment
+    mask and the window band, its keep-mask drawn from the caller's
+    generator (the same draw gives the same output, float32 and bf16);
+    with a keep probability that rounds to 1 in float32 the masks alone
+    act, and both packages' dropout paths give the same attention."""
+    q, k, v, _ = _qkv(13, 2, 48, 48, 4, 2, 16)
+    kw = dict(kw)
+    jseg, tseg = _segments(kw.pop("segment_ids", None), 2, 48)
+    mask = _dropout_masks(dict(kw, segment_ids=tseg), 2, 48)
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv = (torch.tensor(x).to(dtype) for x in (q, k, v))
+        got = tfa.flash_attention(tq, tk, tv, dropout_p=0.2,
+                                  segment_ids=tseg,
+                                  generator=torch.Generator().manual_seed(9),
+                                  **kw)
+        want = TF.scaled_dot_product_attention(
+            tq, tk, tv, attn_mask=mask, dropout_p=0.2,
+            is_causal=kw["causal"],
+            generator=torch.Generator().manual_seed(9))
+        assert got.dtype == dtype and torch.equal(got, want)
+    p = 1e-12  # 1 - p is 1.0 in float32: every element kept, scale 1
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), dropout_p=p,
+                               segment_ids=jseg, **kw)
+    got = tfa.flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), dropout_p=p,
+                              segment_ids=tseg,
+                              generator=torch.Generator().manual_seed(0),
+                              **kw)
+    _close(got, want, 1e-5)
+    # dropout off (not training): the dense reference, equal to JAX's
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), dropout_p=0.2, training=False,
+                               segment_ids=jseg, **kw)
+    got = tfa.flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), dropout_p=0.2, training=False,
+                              segment_ids=tseg, **kw)
+    _close(got, want, 1e-5)

@@ -983,6 +983,76 @@ def test_flash_attention_kernels_raise_on_what_they_do_not_take(card):
         fa.flash_forward(q, k.cpu(), v)
 
 
+def test_flash_attention_dropout_takes_the_plain_sdpa_on_the_card(card):
+    """``dropout_p > 0`` while training launches no flash kernel: the plain
+    SDPA with the caller's generator, equal to it from the same generator
+    state; the same call without dropout launches row 5."""
+    from paddle_tpu_torch.kernels import flash_attention as dispatch
+    from paddle_tpu_torch.kernels import mha
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    q, k, v, _, _, _ = _fa_inputs(2, 256, 256, 4, 2, 64, torch.bfloat16,
+                                  None)
+    before = dict(mha.LAUNCHES)
+    got = dispatch.flash_attention(
+        q, k, v, causal=True, dropout_p=0.2, window_size=64,
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    assert mha.LAUNCHES == before
+    i = torch.arange(256, device="cuda")
+    band = ((i[:, None] - i[None, :]) < 64)[None, None]
+    want = scaled_dot_product_attention(
+        q, k, v, attn_mask=band, dropout_p=0.2, is_causal=True,
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    assert torch.equal(got, want)
+    dispatch.flash_attention(q, k, v, causal=True, window_size=64,
+                             dropout_p=0.2, training=False)
+    assert mha.LAUNCHES["flash_attention_fwd"] \
+        == before["flash_attention_fwd"] + 1
+
+
+def test_fused_linear_cross_entropy_on_the_card(card):
+    """bf16 on the card, the untied and the tied layout: the chunked head
+    + loss against the unfused head and ``cross_entropy`` (loss, dx, dW
+    within bf16 tolerance by norm), with a lower peak of allocated
+    memory."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_linear_cross_entropy)
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H, V = 2, 1000, 256, 8192
+    x0 = torch.randn((B, S, H), generator=gen, device="cuda").bfloat16()
+    w0 = (torch.randn((H, V), generator=gen, device="cuda") * 0.05).bfloat16()
+    y = torch.randint(0, V, (B, S), generator=gen, device="cuda")
+    y[0, :7] = -100
+
+    def run(fused, transpose):
+        x = x0.clone().requires_grad_()
+        w = (w0.T.contiguous() if transpose else w0.clone()).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if fused:
+            loss = fused_linear_cross_entropy(
+                x, w, y, transpose_weight=transpose, seq_chunk=256)
+        else:
+            loss = F.cross_entropy(F.linear(x, w.T if transpose else w), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss, x.grad, w.grad, torch.cuda.max_memory_allocated() - base
+
+    for transpose in (False, True):
+        fl, fx, fw, fpeak = run(True, transpose)
+        ul, ux, uw, upeak = run(False, transpose)
+        assert fl.dtype == torch.float32 and fw.dtype == torch.bfloat16
+        assert abs(float(fl) - float(ul)) <= 1e-2 * abs(float(ul))
+        for got, want in ((fx, ux), (fw, uw)):
+            err = ((got.float() - want.float()).norm()
+                   / want.float().norm()).item()
+            assert err <= 2e-2, err
+        assert fpeak < upeak, (fpeak, upeak)
+
+
 # ---------------------------------------------------------------------------
 # rows 10-11: the selective scan
 # ---------------------------------------------------------------------------

@@ -209,7 +209,7 @@ def test_chunked_prefill_then_decode_match_jax(tiny_pair, fused):
 
 
 def test_unported_branches_raise(tiny_pair):
-    jmodel, tmodel, _ = tiny_pair
+    jmodel, tmodel, weights = tiny_pair
     # int8 caches are QuantizedKV pairs of the JAX shapes: an int8 payload
     # [slots, max_len, kv_heads, d] and float32 scales [slots, max_len,
     # kv_heads], zeroed
@@ -232,9 +232,15 @@ def test_unported_branches_raise(tiny_pair):
     for caches in (got, [(c, state) for c in pool]):
         with pytest.raises(NotImplementedError, match="scalar cache_index"):
             tmodel(ids, kv_caches=caches, cache_index=0)
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(LlamaConfig.tiny(fused_head_loss_chunk=64),
-                         device="cpu")
+    # fused_head_loss_chunk is ported: the chunked head + loss gives the
+    # full-logits loss, and the logits without labels are unchanged
+    fused = LlamaForCausalLM(LlamaConfig.tiny(fused_head_loss_chunk=64),
+                             device="cpu")
+    load_numpy_state_dict(fused, weights)
+    ids = torch.as_tensor(np.random.default_rng(8).integers(0, 256, (2, 9)))
+    _close(fused(ids, ids).detach().numpy(),
+           tmodel(ids, ids).detach().numpy(), 1e-5)
+    assert torch.equal(fused(ids), tmodel(ids))
 
 
 def test_prefill_rows_past_max_len_drop_like_jax(tiny_pair):

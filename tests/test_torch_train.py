@@ -7,6 +7,8 @@ from a JAX train state. Inputs come from numpy with one seed; the JAX
 side runs on the CPU, where its flash attention takes the dense
 reference."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 import paddle_tpu as pt
 from paddle_tpu import distributed as jdist
+from paddle_tpu import flags as jflags
 from paddle_tpu import optimizer as jopt
 from paddle_tpu.core.functional import extract_params, functional_call
 from paddle_tpu.distributed.strategy import (
@@ -25,6 +28,7 @@ from paddle_tpu.models import LlamaForCausalLM as JModel
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu.trainer import TrainStep as JTrainStep
+from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import (
     load_numpy_state_dict,
@@ -214,6 +218,11 @@ def _pair(seed=5, **cfg):
     dict(use_flash_attention=True, use_recompute=True),
     dict(use_flash_attention=True, use_recompute=True,
          recompute_policy="nothing_saveable"),
+    # the chunked head + loss, with chunks that do not divide the 23
+    # shifted positions: the untied head, and the tied one (whose loss
+    # gradient reaches the embedding)
+    dict(fused_head_loss_chunk=8),
+    dict(fused_head_loss_chunk=5, tie_word_embeddings=True),
 ])
 def test_tiny_llama_loss_and_every_gradient_match_jax(cfg):
     jmodel, tmodel = _pair(**cfg)
@@ -230,9 +239,20 @@ def test_tiny_llama_loss_and_every_gradient_match_jax(cfg):
     loss.backward()
     _close(loss, want_loss, 1e-5)
     got = dict(tmodel.named_parameters())
-    assert set(got) == set(want) and len(got) == 21
+    tied = cfg.get("tie_word_embeddings", False)
+    assert set(got) == set(want) and len(got) == (20 if tied else 21)
     for name, g in want.items():
         _close(got[name].grad, g, 1e-5)
+    if cfg.get("fused_head_loss_chunk"):
+        # the port's fused loss and gradients are its unfused ones
+        unfused = LlamaForCausalLM(LlamaConfig.tiny(
+            **dict(cfg, fused_head_loss_chunk=0)), device="cpu")
+        unfused.load_state_dict(tmodel.state_dict())
+        ref = unfused(torch.as_tensor(ids), torch.as_tensor(labels))
+        ref.backward()
+        _close(loss, ref, 1e-5)
+        for name, p in unfused.named_parameters():
+            _close(got[name].grad, p.grad, 1e-5)
 
 
 # -------------------------------------------------------------- TrainStep
@@ -401,3 +421,136 @@ def test_train_step_computes_the_grad_norm_once(monkeypatch):
     want = torch.sqrt(sum(torch.sum(g.double() ** 2)
                           for g in grads_seen.values()))
     _close(ts.last_grad_norm, want, 1e-6)
+
+
+# ------------------------------------ other optimizers, schedulers, flags
+def _any_step(model, opt, lib, **kw):
+    if lib is jopt:
+        mesh = jdist.build_mesh(devices=jax.devices()[:1])
+        return JTrainStep(model, opt, mesh, JStrategy(), **kw)
+    return TrainStep(model, opt, **kw)
+
+
+TRAJECTORIES = [
+    ("Lamb", dict(lamb_weight_decay=0.01,
+                  exclude_from_weight_decay_fn=lambda n: "norm" in n),
+     lambda m: m.OneCycleLR(max_learning_rate=3e-3, total_steps=8),
+     None, dict(fused_head_loss_chunk=6)),
+    ("RMSProp", dict(centered=True, momentum=0.5),
+     lambda m: m.CosineAnnealingWarmRestarts(1e-3, T_0=2, T_mult=2),
+     None, {}),
+    # MultiplicativeDecay keeps its rate on the host. The JAX step reads
+    # it once, while its program is traced (ROADMAP.md Queue C), so JAX
+    # runs the same rates through a LambdaDecay: update k reads
+    # 2e-3 * 0.8^(k - 1)
+    ("NAdam", dict(weight_decay=0.01),
+     lambda m: m.MultiplicativeDecay(2e-3, lambda e: 0.8),
+     lambda m: m.LambdaDecay(2e-3, lambda e: 0.8 ** (e - 1)),
+     dict(fused_head_loss_chunk=5, tie_word_embeddings=True)),
+]
+
+
+@pytest.mark.parametrize("kind,kw,sched,jsched,cfg", TRAJECTORIES,
+                         ids=[t[0] for t in TRAJECTORIES])
+def test_train_step_with_other_optimizers_matches_jax(kind, kw, sched,
+                                                      jsched, cfg):
+    """Five ``TrainStep`` steps with global-norm clipping, a scheduler the
+    step advances after each update (a host-state one too), and the
+    chunked head + loss: float32 losses within 1e-5 of JAX's."""
+    jmodel, tmodel = _pair(seed=13, **cfg)
+
+    def make(m, lrm, schedule):
+        return getattr(m, kind)(learning_rate=schedule(lrm),
+                                grad_clip=m.ClipGradByGlobalNorm(1.0), **kw)
+
+    js = _any_step(jmodel, make(jopt, jlr, jsched or sched), jopt)
+    ts = _any_step(tmodel, make(topt, tlr, sched), topt)
+    batch = _batch(seed=4)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    losses = []
+    for _ in range(5):
+        want = float(js.run(jbatch))
+        losses.append(float(ts.run(batch)))
+        np.testing.assert_allclose(losses[-1], want, rtol=1e-5)
+        if jsched is None:
+            assert ts.optimizer.get_lr() == pytest.approx(
+                js.optimizer.get_lr(), rel=1e-6)
+    assert losses[-1] < losses[0]
+
+
+@pytest.fixture
+def debug_flags():
+    """Sets a debug flag in both packages; restores both."""
+    saved = {n: (jflags.flag(n), tflags.flag(n))
+             for n in ("check_nan_inf", "benchmark")}
+
+    def set_both(**kw):
+        jflags.set_flags(kw)
+        tflags.set_flags(kw)
+
+    yield set_both
+    for n, (j, t) in saved.items():
+        jflags.set_flags({n: j})
+        tflags.set_flags({n: t})
+
+
+def test_check_nan_inf_raises_at_the_offending_step(debug_flags):
+    """With ``check_nan_inf`` both steps run two finite steps, then an inf
+    planted in one weight makes the third raise ``FloatingPointError``
+    with JAX's message; the scheduler is not advanced past it."""
+    debug_flags(check_nan_inf=True)
+    jmodel, tmodel = _pair(seed=14)
+    js = _any_step(jmodel, jopt.AdamW(learning_rate=jlr.StepDecay(
+        1e-3, step_size=1)), jopt)
+    ts = _any_step(tmodel, topt.AdamW(learning_rate=tlr.StepDecay(
+        1e-3, step_size=1)), topt)
+    batch = _batch(seed=5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    for _ in range(2):
+        js.run(jbatch)
+        ts.run(batch)
+    name = "model.norm.weight"
+    js.params[name] = js.params[name].at[3].set(jnp.inf)
+    with torch.no_grad():
+        dict(tmodel.named_parameters())[name][3] = float("inf")
+    with pytest.raises(FloatingPointError) as jerr:
+        js.run(jbatch)
+    with pytest.raises(FloatingPointError) as terr:
+        ts.run(batch)
+    assert str(terr.value) == str(jerr.value)
+    assert "at step 3" in str(terr.value)
+    assert ts.step_count == 3
+    assert ts.optimizer._lr_scheduler.last_epoch == 2
+    # off: the same step runs on without a check
+    debug_flags(check_nan_inf=False)
+    assert not np.isfinite(float(ts.run(batch)))
+
+
+def test_benchmark_prints_the_jax_line(debug_flags, capsys):
+    """The step's line with its loss and grad norm (the JAX step emits the
+    norm when ``check_nan_inf`` or telemetry is on at build time, so both
+    flags are on here); nothing printed with the flag off."""
+    debug_flags(benchmark=True, check_nan_inf=True)
+    jmodel, tmodel = _pair(seed=15)
+    js = _any_step(jmodel, jopt.AdamW(learning_rate=1e-3), jopt)
+    ts = _any_step(tmodel, topt.AdamW(learning_rate=1e-3), topt)
+    batch = _batch(seed=6)
+    pattern = (r"\[pt-benchmark\] step (\d+): (\d+\.\d\d) ms  "
+               r"loss=(\S+)  grad_norm=(\S+)")
+    for step in (1, 2):
+        js.run({k: jnp.asarray(v) for k, v in batch.items()})
+        jline = capsys.readouterr().out.strip().splitlines()[-1]
+        loss = ts.run(batch)
+        tline = capsys.readouterr().out.strip().splitlines()[-1]
+        jm, tm = re.fullmatch(pattern, jline), re.fullmatch(pattern, tline)
+        assert jm and tm, (jline, tline)
+        assert int(tm.group(1)) == int(jm.group(1)) == step
+        assert float(tm.group(2)) > 0
+        np.testing.assert_allclose(float(tm.group(3)), float(jm.group(3)),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm.group(4)), float(jm.group(4)),
+                                   rtol=1e-4)
+        assert float(tm.group(3)) == pytest.approx(float(loss), rel=1e-5)
+    debug_flags(benchmark=False, check_nan_inf=False)
+    ts.run(batch)
+    assert capsys.readouterr().out == ""
