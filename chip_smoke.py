@@ -204,7 +204,34 @@ Phases, each of which raises on failure:
    it from the same generator state; ``PT_FLAGS_benchmark`` prints its
    step line;
    a step with an inf planted in a weight raises ``FloatingPointError``
-   under ``PT_FLAGS_check_nan_inf`` (the phase fails unless it does).
+   under ``PT_FLAGS_check_nan_inf`` (the phase fails unless it does);
+31. weight-only matmul at the Mamba shapes (after phase 7): row 4 with
+   float32 x and int4 weights at m 4096 and the (k, n) of the
+   QAT-converted Mamba-130m's four linears ((768, 3072), (1536, 80), (48,
+   1536) in one group of 48, (1536, 768)), each against its plain version
+   (rel 1e-5) and run twice identically, timed beside its bound (float32
+   operations at 67 TFLOP/s against its bytes), its plain version and one
+   ``torch.matmul`` over the dequantized float32 weight (TF32 off);
+32. QAT reference (after phase 23): a tiny float32 Mamba made QAT by
+   ``QAT(QuantConfig()).quantize`` trains 5 AdamW steps on the card (rows
+   10-11 under ``FakeQuant``) and on the CPU from the same weights: the
+   same losses and ``amax`` buffers (rel 1e-4); ``QAT.convert`` int4 of
+   the card's trained state on both sides: the eval logits through rows 4
+   and 10 against the plain versions (rtol and atol 1e-5); PTQ with
+   ``AbsmaxObserver``, 2 calibration batches, int8: the same
+   ``act_scale`` on both sides (rel 1e-5);
+33. QAT Mamba-130m (after phase 25): phase 25's configuration made QAT (96
+   ``QuantedLinear``, 192 ``FakeQuant``): 2 warm-up and 5 timed steps
+   with exactly 24 launches of rows 10 (with states) and 11 a step, the
+   losses finite and falling (step ms, tokens/s and peak memory beside
+   phase 25's median step), a profile of one step with a range around
+   each quanter (FakeQuant's device time), every ``amax``
+   finite and moved from 1.0 in ``eval()``; ``QAT.convert`` int4 and a
+   ``no_grad`` forward of the same batch with exactly 96 launches of row 4
+   and 24 of row 10 without states, finite logits, and the share of
+   next-token argmaxes equal to the fake-quant forward's (reported, not
+   asserted); PTQ of a fresh model over 2 calibration batches, int8 per
+   channel (a plain product: no row-4 launch), finite logits.
 
 Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
@@ -1044,6 +1071,60 @@ def quant_kernel_phase():
                 prefill_forward_int8_ms=fwd[(2048, "int8")][0],
                 prefill_forward_int4_ms=fwd[(2048, "int4")][0],
                 prefill_forward_bound_ms=fwd[(2048, "int8")][1])
+
+
+# the converted Mamba-130m's linears (k, n, group): in_proj, x_proj (dt
+# rank 48 + 2 x 16 states), dt_proj (k 48: one whole-column group) and
+# out_proj, at batch 4 x 1024 tokens
+MAMBA_QMM = ((768, 3072, 128), (1536, 80, 128), (48, 1536, 48),
+             (1536, 768, 128))
+MAMBA_M = 4 * 1024
+
+
+def qmm_mamba_phase():
+    """Row 4 with float32 x at the shapes of the QAT-converted Mamba-130m
+    (int4 weights, m 4096): each against its plain version (rel 1e-5),
+    run twice identically, then timed beside its bound (float32 operations
+    at 67 TFLOP/s against its bytes), its plain version and one
+    ``torch.matmul`` over the dequantized float32 weight (TF32 off)."""
+    from paddle_tpu_torch.kernels import quant_matmul as qmm
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for i, (k, n, g) in enumerate(MAMBA_QMM):
+        err, rel = qmm_check(MAMBA_M, k, n, g, "int4", torch.float32,
+                             500 + i)
+        inp = qmm_inputs(MAMBA_M, k, n, g, "int4", torch.float32, 510 + i)
+        x = inp["x"]
+        w = (qmm._unpack_int4(inp["qweight"]).float().reshape(k // g, g, n)
+             * inp["scale"][:, None, :]).reshape(k, n)
+        kernel_ms = time_ms(lambda: qmm.weight_only_matmul(**inp), flush,
+                            iters=30)
+        plain_ms = time_ms(lambda: qmm.weight_only_matmul_plain(**inp),
+                           flush, iters=30)
+        library_ms = time_ms(lambda: torch.matmul(x, w), flush, iters=30)
+        bound_ms, bound_by = qmm_bound(inp)
+        body = qmm.kernel_body(MAMBA_M, n, k, torch.float32)
+        row = dict(m=MAMBA_M, k=k, n=n, group=g, body=body,
+                   max_abs_err=err, max_rel_err=rel, ms=kernel_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=2 * MAMBA_M * k * n / kernel_ms / 1e9)
+        rows.append(row)
+        print(f"weight-only matmul mamba m={MAMBA_M} k={k} n={n} g={g} int4 "
+              f"float32 x ({body}): max rel err {rel:.3e} (tol 1e-5), run "
+              f"twice identically; kernel {kernel_ms:.4f} ms "
+              f"({row['tflops']:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"torch.matmul over the dequantized float32 W "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+    fwd = {key: sum(r[key] for r in rows) * 24
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"weight-only matmul per converted Mamba-130m forward (96 calls "
+          f"at m {MAMBA_M}, float32 x): kernels {fwd['ms']:.3f} ms, "
+          f"torch.matmul {fwd['library_ms']:.3f} ms, bound "
+          f"{fwd['bound_ms']:.3f} ms", flush=True)
+    return dict(shapes=rows, forward=fwd)
 
 
 # ------------------------------------------ int8 branches of rows 1 and 2
@@ -1929,11 +2010,12 @@ def train_steps(ts, batch, warmup=2, timed=5):
 
 
 
-def profile_step(label, ts, batch, kernel_names):
+def profile_step(label, ts, batch, kernel_names, ranges=()):
     """Device time by operation of one train step (``torch.profiler``):
     the wall, the card's kernel time, the time of the kernels whose names
-    contain one of ``kernel_names`` (in all and by name), and the heaviest
-    operators and kernels."""
+    contain one of ``kernel_names`` (in all and by name), the device time
+    under each ``record_function`` range named in ``ranges``, and the
+    heaviest operators and kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1949,8 +2031,11 @@ def profile_step(label, ts, batch, kernel_names):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     events = prof.key_averages()
+    # a range also shows on the device's timeline, as the span from its
+    # first kernel's start to its last one's end: not a kernel
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
     ours_ms = sum(dev_us(e) for e in kernels
                   if any(k in e.key for k in kernel_names)) / 1e3
@@ -1963,13 +2048,30 @@ def profile_step(label, ts, batch, kernel_names):
            for e in ops[:8]]
     top_kernels = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count)
                    for e in sorted(kernels, key=dev_us, reverse=True)[:8]]
+
+    def total_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    by_range = {}
+    for r in ranges:
+        mine = [e for e in events if e.key == r]
+        by_range[r] = dict(
+            calls=sum(e.count for e in mine
+                      if e.device_type != torch.autograd.DeviceType.CUDA),
+            kernels_ms=sum(total_us(e) for e in mine if e.device_type
+                           != torch.autograd.DeviceType.CUDA) / 1e3,
+            span_ms=sum(dev_us(e) for e in mine if e.device_type
+                        == torch.autograd.DeviceType.CUDA) / 1e3)
     print(f"profile {label} step: wall {wall_ms:.2f} ms, kernel time "
           f"{total_ms:.2f} ms, the port's kernels {kernel_names} "
-          f"{ours_ms:.2f} ms {by_name}; heaviest operators (name, device "
-          f"ms, calls): "
+          f"{ours_ms:.2f} ms {by_name}; ranges (calls, device time of the "
+          f"kernels launched inside, device span) {by_range}; heaviest "
+          f"operators (name, device ms, calls): "
           f"{top}; heaviest kernels: {top_kernels}", flush=True)
     return dict(wall_ms=wall_ms, device_ms=total_ms, kernels_ms=ours_ms,
-                by_name_ms=by_name, top=top, top_kernels=top_kernels)
+                by_name_ms=by_name, ranges=by_range, top=top,
+                top_kernels=top_kernels)
 
 
 def train_7b_phase():
@@ -2951,7 +3053,8 @@ def mamba_train_phase():
     inputs, ``TrainStep(model, AdamW(1e-4, multi_precision=True))``: 2
     warm-up and 5 timed steps (24 launches of row 10 with states and 24
     of row 11 each), one ``no_grad`` eval forward (24 of row 10 without
-    states), a profile of one step. Returns the launch counts."""
+    states), a profile of one step. Returns the launch counts and the
+    median step ms."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
     from paddle_tpu_torch.trainer import TrainStep
@@ -3004,9 +3107,266 @@ def mamba_train_phase():
         "step_ms": step_ms, "step_ms_median": med_ms,
         "tokens_per_s": tokens_per_s, "peak_memory_gb": peak_gb,
         "losses": losses, "profile": prof}}), flush=True)
-    return {"selective_scan_fwd": evals["selective_scan_fwd"],
-            "selective_scan_fwd_states": counts["selective_scan_fwd_states"],
-            "selective_scan_bwd": counts["selective_scan_bwd"]}
+    return ({"selective_scan_fwd": evals["selective_scan_fwd"],
+             "selective_scan_fwd_states": counts["selective_scan_fwd_states"],
+             "selective_scan_bwd": counts["selective_scan_bwd"]}, med_ms)
+
+
+# ---------------------------------------------------------------------------
+# QAT and PTQ: Mamba through FakeQuant (rows 10-11), converted (rows 4, 10)
+# ---------------------------------------------------------------------------
+def amax_values(model):
+    return {k: float(v) for k, v in model.state_dict().items()
+            if k.endswith("amax")}
+
+
+def qat_reference_phase():
+    """A tiny float32 QAT Mamba (``MambaConfig.tiny(use_chunked_scan=True)``,
+    chunk 128, batch 4 x 128) with the same weights on the card (rows
+    10-11) and on the CPU (their plain versions): 5 AdamW ``TrainStep``
+    steps with the same losses and ``amax`` buffers (rel 1e-4); then both
+    converted from the card's trained state by ``QAT.convert`` int4: the
+    eval logits through rows 4 and 10 against the plain versions (rtol and
+    atol 1e-5, as ``tests/test_torch_quant.py``); PTQ with AbsmaxObserver
+    on fresh models, 2 calibration batches, converted int8: the
+    ``act_scale`` of every layer equal on both sides (rel 1e-5)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.convert import load_numpy_state_dict
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg = MambaConfig.tiny(use_chunked_scan=True)
+    layers = cfg.num_hidden_layers
+    cpu, card = card_and_cpu(lambda dev, seed: Q.QAT(Q.QuantConfig())
+                             .quantize(MambaForCausalLM(cfg, device=dev,
+                                                        seed=seed)), 4)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, cfg.vocab_size, (4, 128))
+    batch = {"input_ids": ids, "labels": ids}
+
+    def step(model):
+        return TrainStep(model, topt.AdamW(learning_rate=1e-3,
+                                           weight_decay=0.01))
+
+    ts_card, ts_cpu = step(card), step(cpu)
+    reset_launches()
+    card_losses = [float(ts_card.run(batch)) for _ in range(5)]
+    counts = read_launches()
+    cpu_losses = [float(ts_cpu.run(batch)) for _ in range(5)]
+    check_counts("qat reference", counts, {
+        "selective_scan_fwd_states": 5 * layers,
+        "selective_scan_bwd": 5 * layers, "selective_scan_fwd": 0,
+        "weight_only_matmul": 0})
+    gap = same_losses("qat reference", card_losses, cpu_losses)
+    amax_card, amax_cpu = amax_values(card), amax_values(cpu)
+    amax_gap = max(abs(amax_card[k] - v) / abs(v)
+                   for k, v in amax_cpu.items())
+    if len(amax_card) != 8 * layers or not amax_gap <= 1e-4 \
+            or any(v == 1.0 for v in amax_card.values()):
+        raise AssertionError(f"qat reference amax: card {amax_card}, CPU "
+                             f"{amax_cpu} (rel gap {amax_gap})")
+    print(f"qat reference: tiny float32 QAT Mamba ({8 * layers} FakeQuant), "
+          f"batch 4 x 128, 5 AdamW steps: card {card_losses}, CPU "
+          f"{cpu_losses}, max rel gap {gap:.3e} (tol 1e-4); amax max rel "
+          f"gap {amax_gap:.3e} (tol 1e-4); launches "
+          f"{counts['selective_scan_fwd_states']} of row 10 with states and "
+          f"of row 11", flush=True)
+
+    # convert the same trained state on both sides
+    load_numpy_state_dict(cpu, {k: v.detach().cpu().numpy()
+                                for k, v in card.state_dict().items()})
+    qat = Q.QAT(Q.QuantConfig())
+    card = qat.convert(card.eval(), weight_dtype="int4")
+    cpu = qat.convert(cpu.eval(), weight_dtype="int4")
+    reset_launches()
+    with torch.no_grad():
+        got = card(torch.as_tensor(ids, device="cuda"))
+    counts = read_launches()
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(ids))
+    check_counts("qat reference converted", counts, {
+        "weight_only_matmul": 4 * layers, "selective_scan_fwd": layers,
+        "selective_scan_fwd_states": 0, "selective_scan_bwd": 0})
+    err = (got.cpu() - want).abs()
+    worst = float((err - 1e-5 * want.abs()).max())
+    if not (torch.isfinite(got).all() and worst <= 1e-5):
+        raise AssertionError(f"qat reference converted int4 logits: max abs "
+                             f"err {float(err.max())}")
+    print(f"qat reference: QAT.convert int4 eval logits, card (rows 4 and "
+          f"10: {counts['weight_only_matmul']} and "
+          f"{counts['selective_scan_fwd']} launches) vs CPU plain: max abs "
+          f"err {float(err.max()):.3e} (rtol and atol 1e-5)", flush=True)
+
+    cpu, card = card_and_cpu(lambda dev, seed: Q.PTQ().quantize(
+        MambaForCausalLM(cfg, device=dev, seed=seed)), 5)
+    calib = [rng.integers(0, cfg.vocab_size, (4, 128)) for _ in range(2)]
+    with torch.no_grad():
+        for c in calib:
+            card(torch.as_tensor(c, device="cuda"))
+            cpu(torch.as_tensor(c))
+    scales = []
+    for model in (card, cpu):
+        Q.PTQ().convert(model)
+        scales.append([float(m.act_scale) for m in model.sublayers()
+                       if isinstance(m, Q.WeightOnlyLinear)])
+    scale_gap = max(abs(a - b) / b for a, b in zip(*scales))
+    reset_launches()
+    with torch.no_grad():
+        out = card(torch.as_tensor(ids, device="cuda"))
+    ptq_counts = read_launches()
+    if len(scales[0]) != 4 * layers or not scale_gap <= 1e-5 \
+            or min(scales[0]) <= 0 or not torch.isfinite(out).all() \
+            or ptq_counts["weight_only_matmul"] != 0:
+        raise AssertionError(f"ptq reference: act_scale card {scales[0]}, "
+                             f"CPU {scales[1]} (rel gap {scale_gap}); "
+                             f"launches {ptq_counts}")
+    print(f"qat reference: PTQ AbsmaxObserver, 2 calibration batches, int8 "
+          f"per channel (a plain product, no row-4 launch): "
+          f"{len(scales[0])} act_scale, card vs CPU max rel gap "
+          f"{scale_gap:.3e} (tol 1e-5)", flush=True)
+
+
+def qat_mamba_phase(plain_ms):
+    """``mamba_train_phase``'s configuration (Mamba-130m widths, float32,
+    seed 0, batch 4 x 1024, ``AdamW(1e-4, multi_precision=True)``) made QAT
+    by ``QAT(QuantConfig()).quantize``: 96 QuantedLinear, 192 FakeQuant; 2
+    warm-up and 5 timed steps (24 launches of row 10 with states and 24 of
+    row 11 each; losses finite and falling; step ms beside the plain
+    step's ``plain_ms`` from this run), a profile of one step with a range
+    around each quanter (FakeQuant's device time), ``eval()`` with every
+    ``amax`` finite and moved from 1.0; ``QAT.convert`` int4 and a
+    ``no_grad`` forward of the same batch (24 launches of row 10 without
+    states, 96 of row 4, finite logits), and the share of next-token
+    argmaxes equal to the fake-quant eval forward's (reported); PTQ of a
+    fresh model over 2 calibration batches, int8. Returns row 4's launches
+    in the converted forward."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    b, s = SCAN_SHAPE["b"], SCAN_SHAPE["s"]
+    cfg = MambaConfig(use_chunked_scan=True)
+    layers = cfg.num_hidden_layers
+    model = Q.QAT(Q.QuantConfig()).quantize(
+        MambaForCausalLM(cfg, device="cuda", seed=0))
+    n_quanted = sum(isinstance(m, Q.QuantedLinear) for m in model.sublayers())
+    quanters = [m for m in model.sublayers() if isinstance(m, Q.FakeQuant)]
+    if (n_quanted, len(quanters)) != (4 * layers, 8 * layers):
+        raise AssertionError(f"qat mamba 130m: {n_quanted} QuantedLinear, "
+                             f"{len(quanters)} FakeQuant")
+    ts = TrainStep(model, topt.AdamW(1e-4, multi_precision=True))
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                          device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    losses, _, step_ms, counts, peak_gb = train_steps(ts, batch)
+    check_counts("qat mamba 130m", counts, {
+        "selective_scan_fwd_states": 5 * layers,
+        "selective_scan_bwd": 5 * layers, "selective_scan_fwd": 0,
+        "weight_only_matmul": 0})
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"qat mamba 130m: losses {losses}")
+    med_ms = float(np.median(step_ms))
+    tokens_per_s = b * s / (med_ms / 1e3)
+    print(f"qat mamba 130m: {n_quanted} QuantedLinear, {len(quanters)} "
+          f"FakeQuant; 5 timed steps {[round(x, 3) for x in step_ms]} ms "
+          f"(median {med_ms:.3f} ms against the plain step's {plain_ms:.3f} "
+          f"ms in this run, {med_ms - plain_ms:+.3f} ms), {tokens_per_s:.1f} "
+          f"tokens/s, peak {peak_gb:.2f} GB; losses {losses}; launches per "
+          f"5 steps: {5 * layers} of row 10 with states and of row 11",
+          flush=True)
+
+    ranges = {}
+
+    def enter(layer, args):
+        ranges[id(layer)] = record_function("fake_quant")
+        ranges[id(layer)].__enter__()
+
+    def leave(layer, args, out):
+        ranges.pop(id(layer)).__exit__(None, None, None)
+
+    handles = [h for q in quanters
+               for h in (q.register_forward_pre_hook(enter),
+                         q.register_forward_post_hook(leave))]
+    try:
+        prof = profile_step("qat mamba 130m", ts, batch, SCAN_BODIES,
+                            ranges=("fake_quant",))
+    finally:
+        for h in handles:
+            h.remove()
+    del ts
+    torch.cuda.empty_cache()
+
+    model.eval()
+    amax = amax_values(model)
+    if len(amax) != 8 * layers or not all(
+            math.isfinite(v) and v != 1.0 for v in amax.values()):
+        raise AssertionError(f"qat mamba 130m amax after training: {amax}")
+    with torch.no_grad():
+        fq_next = model(ids).argmax(-1)
+    Q.QAT(Q.QuantConfig()).convert(model, weight_dtype="int4")
+    reset_launches()
+    with torch.no_grad():
+        logits = model(ids)
+    evals = read_launches()
+    check_counts("qat mamba 130m converted forward", evals, {
+        "weight_only_matmul": 4 * layers, "selective_scan_fwd": layers,
+        "selective_scan_fwd_states": 0, "selective_scan_bwd": 0})
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"qat mamba 130m converted logits "
+                             f"{tuple(logits.shape)}")
+    agree = float((logits.argmax(-1) == fq_next).float().mean())
+    del logits, fq_next, model
+    torch.cuda.empty_cache()
+    print(f"qat mamba 130m: eval amax {min(amax.values()):.4f}.."
+          f"{max(amax.values()):.4f} (none left at 1.0); QAT.convert int4: "
+          f"{evals['weight_only_matmul']} launches of row 4 (float32 x) and "
+          f"{evals['selective_scan_fwd']} of row 10 without states, finite "
+          f"logits; next-token argmax equal to the fake-quant eval forward's "
+          f"at {agree:.4f} of {b * s} positions (reported, not gated)",
+          flush=True)
+
+    fresh = Q.PTQ().quantize(MambaForCausalLM(cfg, device="cuda", seed=0))
+    with torch.no_grad():
+        for _ in range(2):
+            fresh(torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                  device="cuda"))
+    Q.PTQ().convert(fresh)
+    scales = [float(m.act_scale) for m in fresh.sublayers()
+              if isinstance(m, Q.WeightOnlyLinear)]
+    reset_launches()
+    with torch.no_grad():
+        ptq_ok = bool(torch.isfinite(fresh(ids)).all())
+    ptq_counts = read_launches()
+    if len(scales) != 4 * layers or min(scales) <= 0 or not ptq_ok \
+            or ptq_counts["weight_only_matmul"] != 0:
+        raise AssertionError(f"ptq mamba 130m: act_scale {scales}, finite "
+                             f"{ptq_ok}, launches {ptq_counts}")
+    del fresh
+    torch.cuda.empty_cache()
+    print(f"qat mamba 130m: PTQ over 2 calibration batches, int8 per "
+          f"channel: {len(scales)} act_scale {min(scales):.4e}.."
+          f"{max(scales):.4e}, finite logits, no row-4 launch", flush=True)
+    print(json.dumps({"qat_mamba130m": {
+        "model": "mamba-130m widths, 24 layers, random float32 weights "
+                 "(seed 0), QAT(QuantConfig())", "batch": b, "seq": s,
+        "quanted_linears": n_quanted, "fake_quants": len(quanters),
+        "step_ms": step_ms, "step_ms_median": med_ms,
+        "plain_step_ms_median": plain_ms, "tokens_per_s": tokens_per_s,
+        "peak_memory_gb": peak_gb, "losses": losses, "profile": prof,
+        "amax_min": min(amax.values()), "amax_max": max(amax.values()),
+        "converted_launches": {k: evals[k] for k in (
+            "weight_only_matmul", "selective_scan_fwd")},
+        "argmax_agreement": agree,
+        "ptq_act_scale_min": min(scales),
+        "ptq_act_scale_max": max(scales)}}), flush=True)
+    return evals["weight_only_matmul"]
 
 
 # ---------------------------------------------------------------------------
@@ -4323,6 +4683,8 @@ def main() -> int:
     row = phase("decode kernel", kernel_phase)
     fused_row, block_row = phase("paged kernels", paged_kernel_phase)
     qmm_row = phase("weight-only matmul kernel", quant_kernel_phase)
+    qmm_row["mamba_f32"] = phase("weight-only matmul mamba f32",
+                                 qmm_mamba_phase)
     row_i8, fused_row_i8 = phase("int8 decode kernels", int8_decode_phase)
     fa_rows = phase("flash kernels", flash_kernel_phase)
     scan_rows = phase("scan kernels", scan_kernel_phase)
@@ -4332,6 +4694,7 @@ def main() -> int:
     phase("quant reference", quant_reference_phase)
     phase("train reference", train_reference_phase)
     phase("mamba reference", mamba_reference_phase)
+    phase("qat reference", qat_reference_phase)
     phase("unet reference", unet_reference_phase)
     model, prompts = phase("build 7b", build_7b)
     row["launches"], contiguous_outs = phase("engine", engine_phase, model,
@@ -4400,8 +4763,12 @@ def main() -> int:
     phase("optimizers reference", optimizers_reference_phase)
     phase("dropout and nan checks", dropout_and_nan_phase)
     torch.cuda.empty_cache()
-    for name, n in phase("train mamba 130m", mamba_train_phase).items():
+    counts, plain_ms = phase("train mamba 130m", mamba_train_phase)
+    for name, n in counts.items():
         scan_rows[name]["launches"] = n
+    torch.cuda.empty_cache()
+    qmm_row["mamba_f32"]["launches"] = phase("qat mamba 130m",
+                                             qat_mamba_phase, plain_ms)
     torch.cuda.empty_cache()
     for name, n in phase("train unet", unet_train_phase).items():
         gn_rows[name]["launches"] = n

@@ -1,21 +1,49 @@
-"""Explicit random generators (counterpart of ``paddle_tpu/core/random.py``
-and the ``Normal`` and ``Uniform`` initializers of
-``paddle_tpu/core/initializer.py``).
+"""Random generators (counterpart of ``paddle_tpu/core/random.py``: ``seed``,
+``get_seed``) and the float32 fills the initializers draw with.
 
 The JAX package threads ``jax.random`` keys; the port threads
-``torch.Generator`` objects that the caller creates from a seed. Nothing
-here touches PyTorch's global generator. The two frameworks give
-different numbers from one seed, so tests that compare them make their
-inputs with numpy and carry weights across (``convert.py``).
+``torch.Generator`` objects. A caller may create one from a seed
+(``make_generator``) and pass it; where it passes none, the draw comes
+from the port's own generator for that device (``default_generator``),
+which ``seed`` reseeds. Nothing here touches PyTorch's global generator.
+The two frameworks give different numbers from one seed, so tests that
+compare them make their inputs with numpy and carry weights across
+(``convert.py``).
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .device import resolve_device
+
+_seed = 0
+_generators = {}  # device string -> the port's generator on that device
+
+
+def seed(s: int) -> None:
+    """Reseed the port's generator on every device (parity:
+    ``paddle.seed``); generators made later start from ``s`` too."""
+    global _seed
+    _seed = int(s)
+    for gen in _generators.values():
+        gen.manual_seed(_seed)
+
+
+def get_seed() -> int:
+    return _seed
+
+
+def default_generator(device) -> torch.Generator:
+    """The port's generator on ``device``, seeded from ``seed`` when first
+    asked for."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    gen = _generators.get(str(dev))
+    if gen is None:
+        gen = _generators[str(dev)] = make_generator(_seed, dev)
+    return gen
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:
@@ -49,16 +77,3 @@ def uniform_(tensor: torch.Tensor, low: float, high: float,
                       device=tensor.device)
     tmp.uniform_(low, high, generator=generator)
     return tensor.copy_(tmp)
-
-
-def fan_in_out(shape):
-    """The JAX initializers' fans: a 2-D weight is ``[in, out]``, a conv
-    weight ``[out, in, *k]`` (``paddle_tpu/core/initializer.py``)."""
-    if len(shape) == 0:
-        return 1, 1
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    if len(shape) == 2:
-        return shape[0], shape[1]
-    receptive = math.prod(shape[2:])
-    return shape[1] * receptive, shape[0] * receptive

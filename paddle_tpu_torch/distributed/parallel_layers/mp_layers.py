@@ -3,7 +3,7 @@
 
 The JAX layers keep the global logical shape and let GSPMD partition
 them. On one device the port needs no partitioning, so each layer is a
-plain ``nn.Module`` with the same parameter names and shapes: weights are
+plain ``Layer`` with the same parameter names and shapes: weights are
 ``[in_features, out_features]`` as in the JAX package, so a JAX
 ``state_dict`` loads without transposes. Tensor parallelism is later
 work (ROADMAP Queue A, distributed).
@@ -12,39 +12,33 @@ work (ROADMAP Queue A, distributed).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...core.device import resolve_device
-from ...core.random import normal_
+from ...core import initializer as I
+from ...core.device import current_device
+from ...core.module import Layer
 from ...nn.functional import embedding, linear
 
 
-def _weight(shape, std: float, dtype, device,
-            generator: torch.Generator) -> nn.Parameter:
-    """A trainable parameter drawn from Normal(0, std) with ``generator``
-    (on ``device``), as the JAX layers draw from ``I.Normal``."""
-    w = torch.empty(shape, dtype=dtype, device=device)
-    normal_(w, 0.0, std, generator)
-    return nn.Parameter(w)
-
-
-class ColumnParallelLinear(nn.Module):
-    """Weight [in, out]; at tp>1 the out dim would be sharded. ``device``
-    defaults to the card (raises without one unless ``"cpu"`` is passed);
+class ColumnParallelLinear(Layer):
+    """Weight [in, out] drawn from Normal(0, ``std``) with ``generator``, as
+    the JAX layers draw from ``I.Normal``; at tp>1 the out dim would be
+    sharded. ``device`` defaults to the current device (the card unless
+    ``set_device("cpu")`` chose the host; without a card that raises);
     ``generator`` must live on that device."""
 
     def __init__(self, in_features: int, out_features: int,
                  std: float = 0.02, has_bias: bool = True,
-                 dtype=torch.float32, device="cuda",
+                 dtype=torch.float32, device=None,
                  *, generator: torch.Generator):
-        super().__init__()
-        device = resolve_device(device)
+        super().__init__(dtype=dtype)
+        device = current_device(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _weight((in_features, out_features), std, dtype,
-                              device, generator)
-        self.bias = (nn.Parameter(torch.zeros((out_features,), dtype=dtype,
-                                              device=device))
+        self.weight = self.create_parameter(
+            (in_features, out_features), default_initializer=I.Normal(
+                0.0, std), device=device, generator=generator)
+        self.bias = (self.create_parameter((out_features,), is_bias=True,
+                                           device=device)
                      if has_bias else None)
 
     def forward(self, x):
@@ -56,19 +50,20 @@ class RowParallelLinear(ColumnParallelLinear):
     sharded and the partial sums all-reduced."""
 
 
-class VocabParallelEmbedding(nn.Module):
-    """Embedding table [vocab, hidden]; at tp>1 the vocab dim would be
-    sharded. ``device`` defaults to the card, as for the linears."""
+class VocabParallelEmbedding(Layer):
+    """Embedding table [vocab, hidden] drawn as the linears' weights; at
+    tp>1 the vocab dim would be sharded. ``device`` as for the linears."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 std: float = 0.02, dtype=torch.float32, device="cuda",
+                 std: float = 0.02, dtype=torch.float32, device=None,
                  *, generator: torch.Generator):
-        super().__init__()
-        device = resolve_device(device)
+        super().__init__(dtype=dtype)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = _weight((num_embeddings, embedding_dim), std, dtype,
-                              device, generator)
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), default_initializer=I.Normal(
+                0.0, std), device=current_device(device),
+            generator=generator)
 
     def forward(self, x):
         return embedding(x, self.weight)

@@ -76,7 +76,7 @@ class Predictor:
         self.model = model
         self.config = config or Config()
         model.eval()
-        self.device = next(model.parameters()).device
+        self.device = next(iter(model.parameters())).device
         self._ttft_ms: Optional[float] = None
 
     # ------------------------------------------------------------------

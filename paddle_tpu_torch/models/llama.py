@@ -34,10 +34,10 @@ import functools
 from typing import List, Optional, Tuple
 
 import torch
-from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from ..core.device import resolve_device
+from ..core.device import current_device
+from ..core.module import Layer
 from ..core.random import make_generator
 from ..distributed.parallel_layers import (
     ColumnParallelLinear,
@@ -60,6 +60,7 @@ from ..kernels import flash_attention as fa
 from ..kernels import paged_attention as pa
 from ..kernels.rope import apply_rope, rope_frequencies
 from ..nn import functional as F
+from ..nn.layer.common import LayerList
 from ..nn.layer.norm import RMSNorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -136,7 +137,7 @@ def _chunk_history_mask(cache_index, s, ctx_len):
     return rows, kv_mask
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         self.config = config
@@ -346,7 +347,7 @@ class LlamaAttention(nn.Module):
         return paged_attention(q, cache, state)
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         kw = dict(std=config.initializer_range, has_bias=False,
@@ -363,7 +364,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         self.self_attn = LlamaAttention(config, device, generator)
@@ -411,7 +412,7 @@ def _recompute_context(policy_name: str):
                              policy)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         self.config = config
@@ -419,7 +420,7 @@ class LlamaModel(nn.Module):
             config.vocab_size, config.hidden_size,
             std=config.initializer_range, dtype=config.torch_dtype,
             device=device, generator=generator)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [LlamaDecoderLayer(config, device, generator)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
@@ -450,16 +451,17 @@ class LlamaModel(nn.Module):
         return (h, kv_caches) if kv_caches is not None else h
 
 
-class LlamaForCausalLM(nn.Module):
-    """The Llama causal LM on ``device`` (default ``"cuda"``; raises when
-    no CUDA device is present unless ``device="cpu"`` is passed).
+class LlamaForCausalLM(Layer):
+    """The Llama causal LM on ``device`` (default the current device: the
+    card unless ``set_device("cpu")`` chose the host; without a card it
+    raises).
     Weights are drawn from Normal(0, ``initializer_range``) with a
     ``torch.Generator`` seeded from ``seed`` on that device; parameters
     are trainable."""
 
-    def __init__(self, config: LlamaConfig, device="cuda", seed: int = 0):
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
+        dev = current_device(device)
         gen = make_generator(seed, dev)
         self.config = config
         self.model = LlamaModel(config, dev, gen)

@@ -21,17 +21,19 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch import nn
 
-from ..core.device import resolve_device
-from ..core.random import make_generator, uniform_
+from ..core import initializer as I
+from ..core.device import current_device
+from ..core.module import Layer
+from ..core.parameter import Parameter
+from ..core.random import make_generator
 from ..distributed.parallel_layers import VocabParallelEmbedding
 from ..kernels.selective_scan import (
     associative_selective_scan,
     chunked_selective_scan,
 )
 from ..nn import functional as F
-from ..nn.layer.common import Linear
+from ..nn.layer.common import LayerList, Linear
 from ..nn.layer.norm import RMSNorm
 
 
@@ -66,7 +68,7 @@ class MambaConfig:
         return cls(**kw)
 
 
-class MambaMixer(nn.Module):
+class MambaMixer(Layer):
     def __init__(self, config: MambaConfig, device, generator):
         super().__init__()
         cfg = config
@@ -75,18 +77,19 @@ class MambaMixer(nn.Module):
                   generator=generator)
         self.in_proj = Linear(cfg.hidden_size, 2 * d_in, **kw)
         # depthwise causal conv over the sequence
-        self.conv_weight = nn.Parameter(uniform_(
-            torch.empty((d_in, cfg.conv_kernel), device=device), -0.5, 0.5,
-            generator))
-        self.conv_bias = nn.Parameter(torch.zeros((d_in,), device=device))
+        self.conv_weight = self.create_parameter(
+            (d_in, cfg.conv_kernel), torch.float32, I.Uniform(-0.5, 0.5),
+            device=device, generator=generator)
+        self.conv_bias = self.create_parameter(
+            (d_in,), torch.float32, is_bias=True, device=device)
         self.x_proj = Linear(d_in, cfg.dt_rank + 2 * cfg.state_size, **kw)
         self.dt_proj = Linear(cfg.dt_rank, d_in, std=0.02, device=device,
                               generator=generator)
-        self.A_log = nn.Parameter(torch.log(
+        self.A_log = Parameter(torch.log(
             torch.arange(1, cfg.state_size + 1, dtype=torch.float32,
                          device=device).expand(d_in, cfg.state_size)
             .contiguous()))
-        self.D = nn.Parameter(torch.ones((d_in,), device=device))
+        self.D = Parameter(torch.ones((d_in,), device=device))
         self.out_proj = Linear(d_in, cfg.hidden_size, **kw)
         self.config = config
 
@@ -118,7 +121,7 @@ class MambaMixer(nn.Module):
         return self.out_proj(y * F.silu(z))
 
 
-class MambaBlock(nn.Module):
+class MambaBlock(Layer):
     def __init__(self, config: MambaConfig, device, generator):
         super().__init__()
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
@@ -129,23 +132,23 @@ class MambaBlock(nn.Module):
         return x + self.mixer(self.norm(x))
 
 
-class MambaForCausalLM(nn.Module):
-    """The Mamba LM on ``device`` (default ``"cuda"``; raises when no CUDA
-    device is present unless ``device="cpu"`` is passed), float32 weights
-    drawn with a ``torch.Generator`` seeded from ``seed`` on that device,
-    as the JAX initializers draw them (projections Normal(0, 0.02), the
-    conv weight Uniform(-0.5, 0.5), ``A_log = log(1..n)``, D ones). The
-    head is tied to the embedding."""
+class MambaForCausalLM(Layer):
+    """The Mamba LM on ``device`` (default the current device: the card
+    unless ``set_device("cpu")`` chose the host; without a card it
+    raises), float32 weights drawn with a ``torch.Generator`` seeded from
+    ``seed`` on that device, as the JAX initializers draw them
+    (projections Normal(0, 0.02), the conv weight Uniform(-0.5, 0.5),
+    ``A_log = log(1..n)``, D ones). The head is tied to the embedding."""
 
-    def __init__(self, config: MambaConfig, device="cuda", seed: int = 0):
+    def __init__(self, config: MambaConfig, device=None, seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
+        dev = current_device(device)
         gen = make_generator(seed, dev)
         self.config = config
         self.embeddings = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, device=dev,
             generator=gen)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [MambaBlock(config, dev, gen)
              for _ in range(config.num_hidden_layers)])
         self.norm_f = RMSNorm(config.hidden_size, config.rms_norm_eps,

@@ -24,13 +24,13 @@ import math
 from typing import Optional, Sequence
 
 import torch
-from torch import nn
 
-from ..core.device import resolve_device
+from ..core.device import current_device
+from ..core.module import Layer
 from ..core.random import make_generator
 from ..nn import functional as F
 from ..nn import layout
-from ..nn.layer.common import Linear, Upsample
+from ..nn.layer.common import LayerList, Linear, Upsample
 from ..nn.layer.conv import Conv2D
 from ..nn.layer.norm import GroupNorm, LayerNorm
 
@@ -74,7 +74,7 @@ def timestep_embedding(timesteps, dim: int, max_period: float = 10000.0):
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-class ResnetBlock(nn.Module):
+class ResnetBlock(Layer):
     def __init__(self, in_c, out_c, temb_c, groups, device, generator):
         super().__init__()
         kw = dict(device=device, generator=generator)
@@ -98,7 +98,7 @@ class ResnetBlock(nn.Module):
         return skip + h
 
 
-class CrossAttnBlock(nn.Module):
+class CrossAttnBlock(Layer):
     """Self-attention, cross-attention and a GEGLU feed-forward over the
     flattened spatial tokens. As in JAX, the heads are ``channels // 64``
     and ``head_dim`` is not read (ROADMAP.md Queue C)."""
@@ -165,7 +165,7 @@ class CrossAttnBlock(nn.Module):
         return residual_spatial + h
 
 
-class Downsample(nn.Module):
+class Downsample(Layer):
     def __init__(self, channels, device, generator):
         super().__init__()
         self.conv = Conv2D(channels, channels, 3, stride=2, padding=1,
@@ -175,7 +175,7 @@ class Downsample(nn.Module):
         return self.conv(x)
 
 
-class UpsampleBlock(nn.Module):
+class UpsampleBlock(Layer):
     def __init__(self, channels, device, generator):
         super().__init__()
         self.up = Upsample(scale_factor=2, mode="nearest")
@@ -186,16 +186,17 @@ class UpsampleBlock(nn.Module):
         return self.conv(self.up(x))
 
 
-class UNet2DConditionModel(nn.Module):
-    """The UNet on ``device`` (default ``"cuda"``; raises when no CUDA
-    device is present unless ``device="cpu"`` is passed), float32 weights
+class UNet2DConditionModel(Layer):
+    """The UNet on ``device`` (default the current device: the card
+    unless ``set_device("cpu")`` chose the host; without a card it
+    raises), float32 weights
     drawn with a ``torch.Generator`` seeded from ``seed`` on that device
     as the JAX initializers draw them (linears XavierNormal, convs
     KaimingUniform, biases zeros, norms ones and zeros)."""
 
-    def __init__(self, config: UNetConfig, device="cuda", seed: int = 0):
+    def __init__(self, config: UNetConfig, device=None, seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
+        dev = current_device(device)
         gen = make_generator(seed, dev)
         kw = dict(device=dev, generator=gen)
         self.config = config
@@ -212,9 +213,9 @@ class UNet2DConditionModel(nn.Module):
                                   config.attention_head_dim, groups, dev,
                                   gen)
 
-        self.down_resnets = nn.ModuleList()
-        self.down_attns = nn.ModuleList()
-        self.downsamplers = nn.ModuleList()
+        self.down_resnets = LayerList()
+        self.down_attns = LayerList()
+        self.downsamplers = LayerList()
         skip_channels = [ch[0]]
         cur = ch[0]
         for level, out_c in enumerate(ch):
@@ -233,9 +234,9 @@ class UNet2DConditionModel(nn.Module):
         self.mid_attn = attn(cur)
         self.mid_res2 = ResnetBlock(cur, cur, temb_c, groups, dev, gen)
 
-        self.up_resnets = nn.ModuleList()
-        self.up_attns = nn.ModuleList()
-        self.upsamplers = nn.ModuleList()
+        self.up_resnets = LayerList()
+        self.up_attns = LayerList()
+        self.upsamplers = LayerList()
         for level, out_c in enumerate(reversed(ch)):
             for _ in range(config.layers_per_block + 1):
                 skip = skip_channels.pop()

@@ -3,34 +3,34 @@ Conv2D``)."""
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
-from torch import nn
 
-from ...core.device import resolve_device
-from ...core.random import fan_in_out, make_generator, uniform_
+from ...core import initializer as I
+from ...core.device import current_device
+from ...core.module import Layer
+from ...core.random import default_generator
 from ..functional.conv import conv2d
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """Weight ``[out_channels, in_channels / groups, kh, kw]`` (OIHW, as in
     the JAX layer), drawn from the JAX default KaimingUniform (limit =
     sqrt(2) sqrt(3 / fan_in)); the bias starts at zeros. ``device``
-    defaults to the card (raises without one unless ``"cpu"`` is
-    passed); ``generator`` (on that device) defaults to a fresh one seeded
-    0."""
+    defaults to the current device (the card unless ``set_device("cpu")``
+    chose the host; without a card that raises); ``generator`` (on that
+    device) to the port's generator for it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=1, padding=0, dilation=1, groups: int = 1,
                  has_bias: bool = True, data_format: str = "NCHW",
-                 dtype=torch.float32, device="cuda",
+                 dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
-        device = resolve_device(device)
-        gen = generator if generator is not None else make_generator(
-            0, device)
+        super().__init__(dtype=dtype)
+        device = current_device(device)
+        gen = generator if generator is not None else default_generator(
+            device)
         if isinstance(kernel_size, int):
             kernel_size = (kernel_size, kernel_size)
         self.in_channels = in_channels
@@ -41,12 +41,12 @@ class Conv2D(nn.Module):
         self.dilation = dilation
         self.groups = groups
         self.data_format = data_format
-        shape = (out_channels, in_channels // groups, *self.kernel_size)
-        limit = math.sqrt(2.0) * math.sqrt(3.0 / fan_in_out(shape)[0])
-        w = torch.empty(shape, dtype=dtype, device=device)
-        self.weight = nn.Parameter(uniform_(w, -limit, limit, gen))
-        self.bias = (nn.Parameter(torch.zeros((out_channels,), dtype=dtype,
-                                              device=device))
+        self.weight = self.create_parameter(
+            (out_channels, in_channels // groups, *self.kernel_size),
+            default_initializer=I.KaimingUniform(), device=device,
+            generator=gen)
+        self.bias = (self.create_parameter((out_channels,), is_bias=True,
+                                           device=device)
                      if has_bias else None)
 
     def forward(self, x):

@@ -1,29 +1,30 @@
 """Normalisation layers (counterpart of ``paddle_tpu/nn/layer/norm.py``:
 ``RMSNorm``, ``LayerNorm``, ``GroupNorm``). Each takes ``device``, which
-defaults to the card (raises without one unless ``"cpu"`` is passed);
-weights start at ones and biases at zeros, as in the JAX layers, and are
+defaults to the current device (the card unless ``set_device("cpu")``
+chose the host; without a card that raises); weights start at ones and biases at zeros, as in the JAX layers, and are
 trainable."""
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...core.device import resolve_device
+from ...core.device import current_device
+from ...core.module import Layer
+from ...core.parameter import Parameter
 from ..functional.norm import group_norm, layer_norm, rms_norm
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """Parity: phi fusion rms_norm / PaddleNLP LlamaRMSNorm."""
 
     def __init__(self, hidden_size: int, epsilon: float = 1e-6,
-                 dtype=torch.float32, device="cuda"):
-        super().__init__()
+                 dtype=torch.float32, device=None):
+        super().__init__(dtype=dtype)
         self.hidden_size = hidden_size
         self.epsilon = epsilon
-        self.weight = nn.Parameter(
+        self.weight = Parameter(
             torch.ones((hidden_size,), dtype=dtype,
-                       device=resolve_device(device)))
+                       device=current_device(device)))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
@@ -32,21 +33,21 @@ class RMSNorm(nn.Module):
         return f"hidden_size={self.hidden_size}, epsilon={self.epsilon}"
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape`` (the last axis is
     what the functional normalises, as in JAX)."""
 
     def __init__(self, normalized_shape, epsilon: float = 1e-5,
-                 dtype=torch.float32, device="cuda"):
-        super().__init__()
+                 dtype=torch.float32, device=None):
+        super().__init__(dtype=dtype)
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
-        device = resolve_device(device)
+        device = current_device(device)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+        self.weight = Parameter(torch.ones(self.normalized_shape,
                                               dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
+        self.bias = Parameter(torch.zeros(self.normalized_shape,
                                              dtype=dtype, device=device))
 
     def forward(self, x):
@@ -58,7 +59,7 @@ class LayerNorm(nn.Module):
                 f"epsilon={self.epsilon}")
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     """GroupNorm over ``num_channels`` in ``num_groups``; ``activation``
     ("silu" | None) fuses the following nonlinearity into the norm: under
     NHWC the fused kernels (rows 12/13) apply it in the same pass, and on
@@ -67,17 +68,17 @@ class GroupNorm(nn.Module):
 
     def __init__(self, num_groups: int, num_channels: int,
                  epsilon: float = 1e-5, data_format: str = "NCHW",
-                 activation=None, dtype=torch.float32, device="cuda"):
-        super().__init__()
-        device = resolve_device(device)
+                 activation=None, dtype=torch.float32, device=None):
+        super().__init__(dtype=dtype)
+        device = current_device(device)
         self.num_groups = num_groups
         self.num_channels = num_channels
         self.epsilon = epsilon
         self.data_format = data_format
         self.activation = activation
-        self.weight = nn.Parameter(torch.ones((num_channels,), dtype=dtype,
+        self.weight = Parameter(torch.ones((num_channels,), dtype=dtype,
                                               device=device))
-        self.bias = nn.Parameter(torch.zeros((num_channels,), dtype=dtype,
+        self.bias = Parameter(torch.zeros((num_channels,), dtype=dtype,
                                              device=device))
 
     def forward(self, x):

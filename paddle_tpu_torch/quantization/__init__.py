@@ -1,5 +1,7 @@
-"""Weight-only quantization for serving (counterpart of the weight-only
-part of ``paddle_tpu/quantization/__init__.py``).
+"""Quantization (counterpart of ``paddle_tpu/quantization``): weight-only
+int8/int4 layers for serving, ``FakeQuant`` for quantization-aware
+training, and the QAT/PTQ workflows with their observers (``qat.py``,
+``observer.py``).
 
 ``quantize_model_weight_only`` swaps every linear of a model for a
 ``WeightOnlyLinear`` that keeps its weight as int8 (or int4 packed) with
@@ -10,21 +12,25 @@ engine quantizes) run the Hopper weight-only matmul kernel on the card
 any Pallas kernel in the JAX package. ``qweight``, ``scale`` and
 ``act_scale`` are persistent buffers under the JAX package's names, so a
 quantized JAX model's ``state_dict`` loads through
-``convert.load_numpy_state_dict``.
+``convert.load_numpy_state_dict``, as does a JAX QAT model's
+(``source.weight``, ``*.amax``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
-from torch import nn
 
+from ..core.device import current_device
+from ..core.module import Layer
+from ..core.parameter import Parameter
 from ..distributed.parallel_layers import (
     ColumnParallelLinear,
     RowParallelLinear,
 )
 from ..kernels import quant_matmul as qmm
+from .qat import replace_layers
 
 
 def quantize_weight_int8(w: torch.Tensor, axis: int = 0):
@@ -60,7 +66,7 @@ def weight_only_linear(x, qweight, scale, bias=None, weight_dtype="int8",
     return y
 
 
-class WeightOnlyLinear(nn.Module):
+class WeightOnlyLinear(Layer):
     """Drop-in for a linear layer with int8/int4 weights (inference).
 
     Built from a linear layer (its weight ``[in, out]`` is quantized on
@@ -68,7 +74,9 @@ class WeightOnlyLinear(nn.Module):
     weights, unit scales and a zero float32 bias, to be loaded).
     ``weight_dtype='int4'`` defaults to 128-row groups; a ``group_size``
     that does not divide ``in_features`` falls back to one whole-column
-    group, as in the JAX package."""
+    group, as in the JAX package. ``scale`` and ``act_scale`` stay float32
+    through any cast of the layer (``to("bfloat16")``, ``half()``): row 4
+    takes its scales in float32."""
 
     def __init__(self, linear_or_in, out_features: Optional[int] = None,
                  weight_dtype: str = "int8",
@@ -122,7 +130,15 @@ class WeightOnlyLinear(nn.Module):
                              torch.zeros((), dtype=torch.float32,
                                          device=device))
         self.bias = (None if bias is None
-                     else nn.Parameter(bias, requires_grad=False))
+                     else Parameter(bias, requires_grad=False))
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: self._buffers[n] for n in ("scale", "act_scale")}
+        super()._apply(fn, recurse)
+        for name, old in kept.items():
+            new = self._buffers[name]
+            self._buffers[name] = old.to(new.device)
+        return self
 
     def forward(self, x):
         return weight_only_linear(x, self.qweight, self.scale, self.bias,
@@ -130,20 +146,9 @@ class WeightOnlyLinear(nn.Module):
                                   group_size=self.group_size)
 
 
-def replace_layers(model: nn.Module, match: Callable[[nn.Module], bool],
-                   make: Callable[[nn.Module], nn.Module]) -> nn.Module:
-    """Swap every submodule where ``match`` holds for ``make(sub)``, in
-    place (the JAX package's ``quantization.qat.replace_layers``)."""
-    for parent in list(model.modules()):
-        for name, sub in list(parent.named_children()):
-            if match(sub):
-                setattr(parent, name, make(sub))
-    return model
-
-
-def quantize_model_weight_only(model: nn.Module, weight_dtype: str = "int8",
+def quantize_model_weight_only(model: Layer, weight_dtype: str = "int8",
                                group_size: Optional[int] = None
-                               ) -> nn.Module:
+                               ) -> Layer:
     """Replace every ``ColumnParallelLinear`` and ``RowParallelLinear``
     (so the attention and MLP projections and ``lm_head``) with a
     ``WeightOnlyLinear``, in place; a tied embedding stays as it is. Each
@@ -155,5 +160,51 @@ def quantize_model_weight_only(model: nn.Module, weight_dtype: str = "int8",
                                    group_size=group_size))
 
 
-__all__ = ["WeightOnlyLinear", "quantize_model_weight_only",
-           "quantize_weight_int8", "replace_layers", "weight_only_linear"]
+class FakeQuant(Layer):
+    """QAT fake-quant: uniform symmetric over ``bits``, round half to even,
+    the straight-through estimator (``x + (q - x).detach()``: forward q,
+    backward identity). A training forward scales by the batch's |x| max
+    and moves the ``amax`` buffer's EMA toward it, in place on its device
+    under ``no_grad`` and with no host sync (the JAX package's eager rule,
+    in every training forward: the JAX jitted step never updates it); an
+    eval forward scales by ``amax``. ``device`` None is the current
+    device."""
+
+    def __init__(self, bits: int = 8, observer_momentum: float = 0.9,
+                 device=None):
+        super().__init__()
+        self.qmax = 2 ** (bits - 1) - 1
+        self.momentum = observer_momentum
+        self.register_buffer("amax", torch.ones(
+            (), dtype=torch.float32, device=current_device(device)))
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            amax_obs = xf.detach().abs().amax()
+            with torch.no_grad():
+                self.amax.copy_(self.momentum * self.amax
+                                + (1 - self.momentum) * amax_obs)
+            amax = torch.clamp_min(amax_obs, 1e-8)
+        else:
+            amax = torch.clamp_min(self.amax.float(), 1e-8)
+        scale = amax / self.qmax
+        q = torch.clamp(torch.round(xf / scale), -self.qmax,
+                        self.qmax) * scale
+        return x + (q - x).detach()
+
+
+from .observer import (  # noqa: E402
+    AbsmaxObserver,
+    BaseObserver,
+    EMAObserver,
+    MSEObserver,
+    PercentileObserver,
+)
+from .qat import PTQ, QAT, UNSET, QuantConfig, QuantedLinear  # noqa: E402
+
+__all__ = ["AbsmaxObserver", "BaseObserver", "EMAObserver", "FakeQuant",
+           "MSEObserver", "PTQ", "PercentileObserver", "QAT", "QuantConfig",
+           "QuantedLinear", "UNSET", "WeightOnlyLinear",
+           "quantize_model_weight_only", "quantize_weight_int8",
+           "replace_layers", "weight_only_linear"]
