@@ -231,7 +231,32 @@ Phases, each of which raises on failure:
    and 24 of row 10 without states, finite logits, and the share of
    next-token argmaxes equal to the fake-quant forward's (reported, not
    asserted); PTQ of a fresh model over 2 calibration batches, int8 per
-   channel (a plain product: no row-4 launch), finite logits.
+   channel (a plain product: no row-4 launch), finite logits;
+34. slo reference (after phase 16): a tiny float32 Llama on the card (rows
+   1-2) and on the CPU (plain versions) from the same weights, contiguous
+   and paged, under ``SLOFairScheduler`` (3 batch requests, then 2
+   interactive ones that preempt them, and one ``preempt`` forced
+   mid-decode), driven by ``step_adaptive``: identical tokens, finish
+   reasons, admission order and preemption counts;
+35. front door 7b: ``start_api_server`` on 127.0.0.1 over the 32-layer
+   paged engine, FIFO and then ``SLOFairScheduler(tenants={"bulk":
+   TenantQuota(max_slots=4), "acme": TenantQuota(weight=2.0)})``: 16
+   ``batch`` streams from ``bulk``, then 8 ``interactive`` ones from
+   ``acme`` (one with ``deadline_ms`` 20), over SSE from client threads.
+   Every stream ends with ``[DONE]``, its first chunk before its finish;
+   each first token equals a FIFO library run's; slo_fair preempts; the
+   deadline request times out; every page comes back; row 2 launches.
+   Prints interactive TTFT p50 (client clock) under both and the goodput;
+36. bench_infer shape (after the serving profiles): ``bench_infer``'s
+   Llama (hidden 1024, 16 layers, bf16), 8 slots, ``max_len`` 512, 24
+   prompts of 120 tokens with 64 new tokens arriving every 300, 150 and
+   75 ms, chunked, blocking (``_admit``) and adaptive
+   (``step_adaptive(8, probe_chunk=2)``): TTFT p50/p99, served tok/s, the
+   chunk lengths taken, row 1 once per layer per decode forward;
+37. train mamba 130m tf32 (after phase 25): phase 25's step, 2 warm-up
+   and 5 timed, under ``default_matmul_precision=tensorfloat32``
+   (``flags.apply_matmul_precision``), beside the exact float32 median;
+   exact float32 is restored after.
 
 Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
@@ -4628,6 +4653,418 @@ def wave_profile(model, prompts, label, max_new_tokens=1, fused="auto",
                 decode_kernel_ms_per_forward=per_forward)
 
 
+# ---------------------------------------------------------------------------
+# SLO scheduling, step_adaptive and the serving front door
+# ---------------------------------------------------------------------------
+# the serving flags at their defaults (earlier phases leave fused decode
+# off, the legacy prefill on, speculative decoding on)
+SERVING_DEFAULTS = {"fused_decode": "auto", "prefill_chunk": 256,
+                    "prefix_cache": True, "spec_decode": "off"}
+PROBE_CHUNK = 2                      # step_adaptive's short chunk
+BENCH_GAPS = (0.300, 0.150, 0.075)   # bench_infer's arrival gaps, s
+BENCH_MODES = ("chunked", "blocking", "adaptive")
+
+
+def bench_infer_config():
+    """``benchmarks/suite.py: bench_infer``'s Llama: vocab 32000, hidden
+    1024, intermediate 2816, 16 layers, 8 heads, 8 kv heads, bf16."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=1024,
+                       intermediate_size=2816, num_hidden_layers=16,
+                       num_attention_heads=8, num_key_value_heads=8,
+                       max_position_embeddings=2048, dtype="bfloat16")
+
+
+def run_load(eng, prompts, new_tokens, gap, max_chunk, mode):
+    """``bench_infer``'s steady-arrival sweep: a request every ``gap`` s
+    while earlier ones decode, driven by ``step_chunk`` (``chunked``),
+    with admission blocking the loop first (``blocking``: ``_admit``), or
+    by ``step_adaptive`` (``adaptive``). Returns TTFT p50/p99 from
+    ``Request.ttft_ms``, served tokens/s and the decode chunk lengths
+    taken (a histogram)."""
+    eng._finished.clear()
+    eng.metrics_window_reset()
+    ks = {}
+    step_chunk = eng.step_chunk
+
+    def counted(k):
+        ks[k] = ks.get(k, 0) + 1
+        return step_chunk(k)
+
+    eng.step_chunk = counted
+    try:
+        t_start = time.perf_counter()
+        submitted = 0
+        next_arrival = t_start
+        while True:
+            now = time.perf_counter()
+            while submitted < len(prompts) and now >= next_arrival:
+                eng.add_request(prompts[submitted], new_tokens)
+                submitted += 1
+                next_arrival += gap
+                now = time.perf_counter()
+            if mode == "blocking" and eng._queue:
+                eng._admit()
+            if mode == "adaptive":
+                busy = eng.step_adaptive(max_chunk, probe_chunk=PROBE_CHUNK)
+            else:
+                busy = eng.step_chunk(max_chunk)
+            if submitted >= len(prompts) and not busy \
+                    and not eng.active.any():
+                break
+        t_total = time.perf_counter() - t_start
+    finally:
+        del eng.step_chunk
+    reqs = [eng._finished[r] for r in sorted(eng._finished)]
+    if len(reqs) != len(prompts) or any(
+            len(r.output) != new_tokens for r in reqs):
+        raise AssertionError(f"{mode} at {gap * 1e3:.0f} ms: "
+                             f"{[len(r.output) for r in reqs]} tokens")
+    ttft = np.array([r.ttft_ms for r in reqs])
+    return {"mode": mode, "gap_ms": gap * 1e3,
+            "p50_ttft_ms": float(np.percentile(ttft, 50)),
+            "p99_ttft_ms": float(np.percentile(ttft, 99)),
+            "served_tokens_per_s": sum(len(r.output) for r in reqs)
+            / t_total, "wall_s": t_total, "n_requests": len(reqs),
+            "chunk_lengths": {str(k): n for k, n in sorted(ks.items())}}
+
+
+def bench_infer_phase():
+    """``bench_infer``'s load on the card: its Llama (random bf16 weights
+    from seed 0), ``EngineConfig(max_slots=8, max_len=512,
+    seq_buckets=(128,))`` with a bf16 cache and the default flags (prefix
+    cache on), 24 seeded prompts of 120 tokens with 64 new tokens each,
+    arriving every 300, 150 and 75 ms, in the chunked, blocking and
+    adaptive modes, after ``bench_infer``'s warm-up (a 2-token request at
+    K 8 and at K 2) and its unloaded point. Row 1 must launch once per
+    layer per decode forward of the loads."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    flags.set_flags(SERVING_DEFAULTS)
+    cfg = bench_infer_config()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=512, seq_buckets=(128,)),
+        device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (120,)) for _ in range(24)]
+    max_chunk, new_tokens = 8, 64
+    eng.run([prompts[0]], max_new_tokens=2, max_chunk=max_chunk)
+    eng.run([prompts[0]], max_new_tokens=2, max_chunk=PROBE_CHUNK)
+    unloaded = run_load(eng, prompts[:1], new_tokens, 1e-3, max_chunk,
+                        "chunked")
+    reset_launches()
+    forwards0 = eng.stats["decode_forwards"]
+    runs = [run_load(eng, prompts, new_tokens, gap, max_chunk, mode)
+            for mode in BENCH_MODES for gap in BENCH_GAPS]
+    launches = read_launches()["fused_contiguous_decode_attention"]
+    forwards = eng.stats["decode_forwards"] - forwards0
+    if launches <= 0 or launches != cfg.num_hidden_layers * forwards:
+        raise AssertionError(f"bench_infer shape: row 1 launched {launches}"
+                             f" times over {forwards} decode forwards")
+    for r in runs:
+        print(f"bench_infer shape {r['mode']} gap {r['gap_ms']:.0f} ms: "
+              f"TTFT p50 {r['p50_ttft_ms']:.2f} p99 {r['p99_ttft_ms']:.2f} "
+              f"ms, {r['served_tokens_per_s']:.1f} served tok/s, chunk "
+              f"lengths {r['chunk_lengths']}", flush=True)
+    print(json.dumps({"bench_infer_shape": {
+        "model": "bench_infer Llama (hidden 1024, 16 layers, 8 heads, "
+                 "vocab 32000), random bf16 weights (seed 0)",
+        "slots": 8, "max_len": 512, "requests": 24, "prompt_tokens": 120,
+        "new_tokens": new_tokens, "max_chunk": max_chunk,
+        "probe_chunk": PROBE_CHUNK, "unloaded": unloaded, "runs": runs,
+        "row1_launches": launches, "decode_forwards": forwards}}),
+        flush=True)
+    return launches
+
+
+def sse_request(url, body, out, key):
+    """One streamed completion: ``out[key]`` holds the token chunks as
+    they come (with the seconds since the request was sent), then the
+    finish reason (and its time), whether ``[DONE]`` came, or the
+    client's error."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    got = out[key] = {"chunks": [], "reason": None, "done": False}
+    try:
+        req = urllib.request.Request(
+            url + "/v1/completions",
+            data=json.dumps(dict(body, stream=True)).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            for raw in resp:
+                line = raw.strip()
+                if line == b"data: [DONE]":
+                    got["done"] = True
+                    break
+                if not line.startswith(b"data: "):
+                    continue
+                ev = json.loads(line[6:])
+                if "error" in ev:
+                    got["error"] = ev["error"]["message"]
+                    break
+                choice = ev["choices"][0]
+                t = time.perf_counter() - t0
+                if choice["token_ids"]:
+                    got["chunks"].append((t, choice["token_ids"]))
+                if choice["finish_reason"] is not None:
+                    got["reason"] = (t, choice["finish_reason"])
+    except Exception as e:  # reported and failed on by the caller
+        got["error"] = repr(e)
+
+
+def front_door_run(model, bulk, inter, scheduler):
+    """The front door over a fresh 7B-width paged engine: 16 ``batch``
+    streams of tenant ``bulk`` (64 new tokens), then, once 4 of them have
+    their first tokens, 8 ``interactive`` streams of tenant ``acme`` (16
+    new tokens; the last with ``deadline_ms`` 20), each from a client
+    thread. Returns the streams, the engine's SLO and scheduler counters
+    and its pool after the run."""
+    import threading
+
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.serving_api import start_api_server
+
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=1024, paged=True,
+                            page_size=PAGE), device="cuda")
+    out = {}
+    threads = []
+
+    def send(key, body):
+        t = threading.Thread(target=sse_request,
+                             args=(srv.url, body, out, key))
+        t.start()
+        threads.append(t)
+
+    srv = start_api_server(eng, scheduler=scheduler, max_chunk=8)
+    try:
+        for i, p in enumerate(bulk):
+            send(("bulk", i), {"prompt": p.tolist(), "max_tokens": 64,
+                               "tenant": "bulk", "slo": "batch"})
+        end = time.perf_counter() + 120
+        while time.perf_counter() < end and sum(
+                1 for (tenant, _), got in list(out.items())
+                if tenant == "bulk" and got["chunks"]) < 4:
+            time.sleep(0.005)
+        for i, p in enumerate(inter):
+            body = {"prompt": p.tolist(), "max_tokens": 16,
+                    "tenant": "acme", "slo": "interactive"}
+            if i == len(inter) - 1:
+                body["deadline_ms"] = 20.0
+            send(("acme", i), body)
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("front door: a client did not finish")
+    finally:
+        srv.shutdown()
+    return out, eng.slo_snapshot(), dict(eng.sched_stats), \
+        check_pool("front door", eng)
+
+
+def front_door_phase(model):
+    """``start_api_server`` on 127.0.0.1 over the 32-layer paged engine,
+    FIFO and then ``SLOFairScheduler(tenants={"bulk":
+    TenantQuota(max_slots=4), "acme": TenantQuota(weight=2.0)},
+    ttft_margin_ms=250)`` (an interactive request is at risk from the
+    moment it waits, so preemption fires when no slot is free). Every
+    stream ends with ``[DONE]``, its first chunk before its finish; each
+    request's first token equals a FIFO library run's over the same
+    prompts; slo_fair preempts at least once; the deadline request
+    finishes ``"timeout"``; every page comes back. Prints interactive
+    TTFT p50 (client clock: send to first token chunk) under both, and
+    the goodput."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.serving_api import SLOFairScheduler, TenantQuota
+
+    flags.set_flags(SERVING_DEFAULTS)
+    cfg = model.config
+    rng = np.random.default_rng(16)
+    bulk = [rng.integers(1, cfg.vocab_size, 120) for _ in range(16)]
+    inter = [rng.integers(1, cfg.vocab_size, 120) for _ in range(8)]
+    lib = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=1024, paged=True,
+                            page_size=PAGE), device="cuda")
+    first = [r.output[0] for r in lib.run(bulk + inter, max_new_tokens=1)]
+    del lib
+    reset_launches()
+    results = {}
+    for name, sched in (
+            ("fifo", None),
+            ("slo_fair", SLOFairScheduler(
+                tenants={"bulk": TenantQuota(max_slots=4),
+                         "acme": TenantQuota(weight=2.0)},
+                ttft_margin_ms=250.0))):
+        out, slo, sched_stats, pool = front_door_run(model, bulk, inter,
+                                                     sched)
+        for (tenant, i), got in sorted(out.items()):
+            label = f"front door {name} {tenant} {i}"
+            deadline = tenant == "acme" and i == len(inter) - 1
+            if "error" in got or not got["done"] \
+                    or got["reason"] is None:
+                raise AssertionError(f"{label}: {got}")
+            want_reason = "timeout" if deadline else "max_new_tokens"
+            if got["reason"][1] != want_reason:
+                raise AssertionError(f"{label}: finished "
+                                     f"{got['reason'][1]}")
+            if deadline:
+                continue
+            if not got["chunks"] or got["chunks"][0][0] >= got["reason"][0]:
+                raise AssertionError(f"{label}: no token chunk before the "
+                                     "finish")
+            want = first[i if tenant == "bulk" else len(bulk) + i]
+            if got["chunks"][0][1][0] != want:
+                raise AssertionError(
+                    f"{label}: first token {got['chunks'][0][1][0]}, the "
+                    f"FIFO library run's {want}")
+        ttft = [out[("acme", i)]["chunks"][0][0] * 1e3
+                for i in range(len(inter) - 1)]
+        results[name] = {
+            "interactive_ttft_ms": ttft,
+            "interactive_ttft_p50_ms": float(np.median(ttft)),
+            "bulk_ttft_p50_ms": float(np.median(
+                [out[("bulk", i)]["chunks"][0][0] * 1e3
+                 for i in range(len(bulk))])),
+            "goodput": slo["goodput"], "slo": slo,
+            "scheduler": sched_stats, "pool": pool}
+        print(f"front door {name}: interactive TTFT p50 "
+              f"{results[name]['interactive_ttft_p50_ms']:.2f} ms, bulk "
+              f"{results[name]['bulk_ttft_p50_ms']:.2f} ms, goodput "
+              f"{slo['goodput']}, preemptions {sched_stats['preemptions']}",
+              flush=True)
+    counts = read_launches()
+    if results["slo_fair"]["scheduler"]["preemptions"] < 1:
+        raise AssertionError("front door: slo_fair never preempted")
+    if counts["fused_paged_decode_attention"] <= 0:
+        raise AssertionError("front door: row 2 was not launched")
+    print(json.dumps({"front_door": {
+        "model": "llama2_7b width, 32 layers, random bf16 weights (seed 0)",
+        "engine": "paged, 8 slots, max_len 1024, 64-token pages",
+        "bulk": "16 batch streams, 120 + 64 tokens",
+        "acme": "8 interactive streams, 120 + 16 tokens, one deadline_ms 20",
+        "runs": results,
+        "row2_launches": counts["fused_paged_decode_attention"]}}),
+        flush=True)
+
+
+def slo_reference_run(model, device, paged):
+    """A tiny float32 Llama engine under the SLO-fair scheduler: 3 batch
+    requests, 2 interactive ones from the third tick (preemption fires:
+    every TTFT target is at risk at a margin of 1e9 ms), one ``preempt``
+    forced on slot 0 at the sixth tick, driven by ``step_adaptive(4,
+    probe_chunk=2)``. Returns the tokens, finish reasons, first-admission
+    order and preemption count."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from paddle_tpu_torch.serving_api import SLOFairScheduler, TenantQuota
+
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=2, max_len=128, page_size=16,
+                            paged=paged, cache_dtype=torch.float32),
+        device=device)
+    eng.set_scheduler(SLOFairScheduler(
+        tenants={"bulk": TenantQuota(max_slots=2)}, ttft_margin_ms=1e9,
+        preempt=True))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, model.config.vocab_size, n)
+               for n in (9, 33, 17, 40, 12)]
+    batch = dict(tenant="bulk", slo="batch", ttft_target_ms=1e12,
+                 tpot_target_ms=1e12)
+    rids = [eng.add_request(p, 14, **batch) for p in prompts[:3]]
+    forced = False
+    for tick in range(1, 400):
+        if tick == 3:
+            rids += [eng.add_request(p, 8, tenant="acme",
+                                     slo="interactive") for p in prompts[3:]]
+        if tick == 6:
+            forced = eng.preempt(0)
+        busy = eng.step_adaptive(4, probe_chunk=2)
+        if tick > 6 and not (busy or eng._queue or eng.active.any()):
+            break
+    reqs = [eng._finished[r] for r in rids]
+    order = [r.rid for r in sorted(reqs, key=lambda r: r._admit_t)]
+    return ([r.output for r in reqs], [r.finish_reason for r in reqs],
+            order, eng.sched_stats["preemptions"], forced)
+
+
+def slo_reference_phase():
+    """A tiny float32 Llama (head_dim 64, group 2) on the card (rows 1 and
+    2) and the same weights on the CPU (their plain versions): the
+    SLO-fair run of ``slo_reference_run``, contiguous and paged, gives
+    identical tokens, reasons, admission order and preemptions, with a
+    forced preemption mid-decode."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    flags.set_flags(SERVING_DEFAULTS)
+    cpu, card = card_and_cpu(lambda dev, seed: LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256), device=dev, seed=seed), 3)
+    for paged, row in ((False, "fused_contiguous_decode_attention"),
+                       (True, "fused_paged_decode_attention")):
+        label = "slo reference " + ("paged" if paged else "contiguous")
+        reset_launches()
+        got = slo_reference_run(card, "cuda", paged)
+        launches = read_launches()[row]
+        want = slo_reference_run(cpu, "cpu", paged)
+        if got != want:
+            raise AssertionError(f"{label}: card {got}, CPU {want}")
+        if not got[4] or got[3] < 3:
+            raise AssertionError(f"{label}: {got[3]} preemptions (forced "
+                                 f"{got[4]})")
+        if launches <= 0:
+            raise AssertionError(f"{label}: {row} was not launched")
+        print(f"{label}: card tokens = CPU tokens for {len(got[0])} "
+              f"requests, {got[3]} preemptions (one forced), admission "
+              f"order {got[2]}, {row} launched {launches} times", flush=True)
+
+
+def mamba_tf32_phase(plain_ms):
+    """The Mamba-130m train step of ``mamba_train_phase`` (2 warm-up and 5
+    timed steps, a profile of one) once more under
+    ``PT_FLAGS_default_matmul_precision=tensorfloat32``
+    (``flags.apply_matmul_precision``), beside the exact float32 step's
+    median ``plain_ms``; exact float32 is restored after."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    b, s = SCAN_SHAPE["b"], SCAN_SHAPE["s"]
+    cfg = MambaConfig(use_chunked_scan=True)
+    model = MambaForCausalLM(cfg, device="cuda", seed=0)
+    ts = TrainStep(model, topt.AdamW(1e-4, multi_precision=True))
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    flags.apply_matmul_precision("tensorfloat32")
+    try:
+        losses, _, step_ms, _, peak_gb = train_steps(ts, batch)
+        # the GEMMs' device time under TF32 (aten::mm in the profile)
+        prof = profile_step("mamba 130m tf32", ts, batch, SCAN_BODIES)
+    finally:
+        flags.apply_matmul_precision("float32")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"mamba 130m tf32: losses {losses}")
+    med_ms = float(np.median(step_ms))
+    print(f"mamba 130m tf32: 5 timed steps {[round(x, 3) for x in step_ms]}"
+          f" ms (median {med_ms:.3f} ms against {plain_ms:.3f} exact "
+          f"float32), peak {peak_gb:.2f} GB, losses {losses}", flush=True)
+    print(json.dumps({"train_mamba130m_tf32": {
+        "step_ms": step_ms, "step_ms_median": med_ms,
+        "float32_step_ms_median": plain_ms, "peak_memory_gb": peak_gb,
+        "losses": losses, "profile": prof}}), flush=True)
+
+
 T_START = time.perf_counter()
 
 
@@ -4723,6 +5160,8 @@ def main() -> int:
     phase("legacy engines", legacy_engine_phase, model, prompts,
           contiguous_outs, paged_outs)
     phase("legacy reference", legacy_reference_phase)
+    phase("slo reference", slo_reference_phase)
+    phase("front door 7b", front_door_phase, model)
     # where the time goes: the prefill wave alone, and with one chunk of
     # 8 decode forwards, for the bf16 and the quantized engines
     t0 = time.perf_counter()
@@ -4752,6 +5191,8 @@ def main() -> int:
           flush=True)
     del model, prompts
     torch.cuda.empty_cache()
+    phase("bench_infer shape", bench_infer_phase)
+    torch.cuda.empty_cache()
     counts, unfused = phase("train 7b", train_7b_phase)
     for name, n in counts.items():
         fa_rows[name]["launches"] = n
@@ -4766,6 +5207,8 @@ def main() -> int:
     counts, plain_ms = phase("train mamba 130m", mamba_train_phase)
     for name, n in counts.items():
         scan_rows[name]["launches"] = n
+    torch.cuda.empty_cache()
+    phase("train mamba 130m tf32", mamba_tf32_phase, plain_ms)
     torch.cuda.empty_cache()
     qmm_row["mamba_f32"]["launches"] = phase("qat mamba 130m",
                                              qat_mamba_phase, plain_ms)

@@ -20,6 +20,11 @@ kernels); ROADMAP.md lists what comes next.
 """
 
 from . import flags
+
+# PT_FLAGS_default_matmul_precision: applied once at import, as the JAX
+# package applies it; empty leaves torch's defaults
+flags.apply_matmul_precision()
+
 from .core.dtype import get_default_dtype, set_default_dtype
 from .core.parameter import ParamAttr
 from .core.random import get_seed, seed

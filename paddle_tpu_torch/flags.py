@@ -63,8 +63,8 @@ define_flag("prefill_chunk", 256,
             "serving prefill chunk length: one fixed [slots, C] chunk "
             "forward driven in a host loop, clamped to [2, max_len] (a "
             "1-token chunk would enter the decode branch). 0 selects the "
-            "JAX package's legacy bucketed prefill, which the port does "
-            "not have")
+            "legacy bucketed prefill: each request prefilled alone as a "
+            "[1, bucket] forward, without the prefix cache")
 define_flag("prefix_cache", True,
             "serving prefix KV reuse: admission looks up the longest "
             "cached block-aligned prompt prefix and prefills only the "
@@ -105,3 +105,64 @@ define_flag("fused_group_norm", True,
             "12/13 (the Hopper kernels for CUDA tensors, whatever the "
             "shape; their plain versions for CPU tensors within the JAX "
             "package's VMEM budget); off = the plain reference")
+define_flag("default_matmul_precision", "",
+            "process-wide float32 matmul precision, applied at import of "
+            "paddle_tpu_torch (apply_matmul_precision re-applies it): "
+            "float32|highest = exact float32 (TF32 off for matmuls and "
+            "cuDNN); tensorfloat32 = TF32 tensor cores for both; bfloat16 "
+            "= torch's 'medium' (bf16 passes) with cuDNN TF32; empty = "
+            "torch's own defaults")
+define_flag("tenant_prefix_namespace", True,
+            "multi-tenant prefix-cache isolation: tenant-tagged requests "
+            "hash their prompt blocks under a per-tenant namespace seed, "
+            "so tenants can neither probe for nor borrow each other's "
+            "cached KV, and pool-pressure eviction spends the requesting "
+            "tenant's own cold entries first. Untagged requests always "
+            "share the default chain. off = all tenants share one "
+            "namespace")
+define_flag("sched_policy", "fifo",
+            "serving front door's default admission scheduler when none "
+            "is passed to start_api_server: fifo = the engine's "
+            "submission-order admission; slo_fair = "
+            "serving_api.SLOFairScheduler (weighted fair share per tenant "
+            "and TTFT urgency decide admission order, chunk split and "
+            "preemption). An explicit scheduler= argument always wins")
+define_flag("api_max_tenants", 256,
+            "serving front door: the most DISTINCT tenant ids accepted "
+            "over the server's lifetime (each mints accounting buckets "
+            "and fair-share entries); past the cap a request carrying a "
+            "new tenant is rejected with HTTP 429 (known tenants and "
+            "untagged requests always pass; 0 rejects every tenant-tagged "
+            "request)")
+define_flag("sched_preempt", True,
+            "let the SLO-fair scheduler preempt an active batch-class "
+            "slot (release its slot and pages, re-queue it with its "
+            "history for replay through the chunked prefill) when an "
+            "interactive request is about to miss its TTFT target and no "
+            "slot is free; bounded per request. off = admission order and "
+            "quotas only")
+
+_PRECISIONS = {"float32": "highest", "highest": "highest",
+               "tensorfloat32": "high", "bfloat16": "medium"}
+
+
+def apply_matmul_precision(value=None):
+    """Apply ``PT_FLAGS_default_matmul_precision`` (or ``value``) to
+    torch: ``torch.set_float32_matmul_precision`` and
+    ``torch.backends.cudnn.allow_tf32``. ``float32``/``highest`` are
+    exact float32, ``tensorfloat32`` TF32, ``bfloat16`` torch's
+    ``medium``; empty leaves torch as it is. An unknown value raises the
+    JAX package's ``ValueError``."""
+    val = flag("default_matmul_precision") if value is None else value
+    if not val:
+        return
+    mode = _PRECISIONS.get(str(val))
+    if mode is None:
+        raise ValueError(
+            f"PT_FLAGS_default_matmul_precision={val!r} is not a valid "
+            "matmul precision (use bfloat16|tensorfloat32|float32|highest, "
+            "or empty for the default)")
+    import torch
+
+    torch.set_float32_matmul_precision(mode)
+    torch.backends.cudnn.allow_tf32 = mode != "highest"

@@ -14,22 +14,24 @@ Two stores, one per KV-cache mode:
   (``PagePool.adopt``, no copy), and the engine copies any shared page
   before a write can reach it. Eviction is LRU over entries whose page
   only the store owns (refcount 1), triggered by pool pressure.
+  Entries remember the namespace (tenant) that published them, and
+  ``evict(prefer_ns=...)`` spends the requesting tenant's cold entries
+  before anyone else's.
 - ``ContigPrefixStore`` (contiguous mode) maps digest -> the block's K/V
   rows stacked over layers, ``[n_layers, block, kv_heads, head_dim]``
   tensors in the cache dtype (``QuantizedKV`` with its scale rows for
   int8 caches). A hit copies the blocks into the slot's rows. Eviction is
-  LRU over a block-count cap.
+  LRU over a block-count cap, the inserting namespace's entries first,
+  never the chain being inserted while anything else is left.
 
-Host-side bookkeeping only: O(prompt blocks) Python per admission. The
-port has no tenants, so entries carry no namespace; ``block_hashes``
-keeps the namespace argument of the digest rule.
+Host-side bookkeeping only: O(prompt blocks) Python per admission.
 """
 
 from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -40,7 +42,8 @@ def block_hashes(prompt, block: int, namespace: str = "") -> List[bytes]:
     """Chained digests of the prompt's full token blocks: ``h_i =
     blake2b(h_{i-1} || tokens[i*B:(i+1)*B] as int64)``, 16 bytes, the
     chain seeded with ``_SEED`` (followed by ``namespace`` when one is
-    given). The partial tail block is never hashed."""
+    given: two tenants' chains over the same prompt are disjoint). The
+    partial tail block is never hashed."""
     toks = np.ascontiguousarray(np.asarray(prompt).reshape(-1), np.int64)
     out: List[bytes] = []
     prev = _SEED + namespace.encode() if namespace else _SEED
@@ -53,11 +56,11 @@ def block_hashes(prompt, block: int, namespace: str = "") -> List[bytes]:
 
 
 class PagedPrefixStore:
-    """digest -> page id, refcount-pinned in the engine's ``PagePool``.
-    Dict order is LRU order, least recent first."""
+    """digest -> (page id, namespace), refcount-pinned in the engine's
+    ``PagePool``. Dict order is LRU order, least recent first."""
 
     def __init__(self):
-        self._blocks: "OrderedDict[bytes, int]" = OrderedDict()
+        self._blocks: "OrderedDict[bytes, Tuple[int, str]]" = OrderedDict()
         self.evictions = 0
 
     def __len__(self) -> int:
@@ -72,57 +75,68 @@ class PagedPrefixStore:
 
     def pages(self) -> List[int]:
         """The cached page ids, least recently used first."""
-        return list(self._blocks.values())
+        return [page for page, _ in self._blocks.values()]
 
     def match(self, hashes: List[bytes]) -> List[int]:
         """Pages of the longest cached prefix (LRU-refreshed)."""
         pages = []
         for h in hashes:
-            page = self._blocks.get(h)
-            if page is None:
+            ent = self._blocks.get(h)
+            if ent is None:
                 break
             self._blocks.move_to_end(h)
-            pages.append(page)
+            pages.append(ent[0])
         return pages
 
-    def insert(self, digest: bytes, page: int, pool) -> bool:
-        """Pin ``page`` under ``digest``; a digest already cached keeps its
-        page (refreshed, False)."""
+    def match_len(self, hashes: List[bytes]) -> int:
+        """The longest cached prefix, in blocks, without an LRU refresh:
+        a probe that changes no eviction order."""
+        return _match_len(self._blocks, hashes)
+
+    def insert(self, digest: bytes, page: int, pool, ns: str = "") -> bool:
+        """Pin ``page`` under ``digest`` for namespace ``ns``; a digest
+        already cached keeps its page (refreshed, False)."""
         if digest in self._blocks:
             self._blocks.move_to_end(digest)
             return False
         pool.retain(page)
-        self._blocks[digest] = page
+        self._blocks[digest] = (page, ns)
         return True
 
     def evictable_pages(self, pool, exclude=()) -> int:
         """How many pages ``evict`` could free now: entries only the store
         owns, less ``exclude`` (pages the caller is about to adopt)."""
         ex = set(exclude)
-        return sum(1 for p in self._blocks.values()
+        return sum(1 for p, _ in self._blocks.values()
                    if p not in ex and pool.ref.get(p, 0) == 1)
 
-    def evict(self, pool, n_pages: int) -> int:
+    def evict(self, pool, n_pages: int,
+              prefer_ns: Optional[str] = None) -> int:
         """Free up to ``n_pages`` pages, LRU first, skipping entries a live
-        slot still borrows (refcount > 1). Evicting a block inside a chain
-        strands its children until their own turn: lookups stop at the
-        gap."""
+        slot still borrows (refcount > 1). ``prefer_ns``: that namespace's
+        entries go first, then the rest in LRU order. Evicting a block
+        inside a chain strands its children until their own turn: lookups
+        stop at the gap."""
         freed = 0
-        for digest, page in list(self._blocks.items()):
-            if freed >= n_pages:
-                break
-            if pool.ref.get(page, 0) != 1:
-                continue
-            del self._blocks[digest]
-            pool.release(page)
-            self.evictions += 1
-            freed += 1
+        for want_ns in ([prefer_ns, None] if prefer_ns is not None
+                        else [None]):
+            for digest, (page, ns) in list(self._blocks.items()):
+                if freed >= n_pages:
+                    return freed
+                if want_ns is not None and ns != want_ns:
+                    continue
+                if pool.ref.get(page, 0) != 1:
+                    continue
+                del self._blocks[digest]
+                pool.release(page)
+                self.evictions += 1
+                freed += 1
         return freed
 
 
 class ContigPrefixStore:
-    """digest -> (k, v) block rows stacked over layers, at most
-    ``max_blocks`` entries. Dict order is LRU order, least recent
+    """digest -> (k, v, namespace), the block rows stacked over layers, at
+    most ``max_blocks`` entries. Dict order is LRU order, least recent
     first."""
 
     def __init__(self, max_blocks: int):
@@ -148,14 +162,20 @@ class ContigPrefixStore:
             if ent is None:
                 break
             self._blocks.move_to_end(h)
-            out.append(ent)
+            out.append(ent[:2])
         return out
 
-    def insert(self, digest: bytes, k, v, protect=()) -> bool:
-        """Store a block, evicting LRU entries over the cap. ``protect``:
-        the digests of the chain being inserted, which eviction spares
-        while anything else is left (evicting block 0 to make room for
-        block 1 would leave a gap every lookup stops at)."""
+    def match_len(self, hashes: List[bytes]) -> int:
+        """The longest cached prefix, in blocks, without an LRU refresh."""
+        return _match_len(self._blocks, hashes)
+
+    def insert(self, digest: bytes, k, v, ns: str = "",
+               protect=()) -> bool:
+        """Store a block for namespace ``ns``, evicting over the cap: the
+        LRU entry of ``ns`` first, else the LRU entry, sparing
+        ``protect`` (the digests of the chain being inserted: evicting
+        block 0 to make room for block 1 would leave a gap every lookup
+        stops at) while anything else is left."""
         if self.max_blocks == 0:
             return False
         if digest in self._blocks:
@@ -163,9 +183,21 @@ class ContigPrefixStore:
             return False
         keep = set(protect)
         while len(self._blocks) >= self.max_blocks:
-            victim = next((h for h in self._blocks if h not in keep),
-                          next(iter(self._blocks)))
+            victim = next((h for h, ent in self._blocks.items()
+                           if ent[2] == ns and h not in keep), None)
+            if victim is None:
+                victim = next((h for h in self._blocks if h not in keep),
+                              next(iter(self._blocks)))
             del self._blocks[victim]
             self.evictions += 1
-        self._blocks[digest] = (k, v)
+        self._blocks[digest] = (k, v, ns)
         return True
+
+
+def _match_len(blocks, hashes: List[bytes]) -> int:
+    n = 0
+    for h in hashes:
+        if h not in blocks:
+            break
+        n += 1
+    return n

@@ -55,11 +55,27 @@ copied into the slot (paged: scattered into the slot's first ``bucket //
 page_size`` pages). Float caches only, and without the prefix cache, as
 in JAX; decode is the same as after chunked prefill.
 
+Requests, SLOs and tenants: a request may carry an SLO class
+(``SLO_CLASSES``) or its own TTFT/TPOT targets, a hard ``deadline_ms``
+(expired at the top of every tick: queued or active, it finishes with
+``"timeout"`` through the one teardown path) and a tenant, which names
+its prefix-cache namespace (``PT_FLAGS_tenant_prefix_namespace``) and its
+accounting bucket. Attainment is counted at finish (``slo_snapshot``,
+``tenant_snapshot``). ``set_scheduler`` installs an admission policy
+(``serving_api.SLOFairScheduler``) on the chunked path: it picks the
+admission order, may ``preempt`` a slot (the request re-queues with its
+history and replays prompt + output through the chunked prefill, so its
+greedy tokens are unchanged) and caps per-slot chunk budgets.
+``step_adaptive`` shortens the decode chunk while admission work waits.
+
 The port runs chunked and legacy prefill, float or int8 caches
-(contiguous or paged), bf16, int8 or int4 weights, prefix caching and
-speculative decoding. Telemetry, tracing, resilience, tenants, the
-degradation ladder, the sanitizer, the profiler and the router are later
-slices (ROADMAP.md Queue A).
+(contiguous or paged), bf16, int8 or int4 weights, prefix caching,
+speculative decoding, SLO/deadline/tenant accounting and the scheduler
+seam. Telemetry, tracing, resilience (replay after faults, the
+degradation ladder, drain), the sanitizer, the profiler and the router
+are later slices (ROADMAP.md Queue A): the engine behaves as the JAX
+engine does with ``PT_FLAGS_telemetry=off`` and
+``PT_FLAGS_degradation=off``.
 """
 
 from __future__ import annotations
@@ -68,6 +84,7 @@ import bisect
 import collections
 import copy
 import heapq
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -183,6 +200,24 @@ def _resolve_weight_dtype(requested) -> str:
     return val
 
 
+# per-request SLO classes: TTFT and per-request TPOT targets (soft,
+# counted at finish) and the class's default hard deadline; explicit
+# add_request arguments override each
+SLO_CLASSES: Dict[str, Dict[str, float]] = {
+    "interactive": {"ttft_target_ms": 250.0, "tpot_target_ms": 100.0,
+                    "deadline_ms": 30_000.0},
+    "batch": {"ttft_target_ms": 5000.0, "tpot_target_ms": 1000.0,
+              "deadline_ms": 300_000.0},
+}
+
+
+def new_slo_bucket() -> Dict[str, int]:
+    """One per-class SLO accounting bucket."""
+    return {"met": 0, "violated": 0, "cancelled": 0,
+            "ttft_violations": 0, "tpot_violations": 0,
+            "timeouts": 0, "met_tokens": 0, "total_tokens": 0}
+
+
 @dataclass
 class Request:
     rid: int
@@ -195,8 +230,24 @@ class Request:
     done: bool = False
     cancelled: bool = False
     # why the request left its slot: eos | max_new_tokens | max_len |
-    # cancel (None while in flight)
+    # cancel | timeout (None while in flight)
     finish_reason: Optional[str] = None
+    # hard deadline from submission: past it the request finishes with
+    # "timeout", queued or active
+    deadline_ms: Optional[float] = None
+    # replay-retry bound of the JAX engine's recovery (kept on the
+    # request; the port has no fault recovery yet)
+    max_retries: Optional[int] = None
+    # tenant (None = the untagged tenant "-"): fair share and quotas of
+    # the scheduler, the prefix-cache namespace, the accounting bucket
+    tenant: Optional[str] = None
+    # SLO class and targets (None = untracked); tpot_ms is the mean
+    # decode latency, set at finish
+    slo: Optional[str] = None
+    ttft_target_ms: Optional[float] = None
+    tpot_target_ms: Optional[float] = None
+    tpot_ms: Optional[float] = None
+    slo_met: Optional[bool] = None
     # per-request sampling params (None = the engine-global config); any
     # explicit temperature/top_k/top_p implies sampling unless ``greedy``
     temperature: Optional[float] = None
@@ -204,8 +255,14 @@ class Request:
     top_p: Optional[float] = None
     greedy: Optional[bool] = None
     _submit_t: float = 0.0
-    # the prompt's prefix-cache block digests (hashed once, at the first
-    # admission attempt)
+    # first admission (perf_counter seconds): kept across preemption
+    _admit_t: float = 0.0
+    # absolute deadline instant (perf_counter seconds; 0 = none)
+    _deadline_t: float = 0.0
+    # replay re-queues consumed (the JAX engine's recovery counter)
+    _retries: int = 0
+    # the prefill ids' prefix-cache block digests (hashed once a
+    # admission, reset when a preemption grows the ids)
     _hashes: Optional[List[bytes]] = None
     # speculative-decoding tallies (the ``auto`` mode's throttle reads
     # them)
@@ -219,9 +276,17 @@ def build_request(rid: int, prompt, max_new_tokens: int = 32,
                   top_k: Optional[int] = None,
                   top_p: Optional[float] = None,
                   greedy: Optional[bool] = None,
+                  tenant: Optional[str] = None,
+                  slo: Optional[str] = None,
+                  ttft_target_ms: Optional[float] = None,
+                  tpot_target_ms: Optional[float] = None,
+                  deadline_ms: Optional[float] = None,
+                  max_retries: Optional[int] = None,
                   *, max_len: int) -> Request:
     """Validate request arguments and build a :class:`Request` (the JAX
-    engine's admission checks)."""
+    engine's admission checks and error messages). An SLO class fills the
+    targets and the deadline it leaves unset; targets alone make the
+    class ``"custom"``."""
     prompt = np.asarray(prompt).reshape(-1)
     if prompt.size == 0:
         raise ValueError("add_request needs a non-empty prompt")
@@ -235,9 +300,71 @@ def build_request(rid: int, prompt, max_new_tokens: int = 32,
         raise ValueError(f"top_k must be >= 0; got {top_k}")
     if top_p is not None and not 0 < top_p <= 1:
         raise ValueError(f"top_p must be in (0, 1]; got {top_p}")
-    return Request(rid, prompt, max_new_tokens, eos_token_id,
-                   temperature=temperature, top_k=top_k, top_p=top_p,
-                   greedy=greedy, _submit_t=time.perf_counter())
+    if tenant is not None:
+        # the tenant is a hash namespace and a dict key: no shapes that
+        # could mangle either
+        if not isinstance(tenant, str) or not tenant \
+                or len(tenant) > 64 \
+                or any(c.isspace() or not c.isprintable() for c in tenant):
+            raise ValueError(
+                "tenant must be a non-empty printable string without "
+                f"whitespace, at most 64 chars; got {tenant!r}")
+        if tenant == "-":
+            raise ValueError('tenant "-" is reserved for untagged requests')
+    if slo is None and (ttft_target_ms is not None
+                        or tpot_target_ms is not None):
+        slo = "custom"
+    if slo is not None and slo != "custom" and slo not in SLO_CLASSES:
+        raise ValueError(f"slo must be one of {sorted(SLO_CLASSES)} (or "
+                         f"custom targets); got {slo!r}")
+    if slo == "custom" and ttft_target_ms is None \
+            and tpot_target_ms is None:
+        # a target-less custom request would count as met every time
+        raise ValueError('slo="custom" needs ttft_target_ms and/or '
+                         "tpot_target_ms")
+    for tname, t in (("ttft_target_ms", ttft_target_ms),
+                     ("tpot_target_ms", tpot_target_ms)):
+        if t is not None and t <= 0:
+            raise ValueError(f"{tname} must be > 0; got {t}")
+    if slo is not None:
+        defaults = SLO_CLASSES.get(slo, {})
+        if ttft_target_ms is None:
+            ttft_target_ms = defaults.get("ttft_target_ms")
+        if tpot_target_ms is None:
+            tpot_target_ms = defaults.get("tpot_target_ms")
+        if deadline_ms is None:
+            deadline_ms = defaults.get("deadline_ms")
+    if deadline_ms is not None:
+        if deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0; got {deadline_ms}")
+        if deadline_ms < 1.0:
+            raise ValueError(
+                f"deadline_ms={deadline_ms} is shorter than a single "
+                "scheduler step can honor (deadlines are checked once per "
+                "step; minimum 1 ms)")
+    if max_retries is not None and (
+            isinstance(max_retries, bool)
+            or not isinstance(max_retries, (int, np.integer))
+            or max_retries < 0):
+        raise ValueError(f"max_retries must be a non-negative int; got "
+                         f"{max_retries!r}")
+    req = Request(rid, prompt, max_new_tokens, eos_token_id,
+                  temperature=temperature, top_k=top_k, top_p=top_p,
+                  greedy=greedy, tenant=tenant, slo=slo,
+                  ttft_target_ms=ttft_target_ms,
+                  tpot_target_ms=tpot_target_ms, deadline_ms=deadline_ms,
+                  max_retries=max_retries, _submit_t=time.perf_counter())
+    if deadline_ms is not None:
+        req._deadline_t = req._submit_t + deadline_ms / 1e3
+    return req
+
+
+def request_namespace(req: Request) -> str:
+    """The request's prefix-cache namespace: its tenant while
+    ``PT_FLAGS_tenant_prefix_namespace`` is on, else the shared chain."""
+    if req.tenant and bool(flags.flag("tenant_prefix_namespace")):
+        return req.tenant
+    return ""
 
 
 class ContinuousBatchingEngine:
@@ -362,6 +489,18 @@ class ContinuousBatchingEngine:
         self.stats = {"prefill_chunk": 0, "prefill_bucket": 0,
                       "decode_forwards": 0, "verify_forwards": 0}
         self._note_free_pages()
+        # rid minting is a read-modify-write that producer threads (the
+        # front door's handlers) share
+        self._rid_lock = threading.Lock()
+        # SLO attainment per class and cumulative tenant counters (host
+        # counters, written at finish and preempt)
+        self.slo_stats: Dict[str, Dict[str, int]] = {}
+        self.tenant_stats: Dict[str, Dict[str, int]] = {}
+        # the admission policy (None = FIFO) and the previous admission
+        # pass's pool verdict, which its preemption window reads
+        self._sched = None
+        self.sched_stats = {"policy": "fifo", "preemptions": 0}
+        self._pool_blocked_prev = False
 
     @staticmethod
     def _check_slice(cfg: EngineConfig):
@@ -381,21 +520,107 @@ class ContinuousBatchingEngine:
                         f"seq bucket {bkt} not divisible by page_size="
                         f"{cfg.page_size}")
 
+    # ---------------- scheduler policy seam ----------------
+    def set_scheduler(self, policy):
+        """Install (or clear, with ``None``) the admission policy. It is
+        consulted on the scheduler thread only: ``pick(engine,
+        candidates)`` chooses the next queued request to claim a slot;
+        ``before_admission(engine)`` may ``preempt`` slots before each
+        admission wave and returns the preempted rids (kept out of that
+        wave); ``slot_caps(engine)`` caps per-slot decode budgets of a
+        chunk; ``note_admit(engine, req)`` hears each committed claim.
+        Host policy only: greedy tokens are the same under any admission
+        order. The legacy bucketed prefill stays FIFO, as in JAX."""
+        self._sched = policy
+        self.sched_stats["policy"] = (
+            "fifo" if policy is None
+            else getattr(policy, "name", type(policy).__name__))
+
+    def _pick_admission(self, skip, fifo_cursor):
+        """The next queued request to try (a peek: it leaves the queue
+        when its claim commits), or None to end the wave. ``skip``: rids
+        preempted or claimed in this wave. FIFO without a policy: the
+        head, or with skips a wave-local ``[snapshot, index]`` cursor;
+        with one, the policy ranks a fresh snapshot per pick."""
+        if self._sched is None:
+            if not skip:
+                return self._queue[0] if self._queue else None
+            cands, i = fifo_cursor
+            if cands is None:
+                cands = fifo_cursor[0] = list(self._queue)
+            while i < len(cands) and cands[i].rid in skip:
+                i += 1
+            fifo_cursor[1] = i
+            return cands[i] if i < len(cands) else None
+        cands = [r for r in list(self._queue) if r.rid not in skip]
+        if not cands:
+            return None
+        return self._sched.pick(self, cands)
+
+    def preempt(self, slot: int) -> bool:
+        """Preempt the active request in ``slot``: its slot and pages go
+        back through the one teardown path and it re-queues at the front
+        with its output. Re-admission prefills prompt + output through
+        the chunked prefill, so its greedy tokens are the ones it would
+        have made; its TTFT and admit instant are kept. Scheduler thread
+        only, as ``cancel``: tokens an in-flight chunk still computes for
+        the slot are discarded."""
+        req = self._slot_req.get(slot)
+        if req is None:
+            return False
+        self._release_slot(slot)
+        req.slot = None
+        # the replay ids grow by the output: the digests are stale
+        req._hashes = None
+        self._queue.appendleft(req)
+        self.sched_stats["preemptions"] += 1
+        self._tenant_bucket(req.tenant)["preemptions"] += 1
+        return True
+
     # ---------------- requests ----------------
     def add_request(self, prompt, max_new_tokens: int = 32,
                     eos_token_id: Optional[int] = None,
                     temperature: Optional[float] = None,
                     top_k: Optional[int] = None,
                     top_p: Optional[float] = None,
-                    greedy: Optional[bool] = None) -> int:
-        """Queue a request; returns its id. Setting any of
-        ``temperature``/``top_k``/``top_p`` makes this request sample
-        (``greedy=True`` overrides back to argmax)."""
-        req = build_request(self._next_rid, prompt, max_new_tokens,
-                            eos_token_id, temperature=temperature,
-                            top_k=top_k, top_p=top_p, greedy=greedy,
-                            max_len=self.cfg.max_len)
-        self._next_rid += 1
+                    greedy: Optional[bool] = None,
+                    tenant: Optional[str] = None,
+                    slo: Optional[str] = None,
+                    ttft_target_ms: Optional[float] = None,
+                    tpot_target_ms: Optional[float] = None,
+                    deadline_ms: Optional[float] = None,
+                    max_retries: Optional[int] = None) -> int:
+        """Queue a request; returns its id. Safe from producer threads.
+        Setting any of ``temperature``/``top_k``/``top_p`` makes this
+        request sample (``greedy=True`` overrides back to argmax).
+        ``tenant``: a non-empty printable string without whitespace, at
+        most 64 chars (None = untagged). ``slo``: ``"interactive"`` or
+        ``"batch"`` (``SLO_CLASSES``), whose targets and deadline
+        ``ttft_target_ms``/``tpot_target_ms``/``deadline_ms`` override;
+        targets alone make the class ``"custom"``. ``deadline_ms`` (>= 1)
+        is a hard budget from submission: past it the request finishes
+        with ``"timeout"``. ``max_retries`` is validated and kept on the
+        request for the JAX engine's fault recovery, which the port does
+        not have yet."""
+        req = build_request(
+            0, prompt, max_new_tokens, eos_token_id,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            greedy=greedy, tenant=tenant, slo=slo,
+            ttft_target_ms=ttft_target_ms, tpot_target_ms=tpot_target_ms,
+            deadline_ms=deadline_ms, max_retries=max_retries,
+            max_len=self.cfg.max_len)
+        # minted after validation (a rejected request burns no rid) and
+        # under the lock (two producers must not share a rid)
+        with self._rid_lock:
+            req.rid = self._next_rid
+            self._next_rid += 1
+        return self.submit_request(req)
+
+    def submit_request(self, req: Request) -> int:
+        """Queue a request built by ``build_request`` that has never run
+        (the caller owns its rid); later rids are minted past it."""
+        with self._rid_lock:
+            self._next_rid = max(self._next_rid, req.rid + 1)
         self._queue.append(req)
         return req.rid
 
@@ -507,16 +732,16 @@ class ContinuousBatchingEngine:
         return self._buckets[i] if i < len(self._buckets) \
             else self.cfg.max_len
 
-    def _prefill_bucket(self, req: Request, bucket: int):
-        """THE legacy prefill program: ``req``'s prompt padded to
-        ``[1, bucket]``, one forward at the shared ``cache_index`` 0 into a
-        fresh ``[1, bucket]`` contiguous cache. Samples the first token
-        from row ``n - 1`` on the device; returns it and the filled
-        cache."""
+    def _prefill_bucket(self, req: Request, seq, bucket: int):
+        """THE legacy prefill program: ``seq`` (``req``'s prefill ids)
+        padded to ``[1, bucket]``, one forward at the shared
+        ``cache_index`` 0 into a fresh ``[1, bucket]`` contiguous cache.
+        Samples the next token from row ``n - 1`` on the device; returns
+        it and the filled cache."""
         self.stats["prefill_bucket"] += 1
-        n = req.prompt.size
+        n = seq.size
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = req.prompt
+        padded[0, :n] = seq
         one = self.model.init_kv_caches(1, bucket, dtype=self.cache_dtype)
         ids = torch.as_tensor(padded, device=self.device)
         logits, one = self.model(
@@ -640,19 +865,33 @@ class ContinuousBatchingEngine:
         return stack(0), stack(1)
 
     # ---------------- prefix cache ----------------
-    def _match_prefix(self, req: Request):
+    @staticmethod
+    def _prefill_ids(req: Request) -> np.ndarray:
+        """What admission prefills for ``req``: its prompt, and for a
+        preempted request the tokens it has made too. Prefilling prompt +
+        output samples the next token of the same greedy chain."""
+        if req.output:
+            return np.concatenate([req.prompt,
+                                   np.asarray(req.output, np.int64)])
+        return req.prompt
+
+    def _match_prefix(self, req: Request, ids=None):
         """The longest cached block-aligned prefix of the request's
-        prompt: (hashes, matched entries, prefix_len, full_cover). A
-        prompt cached whole still recomputes its last token, so that
+        prefill ids (``ids``, else ``_prefill_ids``), hashed in its
+        namespace: (hashes, matched entries, prefix_len, full_cover). A
+        sequence cached whole still recomputes its last token, so that
         prefill has a row to sample from (``full_cover``: that row lands
         inside the last matched block)."""
+        if ids is None:
+            ids = self._prefill_ids(req)
         if req._hashes is None:
-            req._hashes = block_hashes(req.prompt, self._prefix_block)
+            req._hashes = block_hashes(ids, self._prefix_block,
+                                       namespace=request_namespace(req))
         matched = self._prefix.match(req._hashes)
         prefix_len = len(matched) * self._prefix_block
-        full_cover = prefix_len >= req.prompt.size
+        full_cover = prefix_len >= ids.size
         if full_cover:
-            prefix_len = req.prompt.size - 1
+            prefix_len = ids.size - 1
         return req._hashes, matched, prefix_len, full_cover
 
     def _note_prefix(self, prefix_len: int, n: int):
@@ -668,12 +907,13 @@ class ContinuousBatchingEngine:
         else:
             st["misses"] += 1
 
-    def _evict_pages(self, n_pages: int) -> int:
+    def _evict_pages(self, n_pages: int,
+                     prefer_ns: Optional[str] = None) -> int:
         """Free up to ``n_pages`` pool pages from store-only entries
-        (LRU)."""
+        (LRU), namespace ``prefer_ns``'s first."""
         if self._prefix is None or self.pool is None:
             return 0
-        freed = self._prefix.evict(self.pool, n_pages)
+        freed = self._prefix.evict(self.pool, n_pages, prefer_ns=prefer_ns)
         self.prefix_stats["evictions"] += freed
         return freed
 
@@ -717,20 +957,21 @@ class ContinuousBatchingEngine:
                         "exhausted — size n_pages up")
         self._note_free_pages()
 
-    def _paged_prefix_admit(self, slot: int, req: Request, need: int):
-        """Claim pages for ``req`` in ``slot``, adopting the longest cached
-        prefix's pages. Returns ``prefix_len`` (the tokens prefill skips),
-        or None when the pool cannot fit the request even after eviction
-        (the slot left clean). A full-cover hit copies the last adopted
-        page before its recomputed row is written; when no page can be
-        had for that copy, the last block is recomputed into a fresh page
-        instead."""
+    def _paged_prefix_admit(self, slot: int, req: Request, need: int, ids):
+        """Claim pages for ``req`` (prefilling ``ids``) in ``slot``,
+        adopting the longest cached prefix's pages. Returns
+        ``prefix_len`` (the tokens prefill skips), or None when the pool
+        cannot fit the request even after eviction (the slot left clean).
+        A full-cover hit copies the last adopted page before its
+        recomputed row is written; when no page can be had for that copy,
+        the last block is recomputed into a fresh page instead. Eviction
+        spends the request's own namespace first."""
         pool = self.pool
         store = self._prefix
         shared: List[int] = []
         prefix_len, full_cover = 0, False
         if store is not None:
-            _, shared, prefix_len, full_cover = self._match_prefix(req)
+            _, shared, prefix_len, full_cover = self._match_prefix(req, ids)
         # feasibility first: a pool-blocked request retries every tick,
         # and must not pay adopt/release churn, a wasted copy or evictions
         # that cannot cover the shortfall
@@ -758,7 +999,8 @@ class ContinuousBatchingEngine:
                     prefix_len = (len(shared) - 1) * self.cfg.page_size
             if not pool.alloc(slot, need):
                 missing = pool.pages_needed(need) - len(pool.pages_of[slot])
-                self._evict_pages(missing - pool.free_pages)
+                self._evict_pages(missing - pool.free_pages,
+                                  prefer_ns=request_namespace(req))
                 if not pool.alloc(slot, need):
                     pool.free(slot)  # releases the adopted pages too
                     return None
@@ -770,24 +1012,25 @@ class ContinuousBatchingEngine:
             raise
 
     def _prefix_store_insert(self, slot: int, hashes: List[bytes],
-                             n_matched: int):
-        """Publish a prefilled prompt's full blocks. Paged: the store takes
-        a reference to each of the slot's pages (no copy; the prefill
-        writes are already queued on the stream). Contiguous: copies of
-        the blocks the store lacks, read from the slot's rows."""
+                             n_matched: int, ns: str = ""):
+        """Publish a prefilled sequence's full blocks under namespace
+        ``ns``. Paged: the store takes a reference to each of the slot's
+        pages (no copy; the prefill writes are already queued on the
+        stream). Contiguous: copies of the blocks the store lacks, read
+        from the slot's rows."""
         store = self._prefix
         if store is None or not hashes:
             return
         if self.pool is not None:
             for i, digest in enumerate(hashes):
                 store.insert(digest, int(self.pool.block_tables[slot, i]),
-                             self.pool)
+                             self.pool, ns=ns)
             return
         for i in range(n_matched, len(hashes)):
             if hashes[i] not in store:
                 k, v = self._read_block_contig(slot,
                                                i * self._prefix_block)
-                store.insert(hashes[i], k, v, protect=hashes)
+                store.insert(hashes[i], k, v, ns=ns, protect=hashes)
         self.prefix_stats["evictions"] = store.evictions
 
     # ---------------- admission ----------------
@@ -795,6 +1038,9 @@ class ContinuousBatchingEngine:
         """Queue the admission of waiting requests on the device, by the
         chunked path or the legacy bucketed one; returns the pending (req,
         slot, n_ctx, first_token) list for ``_admit_integrate``."""
+        # the previous pass's verdict survives for the policy's
+        # preemption window, which runs before this pass judges again
+        self._pool_blocked_prev = self._pool_blocked
         self._pool_blocked = False
         if not self._queue:
             return []
@@ -804,20 +1050,22 @@ class ContinuousBatchingEngine:
 
     def _admit_dispatch_bucketed(self):
         """Legacy admission (``PT_FLAGS_prefill_chunk=0``): FIFO, one
-        ``[1, bucket]`` prefill a request, whole prompt, copied into the
-        claimed slot (paged: the claim covers the whole bucket too, since
-        the scatter writes ``bucket // page_size`` whole pages). When the
-        pool cannot fit the head request the pass stops and it waits for
-        a finisher; with nothing running it raises. A failure gives the
-        request's slot and pages back, requeues it and integrates the
-        requests admitted before it in this pass, then propagates."""
+        ``[1, bucket]`` prefill a request (prompt, plus the output of a
+        preempted one), copied into the claimed slot (paged: the claim
+        covers the whole bucket too, since the scatter writes ``bucket //
+        page_size`` whole pages). When the pool cannot fit the head
+        request the pass stops and it waits for a finisher; with nothing
+        running it raises. A failure gives the request's slot and pages
+        back, requeues it and integrates the requests admitted before it
+        in this pass, then propagates."""
         pending = []
         while self._queue and self._free_heap:
             req = self._queue[0]
             slot = self._free_heap[0]  # claimed only on success
-            n = req.prompt.size
+            ids = self._prefill_ids(req)
+            n = ids.size
             bucket = self._bucket(n)
-            need = max(n + req.max_new_tokens, bucket)
+            need = max(n + req.max_new_tokens - len(req.output), bucket)
             if self.pool is not None and not self.pool.alloc(slot, need):
                 if not self.active.any() and not pending:
                     raise RuntimeError(
@@ -830,7 +1078,7 @@ class ContinuousBatchingEngine:
             self._queue.popleft()
             heapq.heappop(self._free_heap)
             try:
-                first, one = self._prefill_bucket(req, bucket)
+                first, one = self._prefill_bucket(req, ids, bucket)
                 if self.pool is not None:
                     self._scatter_paged(one, slot)
                 else:
@@ -852,25 +1100,40 @@ class ContinuousBatchingEngine:
 
     def _admit_dispatch_chunked(self):
         """Claim free slots (and, paged, pages, adopting cached prefixes)
-        for queued requests (FIFO) and queue their chunked prefill on the
-        device without a host sync. Returns the pending (req, slot, n_ctx,
-        first_token) list for ``_admit_integrate``. When the pool cannot
-        fit the head request the wave stops there and the request waits
-        for a finisher; with nothing running that would be forever, so it
-        raises. A failure rolls every claimed request back into the queue
-        (and frees its pages) before propagating. Within one wave a
-        request cannot hit the blocks of another request of the same
-        wave: a wave publishes once its prefill has run."""
+        for queued requests and queue their chunked prefill on the device
+        without a host sync. The order is FIFO, or the policy's
+        (``set_scheduler``), whose preemption window runs first; a
+        preempted request prefills its prompt and output. Returns the
+        pending (req, slot, n_ctx, first_token) list for
+        ``_admit_integrate``. When the pool cannot fit the picked request
+        the wave stops there and it waits for a finisher; with nothing
+        running that would be forever, so it raises. A failure rolls
+        every claimed request back into the queue (and frees its pages)
+        before propagating. Within one wave a request cannot hit the
+        blocks of another request of the same wave: a wave publishes once
+        its prefill has run."""
         B = self._prefix_block
-        jobs = []  # [req, slot, cursor, prefix_len, hashes, n_matched]
+        # [req, slot, cursor, prefix_len, hashes, n_matched, ids]
+        jobs = []
+        # rids preempted or claimed in this wave; the FIFO cursor
+        skip = set()
+        fifo_cursor = [None, 0]
+        if self._sched is not None:
+            # a preempted request must not take its own slot back
+            skip.update(self._sched.before_admission(self) or ())
         try:
-            while self._free_heap and self._queue:
-                req = self._queue[0]
+            while self._free_heap:
+                req = self._pick_admission(skip, fifo_cursor)
+                if req is None:
+                    break
                 slot = self._free_heap[0]
+                ids = self._prefill_ids(req)
                 prefix_len, hashes, n_matched = 0, [], 0
                 if self.pool is not None:
-                    need = req.prompt.size + req.max_new_tokens
-                    prefix_len = self._paged_prefix_admit(slot, req, need)
+                    # a replay's page need is its first admission's
+                    need = ids.size + req.max_new_tokens - len(req.output)
+                    prefix_len = self._paged_prefix_admit(slot, req, need,
+                                                          ids)
                     if prefix_len is None:
                         if not jobs and not self.active.any():
                             raise RuntimeError(
@@ -882,17 +1145,27 @@ class ContinuousBatchingEngine:
                         break
                     hashes = req._hashes or []
                 elif self._prefix is not None:
-                    hashes, matched, prefix_len, _ = self._match_prefix(req)
+                    hashes, matched, prefix_len, _ = self._match_prefix(
+                        req, ids)
                     n_matched = len(matched)
                     for i, (kb, vb) in enumerate(matched):
                         self._insert_prefix_contig(kb, vb, slot, i * B)
-                self._queue.popleft()
+                # the head pops; a policy's mid-queue pick is removed by
+                # identity
+                if self._queue[0] is req:
+                    self._queue.popleft()
+                else:
+                    self._queue.remove(req)
+                if skip:
+                    skip.add(req.rid)  # the cursor's snapshot still has it
                 heapq.heappop(self._free_heap)
                 self.active[slot] = True
                 req.slot = slot
                 self._slot_req[slot] = req
+                if self._sched is not None:
+                    self._sched.note_admit(self, req)
                 jobs.append([req, slot, prefix_len, prefix_len, hashes,
-                             n_matched])
+                             n_matched, ids])
             self._note_free_pages()
             return self._drive_prefill_chunks(jobs)
         except BaseException:
@@ -915,8 +1188,8 @@ class ContinuousBatchingEngine:
         """Host loop over the suffix chunks of a wave of claimed requests
         (each job's cursor starts at its prefix length): each iteration
         packs every still-prefilling request's next C tokens into one
-        ``[slots, C]`` call. Then the wave's prompts publish their blocks
-        and count their hits."""
+        ``[slots, C]`` call. Then the wave's sequences publish their
+        blocks and count their hits."""
         C = self._chunk_len
         cfg = self.cfg
         dev = self.device
@@ -931,7 +1204,7 @@ class ContinuousBatchingEngine:
             last_idx = np.zeros((cfg.max_slots,), np.int64)
             finishing = []
             for job in remaining:
-                slot, p, job_ids = job[1], job[2], job[0].prompt
+                slot, p, job_ids = job[1], job[2], job[6]
                 take = min(C, job_ids.size - p)
                 ids[slot, :take] = job_ids[p:p + take]
                 start[slot] = p
@@ -944,28 +1217,35 @@ class ContinuousBatchingEngine:
                 torch.as_tensor(start, device=dev),
                 torch.as_tensor(last_idx, device=dev), samp, use_samp, bt)
             for job in finishing:
-                pending.append((job[0], job[1], job[0].prompt.size,
+                pending.append((job[0], job[1], job[6].size,
                                 toks[job[1]]))
             done = {job[1] for job in finishing}
             remaining = [job for job in remaining if job[1] not in done]
         if self._prefix is not None:
-            for req, slot, _, prefix_len, hashes, n_matched in jobs:
-                self._prefix_store_insert(slot, hashes, n_matched)
-                self._note_prefix(prefix_len, req.prompt.size)
+            for req, slot, _, prefix_len, hashes, n_matched, ids in jobs:
+                self._prefix_store_insert(slot, hashes, n_matched,
+                                          ns=request_namespace(req))
+                self._note_prefix(prefix_len, ids.size)
         return pending
 
     def _admit_integrate(self, pending):
         """Sync each admitted request's first token (a scalar) and finish
-        its bookkeeping; the sequence joins the next decode step."""
+        its bookkeeping; the sequence joins the next decode step. A
+        preempted request's re-admission keeps its first TTFT and admit
+        instant."""
         for req, slot, n_ctx, first_dev in pending:
             first = int(first_dev)
-            req.ttft_ms = (time.perf_counter() - req._submit_t) * 1e3
+            if req.ttft_ms is None:
+                now = time.perf_counter()
+                req._admit_t = now
+                req.ttft_ms = (now - req._submit_t) * 1e3
             req.output.append(first)
             self.seq_lens[slot] = n_ctx
             self.last_tok[slot] = first
             self._maybe_finish(slot, first)
 
     def _admit(self):
+        """Blocking admission: dispatch, then integrate."""
         self._admit_integrate(self._admit_dispatch())
 
     # ---------------- finish / cancel ----------------
@@ -981,9 +1261,76 @@ class ContinuousBatchingEngine:
             self._note_free_pages()
 
     def _finish(self, req: Request, reason: str):
+        """Terminal bookkeeping of a request that has left the queue or
+        its slot: the finish record and the accounting."""
         req.done = True
-        req.finish_reason = reason
         self._finished[req.rid] = req
+        self._finish_accounting(req, reason)
+
+    def _slo_bucket(self, slo: str) -> Dict[str, int]:
+        st = self.slo_stats.get(slo)
+        if st is None:
+            st = self.slo_stats[slo] = new_slo_bucket()
+        return st
+
+    def _tenant_bucket(self, tenant: Optional[str]) -> Dict[str, int]:
+        """Cumulative counters of a tenant (``"-"`` = untagged), written
+        at finish and preempt. The JAX bucket's ``failed`` and
+        ``device_ms`` come with fault recovery and cost attribution."""
+        key = tenant or "-"
+        st = self.tenant_stats.get(key)
+        if st is None:
+            st = self.tenant_stats[key] = {
+                "finished": 0, "cancelled": 0, "timeouts": 0, "tokens": 0,
+                "slo_met": 0, "slo_violated": 0, "preemptions": 0}
+        return st
+
+    def _finish_accounting(self, req: Request, reason: str):
+        """The finish reason, TPOT (mean decode latency from the first
+        admission), SLO attainment and the tenant's counters. A timeout
+        is a violation whatever its TTFT was; a cancel is counted apart,
+        never as a violation."""
+        now = time.perf_counter()
+        req.finish_reason = reason
+        n_decode = len(req.output) - 1  # the first token is in the TTFT
+        if req._admit_t and n_decode > 0:
+            req.tpot_ms = (now - req._admit_t) * 1e3 / n_decode
+        tst = self._tenant_bucket(req.tenant)
+        tst["tokens"] += len(req.output)
+        if reason == "cancel":
+            tst["cancelled"] += 1
+        elif reason == "timeout":
+            tst["timeouts"] += 1
+        else:
+            tst["finished"] += 1
+        if req.slo is None:
+            return
+        st = self._slo_bucket(req.slo)
+        if reason == "cancel":
+            st["cancelled"] += 1
+            return
+        if reason == "timeout":
+            req.slo_met = False
+            st["violated"] += 1
+            st["timeouts"] += 1
+            tst["slo_violated"] += 1
+            st["total_tokens"] += len(req.output)
+            return
+        ttft_ok = (req.ttft_target_ms is None
+                   or (req.ttft_ms is not None
+                       and req.ttft_ms <= req.ttft_target_ms))
+        tpot_ok = (req.tpot_target_ms is None or req.tpot_ms is None
+                   or req.tpot_ms <= req.tpot_target_ms)
+        req.slo_met = ttft_ok and tpot_ok
+        st["met" if req.slo_met else "violated"] += 1
+        tst["slo_met" if req.slo_met else "slo_violated"] += 1
+        if not ttft_ok:
+            st["ttft_violations"] += 1
+        if not tpot_ok:
+            st["tpot_violations"] += 1
+        st["total_tokens"] += len(req.output)
+        if req.slo_met:
+            st["met_tokens"] += len(req.output)
 
     def _maybe_finish(self, slot: int, tok: int):
         req = self._slot_req.get(slot)
@@ -1002,12 +1349,19 @@ class ContinuousBatchingEngine:
 
     def cancel(self, request_id: int) -> bool:
         """Cancel a queued or active request; False for unknown or
-        finished ids. An active request's slot is freed at once: tokens
-        an in-flight chunk still computes for it are discarded."""
-        req = next((r for r in self._queue if r.rid == request_id), None)
+        finished ids. An active request's slot and pages are freed at
+        once: tokens an in-flight chunk still computes for it are
+        discarded. Scheduler thread only (the front door defers a
+        client's cancel to its engine thread)."""
+        # a snapshot, then removal by identity: producers may append
+        req = next((r for r in list(self._queue) if r.rid == request_id),
+                   None)
         if req is not None:
-            self._queue.remove(req)
-        else:
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                req = None
+        if req is None:
             slot = next((s for s, r in self._slot_req.items()
                          if r.rid == request_id), None)
             if slot is None:
@@ -1018,11 +1372,33 @@ class ContinuousBatchingEngine:
         self._finish(req, "cancel")
         return True
 
+    def _expire_deadlines(self):
+        """Finish every request past its deadline with ``"timeout"``: a
+        queued one leaves the queue, an active one gives its slot and
+        pages back through the one teardown path. Checked once a tick,
+        the granularity ``build_request`` holds deadlines to."""
+        now = time.perf_counter()
+        for req in list(self._queue):
+            if req._deadline_t and now >= req._deadline_t:
+                try:
+                    self._queue.remove(req)
+                except ValueError:
+                    continue
+                self._finish(req, "timeout")
+        for slot in range(self.cfg.max_slots):
+            if not self.active[slot]:
+                continue
+            req = self._slot_req[slot]
+            if req._deadline_t and now >= req._deadline_t:
+                self._release_slot(slot)
+                self._finish(req, "timeout")
+
     # ---------------- scheduler ticks ----------------
     def step(self) -> bool:
         """Admit waiting requests, then one decode step for every active
         slot, or one verify pass when speculative decoding is on and any
         slot drafted. Returns False when there is nothing left to do."""
+        self._expire_deadlines()
         self._admit()
         if not self.active.any():
             return bool(self._queue)
@@ -1144,18 +1520,29 @@ class ContinuousBatchingEngine:
 
     def _slot_budgets(self) -> np.ndarray:
         """Per-slot remaining token budget (max_new_tokens and max_len
-        caps); frozen slots stop advancing inside the chunk."""
+        caps); frozen slots stop advancing inside the chunk. The policy's
+        ``slot_caps`` may lower it slot by slot (what a slot commits,
+        not what the chunk computes); caps that would freeze every
+        active slot are ignored, since such a chunk would emit nothing."""
         budget = np.zeros((self.cfg.max_slots,), np.int64)
         for slot, req in self._slot_req.items():
             budget[slot] = max(0, min(
                 req.max_new_tokens - len(req.output),
                 self.cfg.max_len - 1 - int(self.seq_lens[slot])))
+        if self._sched is not None:
+            caps = self._sched.slot_caps(self)
+            if caps is not None:
+                capped = np.minimum(budget, np.asarray(caps, np.int64))
+                if capped.max(initial=0) > 0 or budget.max(initial=0) == 0:
+                    budget = capped
         return budget
 
     def step_chunk(self, max_chunk: int = 8) -> bool:
         """``max_chunk`` decode steps with one host sync, with admission
         queued on the device behind the in-flight chunk: newly admitted
-        slots join the next chunk."""
+        slots join the next chunk. Expired deadlines are enforced
+        first."""
+        self._expire_deadlines()
         if not self.active.any():
             self._admit()
             if not self.active.any():
@@ -1206,6 +1593,26 @@ class ContinuousBatchingEngine:
         self._admit_integrate(pending)
         return True
 
+    def step_adaptive(self, max_chunk: int = 8,
+                      probe_chunk: int = 2) -> bool:
+        """``step_chunk`` whose length follows the load: ``probe_chunk``
+        steps while requests wait and a slot is free, or an active slot's
+        budget ends inside a full chunk (admission can come soon, and a
+        short chunk reaches it sooner); ``max_chunk`` otherwise. The JAX
+        engine's third branch, the degradation ladder's throttle, comes
+        with the resilience slice."""
+        k = max_chunk
+        if self._queue:
+            if not self.active.all():
+                k = min(probe_chunk, max_chunk)
+            else:
+                budgets = self._slot_budgets()
+                soonest = min((budgets[s] for s in range(self.cfg.max_slots)
+                               if self.active[s]), default=max_chunk + 1)
+                if soonest <= max_chunk:
+                    k = min(probe_chunk, max_chunk)
+        return self.step_chunk(k)
+
     def run(self, prompts: Sequence, max_new_tokens: int = 32,
             eos_token_id: Optional[int] = None,
             max_chunk: int = 8) -> List[Request]:
@@ -1240,3 +1647,92 @@ class ContinuousBatchingEngine:
         st["acceptance_rate"] = (st["accepted"] / st["proposed"]
                                  if st["proposed"] else 0.0)
         return st
+
+    def slo_snapshot(self) -> dict:
+        """SLO attainment per class and overall goodput: met / (met +
+        violated) over SLO-tracked finishes (None before any); cancels
+        are counted apart. Safe from another thread (copies)."""
+        classes = {}
+        met = violated = 0
+        for cls, st in list(self.slo_stats.items()):
+            d = dict(st)
+            tracked = d["met"] + d["violated"]
+            d["goodput"] = d["met"] / tracked if tracked else None
+            classes[cls] = d
+            met += d["met"]
+            violated += d["violated"]
+        tracked = met + violated
+        return {"classes": classes, "met": met, "violated": violated,
+                "goodput": met / tracked if tracked else None}
+
+    def tenant_snapshot(self) -> dict:
+        """Per tenant (``"-"`` = untagged): the cumulative counters joined
+        with live usage (active slots, held pages, queued requests), and
+        the scheduler's policy name and preemption count."""
+        tenants: Dict[str, dict] = {}
+
+        def bucket(key):
+            d = tenants.get(key)
+            if d is None:
+                d = tenants[key] = {"active_slots": 0, "pages": 0,
+                                    "queued": 0}
+            return d
+
+        for key, st in list(self.tenant_stats.items()):
+            bucket(key).update(st)
+        for slot, req in list(self._slot_req.items()):
+            d = bucket(req.tenant or "-")
+            d["active_slots"] += 1
+            if self.pool is not None:
+                d["pages"] += len(self.pool.pages_of[slot])
+        for req in list(self._queue):
+            bucket(req.tenant or "-")["queued"] += 1
+        return {"tenants": tenants, "scheduler": dict(self.sched_stats)}
+
+    def slo_window_reset(self):
+        """Zero the SLO counters: one window per load step."""
+        self.slo_stats = {}
+
+    def backpressure(self) -> dict:
+        """Admission readiness for ``/healthz``: queue depth, free slots
+        (and pages), and ``saturated`` when requests wait with no free
+        slot or behind a pool-blocked admission pass. ``draining`` and
+        ``degraded`` stay False and the level 0 until the resilience
+        slice brings drain and the degradation ladder."""
+        qd = len(self._queue)
+        free = len(self._free_heap)
+        out = {"queue_depth": qd, "free_slots": free,
+               "occupancy": float(self.active.sum()) / self.cfg.max_slots,
+               "saturated": qd > 0 and (free == 0 or self._pool_blocked),
+               "draining": False, "degraded": False,
+               "degradation_level": 0}
+        if self.pool is not None:
+            out["free_pages"] = self.pool.free_pages
+            out["pool_blocked"] = self._pool_blocked
+        return out
+
+    def prefix_affinity_tokens(self, hashes: List[bytes]) -> int:
+        """How many leading tokens of a block-hash chain this engine's
+        prefix store holds, without refreshing its LRU order (0 with the
+        store off): the router's affinity probe."""
+        if self._prefix is None:
+            return 0
+        return self._prefix.match_len(hashes) * self._prefix_block
+
+    def metrics_window_reset(self):
+        """Reset the telemetry windows. The port has no telemetry yet (the
+        JAX engine with ``PT_FLAGS_telemetry=off``), so there is nothing
+        to reset; the cumulative host counters keep running."""
+
+    def metrics_snapshot(self) -> dict:
+        """The one serving document, as the JAX engine gives it with
+        telemetry off: ``{"telemetry": "off", "slots", "prefix_cache",
+        "spec_decode", "slo", "tenants"}``. The observability and
+        resilience slices add their sub-documents."""
+        return {"telemetry": "off",
+                "slots": {"active": int(self.active.sum()),
+                          "max": self.cfg.max_slots},
+                "prefix_cache": self.prefix_snapshot(),
+                "spec_decode": self.spec_snapshot(),
+                "slo": self.slo_snapshot(),
+                "tenants": self.tenant_snapshot()}

@@ -1,12 +1,15 @@
-"""Rules of the PyTorch port: ``paddle_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package (checked in the source
-and in a fresh interpreter), and the entry points that default to the
+"""Rules of the PyTorch port: ``paddle_tpu_torch``, ``chip_smoke.py`` and
+``chip_ab.py`` import neither JAX nor anything of the JAX package
+(checked in the source and in a fresh interpreter), every name a function
+of theirs loads is defined, and the entry points that default to the
 card raise where there is none instead of running on the CPU."""
 
 import ast
+import builtins
 import json
 import os
 import subprocess
+import symtable
 import sys
 
 import pytest
@@ -17,8 +20,11 @@ PORT = os.path.join(REPO, "paddle_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
+SCRIPTS = ("chip_ab.py", "chip_smoke.py")
+
+
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, name) for name in SCRIPTS]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -26,7 +32,9 @@ def _port_files():
 
 def _port_modules():
     mods = []
-    for path in _port_files()[1:]:
+    for path in _port_files():
+        if not path.startswith(PORT + os.sep):
+            continue
         rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
         mods.append(rel.removesuffix(".__init__"))
     return mods
@@ -54,6 +62,60 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert len(_port_files()) > 15
 
 
+_MODULE_NAMES = {"__file__", "__name__", "__doc__", "__spec__", "__loader__",
+                 "__package__", "__path__", "__builtins__"}
+
+
+def _tables(table):
+    yield table
+    for child in table.get_children():
+        yield from _tables(child)
+
+
+def undefined_names(path):
+    """``file:line function: name`` for each name a function (a lambda
+    or comprehension too) loads that is not a local, a parameter, a
+    variable of an enclosing function, a module global (assigned,
+    imported, def or class at module level, or declared ``global`` and
+    assigned in a function) or a builtin."""
+    with open(path, encoding="utf-8") as f:
+        top = symtable.symtable(f.read(), path, "exec")
+    tables = list(_tables(top))
+    known = {s.get_name() for s in top.get_symbols()
+             if s.is_assigned() or s.is_imported() or s.is_namespace()}
+    known |= set(dir(builtins)) | _MODULE_NAMES
+    functions = [t for t in tables if t.get_type() == "function"]
+    for t in functions:
+        known |= {s.get_name() for s in t.get_symbols()
+                  if s.is_declared_global() and s.is_assigned()}
+    rel = os.path.relpath(path, REPO)
+    return [f"{rel}:{t.get_lineno()} {t.get_name()}: {s.get_name()}"
+            for t in functions for s in t.get_symbols()
+            if s.is_referenced() and s.is_global()
+            and not (s.is_local() or s.is_parameter() or s.is_free())
+            and s.get_name() not in known]
+
+
+def test_port_functions_load_no_undefined_name():
+    """The check a ``NameError`` on the card would have needed: it runs
+    over ``chip_smoke.py``, ``chip_ab.py`` and every port module."""
+    files = _port_files()
+    assert {os.path.basename(p) for p in files} >= set(SCRIPTS)
+    bad = [line for path in files for line in undefined_names(path)]
+    assert not bad, bad
+
+
+def test_undefined_name_check_catches_a_planted_name(tmp_path):
+    src = ("import time\n\n\ndef phase(fn):\n"
+           "    t0 = time.perf_counter()\n"
+           "    return fn() + lables_ms, t0, [x for x in range(2) if y]\n")
+    path = tmp_path / "planted.py"
+    path.write_text(src)
+    got = [line.split(" ", 1)[1] for line in undefined_names(str(path))]
+    # comprehensions are inlined into their function (Python 3.12)
+    assert sorted(got) == ["phase: lables_ms", "phase: y"]
+
+
 def test_importing_the_port_loads_no_jax_module():
     """A fresh interpreter imports every port module; the modules it adds
     to sys.modules include nothing of JAX or the JAX package."""
@@ -68,6 +130,7 @@ def test_importing_the_port_loads_no_jax_module():
                          check=True)
     added = json.loads(res.stdout.strip().splitlines()[-1])
     assert "paddle_tpu_torch.inference.serving" in added
+    assert "paddle_tpu_torch.serving_api.server" in added
     for mod in ("models.mamba", "models.unet", "kernels.selective_scan",
                 "kernels.group_norm", "nn.layout", "nn.functional.conv"):
         assert f"paddle_tpu_torch.{mod}" in added

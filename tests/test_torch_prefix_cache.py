@@ -181,8 +181,9 @@ def _serve(eng, waves):
 
 
 def _cached_bytes(eng):
-    """digest -> numpy copies of the store's entry: the page (payload and
-    int8 scales) in every layer, or the contiguous block."""
+    """digest -> numpy copies of the store's entry (with its namespace):
+    the page (payload and int8 scales) in every layer, or the contiguous
+    block."""
     def arr(t):
         return [t.q.numpy().copy(), t.scale.numpy().copy()] \
             if isinstance(t, tpaged.QuantizedKV) else [t.numpy().copy()]
@@ -190,8 +191,9 @@ def _cached_bytes(eng):
     if eng.pool is not None:
         return {h: [t[:, p].numpy().copy() for layer in eng.caches
                     for t in layer if t is not None]
-                for h, p in eng._prefix._blocks.items()}
-    return {h: arr(k) + arr(v) for h, (k, v) in eng._prefix._blocks.items()}
+                for h, (p, _) in eng._prefix._blocks.items()}
+    return {h: arr(k) + arr(v)
+            for h, (k, v, _) in eng._prefix._blocks.items()}
 
 
 def _assert_pool_identity(eng):
