@@ -256,9 +256,29 @@ Phases, each of which raises on failure:
 37. train mamba 130m tf32 (after phase 25): phase 25's step, 2 warm-up
    and 5 timed, under ``default_matmul_precision=tensorfloat32``
    (``flags.apply_matmul_precision``), beside the exact float32 median;
-   exact float32 is restored after.
+   exact float32 is restored after;
+38. resilience reference (after phase 35): a tiny float32 Llama on the
+   card (rows 1-2) and the CPU, contiguous and paged, sanitized, under a
+   seeded step/NaN/latency/pool storm: the card's tokens equal the CPU's
+   and a clean run's, ``resilience_snapshot()`` is identical on both
+   with recoveries and NaN steps; then a decode forward raising
+   ``torch.OutOfMemoryError`` under ``serve_recovery=all``: one rebuild,
+   the clean tokens, the memory held after the run within 1 MB of the
+   clean engine's;
+39. router reference: the same model in a sanitized 2-replica paged
+   ``EngineRouter`` on the card and the CPU under a seeded replica
+   crash/hang storm with one scripted crash: card tokens = CPU tokens = a
+   single clean engine's, ``fleet_snapshot()`` identical, failovers >= 1;
+40. router 7b: the 32-layer engine's model, one clean paged engine and a
+   2-replica router, 16 prompts of 120 + 32 tokens, clean and under the
+   storm: lengths, first tokens equal to the clean engine's (the first
+   divergence printed), every pool back; wall time, served tok/s, TTFT
+   p50, failovers, peak memory, one replay prefill's device time; then a
+   drain -> ``admit_ledger`` handoff between the replicas' engines
+   mid-generation.
 
-Each phase prints its wall time. Every kernel's launch count is set to 0
+Every number phases 38-40 print stands beside the card's name and power
+limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -4659,7 +4679,9 @@ def wave_profile(model, prompts, label, max_new_tokens=1, fused="auto",
 # the serving flags at their defaults (earlier phases leave fused decode
 # off, the legacy prefill on, speculative decoding on)
 SERVING_DEFAULTS = {"fused_decode": "auto", "prefill_chunk": 256,
-                    "prefix_cache": True, "spec_decode": "off"}
+                    "prefix_cache": True, "spec_decode": "off",
+                    "fault_inject": "", "serve_recovery": "auto",
+                    "degradation": True, "sanitize": False}
 PROBE_CHUNK = 2                      # step_adaptive's short chunk
 BENCH_GAPS = (0.300, 0.150, 0.075)   # bench_infer's arrival gaps, s
 BENCH_MODES = ("chunked", "blocking", "adaptive")
@@ -5027,6 +5049,401 @@ def slo_reference_phase():
               f"order {got[2]}, {row} launched {launches} times", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# resilience: fault injection, quarantine and replay, hard recovery, the
+# router with failover, drain and ledger handoff
+# ---------------------------------------------------------------------------
+RES_STORM = "step:0.2,nan:0.1,latency:0.05,pool:0.1"
+FLEET_STORM = "replica_crash:0.2,replica_hang:0.08"
+FLEET_SCRIPTED_CRASH = 4  # replica_crash's 5th consultation: tick 3
+
+
+def storm_injector(spec, seed, scripted_crash=None):
+    """A seeded ``FaultInjector`` over ``spec``; ``scripted_crash``: the
+    ``replica_crash`` consultation that fires whatever the stream draws,
+    so that a failover surely happens."""
+    from paddle_tpu_torch.inference import FaultInjector
+
+    class Storm(FaultInjector):
+        def fire(self, site):
+            n = self.draws[site]
+            hit = super().fire(site)
+            if site == "replica_crash" and n == scripted_crash:
+                self.draws[site] = n + 1
+                if not hit:
+                    self.fires[site] += 1
+                hit = True
+            return hit
+
+    return Storm(spec, seed=seed, latency_ms=1.0)
+
+
+def resilience_run(model, device, paged, injector=None, fault_call=None,
+                   max_retries=20):
+    """A tiny float32 Llama engine (3 slots, ``max_len`` 128, 16-token
+    pages) serving 6 seeded prompts of 5-40 tokens, 12 new tokens each,
+    by ``step_chunk(4)``, under ``injector``. ``fault_call``: the decode
+    forward that raises ``torch.OutOfMemoryError`` (once). Returns the
+    tokens, ``resilience_snapshot()``, the engine and the device memory
+    it holds after the run (the card: ``memory_allocated`` over the
+    value before the engine was built)."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=3, max_len=128, page_size=16,
+                            paged=paged, cache_dtype=torch.float32,
+                            max_retries=max_retries),
+        device=device, fault_injector=injector)
+    if fault_call is not None:
+        real = eng._decode_forward
+        calls = []
+
+        def failing(*a, **k):
+            calls.append(1)
+            if len(calls) == fault_call:
+                raise torch.OutOfMemoryError("a decode forward failed")
+            return real(*a, **k)
+
+        eng._decode_forward = failing
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, model.config.vocab_size, n)
+               for n in (5, 40, 17, 9, 33, 24)]
+    rids = [eng.add_request(p, 12) for p in prompts]
+    for _ in range(2000):
+        if not (eng.step_chunk(4) or eng._queue or eng.active.any()):
+            break
+    else:
+        raise AssertionError("resilience run: the engine did not drain")
+    reqs = [eng._finished[r] for r in rids]
+    if any(r.finish_reason != "max_new_tokens" for r in reqs):
+        raise AssertionError(f"resilience run: reasons "
+                             f"{[r.finish_reason for r in reqs]}")
+    held = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - m0
+    return [r.output for r in reqs], eng.resilience_snapshot(), eng, held
+
+
+def resilience_reference_phase():
+    """A tiny float32 Llama on the card (rows 1-2) and the same weights on
+    the CPU, contiguous and paged, sanitized, under the seeded
+    ``RES_STORM`` (step, NaN, latency and pool faults; ``max_retries`` 20,
+    so none fails): the card's tokens equal the CPU's and the card's
+    clean run, ``resilience_snapshot()`` is identical on both with
+    recoveries and NaN steps, rows 1-2 launched. Then a hard fault under
+    ``serve_recovery=all``: the third decode forward of a paged engine
+    raises ``torch.OutOfMemoryError`` once; one rebuild, the clean
+    tokens, and the memory the engine holds after the run within 1 MB of
+    the clean engine's."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    smi = nvidia_smi_line()
+    flags.set_flags(dict(SERVING_DEFAULTS, sanitize=True))
+    cpu, card = card_and_cpu(lambda dev, seed: LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256), device=dev, seed=seed), 5)
+    try:
+        for paged, row in ((False, "fused_contiguous_decode_attention"),
+                           (True, "fused_paged_decode_attention")):
+            label = "resilience reference " + ("paged" if paged
+                                               else "contiguous")
+            clean, _, _, _ = resilience_run(card, "cuda", paged)
+            reset_launches()
+            got, snap, eng, _ = resilience_run(
+                card, "cuda", paged, storm_injector(RES_STORM, 0))
+            launches = read_launches()[row]
+            want, want_snap, _, _ = resilience_run(
+                cpu, "cpu", paged, storm_injector(RES_STORM, 0))
+            if got != want or got != clean:
+                raise AssertionError(f"{label}: card storm {got}, CPU storm "
+                                     f"{want}, card clean {clean}")
+            if snap != want_snap:
+                raise AssertionError(f"{label}: card {snap}, CPU "
+                                     f"{want_snap}")
+            if snap["recoveries"] <= 0 or snap["nan_steps"] <= 0:
+                raise AssertionError(f"{label}: the storm never fired: "
+                                     f"{snap}")
+            if eng._san is None or launches <= 0:
+                raise AssertionError(f"{label}: sanitizer {eng._san}, "
+                                     f"{row} launched {launches} times")
+            print(f"{label} ({smi}): card tokens = CPU tokens = clean "
+                  f"tokens for 6 requests; {snap['recoveries']} recoveries,"
+                  f" {snap['retries']} retries, {snap['nan_steps']} NaN "
+                  f"steps, faults {snap['faults']}, degradation level "
+                  f"{snap['degradation']['level']} ("
+                  f"{len(snap['degradation']['transitions'])} transitions)"
+                  f" on both; {row} launched {launches} times", flush=True)
+        clean, _, eng, held_clean = resilience_run(card, "cuda", True)
+        del eng
+        flags.set_flags({"serve_recovery": "all"})
+        got, snap, eng, held = resilience_run(card, "cuda", True,
+                                              fault_call=3)
+        if got != clean or snap["rebuilds"] != 1 \
+                or snap["faults"] != {"error": 1}:
+            raise AssertionError(f"resilience hard fault: {snap}, tokens "
+                                 f"{got} against {clean}")
+        if abs(held - held_clean) > 1 << 20:
+            raise AssertionError(f"resilience hard fault: the engine holds "
+                                 f"{held} bytes after the run, the clean "
+                                 f"one {held_clean}")
+        print(f"resilience hard fault ({smi}): 1 rebuild, clean tokens, "
+              f"{held} bytes held after the run against {held_clean} "
+              "clean", flush=True)
+        del eng
+    finally:
+        flags.set_flags(SERVING_DEFAULTS)
+
+
+def fleet_run(model, device, injector, prompts, new_tokens, **config):
+    """A 2-replica ``EngineRouter`` (sanitized) over ``prompts`` by
+    ``step(8)``; returns the requests, ``fleet_snapshot()``, the router
+    and the wall time."""
+    from paddle_tpu_torch.inference import EngineConfig, EngineRouter
+
+    router = EngineRouter(model, EngineConfig(**config), n_replicas=2,
+                          device=device, fault_injector=injector,
+                          breaker_cooldown=3, seed=0)
+    if router._san is None:
+        raise AssertionError("fleet run: the fleet sanitizer is off")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [router.add_request(p, new_tokens) for p in prompts]
+    for _ in range(5000):
+        if not router.step(8):
+            break
+    else:
+        raise AssertionError("fleet run: the fleet did not drain")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = [router.result(r) for r in rids]
+    if any(r is None or len(r.output) != new_tokens for r in reqs):
+        raise AssertionError(f"fleet run: lengths "
+                             f"{[r and len(r.output) for r in reqs]}")
+    return reqs, router.fleet_snapshot(), router, wall
+
+
+def router_reference_phase():
+    """The tiny float32 Llama in a sanitized 2-replica paged router, on the
+    card and on the CPU, under the seeded ``FLEET_STORM`` with one
+    scripted crash: card tokens = CPU tokens = a single clean engine's,
+    ``fleet_snapshot()`` identical on both with at least one failover."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    smi = nvidia_smi_line()
+    flags.set_flags(dict(SERVING_DEFAULTS, sanitize=True))
+    cpu, card = card_and_cpu(lambda dev, seed: LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256), device=dev, seed=seed), 6)
+    try:
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(1, 256, n)
+                   for n in (9, 33, 17, 40, 12, 26, 21, 7)]
+        config = dict(max_slots=2, max_len=128, page_size=16, paged=True,
+                      cache_dtype=torch.float32, max_retries=50)
+        from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                                EngineConfig)
+
+        ref = [r.output for r in ContinuousBatchingEngine(
+            card, EngineConfig(**config), device="cuda").run(
+                prompts, 10, max_chunk=8)]
+        reset_launches()
+        got, snap, router, _ = fleet_run(
+            card, "cuda", storm_injector(FLEET_STORM, 5,
+                                         FLEET_SCRIPTED_CRASH),
+            prompts, 10, **config)
+        launches = read_launches()["fused_paged_decode_attention"]
+        want, want_snap, _, _ = fleet_run(
+            cpu, "cpu", storm_injector(FLEET_STORM, 5, FLEET_SCRIPTED_CRASH),
+            prompts, 10, **config)
+        got = [r.output for r in got]
+        if got != [r.output for r in want] or got != ref:
+            raise AssertionError(f"router reference: card {got}, CPU "
+                                 f"{[r.output for r in want]}, clean {ref}")
+        if snap != want_snap or snap["failovers"] < 1:
+            raise AssertionError(f"router reference: card {snap}, CPU "
+                                 f"{want_snap}")
+        for rep in router._replicas:
+            check_pool(f"router reference replica {rep.idx}", rep.engine)
+        if launches <= 0:
+            raise AssertionError("router reference: row 2 was not launched")
+        print(f"router reference ({smi}): card tokens = CPU tokens = clean "
+              f"tokens for {len(prompts)} requests; {snap['failovers']} "
+              f"failovers, {snap['reclaimed']} reclaimed, "
+              f"{snap['replayed']} replayed, {snap['breaker_opens']} "
+              f"breaker opens on both; fleet sanitizer on; row 2 launched "
+              f"{launches} times", flush=True)
+    finally:
+        flags.set_flags(SERVING_DEFAULTS)
+
+
+def replay_prefill_ms(eng, req, history):
+    """One replay's prefill at 7B width, from ``torch.profiler``: ``req``'s
+    ledger with ``history`` (generated tokens) admitted on the idle
+    ``eng`` under a fresh rid, its admission (prompt + history in one
+    ``[slots, C]`` chunk forward, then the first-token sync) profiled,
+    the request cancelled after. Returns (device ms summed over kernels,
+    wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import request_ledger
+
+    led = dict(request_ledger(req), rid=10 ** 6,
+               output=[int(t) for t in history])
+    eng.admit_ledger(led)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not eng.active.any() or not eng.cancel(led["rid"]):
+        raise AssertionError("replay prefill: the replay was not admitted")
+    device_us = sum(
+        getattr(e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    return device_us / 1e3, wall_ms
+
+
+def router_7b_phase(model):
+    """Llama-2-7B width, bf16: one clean paged engine (8 slots, ``max_len``
+    1024, 64-token pages), then a 2-replica router at the same config,
+    each serving 16 seeded prompts of 120 tokens with 32 new tokens:
+    clean, and the fleet under ``FLEET_STORM`` with one scripted crash.
+    Every request reaches its length, every first token equals the clean
+    engine's (bf16 replays may leave it later: the first divergence is
+    printed), every replica's pool comes back. Prints wall time, served
+    tok/s and TTFT p50 of the three runs, the failovers, the reclaimed
+    and replayed counts, the peak memory, and the device time of one
+    replay prefill. Then a handoff mid-generation: replica 0 drains
+    (deadline 1 ms), replica 1 admits its ledgers and finishes them."""
+    from paddle_tpu_torch import flags
+
+    smi = nvidia_smi_line()
+    flags.set_flags(dict(SERVING_DEFAULTS, sanitize=True))
+    # max_retries 50: a storm this dense would fail requests at the
+    # default bound of 2 replays
+    paged = dict(paged=True, page_size=PAGE, max_retries=50)
+    config = dict(paged, max_slots=8, max_len=1024)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, model.config.vocab_size, 120)
+               for _ in range(16)]
+    new = 32
+    try:
+        # every run sanitized (host checks a tick, no device sync)
+        reqs, wall, _ = serve(model, prompts, "auto", max_new_tokens=new,
+                              **paged)
+        ref = [r.output for r in reqs]
+        runs = {"clean_engine": (reqs, wall)}
+        reqs, fs_clean, router, wall = fleet_run(model, "cuda", None,
+                                                 prompts, new, **config)
+        runs["clean_fleet"] = (reqs, wall)
+        for rep in router._replicas:
+            check_pool(f"router 7b clean fleet replica {rep.idx}",
+                       rep.engine)
+        handoff_router = router
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reqs, fs, router, wall = fleet_run(
+            model, "cuda", storm_injector(FLEET_STORM, 5,
+                                          FLEET_SCRIPTED_CRASH),
+            prompts, new, **config)
+        launches = read_launches()["fused_paged_decode_attention"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        runs["stormed_fleet"] = (reqs, wall)
+        for rep in router._replicas:
+            check_pool(f"router 7b stormed fleet replica {rep.idx}",
+                       rep.engine)
+        if fs["failovers"] < 1 or launches <= 0:
+            raise AssertionError(f"router 7b: {fs['failovers']} failovers, "
+                                 f"row 2 launched {launches} times")
+        out = {"card": smi, "requests": 16, "prompt_tokens": 120,
+               "new_tokens": new, "engine": "paged, 8 slots, max_len 1024,"
+               " 64-token pages", "storm": FLEET_STORM + " seed 5, one "
+               "scripted crash at tick 3"}
+        for name, (rs, wall) in runs.items():
+            outs = [r.output for r in rs]
+            firsts = [o[0] for o in outs]
+            if firsts != [o[0] for o in ref]:
+                raise AssertionError(f"router 7b {name}: first tokens "
+                                     f"{firsts}, clean {[o[0] for o in ref]}")
+            div = first_divergence(outs, ref)
+            ttft = float(np.median([r.ttft_ms for r in rs]))
+            out[name] = {"wall_s": wall, "served_tok_s": 16 * new / wall,
+                         "ttft_p50_ms": ttft, "first_divergence": div}
+            print(f"router 7b {name} ({smi}): {wall:.3f} s, "
+                  f"{16 * new / wall:.1f} served tok/s, TTFT p50 "
+                  f"{ttft:.2f} ms, first divergence {div}", flush=True)
+        replay_ms, replay_wall_ms = replay_prefill_ms(
+            router._replicas[0].engine, runs["clean_engine"][0][0],
+            ref[0][:16])
+        out.update(failovers=fs["failovers"], reclaimed=fs["reclaimed"],
+                   replayed=fs["replayed"], held=fs["held"],
+                   breaker_opens=fs["breaker_opens"],
+                   injector_fires=fs["injector"]["fires"],
+                   peak_memory_gb=peak_gb, row2_launches=launches,
+                   replay_prefill_device_ms=replay_ms,
+                   replay_prefill_wall_ms=replay_wall_ms,
+                   replay_prefill_tokens=136)
+        print(f"router 7b storm ({smi}): {fs['failovers']} failovers, "
+              f"{fs['reclaimed']} reclaimed, {fs['replayed']} replayed, "
+              f"{fs['held']} held, peak {peak_gb:.2f} GB; one replay "
+              f"prefill (136 tokens) {replay_ms:.3f} ms device time, "
+              f"{replay_wall_ms:.3f} ms wall", flush=True)
+        # drain -> admit_ledger between the clean fleet's two engines
+        src, dst = (rep.engine for rep in handoff_router._replicas)
+        src._finished.clear()
+        dst._finished.clear()
+        rids = [src.add_request(p, new) for p in prompts]
+        src.step_chunk(8)
+        summary = src.drain(deadline_ms=1.0, max_chunk=8)
+        ledgers = summary["unfinished"]
+        if len(ledgers) != 16 or summary["expired"] != 8:
+            raise AssertionError(f"router 7b handoff: {summary['expired']} "
+                                 f"expired, {len(ledgers)} ledgers")
+        for led in ledgers:
+            # a handoff moves a request: the fresh ones the drain left
+            # queued on the source leave it
+            src.cancel(led["rid"])
+            dst.admit_ledger(led)
+        src.resume()
+        for _ in range(5000):
+            if not (dst.step_chunk(8) or dst._queue or dst.active.any()):
+                break
+        got = [dst._finished[led["rid"]].output for led in ledgers]
+        want = [ref[rids.index(led["rid"])] for led in ledgers]
+        if any(len(o) != new for o in got) \
+                or [o[0] for o in got] != [o[0] for o in want]:
+            raise AssertionError(f"router 7b handoff: lengths "
+                                 f"{[len(o) for o in got]}, first tokens "
+                                 f"{[o[0] for o in got]} against "
+                                 f"{[o[0] for o in want]}")
+        check_pool("router 7b handoff source", src)
+        check_pool("router 7b handoff target", dst)
+        div = first_divergence(got, want)
+        out["handoff"] = {"expired": summary["expired"],
+                          "ledgers": len(ledgers),
+                          "replayed_tokens": [len(led["output"])
+                                              for led in ledgers],
+                          "first_divergence": div}
+        print(f"router 7b handoff ({smi}): replica 0 drained mid-"
+              f"generation ({summary['expired']} expired, {len(ledgers)} "
+              f"ledgers), replica 1 finished all at length {new}, first "
+              f"tokens equal, first divergence {div}", flush=True)
+        print(json.dumps({"router_7b": out}), flush=True)
+    finally:
+        flags.set_flags(SERVING_DEFAULTS)
+
+
 def mamba_tf32_phase(plain_ms):
     """The Mamba-130m train step of ``mamba_train_phase`` (2 warm-up and 5
     timed steps, a profile of one) once more under
@@ -5162,6 +5579,9 @@ def main() -> int:
     phase("legacy reference", legacy_reference_phase)
     phase("slo reference", slo_reference_phase)
     phase("front door 7b", front_door_phase, model)
+    phase("resilience reference", resilience_reference_phase)
+    phase("router reference", router_reference_phase)
+    phase("router 7b", router_7b_phase, model)
     # where the time goes: the prefill wave alone, and with one chunk of
     # 8 decode forwards, for the bf16 and the quantized engines
     t0 = time.perf_counter()

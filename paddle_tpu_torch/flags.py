@@ -94,6 +94,77 @@ define_flag("serve_weight_dtype", "bf16",
             "(quantization.quantize_model_weight_only); every grouped "
             "quantized linear runs the Hopper weight-only matmul kernel "
             "on the card")
+define_flag("fault_inject", "",
+            "serving fault injector (chaos testing): comma-separated "
+            "site:rate entries over the engine's dispatch seams — "
+            "step (dispatch exception), nan (NaN-logits storm), "
+            "latency (stall before dispatch), pool (simulated KV-pool "
+            "exhaustion at admission) — plus seed:<int> and "
+            "latency_ms:<float>, e.g. 'step:0.1,nan:0.05,seed:7'. "
+            "Each site draws from its own seeded RNG stream, so chaos "
+            "runs are deterministic and CPU-runnable. Empty = off "
+            "(zero overhead)")
+define_flag("serve_recovery", "auto",
+            "step-level crash recovery in the serving engine: catch a "
+            "failed decode/verify/prefill forward, quarantine the step and "
+            "re-queue its in-flight requests for deterministic replay "
+            "(prompt + history re-prefilled through the chunked prefill; "
+            "greedy outputs stay bit-identical), with bounded per-request "
+            "retries (EngineConfig.max_retries). auto = recover injected "
+            "faults and the torch errors of a failed device call "
+            "(torch.OutOfMemoryError, torch.AcceleratorError), propagate "
+            "every other error, a kernel wrapper's plain RuntimeError "
+            "included; all = recover any Exception; off = every fault "
+            "propagates. A sticky CUDA error (an illegal address) leaves "
+            "the context dead: its cache rebuild fails and propagates")
+define_flag("degradation", True,
+            "graceful-degradation ladder in the serving engine: "
+            "sustained admission saturation sheds batch-class "
+            "admissions then throttles admission; repeated step "
+            "faults additionally disable speculative decoding and "
+            "prefix-cache adoption (min_service). Surfaced through "
+            "backpressure()/healthz; never changes greedy outputs. off = "
+            "the controller is not constructed")
+define_flag("sanitize", False,
+            "serving-engine runtime invariant sanitizer "
+            "(analysis/sanitizer.py): once per scheduler tick, check "
+            "page/refcount conservation, slot-heap + block-table + "
+            "int8-scale agreement and seq_len bounds against the host "
+            "token ledger, plus thread-ownership of foreign-thread reads "
+            "(only the registered copy-on-read snapshot methods may be "
+            "called from another thread). Host state and tensor shapes "
+            "only: no check synchronizes with the device. Violations "
+            "raise SanitizerError naming the invariant and site. off = "
+            "every hook is a single identity check")
+define_flag("slo_degradation", False,
+            "let the degradation ladder consume the SLO burn-rate alert: "
+            "an active slo_burn_rate counts as saturation pressure. The "
+            "port has no alerts yet, so, as in the JAX package with "
+            "timeseries and alerts off, the flag has no effect")
+define_flag("router_breaker_window", 16,
+            "multi-engine router: sliding window (fleet ticks) the "
+            "per-replica circuit breaker counts faults over — "
+            "router_breaker_trip faults inside it open the breaker "
+            "(the replica stops receiving traffic and its in-flight "
+            "requests fail over to survivors)")
+define_flag("router_breaker_trip", 3,
+            "multi-engine router: replica faults (failed ticks, hung "
+            "health probes, flaky probe verdicts) within the breaker "
+            "window that OPEN a replica's circuit breaker; a whole-"
+            "replica crash opens it immediately regardless")
+define_flag("router_breaker_cooldown", 8,
+            "multi-engine router: base open-state duration (fleet "
+            "ticks) before an open breaker admits a half-open canary "
+            "probe; successive opens multiply it by the "
+            "router_retry_schedule entries plus a seeded jitter "
+            "(deterministic per router seed + replica)")
+define_flag("router_retry_schedule", "1,2,4",
+            "multi-engine router: comma-separated cooldown "
+            "multipliers for successive breaker opens (the last entry "
+            "repeats) — with cooldown 8 the default backs off "
+            "8/16/32/32/... ticks. Deterministic: the only randomness "
+            "is a per-replica jitter drawn from a stream seeded on "
+            "(router seed, replica index)")
 define_flag("flash_attention_block_k", 1024,
             "flash-attention k/v block length of the JAX package, clamped "
             "to the sequence (fit_block). In the port it chooses the "

@@ -1,9 +1,13 @@
 """Serving and inference of the PyTorch port: the continuous-batching
-engine, its SLO classes and requests, and the Paddle Inference predictor
-API. The HTTP front door is ``paddle_tpu_torch.serving_api``."""
+engine, its SLO classes and requests, the resilience layer (fault
+injection, the degradation ladder), the multi-engine router with circuit
+breakers and failover, and the Paddle Inference predictor API. The HTTP
+front door is ``paddle_tpu_torch.serving_api``."""
 
 from .predictor import Config, Predictor, create_predictor
 from .prefix_cache import ContigPrefixStore, PagedPrefixStore, block_hashes
+from .resilience import DegradationController, FaultInjector, InjectedFault
+from .router import CircuitBreaker, EngineRouter
 from .serving import (
     SLO_CLASSES,
     ContinuousBatchingEngine,
@@ -11,12 +15,15 @@ from .serving import (
     Request,
     build_request,
     new_slo_bucket,
+    request_ledger,
     request_namespace,
 )
 from .spec_decode import Drafter, NgramDrafter
 
-__all__ = ["Config", "ContigPrefixStore", "ContinuousBatchingEngine",
-           "Drafter", "EngineConfig", "NgramDrafter", "PagedPrefixStore",
-           "Predictor", "Request", "SLO_CLASSES", "block_hashes",
-           "build_request", "create_predictor", "new_slo_bucket",
+__all__ = ["CircuitBreaker", "Config", "ContigPrefixStore",
+           "ContinuousBatchingEngine", "DegradationController", "Drafter",
+           "EngineConfig", "EngineRouter", "FaultInjector", "InjectedFault",
+           "NgramDrafter", "PagedPrefixStore", "Predictor", "Request",
+           "SLO_CLASSES", "block_hashes", "build_request",
+           "create_predictor", "new_slo_bucket", "request_ledger",
            "request_namespace"]

@@ -68,14 +68,26 @@ history and replays prompt + output through the chunked prefill, so its
 greedy tokens are unchanged) and caps per-slot chunk budgets.
 ``step_adaptive`` shortens the decode chunk while admission work waits.
 
-The port runs chunked and legacy prefill, float or int8 caches
-(contiguous or paged), bf16, int8 or int4 weights, prefix caching,
-speculative decoding, SLO/deadline/tenant accounting and the scheduler
-seam. Telemetry, tracing, resilience (replay after faults, the
-degradation ladder, drain), the sanitizer, the profiler and the router
-are later slices (ROADMAP.md Queue A): the engine behaves as the JAX
-engine does with ``PT_FLAGS_telemetry=off`` and
-``PT_FLAGS_degradation=off``.
+Resilience (``resilience.py``): a ``FaultInjector`` (``fault_injector=``
+or ``PT_FLAGS_fault_inject``) is consulted at every forward's seam, before
+the forward is launched. A failed step is quarantined: its requests
+leave their slots and re-queue at the front, and replay prefills prompt +
+history through the chunked prefill, so greedy tokens are unchanged; each
+replay charges one retry, past ``max_retries`` the request finishes
+``"failed"``. A failure that is not injected (``PT_FLAGS_serve_recovery``:
+``auto`` recovers ``resilience.RUNTIME_ERRORS``, ``all`` any Exception)
+also drops the prefix store and rebuilds the caches (``_rebuild_caches``).
+The degradation ladder (``PT_FLAGS_degradation``) sheds batch-class
+admissions, throttles admission to one request a wave and, after
+repeated faults, switches speculative decoding and prefix adoption off.
+``drain`` stops fresh admission and runs in-flight work out, returning
+each unfinished request's ``request_ledger``, which another engine's
+``admit_ledger`` continues token for token. ``PT_FLAGS_sanitize`` checks
+the engine's invariants once a tick (``analysis/sanitizer.py``).
+
+Telemetry, tracing, the flight recorder, the profiler and cost
+attribution are a later slice (ROADMAP.md Queue A): the engine behaves as
+the JAX engine does with ``PT_FLAGS_telemetry=off``.
 """
 
 from __future__ import annotations
@@ -86,6 +98,7 @@ import copy
 import heapq
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -98,6 +111,9 @@ from ..core.random import make_generator
 from ..generation import process_logits_batch
 from .paged import PagedState, PagePool, QuantizedKV, init_paged_pool
 from .prefix_cache import ContigPrefixStore, PagedPrefixStore, block_hashes
+from .resilience import (CORRUPT_SITES, RUNTIME_ERRORS,
+                         DegradationController, FaultInjector,
+                         InjectedFault)
 from .spec_decode import Drafter, NgramDrafter
 
 
@@ -230,13 +246,13 @@ class Request:
     done: bool = False
     cancelled: bool = False
     # why the request left its slot: eos | max_new_tokens | max_len |
-    # cancel | timeout (None while in flight)
+    # cancel | timeout | failed (None while in flight)
     finish_reason: Optional[str] = None
     # hard deadline from submission: past it the request finishes with
     # "timeout", queued or active
     deadline_ms: Optional[float] = None
-    # replay-retry bound of the JAX engine's recovery (kept on the
-    # request; the port has no fault recovery yet)
+    # replay-retry bound (None = EngineConfig.max_retries); past it the
+    # request finishes "failed"
     max_retries: Optional[int] = None
     # tenant (None = the untagged tenant "-"): fair share and quotas of
     # the scheduler, the prefix-cache namespace, the accounting bucket
@@ -254,12 +270,16 @@ class Request:
     top_k: Optional[int] = None
     top_p: Optional[float] = None
     greedy: Optional[bool] = None
+    # attributed device cost (ms) of the JAX engine's cost attribution:
+    # carried through ledgers unchanged (the port attributes none yet)
+    device_ms: float = 0.0
+    device_ms_profiled: float = 0.0
     _submit_t: float = 0.0
     # first admission (perf_counter seconds): kept across preemption
     _admit_t: float = 0.0
     # absolute deadline instant (perf_counter seconds; 0 = none)
     _deadline_t: float = 0.0
-    # replay re-queues consumed (the JAX engine's recovery counter)
+    # replay re-queues consumed so far (crash recovery, failover)
     _retries: int = 0
     # the prefill ids' prefix-cache block digests (hashed once a
     # admission, reset when a preemption grows the ids)
@@ -367,6 +387,42 @@ def request_namespace(req: Request) -> str:
     return ""
 
 
+def request_ledger(req: Request) -> dict:
+    """A request's host token ledger, the replay source of truth, as a
+    plain dict another engine re-admits with ``admit_ledger``: prompt and
+    every generated token, sampling params, SLO targets, the absolute
+    deadline instant, the original submit/admit instants and TTFT (so
+    SLO accounting keeps the wall from the first submission) and the
+    attributed cost. The JAX engine's payload, key for key. Instants are
+    ``perf_counter`` values: the handoff is in-process (the router's
+    replicas) or on one host."""
+    return {
+        "rid": int(req.rid),
+        "prompt": [int(t) for t in req.prompt],
+        "output": [int(t) for t in req.output],
+        "max_new_tokens": int(req.max_new_tokens),
+        "eos_token_id": req.eos_token_id,
+        "temperature": req.temperature,
+        "top_k": req.top_k,
+        "top_p": req.top_p,
+        "greedy": req.greedy,
+        "tenant": req.tenant,
+        "slo": req.slo,
+        "ttft_target_ms": req.ttft_target_ms,
+        "tpot_target_ms": req.tpot_target_ms,
+        # absolute instant (None = no deadline): a handed-off request
+        # keeps its original budget
+        "deadline_t": req._deadline_t or None,
+        "max_retries": req.max_retries,
+        "retries": int(req._retries),
+        "ttft_ms": req.ttft_ms,
+        "submit_t": req._submit_t,
+        "admit_t": req._admit_t,
+        "device_ms": float(req.device_ms),
+        "device_ms_profiled": float(req.device_ms_profiled),
+    }
+
+
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a causal LM that exposes
     ``init_kv_caches`` and takes ``kv_caches`` with a per-slot vector
@@ -378,10 +434,12 @@ class ContinuousBatchingEngine:
     passes ``device="cpu"``. With int8/int4 weights ``self.model`` is the
     quantized model (a deep copy of ``model`` unless
     ``quantize_inplace``). ``drafter`` replaces the n-gram drafter when
-    speculative decoding is on."""
+    speculative decoding is on. ``fault_injector`` replaces the one
+    ``PT_FLAGS_fault_inject`` builds (None when the flag is empty)."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
-                 device="cuda", drafter: Optional[Drafter] = None):
+                 device="cuda", drafter: Optional[Drafter] = None,
+                 fault_injector: Optional[FaultInjector] = None):
         self.cfg = config or EngineConfig()
         cfg = self.cfg
         self.device = resolve_device(device)
@@ -441,20 +499,7 @@ class ContinuousBatchingEngine:
         self._next_rid = 0
         self._finished: Dict[int, Request] = {}
         self._gen = make_generator(cfg.seed, self.device)
-        if cfg.paged:
-            max_pages = cfg.max_len // cfg.page_size
-            n_pages = cfg.n_pages or cfg.max_slots * max_pages + 1
-            self.pool = PagePool(n_pages, cfg.page_size, cfg.max_slots,
-                                 max_pages, reserve_sink=True)
-            mcfg = model.config
-            self.caches = init_paged_pool(
-                mcfg.num_hidden_layers, n_pages, cfg.page_size,
-                mcfg.num_key_value_heads, mcfg.head_dim,
-                dtype=self.cache_dtype, device=self.device)
-        else:
-            self.pool = None
-            self.caches = model.init_kv_caches(cfg.max_slots, cfg.max_len,
-                                               dtype=self.cache_dtype)
+        self._init_cache_state()
         # the last admission pass stopped because the pool could not fit
         # the head request (it waits for a finisher)
         self._pool_blocked = False
@@ -501,6 +546,53 @@ class ContinuousBatchingEngine:
         self._sched = None
         self.sched_stats = {"policy": "fifo", "preemptions": 0}
         self._pool_blocked_prev = False
+
+        # ---------------- resilience ----------------
+        self._injector = (fault_injector if fault_injector is not None
+                          else FaultInjector.from_flag())
+        rec = str(flags.flag("serve_recovery")).lower()
+        if rec not in ("auto", "all", "off"):
+            raise ValueError(f"PT_FLAGS_serve_recovery must be auto|all|off;"
+                             f" got {rec!r}")
+        self._recovery_mode = rec
+        self._degctl = (DegradationController()
+                        if bool(flags.flag("degradation")) else None)
+        # drain(): fresh admission stopped, in-flight work runs out
+        self._draining = False
+        # faults observed since the last health tick (the ladder's input)
+        self._faults_tick = 0
+        self.resilience_stats = {
+            "recoveries": 0, "retries": 0, "failed": 0, "timeouts": 0,
+            "rebuilds": 0, "nan_steps": 0, "faults": {}}
+        # per-tick invariants and thread ownership (None when off: every
+        # hook is one identity check)
+        self._san = None
+        if bool(flags.flag("sanitize")):
+            from ..analysis.sanitizer import EngineSanitizer
+
+            self._san = EngineSanitizer(self)
+
+    def _init_cache_state(self):
+        """(Re)build the caches (the paged pool and its ``PagePool``):
+        at init and in hard recovery (``_rebuild_caches``). The old caches
+        are dropped before the new ones are allocated, so a rebuild never
+        holds two sets."""
+        cfg = self.cfg
+        self.caches = None
+        if cfg.paged:
+            max_pages = cfg.max_len // cfg.page_size
+            n_pages = cfg.n_pages or cfg.max_slots * max_pages + 1
+            self.pool = PagePool(n_pages, cfg.page_size, cfg.max_slots,
+                                 max_pages, reserve_sink=True)
+            mcfg = self.model.config
+            self.caches = init_paged_pool(
+                mcfg.num_hidden_layers, n_pages, cfg.page_size,
+                mcfg.num_key_value_heads, mcfg.head_dim,
+                dtype=self.cache_dtype, device=self.device)
+        else:
+            self.pool = None
+            self.caches = self.model.init_kv_caches(
+                cfg.max_slots, cfg.max_len, dtype=self.cache_dtype)
 
     @staticmethod
     def _check_slice(cfg: EngineConfig):
@@ -599,9 +691,9 @@ class ContinuousBatchingEngine:
         ``ttft_target_ms``/``tpot_target_ms``/``deadline_ms`` override;
         targets alone make the class ``"custom"``. ``deadline_ms`` (>= 1)
         is a hard budget from submission: past it the request finishes
-        with ``"timeout"``. ``max_retries`` is validated and kept on the
-        request for the JAX engine's fault recovery, which the port does
-        not have yet."""
+        with ``"timeout"``. ``max_retries`` bounds the request's replay
+        re-queues after faults (default ``EngineConfig.max_retries``);
+        past it the request finishes with ``"failed"``."""
         req = build_request(
             0, prompt, max_new_tokens, eos_token_id,
             temperature=temperature, top_k=top_k, top_p=top_p,
@@ -618,11 +710,67 @@ class ContinuousBatchingEngine:
 
     def submit_request(self, req: Request) -> int:
         """Queue a request built by ``build_request`` that has never run
-        (the caller owns its rid); later rids are minted past it."""
+        (the router's first placement: the caller owns its rid); later
+        rids are minted past it. A request with history moves between
+        engines through ``admit_ledger``, which rebuilds it from its
+        token ledger."""
         with self._rid_lock:
             self._next_rid = max(self._next_rid, req.rid + 1)
         self._queue.append(req)
         return req.rid
+
+    def admit_ledger(self, ledger: dict) -> int:
+        """Re-admit a request handed off from another engine (an entry of
+        ``drain()["unfinished"]``, the router's failover, or a JAX
+        engine's ``request_ledger``). Admission replays prompt + history
+        through the chunked prefill, so greedy decoding continues token
+        for token; the original submit/admit instants, TTFT and absolute
+        deadline carry over. A rid this engine already holds (queued,
+        active or finished) raises: a handoff moves a request, never
+        copies it."""
+        rid = int(ledger["rid"])
+        known = rid in self._finished
+        if not known:
+            try:
+                known = any(r.rid == rid for r in list(self._queue)) \
+                    or any(r.rid == rid
+                           for r in list(self._slot_req.values()))
+            except RuntimeError:
+                # a producer-thread handoff racing the scheduler: the
+                # fleet sanitizer still catches dual ownership
+                known = False
+        if known:
+            raise ValueError(
+                f"admit_ledger: rid {rid} is already owned by this engine "
+                "(queued, active, or finished) — a handoff must MOVE a "
+                "request, never copy it")
+        req = build_request(
+            rid, np.asarray(ledger["prompt"], np.int64),
+            int(ledger["max_new_tokens"]), ledger.get("eos_token_id"),
+            temperature=ledger.get("temperature"),
+            top_k=ledger.get("top_k"), top_p=ledger.get("top_p"),
+            greedy=ledger.get("greedy"), tenant=ledger.get("tenant"),
+            slo=ledger.get("slo"),
+            ttft_target_ms=ledger.get("ttft_target_ms"),
+            tpot_target_ms=ledger.get("tpot_target_ms"),
+            max_retries=ledger.get("max_retries"),
+            max_len=self.cfg.max_len)
+        req.output = [int(t) for t in ledger.get("output", ())]
+        req.ttft_ms = ledger.get("ttft_ms")
+        req._retries = int(ledger.get("retries", 0))
+        req.device_ms = float(ledger.get("device_ms", 0.0) or 0.0)
+        req.device_ms_profiled = float(
+            ledger.get("device_ms_profiled", 0.0) or 0.0)
+        # the original instants win over build_request's fresh stamps
+        if ledger.get("submit_t"):
+            req._submit_t = float(ledger["submit_t"])
+        if ledger.get("admit_t"):
+            req._admit_t = float(ledger["admit_t"])
+        req._deadline_t = float(ledger.get("deadline_t") or 0.0)
+        with self._rid_lock:
+            self._next_rid = max(self._next_rid, rid + 1)
+        self._queue.append(req)
+        return rid
 
     def _req_greedy(self, req: Request) -> bool:
         if req.greedy is not None:
@@ -967,7 +1115,7 @@ class ContinuousBatchingEngine:
         the last block is recomputed into a fresh page instead. Eviction
         spends the request's own namespace first."""
         pool = self.pool
-        store = self._prefix
+        store = None if self._prefix_disabled() else self._prefix
         shared: List[int] = []
         prefix_len, full_cover = 0, False
         if store is not None:
@@ -979,8 +1127,10 @@ class ContinuousBatchingEngine:
         if full_cover and shared:
             required += 1  # the copy's private page
         supply = pool.free_pages
-        if required > supply and store is not None:
-            supply += store.evictable_pages(pool, exclude=shared)
+        # eviction reads the real store: min_service switches adoption
+        # off, and the pages the store keeps stay evictable
+        if required > supply and self._prefix is not None:
+            supply += self._prefix.evictable_pages(pool, exclude=shared)
             if full_cover and shared and pool.ref.get(shared[-1], 0) == 1:
                 # the copy leaves the last shared page to the store alone,
                 # and eviction can take it then
@@ -1017,8 +1167,9 @@ class ContinuousBatchingEngine:
         ``ns``. Paged: the store takes a reference to each of the slot's
         pages (no copy; the prefill writes are already queued on the
         stream). Contiguous: copies of the blocks the store lacks, read
-        from the slot's rows."""
-        store = self._prefix
+        from the slot's rows. Nothing publishes while the ladder has
+        prefix adoption off."""
+        store = None if self._prefix_disabled() else self._prefix
         if store is None or not hashes:
             return
         if self.pool is not None:
@@ -1031,7 +1182,10 @@ class ContinuousBatchingEngine:
                 k, v = self._read_block_contig(slot,
                                                i * self._prefix_block)
                 store.insert(hashes[i], k, v, ns=ns, protect=hashes)
-        self.prefix_stats["evictions"] = store.evictions
+        # a hard recovery's fresh store counts from 0 again: the
+        # engine's counter never goes back (the JAX engine's rule)
+        if store.evictions > self.prefix_stats["evictions"]:
+            self.prefix_stats["evictions"] = store.evictions
 
     # ---------------- admission ----------------
     def _admit_dispatch(self):
@@ -1043,6 +1197,20 @@ class ContinuousBatchingEngine:
         self._pool_blocked_prev = self._pool_blocked
         self._pool_blocked = False
         if not self._queue:
+            return []
+        if self._draining and (not self._chunk_len
+                               or not self._drain_pending()):
+            # drain(): fresh requests stay queued; replays of requests
+            # that were in flight once stay admissible on the chunked
+            # path, or a quarantine mid-drain would strand its victims
+            return []
+        inj = self._injector
+        if inj is not None and inj.fire("pool"):
+            # simulated pool exhaustion: admission blocks this tick as a
+            # pool-blocked head request would (a capacity signal to the
+            # ladder, never a fault); the next clean tick heals
+            self._note_fault("pool", "admission")
+            self._pool_blocked = True
             return []
         if self._chunk_len:
             return self._admit_dispatch_chunked()
@@ -1057,7 +1225,10 @@ class ContinuousBatchingEngine:
         request the pass stops and it waits for a finisher; with nothing
         running it raises. A failure gives the request's slot and pages
         back, requeues it and integrates the requests admitted before it
-        in this pass, then propagates."""
+        in this pass, then propagates. Each request's forward is a fault
+        seam (``prefill_bucket``; the JAX engine's legacy path has none):
+        an injected fault there is that request's quarantine, charged one
+        retry, and ends the pass."""
         pending = []
         while self._queue and self._free_heap:
             req = self._queue[0]
@@ -1078,17 +1249,22 @@ class ContinuousBatchingEngine:
             self._queue.popleft()
             heapq.heappop(self._free_heap)
             try:
+                self._fault_point("prefill_bucket")
                 first, one = self._prefill_bucket(req, ids, bucket)
                 if self.pool is not None:
                     self._scatter_paged(one, slot)
                 else:
                     self._insert_contig(one, slot)
-            except BaseException:
+            except BaseException as e:
                 heapq.heappush(self._free_heap, slot)
                 if self.pool is not None:
                     self.pool.free(slot)
                 self._queue.appendleft(req)
                 self._note_free_pages()
+                if isinstance(e, InjectedFault) \
+                        and self._recovery_mode != "off":
+                    self._after_admission_fault(e, [req])
+                    return pending
                 self._admit_integrate(pending)
                 raise
             self.active[slot] = True
@@ -1108,14 +1284,24 @@ class ContinuousBatchingEngine:
         ``_admit_integrate``. When the pool cannot fit the picked request
         the wave stops there and it waits for a finisher; with nothing
         running that would be forever, so it raises. A failure rolls
-        every claimed request back into the queue (and frees its pages)
-        before propagating. Within one wave a request cannot hit the
-        blocks of another request of the same wave: a wave publishes once
-        its prefill has run."""
+        every claimed request back into the queue (and frees its pages,
+        the adopted and copied-on-write ones too; ``seq_lens`` is only
+        written at integration) before propagating, without a device
+        sync; an injected fault at a chunk's seam is the wave's
+        quarantine and returns no admissions. Within one wave a request
+        cannot hit the blocks of another request of the same wave: a wave
+        publishes once its prefill has run. The degradation ladder defers
+        batch-class requests (``shed_batch``) and admits at most one
+        request a wave (``throttle``); a draining engine admits only
+        replays."""
         B = self._prefix_block
+        ctl = self._degctl
+        shed = ctl is not None and ctl.shed_batch
+        throttle = ctl is not None and ctl.throttle
         # [req, slot, cursor, prefix_len, hashes, n_matched, ids]
         jobs = []
-        # rids preempted or claimed in this wave; the FIFO cursor
+        # rids deferred (shed, draining), preempted or claimed in this
+        # wave; deferral is a skip, never a reorder. The FIFO cursor
         skip = set()
         fifo_cursor = [None, 0]
         if self._sched is not None:
@@ -1123,9 +1309,17 @@ class ContinuousBatchingEngine:
             skip.update(self._sched.before_admission(self) or ())
         try:
             while self._free_heap:
+                if throttle and jobs:
+                    break  # degraded: one admission a wave
                 req = self._pick_admission(skip, fifo_cursor)
                 if req is None:
                     break
+                if shed and req.slo == "batch":
+                    skip.add(req.rid)
+                    continue
+                if self._draining and not (req._retries or req.output):
+                    skip.add(req.rid)
+                    continue
                 slot = self._free_heap[0]
                 ids = self._prefill_ids(req)
                 prefix_len, hashes, n_matched = 0, [], 0
@@ -1144,7 +1338,8 @@ class ContinuousBatchingEngine:
                         self._pool_blocked = True
                         break
                     hashes = req._hashes or []
-                elif self._prefix is not None:
+                elif self._prefix is not None \
+                        and not self._prefix_disabled():
                     hashes, matched, prefix_len, _ = self._match_prefix(
                         req, ids)
                     n_matched = len(matched)
@@ -1168,7 +1363,7 @@ class ContinuousBatchingEngine:
                              n_matched, ids])
             self._note_free_pages()
             return self._drive_prefill_chunks(jobs)
-        except BaseException:
+        except BaseException as e:
             for req, slot, *_ in reversed(jobs):
                 self.active[slot] = False
                 self._slot_req.pop(slot, None)
@@ -1178,6 +1373,12 @@ class ContinuousBatchingEngine:
                     self.pool.free(slot)
                 self._queue.appendleft(req)
             self._note_free_pages()
+            if isinstance(e, InjectedFault) \
+                    and self._recovery_mode != "off":
+                # the rollback is the quarantine: account it, charge
+                # each wave member one retry, admit again next tick
+                self._after_admission_fault(e, [j[0] for j in jobs])
+                return []
             raise
 
     def _note_free_pages(self):
@@ -1199,6 +1400,9 @@ class ContinuousBatchingEngine:
         use_samp, samp = self._slot_sampling(
             [(job[1], job[0]) for job in jobs])
         while remaining:
+            # fault seam: an injected fault here quarantines the whole
+            # wave through the admission rollback
+            self._fault_point("prefill_chunk")
             ids = np.zeros((cfg.max_slots, C), np.int64)
             start = np.full((cfg.max_slots,), cfg.max_len, np.int64)
             last_idx = np.zeros((cfg.max_slots,), np.int64)
@@ -1221,7 +1425,7 @@ class ContinuousBatchingEngine:
                                 toks[job[1]]))
             done = {job[1] for job in finishing}
             remaining = [job for job in remaining if job[1] not in done]
-        if self._prefix is not None:
+        if self._prefix is not None and not self._prefix_disabled():
             for req, slot, _, prefix_len, hashes, n_matched, ids in jobs:
                 self._prefix_store_insert(slot, hashes, n_matched,
                                           ns=request_namespace(req))
@@ -1245,8 +1449,25 @@ class ContinuousBatchingEngine:
             self._maybe_finish(slot, first)
 
     def _admit(self):
-        """Blocking admission: dispatch, then integrate."""
-        self._admit_integrate(self._admit_dispatch())
+        """Blocking admission, dispatch then integrate, as a recovery
+        point: an asynchronous prefill failure lands at the first-token
+        sync of the integration."""
+        try:
+            self._admit_integrate(self._admit_dispatch())
+        except BaseException as e:
+            if not self._recoverable(e):
+                raise
+            self._recover_step(e, self.active.copy(), "admit")
+
+    def _integrate_guarded(self, pending, program: str):
+        """``_admit_integrate`` as a recovery point (the first-token sync
+        of admissions queued behind a decode chunk or verify pass)."""
+        try:
+            self._admit_integrate(pending)
+        except BaseException as e:
+            if not self._recoverable(e):
+                raise
+            self._recover_step(e, self.active.copy(), program)
 
     # ---------------- finish / cancel ----------------
     def _release_slot(self, slot: int):
@@ -1275,21 +1496,22 @@ class ContinuousBatchingEngine:
 
     def _tenant_bucket(self, tenant: Optional[str]) -> Dict[str, int]:
         """Cumulative counters of a tenant (``"-"`` = untagged), written
-        at finish and preempt. The JAX bucket's ``failed`` and
-        ``device_ms`` come with fault recovery and cost attribution."""
+        at finish and preempt. The JAX bucket's ``device_ms`` comes with
+        cost attribution."""
         key = tenant or "-"
         st = self.tenant_stats.get(key)
         if st is None:
             st = self.tenant_stats[key] = {
-                "finished": 0, "cancelled": 0, "timeouts": 0, "tokens": 0,
-                "slo_met": 0, "slo_violated": 0, "preemptions": 0}
+                "finished": 0, "cancelled": 0, "timeouts": 0, "failed": 0,
+                "tokens": 0, "slo_met": 0, "slo_violated": 0,
+                "preemptions": 0}
         return st
 
     def _finish_accounting(self, req: Request, reason: str):
         """The finish reason, TPOT (mean decode latency from the first
         admission), SLO attainment and the tenant's counters. A timeout
-        is a violation whatever its TTFT was; a cancel is counted apart,
-        never as a violation."""
+        or a retries-exhausted failure is a violation whatever its TTFT
+        was; a cancel is counted apart, never as a violation."""
         now = time.perf_counter()
         req.finish_reason = reason
         n_decode = len(req.output) - 1  # the first token is in the TTFT
@@ -1297,10 +1519,9 @@ class ContinuousBatchingEngine:
             req.tpot_ms = (now - req._admit_t) * 1e3 / n_decode
         tst = self._tenant_bucket(req.tenant)
         tst["tokens"] += len(req.output)
-        if reason == "cancel":
-            tst["cancelled"] += 1
-        elif reason == "timeout":
-            tst["timeouts"] += 1
+        if reason in ("cancel", "timeout", "failed"):
+            tst[{"cancel": "cancelled", "timeout": "timeouts",
+                 "failed": "failed"}[reason]] += 1
         else:
             tst["finished"] += 1
         if req.slo is None:
@@ -1309,10 +1530,11 @@ class ContinuousBatchingEngine:
         if reason == "cancel":
             st["cancelled"] += 1
             return
-        if reason == "timeout":
+        if reason in ("timeout", "failed"):
             req.slo_met = False
             st["violated"] += 1
-            st["timeouts"] += 1
+            if reason == "timeout":
+                st["timeouts"] += 1
             tst["slo_violated"] += 1
             st["total_tokens"] += len(req.output)
             return
@@ -1384,6 +1606,7 @@ class ContinuousBatchingEngine:
                     self._queue.remove(req)
                 except ValueError:
                     continue
+                self.resilience_stats["timeouts"] += 1
                 self._finish(req, "timeout")
         for slot in range(self.cfg.max_slots):
             if not self.active[slot]:
@@ -1391,29 +1614,335 @@ class ContinuousBatchingEngine:
             req = self._slot_req[slot]
             if req._deadline_t and now >= req._deadline_t:
                 self._release_slot(slot)
+                self.resilience_stats["timeouts"] += 1
                 self._finish(req, "timeout")
+
+    # ---------------- resilience ----------------
+    def _prefix_disabled(self) -> bool:
+        """True while the ladder has prefix adoption off (min_service):
+        admission neither matches nor publishes; tokens are unchanged."""
+        return self._degctl is not None and self._degctl.disable_prefix
+
+    def _bump_retry(self, req: Request) -> bool:
+        """Charge one replay retry. True while the request may re-queue;
+        past its bound it finishes ``"failed"`` (pulled from the queue if
+        it sits there)."""
+        req._retries += 1
+        req._hashes = None  # the replay ids differ: stale digests
+        limit = (req.max_retries if req.max_retries is not None
+                 else self.cfg.max_retries)
+        if req._retries > limit:
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                pass
+            self.resilience_stats["failed"] += 1
+            self._finish(req, "failed")
+            return False
+        self.resilience_stats["retries"] += 1
+        return True
+
+    def _note_fault(self, site: str, program: str):
+        del program  # names the seam for the tracer of a later slice
+        st = self.resilience_stats
+        st["faults"][site] = st["faults"].get(site, 0) + 1
+
+    def _fault_point(self, program: str):
+        """One forward's seam, before it is launched: the injector's
+        latency schedule (a stall in place), then the raising sites. An
+        ``InjectedFault`` raised here precedes the launch, so the caches
+        are untouched and recovery requeues without a rebuild."""
+        inj = self._injector
+        if inj is None:
+            return
+        if inj.fire("latency"):
+            self._note_fault("latency", program)
+            time.sleep(inj.latency_ms / 1e3)
+        for site in ("step", "nan"):
+            if inj.fire(site):
+                raise InjectedFault(site, program)
+
+    def _recoverable(self, exc: BaseException) -> bool:
+        """``PT_FLAGS_serve_recovery``: injected faults always recover
+        (unless off); ``auto`` also recovers a failed device call
+        (``RUNTIME_ERRORS``) but never a plain ``RuntimeError``, such as
+        a kernel wrapper's failed launch; ``all`` recovers any
+        Exception."""
+        mode = self._recovery_mode
+        if mode == "off":
+            return False
+        if isinstance(exc, InjectedFault):
+            return True
+        if mode == "all":
+            return isinstance(exc, Exception)
+        return isinstance(exc, RUNTIME_ERRORS)
+
+    def _after_admission_fault(self, exc: InjectedFault,
+                               reqs: List[Request]):
+        """An injected prefill-seam fault after the wave's rollback (the
+        quarantine already happened): account it and charge retries."""
+        st = self.resilience_stats
+        st["recoveries"] += 1
+        st["faults"][exc.site] = st["faults"].get(exc.site, 0) + 1
+        if exc.site == "nan":
+            st["nan_steps"] += 1
+            self._nan_dump(exc.program, len(reqs))
+        self._faults_tick += 1
+        for req in reqs:
+            self._bump_retry(req)
+
+    def _recover_step(self, exc: BaseException, participants,
+                      program: str):
+        """Quarantine a failed step: its participants leave their slots
+        and re-queue at the front in slot order for replay (prompt +
+        history through the chunked prefill: greedy tokens unchanged).
+        An ``InjectedFault`` fired before the launch, so only the
+        participants move and the prefix store survives. Any other
+        failure leaves the caches untrusted: every active request
+        re-queues, the prefix store is dropped and the caches are rebuilt
+        (``_rebuild_caches``); a second failure there propagates."""
+        hard = not isinstance(exc, InjectedFault)
+        site = getattr(exc, "site", "error")
+        st = self.resilience_stats
+        st["recoveries"] += 1
+        st["faults"][site] = st["faults"].get(site, 0) + 1
+        if site == "nan":
+            st["nan_steps"] += 1
+        self._faults_tick += 1
+        victims = [s for s in range(self.cfg.max_slots)
+                   if self.active[s] and (hard or participants[s])]
+        requeued = 0
+        # reversed + appendleft: victims land at the queue front in
+        # ascending slot order, ahead of younger arrivals
+        for slot in reversed(victims):
+            req = self._slot_req[slot]
+            self._release_slot(slot)
+            req.slot = None
+            if self._bump_retry(req):
+                self._queue.appendleft(req)
+                requeued += 1
+        if hard:
+            st["rebuilds"] += 1
+            # the traceback's frames (the model's forward) still hold the
+            # old caches: clear them first, so the rebuild never holds
+            # two sets of pools
+            traceback.clear_frames(exc.__traceback__)
+            self._rebuild_caches()
+        if site == "nan":
+            self._nan_dump(program, requeued)
+
+    def _rebuild_caches(self):
+        """Hard recovery: after a failure that was not injected the caches
+        are untrusted, so drop the prefix store (paged entries name pages
+        of the discarded pool; contiguous blocks are copies whose writes
+        cannot be vouched for) and rebuild the caches. Every slot was
+        released by the caller. No reference to the old caches survives
+        the new allocation: the engine's list is dropped first, the
+        contiguous store's blocks with the store, and block tables are
+        uploaded per forward, never cached."""
+        if self._prefix is not None:
+            if self.pool is not None:
+                # every slot is free: this empties the store and returns
+                # its references to the pool being discarded
+                self._evict_pages(10 ** 9)
+            else:
+                self._prefix = ContigPrefixStore(self._prefix.max_blocks)
+        self._init_cache_state()
+        self._note_free_pages()
+
+    def _nan_dump(self, program: str, requeued: int):
+        """The NaN-storm postmortem of the JAX engine rides its flight
+        recorder, which writes nothing with telemetry off; the port has no
+        telemetry yet, so nothing is written (``nan_steps`` counts)."""
+        del program, requeued
+
+    def _observe_health(self):
+        """One ladder tick: saturation from the live admission state, and
+        the faults since the last tick. (``PT_FLAGS_slo_degradation``'s
+        burn-rate input reads an alert the port does not have yet: the
+        JAX engine with alerts off.)"""
+        if self._degctl is None:
+            self._faults_tick = 0
+            return
+        qd = len(self._queue)
+        sat = qd > 0 and (len(self._free_heap) == 0 or self._pool_blocked)
+        self._degctl.observe(saturated=bool(sat), faults=self._faults_tick)
+        self._faults_tick = 0
+
+    def _drain_pending(self) -> List[Request]:
+        """Queued requests that were in flight once (replays): drain owes
+        them completion."""
+        return [r for r in list(self._queue) if r._retries or r.output]
+
+    def drain(self, deadline_ms: Optional[float] = None,
+              max_chunk: int = 8) -> dict:
+        """Stop admitting fresh requests (they stay queued), and run every
+        in-flight request to completion, replays a mid-drain quarantine
+        re-queued included, or to ``deadline_ms``, past which the
+        stragglers finish ``"timeout"`` with their slots and pages freed.
+        ``backpressure()`` reports ``draining`` until ``resume()``.
+
+        Returns ``{"drained", "expired", "active", "queued",
+        "unfinished"}``; ``unfinished`` is the handoff payload, one
+        ``request_ledger`` per request that did not finish here: the
+        expired stragglers first (captured before their teardown), then
+        the still-queued fresh requests in queue order. Another engine's
+        ``admit_ledger`` continues each token for token."""
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0; got {deadline_ms}")
+        self._draining = True
+        t_end = (None if deadline_ms is None
+                 else time.perf_counter() + deadline_ms / 1e3)
+        expired = 0
+        unfinished: List[dict] = []
+        while self.active.any() or self._drain_pending():
+            if t_end is not None and time.perf_counter() >= t_end:
+                for slot in range(self.cfg.max_slots):
+                    if not self.active[slot]:
+                        continue
+                    req = self._slot_req[slot]
+                    unfinished.append(request_ledger(req))
+                    self._release_slot(slot)
+                    self.resilience_stats["timeouts"] += 1
+                    self._finish(req, "timeout")
+                    expired += 1
+                for req in self._drain_pending():
+                    try:
+                        self._queue.remove(req)
+                    except ValueError:
+                        continue
+                    unfinished.append(request_ledger(req))
+                    self.resilience_stats["timeouts"] += 1
+                    self._finish(req, "timeout")
+                    expired += 1
+                break
+            self.step_chunk(max_chunk)
+        unfinished.extend(request_ledger(r) for r in list(self._queue))
+        return {"drained": True, "expired": expired,
+                "active": int(self.active.sum()),
+                "queued": len(self._queue),
+                "unfinished": unfinished}
+
+    def resume(self):
+        """Leave the draining state: admission restarts at the next
+        tick."""
+        self._draining = False
+
+    def resilience_snapshot(self) -> dict:
+        """Fault, recovery and degradation counters (host counters,
+        present with telemetry off); the JAX engine's keys. Safe from
+        another thread (copies)."""
+        if self._san is not None:
+            self._san.check_read("resilience_snapshot")
+        st = {k: v for k, v in list(self.resilience_stats.items())}
+        st["faults"] = {k: v for k, v in list(st["faults"].items())}
+        st["recovery_mode"] = self._recovery_mode
+        st["max_retries"] = self.cfg.max_retries
+        st["draining"] = self._draining
+        st["degradation"] = (self._degctl.snapshot()
+                             if self._degctl is not None
+                             else {"enabled": False, "level": 0,
+                                   "degraded": False})
+        st["injector"] = (self._injector.snapshot()
+                          if self._injector is not None
+                          else {"enabled": False})
+        return st
 
     # ---------------- scheduler ticks ----------------
     def step(self) -> bool:
+        """One per-token tick (``_step_impl``), bracketed by the
+        sanitizer's ownership and invariant hooks and the corruption
+        seam, each one identity check when its subsystem is off."""
+        san = self._san
+        if san is not None:
+            san.note_tick("step")
+        out = self._step_impl()
+        self._tick_epilogue(san, "step")
+        return out
+
+    def _tick_epilogue(self, san, site: str):
+        """After a tick's host integration: the corruption seam, then the
+        sanitizer's invariants. The JAX engine's watchdog, cost, flight
+        and telemetry hooks come with the observability slice."""
+        if self._injector is not None:
+            self._corrupt_point()
+        if san is not None:
+            san.check_tick(self, site)
+
+    def _corrupt_point(self):
+        """State-corruption seam, once a tick after integration: a firing
+        site mangles the engine's own bookkeeping, which is how a
+        sanitized run proves the checker catches real damage."""
+        inj = self._injector
+        for site in CORRUPT_SITES:
+            if inj.fire(site) and self._apply_corruption(site):
+                # counted only when damage landed (a scale_desync fire on
+                # a float cache changes nothing)
+                self._note_fault(site, "corrupt")
+
+    def _apply_corruption(self, site: str) -> bool:
+        """Minimal damage per site, at the first active slot (the pool or
+        the heap when none is active): shape and host metadata only, no
+        device work. True when state was corrupted."""
+        slots = [s for s in range(self.cfg.max_slots) if self.active[s]]
+        if site == "seq_shrink":
+            if slots:
+                self.seq_lens[slots[0]] -= 1
+                return True
+        elif site == "leak_ref":
+            if self.pool is not None:
+                for s in slots:
+                    if self.pool.pages_of[s]:
+                        p = self.pool.pages_of[s][0]
+                        self.pool.ref[p] = self.pool.ref.get(p, 0) + 1
+                        return True
+            elif self._free_heap:
+                # contiguous caches have no pool: leak a slot instead
+                heapq.heappop(self._free_heap)
+                return True
+        elif site == "scale_desync":
+            if self.pool is not None:
+                c = self.caches[0]
+                if c.k_scale is not None:
+                    self.caches[0] = c._replace(k_scale=c.k_scale[:, :, :-1])
+                    return True
+            else:
+                k, v = self.caches[0]
+                if isinstance(k, QuantizedKV):
+                    self.caches[0] = (QuantizedKV(k.q, k.scale[:, :-1]), v)
+                    return True
+        return False
+
+    def _step_impl(self) -> bool:
         """Admit waiting requests, then one decode step for every active
         slot, or one verify pass when speculative decoding is on and any
         slot drafted. Returns False when there is nothing left to do."""
         self._expire_deadlines()
+        self._observe_health()
         self._admit()
         if not self.active.any():
             return bool(self._queue)
-        if self._spec_mode != "off":
+        if self._spec_mode != "off" and not (
+                self._degctl is not None and self._degctl.disable_spec):
             drafts = self._propose_drafts()
             if drafts:
                 return self._spec_step(drafts)
             self.spec_stats["fallback_steps"] += 1
-        self._cow_for_decode(1)
-        use_samp, samp = self._slot_sampling()
-        dev = self.device
-        toks = torch.as_tensor(self.last_tok[:, None], device=dev)
-        lens = torch.as_tensor(self.seq_lens, device=dev)
-        nxt = self._decode_forward(toks, lens, samp, use_samp,
-                                   self._block_tables()).cpu().numpy()
+        participants = self.active.copy()
+        try:
+            self._fault_point("decode")
+            self._cow_for_decode(1)
+            use_samp, samp = self._slot_sampling()
+            dev = self.device
+            toks = torch.as_tensor(self.last_tok[:, None], device=dev)
+            lens = torch.as_tensor(self.seq_lens, device=dev)
+            nxt = self._decode_forward(toks, lens, samp, use_samp,
+                                       self._block_tables()).cpu().numpy()
+        except BaseException as e:
+            if not self._recoverable(e):
+                raise
+            self._recover_step(e, participants, "decode")
+            return True
         for slot in range(self.cfg.max_slots):
             if not self.active[slot]:
                 continue
@@ -1470,30 +1999,38 @@ class ContinuousBatchingEngine:
         rows included, before the block table is uploaded."""
         cfg = self.cfg
         S = cfg.spec_k + 1
+        chunk_slots = self.active.copy()
         # the pass's occupants: admission behind it may re-fill a slot
         chunk_reqs = {s: self._slot_req[s]
-                      for s in range(cfg.max_slots) if self.active[s]}
-        self._cow_for_decode(S)
-        ids = np.zeros((cfg.max_slots, S), np.int64)
-        start = np.full((cfg.max_slots,), cfg.max_len, np.int64)
-        n_draft = np.zeros((cfg.max_slots,), np.int64)
-        for slot in chunk_reqs:
-            ids[slot, 0] = self.last_tok[slot]
-            d = drafts.get(slot)
-            if d is not None and d.size:
-                ids[slot, 1:1 + d.size] = d
-                n_draft[slot] = d.size
-            start[slot] = self.seq_lens[slot]
-        use_samp, samp = self._slot_sampling()
-        dev = self.device
-        preds, accepted = self._verify_forward(
-            torch.as_tensor(ids, device=dev),
-            torch.as_tensor(start, device=dev),
-            torch.as_tensor(n_draft, device=dev), samp, use_samp,
-            self._block_tables())
-        pending = self._admit_dispatch()
-        preds_np = preds.cpu().numpy()  # one sync for S tokens a slot
-        acc_np = accepted.cpu().numpy()
+                      for s in range(cfg.max_slots) if chunk_slots[s]}
+        try:
+            self._fault_point("verify")
+            self._cow_for_decode(S)
+            ids = np.zeros((cfg.max_slots, S), np.int64)
+            start = np.full((cfg.max_slots,), cfg.max_len, np.int64)
+            n_draft = np.zeros((cfg.max_slots,), np.int64)
+            for slot in chunk_reqs:
+                ids[slot, 0] = self.last_tok[slot]
+                d = drafts.get(slot)
+                if d is not None and d.size:
+                    ids[slot, 1:1 + d.size] = d
+                    n_draft[slot] = d.size
+                start[slot] = self.seq_lens[slot]
+            use_samp, samp = self._slot_sampling()
+            dev = self.device
+            preds, accepted = self._verify_forward(
+                torch.as_tensor(ids, device=dev),
+                torch.as_tensor(start, device=dev),
+                torch.as_tensor(n_draft, device=dev), samp, use_samp,
+                self._block_tables())
+            pending = self._admit_dispatch()
+            preds_np = preds.cpu().numpy()  # one sync for S tokens a slot
+            acc_np = accepted.cpu().numpy()
+        except BaseException as e:
+            if not self._recoverable(e):
+                raise
+            self._recover_step(e, chunk_slots, "verify")
+            return True
         st = self.spec_stats
         for slot, req in chunk_reqs.items():
             if self._slot_req.get(slot) is not req:
@@ -1515,7 +2052,7 @@ class ContinuousBatchingEngine:
                 st["proposed"] += n
                 st["accepted"] += a
         st["verify_calls"] += 1
-        self._admit_integrate(pending)
+        self._integrate_guarded(pending, "verify_integrate")
         return True
 
     def _slot_budgets(self) -> np.ndarray:
@@ -1538,16 +2075,30 @@ class ContinuousBatchingEngine:
         return budget
 
     def step_chunk(self, max_chunk: int = 8) -> bool:
+        """One chunked tick (``_step_chunk_impl``), bracketed as
+        ``step`` is."""
+        san = self._san
+        if san is not None:
+            san.note_tick("step_chunk")
+        out = self._step_chunk_impl(max_chunk)
+        self._tick_epilogue(san, "step_chunk")
+        return out
+
+    def _step_chunk_impl(self, max_chunk: int) -> bool:
         """``max_chunk`` decode steps with one host sync, with admission
         queued on the device behind the in-flight chunk: newly admitted
         slots join the next chunk. Expired deadlines are enforced
-        first."""
+        first. A failed chunk is quarantined: its host state never
+        advanced (the sync is where its tokens would land), so its
+        participants replay."""
         self._expire_deadlines()
+        self._observe_health()
         if not self.active.any():
             self._admit()
             if not self.active.any():
                 return bool(self._queue)
-        if self._spec_mode != "off":
+        if self._spec_mode != "off" and not (
+                self._degctl is not None and self._degctl.disable_spec):
             # a verify pass emits one token for a slot without drafts
             # against the chunk's K, so it takes over the chunk only when
             # at least half the active slots draft (the cheap eligibility
@@ -1564,18 +2115,25 @@ class ContinuousBatchingEngine:
         chunk_slots = self.active.copy()
         chunk_reqs = {s: self._slot_req[s]
                       for s in range(self.cfg.max_slots) if chunk_slots[s]}
-        self._cow_for_decode(K)
-        budget = self._slot_budgets()
-        use_samp, samp = self._slot_sampling()
-        dev = self.device
-        toks_all = self._decode_chunk(
-            torch.as_tensor(self.last_tok[:, None], device=dev),
-            torch.as_tensor(self.seq_lens, device=dev),
-            torch.as_tensor(chunk_slots, device=dev),
-            torch.as_tensor(budget, device=dev), K, samp, use_samp,
-            self._block_tables())
-        pending = self._admit_dispatch()
-        toks_np = toks_all.cpu().numpy()  # one sync for K tokens
+        try:
+            self._fault_point("decode_chunk")
+            self._cow_for_decode(K)
+            budget = self._slot_budgets()
+            use_samp, samp = self._slot_sampling()
+            dev = self.device
+            toks_all = self._decode_chunk(
+                torch.as_tensor(self.last_tok[:, None], device=dev),
+                torch.as_tensor(self.seq_lens, device=dev),
+                torch.as_tensor(chunk_slots, device=dev),
+                torch.as_tensor(budget, device=dev), K, samp, use_samp,
+                self._block_tables())
+            pending = self._admit_dispatch()
+            toks_np = toks_all.cpu().numpy()  # one sync for K tokens
+        except BaseException as e:
+            if not self._recoverable(e):
+                raise
+            self._recover_step(e, chunk_slots, "decode_chunk")
+            return True
         for k in range(K):
             for slot in range(self.cfg.max_slots):
                 # the slot advances only while its chunk-time occupant
@@ -1590,19 +2148,20 @@ class ContinuousBatchingEngine:
                 self.seq_lens[slot] += 1
                 self.last_tok[slot] = tok
                 self._maybe_finish(slot, tok)
-        self._admit_integrate(pending)
+        self._integrate_guarded(pending, "chunk_integrate")
         return True
 
     def step_adaptive(self, max_chunk: int = 8,
                       probe_chunk: int = 2) -> bool:
         """``step_chunk`` whose length follows the load: ``probe_chunk``
-        steps while requests wait and a slot is free, or an active slot's
-        budget ends inside a full chunk (admission can come soon, and a
-        short chunk reaches it sooner); ``max_chunk`` otherwise. The JAX
-        engine's third branch, the degradation ladder's throttle, comes
-        with the resilience slice."""
+        steps while the degradation ladder throttles, or while requests
+        wait and a slot is free, or an active slot's budget ends inside a
+        full chunk (admission can come soon, and a short chunk reaches it
+        sooner); ``max_chunk`` otherwise."""
         k = max_chunk
-        if self._queue:
+        if self._degctl is not None and self._degctl.throttle:
+            k = min(probe_chunk, max_chunk)
+        elif self._queue:
             if not self.active.all():
                 k = min(probe_chunk, max_chunk)
             else:
@@ -1617,18 +2176,22 @@ class ContinuousBatchingEngine:
             eos_token_id: Optional[int] = None,
             max_chunk: int = 8) -> List[Request]:
         """Submit all prompts, drive ``step_chunk`` until every request
-        finishes, and return the Requests in submission order."""
+        finishes (or, draining, until nothing is in flight), and return
+        the finished Requests in submission order."""
         rids = [self.add_request(p, max_new_tokens, eos_token_id)
                 for p in prompts]
         while self.step_chunk(max_chunk) or self._queue or \
                 self.active.any():
-            pass
-        return [self._finished[r] for r in rids]
+            if self._draining and not self.active.any():
+                break  # drained mid-run: queued requests stay queued
+        return [self._finished[r] for r in rids if r in self._finished]
 
     # ---------------- readers ----------------
     def prefix_snapshot(self) -> dict:
         """Prefix-cache counters, with ``enabled``, ``cached_blocks`` and
         ``hit_rate_tokens`` (the JAX engine's keys)."""
+        if self._san is not None:
+            self._san.check_read("prefix_snapshot")
         st = dict(self.prefix_stats)
         st["enabled"] = self._prefix is not None
         st["cached_blocks"] = (self._prefix.cached_pages
@@ -1640,6 +2203,8 @@ class ContinuousBatchingEngine:
     def spec_snapshot(self) -> dict:
         """Speculative-decoding counters, with ``enabled``, ``mode``,
         ``k`` and ``acceptance_rate`` (the JAX engine's keys)."""
+        if self._san is not None:
+            self._san.check_read("spec_snapshot")
         st = dict(self.spec_stats)
         st["enabled"] = self._spec_mode != "off"
         st["mode"] = self._spec_mode
@@ -1652,6 +2217,8 @@ class ContinuousBatchingEngine:
         """SLO attainment per class and overall goodput: met / (met +
         violated) over SLO-tracked finishes (None before any); cancels
         are counted apart. Safe from another thread (copies)."""
+        if self._san is not None:
+            self._san.check_read("slo_snapshot")
         classes = {}
         met = violated = 0
         for cls, st in list(self.slo_stats.items()):
@@ -1669,6 +2236,8 @@ class ContinuousBatchingEngine:
         """Per tenant (``"-"`` = untagged): the cumulative counters joined
         with live usage (active slots, held pages, queued requests), and
         the scheduler's policy name and preemption count."""
+        if self._san is not None:
+            self._san.check_read("tenant_snapshot")
         tenants: Dict[str, dict] = {}
 
         def bucket(key):
@@ -1694,18 +2263,22 @@ class ContinuousBatchingEngine:
         self.slo_stats = {}
 
     def backpressure(self) -> dict:
-        """Admission readiness for ``/healthz``: queue depth, free slots
-        (and pages), and ``saturated`` when requests wait with no free
-        slot or behind a pool-blocked admission pass. ``draining`` and
-        ``degraded`` stay False and the level 0 until the resilience
-        slice brings drain and the degradation ladder."""
+        """Admission readiness for ``/healthz`` and the router: queue
+        depth, free slots (and pages), ``saturated`` when requests wait
+        with no free slot or behind a pool-blocked admission pass,
+        ``draining``, and the degradation ladder's ``degraded`` and
+        level. Host state only; safe from another thread."""
+        if self._san is not None:
+            self._san.check_read("backpressure")
         qd = len(self._queue)
         free = len(self._free_heap)
+        ctl = self._degctl
         out = {"queue_depth": qd, "free_slots": free,
                "occupancy": float(self.active.sum()) / self.cfg.max_slots,
                "saturated": qd > 0 and (free == 0 or self._pool_blocked),
-               "draining": False, "degraded": False,
-               "degradation_level": 0}
+               "draining": self._draining,
+               "degraded": ctl.degraded if ctl is not None else False,
+               "degradation_level": ctl.level if ctl is not None else 0}
         if self.pool is not None:
             out["free_pages"] = self.pool.free_pages
             out["pool_blocked"] = self._pool_blocked
@@ -1713,9 +2286,11 @@ class ContinuousBatchingEngine:
 
     def prefix_affinity_tokens(self, hashes: List[bytes]) -> int:
         """How many leading tokens of a block-hash chain this engine's
-        prefix store holds, without refreshing its LRU order (0 with the
-        store off): the router's affinity probe."""
-        if self._prefix is None:
+        prefix store holds, without refreshing its LRU order: the router's
+        affinity probe. 0 with the store off, or while the ladder has
+        adoption off (affinity must not steer traffic at pages the
+        replica will not share)."""
+        if self._prefix is None or self._prefix_disabled():
             return 0
         return self._prefix.match_len(hashes) * self._prefix_block
 
@@ -1727,12 +2302,15 @@ class ContinuousBatchingEngine:
     def metrics_snapshot(self) -> dict:
         """The one serving document, as the JAX engine gives it with
         telemetry off: ``{"telemetry": "off", "slots", "prefix_cache",
-        "spec_decode", "slo", "tenants"}``. The observability and
-        resilience slices add their sub-documents."""
+        "spec_decode", "slo", "tenants", "resilience"}``. The
+        observability slice adds its sub-documents."""
+        if self._san is not None:
+            self._san.check_read("metrics_snapshot")
         return {"telemetry": "off",
                 "slots": {"active": int(self.active.sum()),
                           "max": self.cfg.max_slots},
                 "prefix_cache": self.prefix_snapshot(),
                 "spec_decode": self.spec_snapshot(),
                 "slo": self.slo_snapshot(),
-                "tenants": self.tenant_snapshot()}
+                "tenants": self.tenant_snapshot(),
+                "resilience": self.resilience_snapshot()}

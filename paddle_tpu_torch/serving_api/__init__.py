@@ -1,6 +1,7 @@
 """Streaming serving front door of the port: an OpenAI-style SSE HTTP API
 with the SLO-aware multi-tenant admission scheduler, over one
-continuous-batching engine (counterpart of ``paddle_tpu/serving_api``).
+continuous-batching engine or an ``EngineRouter`` fleet (counterpart of
+``paddle_tpu/serving_api``).
 
 Quickstart::
 
@@ -14,6 +15,9 @@ Quickstart::
         tenants={"acme": TenantQuota(weight=2.0, max_slots=3)}))
     # POST {srv.url}/v1/completions  {"prompt": [3, 7, 11], "stream": true}
     srv.shutdown()
+
+A fleet is served the same way: ``start_api_server(EngineRouter(model,
+EngineConfig(paged=True), n_replicas=2))``.
 """
 
 from .protocol import (

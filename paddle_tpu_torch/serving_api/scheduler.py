@@ -197,11 +197,15 @@ class SLOFairScheduler:
         """The preemption window: with no free slot (or the last pass
         blocked on pages) and an admissible at-risk request waiting,
         preempt the batch-class slot with the fewest tokens made (the
-        cheapest replay). Returns the preempted rids, which the engine
-        keeps out of this wave."""
+        cheapest replay); never while the engine drains. Returns the
+        preempted rids, which the engine keeps out of this wave."""
         if not self.preempt_enabled:
             return ()
         if engine._free_heap and not engine._pool_blocked_prev:
+            return ()
+        if engine._draining:
+            # a draining engine admits no fresh request: a preemption
+            # would pay a replay for a slot nothing can claim
             return ()
         now = time.perf_counter()
         usage = self._usage_map(engine)

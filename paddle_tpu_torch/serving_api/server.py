@@ -3,15 +3,15 @@
 
 A stdlib threaded HTTP server with OpenAI-style ``POST /v1/completions``
 (server-sent-event token streaming, or one aggregate JSON body),
-``GET /v1/models`` and ``GET /healthz`` (200, or 503 while the engine's
-``backpressure()`` reports it saturated).
+``GET /v1/models`` and ``GET /healthz`` (200, or 503 while the target's
+``backpressure()`` reports it draining or saturated).
 
-Threads: ONE engine thread owns the engine. It ticks ``step_chunk`` (the
-chunk length from the scheduler policy), applies deferred cancels and
-flushes newly committed tokens into per-request stream queues; nothing
-else touches scheduler state. HTTP handler threads only submit (through
-``add_request``, which is safe from producer threads) and read their
-stream queue. A client that disconnects mid-stream shows as a failed
+Threads: ONE engine thread owns the target. It ticks ``step_chunk`` (a
+router: ``step``; the chunk length from the scheduler policy), applies
+deferred cancels and flushes newly committed tokens into per-request
+stream queues; nothing else touches scheduler state. HTTP handler
+threads only submit (through ``add_request``, which is safe from
+producer threads) and read their stream queue. A client that disconnects mid-stream shows as a failed
 socket write; the handler defers ``cancel(rid)`` to the engine thread, which
 frees the slot and pages through the engine's one teardown path. If the
 engine thread dies, every open stream gets the error and the exception
@@ -21,9 +21,11 @@ CUDA's current device and autograd's grad mode are per thread: the
 engine thread selects the engine's device and runs under
 ``torch.no_grad()``.
 
-The target is a ``ContinuousBatchingEngine``; a router target comes with
-the port of ``inference/router.py``. ``/metrics``, ``/trace`` and
-``/timeline`` answer 404 until the observability slice.
+The target is a ``ContinuousBatchingEngine`` or an ``EngineRouter`` fleet
+(the submit/cancel/result surface is shape-compatible; ``/healthz`` then
+gives the aggregate document with a breaker row per replica).
+``/metrics``, ``/trace`` and ``/timeline`` answer 404 until the
+observability slice.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import flags
+from ..inference.router import EngineRouter
 from ..inference.serving import ContinuousBatchingEngine
 from . import protocol
 from .scheduler import default_scheduler
@@ -69,17 +72,23 @@ class _Stream:
         self.q.put((_ERROR, message))
 
 
-def healthz(engine) -> tuple:
-    """``/healthz``: ``(status, body, content type)``; 503 while the
-    engine is saturated (requests wait and no slot, or no page, can take
-    them)."""
-    bp = engine.backpressure()
+def healthz(target) -> tuple:
+    """``/healthz``: ``(status, body, content type)`` for an engine or a
+    router (the aggregate document: the fleet's ``backpressure()`` with a
+    row per replica and its breaker, and the fleet ``metrics_snapshot``).
+    503 while draining (in-flight work still completes, but a router must
+    stop sending) or saturated (requests wait and no slot, or no page,
+    can take them); degraded is not a readiness failure."""
+    bp = target.backpressure()
     payload = {"status": "ok", "telemetry": False, "backpressure": bp,
-               "engine": engine.metrics_snapshot(),
+               "engine": target.metrics_snapshot(),
                "degraded": bool(bp["degraded"]),
                "degradation_level": int(bp["degradation_level"])}
     code = 200
-    if bp["saturated"]:
+    if bp["draining"]:
+        payload["status"] = "draining"
+        code = 503
+    elif bp["saturated"]:
         payload["status"] = "saturated"
         code = 503
     return (code, json.dumps(payload, default=str).encode(),
@@ -87,27 +96,32 @@ def healthz(engine) -> tuple:
 
 
 class ServingFrontDoor:
-    """The engine thread and the rid -> stream registry over one
-    engine."""
+    """The engine thread and the rid -> stream registry over one engine
+    or a router's fleet."""
 
     def __init__(self, target, scheduler=None, max_chunk: int = 8,
                  model_id: str = "paddle-tpu"):
-        if not isinstance(target, ContinuousBatchingEngine):
+        self._is_router = isinstance(target, EngineRouter)
+        if not (self._is_router
+                or isinstance(target, ContinuousBatchingEngine)):
             raise TypeError(
-                "the front door serves a ContinuousBatchingEngine; got "
-                f"{type(target).__name__} (a router target comes with "
-                "the port of inference/router.py)")
+                "the front door serves a ContinuousBatchingEngine or a "
+                f"router (EngineRouter); got {type(target).__name__}")
         self.target = target
         self.model_id = model_id
         self.max_chunk = int(max_chunk)
         self._sched = scheduler
+        engines = self._engines()
         if scheduler is not None:
-            target.set_scheduler(scheduler)
-        # the engine thread's CUDA device: the engine's
+            # one policy instance across a fleet: the fair-share ledger
+            # is fleet-global (tenants span replicas)
+            for eng in engines:
+                eng.set_scheduler(scheduler)
+        # the engine thread's CUDA device: the engines'
         self._cuda_index = None
-        if target.device.type == "cuda":
-            self._cuda_index = (target.device.index
-                                if target.device.index is not None
+        dev = engines[0].device
+        if dev.type == "cuda":
+            self._cuda_index = (dev.index if dev.index is not None
                                 else torch.cuda.current_device())
         self._streams: Dict[int, _Stream] = {}
         self._streams_lock = threading.Lock()
@@ -124,6 +138,11 @@ class ServingFrontDoor:
         self._thread = threading.Thread(target=self._drive, daemon=True,
                                         name="pt-api-engine")
         self._thread.start()
+
+    def _engines(self):
+        if self._is_router:
+            return [rep.engine for rep in self.target._replicas]
+        return [self.target]
 
     # ---------------- handler threads ----------------
     def submit(self, creq: "protocol.CompletionRequest"):
@@ -170,18 +189,32 @@ class ServingFrontDoor:
     def _tick(self) -> bool:
         k = self.max_chunk
         if self._sched is not None:
-            k = self._sched.chunk_len(self.target, self.max_chunk)
+            # a fleet tick drives every replica with ONE chunk length:
+            # any replica with admission work soon (or a router-held
+            # request) pulls the tick down to the probe chunk
+            k = min(self._sched.chunk_len(eng, self.max_chunk)
+                    for eng in self._engines())
+            if self._is_router and self.target._queue:
+                k = min(k, getattr(self._sched, "probe_chunk", k))
+        if self._is_router:
+            return self.target.step(max_chunk=k)
         return self.target.step_chunk(k)
 
     def _request_index(self) -> Dict[int, object]:
-        """rid -> queued, active or finished request, once a flush."""
-        eng = self.target
+        """rid -> queued, active or finished request, once a flush; a
+        failover moves a rid between replicas, and the rebuild each tick
+        follows it."""
         idx: Dict[int, object] = {}
-        for req in list(eng._queue):
-            idx[req.rid] = req
-        for req in list(eng._slot_req.values()):
-            idx[req.rid] = req
-        idx.update(eng._finished)
+        if self._is_router:
+            for req in list(self.target._queue):
+                idx[req.rid] = req
+            idx.update(self.target._finished)
+        for eng in self._engines():
+            for req in list(eng._queue):
+                idx[req.rid] = req
+            for req in list(eng._slot_req.values()):
+                idx[req.rid] = req
+            idx.update(eng._finished)
         return idx
 
     def _flush_streams(self):
@@ -210,7 +243,16 @@ class ServingFrontDoor:
                     self._streams.pop(rid, None)
                 # reap: a server must not keep every served request (the
                 # accounting landed at finish)
-                self.target._finished.pop(rid, None)
+                self._reap(rid)
+
+    def _reap(self, rid: int):
+        """Drop a delivered request's terminal record (engine thread
+        only)."""
+        self.target._finished.pop(rid, None)
+        if self._is_router:
+            ridx = self.target._owner.pop(rid, None)
+            if ridx is not None:
+                self.target._replicas[ridx].engine._finished.pop(rid, None)
 
     def _apply_cancels(self):
         while self._cancels:
@@ -291,12 +333,14 @@ def start_api_server(target, host: str = "127.0.0.1", port: int = 0,
                      scheduler="auto", max_chunk: int = 8,
                      model_id: str = "paddle-tpu"):
     """Serve the OpenAI-style streaming API over ``target`` (a
-    ``ContinuousBatchingEngine``) on daemon threads.
+    ``ContinuousBatchingEngine`` or an ``EngineRouter``) on daemon
+    threads.
 
     Endpoints: ``POST /v1/completions`` (SSE with ``"stream": true``,
     one JSON body otherwise), ``GET /v1/models``, ``GET /healthz``.
     ``scheduler``: a policy object (installed with
-    ``engine.set_scheduler``), ``None`` for FIFO, or ``"auto"`` (the
+    ``engine.set_scheduler``, on every replica of a router), ``None`` for
+    FIFO, or ``"auto"`` (the
     default) for ``PT_FLAGS_sched_policy``. Returns a
     :class:`ServingAPIServer` (``.url``, ``.shutdown()``)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer

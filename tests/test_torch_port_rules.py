@@ -211,6 +211,13 @@ def test_default_device_entry_points_raise_without_a_card():
                for t in ts.opt_state["slots"]["lm_head.weight"].values())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousBatchingEngine(cpu_model)
+    # the router passes its device to every replica: the card by default
+    from paddle_tpu_torch.inference import EngineRouter
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineRouter(cpu_model, n_replicas=2)
+    router = EngineRouter(cpu_model, n_replicas=2, device="cpu")
+    assert all(rep.engine.device.type == "cpu" for rep in router._replicas)
     # an engine asked for a device its model is not on refuses too
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(cpu_model, device="meta")

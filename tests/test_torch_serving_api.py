@@ -268,9 +268,11 @@ def tmodel():
 
 @pytest.fixture
 def flags_on():
-    keys = ("prefill_chunk", "prefix_cache", "api_max_tenants")
+    keys = ("prefill_chunk", "prefix_cache", "api_max_tenants",
+            "degradation")
     saved = {k: tflags.flag(k) for k in keys}
-    tflags.set_flags({"prefill_chunk": 16, "prefix_cache": True})
+    tflags.set_flags({"prefill_chunk": 16, "prefix_cache": True,
+                      "degradation": False})
     yield
     tflags.set_flags(saved)
 

@@ -7,8 +7,9 @@ pages, ``step_adaptive``'s chunk lengths on a step-indexed arrival
 schedule, ``backpressure()`` and the ``metrics_snapshot()`` sub-documents,
 and per-tenant prefix isolation with ``PT_FLAGS_tenant_prefix_namespace``
 on and off. The tiny Llama's weights are carried across in float32. The
-JAX engine runs with ``degradation`` and ``telemetry`` off (the port has
-neither layer yet); every JAX scenario runs once per module."""
+JAX engine runs with ``telemetry`` off (the port has no telemetry yet),
+and both engines with ``degradation`` off; every JAX scenario runs once
+per module."""
 
 import time
 
@@ -38,7 +39,8 @@ JFLAGS = {"prefix_cache": True, "spec_decode": "off", "prefill_chunk": 16,
           "degradation": False, "telemetry": False,
           "tenant_prefix_namespace": True, "sched_preempt": True}
 TFLAGS = {"prefix_cache": True, "spec_decode": "off", "prefill_chunk": 16,
-          "tenant_prefix_namespace": True, "sched_preempt": True}
+          "degradation": False, "tenant_prefix_namespace": True,
+          "sched_preempt": True}
 
 
 class _Flags:
@@ -259,9 +261,11 @@ def test_backpressure_and_metrics_snapshot_match_jax(sched_runs, paged):
     assert got["backpressure"]["saturated"]
     tm, jm = got["metrics"], want["metrics"]
     assert set(tm) == {"telemetry", "slots", "prefix_cache",
-                       "spec_decode", "slo", "tenants"} < set(jm)
+                       "spec_decode", "slo", "tenants",
+                       "resilience"} < set(jm)
     assert tm["telemetry"] == jm["telemetry"] == "off"
-    for key in ("slots", "prefix_cache", "spec_decode", "slo"):
+    for key in ("slots", "prefix_cache", "spec_decode", "slo",
+                "resilience"):
         assert tm[key] == jm[key], key
     assert tm["tenants"]["scheduler"] == jm["tenants"]["scheduler"]
     for name, bucket in tm["tenants"]["tenants"].items():
