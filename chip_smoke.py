@@ -275,9 +275,33 @@ Phases, each of which raises on failure:
    divergence printed), every pool back; wall time, served tok/s, TTFT
    p50, failovers, peak memory, one replay prefill's device time; then a
    drain -> ``admit_ledger`` handoff between the replicas' engines
-   mid-generation.
+   mid-generation;
+41. obs reference (after phase 40): a tiny float32 Llama, paged, on the
+   card and the CPU from the same weights with the observability layer on
+   (JAX's defaults plus ``profile_programs`` every 2nd dispatch, the time
+   series and alerts): equal tokens, Prometheus sample names and label
+   sets, counters and histogram counts, per-request tracer event names,
+   ``hbm_snapshot()``, recompile counts, profiler dispatch/sample counts
+   and windows; each sampled dispatch's CUDA-event ``device_ms`` is
+   positive and no larger than its step's wall;
+42. obs 7b: the 32-layer model, paged, 8 slots, the 8 prompts with 32 new
+   tokens: a warm-up and five runs each with telemetry off and with JAX's
+   defaults (telemetry on, ``trace_sample`` 1.0), interleaved, the same
+   tokens every run: TTFT p50, TPOT p50, served tok/s; then ``profile_programs``
+   at every dispatch: the schedule / dispatch / device split of the
+   prefill chunk, the decode chunk (and per forward) and the decode step;
+43. obs front door: ``start_api_server`` over one 32-layer paged engine
+   and over a 2-replica ``EngineRouter``, the time series on, 4 SSE
+   streams each: ``/metrics`` (parsed), ``/trace`` (``?fleet=1`` on the
+   router) and ``/timeline`` answer 200 with the streams in them;
+44. train 7b telemetry (after phase 28): phase 20's configuration, 3 steps
+   timed with the step's telemetry off, then ``TrainTelemetry(
+   sample_every=2)`` with ``log_memory_stats``: the sampled step's loss,
+   grad norm, tokens/s, MFU against 989 TFLOP/s (``FlopCounterMode``
+   FLOPs, and the analytic count) and peak bytes beside the untelemetered
+   step time.
 
-Every number phases 38-40 print stands beside the card's name and power
+Every number phases 38-44 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -5485,6 +5509,432 @@ def mamba_tf32_phase(plain_ms):
 T_START = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# observability: the registry, the tracer, the profiler on CUDA events, the
+# time series, alerts and cost, the front door's /metrics, /trace and
+# /timeline, and train telemetry
+# ---------------------------------------------------------------------------
+# the JAX package's defaults of the observability flags
+OBS_DEFAULTS = {"telemetry": True, "trace_sample": 1.0,
+                "cost_attribution": True, "recompile_watchdog": True,
+                "recompile_warmup_ticks": 64, "profile_programs": False,
+                "profile_sample_every": 16, "timeseries": False,
+                "timeseries_cadence": 16, "alerts": True,
+                "slo_degradation": False, "log_memory_stats": False}
+PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+PROM_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def prom_untimed(text, engine_id):
+    """What of one engine's Prometheus series is not a time: each
+    sample's name and label set (the engine label replaced by ``*``),
+    every counter's value and every histogram's ``_count``."""
+    kinds = {ln.split()[2]: ln.split()[3] for ln in text.splitlines()
+             if ln.startswith("# TYPE ")}
+    keys, values = [], {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"unparseable exposition line {line!r}")
+        labels = dict(PROM_LABEL.findall(m.group(3) or ""))
+        if labels.get("engine") != engine_id:
+            continue
+        key = (m.group(1), tuple(sorted(dict(labels, engine="*").items())))
+        keys.append(key)
+        base = re.sub(r"_(bucket|sum|count)$", "", m.group(1))
+        if kinds.get(m.group(1)) == "counter" or (
+                kinds.get(base) == "histogram"
+                and m.group(1).endswith("_count")):
+            values[key] = float(m.group(4))
+    return sorted(keys), values
+
+
+def obs_reference_run(model, device):
+    """The tiny float32 paged engine with JAX's observability defaults
+    plus the profiler (every 2nd dispatch), the time series (cadence 2)
+    and alerts: 6 seeded requests, 3 of them sharing a 32-token prefix.
+    Returns what the card and the CPU must agree on, and the profiled
+    step events."""
+    from paddle_tpu_torch import flags, observability
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    flags.set_flags({**SERVING_DEFAULTS, **OBS_DEFAULTS,
+                     "profile_programs": True, "profile_sample_every": 2,
+                     "timeseries": True, "timeseries_cadence": 2})
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=2, max_len=128, page_size=16,
+                            paged=True, cache_dtype=torch.float32),
+        device=device)
+    rng = np.random.default_rng(18)
+    shared = rng.integers(1, 256, 32)
+    prompts = [np.concatenate([shared, rng.integers(1, 256, n)])
+               for n in (5, 11, 3)] + [rng.integers(1, 256, n)
+                                       for n in (9, 27, 14)]
+    reqs = eng.run(prompts, 10, max_chunk=4)
+    text = observability.global_registry().prometheus_text()
+    keys, values = prom_untimed(text, eng._tel.engine_id)
+    events = {}
+    for ev in eng._tracer.events():
+        if ev["kind"] == "request":
+            events.setdefault(ev["rid"], []).append(ev["name"])
+    prof = eng.profile_snapshot()["programs"]
+    return {"tokens": [r.output for r in reqs], "keys": keys,
+            "values": values, "events": events, "hbm": eng.hbm_snapshot(),
+            "recompiles": eng.recompile_snapshot()["recompiles"],
+            "dispatches": {k: (v["dispatches"], v["sampled"])
+                           for k, v in prof.items()},
+            "windows": eng.timeline_snapshot()["windows"],
+            "cost_requests": eng.cost_snapshot()["requests_finished"]}, [
+        e for e in eng._tracer.events()
+        if e["kind"] == "step" and e["args"].get("profiled")]
+
+
+def obs_reference_phase():
+    """Card vs CPU, the tiny float32 Llama (hidden 256) from the same
+    weights, paged, the observability layer on (``obs_reference_run``):
+    equal tokens, Prometheus sample names and label sets, counters and
+    histogram counts, per-request tracer event names, ``hbm_snapshot()``,
+    recompile counts, profiler dispatch and sample counts and time-series
+    windows; on the card each sampled dispatch's ``device_ms`` (CUDA
+    events) is positive and no larger than its step's wall."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    smi = nvidia_smi_line()
+    cpu, card = card_and_cpu(lambda dev, seed: LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256), device=dev, seed=seed), 8)
+    try:
+        reset_launches()
+        got, sampled = obs_reference_run(card, "cuda")
+        launches = read_launches()["fused_paged_decode_attention"]
+        want, _ = obs_reference_run(cpu, "cpu")
+    finally:
+        flags.set_flags(dict(SERVING_DEFAULTS, **OBS_DEFAULTS))
+    for key in want:
+        if got[key] != want[key]:
+            raise AssertionError(f"obs reference {key}: card {got[key]}, "
+                                 f"CPU {want[key]}")
+    if not sampled or got["windows"] < 1 or launches <= 0:
+        raise AssertionError(f"obs reference: {len(sampled)} sampled "
+                             f"dispatches, {got['windows']} windows, row 2 "
+                             f"launched {launches} times")
+    ratios = []
+    for e in sampled:
+        wall_ms = (e["t1"] - e["t0"]) * 1e3
+        dev_ms = e["args"]["device_ms"]
+        if not 0 < dev_ms <= wall_ms:
+            raise AssertionError(f"obs reference: {e['name']} device_ms "
+                                 f"{dev_ms} outside (0, {wall_ms}]")
+        ratios.append(dev_ms / wall_ms)
+    print(f"obs reference ({smi}): card = CPU for {len(got['tokens'])} "
+          f"requests: tokens, {len(got['keys'])} Prometheus samples (names "
+          f"and label sets), {len(got['values'])} counters and histogram "
+          f"counts, tracer events of every request, hbm {got['hbm']}, "
+          f"recompiles {got['recompiles']}, dispatches/sampled "
+          f"{got['dispatches']}, {got['windows']} time-series windows; "
+          f"{len(sampled)} sampled dispatches with 0 < device_ms <= wall "
+          f"(device/wall {min(ratios):.3f}..{max(ratios):.3f}); row 2 "
+          f"launched {launches} times", flush=True)
+
+
+def obs_serve_run(model, prompts, new_tokens, **flag_values):
+    """One timed run of ``prompts`` through a fresh 8-slot paged engine
+    (64-token pages) under ``OBS_DEFAULTS`` with ``flag_values`` over
+    them; the fused paged kernel must run. Returns TTFT p50, TPOT p50,
+    served tokens/s, the wall and the engine."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    flags.set_flags({**SERVING_DEFAULTS, **OBS_DEFAULTS, **flag_values})
+    eng = ContinuousBatchingEngine(
+        model, EngineConfig(max_slots=8, max_len=1024, paged=True,
+                            page_size=PAGE), device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if read_launches()["fused_paged_decode_attention"] <= 0 or any(
+            len(r.output) != new_tokens for r in reqs):
+        raise AssertionError("obs 7b: row 2 not launched, or short output")
+    check_pool("obs 7b", eng)
+    return {"ttft_p50_ms": float(np.median([r.ttft_ms for r in reqs])),
+            "tpot_p50_ms": float(np.median([r.tpot_ms for r in reqs])),
+            "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+            "wall_s": wall, "tokens": [r.output for r in reqs]}, eng
+
+
+def program_split(prof, program, forwards=1):
+    """A program's measured schedule / dispatch / device means (ms) from
+    ``profile_snapshot()``, per forward of the program."""
+    st = prof["programs"][program]
+    return {"sampled": st["sampled"],
+            "schedule_ms": st["schedule_ms_mean"] / forwards,
+            "dispatch_ms": st["dispatch_ms_mean"] / forwards,
+            "device_ms": st["device_ms_mean"] / forwards,
+            "device_ms_max": st["device_ms_max"] / forwards}
+
+
+def obs_7b_phase(model, prompts):
+    """Llama-2-7B width (32 layers, bf16), paged, 8 slots, the 8 prompts
+    of 120 tokens with 32 new tokens: one untimed warm-up run each, then
+    five runs each with telemetry off and with JAX's defaults (telemetry
+    on, ``trace_sample`` 1.0), interleaved, the same tokens every run;
+    TTFT p50, TPOT p50 and served tok/s of each and their medians. Then ``profile_programs`` at every
+    dispatch: the ``schedule`` / ``dispatch`` / ``device`` split of the
+    prefill chunk and of the decode chunk (8 forwards, per forward), and of
+    the one-token decode step over ``step()`` ticks."""
+    from paddle_tpu_torch import flags
+
+    smi = nvidia_smi_line()
+    runs = {"off": [], "on": []}
+    tokens = None
+    try:
+        for i in range(6):
+            for mode in ("off", "on"):
+                res, _ = obs_serve_run(model, prompts, 32,
+                                       telemetry=(mode == "on"))
+                if tokens is None:
+                    tokens = res["tokens"]
+                elif res["tokens"] != tokens:
+                    raise AssertionError(f"obs 7b {mode}: tokens differ "
+                                         "from the first run's")
+                if i:  # the first of each is a warm-up
+                    runs[mode].append({k: v for k, v in res.items()
+                                       if k != "tokens"})
+        med = {mode: {k: float(np.median([r[k] for r in rs]))
+                      for k in ("ttft_p50_ms", "tpot_p50_ms",
+                                "tokens_per_s")}
+               for mode, rs in runs.items()}
+        print(f"obs 7b ({smi}): telemetry off / on (JAX defaults), medians "
+              f"of 5 interleaved runs after a warm-up each: TTFT p50 "
+              f"{med['off']['ttft_p50_ms']:.2f} / "
+              f"{med['on']['ttft_p50_ms']:.2f} ms, TPOT p50 "
+              f"{med['off']['tpot_p50_ms']:.3f} / "
+              f"{med['on']['tpot_p50_ms']:.3f} ms, served "
+              f"{med['off']['tokens_per_s']:.1f} / "
+              f"{med['on']['tokens_per_s']:.1f} tok/s; the same tokens in "
+              "all 12 runs", flush=True)
+        res, eng = obs_serve_run(model, prompts, 32, profile_programs=True,
+                                 profile_sample_every=1)
+        if res["tokens"] != tokens:
+            raise AssertionError("obs 7b profiled: tokens differ")
+        prof = eng.profile_snapshot()
+        split = {"prefill_chunk": program_split(prof, "prefill_chunk"),
+                 "decode_chunk": program_split(prof, "decode_chunk"),
+                 "decode_chunk_per_forward": program_split(
+                     prof, "decode_chunk", 8)}
+        # one-token decode steps: step() ticks after a chunked admission
+        from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                                EngineConfig)
+
+        eng = ContinuousBatchingEngine(
+            model, EngineConfig(max_slots=8, max_len=1024, paged=True,
+                                page_size=PAGE), device="cuda")
+        for p in prompts:
+            eng.add_request(p, 32)
+        while eng.step() or eng._queue or eng.active.any():
+            pass
+        split["decode_step"] = program_split(eng.profile_snapshot(),
+                                             "decode_step")
+        for st in split.values():
+            if not (st["sampled"] > 0 and st["device_ms"] > 0):
+                raise AssertionError(f"obs 7b split: {split}")
+    finally:
+        flags.set_flags(dict(SERVING_DEFAULTS, **OBS_DEFAULTS))
+    for name, st in split.items():
+        print(f"obs 7b split {name} ({smi}): schedule "
+              f"{st['schedule_ms']:.3f} ms, dispatch {st['dispatch_ms']:.3f} "
+              f"ms, device {st['device_ms']:.3f} ms (max "
+              f"{st['device_ms_max']:.3f}) over {st['sampled']} sampled "
+              "dispatches (CUDA events on the engine's stream)", flush=True)
+    print(json.dumps({"obs_7b": {
+        "model": "llama2_7b width, 32 layers, random bf16 weights (seed 0)",
+        "engine": "paged, 8 slots, max_len 1024, 64-token pages, 8 prompts "
+                  "of 120 + 32 tokens", "card": smi,
+        "runs": runs, "medians": med, "split": split}}), flush=True)
+
+
+def obs_get(url, path):
+    """(status, body) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + path, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def obs_front_door_phase(model, prompts):
+    """The front door over one 32-layer paged engine and over a 2-replica
+    ``EngineRouter`` of the same model, the time series on: 4 SSE streams
+    each (120 + 16 tokens), then ``/metrics`` (parsed; the target's
+    finished counter equals its streams), ``/trace`` (Chrome JSON with
+    every stream's ``active`` span; ``?fleet=1`` on the router) and
+    ``/timeline`` (JSON with windows) each answer 200."""
+    import threading
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            EngineConfig, EngineRouter)
+    from paddle_tpu_torch.serving_api import start_api_server
+
+    flags.set_flags({**SERVING_DEFAULTS, **OBS_DEFAULTS,
+                     "timeseries": True, "timeseries_cadence": 2})
+    config = EngineConfig(max_slots=8, max_len=1024, paged=True,
+                          page_size=PAGE)
+    report = {}
+    try:
+        for label in ("engine", "router"):
+            target = (ContinuousBatchingEngine(model, config, device="cuda")
+                      if label == "engine" else
+                      EngineRouter(model, config, n_replicas=2,
+                                   device="cuda"))
+            srv = start_api_server(target, max_chunk=8)
+            out = {}
+            try:
+                threads = [threading.Thread(
+                    target=sse_request, args=(srv.url, {
+                        "prompt": p.tolist(), "max_tokens": 16}, out, i))
+                    for i, p in enumerate(prompts[:4])]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                if any("error" in g or not g["done"] for g in out.values()):
+                    raise AssertionError(f"obs front door {label}: {out}")
+                codes = {}
+                paths = ["/metrics", "/trace", "/timeline"]
+                if label == "router":
+                    paths.append("/trace?fleet=1")
+                bodies = {}
+                for path in paths:
+                    codes[path], bodies[path] = obs_get(srv.url, path)
+            finally:
+                srv.shutdown()
+            if any(c != 200 for c in codes.values()):
+                raise AssertionError(f"obs front door {label}: {codes}")
+            text = bodies["/metrics"].decode()
+            ids = ([target._tel.engine_id] if label == "engine" else
+                   [rep.engine._tel.engine_id for rep in target._replicas])
+            finished = sum(v for eid in ids for (name, _), v in
+                           prom_untimed(text, eid)[1].items()
+                           if name == "pt_serve_requests_finished_total")
+            trace = json.loads(bodies["/trace?fleet=1" if label == "router"
+                                      else "/trace"])
+            spans = sum(1 for e in trace["traceEvents"]
+                        if e["name"] == "active" and e["ph"] == "X")
+            timeline = json.loads(bodies["/timeline"])
+            windows = (timeline["windows"] if label == "engine"
+                       else timeline["router"]["windows"])
+            if finished != 4 or spans != 4 or not timeline["enabled"] \
+                    or windows < 1:
+                raise AssertionError(
+                    f"obs front door {label}: finished {finished}, active "
+                    f"spans {spans}, timeline {timeline.get('enabled')} "
+                    f"with {windows} windows")
+            report[label] = {"codes": codes, "metrics_bytes": len(text),
+                             "trace_events": len(trace["traceEvents"]),
+                             "timeline_windows": windows}
+            print(f"obs front door {label}: {codes}; /metrics "
+                  f"{len(text)} bytes parsed (4 finished), /trace "
+                  f"{len(trace['traceEvents'])} events (4 active spans), "
+                  f"/timeline {windows} windows", flush=True)
+            del target
+    finally:
+        flags.set_flags(dict(SERVING_DEFAULTS, **OBS_DEFAULTS))
+    print(json.dumps({"obs_front_door": report}), flush=True)
+
+
+def timed_step_ms(ts, batch):
+    """One ``TrainStep.run`` between two CUDA events: its ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ts.run(batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def train_7b_telemetry_phase():
+    """``train_7b_phase``'s configuration, weights, optimizer and batch:
+    2 warm-up and 3 timed steps with the step's telemetry off, then the
+    same ``TrainStep`` with ``TrainTelemetry(sample_every=2)`` and
+    ``log_memory_stats`` for 6 more steps (3 sampled; the first sampled
+    step runs the FLOPs probe, whose time the next interval holds, so the
+    third is reported): the sampled step's loss, grad norm, tokens/s, MFU
+    against 989 TFLOP/s (FLOPs from ``FlopCounterMode``, aten operations
+    only, and from the analytic count) and peak bytes beside the
+    untelemetered step's time. Rows 6 and 8 run once per layer a
+    step."""
+    from paddle_tpu_torch import flags, observability
+
+    smi = nvidia_smi_line()
+    cfg = train_7b_config()
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    flags.set_flags({"log_memory_stats": True})
+    try:
+        model, ts, batch = train_7b_step(cfg)
+        # the step with its telemetry off: no grad norm, no record
+        ts.telemetry = None
+        for _ in range(2):
+            ts.run(batch)
+        reset_launches()
+        off_ms = [timed_step_ms(ts, batch) for _ in range(3)]
+        counts = read_launches()
+        want = train_launches_want(3, cfg.num_hidden_layers)
+        if {n: counts[n] for n in want} != want \
+                or ts.last_grad_norm is not None:
+            raise AssertionError(f"train 7b telemetry: launches {counts}, "
+                                 f"grad norm {ts.last_grad_norm}")
+        tel = observability.TrainTelemetry(sample_every=2)
+        ts.telemetry = tel
+        # the peak the sampled steps report: this phase's own
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, samples = [], []
+        while tel.samples < 3:
+            step_ms.append(timed_step_ms(ts, batch))
+            if tel.last_sample and (not samples
+                                    or tel.last_sample is not samples[-1]):
+                samples.append(tel.last_sample)
+    finally:
+        flags.set_flags({"log_memory_stats": False})
+    rec = samples[-1]
+    flops, _ = train_flops(cfg, b, s)
+    off_med = float(np.median(off_ms))
+    mfu_analytic = (flops * rec["tokens_per_sec"] / (b * s)
+                    / H100_BF16_FLOPS)
+    if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])
+            and rec["tokens_per_sec"] > 0 and "mfu_est" in rec
+            and (ts._flops_per_step or 0) > 0
+            and rec["memory"]["peak_bytes_in_use"] > 0):
+        raise AssertionError(f"train 7b telemetry: sample {rec}")
+    print(f"train 7b telemetry ({smi}): sampled step {rec['step']}: loss "
+          f"{rec['loss']:.6f}, grad norm {rec['grad_norm']:.6f}, "
+          f"{rec['tokens_per_sec']:.1f} tokens/s, MFU {rec['mfu_est']:.4f} "
+          f"(FlopCounterMode {ts._flops_per_step / 1e12:.2f} TFLOP a step, "
+          f"attention kernels uncounted) / {mfu_analytic:.4f} (analytic "
+          f"{flops / 1e12:.2f} TFLOP), peak "
+          f"{rec['memory']['peak_bytes_in_use']} bytes; telemetered steps "
+          f"{[round(x, 3) for x in step_ms]} ms beside the untelemetered "
+          f"median {off_med:.3f} ms", flush=True)
+    print(json.dumps({"train_7b_telemetry": {
+        "card": smi, "untelemetered_step_ms": off_ms,
+        "telemetered_step_ms": step_ms, "samples": samples,
+        "probe_tflop_per_step": ts._flops_per_step / 1e12,
+        "analytic_tflop_per_step": flops / 1e12,
+        "mfu_analytic": mfu_analytic}}, default=str), flush=True)
+    del model, ts, batch
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -5582,6 +6032,9 @@ def main() -> int:
     phase("resilience reference", resilience_reference_phase)
     phase("router reference", router_reference_phase)
     phase("router 7b", router_7b_phase, model)
+    phase("obs reference", obs_reference_phase)
+    phase("obs 7b", obs_7b_phase, model, prompts)
+    phase("obs front door", obs_front_door_phase, model, prompts)
     # where the time goes: the prefill wave alone, and with one chunk of
     # 8 decode forwards, for the bf16 and the quantized engines
     t0 = time.perf_counter()
@@ -5620,6 +6073,8 @@ def main() -> int:
     phase("train 7b fused head loss", train_7b_fused_head_phase, unfused)
     torch.cuda.empty_cache()
     phase("train 7b lamb", train_7b_lamb_phase)
+    torch.cuda.empty_cache()
+    phase("train 7b telemetry", train_7b_telemetry_phase)
     torch.cuda.empty_cache()
     phase("optimizers reference", optimizers_reference_phase)
     phase("dropout and nan checks", dropout_and_nan_phase)

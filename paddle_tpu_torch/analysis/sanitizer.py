@@ -38,14 +38,21 @@ from typing import Optional
 # reader methods registered copy-on-read-safe: a foreign thread may
 # call these (and ONLY these) while the scheduler runs; each copies what
 # it reads (list()/dict() of every structure the scheduler mutates). The
-# JAX package's set, less the observability readers (profile, recompile,
-# hbm, alerts, cost, audit snapshots and ``_tel_state``) the port does
-# not have yet.
+# JAX package's set, less ``audit_snapshot`` (the seal-time program
+# audit is still to come).
 SAFE_READS = frozenset({
     "metrics_snapshot", "prefix_snapshot", "spec_snapshot",
-    "slo_snapshot", "resilience_snapshot", "backpressure",
+    "slo_snapshot", "resilience_snapshot", "backpressure", "_tel_state",
     # multi-engine router readers (router.py)
-    "fleet_snapshot", "timeline_snapshot",
+    "fleet_snapshot",
+    # program-time attribution readers: profiler stats, recompile-
+    # watchdog state and device-memory residency are copy-on-read host
+    # metadata
+    "profile_snapshot", "recompile_snapshot", "hbm_snapshot",
+    # flight-data readers: time-series windows are immutable once
+    # appended (the ring copies under its lock), alert/cost snapshots
+    # copy every nested structure
+    "timeline_snapshot", "alerts_snapshot", "cost_snapshot",
     # multi-tenant accounting: cumulative tenant counters + live
     # slot/page usage, copied per call
     "tenant_snapshot",

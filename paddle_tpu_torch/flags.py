@@ -137,10 +137,103 @@ define_flag("sanitize", False,
             "raise SanitizerError naming the invariant and site. off = "
             "every hook is a single identity check")
 define_flag("slo_degradation", False,
-            "let the degradation ladder consume the SLO burn-rate alert: "
-            "an active slo_burn_rate counts as saturation pressure. The "
-            "port has no alerts yet, so, as in the JAX package with "
-            "timeseries and alerts off, the flag has no effect")
+            "let the degradation ladder consume the SLO burn-rate alert "
+            "(read-only AlertManager.is_active hook): an active "
+            "slo_burn_rate counts as saturation pressure, so sustained "
+            "burn climbs the capacity rungs (shed batch-class admissions, "
+            "throttle) even before the queue backs up — never the fault "
+            "jump. Needs timeseries and alerts on (the rule reads the "
+            "series)")
+define_flag("log_memory_stats", False,
+            "record the card's bytes_in_use/peak_bytes_in_use "
+            "(torch.cuda.memory_stats) through the telemetry registry on "
+            "sampled train steps")
+define_flag("telemetry", True,
+            "always-on runtime telemetry (observability.MetricsRegistry); "
+            "off = every instrumented path is a no-op")
+define_flag("telemetry_sample_every", 10,
+            "fetch loss/grad-norm/memory host-side every N train steps "
+            "(non-sampled steps never force a device sync)")
+define_flag("telemetry_flight_window", 64,
+            "flight-recorder ring buffer size (last K step records)")
+define_flag("telemetry_dump_dir", "flight_records",
+            "directory for flight-recorder JSON dumps")
+define_flag("telemetry_grad_spike_factor", 10.0,
+            "anomaly watchdog trips when grad norm exceeds this factor "
+            "times the running median")
+define_flag("trace_sample", 1.0,
+            "serving lifecycle tracer sample rate in (0, 1]: the "
+            "fraction of requests and engine steps recorded "
+            "(deterministic — every round(1/rate)-th request id / step "
+            "sequence number, so a sampled request's events are "
+            "complete, never a torn subset). 0 disables the tracer "
+            "entirely; PT_FLAGS_telemetry=off disables it regardless")
+define_flag("trace_buffer", 8192,
+            "ring capacity (events) of each serving tracer — old events "
+            "fall off; bounds host memory no matter how long the engine "
+            "runs")
+define_flag("profile_programs", False,
+            "serving per-program device-time profiler "
+            "(observability/profiling.py): cadence-sampled timing around "
+            "every serving dispatch (prefill_chunk/prefill_bucket/"
+            "decode_step/decode_chunk/spec_verify/page_copy). A sampled "
+            "dispatch records two CUDA events on the engine's stream "
+            "around the launch and waits for the second: MEASURED device "
+            "ms into pt_serve_program_ms{engine,program} plus a "
+            "schedule/dispatch/device decomposition on the tracer's step "
+            "events; unsampled dispatches record no event and never "
+            "synchronise. off = the engine holds no profiler, one "
+            "identity check per seam")
+define_flag("profile_sample_every", 16,
+            "profile_programs sample cadence: measure every Nth dispatch "
+            "of each program (per-program counters, deterministic). 1 = "
+            "measure every dispatch, at the cost of one device sync per "
+            "dispatch")
+define_flag("recompile_watchdog", True,
+            "runtime recompile watchdog: after recompile_warmup_ticks "
+            "scheduler ticks (or an explicit engine.seal_programs()) the "
+            "engine's program set is SEALED; a dispatch signature "
+            "(program label, argument shapes, dtypes, static arguments) "
+            "the engine has not dispatched before, seen during one of "
+            "its own later ticks, counts pt_serve_recompiles_total"
+            "{engine,program} and (telemetry on) dumps a FlightRecorder "
+            "artifact carrying its arg shapes. One artifact per program "
+            "per engine; counters keep counting. Never raises; off = no "
+            "watchdog, one identity check per tick")
+define_flag("recompile_warmup_ticks", 64,
+            "scheduler ticks before the recompile watchdog auto-seals "
+            "the program set (engine.seal_programs() seals at once)")
+define_flag("timeseries", False,
+            "serving flight-data recorder (observability/timeseries.py): "
+            "a bounded ring of fixed-cadence windowed samples over the "
+            "engine's/router's metrics — counter deltas become "
+            "per-window rates, gauges are point-sampled, histogram "
+            "window-percentiles ride along (telemetry on). Tick-driven "
+            "and wall-clock-free in every decision, copy-on-read; read "
+            "via engine.timeline_snapshot(), /timeline and `dump "
+            "--timeline`. off = no store is constructed")
+define_flag("timeseries_cadence", 16,
+            "scheduler ticks per time-series window: every Nth tick "
+            "closes a window and appends one sample")
+define_flag("timeseries_retention", 256,
+            "time-series ring capacity (windows): old samples fall off")
+define_flag("alerts", True,
+            "rule-based detectors over the serving time-series "
+            "(observability/alerts.py): multi-window SLO burn-rate, "
+            "queue-depth growth, prefix-hit / spec-acceptance collapse, "
+            "post-seal recompiles, KV residency — each with hysteresis, "
+            "firing `alert` tracer events and a FlightRecorder artifact. "
+            "Evaluated only when PT_FLAGS_timeseries is on; off = no "
+            "detectors constructed")
+define_flag("cost_attribution", True,
+            "per-request device-cost attribution: each step's measured "
+            "program-ms (profiler-sampled; sync-wall estimate on "
+            "unsampled steps) is split across the requests the step "
+            "advanced, proportional to tokens advanced, accumulated on "
+            "the request and recorded at finish into "
+            "pt_serve_request_device_ms{engine,slo,tenant} and the "
+            "request ledger; read via engine.cost_snapshot(). Pure host "
+            "arithmetic; off = requests carry device_ms 0")
 define_flag("router_breaker_window", 16,
             "multi-engine router: sliding window (fleet ticks) the "
             "per-replica circuit breaker counts faults over — "

@@ -40,8 +40,12 @@ lock). ``backpressure``, ``metrics_snapshot``, ``fleet_snapshot``,
 ``slo_snapshot`` and ``tenant_snapshot`` are copy-on-read readers
 (``analysis.sanitizer.SAFE_READS``). With ``PT_FLAGS_sanitize`` the fleet
 invariant (every rid owned by exactly one replica or one queue) is
-checked once a tick. Telemetry, tracing and the time series are a later
-slice: their readers answer as the JAX router's do with them off.
+checked once a tick. Observability, as in JAX: ``RouterTelemetry``'s
+``pt_router_*`` series, a router tracer of route/hold/failover/breaker
+events, a fleet time series (``PT_FLAGS_timeseries``), the replicas'
+alerts aggregated in ``fleet_snapshot``, and ``fleet_chrome_trace``: one
+merged Perfetto trace in which a failed-over rid's spans on both
+replicas are joined by flow events.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .. import flags
+from .. import flags, observability
 from .prefix_cache import block_hashes
 from .resilience import (
     FaultInjector,
@@ -318,11 +322,28 @@ class EngineRouter:
             "failovers": 0, "reclaimed": 0, "replayed": 0,
             "cancelled": 0, "timeouts": 0, "breaker_opens": 0,
         }
+        self._tel = (observability.RouterTelemetry()
+                     if observability.enabled() else None)
+        self._tracer = None
+        if self._tel is not None \
+                and float(flags.flag("trace_sample")) > 0:
+            self._tracer = observability.Tracer(
+                engine_id=f"router{self._tel.router_id}")
+        # the fleet's own windowed history of its counters, beside each
+        # replica engine's store
+        self._ts = None
+        if bool(flags.flag("timeseries")):
+            label = (f"router{self._tel.router_id}"
+                     if self._tel is not None else None)
+            self._ts = observability.TimeSeriesStore(label=label)
         self._san = None
         if bool(flags.flag("sanitize")):
             from ..analysis.sanitizer import EngineSanitizer
 
             self._san = EngineSanitizer(self)
+        # process-wide fleet registry (weak): `dump --fleet` and the
+        # merged-trace export find this router without a handle
+        observability.tracing.register_fleet(self)
 
     # ---------------- admission / routing ----------------
     def add_request(self, prompt, max_new_tokens: int = 32,
@@ -418,6 +439,12 @@ class EngineRouter:
         self.fleet_stats["routed"] += 1
         if aff > 0:
             self.fleet_stats["affinity_routed"] += 1
+        if self._tel is not None:
+            self._tel.on_route(rep.idx, aff > 0)
+        if self._tracer is not None:
+            self._tracer.engine_event(
+                "route", rid=int(req.rid), replica=rep.idx,
+                affinity_tokens=int(aff), replayed_tokens=len(req.output))
         return True
 
     def _submit(self, req: Request) -> bool:
@@ -436,6 +463,11 @@ class EngineRouter:
 
     def _note_hold(self, req: Request):
         self.fleet_stats["held"] += 1
+        if self._tel is not None:
+            self._tel.on_hold(len(self._queue))
+        if self._tracer is not None:
+            self._tracer.engine_event("hold", rid=int(req.rid),
+                                      queued=len(self._queue))
 
     def _place_queued(self):
         """FIFO re-attempt for router-held requests (head-of-line: a
@@ -491,6 +523,12 @@ class EngineRouter:
                         st = self._slo_bucket(req.slo)
                         st["violated"] += 1
                         st["timeouts"] += 1
+                    if self._tel is not None:
+                        self._tel.on_held_timeout()
+                    if self._tracer is not None:
+                        self._tracer.engine_event(
+                            "held_timeout", rid=int(req.rid),
+                            queued=len(self._queue))
 
     # ---------------- fleet tick ----------------
     def step(self, max_chunk: int = 8) -> bool:
@@ -505,6 +543,14 @@ class EngineRouter:
         self._place_queued()
         for rep in self._replicas:
             self._tick_replica(rep, max_chunk)
+        if self._tel is not None:
+            # the routability verdict _pick and backpressure() use
+            routable = sum(
+                1 for r in self._replicas
+                if self._routable(r, r.engine.backpressure()))
+            self._tel.on_fleet_state(routable, len(self._queue))
+        if self._ts is not None:
+            self._ts.on_tick(self._flight_collect)
         if san is not None:
             # under the admission lock: placement writes queue + owner
             # map as one atomic unit, so an unlocked read could catch a
@@ -535,6 +581,12 @@ class EngineRouter:
         st = br.advance(self._tick)
         if st == BREAKER_OPEN:
             return
+        if was_open and st == BREAKER_HALF_OPEN:
+            # the open -> half-open commit is a reportable transition
+            self._note_breaker(rep, opened=False)
+            if self._tracer is not None:
+                self._tracer.engine_event("breaker_half_open",
+                                          replica=rep.idx, tick=self._tick)
         inj = self._injector
         if inj is not None and inj.fire("replica_crash"):
             # whole-replica death: breaker opens immediately, the host
@@ -591,11 +643,20 @@ class EngineRouter:
         if st == BREAKER_HALF_OPEN:
             # canary passed: back in rotation
             br.note_ok(self._tick)
+            self._note_breaker(rep, opened=False)
+            if self._tracer is not None:
+                self._tracer.engine_event("breaker_close", replica=rep.idx,
+                                          tick=self._tick)
 
     def _note_breaker(self, rep: _Replica, opened: bool):
-        del rep  # the breaker gauges and events of a later slice
         if opened:
             self.fleet_stats["breaker_opens"] += 1
+        if self._tel is not None:
+            self._tel.on_breaker(rep.idx, rep.breaker._state, opened)
+        if opened and self._tracer is not None:
+            self._tracer.engine_event("breaker_open", replica=rep.idx,
+                                      tick=self._tick,
+                                      reopen_at=rep.breaker.reopen_at)
 
     # ---------------- failover ----------------
     def _reclaim(self, rep: _Replica, hard: bool, site: str):
@@ -645,6 +706,8 @@ class EngineRouter:
             self._owner.pop(req.rid, None)
             if self._place(req):
                 replayed += 1
+                if self._tel is not None:
+                    self._tel.on_replay()
             else:
                 unplaced.append(req)
         if unplaced:
@@ -665,6 +728,12 @@ class EngineRouter:
         self.fleet_stats["failovers"] += 1
         self.fleet_stats["reclaimed"] += len(victims)
         self.fleet_stats["replayed"] += replayed
+        if self._tel is not None:
+            self._tel.on_failover(rep.idx, len(victims))
+        if self._tracer is not None:
+            self._tracer.engine_event(
+                "failover", replica=rep.idx, site=site, hard=hard,
+                reclaimed=len(victims), replayed=replayed)
 
     # ---------------- request lifecycle ----------------
     def cancel(self, rid: int) -> bool:
@@ -695,6 +764,12 @@ class EngineRouter:
                     # cancelled, never a violation — same split the
                     # engine's accounting makes
                     self._slo_bucket(req.slo)["cancelled"] += 1
+                if self._tel is not None:
+                    self._tel.on_held_cancel()
+                if self._tracer is not None:
+                    self._tracer.engine_event("held_cancel",
+                                              rid=int(req.rid),
+                                              queued=len(self._queue))
                 return True
         ridx = self._owner.get(rid)
         if ridx is None:
@@ -759,6 +834,9 @@ class EngineRouter:
                                 "expired": s["expired"],
                                 "queued": s["queued"]})
         unfinished.extend(request_ledger(r) for r in list(self._queue))
+        if self._tracer is not None:
+            self._tracer.engine_event("fleet_drain", expired=expired,
+                                      unfinished=len(unfinished))
         return {"drained": True, "expired": expired,
                 "queued": len(self._queue),
                 "replicas": per_replica,
@@ -842,18 +920,23 @@ class EngineRouter:
                 "percentiles": {}}
 
     def timeline_snapshot(self) -> dict:
-        """The fleet time series: ``{"enabled": False}``, what the JAX
-        router returns with ``PT_FLAGS_timeseries`` off (the port's time
-        series come with the observability slice)."""
+        """The fleet time series: the router's own windowed history of
+        its fleet counters plus every replica engine's timeline
+        (``{"enabled": False}`` with ``PT_FLAGS_timeseries`` off).
+        Copy-on-read; served at ``/timeline``."""
         if self._san is not None:
             self._san.check_read("timeline_snapshot")
-        return {"enabled": False}
+        if self._ts is None:
+            return {"enabled": False}
+        return {"enabled": True, "router": self._ts.snapshot(),
+                "replicas": [rep.engine.timeline_snapshot()
+                             for rep in list(self._replicas)]}
 
     def fleet_snapshot(self) -> dict:
         """Host-side router counters + breaker states (available with
-        telemetry off, like every engine snapshot). ``alerts`` is the
-        JAX router's document with alerts off (the port's alerts come
-        with the observability slice)."""
+        telemetry off, like every engine snapshot). ``alerts`` aggregates
+        every replica's alert-rule state: which replica is burning its
+        SLO budget."""
         if self._san is not None:
             self._san.check_read("fleet_snapshot")
         st = {k: v for k, v in list(self.fleet_stats.items())}
@@ -868,7 +951,16 @@ class EngineRouter:
         st["injector"] = (self._injector.snapshot()
                           if self._injector is not None
                           else {"enabled": False})
-        st["alerts"] = {"enabled": False, "fired": 0, "active": []}
+        alerts = {"enabled": False, "fired": 0, "active": []}
+        for rep in list(self._replicas):
+            asn = rep.engine.alerts_snapshot()
+            if not asn.get("enabled"):
+                continue
+            alerts["enabled"] = True
+            alerts["fired"] += asn["fired_total"]
+            for rule in list(asn["active"]):
+                alerts["active"].append({"replica": rep.idx, "rule": rule})
+        st["alerts"] = alerts
         return st
 
     def slo_snapshot(self) -> dict:
@@ -940,19 +1032,21 @@ class EngineRouter:
         }
 
     def fleet_chrome_trace(self) -> dict:
-        """The merged fleet trace: empty, what the JAX router returns with
-        no tracer on the router or its replicas (the port's tracing comes
-        with the observability slice)."""
-        return {"traceEvents": [], "displayTimeUnit": "ms"}
+        """ONE merged Perfetto-loadable trace for the whole fleet: the
+        router's event stream plus every replica's request and step
+        tracks, a failed-over rid's spans on both replicas joined by
+        flow events. Served at ``/trace?fleet=1``."""
+        return observability.tracing.fleet_chrome_trace(self)
 
     def metrics_snapshot(self) -> dict:
-        """ONE fleet document, as the JAX router gives it with telemetry
-        off: the host-side fleet snapshot, the merged fleet SLO and
-        tenant views, and every replica's own ``metrics_snapshot`` —
-        what the aggregate ``/healthz`` embeds."""
+        """ONE fleet document: the router's registry aggregates (when
+        telemetry is on), the host-side fleet snapshot, the merged fleet
+        SLO and tenant views, and every replica's own
+        ``metrics_snapshot`` — what the aggregate ``/healthz`` embeds."""
         if self._san is not None:
             self._san.check_read("metrics_snapshot")
-        snap = {"telemetry": "off"}
+        snap = ({"telemetry": "off"} if self._tel is None
+                else self._tel.snapshot())
         snap["fleet"] = self.fleet_snapshot()
         snap["slo"] = self.slo_snapshot()
         snap["tenants"] = self.tenant_snapshot()

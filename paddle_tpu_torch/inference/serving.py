@@ -85,9 +85,21 @@ each unfinished request's ``request_ledger``, which another engine's
 ``admit_ledger`` continues token for token. ``PT_FLAGS_sanitize`` checks
 the engine's invariants once a tick (``analysis/sanitizer.py``).
 
-Telemetry, tracing, the flight recorder, the profiler and cost
-attribution are a later slice (ROADMAP.md Queue A): the engine behaves as
-the JAX engine does with ``PT_FLAGS_telemetry=off``.
+Observability (``observability/``), on by default as in JAX
+(``PT_FLAGS_telemetry``): the engine publishes its ``pt_serve_*`` series
+to the port's registry, records each request's lifecycle and each step's
+composition in a lifecycle tracer (``PT_FLAGS_trace_sample``), attributes
+each step's device time to the requests it advanced
+(``PT_FLAGS_cost_attribution``), dumps a flight record on a NaN storm, and
+keeps a recompile watchdog over its dispatch signatures. With
+``PT_FLAGS_profile_programs`` a sampled dispatch is timed with CUDA events
+(the one sync it makes); with ``PT_FLAGS_timeseries`` a bounded window
+history feeds the alert rules (``PT_FLAGS_alerts``), whose SLO burn-rate
+alert the degradation ladder reads under ``PT_FLAGS_slo_degradation``.
+Every hook is fed from host state the engine already holds: an unsampled
+tick makes no more device syncs with all of it on than with it off.
+``metrics_http_get`` serves ``/metrics``, ``/healthz``, ``/trace`` and
+``/timeline`` for the front door and ``start_metrics_server``.
 """
 
 from __future__ import annotations
@@ -105,7 +117,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import flags
+from .. import flags, observability
 from ..core.device import resolve_device
 from ..core.random import make_generator
 from ..generation import process_logits_batch
@@ -270,8 +282,12 @@ class Request:
     top_k: Optional[int] = None
     top_p: Optional[float] = None
     greedy: Optional[bool] = None
-    # attributed device cost (ms) of the JAX engine's cost attribution:
-    # carried through ledgers unchanged (the port attributes none yet)
+    # attributed device cost (ms), accumulated step by step: each step's
+    # measured program-ms (profiler sample; sync-wall estimate on
+    # unsampled steps) split across the requests the step advanced,
+    # proportional to tokens advanced. device_ms_profiled is the part
+    # backed by measured samples. Travels in request_ledger, so cost
+    # survives failover and drain handoffs
     device_ms: float = 0.0
     device_ms_profiled: float = 0.0
     _submit_t: float = 0.0
@@ -279,6 +295,9 @@ class Request:
     _admit_t: float = 0.0
     # absolute deadline instant (perf_counter seconds; 0 = none)
     _deadline_t: float = 0.0
+    # the finish-time cost is recorded (a request can reach a terminal
+    # path more than once across flush points)
+    _cost_recorded: bool = False
     # replay re-queues consumed so far (crash recovery, failover)
     _retries: int = 0
     # the prefill ids' prefix-cache block digests (hashed once a
@@ -571,6 +590,77 @@ class ContinuousBatchingEngine:
             from ..analysis.sanitizer import EngineSanitizer
 
             self._san = EngineSanitizer(self)
+        self._init_observability()
+
+    def _init_observability(self):
+        """The observability layer, each part None when its flag is off
+        (every hook site is then one identity check): telemetry and the
+        lifecycle tracer, the flight recorder (built at the first dump),
+        the program profiler, the dispatch-signature record and its
+        recompile watchdog, the time series and alerts, and per-request
+        cost attribution."""
+        self._tel = (observability.ServingTelemetry()
+                     if observability.enabled() else None)
+        self._tracer = None
+        if self._tel is not None and float(flags.flag("trace_sample")) > 0:
+            self._tracer = observability.Tracer(
+                engine_id=self._tel.engine_id)
+        self._recorder = None
+        self._prof = None
+        if bool(flags.flag("profile_programs")):
+            self._prof = observability.ProgramProfiler(
+                engine_id=(self._tel.engine_id
+                           if self._tel is not None else None))
+        # each dispatch's program label and signature: what a JAX jit
+        # would retrace on, so a new one after the seal is a recompile
+        self._sigs = None
+        self._watchdog = None
+        if bool(flags.flag("recompile_watchdog")):
+            self._sigs = observability.ProgramSignatures()
+            self._watchdog = observability.RecompileWatchdog(
+                self._sigs.counts, self._sigs.shapes,
+                engine_id=(self._tel.engine_id
+                           if self._tel is not None
+                           else (self._prof.engine_id
+                                 if self._prof is not None else "-")))
+        self._ts = None
+        self._alerts = None
+        if bool(flags.flag("timeseries")):
+            label = (self._tel.engine_id if self._tel is not None
+                     else None)
+            self._ts = observability.TimeSeriesStore(label=label)
+            if bool(flags.flag("alerts")):
+                self._alerts = observability.AlertManager(
+                    self._ts.label, tracer=self._tracer)
+        self._slo_degradation = bool(flags.flag("slo_degradation"))
+        # tokens emitted, prefill first tokens included (the time
+        # series' token counter)
+        self._tokens_emitted = 0
+        self._cost_enabled = bool(flags.flag("cost_attribution"))
+        self.cost_stats = {
+            # program -> total attributed ms (measured + estimated)
+            "attributed_ms": {},
+            # measured samples vs the sync-wall upper bound
+            "profiled_ms": 0.0, "estimated_ms": 0.0,
+            "requests_finished": 0,
+            "request_device_ms_total": 0.0,
+            # slo class (or "untracked") -> {requests, device_ms_total}
+            "by_slo": {},
+        }
+        self._cost_window: collections.deque = collections.deque(
+            maxlen=512)
+        # requests finished mid-step: their cost is recorded after the
+        # step's attribution pass (the final chunk's share included)
+        self._cost_pending: List[Request] = []
+        # the weights are fixed after init: their bytes are counted once
+        self._hbm_weights = observability.profiling.weight_bytes_by_dtype(
+            self.model.parameters(), self.model.buffers())
+        self._hbm_update()
+
+    def _note_sig(self, program: str, static=(), **args):
+        """Record one dispatch's signature for the recompile watchdog."""
+        if self._sigs is not None:
+            self._sigs.note(program, static, **args)
 
     def _init_cache_state(self):
         """(Re)build the caches (the paged pool and its ``PagePool``):
@@ -667,6 +757,12 @@ class ContinuousBatchingEngine:
         self._queue.appendleft(req)
         self.sched_stats["preemptions"] += 1
         self._tenant_bucket(req.tenant)["preemptions"] += 1
+        if self._tel is not None:
+            self._tel.on_preempt()
+        tr = self._tracer
+        if tr is not None and tr.want_request(req.rid):
+            tr.request(req.rid, "preempt", slot=slot,
+                       tokens=len(req.output), tenant=req.tenant or "-")
         return True
 
     # ---------------- requests ----------------
@@ -717,6 +813,14 @@ class ContinuousBatchingEngine:
         with self._rid_lock:
             self._next_rid = max(self._next_rid, req.rid + 1)
         self._queue.append(req)
+        if self._tel is not None:
+            self._tel.on_submit(len(self._queue))
+        tr = self._tracer
+        if tr is not None and tr.want_request(req.rid):
+            tr.request(req.rid, "queued", t0=req._submit_t,
+                       prompt_tokens=int(req.prompt.size),
+                       max_new_tokens=int(req.max_new_tokens),
+                       slo=req.slo or "")
         return req.rid
 
     def admit_ledger(self, ledger: dict) -> int:
@@ -770,6 +874,15 @@ class ContinuousBatchingEngine:
         with self._rid_lock:
             self._next_rid = max(self._next_rid, rid + 1)
         self._queue.append(req)
+        if self._tel is not None:
+            self._tel.on_submit(len(self._queue))
+        tr = self._tracer
+        if tr is not None and tr.want_request(rid):
+            tr.request(rid, "queued", t0=req._submit_t,
+                       prompt_tokens=int(req.prompt.size),
+                       max_new_tokens=int(req.max_new_tokens),
+                       slo=req.slo or "", handoff=True,
+                       replayed_tokens=len(req.output))
         return rid
 
     def _req_greedy(self, req: Request) -> bool:
@@ -864,6 +977,7 @@ class ContinuousBatchingEngine:
         for slots not prefilling). Samples one token per slot from its
         ``last_idx`` row; only the final chunk's sample is used."""
         self.stats["prefill_chunk"] += 1
+        self._note_sig("prefill_chunk", (use_samp,), ids=ids, start=start)
         C = ids.shape[1]
         pos = start[:, None] + torch.arange(C, dtype=start.dtype,
                                             device=start.device)
@@ -892,10 +1006,11 @@ class ContinuousBatchingEngine:
         padded[0, :n] = seq
         one = self.model.init_kv_caches(1, bucket, dtype=self.cache_dtype)
         ids = torch.as_tensor(padded, device=self.device)
+        use_samp, samp = self._slot_sampling([(0, req)])
+        self._note_sig("prefill_bucket", (use_samp,), ids=ids)
         logits, one = self.model(
             ids, position_ids=torch.arange(bucket, device=self.device)[None],
             kv_caches=one, cache_index=0)
-        use_samp, samp = self._slot_sampling([(0, req)])
         if use_samp:  # [1] vectors: the request's own params
             samp = tuple(t[:1] for t in samp)
         return self._sample_rows(logits[:, n - 1], samp, use_samp)[0], one
@@ -903,6 +1018,7 @@ class ContinuousBatchingEngine:
     def _insert_contig(self, one, slot: int):
         """Copy a ``[1, bucket]`` prefill cache into ``slot``'s rows of
         every layer, padded with zero rows to max_len."""
+        self._note_sig("prefill_insert", one_k=one[0][0])
         for (gk, gv), (ok, ov) in zip(self.caches, one):
             b = ok.shape[1]
             for dst, src in ((gk, ok), (gv, ov)):
@@ -914,6 +1030,8 @@ class ContinuousBatchingEngine:
         // page_size`` pages of ``slot``'s block table, head-major."""
         ps = self.cfg.page_size
         n_used = one[0][0].shape[1] // ps
+        self._note_sig("prefill_scatter", one_k=one[0][0],
+                       bt_row=self.pool.block_tables[slot])
         pages = torch.as_tensor(self.pool.block_tables[slot, :n_used],
                                 dtype=torch.long, device=self.device)
         for cache, (ok, ov) in zip(self.caches, one):
@@ -960,6 +1078,7 @@ class ContinuousBatchingEngine:
         Row 0 of a sampling slot is sampled. Returns ``preds [slots, S]``
         and ``accepted [slots]``, on the device."""
         self.stats["verify_forwards"] += 1
+        self._note_sig("spec_verify", (use_samp,), ids=ids, n_draft=n_draft)
         S = ids.shape[1]
         pos = start[:, None] + torch.arange(S, dtype=start.dtype,
                                             device=start.device)
@@ -978,6 +1097,7 @@ class ContinuousBatchingEngine:
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write's device copy: page ``src`` into ``dst`` in every
         layer's pool, an int8 pool's scale rows with it."""
+        self._note_sig("page_copy", k_pages=self.caches[0].k_pages)
         for cache in self.caches:
             for t in cache:
                 if t is not None:
@@ -988,6 +1108,7 @@ class ContinuousBatchingEngine:
         ``QuantizedKV`` with its scale rows) into ``slot``'s contiguous
         rows ``start..start+B-1``: the contiguous prefix hit is a copy."""
         end = start + self._prefix_block
+        self._note_sig("prefix_insert", kblk=kblk, vblk=vblk)
         for i, pair in enumerate(self.caches):
             for dst, blk in zip(pair, (kblk, vblk)):
                 if isinstance(dst, QuantizedKV):
@@ -1001,6 +1122,7 @@ class ContinuousBatchingEngine:
         ``[n_layers, B, kvh, d]`` per side (``QuantizedKV`` for int8
         caches): the store's entry for a new prefix block."""
         end = start + self._prefix_block
+        self._note_sig("prefix_read", k0=self.caches[0][0])
 
         def stack(side):
             rows = [pair[side] for pair in self.caches]
@@ -1042,9 +1164,14 @@ class ContinuousBatchingEngine:
             prefix_len = ids.size - 1
         return req._hashes, matched, prefix_len, full_cover
 
-    def _note_prefix(self, prefix_len: int, n: int):
-        """Hit/miss counters of one admitted prompt of ``n`` tokens. A
-        prompt shorter than a block can never hit and is not counted."""
+    def _note_prefix(self, prefix_len: int, n: int, req: Request):
+        """Hit/miss counters of one admitted prompt of ``n`` tokens (the
+        tracer's ``prefix_lookup`` first). A prompt shorter than a block
+        can never hit and is not counted."""
+        tr = self._tracer
+        if tr is not None and tr.want_request(req.rid):
+            tr.request(req.rid, "prefix_lookup", hit_tokens=int(prefix_len),
+                       prompt_tokens=int(n))
         if n < self._prefix_block:
             return
         st = self.prefix_stats
@@ -1054,6 +1181,9 @@ class ContinuousBatchingEngine:
             st["hit_tokens"] += prefix_len
         else:
             st["misses"] += 1
+        if self._tel is not None:
+            self._tel.on_prefix(prefix_len, n, self._prefix.cached_pages,
+                                tenant=req.tenant or "-")
 
     def _evict_pages(self, n_pages: int,
                      prefer_ns: Optional[str] = None) -> int:
@@ -1062,7 +1192,14 @@ class ContinuousBatchingEngine:
         if self._prefix is None or self.pool is None:
             return 0
         freed = self._prefix.evict(self.pool, n_pages, prefer_ns=prefer_ns)
-        self.prefix_stats["evictions"] += freed
+        if freed:
+            self.prefix_stats["evictions"] += freed
+            if self._tel is not None:
+                self._tel.on_prefix_evict(freed, self._prefix.cached_pages)
+            if self._tracer is not None:
+                self._tracer.engine_event(
+                    "prefix_evict", freed_pages=int(freed),
+                    cached_pages=int(self._prefix.cached_pages))
         return freed
 
     def _cow_block(self, slot: int, block_idx: int) -> bool:
@@ -1075,8 +1212,26 @@ class ContinuousBatchingEngine:
         new = self.pool.cow(slot, block_idx)
         if new is None:
             return False
+        prof = self._prof
+        p_want = prof is not None and prof.want("page_copy")
+        t0 = time.perf_counter()
+        start = prof.mark(self.device) if p_want else None
         self._copy_page(old, new)
+        if p_want:
+            # t_call == t0: the copy has no host scheduling stage
+            prof.observe("page_copy", t0, t0, time.perf_counter(), start)
         self.prefix_stats["cow_copies"] += 1
+        tr = self._tracer
+        if tr is not None:
+            # an admission claim's slot joins _slot_req only after the
+            # whole wave claims: then the copy is an engine event
+            req = self._slot_req.get(slot)
+            if req is not None and tr.want_request(req.rid):
+                tr.request(req.rid, "cow", slot=slot, block=int(block_idx),
+                           src_page=old, dst_page=int(new))
+            elif req is None:
+                tr.engine_event("cow", slot=slot, block=int(block_idx),
+                                src_page=old, dst_page=int(new))
         return True
 
     def _cow_for_decode(self, k_steps: int):
@@ -1184,8 +1339,11 @@ class ContinuousBatchingEngine:
                 store.insert(hashes[i], k, v, ns=ns, protect=hashes)
         # a hard recovery's fresh store counts from 0 again: the
         # engine's counter never goes back (the JAX engine's rule)
-        if store.evictions > self.prefix_stats["evictions"]:
+        evicted = store.evictions - self.prefix_stats["evictions"]
+        if evicted > 0:
             self.prefix_stats["evictions"] = store.evictions
+            if self._tel is not None:
+                self._tel.on_prefix_evict(evicted, store.cached_pages)
 
     # ---------------- admission ----------------
     def _admit_dispatch(self):
@@ -1248,9 +1406,24 @@ class ContinuousBatchingEngine:
                 break
             self._queue.popleft()
             heapq.heappop(self._free_heap)
+            t0 = time.perf_counter()
+            p_dec = None
             try:
                 self._fault_point("prefill_bucket")
+                prof = self._prof
+                p_want = prof is not None and prof.want("prefill_bucket")
+                t_call = time.perf_counter()
+                mark = prof.mark(self.device) if p_want else None
                 first, one = self._prefill_bucket(req, ids, bucket)
+                if p_want:
+                    p_dec = prof.observe("prefill_bucket", t0, t_call,
+                                         time.perf_counter(), mark)
+                    if self._cost_enabled:
+                        # one request's program: the whole measured
+                        # time is its own
+                        self._attribute_cost("prefill_bucket",
+                                             p_dec["device_ms"], True,
+                                             [(req, n)])
                 if self.pool is not None:
                     self._scatter_paged(one, slot)
                 else:
@@ -1271,6 +1444,17 @@ class ContinuousBatchingEngine:
             req.slot = slot
             self._slot_req[slot] = req
             pending.append((req, slot, n, first))
+            tr = self._tracer
+            if tr is not None:
+                seq = tr.next_step()
+                if tr.want_step(seq):
+                    tr.step(seq, "prefill_bucket", t0, time.perf_counter(),
+                            rid=int(req.rid), bucket=int(bucket),
+                            prompt_tokens=int(n),
+                            occupancy=float(self.active.sum())
+                            / self.cfg.max_slots,
+                            **(dict(p_dec, profiled=True)
+                               if p_dec is not None else {}))
         self._note_free_pages()
         return pending
 
@@ -1399,7 +1583,10 @@ class ContinuousBatchingEngine:
         bt = self._block_tables()  # fixed for the wave: upload once
         use_samp, samp = self._slot_sampling(
             [(job[1], job[0]) for job in jobs])
+        tr = self._tracer
+        prof = self._prof
         while remaining:
+            t0 = time.perf_counter()
             # fault seam: an injected fault here quarantines the whole
             # wave through the admission rollback
             self._fault_point("prefill_chunk")
@@ -1407,8 +1594,10 @@ class ContinuousBatchingEngine:
             start = np.full((cfg.max_slots,), cfg.max_len, np.int64)
             last_idx = np.zeros((cfg.max_slots,), np.int64)
             finishing = []
+            packed = 0
+            call_shares = [] if self._cost_enabled else None
             for job in remaining:
-                slot, p, job_ids = job[1], job[2], job[6]
+                req, slot, p, job_ids = job[0], job[1], job[2], job[6]
                 take = min(C, job_ids.size - p)
                 ids[slot, :take] = job_ids[p:p + take]
                 start[slot] = p
@@ -1416,10 +1605,43 @@ class ContinuousBatchingEngine:
                     last_idx[slot] = job_ids.size - 1 - p
                     finishing.append(job)
                 job[2] = p + take
-            toks = self._prefill_chunk(
-                torch.as_tensor(ids, device=dev),
-                torch.as_tensor(start, device=dev),
-                torch.as_tensor(last_idx, device=dev), samp, use_samp, bt)
+                packed += take
+                if call_shares is not None:
+                    call_shares.append((req, take))
+                if tr is not None and tr.want_request(req.rid):
+                    tr.request(req.rid, "prefill_chunk", start=int(p),
+                               tokens=int(take), slot=slot)
+            p_want = prof is not None and prof.want("prefill_chunk")
+            p_dec = None
+            ids_d = torch.as_tensor(ids, device=dev)
+            start_d = torch.as_tensor(start, device=dev)
+            last_d = torch.as_tensor(last_idx, device=dev)
+            t_call = time.perf_counter()
+            mark = prof.mark(dev) if p_want else None
+            toks = self._prefill_chunk(ids_d, start_d, last_d, samp,
+                                       use_samp, bt)
+            if p_want:
+                # an unsampled chunk's device time surfaces in the next
+                # step's sync window: prefill cost is attributed only
+                # from measured samples, as in JAX
+                p_dec = prof.observe("prefill_chunk", t0, t_call,
+                                     time.perf_counter(), mark)
+                if call_shares:
+                    self._attribute_cost("prefill_chunk",
+                                         p_dec["device_ms"], True,
+                                         call_shares)
+            if tr is not None:
+                seq = tr.next_step()
+                if tr.want_step(seq):
+                    tr.step(seq, "prefill_chunk", t0, time.perf_counter(),
+                            prefilling=len(remaining),
+                            tokens_packed=packed, chunk=C,
+                            chunk_budget_spent=packed,
+                            occupancy=float(self.active.sum())
+                            / cfg.max_slots,
+                            rids=[int(j[0].rid) for j in remaining],
+                            **(dict(p_dec, profiled=True)
+                               if p_dec is not None else {}))
             for job in finishing:
                 pending.append((job[0], job[1], job[6].size,
                                 toks[job[1]]))
@@ -1429,7 +1651,7 @@ class ContinuousBatchingEngine:
             for req, slot, _, prefix_len, hashes, n_matched, ids in jobs:
                 self._prefix_store_insert(slot, hashes, n_matched,
                                           ns=request_namespace(req))
-                self._note_prefix(prefix_len, ids.size)
+                self._note_prefix(prefix_len, ids.size, req)
         return pending
 
     def _admit_integrate(self, pending):
@@ -1439,13 +1661,35 @@ class ContinuousBatchingEngine:
         instant."""
         for req, slot, n_ctx, first_dev in pending:
             first = int(first_dev)
-            if req.ttft_ms is None:
-                now = time.perf_counter()
+            now = time.perf_counter()
+            fresh = req.ttft_ms is None
+            if fresh:
                 req._admit_t = now
                 req.ttft_ms = (now - req._submit_t) * 1e3
             req.output.append(first)
+            # the prefill's first token counts toward the time series'
+            # token counter too
+            self._tokens_emitted += 1
             self.seq_lens[slot] = n_ctx
             self.last_tok[slot] = first
+            if self._tel is not None:
+                if fresh:
+                    self._tel.on_admit(req.ttft_ms)
+                else:
+                    self._tel.on_readmit()
+            tr = self._tracer
+            if tr is not None and tr.want_request(req.rid):
+                if fresh:
+                    # the span covers queue wait + prefill: exactly TTFT
+                    tr.request(req.rid, "admitted", t0=req._submit_t,
+                               t1=now, slot=slot, ttft_ms=req.ttft_ms,
+                               first_tokens=1,
+                               prompt_tokens=int(req.prompt.size))
+                else:
+                    tr.request(req.rid, "readmitted", slot=slot,
+                               retries=int(req._retries),
+                               replayed_tokens=int(n_ctx
+                                                   - req.prompt.size))
             self._maybe_finish(slot, first)
 
     def _admit(self):
@@ -1483,10 +1727,27 @@ class ContinuousBatchingEngine:
 
     def _finish(self, req: Request, reason: str):
         """Terminal bookkeeping of a request that has left the queue or
-        its slot: the finish record and the accounting."""
+        its slot: the finish record, the accounting, the finish-time
+        cost and the telemetry counter of its reason. A normal finish
+        lands mid-step, so its cost is recorded after the step's
+        attribution pass; a cancel, timeout or failure has no pending
+        share and records at once."""
         req.done = True
         self._finished[req.rid] = req
         self._finish_accounting(req, reason)
+        if reason in ("cancel", "timeout", "failed"):
+            self._record_cost_finish(req)
+        elif self._cost_enabled:
+            self._cost_pending.append(req)
+        if self._tel is not None:
+            if reason == "cancel":
+                self._tel.on_cancel()
+            elif reason == "timeout":
+                self._tel.on_timeout()
+            elif reason == "failed":
+                self._tel.on_failed()
+            else:
+                self._tel.on_finish(req.tpot_ms)
 
     def _slo_bucket(self, slo: str) -> Dict[str, int]:
         st = self.slo_stats.get(slo)
@@ -1496,15 +1757,14 @@ class ContinuousBatchingEngine:
 
     def _tenant_bucket(self, tenant: Optional[str]) -> Dict[str, int]:
         """Cumulative counters of a tenant (``"-"`` = untagged), written
-        at finish and preempt. The JAX bucket's ``device_ms`` comes with
-        cost attribution."""
+        at finish and preempt; ``device_ms`` is its attributed cost."""
         key = tenant or "-"
         st = self.tenant_stats.get(key)
         if st is None:
             st = self.tenant_stats[key] = {
                 "finished": 0, "cancelled": 0, "timeouts": 0, "failed": 0,
-                "tokens": 0, "slo_met": 0, "slo_violated": 0,
-                "preemptions": 0}
+                "tokens": 0, "device_ms": 0.0, "slo_met": 0,
+                "slo_violated": 0, "preemptions": 0}
         return st
 
     def _finish_accounting(self, req: Request, reason: str):
@@ -1524,8 +1784,23 @@ class ContinuousBatchingEngine:
                  "failed": "failed"}[reason]] += 1
         else:
             tst["finished"] += 1
-        if req.slo is None:
-            return
+        if req.slo is not None:
+            self._slo_accounting(req, reason, tst)
+        tr = self._tracer
+        if tr is not None and tr.want_request(req.rid):
+            if reason == "cancel":
+                tr.request(req.rid, "cancel",
+                           stage="active" if req._admit_t else "queued",
+                           tokens=len(req.output))
+            else:
+                tr.request(req.rid, "active", t0=req._admit_t or now,
+                           t1=now, tokens=len(req.output), reason=reason,
+                           tpot_ms=req.tpot_ms, slo=req.slo or "",
+                           slo_met=req.slo_met)
+
+    def _slo_accounting(self, req: Request, reason: str, tst):
+        """SLO attainment of a finished SLO-tracked request: its class
+        bucket, the tenant's counters and the telemetry counters."""
         st = self._slo_bucket(req.slo)
         if reason == "cancel":
             st["cancelled"] += 1
@@ -1537,6 +1812,8 @@ class ContinuousBatchingEngine:
                 st["timeouts"] += 1
             tst["slo_violated"] += 1
             st["total_tokens"] += len(req.output)
+            if self._tel is not None:
+                self._tel.on_slo(req.slo, False, tenant=req.tenant or "-")
             return
         ttft_ok = (req.ttft_target_ms is None
                    or (req.ttft_ms is not None
@@ -1553,6 +1830,8 @@ class ContinuousBatchingEngine:
         st["total_tokens"] += len(req.output)
         if req.slo_met:
             st["met_tokens"] += len(req.output)
+        if self._tel is not None:
+            self._tel.on_slo(req.slo, req.slo_met, tenant=req.tenant or "-")
 
     def _maybe_finish(self, slot: int, tok: int):
         req = self._slot_req.get(slot)
@@ -1640,12 +1919,17 @@ class ContinuousBatchingEngine:
             self._finish(req, "failed")
             return False
         self.resilience_stats["retries"] += 1
+        if self._tel is not None:
+            self._tel.on_retry()
         return True
 
     def _note_fault(self, site: str, program: str):
-        del program  # names the seam for the tracer of a later slice
         st = self.resilience_stats
         st["faults"][site] = st["faults"].get(site, 0) + 1
+        if self._tel is not None:
+            self._tel.on_fault(site)
+        if self._tracer is not None:
+            self._tracer.engine_event("fault", site=site, program=program)
 
     def _fault_point(self, program: str):
         """One forward's seam, before it is launched: the injector's
@@ -1690,6 +1974,13 @@ class ContinuousBatchingEngine:
         self._faults_tick += 1
         for req in reqs:
             self._bump_retry(req)
+        if self._tel is not None:
+            self._tel.on_fault(exc.site)
+            self._tel.on_recovery(len(reqs))
+        if self._tracer is not None:
+            self._tracer.engine_event(
+                "recovery", site=exc.site, program=exc.program,
+                requeued=len(reqs), hard=False)
 
     def _recover_step(self, exc: BaseException, participants,
                       program: str):
@@ -1730,6 +2021,14 @@ class ContinuousBatchingEngine:
             self._rebuild_caches()
         if site == "nan":
             self._nan_dump(program, requeued)
+        if self._tel is not None:
+            self._tel.on_fault(site)
+            self._tel.on_recovery(requeued)
+        if self._tracer is not None:
+            self._tracer.engine_event(
+                "recovery", site=site, program=program, requeued=requeued,
+                failed=len(victims) - requeued, hard=hard,
+                error=type(exc).__name__)
 
     def _rebuild_caches(self):
         """Hard recovery: after a failure that was not injected the caches
@@ -1751,23 +2050,46 @@ class ContinuousBatchingEngine:
         self._note_free_pages()
 
     def _nan_dump(self, program: str, requeued: int):
-        """The NaN-storm postmortem of the JAX engine rides its flight
-        recorder, which writes nothing with telemetry off; the port has no
-        telemetry yet, so nothing is written (``nan_steps`` counts)."""
-        del program, requeued
+        """NaN-logits storm postmortem: a flight record, whose dump
+        attaches the lifecycle tracer's tail, so the artifact shows what
+        the engine was doing. Telemetry off: no artifact (``nan_steps``
+        still counts)."""
+        if self._tel is None:
+            return
+        if self._recorder is None:
+            self._recorder = observability.FlightRecorder(
+                capacity=int(flags.flag("telemetry_flight_window")),
+                dump_dir=str(flags.flag("telemetry_dump_dir")))
+        self._recorder.record(kind="serve_nan", program=program,
+                              requeued=requeued,
+                              engine=self._tel.engine_id)
+        self._recorder.dump(f"serving NaN-logits storm in {program} "
+                            f"(engine {self._tel.engine_id})")
 
     def _observe_health(self):
         """One ladder tick: saturation from the live admission state, and
-        the faults since the last tick. (``PT_FLAGS_slo_degradation``'s
-        burn-rate input reads an alert the port does not have yet: the
-        JAX engine with alerts off.)"""
+        the faults since the last tick. Under ``PT_FLAGS_slo_degradation``
+        an active ``slo_burn_rate`` alert counts as saturation too (the
+        capacity rungs, never the fault jump)."""
         if self._degctl is None:
             self._faults_tick = 0
             return
         qd = len(self._queue)
         sat = qd > 0 and (len(self._free_heap) == 0 or self._pool_blocked)
-        self._degctl.observe(saturated=bool(sat), faults=self._faults_tick)
+        if self._slo_degradation and self._alerts is not None \
+                and self._alerts.is_active("slo_burn_rate"):
+            sat = True
+        before = self._degctl.level
+        level = self._degctl.observe(saturated=bool(sat),
+                                     faults=self._faults_tick)
         self._faults_tick = 0
+        if level != before:
+            if self._tel is not None:
+                self._tel.on_degradation(level)
+            if self._tracer is not None:
+                self._tracer.engine_event("degrade", level=level,
+                                          previous=before,
+                                          level_name=self._degctl.name)
 
     def _drain_pending(self) -> List[Request]:
         """Queued requests that were in flight once (replays): drain owes
@@ -1791,6 +2113,12 @@ class ContinuousBatchingEngine:
         if deadline_ms is not None and deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0; got {deadline_ms}")
         self._draining = True
+        if self._tel is not None:
+            self._tel.on_drain(True)
+        if self._tracer is not None:
+            self._tracer.engine_event("drain_begin",
+                                      active=int(self.active.sum()),
+                                      queued=len(self._queue))
         t_end = (None if deadline_ms is None
                  else time.perf_counter() + deadline_ms / 1e3)
         expired = 0
@@ -1818,6 +2146,9 @@ class ContinuousBatchingEngine:
                 break
             self.step_chunk(max_chunk)
         unfinished.extend(request_ledger(r) for r in list(self._queue))
+        if self._tracer is not None:
+            self._tracer.engine_event("drain_end", expired=expired,
+                                      queued=len(self._queue))
         return {"drained": True, "expired": expired,
                 "active": int(self.active.sum()),
                 "queued": len(self._queue),
@@ -1827,6 +2158,8 @@ class ContinuousBatchingEngine:
         """Leave the draining state: admission restarts at the next
         tick."""
         self._draining = False
+        if self._tel is not None:
+            self._tel.on_drain(False)
 
     def resilience_snapshot(self) -> dict:
         """Fault, recovery and degradation counters (host counters,
@@ -1856,14 +2189,24 @@ class ContinuousBatchingEngine:
         san = self._san
         if san is not None:
             san.note_tick("step")
+        wd = self._watchdog
+        if wd is not None:
+            wd.tick_begin()
         out = self._step_impl()
-        self._tick_epilogue(san, "step")
+        self._tick_epilogue(wd, san, "step")
         return out
 
-    def _tick_epilogue(self, san, site: str):
-        """After a tick's host integration: the corruption seam, then the
-        sanitizer's invariants. The JAX engine's watchdog, cost, flight
-        and telemetry hooks come with the observability slice."""
+    def _tick_epilogue(self, wd, san, site: str):
+        """After a tick's host integration, as in JAX: the watchdog's
+        diff, the deferred finish-time costs, the flight tick (time
+        series and alerts), the corruption seam, then the sanitizer's
+        invariants. Each is one identity check when it is off."""
+        if wd is not None:
+            wd.tick_end()
+        if self._cost_pending:
+            self._flush_cost()
+        if self._ts is not None:
+            self._flight_tick()
         if self._injector is not None:
             self._corrupt_point()
         if san is not None:
@@ -1928,7 +2271,15 @@ class ContinuousBatchingEngine:
             if drafts:
                 return self._spec_step(drafts)
             self.spec_stats["fallback_steps"] += 1
+            if self._tel is not None:
+                self._tel.on_spec_fallback()
+        t0 = time.perf_counter()
+        tr = self._tracer
+        seq = tr.next_step() if tr is not None else 0
+        adv = {} if tr is not None and tr.want_step(seq) else None
+        occ = float(self.active.sum()) / self.cfg.max_slots
         participants = self.active.copy()
+        p_dec = None
         try:
             self._fault_point("decode")
             self._cow_for_decode(1)
@@ -1936,22 +2287,71 @@ class ContinuousBatchingEngine:
             dev = self.device
             toks = torch.as_tensor(self.last_tok[:, None], device=dev)
             lens = torch.as_tensor(self.seq_lens, device=dev)
-            nxt = self._decode_forward(toks, lens, samp, use_samp,
-                                       self._block_tables()).cpu().numpy()
+            bt = self._block_tables()
+            self._note_sig("decode_step", (use_samp,), toks=toks)
+            prof = self._prof
+            p_want = prof is not None and prof.want("decode_step")
+            t_call = time.perf_counter()
+            mark = prof.mark(dev) if p_want else None
+            nxt = self._decode_forward(toks, lens, samp, use_samp, bt)
+            t_disp = time.perf_counter()
+            if p_want:
+                p_dec = prof.observe("decode_step", t0, t_call, t_disp,
+                                     mark)
+                self._hbm_update()
+            nxt = nxt.cpu().numpy()
         except BaseException as e:
             if not self._recoverable(e):
                 raise
             self._recover_step(e, participants, "decode")
             return True
+        t_sync = time.perf_counter()
+        emitted = 0
+        cost_shares = [] if self._cost_enabled else None
         for slot in range(self.cfg.max_slots):
             if not self.active[slot]:
                 continue
             tok = int(nxt[slot])
-            self._slot_req[slot].output.append(tok)
+            req = self._slot_req[slot]
+            req.output.append(tok)
             self.seq_lens[slot] += 1
             self.last_tok[slot] = tok
+            emitted += 1
+            if adv is not None:
+                adv[req.rid] = 1
+            if cost_shares is not None:
+                cost_shares.append((req, 1))
             self._maybe_finish(slot, tok)
+        self._tokens_emitted += emitted
+        self._step_close("decode_step", "decode", t0, t_call, t_disp,
+                         t_sync, p_dec, cost_shares, emitted, 1, adv, occ,
+                         seq)
+        if self._tel is not None:
+            self._tel.on_tokens(emitted, (time.perf_counter() - t0) * 1e3)
+            self._tel.on_state(*self._tel_state())
         return True
+
+    def _step_close(self, program, event, t0, t_call, t_disp, t_sync,
+                    p_dec, shares, emitted, spent, adv, occ, seq, **extra):
+        """A decode/verify step's attribution and trace: the step's
+        device time split over ``shares`` — the measured sample when the
+        dispatch was profiled, else the dispatch-done -> token-sync host
+        wall (an upper bound) — and the tracer's step event, with the
+        measured decomposition, or the same schedule/dispatch windows
+        and the sync-wall fallback."""
+        if shares:
+            self._attribute_cost(
+                program, p_dec["device_ms"] if p_dec is not None
+                else (t_sync - t_disp) * 1e3, p_dec is not None, shares)
+        if adv is not None:
+            timing = (dict(p_dec, profiled=True) if p_dec is not None
+                      else {"schedule_ms": (t_call - t0) * 1e3,
+                            "dispatch_ms": (t_disp - t_call) * 1e3,
+                            "sync_wall_ms": (t_sync - t_disp) * 1e3})
+            self._tracer.step(seq, event, t0, time.perf_counter(),
+                              occupancy=occ, tokens_advanced=emitted,
+                              chunk_budget_spent=spent, advanced=adv,
+                              **extra, **timing)
 
     # ---------------- speculative decoding ----------------
     def _draft_budget(self, slot: int) -> int:
@@ -1999,10 +2399,17 @@ class ContinuousBatchingEngine:
         rows included, before the block table is uploaded."""
         cfg = self.cfg
         S = cfg.spec_k + 1
+        t0 = time.perf_counter()
+        tr = self._tracer
+        seq = tr.next_step() if tr is not None else 0
+        adv = {} if tr is not None and tr.want_step(seq) else None
+        spec_by_rid = {} if adv is not None else None
+        occ = float(self.active.sum()) / cfg.max_slots
         chunk_slots = self.active.copy()
         # the pass's occupants: admission behind it may re-fill a slot
         chunk_reqs = {s: self._slot_req[s]
                       for s in range(cfg.max_slots) if chunk_slots[s]}
+        p_dec = None
         try:
             self._fault_point("verify")
             self._cow_for_decode(S)
@@ -2018,12 +2425,26 @@ class ContinuousBatchingEngine:
                 start[slot] = self.seq_lens[slot]
             use_samp, samp = self._slot_sampling()
             dev = self.device
+            ids_d = torch.as_tensor(ids, device=dev)
+            start_d = torch.as_tensor(start, device=dev)
+            n_draft_d = torch.as_tensor(n_draft, device=dev)
+            bt = self._block_tables()
+            prof = self._prof
+            p_want = prof is not None and prof.want("spec_verify")
+            t_call = time.perf_counter()
+            mark = prof.mark(dev) if p_want else None
             preds, accepted = self._verify_forward(
-                torch.as_tensor(ids, device=dev),
-                torch.as_tensor(start, device=dev),
-                torch.as_tensor(n_draft, device=dev), samp, use_samp,
-                self._block_tables())
+                ids_d, start_d, n_draft_d, samp, use_samp, bt)
+            t_disp = time.perf_counter()
+            t_admit0 = t_disp
+            if p_want:
+                # the verify pass alone, before the admission behind it
+                p_dec = prof.observe("spec_verify", t0, t_call, t_disp,
+                                     mark)
+                self._hbm_update()
+                t_admit0 = time.perf_counter()
             pending = self._admit_dispatch()
+            t_admit = time.perf_counter()
             preds_np = preds.cpu().numpy()  # one sync for S tokens a slot
             acc_np = accepted.cpu().numpy()
         except BaseException as e:
@@ -2031,12 +2452,16 @@ class ContinuousBatchingEngine:
                 raise
             self._recover_step(e, chunk_slots, "verify")
             return True
+        t_sync = time.perf_counter()
         st = self.spec_stats
+        emitted = proposed_tot = accepted_tot = 0
+        cost_shares = [] if self._cost_enabled else None
         for slot, req in chunk_reqs.items():
             if self._slot_req.get(slot) is not req:
                 continue
             n = int(n_draft[slot])
             a = min(int(acc_np[slot]), n)
+            slot_emitted = 0
             for tok in [int(t) for t in ids[slot, 1:1 + a]] \
                     + [int(preds_np[slot, a])]:
                 if req.done:
@@ -2044,15 +2469,38 @@ class ContinuousBatchingEngine:
                 req.output.append(tok)
                 self.seq_lens[slot] += 1
                 self.last_tok[slot] = tok
-                st["emitted"] += 1
+                slot_emitted += 1
+                if adv is not None:
+                    adv[req.rid] = adv.get(req.rid, 0) + 1
                 self._maybe_finish(slot, tok)
+            emitted += slot_emitted
+            if cost_shares is not None and slot_emitted:
+                cost_shares.append((req, slot_emitted))
+            if spec_by_rid is not None and n:
+                spec_by_rid[req.rid] = [n, a]
             if n:
                 req._spec_proposed += n
                 req._spec_accepted += a
-                st["proposed"] += n
-                st["accepted"] += a
+                proposed_tot += n
+                accepted_tot += a
+                if self._tel is not None:
+                    self._tel.on_spec_slot(n, a)
         st["verify_calls"] += 1
+        st["proposed"] += proposed_tot
+        st["accepted"] += accepted_tot
+        st["emitted"] += emitted
+        self._tokens_emitted += emitted
+        self._step_close("spec_verify", "verify", t0, t_call, t_disp,
+                         t_sync, p_dec, cost_shares, emitted, S, adv, occ,
+                         seq, proposed=proposed_tot, accepted=accepted_tot,
+                         spec=spec_by_rid,
+                         admit_dispatch_ms=(t_admit - t_admit0) * 1e3)
         self._integrate_guarded(pending, "verify_integrate")
+        if self._tel is not None:
+            self._tel.on_tokens(emitted, (t_sync - t0) * 1e3)
+            self._tel.on_spec_verify(proposed_tot, accepted_tot,
+                                     st["accepted"], st["proposed"])
+            self._tel.on_state(*self._tel_state())
         return True
 
     def _slot_budgets(self) -> np.ndarray:
@@ -2080,8 +2528,11 @@ class ContinuousBatchingEngine:
         san = self._san
         if san is not None:
             san.note_tick("step_chunk")
+        wd = self._watchdog
+        if wd is not None:
+            wd.tick_begin()
         out = self._step_chunk_impl(max_chunk)
-        self._tick_epilogue(san, "step_chunk")
+        self._tick_epilogue(wd, san, "step_chunk")
         return out
 
     def _step_chunk_impl(self, max_chunk: int) -> bool:
@@ -2111,29 +2562,59 @@ class ContinuousBatchingEngine:
             if drafts and 2 * len(drafts) >= n_active:
                 return self._spec_step(drafts)
             self.spec_stats["fallback_steps"] += 1
+            if self._tel is not None:
+                self._tel.on_spec_fallback()
+        t0 = time.perf_counter()
+        tr = self._tracer
+        seq = tr.next_step() if tr is not None else 0
+        adv = {} if tr is not None and tr.want_step(seq) else None
+        occ = float(self.active.sum()) / self.cfg.max_slots
         K = max_chunk
         chunk_slots = self.active.copy()
         chunk_reqs = {s: self._slot_req[s]
                       for s in range(self.cfg.max_slots) if chunk_slots[s]}
+        p_dec = None
         try:
             self._fault_point("decode_chunk")
             self._cow_for_decode(K)
             budget = self._slot_budgets()
             use_samp, samp = self._slot_sampling()
             dev = self.device
-            toks_all = self._decode_chunk(
-                torch.as_tensor(self.last_tok[:, None], device=dev),
-                torch.as_tensor(self.seq_lens, device=dev),
-                torch.as_tensor(chunk_slots, device=dev),
-                torch.as_tensor(budget, device=dev), K, samp, use_samp,
-                self._block_tables())
+            toks = torch.as_tensor(self.last_tok[:, None], device=dev)
+            lens = torch.as_tensor(self.seq_lens, device=dev)
+            act = torch.as_tensor(chunk_slots, device=dev)
+            budget_d = torch.as_tensor(budget, device=dev)
+            bt = self._block_tables()
+            self._note_sig("decode_chunk", (K, use_samp), toks=toks,
+                           budget=budget_d)
+            prof = self._prof
+            p_want = prof is not None and prof.want("decode_chunk")
+            t_call = time.perf_counter()
+            mark = prof.mark(dev) if p_want else None
+            toks_all = self._decode_chunk(toks, lens, act, budget_d, K,
+                                          samp, use_samp, bt)
+            t_disp = time.perf_counter()
+            t_admit0 = t_disp
+            if p_want:
+                # the chunk alone, before the admission behind it
+                p_dec = prof.observe("decode_chunk", t0, t_call, t_disp,
+                                     mark)
+                self._hbm_update()
+                t_admit0 = time.perf_counter()
             pending = self._admit_dispatch()
+            t_admit = time.perf_counter()
             toks_np = toks_all.cpu().numpy()  # one sync for K tokens
         except BaseException as e:
             if not self._recoverable(e):
                 raise
             self._recover_step(e, chunk_slots, "decode_chunk")
             return True
+        # the TPOT window closes at the chunk's token sync, before the
+        # admitted requests' first-token syncs
+        t_sync = time.perf_counter()
+        emitted = 0
+        cost_by_slot: Optional[Dict[int, list]] = (
+            {} if self._cost_enabled else None)
         for k in range(K):
             for slot in range(self.cfg.max_slots):
                 # the slot advances only while its chunk-time occupant
@@ -2147,8 +2628,22 @@ class ContinuousBatchingEngine:
                 req.output.append(tok)
                 self.seq_lens[slot] += 1
                 self.last_tok[slot] = tok
+                emitted += 1
+                if adv is not None:
+                    adv[req.rid] = adv.get(req.rid, 0) + 1
+                if cost_by_slot is not None:
+                    cost_by_slot.setdefault(slot, [req, 0])[1] += 1
                 self._maybe_finish(slot, tok)
+        self._tokens_emitted += emitted
+        self._step_close("decode_chunk", "decode_chunk", t0, t_call, t_disp,
+                         t_sync, p_dec,
+                         [(r, n) for r, n in (cost_by_slot or {}).values()],
+                         emitted, K, adv, occ, seq,
+                         admit_dispatch_ms=(t_admit - t_admit0) * 1e3)
         self._integrate_guarded(pending, "chunk_integrate")
+        if self._tel is not None:
+            self._tel.on_tokens(emitted, (t_sync - t0) * 1e3)
+            self._tel.on_state(*self._tel_state())
         return True
 
     def step_adaptive(self, max_chunk: int = 8,
@@ -2294,23 +2789,419 @@ class ContinuousBatchingEngine:
             return 0
         return self._prefix.match_len(hashes) * self._prefix_block
 
+    # ---------------- telemetry ----------------
+    def _tel_state(self):
+        """(queue_depth, occupancy, kv_used, kv_total) — host scheduler
+        state only, no device traffic; also read from the ``/healthz``
+        scrape thread (``pages_of`` values are replaced whole, so a
+        racing read sees a momentarily stale count at worst)."""
+        if self._san is not None:
+            self._san.check_read("_tel_state")
+        occ = float(self.active.sum()) / self.cfg.max_slots
+        if self.pool is not None:
+            used = float(sum(len(self.pool.pages_of[s])
+                             for s in range(self.pool.slots)))
+            total = used + self.pool.free_pages
+        else:
+            used = float(self.seq_lens[self.active].sum())
+            total = float(self.cfg.max_slots * self.cfg.max_len)
+        return len(self._queue), occ, used, total
+
     def metrics_window_reset(self):
-        """Reset the telemetry windows. The port has no telemetry yet (the
-        JAX engine with ``PT_FLAGS_telemetry=off``), so there is nothing
-        to reset; the cumulative host counters keep running."""
+        """Reset percentile windows and peak trackers (cumulative
+        counters keep running): one measurement window per sweep."""
+        if self._tel is not None:
+            self._tel.window_reset()
 
     def metrics_snapshot(self) -> dict:
-        """The one serving document, as the JAX engine gives it with
-        telemetry off: ``{"telemetry": "off", "slots", "prefix_cache",
-        "spec_decode", "slo", "tenants", "resilience"}``. The
-        observability slice adds its sub-documents."""
+        """The one serving document. With telemetry on, the JAX engine's
+        document key for key: the telemetry aggregates (TTFT/TPOT
+        percentiles, queue depth, occupancy, KV utilization, counters),
+        the host sub-documents (slots, prefix cache, spec decode, SLO,
+        tenants, resilience) and the observability ones (programs,
+        recompile, hbm, alerts, cost; ``audit`` is the JAX engine's value
+        with its seal-time audit off: the port's audit is still to come).
+        With telemetry off: ``{"telemetry": "off"}`` and the host
+        sub-documents only (the observability readers stay callable one
+        by one)."""
         if self._san is not None:
             self._san.check_read("metrics_snapshot")
-        return {"telemetry": "off",
-                "slots": {"active": int(self.active.sum()),
-                          "max": self.cfg.max_slots},
-                "prefix_cache": self.prefix_snapshot(),
-                "spec_decode": self.spec_snapshot(),
-                "slo": self.slo_snapshot(),
-                "tenants": self.tenant_snapshot(),
-                "resilience": self.resilience_snapshot()}
+        if self._tel is None:
+            snap = {"telemetry": "off"}
+        else:
+            # refresh the point-in-time gauges: an idle engine still
+            # reports its current state
+            self._tel.on_state(*self._tel_state())
+            snap = self._tel.snapshot()
+        snap["slots"] = {"active": int(self.active.sum()),
+                         "max": self.cfg.max_slots}
+        snap["prefix_cache"] = self.prefix_snapshot()
+        snap["spec_decode"] = self.spec_snapshot()
+        snap["slo"] = self.slo_snapshot()
+        snap["tenants"] = self.tenant_snapshot()
+        snap["resilience"] = self.resilience_snapshot()
+        if self._tel is None:
+            return snap
+        # one hbm_accounting walk feeds both the gauges and the sub-doc
+        hbm = observability.hbm_accounting(self)
+        self._tel.on_hbm(hbm)
+        snap["programs"] = self.profile_snapshot()
+        snap["recompile"] = self.recompile_snapshot()
+        snap["hbm"] = dict(hbm, total=sum(list(hbm.values())))
+        snap["alerts"] = self.alerts_snapshot()
+        snap["cost"] = self.cost_snapshot()
+        snap["audit"] = {"enabled": False}
+        return snap
+
+    # ---------------- per-request device-cost attribution ----------
+    def _attribute_cost(self, program: str, device_ms: float,
+                        profiled: bool, shares):
+        """Split one step's device time across the requests it advanced,
+        proportional to tokens advanced (``shares``: [(req, tokens)]);
+        the shares sum to ``device_ms`` up to float rounding.
+        ``profiled`` marks a measured sample; the fallback (the step's
+        sync-wall upper bound) is accumulated apart."""
+        if device_ms <= 0 or not shares:
+            return
+        total = sum(n for _, n in shares)
+        if total <= 0:
+            return
+        st = self.cost_stats
+        st["attributed_ms"][program] = \
+            st["attributed_ms"].get(program, 0.0) + device_ms
+        st["profiled_ms" if profiled else "estimated_ms"] += device_ms
+        for req, n in shares:
+            share = device_ms * (n / total)
+            req.device_ms += share
+            if profiled:
+                req.device_ms_profiled += share
+
+    def _record_cost_finish(self, req: Request):
+        """Terminal cost bookkeeping for one request (idempotent)."""
+        if not self._cost_enabled or req._cost_recorded:
+            return
+        req._cost_recorded = True
+        st = self.cost_stats
+        st["requests_finished"] += 1
+        st["request_device_ms_total"] += req.device_ms
+        key = req.slo or "untracked"
+        by = st["by_slo"].get(key)
+        if by is None:
+            by = st["by_slo"][key] = {"requests": 0,
+                                      "device_ms_total": 0.0}
+        by["requests"] += 1
+        by["device_ms_total"] += req.device_ms
+        self._tenant_bucket(req.tenant)["device_ms"] += req.device_ms
+        self._cost_window.append(req.device_ms)
+        if self._tel is not None:
+            self._tel.on_request_cost(key, req.device_ms,
+                                      tenant=req.tenant or "-")
+
+    def _flush_cost(self):
+        """Record the finish-time costs deferred past the step's
+        attribution pass."""
+        if not self._cost_pending:
+            return
+        pending, self._cost_pending = self._cost_pending, []
+        for req in pending:
+            self._record_cost_finish(req)
+
+    def cost_snapshot(self) -> dict:
+        """Per-request device-cost attribution totals (host counters,
+        present with telemetry off); ``request_device_ms_p50`` is over
+        the recent finished-request window."""
+        if self._san is not None:
+            self._san.check_read("cost_snapshot")
+        if not self._cost_enabled:
+            return {"enabled": False}
+        st = {k: v for k, v in list(self.cost_stats.items())}
+        st["attributed_ms"] = dict(list(st["attributed_ms"].items()))
+        st["by_slo"] = {k: dict(list(v.items()))
+                        for k, v in list(st["by_slo"].items())}
+        win = sorted(self._cost_window)
+        st["request_device_ms_p50"] = win[len(win) // 2] if win else None
+        n = st["requests_finished"]
+        st["request_device_ms_mean"] = (
+            st["request_device_ms_total"] / n if n else None)
+        st["enabled"] = True
+        return st
+
+    # ---------------- flight data (time series + alerts) ----------
+    def _flight_tick(self):
+        """One tick of the time series (a window closes every cadence-th
+        tick) and, on a closed window, the alert rules."""
+        ts = self._ts
+        if ts is None:
+            return
+        sample = ts.on_tick(self._flight_collect)
+        if sample is not None and self._alerts is not None:
+            self._alerts.evaluate(ts)
+
+    def _flight_collect(self) -> dict:
+        """Cumulative counters and point gauges for one window: host
+        values the engine already holds (the JAX engine's keys), with
+        the histogram window-percentiles when telemetry is on."""
+        st = self.resilience_stats
+        counters = {
+            "tokens": float(self._tokens_emitted),
+            "finished": float(len(self._finished)),
+            "prefix_hits": float(self.prefix_stats["hits"]),
+            "prefix_misses": float(self.prefix_stats["misses"]),
+            "prefix_hit_tokens": float(self.prefix_stats["hit_tokens"]),
+            "prefix_prompt_tokens": float(
+                self.prefix_stats["prompt_tokens"]),
+            "prefix_evictions": float(self.prefix_stats["evictions"]),
+            "spec_proposed": float(self.spec_stats["proposed"]),
+            "spec_accepted": float(self.spec_stats["accepted"]),
+            "spec_verify_calls": float(self.spec_stats["verify_calls"]),
+            "recoveries": float(st["recoveries"]),
+            "retries": float(st["retries"]),
+            "timeouts": float(st["timeouts"]),
+            "failed": float(st["failed"]),
+            "recompiles": float(sum(self._watchdog.recompiles.values())
+                                if self._watchdog is not None else 0),
+            "device_ms": float(self.cost_stats["profiled_ms"]
+                               + self.cost_stats["estimated_ms"]),
+        }
+        for cls, s in list(self.slo_stats.items()):
+            counters[f"slo_met:{cls}"] = float(s["met"])
+            counters[f"slo_violated:{cls}"] = float(s["violated"])
+        qd, occ, used, total = self._tel_state()
+        ctl = self._degctl
+        gauges = {
+            "queue_depth": float(qd),
+            "occupancy": occ,
+            "active_slots": float(self.active.sum()),
+            "free_slots": float(len(self._free_heap)),
+            "kv_used": used,
+            "kv_total": total,
+            "kv_utilization": used / total if total else 0.0,
+            "degradation_level": float(ctl.level if ctl is not None
+                                       else 0),
+        }
+        percentiles = (self._tel.window_percentiles()
+                       if self._tel is not None else {})
+        return {"counters": counters, "gauges": gauges,
+                "percentiles": percentiles}
+
+    def timeline_snapshot(self) -> dict:
+        """The retained time-series windows (``{"enabled": False}`` with
+        ``PT_FLAGS_timeseries`` off); copy-on-read."""
+        if self._san is not None:
+            self._san.check_read("timeline_snapshot")
+        if self._ts is None:
+            return {"enabled": False}
+        st = self._ts.snapshot()
+        st["enabled"] = True
+        return st
+
+    def alerts_snapshot(self) -> dict:
+        """Alert-rule states and the bounded transition log
+        (``{"enabled": False}`` with alerts off); copy-on-read."""
+        if self._san is not None:
+            self._san.check_read("alerts_snapshot")
+        if self._alerts is None:
+            return {"enabled": False}
+        st = self._alerts.snapshot()
+        st["enabled"] = True
+        return st
+
+    def alerts_window_reset(self):
+        """Zero the per-rule peak trackers (fire counts, hysteresis state
+        and the registry totals keep running)."""
+        if self._alerts is not None:
+            self._alerts.window_reset()
+
+    # ---------------- program-time attribution ----------------
+    def _hbm_update(self):
+        """Refresh the device-memory residency gauges from the pools the
+        engine owns (tensor metadata, no device traffic): at init, on
+        profiler-sampled steps and from ``metrics_snapshot``."""
+        if self._tel is not None:
+            self._tel.on_hbm(observability.hbm_accounting(self))
+
+    def hbm_snapshot(self) -> dict:
+        """Live device-memory residency by component (kv_pool,
+        kv_scales, weights_<dtype>, prefix_store) and their total; host
+        metadata, present with telemetry off."""
+        if self._san is not None:
+            self._san.check_read("hbm_snapshot")
+        st = observability.hbm_accounting(self)
+        st["total"] = sum(list(st.values()))
+        return st
+
+    def profile_snapshot(self) -> dict:
+        """Measured per-program device-time stats
+        (``PT_FLAGS_profile_programs``; ``{"enabled": False}`` off)."""
+        if self._san is not None:
+            self._san.check_read("profile_snapshot")
+        if self._prof is None:
+            return {"enabled": False}
+        st = self._prof.snapshot()
+        st["enabled"] = True
+        return st
+
+    def recompile_snapshot(self) -> dict:
+        """Recompile-watchdog state: the sealed bit and per-program
+        post-seal counts (``{"enabled": False}`` off)."""
+        if self._san is not None:
+            self._san.check_read("recompile_snapshot")
+        if self._watchdog is None:
+            return {"enabled": False}
+        return self._watchdog.snapshot()
+
+    def profile_window_reset(self):
+        """Zero the profiler's host-side stats (registry totals keep
+        running)."""
+        if self._prof is not None:
+            self._prof.window_reset()
+
+    def seal_programs(self):
+        """Seal the recompile watchdog's program set now (e.g. right
+        after a warmup) instead of waiting out
+        ``PT_FLAGS_recompile_warmup_ticks``; no-op with it off."""
+        if self._watchdog is not None:
+            self._watchdog.seal()
+
+
+# ---------------------------------------------------------------------------
+# /metrics, /healthz, /trace and /timeline
+# ---------------------------------------------------------------------------
+class MetricsServer:
+    """Handle of a running metrics endpoint: ``server_address``/``url``
+    and a clean, idempotent ``shutdown()`` (stop serving, join the
+    thread, close the socket); also a context manager."""
+
+    def __init__(self, server, thread):
+        self._server = server
+        self._thread = thread
+        self._closed = False
+
+    @property
+    def server_address(self):
+        return self._server.server_address
+
+    @property
+    def url(self) -> str:
+        host, port = self._server.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def shutdown(self):
+        if self._closed:
+            return
+        self._closed = True
+        self._server.shutdown()
+        self._thread.join(timeout=10)
+        self._server.server_close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+        return False
+
+
+def metrics_http_get(engine, path: str):
+    """Route one GET against the observability surface, as the JAX
+    package does: ``/metrics`` (Prometheus text of the port's registry),
+    ``/healthz`` (JSON readiness: 503 while saturated or draining),
+    ``/trace`` (the target's tracer as Chrome trace JSON; ``?fleet=1`` on
+    a router merges its fleet; 404 with tracing off) and ``/timeline``
+    (the retained time-series windows; 404 with ``PT_FLAGS_timeseries``
+    off). Returns ``(status, body_bytes, content_type)``, or None for an
+    unknown path. ``engine`` may be an engine, an ``EngineRouter`` or
+    None; the front door (``serving_api``) serves the same routes."""
+    import json
+
+    bare = path.split("?")[0]
+    if bare == "/metrics":
+        text = observability.global_registry().prometheus_text()
+        return (200, text.encode(),
+                "text/plain; version=0.0.4; charset=utf-8")
+    if bare == "/healthz":
+        payload = {"status": "ok", "telemetry": observability.enabled()}
+        code = 200
+        if engine is not None:
+            bp = engine.backpressure()
+            payload["backpressure"] = bp
+            payload["engine"] = engine.metrics_snapshot()
+            # degraded is not a readiness failure: the replica serves
+            payload["degraded"] = bool(bp.get("degraded"))
+            payload["degradation_level"] = int(
+                bp.get("degradation_level", 0))
+            if bp.get("draining"):
+                payload["status"] = "draining"
+                code = 503
+            elif bp["saturated"]:
+                payload["status"] = "saturated"
+                code = 503
+        return (code, json.dumps(payload, default=str).encode(),
+                "application/json")
+    if bare == "/timeline":
+        tl = getattr(engine, "timeline_snapshot", None)
+        snap = tl() if tl is not None else None
+        if snap is None or not snap.get("enabled"):
+            return (404, b"timeline disabled (PT_FLAGS_timeseries off)",
+                    "text/plain")
+        return (200, json.dumps(snap, default=str).encode(),
+                "application/json")
+    if bare == "/trace":
+        from urllib.parse import parse_qs, urlparse
+
+        q = parse_qs(urlparse(path).query)
+        want_fleet = q.get("fleet", ["0"])[0] in ("1", "true")
+        tracer = getattr(engine, "_tracer", None)
+        if want_fleet and hasattr(engine, "_replicas"):
+            body = json.dumps(
+                observability.tracing.fleet_chrome_trace(engine),
+                default=str).encode()
+            return (200, body, "application/json")
+        if tracer is None:
+            return (404, b"tracing disabled (telemetry off or "
+                    b"trace_sample=0)", "text/plain")
+        body = json.dumps(observability.tracing.chrome_trace([tracer]),
+                          default=str).encode()
+        return (200, body, "application/json")
+    return None
+
+
+def start_metrics_server(engine=None, host: str = "127.0.0.1",
+                         port: int = 0) -> MetricsServer:
+    """Serve ``metrics_http_get``'s routes for an engine or an
+    ``EngineRouter`` on a daemon thread; ``port=0`` picks a free port.
+    Returns a :class:`MetricsServer`."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class _Handler(BaseHTTPRequestHandler):
+        def _send(self, code, body: bytes, ctype: str):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            # a scrape must not die on a transient error
+            try:
+                routed = metrics_http_get(engine, self.path)
+                if routed is None:
+                    self._send(404, b"not found", "text/plain")
+                else:
+                    self._send(*routed)
+            except BrokenPipeError:
+                pass
+            except Exception as e:  # noqa: BLE001
+                try:
+                    self._send(500, repr(e).encode(), "text/plain")
+                except Exception:
+                    pass
+
+        def log_message(self, fmt, *args):  # no per-scrape log lines
+            pass
+
+    server = ThreadingHTTPServer((host, port), _Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="pt-metrics-server")
+    thread.start()
+    return MetricsServer(server, thread)

@@ -24,8 +24,10 @@ engine thread selects the engine's device and runs under
 The target is a ``ContinuousBatchingEngine`` or an ``EngineRouter`` fleet
 (the submit/cancel/result surface is shape-compatible; ``/healthz`` then
 gives the aggregate document with a breaker row per replica).
-``/metrics``, ``/trace`` and ``/timeline`` answer 404 until the
-observability slice.
+``/metrics``, ``/healthz``, ``/trace`` and ``/timeline`` are served by the
+engine's ``metrics_http_get``, the routes ``start_metrics_server``
+serves: ``/trace`` answers 404 while tracing is off, ``/timeline`` while
+``PT_FLAGS_timeseries`` is off, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,15 +42,12 @@ import torch
 
 from .. import flags
 from ..inference.router import EngineRouter
-from ..inference.serving import ContinuousBatchingEngine
+from ..inference.serving import ContinuousBatchingEngine, metrics_http_get
 from . import protocol
 from .scheduler import default_scheduler
 
 # what a stream queue carries
 _TOKENS, _DONE, _ERROR = "tokens", "done", "error"
-
-# endpoints of the JAX front door that come with the observability slice
-_LATER = ("/metrics", "/trace", "/timeline")
 
 
 class _Stream:
@@ -79,20 +78,7 @@ def healthz(target) -> tuple:
     503 while draining (in-flight work still completes, but a router must
     stop sending) or saturated (requests wait and no slot, or no page,
     can take them); degraded is not a readiness failure."""
-    bp = target.backpressure()
-    payload = {"status": "ok", "telemetry": False, "backpressure": bp,
-               "engine": target.metrics_snapshot(),
-               "degraded": bool(bp["degraded"]),
-               "degradation_level": int(bp["degradation_level"])}
-    code = 200
-    if bp["draining"]:
-        payload["status"] = "draining"
-        code = 503
-    elif bp["saturated"]:
-        payload["status"] = "saturated"
-        code = 503
-    return (code, json.dumps(payload, default=str).encode(),
-            "application/json")
+    return metrics_http_get(target, "/healthz")
 
 
 class ServingFrontDoor:
@@ -337,7 +323,9 @@ def start_api_server(target, host: str = "127.0.0.1", port: int = 0,
     threads.
 
     Endpoints: ``POST /v1/completions`` (SSE with ``"stream": true``,
-    one JSON body otherwise), ``GET /v1/models``, ``GET /healthz``.
+    one JSON body otherwise), ``GET /v1/models``, and the observability
+    routes of ``metrics_http_get``: ``GET /healthz``, ``/metrics``,
+    ``/trace`` (``?fleet=1`` on a router) and ``/timeline``.
     ``scheduler``: a policy object (installed with
     ``engine.set_scheduler``, on every replica of a router), ``None`` for
     FIFO, or ``"auto"`` (the
@@ -370,21 +358,23 @@ def start_api_server(target, host: str = "127.0.0.1", port: int = 0,
             pass
 
         def do_GET(self):
-            path = self.path.split("?")[0]
             try:
-                if path == "/v1/models":
+                if self.path.split("?")[0] == "/v1/models":
                     self._send_json(200, protocol.models_payload(
                         fd.model_id))
-                elif path == "/healthz":
-                    self._send(*healthz(fd.target))
-                elif path in _LATER:
-                    self._send_error(
-                        404, f"{path} comes with the observability slice "
-                        "of the port", "not_found_error")
-                else:
+                    return
+                routed = metrics_http_get(fd.target, self.path)
+                if routed is None:
                     self._send_error(404, "not found", "not_found_error")
+                else:
+                    self._send(*routed)
             except (BrokenPipeError, ConnectionResetError):
                 pass  # the client left; nothing was queued for it
+            except Exception as e:  # noqa: BLE001
+                try:
+                    self._send_error(500, repr(e), "internal_error")
+                except Exception:
+                    pass
 
         # ---------------- completions ----------------
         def do_POST(self):

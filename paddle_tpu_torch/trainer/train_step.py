@@ -28,20 +28,33 @@ is what donation gives the JAX step) and ``run(sharded=True)`` raises.
   dropout; attention dropout draws from a generator its caller passes);
   the JAX step's key feeds only the model's random operations.
 
-``run`` returns the step's loss as a 0-d tensor without a host sync and
-keeps the global norm of the gradients before clipping, in float32, as
-``last_grad_norm``; the global-norm clip uses that norm and does not
-compute it again. Two debug flags, read at every ``run``, add one host
-sync a step on the loss and that norm: ``PT_FLAGS_benchmark`` prints
-``[pt-benchmark] step N: X ms loss=... grad_norm=...`` (X the wall time
-of the step up to that sync), and ``PT_FLAGS_check_nan_inf`` raises
-``FloatingPointError`` naming the step and the value that is not
-finite, after the update and before the scheduler steps, as in JAX.
-The JAX step computes the norm only when a flag was on when it was
-built, and warns when one is turned on later; the port always computes
-it, so it has no such warning. Train telemetry waits for the port's
-observability (ROADMAP.md Queue A, A5), and ``abstract=True`` and
-``lower()`` for the distributed stack (A7).
+``run`` returns the step's loss as a 0-d tensor without a host sync.
+While the step's norm is live (telemetry on, or one of the debug flags
+below) it keeps the global norm of the gradients before clipping, in
+float32, as ``last_grad_norm``, and the global-norm clip uses that norm
+and does not compute it again; otherwise ``last_grad_norm`` is None, as
+the JAX step emits no norm then. Two debug flags, read at every ``run``,
+add one host sync a step on the loss and that norm:
+``PT_FLAGS_benchmark`` prints ``[pt-benchmark] step N: X ms loss=...
+grad_norm=...`` (X the wall time of the step up to that sync), and
+``PT_FLAGS_check_nan_inf`` raises ``FloatingPointError`` naming the step
+and the value that is not finite, after the update and before the
+scheduler steps, as in JAX. The JAX step decides on the norm when it is
+built, and warns when a flag is turned on later; the port decides at
+every ``run``, so it has no such warning.
+
+``telemetry``: ``None`` wires an ``observability.TrainTelemetry`` in
+when ``PT_FLAGS_telemetry`` is on, as JAX does; ``False`` disables it for
+this step; a ``TrainTelemetry`` is used as given. Every step records its
+host wall time; a sampled step (every ``PT_FLAGS_telemetry_sample_every``)
+fetches the loss and the norm, publishes loss, grad norm, tokens/s, MFU
+and memory through the registry, and feeds the flight recorder and the
+anomaly watchdog. MFU's FLOPs come from one step counted by
+``torch.utils.flop_counter.FlopCounterMode`` (aten operations only: the
+port's flash-attention kernels, launched through their own autograd
+functions, are not in the count), probed once and only where the card's
+peak is known. ``abstract=True`` and ``lower()`` wait for the
+distributed stack (ROADMAP.md Queue A7).
 """
 
 from __future__ import annotations
@@ -54,12 +67,27 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import flags
+from .. import flags, observability
 from ..distributed.strategy import DistributedStrategy
 from ..optimizer.clip import global_norm
 from ..optimizer.optimizer import Optimizer
 
 _TODO = "see ROADMAP.md Queue A"
+
+
+def _batch_tokens(batch) -> int:
+    """Telemetry unit count: tokens for LM batches (the first integer
+    2-D entry), else the leading batch dim (samples)."""
+    sample = 0
+    for v in batch.values():
+        if not isinstance(v, torch.Tensor) or v.dim() == 0:
+            continue
+        if not sample:
+            sample = int(v.shape[0])
+        if v.dim() == 2 and not v.is_floating_point() \
+                and not v.is_complex() and v.dtype != torch.bool:
+            return int(v.shape[0]) * int(v.shape[1])
+    return sample
 
 
 def _as_tensor(v, device):
@@ -91,9 +119,6 @@ class TrainStep:
         if abstract:
             raise NotImplementedError(
                 f"abstract=True (AOT lowering) is not ported ({_TODO})")
-        if telemetry:
-            raise NotImplementedError(
-                f"train telemetry is not ported ({_TODO})")
         if batch_seq_axis not in (1, None):
             raise NotImplementedError(
                 f"batch_seq_axis={batch_seq_axis}: on one card the batch "
@@ -136,6 +161,16 @@ class TrainStep:
                              f"{self.gradient_merge_k}")
         self.step_count = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
+        want_tel = (observability.enabled() if telemetry is None
+                    else bool(telemetry))
+        self.telemetry = None
+        if want_tel:
+            self.telemetry = (
+                telemetry
+                if isinstance(telemetry, observability.TrainTelemetry)
+                else observability.TrainTelemetry())
+        self._flops_per_step: Optional[float] = None
+        self._flops_probed = False
 
     # ------------------------------------------------------------------
     def _release_copies(self):
@@ -179,9 +214,10 @@ class TrainStep:
             raise NotImplementedError(
                 f"run(sharded=True): the step runs on one card ({_TODO}, "
                 "distributed)")
+        tel = self.telemetry
         bench = bool(flags.flag("benchmark"))
         check = bool(flags.flag("check_nan_inf"))
-        t0 = time.perf_counter() if bench else 0.0
+        t0 = time.perf_counter() if tel is not None or bench else 0.0
         batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
         params = self._param_objs
         self._cast_from_masters()
@@ -213,7 +249,11 @@ class TrainStep:
             grads = {n: a / k for n, a in acc.items()}
             loss = loss_sum / k
         with torch.no_grad():
-            self.last_grad_norm = global_norm(grads)
+            # the norm only while something reads it (the clip computes
+            # its own otherwise)
+            self.last_grad_norm = (global_norm(grads)
+                                   if tel is not None or bench or check
+                                   else None)
             carried = {n: p.detach() for n, p in params.items()
                        if n not in self._master_dtypes}
             self.optimizer.update(grads, self.opt_state, carried,
@@ -225,6 +265,13 @@ class TrainStep:
         self.step_count += 1
         if bench or check:
             self._debug_flags(loss, bench, check, t0)
+        if tel is not None:
+            # loss and norm stay on the device unless this step is
+            # sampled (TrainTelemetry fetches them only then)
+            tel.on_step(self.step_count, loss, self.last_grad_norm,
+                        tokens=_batch_tokens(batch),
+                        wall_s=time.perf_counter() - t0,
+                        flops_getter=lambda: self._cost_flops(batch))
         if self.optimizer._lr_scheduler is not None:
             self.optimizer._lr_scheduler.step()
         return loss
@@ -247,6 +294,31 @@ class TrainStep:
                     f"PT_FLAGS_check_nan_inf: non-finite {'/'.join(bad)} "
                     f"at step {self.step_count} (loss={loss_f}, "
                     f"grad_norm={gnorm_f})")
+
+    def _cost_flops(self, batch) -> Optional[float]:
+        """Per-step FLOPs of one forward and backward over ``batch``,
+        counted by ``FlopCounterMode`` and probed once (the parameters
+        and the optimizer state are not touched; the gradients are
+        dropped); None when nothing was counted."""
+        if self._flops_probed:
+            return self._flops_per_step
+        self._flops_probed = True
+        from torch.utils.flop_counter import FlopCounterMode
+
+        self._cast_from_masters()
+        try:
+            with FlopCounterMode(display=False) as counter:
+                for mb in self._micro_batches(batch):
+                    self._loss(mb).backward()
+            flops = counter.get_total_flops()
+        except Exception:
+            flops = 0
+        finally:
+            for p in self._param_objs.values():
+                p.grad = None
+            self._release_copies()
+        self._flops_per_step = float(flops) if flops > 0 else None
+        return self._flops_per_step
 
     # ------------------------------------------------------------------
     def _materialized_params(self):

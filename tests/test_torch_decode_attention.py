@@ -5,6 +5,7 @@ mode) and against the JAX unfused reference on the same numpy inputs.
 The Hopper kernel itself runs only on the card (tests/
 test_torch_gpu_kernels.py and chip_smoke.py)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ JAX package's flag maps onto torch's float32 matmul precision and cuDNN's
 TF32 switch, it is applied when ``paddle_tpu_torch`` is imported, and an
 invalid value raises ``ValueError`` as the JAX package's import does."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import os
 import subprocess
 import sys

@@ -7,6 +7,7 @@ fused and the two-pass plain backward, with an LSE cotangent, against
 ``_reference_attention``; and the dispatch rules. Inputs come from numpy
 with one seed."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ with the same tokens, lengths, finished flags and reorder indices and
 scores to 1e-6, with and without eos, candidate ties included; and
 ``reorder_cache`` over float and int8 cache pairs."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ skips without one; on the card run
 machine does not have; this file imports only torch, numpy and the
 port)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ the dispatch rules; and the kernels' launch plan at every UNet site and
 card-test shape, and the UNet's GroupNorm sites against the model's own
 calls. Inputs come from numpy with one seed."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

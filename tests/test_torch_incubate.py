@@ -9,6 +9,7 @@ Tolerances: float32 both ways, 1e-5 (the chunked loss and its gradients,
 attention), 1e-6 (the norms, rope, the wrappers' state); bf16 through
 the port's own unfused path, 2e-2."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

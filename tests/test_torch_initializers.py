@@ -6,6 +6,7 @@ equal; the random ones by their bounds and moments (the two frameworks
 draw other numbers from one seed); Orthogonal by Q^T Q = I; one seed
 giving one draw; ``create_parameter``'s defaults and ``ParamAttr``."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import math
 
 import jax

@@ -5,6 +5,7 @@ weights carried across, without a cache and through the contiguous
 per-slot cache branches (chunked prefill, then decode with the fused
 path on and off). All float32; each tolerance says why."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ associative branch, and the chunked scan over 32 states), a 5-step ``TrainStep``
 ``TrainStep`` on a one-device CPU mesh, the new activations, and the
 scan dispatch of the mixer. Inputs come from numpy with one seed."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

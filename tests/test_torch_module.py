@@ -10,6 +10,7 @@ activation layers and ``nn.utils``. Every port model is a ``Layer`` whose
 ``state_dict()`` keys are the JAX model's. Float32 outputs within 1e-6
 (1e-5 through a product's sums) unless a case says otherwise."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import copy
 import io
 

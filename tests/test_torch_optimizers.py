@@ -13,6 +13,7 @@ in another order); a bf16 parameter is its master rounded to bf16, within
 one bf16 step of JAX's; schedulers within rtol 1e-6 / atol 1e-8; LBFGS
 iterates within 1e-5."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

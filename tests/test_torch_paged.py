@@ -11,6 +11,7 @@ computed once per module on its default CPU path (the unfused lax path;
 Hopper kernels themselves run only on the card
 (``tests/test_torch_gpu_kernels.py`` and ``chip_smoke.py``)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@
 of theirs loads is defined, and the entry points that default to the
 card raise where there is none instead of running on the CPU."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import ast
 import builtins
 import json
@@ -221,3 +222,28 @@ def test_default_device_entry_points_raise_without_a_card():
     # an engine asked for a device its model is not on refuses too
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(cpu_model, device="meta")
+    # the observability layer changes none of it: with telemetry,
+    # tracing, the profiler and the time series on, the engine and the
+    # router still default to the card and build nothing before they
+    # raise; a telemetered train step runs where its model lives, and
+    # the profiler's mark on a host device is the host stamp (None)
+    from paddle_tpu_torch import flags as tflags
+    from paddle_tpu_torch import observability as tobs
+
+    keys = ("telemetry", "trace_sample", "profile_programs", "timeseries")
+    saved = {k: tflags.flag(k) for k in keys}
+    tflags.set_flags({"telemetry": True, "trace_sample": 1.0,
+                      "profile_programs": True, "timeseries": True})
+    try:
+        tracers = len(tobs.tracing.all_tracers())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ContinuousBatchingEngine(cpu_model)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            EngineRouter(cpu_model, n_replicas=2)
+        assert len(tobs.tracing.all_tracers()) == tracers
+        ts = TrainStep(cpu_model, AdamW(), telemetry=True)
+        assert ts.device.type == "cpu"
+        assert isinstance(ts.telemetry, tobs.TrainTelemetry)
+        assert tobs.ProgramProfiler.mark(torch.device("cpu")) is None
+    finally:
+        tflags.set_flags(saved)

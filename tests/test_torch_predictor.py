@@ -14,6 +14,7 @@ flash attention, whose CPU path is the dense reference); ``Config.
 summary()`` equal; the ``create_predictor`` error; sampling reproducible
 from ``seed``."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

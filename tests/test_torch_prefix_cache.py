@@ -7,6 +7,7 @@ and contiguous: greedy tokens and ``prefix_snapshot()`` equal to the JAX
 engine's with the prefix cache on, the same tokens with it off, and the
 cached pages' bytes unchanged while the store holds them."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

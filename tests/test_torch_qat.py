@@ -10,6 +10,7 @@ from the JAX step's state within 1e-5, the free-running trajectory within
 per-step forwards, its eval logits in the JAX model, and the logits
 after ``QAT.convert`` to int8 and int4."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ the JAX engine's (speculative decoding and prefix caching off). The
 Hopper kernels themselves run only on the card
 (``tests/test_torch_gpu_kernels.py`` and ``chip_smoke.py``)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import copy
 
 import jax

@@ -11,6 +11,7 @@ ladder's actions, drain/resume and a drain deadline, the
 ledgers a port engine continues token for token. The JAX scenarios run
 once per module, with telemetry off and the default ladder."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import json
 import time
 import weakref

@@ -10,6 +10,7 @@ the drain handoff payload; the aggregate ``/healthz``; and the front door
 streaming SSE from a router to ``[DONE]``. The JAX fleet scenario runs
 once per module."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import json
 import socket
 import time

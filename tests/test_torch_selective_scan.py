@@ -6,6 +6,7 @@ the autograd gradients against ``jax.grad`` of ``chunked_selective_scan``;
 the associative reference against JAX's; and the dispatch rules. Inputs
 come from numpy with one seed (the JAX test's recipe)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ decoding off (their own tests are ``test_torch_prefix_cache.py`` and
 ``test_torch_spec_decode.py``), the JAX engine with its default CPU decode
 path."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ rejected rows never read, sampling slots never draft, the copy-on-write
 guard over the whole verify window, the chunk's drafting-share gate, the
 ``auto`` throttle and the flag's validation."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

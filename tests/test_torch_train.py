@@ -7,6 +7,7 @@ from a JAX train state. Inputs come from numpy with one seed; the JAX
 side runs on the CPU, where its flash attention takes the dense
 reference."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import re
 
 import jax
@@ -266,13 +267,14 @@ def _jax_step(jmodel, residency="paired", merge_k=1, **opt_kw):
                       master_residency=residency)
 
 
-def _port_step(tmodel, residency="paired", merge_k=1, **opt_kw):
+def _port_step(tmodel, residency="paired", merge_k=1, telemetry=None,
+               **opt_kw):
     strategy = DistributedStrategy()
     if merge_k > 1:
         strategy.gradient_merge = True
         strategy.gradient_merge_k_steps = merge_k
     return TrainStep(tmodel, topt.AdamW(**opt_kw), strategy=strategy,
-                     master_residency=residency)
+                     master_residency=residency, telemetry=telemetry)
 
 
 _OPT = dict(learning_rate=3e-3, weight_decay=0.01,
@@ -303,7 +305,8 @@ def test_train_step_loss_trajectory_matches_jax(mode):
     opt_j = dict(opt_kw, grad_clip=jopt.ClipGradByGlobalNorm(1.0))
     opt_t = dict(opt_kw, grad_clip=topt.ClipGradByGlobalNorm(1.0))
     js = _jax_step(jmodel, residency, merge_k, **opt_j)
-    ts = _port_step(tmodel, residency, merge_k, **opt_t)
+    # telemetry on: the step keeps its grad norm only while it is live
+    ts = _port_step(tmodel, residency, merge_k, telemetry=True, **opt_t)
     batch = _batch()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     losses = []
@@ -399,8 +402,8 @@ def test_train_step_refuses_what_it_does_not_run():
 
 
 def test_train_step_computes_the_grad_norm_once(monkeypatch):
-    """The step's norm is the one the global-norm clip uses: the clip
-    does not compute its own."""
+    """The step's norm (kept while telemetry is live) is the one the
+    global-norm clip uses: the clip does not compute its own."""
     def no_second_norm(self, grads):
         raise AssertionError("the clip computed the norm again")
 
@@ -408,7 +411,7 @@ def test_train_step_computes_the_grad_norm_once(monkeypatch):
                         no_second_norm)
     _, tmodel = _pair(seed=12)
     grads_seen = {}
-    ts = _port_step(tmodel, **dict(
+    ts = _port_step(tmodel, telemetry=True, **dict(
         _OPT, grad_clip=topt.ClipGradByGlobalNorm(1.0)))
     update = ts.optimizer.update
 

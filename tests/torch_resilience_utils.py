@@ -19,11 +19,12 @@ from paddle_tpu_torch.inference.resilience import FaultInjector
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
 # the serving flags both sides run with; degradation keeps each package's
-# default (on) unless a case sets it
+# default (on) unless a case sets it. Telemetry is off on both: these
+# files compare the telemetry-off documents (the observability layer is
+# held to JAX in tests/test_torch_observability.py and its neighbours)
 COMMON = {"prefix_cache": True, "spec_decode": "off", "prefill_chunk": 16,
           "serve_recovery": "auto", "fault_inject": "", "sanitize": False,
-          "degradation": True}
-JAX_ONLY = {"telemetry": False}
+          "degradation": True, "telemetry": False}
 
 
 class BothFlags:
@@ -31,11 +32,11 @@ class BothFlags:
     touched."""
 
     def __init__(self):
-        self.saved = ({k: jflags.flag(k) for k in {**COMMON, **JAX_ONLY}},
+        self.saved = ({k: jflags.flag(k) for k in COMMON},
                       {k: tflags.flag(k) for k in COMMON})
 
     def set(self, **kw):
-        jflags.set_flags({**COMMON, **JAX_ONLY, **kw})
+        jflags.set_flags({**COMMON, **kw})
         tflags.set_flags({**COMMON, **kw})
 
     def restore(self):
