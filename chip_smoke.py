@@ -299,9 +299,36 @@ Phases, each of which raises on failure:
    sample_every=2)`` with ``log_memory_stats``: the sampled step's loss,
    grad norm, tokens/s, MFU against 989 TFLOP/s (``FlopCounterMode``
    FLOPs, and the analytic count) and peak bytes beside the untelemetered
-   step time.
+   step time;
+45. flash shapes (after phase 27, the UNet step): rows 5-9 against their
+   plain versions (``fa_check``) and timed beside their bounds and
+   ``scaled_dot_product_attention`` at GPT-2's (b 8, s 1024, 12 x 64,
+   causal bf16), bert-base's (b 16, s 512, padding segments with ragged
+   tails), t5-small's cross-attention (sq 128, sk 512, scale 1.0) and
+   ERNIE-MoE's (b 4, s 1024, 8 x 128, causal float32) shapes;
+46. model references: GPT, BERT (masked LM, padded), T5 and ERNIE-MoE
+   (both arms) in float32 at full width and 2 layers, card (kernels) vs
+   CPU (plain versions) from the same weights: logits, loss and every
+   gradient within ``FAMILY_REF_TOL``, row 5 in the ``no_grad`` forward
+   and rows 6 and 8 in the step once a flash layer; a float32 T5 (untied
+   head) generating 32 tokens cached = uncached;
+47. train gpt2: GPT-2 small (``GPTConfig()``, dropouts 0), bf16 with
+   float32 masters, AdamW 3e-4, batch 8 x 1024; then ``create_predictor``
+   on 8 prompts of 120 + 32 tokens: TTFT, decode tokens/s;
+48. train bert-base: ``BertForSequenceClassification(BertConfig())``,
+   dropouts 0, batch 16 x 512 with padded tails, bf16 with masters;
+49. train t5-small: ``T5Config()`` with dropout 0, encoder 512 and decoder
+   128, batch 16, bf16 with masters; then cached and uncached
+   ``generate`` of 32 tokens, first tokens equal;
+50. train ernie-moe: ``bench_moe``'s configuration (8 layers, 4 MoE of 8
+   experts) in float32, batch 4 x 1024, the capacity (GShard top-2) and
+   the dropless arms, each MoE layer's ``last_drop_fraction``. Phases 47-50
+   print step ms (median of 5 after 2 warm-ups), tokens/s, MFU from the
+   analytic FLOPs, peak GB and the flash kernels' device ms a step, and
+   require exactly one launch of rows 6 and 8 a flash layer a step and of
+   row 5 a flash layer in an eval forward.
 
-Every number phases 38-44 print stands beside the card's name and power
+Every number phases 38-50 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -1463,6 +1490,8 @@ FA_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_fused",
                  "flash_attention_bwd_dkv")
+# the flash kernels' names in a profile (the float32 *_v1 bodies too)
+FLASH_BODIES = ("fwd_kernel", "dq_kernel", "dkv_kernel")
 # the train shape of Llama-2-7B width: batch 4 x seq 2048, 32 heads of 128
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hk=32, d=128)
 
@@ -1482,10 +1511,22 @@ def fa_inputs(b, s, hq, hk, d, dtype, seed, sk=None):
             torch.randn((b, hq, s), generator=gen, device="cuda"))
 
 
+def padded_lengths(b, s):
+    """Real lengths of a padded batch: ragged tails, the first row
+    unpadded."""
+    return [s - (i * 37) % (s // 4) for i in range(b)]
+
+
 def fa_segments(kind, b, s):
-    """Four packed sequences per row, as one [b, s] array or a pair."""
+    """Four packed sequences per row, as one [b, s] array or a pair; or
+    (``"padding"``) BERT's padding mask of ``padded_lengths`` as segment
+    ids, 0 on real tokens and 1 on padding."""
     if kind is None:
         return None
+    if kind == "padding":
+        lens = torch.tensor(padded_lengths(b, s), device="cuda")
+        return (torch.arange(s, device="cuda")[None] >= lens[:, None]).to(
+            torch.int32)
     ids = (torch.arange(s, device="cuda") * 4 // s).to(torch.int32)
     ids = ids.expand(b, s).contiguous()
     return ids if kind == "one" else (ids, ids.clone())
@@ -1507,9 +1548,16 @@ def fa_err(got, want):
 # once more: a few tenths of a percent of a row, so 2e-2 holds them with
 # room and rejects a kernel that skips a kv tile (fa_planted_fault).
 # float32: the kernels' FMA chains against the card's float32 matmuls.
-# lse is float32 on both sides, held absolutely.
+# lse is float32 on both sides, held absolutely at the logits' scale of
+# unit inputs under sm_scale = d ** -0.5; its rounding grows with its
+# magnitude, so a larger scale (T5's 1.0: logits sqrt(d) times larger)
+# takes the tolerance times sm_scale * sqrt(d) (fa_lse_tol).
 FA_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 FA_LSE_TOL = 1e-5
+
+
+def fa_lse_tol(sm_scale, d):
+    return FA_LSE_TOL * max(1.0, sm_scale * d ** 0.5)
 
 
 def fa_row_err(got, want):
@@ -1523,9 +1571,9 @@ def fa_row_err(got, want):
     return rel, (g - w).abs().max().item()
 
 
-def fa_compare(name, got, want, tol):
+def fa_compare(name, got, want, tol, lse_tol=FA_LSE_TOL):
     """Hold each output against its reference: lse (a [b, h, s] float32
-    tensor) within FA_LSE_TOL absolutely, the others row by row within
+    tensor) within ``lse_tol`` absolutely, the others row by row within
     ``tol``. Returns {key: (row err, max abs err)} and the keys that
     failed."""
     errs, failed = {}, []
@@ -1534,7 +1582,7 @@ def fa_compare(name, got, want, tol):
         if key == "lse":
             err = (g.float() - want[key].float()).abs().max().item()
             errs[key] = (err, err)
-            bad = not err <= FA_LSE_TOL
+            bad = not err <= lse_tol
         else:
             errs[key] = fa_row_err(g, want[key])
             bad = not errs[key][0] <= tol
@@ -1544,20 +1592,21 @@ def fa_compare(name, got, want, tol):
 
 
 def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
-             segments=None, seed=0, sk=None):
+             segments=None, seed=0, sk=None, scale=None):
     """Rows 5-9 against their plain versions on one input set: the
     forward without and with LSE, then the dq, dk/dv and fused backward
     from the plain statistics with a nonzero LSE cotangent folded into
     delta; the fused and the two-pass backward must agree (dk, dv bit for
     bit: the same sums in the same order). ``sk`` (``s`` when None) is
-    the kv length. Returns the max abs errors by kernel."""
+    the kv length, ``scale`` the logits' (``d ** -0.5`` when None).
+    Returns the max abs errors by kernel."""
     from paddle_tpu_torch.kernels import mha as fa
 
     q, k, v, do, dlse = fa_inputs(b, s, hq, hk, d, dtype, seed, sk)
     sk = k.shape[1]
     qseg, kseg = fa.split_segments(fa_segments(segments, b, s), q, k)
-    kw = dict(causal=causal, sm_scale=d ** -0.5, qseg=qseg, kseg=kseg,
-              window=window)
+    kw = dict(causal=causal, sm_scale=d ** -0.5 if scale is None else scale,
+              qseg=qseg, kseg=kseg, window=window)
     tol = FA_ROW_TOL[dtype]
     o5, _ = fa.flash_forward(q, k, v, **kw)
     o6, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
@@ -1576,13 +1625,14 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
     want["bwd_dk"], want["bwd_dv"] = fa.mha_bwd_dkv_plain(*args, **kw)
     want["fused_dq"], want["fused_dk"], want["fused_dv"] = \
         fa.mha_bwd_fused_plain(*args, span=span, **kw)
-    errs, failed = fa_compare(name, got, want, tol)
+    lse_tol = fa_lse_tol(kw["sm_scale"], d)
+    errs, failed = fa_compare(name, got, want, tol, lse_tol)
     if failed:
         raise AssertionError(f"flash check {name}: {failed} differ from "
                              f"the plain versions: " + ", ".join(
                                  f"{k} row err {errs[k][0]:.3e} max abs "
                                  f"{errs[k][1]:.3e}" for k in failed)
-                             + f" (tol {tol} of a row, lse {FA_LSE_TOL})")
+                             + f" (tol {tol} of a row, lse {lse_tol})")
     if not torch.equal(o5, o6):
         raise AssertionError(f"flash check {name}: the forward with and "
                              "without LSE differ")
@@ -1595,26 +1645,35 @@ def fa_check(name, b, s, hq, hk, d, dtype, causal=True, window=0,
         raise AssertionError(f"flash check {name}: fused and two-pass dq "
                              f"differ by {pass_rel} of a row")
     # the same through mha_with_lse under autograd (the forward with LSE,
-    # then the backward its k_block picks), cotangents (do, dlse)
+    # then the backward its k_block picks), cotangents (do, dlse), held
+    # against the plain backward from that forward's own outputs: autograd
+    # takes delta from the kernel's rounded o, as the JAX backward does,
+    # and where the softmax is peaked (T5's scale 1.0) a row's dq is of
+    # that rounding's size
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     o, lse = fa.mha_with_lse(*leaves, causal=causal,
+                             sm_scale=kw["sm_scale"],
                              segment_ids=fa_segments(segments, b, s),
                              window=window)
     torch.autograd.backward((o, lse), (do, dlse))
-    for key, leaf in zip(("fused_dq", "fused_dk", "fused_dv"), leaves):
-        rel, e = fa_row_err(leaf.grad, want[key])
+    auto_want = fa.mha_bwd_fused_plain(
+        q, k, v, do, lse.detach(), fa.attention_delta(o.detach(), do, dlse),
+        span=span, **kw)
+    for key, leaf, w in zip(("dq", "dk", "dv"), leaves, auto_want):
+        rel, e = fa_row_err(leaf.grad, w)
         if not rel <= tol:
             raise AssertionError(f"flash check {name}: mha_with_lse "
-                                 f"gradient {key[-2:]} differs by {rel} "
-                                 "of a row")
-        errs[f"autograd_{key[-2:]}"] = (rel, e)
+                                 f"gradient {key} differs by {rel} of a "
+                                 "row")
+        errs[f"autograd_{key}"] = (rel, e)
     print(f"flash check {name}: b={b} s={s} sk={sk} hq={hq} hk={hk} d={d} "
           f"{dtype} "
-          f"causal={causal} window={window} segments={segments}: row err / "
+          f"causal={causal} window={window} segments={segments} "
+          f"scale={kw['sm_scale']:.4g}: row err / "
           f"max abs err " + ", ".join(f"{k} {r:.2e}/{e:.2e}"
                                       for k, (r, e) in errs.items())
           + f"; fused vs two-pass dq row err {pass_rel:.2e} (tol {tol} of "
-          f"a row, lse {FA_LSE_TOL}) ok", flush=True)
+          f"a row, lse {lse_tol:.3g}) ok", flush=True)
     ab = {k: e for k, (_, e) in errs.items()}
     return {"flash_attention_fwd": ab["fwd"],
             "flash_attention_fwd_lse": max(ab["fwd_lse"], ab["lse"]),
@@ -1705,14 +1764,16 @@ def fa_pairs(sq, sk, causal, window):
     return int(vis.sum())
 
 
-def fa_bound(name, b, s, hq, hk, d, itemsize, pairs):
+def fa_bound(name, b, s, hq, hk, d, itemsize, pairs, sk=None):
     """Least time for the function on these inputs: its products over
-    the visible pairs (forward 2, dq pass 3, dk/dv pass 4, fused 5 of
-    2 * d operations each) at the tensor-core rate, against each input
-    read once and each output written once (lse and delta float32);
-    the larger of the two."""
+    the visible pairs (``pairs`` a (batch row, head); forward 2, dq pass
+    3, dk/dv pass 4, fused 5 of 2 * d operations each) at the rate of the
+    operands' type (bf16/fp16 tensor cores, float32 outside them),
+    against each input read once and each output written once (lse and
+    delta float32; ``sk`` kv rows, ``s`` when None); the larger of the
+    two."""
     qb = b * s * hq * d * itemsize      # q, o, do or dq
-    kvb = b * s * hk * d * itemsize     # k, v, dk or dv
+    kvb = b * (s if sk is None else sk) * hk * d * itemsize  # k, v, dk, dv
     rows = b * hq * s * 4               # lse or delta
     products, nbytes = {
         "flash_attention_fwd": (2, 2 * qb + 2 * kvb),
@@ -1722,7 +1783,8 @@ def fa_bound(name, b, s, hq, hk, d, itemsize, pairs):
         "flash_attention_bwd_fused": (5, 3 * qb + 4 * kvb + 2 * rows),
     }[name]
     ops = products * 2 * d * pairs * b * hq
-    t_ops = ops / H100_BF16_FLOPS * 1e3
+    rate = H100_F32_FLOPS if itemsize == 4 else H100_BF16_FLOPS
+    t_ops = ops / rate * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), ops
@@ -2259,8 +2321,7 @@ def train_7b_phase():
     del logits
     print(f"train 7b: no_grad eval forward: {layers} launches of the "
           "forward without LSE, finite logits", flush=True)
-    prof = profile_step("train 7b", ts, batch,
-                        ("fwd_kernel", "dq_kernel", "dkv_kernel"))
+    prof = profile_step("train 7b", ts, batch, FLASH_BODIES)
     print(json.dumps({"train_7b": {
         "model": "llama2_7b width, 4 layers, random bf16 weights (seed 0)",
         "batch": b, "seq": s, "parameters": n_params,
@@ -5935,6 +5996,511 @@ def train_7b_telemetry_phase():
     del model, ts, batch
 
 
+# ---------------------------------------------------------------------------
+# the transformer families: GPT, BERT/ERNIE, T5 and ERNIE-MoE on rows 5-9
+# ---------------------------------------------------------------------------
+# each family's attention shape: (name, b, sq, sk, heads, d, dtype, causal,
+# scale, padding segments)
+FAMILY_FLASH_SHAPES = (
+    ("gpt2", 8, 1024, 1024, 12, 64, torch.bfloat16, True, None, False),
+    ("bert_base", 16, 512, 512, 12, 64, torch.bfloat16, False, None, True),
+    ("t5_small_cross", 16, 128, 512, 8, 64, torch.bfloat16, False, 1.0,
+     False),
+    ("ernie_moe", 4, 1024, 1024, 8, 128, torch.float32, True, None, False),
+)
+
+
+def family_pairs(b, sq, sk, causal, padded):
+    """Visible (query, key) pairs a (batch row, head), on average over the
+    batch: under the padding segments a real token sees the real ones and
+    a padded token the padded ones."""
+    if not padded:
+        return fa_pairs(sq, sk, causal, 0)
+    return sum(n * n + (sq - n) ** 2 for n in padded_lengths(b, sq)) / b
+
+
+def family_flash_phase():
+    """Rows 5-9 against their plain versions (``fa_check``) at the four
+    families' attention shapes, then timed there beside their bounds and
+    ``scaled_dot_product_attention`` (forward, and its backward for the
+    backward rows; the padding as a boolean mask; a yardstick the port
+    never calls)."""
+    from paddle_tpu_torch.kernels import mha as fa
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for i, (name, b, sq, sk, h, d, dtype, causal, scale,
+            padded) in enumerate(FAMILY_FLASH_SHAPES):
+        segments = "padding" if padded else None
+        errs = fa_check(name, b, sq, h, h, d, dtype, causal=causal,
+                        segments=segments, seed=90 + i, sk=sk, scale=scale)
+        q, k, v, do, _ = fa_inputs(b, sq, h, h, d, dtype, seed=95 + i, sk=sk)
+        qseg, kseg = fa.split_segments(fa_segments(segments, b, sq), q, k)
+        sm_scale = d ** -0.5 if scale is None else scale
+        kw = dict(causal=causal, sm_scale=sm_scale, qseg=qseg, kseg=kseg)
+        o, lse = fa.flash_forward(q, k, v, with_lse=True, **kw)
+        args = (q, k, v, do, lse, fa.attention_delta(o, do))
+        span = fa.fit_block(1024, sk)
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        mask = None if qseg is None else \
+            qseg[:, None, :, None] == kseg[:, None, None, :]
+        skw = dict(attn_mask=mask, is_causal=causal, scale=sm_scale)
+        qg, kg, vg = (x.detach().clone().requires_grad_()
+                      for x in (qh, kh, vh))
+        ref = sdpa(qg, kg, vg, **skw)
+        lib_fwd = time_ms(lambda: sdpa(qh, kh, vh, **skw), flush, iters=30)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            ref, (qg, kg, vg), doh, retain_graph=True), flush, iters=30)
+        calls = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_forward(q, k, v, **kw), lib_fwd),
+            "flash_attention_fwd_lse": (
+                lambda: fa.flash_forward(q, k, v, with_lse=True, **kw),
+                lib_fwd),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_bwd_dq(*args, **kw), lib_bwd),
+            "flash_attention_bwd_fused": (
+                lambda: fa.flash_bwd_fused(*args, span=span, **kw), lib_bwd),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(*args, **kw), lib_bwd),
+        }
+        pairs = family_pairs(b, sq, sk, causal, padded)
+        kind = (f"b={b} sq={sq} sk={sk} h={h} d={d} "
+                f"{'causal' if causal else 'non-causal'} "
+                f"{str(dtype).removeprefix('torch.')} scale={sm_scale:.4g}"
+                + (" padding segments" if padded else ""))
+        rows = {}
+        for row, (fn, lib_ms) in calls.items():
+            ms = time_ms(fn, flush, iters=30)
+            bound_ms, bound_by, ops = fa_bound(row, b, sq, h, h, d,
+                                               q.element_size(), pairs, sk)
+            print(f"flash shape {name} {row} {kind}: kernel {ms:.4f} ms "
+                  f"({ops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+                  f"({bound_by}), sdpa "
+                  f"{'forward' if 'fwd' in row else 'backward'} "
+                  f"{lib_ms:.4f} ms; max abs err against the plain version "
+                  f"{errs[row]:.3e}", flush=True)
+            rows[row] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                             sdpa_ms=lib_ms, max_abs_err=errs[row])
+        out[name] = dict(shape=kind, rows=rows)
+        del q, k, v, do, o, lse, args, qh, kh, vh, doh, qg, kg, vg, ref
+    print(json.dumps({"family_flash_shapes": out}), flush=True)
+    return out
+
+
+# card vs CPU, float32 both ways: each tensor's max abs difference over its
+# largest magnitude. Logits: the kernels' and the card's GEMMs' sums against
+# the CPU's, through 2 layers and the head, a few 1e-6 of the scale. The loss
+# is a mean over hundreds of tokens (relative). Gradients add the backward's
+# sums over every token, and a tensor whose gradient mostly cancels (a
+# position row, a bias) carries that rounding at a larger share of its
+# largest entry.
+FAMILY_REF_TOL = {"logits": 1e-4, "loss": 1e-5, "grads": 1e-3}
+
+
+def max_rel(got, want):
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+
+
+def family_reference(label, make, batch, logits_keys, flash_layers):
+    """One float32 model on the CPU and the same weights on the card:
+    a ``no_grad`` forward's logits (row 5 once a flash layer on the card),
+    then the loss and every gradient (rows 6 and 8 once a flash layer),
+    held within ``FAMILY_REF_TOL``."""
+    cpu, card = card_and_cpu(make, 11)
+    got = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        data = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        reset_launches()
+        with torch.no_grad():
+            logits = model(**{k: data[k] for k in logits_keys})
+        fwd = read_launches()
+        reset_launches()
+        loss = model(**data)
+        loss.backward()
+        train = read_launches()
+        # (a masked LM's pooler takes no gradient)
+        got[dev] = (logits, loss.detach(), {
+            n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None})
+        if dev == "cuda":
+            check_counts(f"{label} reference no_grad forward", fwd,
+                         {"flash_attention_fwd": flash_layers,
+                          "flash_attention_fwd_lse": 0})
+            check_counts(f"{label} reference step", train,
+                         {"flash_attention_fwd_lse": flash_layers,
+                          "flash_attention_bwd_fused": flash_layers,
+                          "flash_attention_fwd": 0})
+    (cl, closs, cg), (pl, ploss, pg) = got["cuda"], got["cpu"]
+    if set(cg) != set(pg):
+        raise AssertionError(f"{label} reference: gradients of "
+                             f"{sorted(set(cg) ^ set(pg))} on one side only")
+    errs = {"logits": max_rel(cl, pl), "loss": max_rel(closs, ploss),
+            "grads": max(max_rel(cg[n], pg[n]) for n in pg)}
+    worst = max(pg, key=lambda n: max_rel(cg[n], pg[n]))
+    bad = [k for k, e in errs.items() if not e <= FAMILY_REF_TOL[k]]
+    if bad or not torch.isfinite(cl).all():
+        raise AssertionError(f"{label} reference: card vs CPU {errs} "
+                             f"(worst gradient {worst}), tol "
+                             f"{FAMILY_REF_TOL}")
+    print(f"family reference {label}: float32, card (kernels) vs CPU "
+          f"(plain versions) from the same weights: logits "
+          f"{errs['logits']:.3e}, loss {float(closs):.6f} vs "
+          f"{float(ploss):.6f} ({errs['loss']:.3e}), {len(pg)} gradients "
+          f"worst {errs['grads']:.3e} ({worst}) of each tensor's largest "
+          f"magnitude (tol "
+          f"{FAMILY_REF_TOL}); launches {flash_layers} of row 5 in the "
+          f"no_grad forward, {flash_layers} of rows 6 and 8 in the step",
+          flush=True)
+
+
+def family_reference_phase():
+    """GPT, BERT (masked LM over padded rows), T5 and ERNIE-MoE (the
+    capacity and the dropless arm), each float32 at its full published
+    width cut to 2 layers (T5: 2 + 2), on the card and the CPU from the
+    same weights (``family_reference``); then the greedy ``generate`` of
+    32 tokens of a float32 T5 with an untied head on the card, cached and
+    uncached: identical tokens, and at least 8 distinct ones."""
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         ErnieMoEForCausalLM, GPTConfig,
+                                         GPTForCausalLM, T5Config,
+                                         T5ForConditionalGeneration)
+
+    rng = np.random.default_rng(12)
+    no_drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    gpt = GPTConfig(num_hidden_layers=2, **no_drop)
+    ids = rng.integers(0, gpt.vocab_size, (2, 256))
+    family_reference("gpt2 2 layers", lambda dev, seed: GPTForCausalLM(
+        gpt, device=dev, seed=seed), {"input_ids": ids, "labels": ids},
+        ("input_ids",), 2)
+    bert = BertConfig(num_hidden_layers=2, **no_drop)
+    mask = np.arange(256)[None] < np.array(padded_lengths(2, 256))[:, None]
+    ids = rng.integers(0, bert.vocab_size, (2, 256))
+    labels = np.where(rng.random((2, 256)) < 0.15, ids, -100)
+    family_reference("bert-base 2 layers", lambda dev, seed: BertForMaskedLM(
+        bert, device=dev, seed=seed),
+        {"input_ids": ids, "attention_mask": mask.astype(np.int64),
+         "labels": labels}, ("input_ids", "attention_mask"), 2)
+    t5cfg = T5Config(num_layers=2, dropout_rate=0.0)
+    src = rng.integers(1, t5cfg.vocab_size, (2, 256))
+    tgt = rng.integers(1, t5cfg.vocab_size, (2, 64))
+    # the decoder reads the labels shifted right (decoder_start_token_id
+    # 0), as the model's own shift gives them
+    shifted = np.concatenate([np.zeros((2, 1), np.int64), tgt[:, :-1]], 1)
+    family_reference(
+        "t5-small 2+2 layers", lambda dev, seed: T5ForConditionalGeneration(
+            t5cfg, device=dev, seed=seed),
+        {"input_ids": src, "decoder_input_ids": shifted, "labels": tgt},
+        ("input_ids", "decoder_input_ids"), 2)
+    # generate with an untied head: the tied one, at random weights, only
+    # repeats the start token (its own embedding dominates the residual)
+    t5 = T5ForConditionalGeneration(dataclasses.replace(
+        t5cfg, tie_word_embeddings=False), device="cuda", seed=3).eval()
+    src_t = torch.as_tensor(src, device="cuda")
+    cached = t5.generate(src_t, max_length=33, use_cache=True)
+    uncached = t5.generate(src_t, max_length=33, use_cache=False)
+    if not torch.equal(cached, uncached) \
+            or len(set(cached[:, 1:].flatten().tolist())) < 8:
+        raise AssertionError(f"t5 float32 generate: cached {cached.tolist()}"
+                             f" vs uncached {uncached.tolist()}")
+    print(f"family reference t5: float32 greedy generate of 32 tokens (an "
+          f"untied head), cached = uncached on the card: "
+          f"{cached[:, 1:9].tolist()}...", flush=True)
+    for dropless in (False, True):
+        moe = bench_moe_config(num_hidden_layers=2, moe_dropless=dropless)
+        ids = rng.integers(0, moe.vocab_size, (2, 256))
+        family_reference(
+            f"ernie-moe 2 layers {'dropless' if dropless else 'gshard'}",
+            lambda dev, seed, cfg=moe: ErnieMoEForCausalLM(
+                cfg, device=dev, seed=seed),
+            {"input_ids": ids, "labels": ids}, ("input_ids",), 2)
+
+
+def bench_moe_config(**kw):
+    """``benchmarks/suite.py: bench_moe``'s ERNIE-MoE (vocab 32000,
+    hidden 1024, 8 layers, 8 heads, positions 1024, 8 experts, MoE every
+    2nd layer, dropouts 0)."""
+    from paddle_tpu_torch.models import ErnieMoEConfig
+
+    cfg = dict(vocab_size=32000, hidden_size=1024, num_hidden_layers=8,
+               num_attention_heads=8, max_position_embeddings=1024,
+               num_experts=8, moe_every=2, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    return ErnieMoEConfig(**dict(cfg, **kw))
+
+
+def family_train(label, model, batch, flops, tokens, flash_layers, rate,
+                 optimizer, residency="master_only", eval_batch=None):
+    """2 warm-up and 5 timed ``TrainStep`` steps (``train_steps``) with
+    exactly 5 x ``flash_layers`` launches of rows 6 and 8 and none of the
+    others, losses finite and falling; a profile of one step (the flash
+    kernels' device ms); then a ``no_grad`` eval forward of
+    ``eval_batch`` (``batch`` without its labels by default) with
+    ``flash_layers`` launches of row 5. Prints step ms, tokens/s, MFU
+    (``flops`` a step over ``rate``) and peak GB; returns the figures."""
+    from paddle_tpu_torch.trainer import TrainStep
+
+    ts = TrainStep(model, optimizer, master_residency=residency)
+    losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
+    check_counts(label, counts, {
+        "flash_attention_fwd_lse": 5 * flash_layers,
+        "flash_attention_bwd_fused": 5 * flash_layers,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0})
+    if not (all(math.isfinite(x) for x in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}")
+    med_ms = float(np.median(step_ms))
+    tokens_per_s = tokens / (med_ms / 1e3)
+    mfu = flops / (med_ms / 1e3) / rate
+    prof = profile_step(label, ts, batch, FLASH_BODIES)
+    ts.sync_to_model()
+    model.eval()
+    if eval_batch is None:
+        eval_batch = {k: v for k, v in batch.items() if k != "labels"}
+    reset_launches()
+    with torch.no_grad():
+        logits = model(**eval_batch)
+    evals = read_launches()
+    model.train()
+    check_counts(f"{label} eval forward", evals,
+                 {"flash_attention_fwd": flash_layers,
+                  "flash_attention_fwd_lse": 0})
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label} eval forward: logits not finite")
+    print(f"{label}: 5 timed steps {[round(x, 3) for x in step_ms]} ms "
+          f"(median {med_ms:.3f} ms, CUDA events around TrainStep.run), "
+          f"{tokens_per_s:.1f} tokens/s, MFU {mfu:.4f} (analytic "
+          f"{flops / 1e12:.3f} TFLOP a step / {rate / 1e12:.0f} TFLOP/s), "
+          f"peak {peak_gb:.2f} GB; losses {losses}; launches per step "
+          f"{flash_layers} of row 6 and of row 8; flash kernels "
+          f"{prof['kernels_ms']:.3f} ms a step {prof['by_name_ms']} of "
+          f"{prof['device_ms']:.3f} ms device; eval forward {flash_layers} "
+          "launches of row 5", flush=True)
+    return dict(step_ms=step_ms, step_ms_median=med_ms,
+                tokens_per_s=tokens_per_s, mfu=mfu, peak_gb=peak_gb,
+                losses=losses, flash_ms_per_step=prof["kernels_ms"],
+                flash_ms_by_body=prof["by_name_ms"],
+                device_ms_per_step=prof["device_ms"],
+                launches_per_step={"flash_attention_fwd_lse": flash_layers,
+                                   "flash_attention_bwd_fused":
+                                       flash_layers},
+                eval_launches={"flash_attention_fwd": flash_layers})
+
+
+def lm_flops(n_matmul, tokens, attn_pairs, heads, d, layers):
+    """6 N T for the N matmul weights a token passes through, plus the
+    attention products 12 h d a visible pair a layer (forward once,
+    backward twice)."""
+    return 6 * n_matmul * tokens + 12 * heads * d * attn_pairs * layers
+
+
+def train_gpt2_phase():
+    """``GPTConfig()``, GPT-2 small (vocab 50304, hidden 768, 12 layers of
+    12 heads, positions 1024) with dropouts 0, bf16 with float32 masters
+    (``master_only``), AdamW 3e-4, batch 8 x 1024 (``family_train``);
+    then ``create_predictor`` on 8 prompts of 120 tokens, 32 new tokens
+    (a warm-up call, then the timed one): TTFT, decode tokens/s, no
+    launch of rows 5-9 (plain SDPA over the cache)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    b, s, h, L = 8, 1024, cfg.hidden_size, cfg.num_hidden_layers
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    n = L * 12 * h * h + h * cfg.vocab_size
+    flops = lm_flops(n, b * s, b * fa_pairs(s, s, True, 0),
+                     cfg.num_attention_heads, cfg.head_dim, L)
+    res = family_train("train gpt2", model, {"input_ids": ids,
+                                             "labels": ids},
+                       flops, b * s, L, H100_BF16_FLOPS,
+                       topt.AdamW(3e-4, weight_decay=0.01,
+                                  multi_precision=True))
+    pc = Config()
+    pc.max_seq_len = cfg.max_position_embeddings
+    pc.seq_buckets = (128,)
+    pred = create_predictor(model, pc)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (8, 120))
+    pred.generate(prompts, max_new_tokens=4)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = pred.generate(prompts, max_new_tokens=32)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    check_counts("gpt2 predictor generate", counts,
+                 dict.fromkeys(FLASH_KERNELS, 0))
+    if toks.shape != (8, 32) or not ((0 <= toks) & (toks < cfg.vocab_size)
+                                     ).all():
+        raise AssertionError(f"gpt2 predictor tokens {toks.shape}")
+    ttft = pred.last_ttft_ms
+    decode_tok_s = 8 * 31 / (wall - ttft / 1e3)
+    print(f"train gpt2: Predictor (bf16 cache of {pc.max_seq_len} rows, "
+          f"bucket 128) 8 prompts of 120 + 32 tokens: TTFT {ttft:.2f} ms, "
+          f"decode {decode_tok_s:.1f} tokens/s, wall {wall * 1e3:.1f} ms "
+          "(host clock); no launch of rows 5-9", flush=True)
+    res.update(predictor_ttft_ms=ttft, predictor_decode_tok_s=decode_tok_s)
+    print(json.dumps({"train_gpt2": res}), flush=True)
+    return res
+
+
+def train_bert_phase():
+    """``BertConfig()``, bert-base (vocab 30522, hidden 768, 12 layers of
+    12 heads, intermediate 3072, positions 512) with dropouts 0,
+    ``BertForSequenceClassification``, bf16 with float32 masters, AdamW
+    3e-5 (the published fine-tuning rate: 1e-4 swings this 16-example
+    loss), batch 16 x 512 with the ragged tails of ``padded_lengths``
+    (padding as segment ids on the kernels)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+
+    cfg = BertConfig(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    b, s, h, L = 16, 512, cfg.hidden_size, cfg.num_hidden_layers
+    model = BertForSequenceClassification(cfg, device="cuda", seed=0).to(
+        torch.bfloat16)
+    rng = np.random.default_rng(0)
+    lens = np.array(padded_lengths(b, s))
+    batch = {"input_ids": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (b, s)), device="cuda"),
+             "attention_mask": torch.as_tensor(
+                 (np.arange(s)[None] < lens[:, None]).astype(np.int64),
+                 device="cuda"),
+             "labels": torch.as_tensor(rng.integers(0, 2, (b,)),
+                                       device="cuda")}
+    n = L * (4 * h * h + 2 * h * cfg.intermediate_size) + h * h + h * 2
+    flops = lm_flops(n, b * s, b * family_pairs(b, s, s, False, True),
+                     cfg.num_attention_heads, cfg.head_dim, L)
+    res = family_train("train bert-base", model, batch, flops, b * s, L,
+                       H100_BF16_FLOPS, topt.AdamW(3e-5, weight_decay=0.01,
+                                                   multi_precision=True))
+    print(json.dumps({"train_bert_base": res}), flush=True)
+    return res
+
+
+def train_t5_phase():
+    """``T5Config()``, t5-small (vocab 32128, d_model 512, 6 + 6 layers of
+    8 heads, d_kv 64, d_ff 2048) with dropout 0, bf16 with float32
+    masters, AdamW 1e-4, batch 16, encoder 512 and decoder 128 tokens
+    (the decoder's cross-attention on rows 5-9; self-attention carries
+    the relative bias: plain SDPA); then greedy ``generate`` of 32 tokens
+    for 4 prompts, cached and uncached: the first token equal (bf16
+    near-ties may part later tokens; float32 holds them all in the
+    reference phase)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import T5Config, T5ForConditionalGeneration
+
+    cfg = T5Config(dropout_rate=0.0)
+    b, se, sd = 16, 512, 128
+    d, inner, ff = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    model = T5ForConditionalGeneration(cfg, device="cuda", seed=0).to(
+        torch.bfloat16)
+    rng = np.random.default_rng(0)
+    src = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, se)),
+                          device="cuda")
+    tgt = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, sd)),
+                          device="cuda")
+    L, Ld = cfg.num_layers, cfg.num_decoder_layers
+    # matmul FLOPs by the tokens that pass each weight: encoder layers over
+    # the source, decoder layers (self q/k/v/o, cross q/o, MLP) and the tied
+    # head over the target, the cross K/V over the source
+    per_enc = 4 * d * inner + 2 * d * ff
+    per_dec = 6 * d * inner + 2 * d * ff
+    mm = 6 * (L * per_enc * b * se + (Ld * per_dec + d * cfg.vocab_size)
+              * b * sd + Ld * 2 * d * inner * b * se)
+    attn = 12 * cfg.num_heads * cfg.d_kv * b * (
+        L * se * se + Ld * (fa_pairs(sd, sd, True, 0) + sd * se))
+    res = family_train("train t5-small", model,
+                       {"input_ids": src, "labels": tgt}, mm + attn,
+                       b * (se + sd), Ld, H100_BF16_FLOPS,
+                       topt.AdamW(1e-4, weight_decay=0.01,
+                                  multi_precision=True),
+                       eval_batch={"input_ids": src,
+                                   "decoder_input_ids": tgt})
+    model.eval()
+    gen = {}
+    for use_cache in (True, False):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = model.generate(src[:4], max_length=33, use_cache=use_cache)
+        torch.cuda.synchronize()
+        gen[use_cache] = (toks, (time.perf_counter() - t0) * 1e3,
+                          read_launches()["flash_attention_fwd"])
+    model.train()
+    (cached, cached_ms, n_cached), (plain, plain_ms, n_plain) = \
+        gen[True], gen[False]
+    if not torch.equal(cached[:, 1], plain[:, 1]) or n_cached != 0 \
+            or n_plain != 32 * Ld:
+        raise AssertionError(f"t5 generate: first tokens "
+                             f"{cached[:, 1].tolist()} vs "
+                             f"{plain[:, 1].tolist()}; row-5 launches "
+                             f"cached {n_cached}, uncached {n_plain}")
+    same = (cached == plain).float().mean().item()
+    print(f"train t5-small: generate 4 x 32 tokens (bf16): cached "
+          f"{cached_ms:.1f} ms, uncached {plain_ms:.1f} ms (host clock); "
+          f"first tokens equal {cached[:, 1].tolist()}, share of all "
+          f"tokens equal {same:.3f}; row 5 launched {n_plain} times "
+          "uncached (cross-attention), never cached", flush=True)
+    res.update(generate_cached_ms=cached_ms, generate_uncached_ms=plain_ms,
+               generate_same_share=same)
+    print(json.dumps({"train_t5_small": res}), flush=True)
+    return res
+
+
+def train_ernie_moe_phase():
+    """``bench_moe``'s ERNIE-MoE (``bench_moe_config``: 8 layers, 4 of
+    them MoE) in float32 (the ``*_v1`` flash bodies), AdamW 1e-4 as
+    ``bench_moe``, batch 4 x 1024, both arms: the GShard top-2 capacity
+    path (factor 1.25: the [4096, 8, 1280] dispatch and combine tensors)
+    and the dropless path; prints each MoE layer's ``last_drop_fraction``
+    (0 dropless). MFU against float32's 67 TFLOP/s (TF32 off)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import ErnieMoEForCausalLM
+
+    b, s = 4, 1024
+    out = {}
+    for dropless in (False, True):
+        cfg = bench_moe_config(moe_dropless=dropless)
+        arm = "dropless" if dropless else "gshard"
+        h, ff, L = cfg.hidden_size, cfg.intermediate_size, \
+            cfg.num_hidden_layers
+        model = ErnieMoEForCausalLM(cfg, device="cuda", seed=0)
+        ids = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, s)), device="cuda")
+        n_moe = L // cfg.moe_every
+        # weights a token passes: attention 4 h^2 a layer, the dense MLPs
+        # 2 h ff, top_k experts' 2 h ff and the gate in a MoE layer, head
+        n = (L * 4 * h * h + (L - n_moe) * 2 * h * ff
+             + n_moe * (cfg.top_k * 2 * h * ff + h * cfg.num_experts)
+             + h * cfg.vocab_size)
+        flops = lm_flops(n, b * s, b * fa_pairs(s, s, True, 0),
+                         cfg.num_attention_heads, cfg.head_dim, L)
+        res = family_train(f"train ernie-moe {arm}", model,
+                           {"input_ids": ids, "labels": ids}, flops, b * s,
+                           L, H100_F32_FLOPS,
+                           topt.AdamW(1e-4, multi_precision=True),
+                           residency="paired")
+        drops = [float(blk.moe.last_drop_fraction) for blk in model.blocks
+                 if blk.use_moe]
+        if dropless and any(drops):
+            raise AssertionError(f"dropless drop fractions {drops}")
+        print(f"train ernie-moe {arm}: last_drop_fraction by MoE layer "
+              f"{[round(x, 5) for x in drops]}", flush=True)
+        res["drop_fractions"] = drops
+        out[arm] = res
+        del model, ids
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_ernie_moe": out}), flush=True)
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -6090,6 +6656,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, n in phase("train unet", unet_train_phase).items():
         gn_rows[name]["launches"] = n
+    torch.cuda.empty_cache()
+    phase("flash shapes", family_flash_phase)
+    torch.cuda.empty_cache()
+    phase("model references", family_reference_phase)
+    torch.cuda.empty_cache()
+    phase("train gpt2", train_gpt2_phase)
+    torch.cuda.empty_cache()
+    phase("train bert-base", train_bert_phase)
+    torch.cuda.empty_cache()
+    phase("train t5-small", train_t5_phase)
+    torch.cuda.empty_cache()
+    phase("train ernie-moe", train_ernie_moe_phase)
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
                            qmm_row, *fa_rows.values(), *scan_rows.values(),
                            *gn_rows.values()]}

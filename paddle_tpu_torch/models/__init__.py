@@ -1,10 +1,28 @@
 """Models of the PyTorch port."""
 
+from .bert import (
+    BertConfig,
+    BertForMaskedLM,
+    BertForSequenceClassification,
+    BertModel,
+    ErnieConfig,
+    ErnieForMaskedLM,
+    ErnieForSequenceClassification,
+    ErnieModel,
+)
+from .ernie_moe import ErnieMoEConfig, ErnieMoEForCausalLM
+from .gpt import GPTConfig, GPTForCausalLM, GPTModel
 from .llama import LlamaConfig, LlamaForCausalLM
 from .mamba import MambaConfig, MambaForCausalLM
+from .t5 import T5Config, T5ForConditionalGeneration, T5Model
 from .unet import UNet2DConditionModel, UNetConfig
 from .unet_sites import unet_gn_sites
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "MambaConfig",
-           "MambaForCausalLM", "UNet2DConditionModel", "UNetConfig",
+__all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
+           "BertModel", "ErnieConfig", "ErnieForMaskedLM",
+           "ErnieForSequenceClassification", "ErnieModel", "ErnieMoEConfig",
+           "ErnieMoEForCausalLM", "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "LlamaConfig", "LlamaForCausalLM", "MambaConfig",
+           "MambaForCausalLM", "T5Config", "T5ForConditionalGeneration",
+           "T5Model", "UNet2DConditionModel", "UNetConfig",
            "unet_gn_sites"]

@@ -43,6 +43,14 @@ from .common import (
 )
 from .conv import Conv2D
 from .norm import GroupNorm, LayerNorm, RMSNorm
+from .transformer import (
+    MultiHeadAttention,
+    Transformer,
+    TransformerDecoder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
+    TransformerEncoderLayer,
+)
 
 ACTIVATIONS = ("CELU", "ELU", "GELU", "GLU", "Hardshrink", "Hardsigmoid",
                "Hardswish", "Hardtanh", "LeakyReLU", "LogSigmoid",
@@ -53,5 +61,7 @@ ACTIVATIONS = ("CELU", "ELU", "GELU", "GLU", "Hardshrink", "Hardsigmoid",
 
 __all__ = ["Conv2D", "Dropout", "Embedding", "Flatten", "GroupNorm",
            "Identity", "LayerDict", "LayerList", "LayerNorm", "Linear",
-           "ParameterList", "RMSNorm", "Sequential", "Upsample",
+           "MultiHeadAttention", "ParameterList", "RMSNorm", "Sequential",
+           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
+           "TransformerEncoder", "TransformerEncoderLayer", "Upsample",
            *ACTIVATIONS]
