@@ -6501,6 +6501,378 @@ def train_ernie_moe_phase():
     return out
 
 
+VISION_REF_TOL = {"logits": 1e-4, "loss": 1e-5, "grads": 1e-3,
+                  "buffers": 1e-5}
+# a gradient that float32 itself gets wrong (training BatchNorm's backward
+# cancels terms far larger than its result: 157 of ResNet-50's 161 at
+# random weights) is held to float64 instead, the card's relative error
+# (in norm) within this factor of the CPU's float32 one: two float32
+# paths on the CPU, NCHW and channels-last, differ by up to 3.8x so
+VISION_GRAD_SLACK = 10.0
+
+
+def norm_rel(got, want):
+    """||got - want|| / ||want||, in float64 on the host."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((g - w).norm() / w.norm().clamp_min(1e-300)).item()
+
+
+def bn_buffers(model):
+    return {n: b for n, b in model.named_buffers()
+            if n.endswith(("._mean", "._variance"))}
+
+
+def vision_reference(label, make, batch, x_key):
+    """One float32 vision model on the CPU and the same weights on the
+    card, and in float64 on the CPU: an eval ``no_grad`` forward's logits
+    (the running statistics), then a training forward's loss, every
+    gradient and the BatchNorm running statistics that forward moved.
+    Logits, loss and statistics card vs CPU within ``VISION_REF_TOL`` of
+    each tensor's largest magnitude; each gradient of the card within
+    ``VISION_REF_TOL["grads"]`` of the float64 one in norm, or, where the
+    CPU's own float32 gradient is further from float64 than that, within
+    ``VISION_GRAD_SLACK`` times the CPU's error. No kernel of rows 1-13
+    launches on the card."""
+    cpu, card = card_and_cpu(make, 11)
+    ref = make("cpu", 11).double()  # the CPU model's seed: its weights
+    got = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu"), (ref, "f64")):
+        data = {k: torch.as_tensor(v, device="cpu" if dev == "f64" else dev)
+                for k, v in batch.items()}
+        if dev == "f64":
+            data = {k: v.double() if v.is_floating_point() else v
+                    for k, v in data.items()}
+        reset_launches()
+        model.eval()
+        with torch.no_grad():
+            logits = model(data[x_key])
+        model.train()
+        loss = model(**data)
+        loss.backward()
+        counts = read_launches()
+        got[dev] = (logits, loss.detach(), {
+            n: p.grad for n, p in model.named_parameters()}, bn_buffers(model))
+        if dev == "cuda":
+            check_counts(f"{label} reference", counts,
+                         dict.fromkeys(counts, 0))
+    (cl, closs, cg, cb), (pl, ploss, pg, pb) = got["cuda"], got["cpu"]
+    rg = got["f64"][2]
+    card_err = {n: norm_rel(cg[n], rg[n]) for n in rg}
+    cpu_err = {n: norm_rel(pg[n], rg[n]) for n in rg}
+    allowed = {n: max(VISION_REF_TOL["grads"], VISION_GRAD_SLACK * cpu_err[n])
+               for n in rg}
+    worst = max(rg, key=lambda n: card_err[n] / allowed[n])
+    errs = {"logits": max_rel(cl, pl), "loss": max_rel(closs, ploss),
+            "grads": card_err[worst] / allowed[worst]
+            * VISION_REF_TOL["grads"],
+            "buffers": max((max_rel(cb[n], pb[n]) for n in pb),
+                           default=0.0)}
+    ill = sorted(n for n in rg if cpu_err[n] > VISION_REF_TOL["grads"])
+    bad = [k for k, e in errs.items() if not e <= VISION_REF_TOL[k]]
+    if bad or not torch.isfinite(cl).all():
+        raise AssertionError(
+            f"{label} reference: card vs CPU {errs}; worst gradient {worst}"
+            f": card {card_err[worst]:.3e}, CPU float32 {cpu_err[worst]:.3e}"
+            f" from float64; tol {VISION_REF_TOL}, slack "
+            f"{VISION_GRAD_SLACK}")
+    print(f"vision reference {label}: float32, card (cuDNN, channels-last "
+          f"where the model takes it) vs CPU from the same weights: eval "
+          f"logits {errs['logits']:.3e}, loss {float(closs):.6f} vs "
+          f"{float(ploss):.6f} ({errs['loss']:.3e}), {len(pb)} BatchNorm "
+          f"running statistics after the training forward "
+          f"{errs['buffers']:.3e} of each tensor's largest magnitude; "
+          f"{len(rg)} gradients against float64 (relative error in norm): "
+          f"card worst "
+          f"{max(card_err.values()):.3e} ({max(card_err, key=card_err.get)})"
+          f", CPU float32 worst {max(cpu_err.values()):.3e}; {len(ill)} "
+          f"gradients float32 itself gets wrong by more than "
+          f"{VISION_REF_TOL['grads']} ({ill[:4]}...), held at "
+          f"{VISION_GRAD_SLACK}x the CPU's error: worst {worst} card "
+          f"{card_err[worst]:.3e} vs CPU {cpu_err[worst]:.3e}; no kernel "
+          "launched", flush=True)
+    return dict(errs, grads_card_vs_f64=max(card_err.values()),
+                grads_cpu_vs_f64=max(cpu_err.values()),
+                ill_conditioned=len(ill))
+
+
+def vision_reference_phase():
+    """ViT-L widths (1024, 16 heads, 4096) cut to 2 layers at 224 x 224,
+    batch 2, and ``resnet50()`` whole at 224 x 224, batch 4, float32 on
+    the card and the CPU (``vision_reference``)."""
+    from paddle_tpu_torch.models import ViT, ViTConfig
+    from paddle_tpu_torch.vision.models import resnet50
+
+    rng = np.random.default_rng(13)
+    vit = dataclasses.replace(ViTConfig.vit_l(), num_hidden_layers=2)
+    out = {"vit_l_2_layers": vision_reference(
+        "vit-l 2 layers", lambda dev, seed: ViT(vit, device=dev, seed=seed),
+        {"pixel_values": rng.standard_normal((2, 3, 224, 224)).astype(
+            np.float32), "labels": rng.integers(0, 1000, (2,))},
+        "pixel_values")}
+    out["resnet50"] = vision_reference(
+        "resnet50", lambda dev, seed: resnet50(device=dev, seed=seed),
+        {"x": rng.standard_normal((4, 3, 224, 224)).astype(np.float32),
+         "labels": rng.integers(0, 1000, (4,))}, "x")
+    print(json.dumps({"vision_reference": out}), flush=True)
+    return out
+
+
+def vit_flops(cfg, b):
+    """6 N T for the matmul weights a token passes (the blocks' 12 h^2 a
+    layer, the patch projection on the patch tokens, the head on the cls
+    token) plus the attention products, 12 h s^2 a layer (every pair
+    visible)."""
+    h, L, s = cfg.hidden_size, cfg.num_hidden_layers, cfg.num_patches + 1
+    patch = cfg.num_channels * cfg.patch_size ** 2 * h
+    mm = 6 * b * (s * L * (4 * h * h + 2 * h * cfg.intermediate_size)
+                  + cfg.num_patches * patch + h * cfg.num_classes)
+    return mm + 12 * h * s * s * b * L
+
+
+def train_vit_l_phase():
+    """``benchmarks/suite.py: bench_vit`` uncut: ``ViTConfig.vit_l()`` (24
+    layers of 1024, 16 heads, 4096), 224 x 224, batch 32, bf16 with
+    float32 masters (``master_only``), ``AdamW(1e-4,
+    multi_precision=True)``, the loss ``cross_entropy(logits,
+    label).mean()`` through ``TrainStep(loss_fn=)``: 2 warm-up and 5
+    timed steps (CUDA events), images/s, MFU against 989 TFLOP/s, peak
+    GB, one profiled step by operator; no kernel of rows 1-13 launches
+    (the plain SDPA, as in JAX)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import ViT, ViTConfig
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import layout
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg, b = ViTConfig.vit_l(), 32
+    t0 = time.perf_counter()
+    model = ViT(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    batch = {"input": torch.as_tensor(rng.standard_normal(
+        (b, 3, cfg.image_size, cfg.image_size)), device="cuda").to(
+            torch.bfloat16),
+        "label": torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.num_classes, (b,)), device="cuda")}
+    ts = TrainStep(model, topt.AdamW(1e-4, multi_precision=True),
+                   loss_fn=lambda logits, label: F.cross_entropy(
+                       logits, label).mean(),
+                   master_residency="master_only")
+    torch.cuda.synchronize()
+    print(f"train vit-l: {n_params} parameters, bf16 with float32 masters, "
+          f"built in {time.perf_counter() - t0:.2f} s; patch conv "
+          f"{'NHWC' if layout.decide(cfg.channels_last, 'cuda') else 'NCHW'}",
+          flush=True)
+    losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
+    check_counts("train vit-l", counts, dict.fromkeys(counts, 0))
+    if not (all(math.isfinite(v) for v in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train vit-l: losses {losses}, grad norms "
+                             f"{norms}")
+    med_ms = float(np.median(step_ms))
+    flops = vit_flops(cfg, b)
+    mfu = flops / (med_ms / 1e3) / H100_BF16_FLOPS
+    prof = profile_step("train vit-l", ts, batch, ())
+    print(f"train vit-l: 5 timed steps {[round(v, 3) for v in step_ms]} ms "
+          f"(median {med_ms:.3f} ms, CUDA events around TrainStep.run), "
+          f"{b / (med_ms / 1e3):.1f} images/s, MFU {mfu:.4f} (analytic "
+          f"{flops / 1e12:.3f} TFLOP a step / 989 TFLOP/s: bound "
+          f"{flops / H100_BF16_FLOPS * 1e3:.2f} ms), peak {peak_gb:.2f} GB, "
+          f"device busy {prof['device_ms'] / prof['wall_ms']:.3f} of the "
+          f"profiled step; losses {losses}", flush=True)
+    res = dict(step_ms=step_ms, step_ms_median=med_ms,
+               images_per_s=b / (med_ms / 1e3), mfu=mfu,
+               tflop_per_step=flops / 1e12, peak_gb=peak_gb,
+               parameters=n_params, losses=losses, profile=prof)
+    print(json.dumps({"train_vit_l": res}), flush=True)
+    return res
+
+
+RESNET_GN_SITE = dict(n=64, hw=56 * 56, c=256, g=32)  # stage 1's output
+
+
+def gn_resnet_site(flush):
+    """Rows 12-13 at the ResNet-50 GroupNorm arm's stage-1 site (batch
+    64, 56 x 56, 256 channels, 32 groups, bf16, no activation): held
+    against their plain versions (``gn_check``), then timed beside their
+    bounds, their plain versions and ``F.group_norm`` forward and
+    backward on the NCHW view."""
+    from paddle_tpu_torch.kernels import group_norm as gn
+
+    n, hw, c, g = (RESNET_GN_SITE[k] for k in ("n", "hw", "c", "g"))
+    errs, ratio = gn_check(n, hw, c, g, torch.bfloat16, None, seed=300)
+    x, dy, gamma, beta = gn_inputs(n, hw, c, torch.bfloat16, seed=301)
+    _, mean, rstd = gn.group_norm_fwd(x, gamma, beta, g, 1e-5, None)
+    side = int(math.isqrt(hw))
+    x4 = x.view(n, side, side, c).permute(0, 3, 1, 2)
+    dy4 = dy.view(n, side, side, c).permute(0, 3, 1, 2)
+    wb = [t.to(torch.bfloat16).requires_grad_() for t in (gamma, beta)]
+    xg = x4.detach().requires_grad_()
+    fn = torch.nn.functional
+    out = fn.group_norm(xg, g, wb[0], wb[1], 1e-5)
+    calls = {
+        "group_norm_fwd": (
+            lambda: gn.group_norm_fwd(x, gamma, beta, g, 1e-5, None),
+            lambda: gn.group_norm_fwd_plain(x, gamma, beta, g, 1e-5, None),
+            lambda: fn.group_norm(x4, g, wb[0], wb[1], 1e-5)),
+        "group_norm_bwd": (
+            lambda: gn.group_norm_bwd(x, dy, gamma, beta, mean, rstd, g,
+                                      None),
+            lambda: gn.group_norm_bwd_plain(x, dy, gamma, beta, mean, rstd,
+                                            g, None),
+            lambda: torch.autograd.grad(out, [xg, *wb], dy4,
+                                        retain_graph=True)),
+    }
+    rows = {}
+    for name, (kernel, plain, library) in calls.items():
+        ms = {k: time_ms(f, flush, iters=30)
+              for k, f in (("kernel", kernel), ("plain", plain),
+                           ("library", library))}
+        bound_ms, bound_by = gn_bound(name, n, hw, c, g, 2, False)
+        rows[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                          library_ms=ms["library"], bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=errs[name])
+        print(f"group norm resnet site {name} n={n} hw={hw} c={c} g={g} "
+              f"bf16: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} "
+              f"ms, F.group_norm {ms['library']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max abs err "
+              f"{errs[name]:.3e} ({ratio:.3f} of its allowance)", flush=True)
+    return rows
+
+
+def train_resnet50_phase():
+    """``resnet50()`` at 224 x 224, batch 64 (PaddleClas's per-card batch,
+    ``ppcls/configs/ImageNet/ResNet/ResNet50.yaml``) with its
+    ``Momentum(0.1, momentum=0.9)`` and L2 1e-4, bf16 with float32
+    masters, channels-last by the auto policy: 2 warm-up and 5 timed
+    steps, images/s, peak GB, the device's busy share in a profiled step,
+    and the BatchNorm running statistics moved and finite. Then the
+    GroupNorm arm (``norm_layer=lambda c: GroupNorm(32, c)``): rows 12-13
+    launched once a norm a step (53), their device ms a step, and the two
+    held against their plain versions at stage 1's site
+    (``gn_resnet_site``)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.nn import GroupNorm, layout
+    from paddle_tpu_torch.trainer import TrainStep
+    from paddle_tpu_torch.vision.models import resnet50
+
+    b, out = 64, {}
+    rng = np.random.default_rng(0)
+    batch = {"x": torch.as_tensor(rng.standard_normal((b, 3, 224, 224)),
+                                  device="cuda").to(torch.bfloat16),
+             "labels": torch.as_tensor(np.random.default_rng(1).integers(
+                 0, 1000, (b,)), device="cuda")}
+    # 2 x 4.09 GMAC a 224 x 224 image forward (torchvision's count), x 3
+    flops = 3 * 2 * 4.09e9 * b
+    for arm, kw in (("batch_norm", {}),
+                    ("group_norm", dict(norm_layer=lambda c: GroupNorm(32,
+                                                                       c)))):
+        label = f"train resnet50 {arm}"
+        model = resnet50(device="cuda", seed=0, **kw).to(torch.bfloat16)
+        before = {n: v.clone() for n, v in bn_buffers(model).items()}
+        n_gn = sum(isinstance(m, GroupNorm) for m in model.modules())
+        ts = TrainStep(model, topt.Momentum(0.1, momentum=0.9,
+                                            weight_decay=1e-4,
+                                            multi_precision=True),
+                       master_residency="master_only")
+        losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
+        want = {k: 0 for k in counts}
+        want.update(group_norm_fwd=5 * n_gn, group_norm_bwd=5 * n_gn)
+        check_counts(label, counts, want)
+        if not all(math.isfinite(v) for v in losses + norms):
+            raise AssertionError(f"{label}: losses {losses}, norms {norms}")
+        prof = profile_step(label, ts, batch, GN_BODIES)
+        med_ms = float(np.median(step_ms))
+        busy = prof["device_ms"] / prof["wall_ms"]
+        res = dict(step_ms=step_ms, step_ms_median=med_ms,
+                   images_per_s=b / (med_ms / 1e3),
+                   mfu=flops / (med_ms / 1e3) / H100_BF16_FLOPS,
+                   peak_gb=peak_gb, device_busy=busy, losses=losses,
+                   layout="NHWC" if layout.decide(None, "cuda") else "NCHW",
+                   profile=prof)
+        if arm == "batch_norm":
+            ts.sync_to_model()
+            after = bn_buffers(model)
+            moved = sum(not torch.equal(after[n], before[n]) for n in after)
+            finite = all(bool(torch.isfinite(v).all())
+                         for v in after.values())
+            if moved != len(after) or not finite:
+                raise AssertionError(f"{label}: {moved} of {len(after)} "
+                                     f"running statistics moved, finite "
+                                     f"{finite}")
+            res.update(running_stats=len(after), running_stats_moved=moved)
+            extra = (f"{len(after)} running statistics moved and finite "
+                     f"({after['bn1._mean'].dtype})")
+        else:
+            res.update(gn_launches_per_step=n_gn,
+                       gn_ms_per_step=prof["kernels_ms"],
+                       gn_ms_by_body=prof["by_name_ms"])
+            extra = (f"rows 12-13 launched {n_gn} times each a step, "
+                     f"{prof['kernels_ms']:.3f} ms of device time a step "
+                     f"{prof['by_name_ms']}")
+        print(f"{label}: 5 timed steps {[round(v, 3) for v in step_ms]} ms "
+              f"(median {med_ms:.3f} ms), {res['images_per_s']:.1f} images/s,"
+              f" MFU {res['mfu']:.4f} ({flops / 1e12:.2f} TFLOP a step), "
+              f"peak {peak_gb:.2f} GB, device busy {busy:.3f} of the "
+              f"profiled step ({prof['device_ms']:.2f} of "
+              f"{prof['wall_ms']:.2f} ms); {extra}; losses {losses}",
+              flush=True)
+        out[arm] = res
+        del model, ts
+        torch.cuda.empty_cache()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out["gn_site"] = gn_resnet_site(flush)
+    print(json.dumps({"train_resnet50": out}), flush=True)
+    return out
+
+
+# (constructor, input size, output classes): the 23 constructors and LeNet
+ZOO_INPUTS = {"inception_v3": 299, "LeNet": 28}
+
+
+def vision_zoo_phase():
+    """One ``no_grad`` bf16 eval forward of each of the 24 zoo models
+    (batch 8; 224 x 224, 299 for ``inception_v3``, 1 x 28 x 28 for
+    ``LeNet``): the output shape and finiteness, and images/s of a
+    second forward (CUDA events); no kernel of rows 1-13 launches."""
+    from paddle_tpu_torch.vision import models as zoo
+
+    b, out = 8, {}
+    for i, name in enumerate([*zoo.CONSTRUCTORS, "LeNet"]):
+        size = ZOO_INPUTS.get(name, 224)
+        model = getattr(zoo, name)(device="cuda", seed=i).to(
+            torch.bfloat16).eval()
+        x = torch.as_tensor(np.random.default_rng(i).standard_normal(
+            (b, 1 if name == "LeNet" else 3, size, size)),
+            device="cuda").to(torch.bfloat16)
+        classes = 10 if name == "LeNet" else 1000
+        reset_launches()
+        with torch.no_grad():
+            y = model(x)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(x)
+            end.record()
+            end.synchronize()
+        counts = read_launches()
+        check_counts(f"zoo {name}", counts, dict.fromkeys(counts, 0))
+        ms = start.elapsed_time(end)
+        if tuple(y.shape) != (b, classes) or not torch.isfinite(y).all():
+            raise AssertionError(f"zoo {name}: output {tuple(y.shape)}, "
+                                 f"finite {bool(torch.isfinite(y).all())}")
+        n_params = sum(p.numel() for p in model.parameters())
+        out[name] = dict(ms=ms, images_per_s=b / (ms / 1e3),
+                         parameters=n_params, size=size)
+        print(f"zoo {name}: {n_params} parameters, bf16 eval forward of "
+              f"{b} x {size} x {size}: {ms:.3f} ms, "
+              f"{b / (ms / 1e3):.1f} images/s", flush=True)
+        del model, x, y
+    torch.cuda.empty_cache()
+    print(json.dumps({"vision_zoo": out}), flush=True)
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -6668,6 +7040,14 @@ def main() -> int:
     phase("train t5-small", train_t5_phase)
     torch.cuda.empty_cache()
     phase("train ernie-moe", train_ernie_moe_phase)
+    torch.cuda.empty_cache()
+    phase("vision reference", vision_reference_phase)
+    torch.cuda.empty_cache()
+    phase("train vit-l", train_vit_l_phase)
+    torch.cuda.empty_cache()
+    phase("train resnet50", train_resnet50_phase)
+    torch.cuda.empty_cache()
+    phase("vision zoo", vision_zoo_phase)
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
                            qmm_row, *fa_rows.values(), *scan_rows.values(),
                            *gn_rows.values()]}

@@ -7,10 +7,13 @@ request for ``"cuda"`` raises instead of quietly running on the host.
 ``set_current`` (``paddle_tpu_torch.device.set_device``) chooses where
 layers built without a ``device`` put their parameters; it starts as the
 card, so ``current_device()`` raises without one until the caller asks
-for the CPU.
+for the CPU. ``device_scope`` chooses it for a ``with`` block (a model
+building its layers on its own device).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,3 +44,16 @@ def current_device(device=None) -> torch.device:
     if device is None:
         device = _current if _current is not None else "cuda"
     return resolve_device(device)
+
+
+@contextlib.contextmanager
+def device_scope(device):
+    """Make ``device`` the current device inside the block, then restore
+    the one before."""
+    global _current
+    prev = _current
+    _current = resolve_device(device)
+    try:
+        yield _current
+    finally:
+        _current = prev

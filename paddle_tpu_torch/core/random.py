@@ -13,12 +13,15 @@ compare them make their inputs with numpy and carry weights across
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .device import resolve_device
 
 _seed = 0
 _generators = {}  # device string -> the port's generator on that device
+_scoped = []  # generators ``generator_scope`` put before the port's own
 
 
 def seed(s: int) -> None:
@@ -40,10 +43,24 @@ def default_generator(device) -> torch.Generator:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    if _scoped and _scoped[-1].device == dev:
+        return _scoped[-1]
     gen = _generators.get(str(dev))
     if gen is None:
         gen = _generators[str(dev)] = make_generator(_seed, dev)
     return gen
+
+
+@contextlib.contextmanager
+def generator_scope(generator: torch.Generator):
+    """Inside the block, ``default_generator`` of ``generator``'s device
+    returns ``generator`` (a model drawing all its layers from its own
+    seed)."""
+    _scoped.append(generator)
+    try:
+        yield generator
+    finally:
+        _scoped.pop()
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:

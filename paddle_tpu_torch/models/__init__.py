@@ -17,6 +17,7 @@ from .mamba import MambaConfig, MambaForCausalLM
 from .t5 import T5Config, T5ForConditionalGeneration, T5Model
 from .unet import UNet2DConditionModel, UNetConfig
 from .unet_sites import unet_gn_sites
+from .vit import ViT, ViTBlock, ViTConfig
 
 __all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
            "BertModel", "ErnieConfig", "ErnieForMaskedLM",
@@ -24,5 +25,5 @@ __all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
            "ErnieMoEForCausalLM", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "LlamaConfig", "LlamaForCausalLM", "MambaConfig",
            "MambaForCausalLM", "T5Config", "T5ForConditionalGeneration",
-           "T5Model", "UNet2DConditionModel", "UNetConfig",
-           "unet_gn_sites"]
+           "T5Model", "UNet2DConditionModel", "UNetConfig", "ViT",
+           "ViTBlock", "ViTConfig", "unet_gn_sites"]

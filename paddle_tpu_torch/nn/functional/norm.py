@@ -96,3 +96,29 @@ def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
     elif activation is not None:
         raise ValueError(f"group_norm: unknown activation {activation!r}")
     return y
+
+
+def normalize(x, p=2, axis=-1, epsilon=1e-12):
+    """``x / max(||x||_p, epsilon)`` along ``axis`` (``jnp.linalg.norm``'s
+    vector orders: 2, 1, inf, -inf, or any other p)."""
+    norm = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
+    return x / norm.clamp_min(epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """AlexNet's LRN with the torch/paddle semantics of the JAX function:
+    x divided by ``(k + alpha * mean of squares over a size-wide channel
+    window) ** beta``; the squares and the sum in at least float32, the
+    quotient cast to x's dtype. The window pads ``size // 2`` channels
+    before and ``(size - 1) // 2`` after."""
+    channels_last = data_format.endswith("C")
+    if channels_last:
+        x = x.movedim(-1, 1)
+    sq = _f32up(x) * _f32up(x)
+    c = x.shape[1]
+    sqp = torch.nn.functional.pad(
+        sq, [0, 0] * (x.dim() - 2) + [size // 2, (size - 1) // 2])
+    summed = sum(sqp[:, i:i + c] for i in range(size))
+    y = (x / torch.pow(k + alpha * summed / size, beta)).to(x.dtype)
+    return y.movedim(1, -1) if channels_last else y

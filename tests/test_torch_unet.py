@@ -176,8 +176,10 @@ def test_conv2d_matches_jax(fmt, stride, padding):
                                 padding)
         got = got.permute(0, 3, 1, 2)
     _close(got, want, 1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.conv2d(torch.tensor(x), torch.tensor(w), padding=((1, 2), (0, 1)))
+    # per-side paddings, ported with the vision slice
+    pads = ((1, 2), (0, 1))
+    _close(TF.conv2d(torch.tensor(x), torch.tensor(w), padding=pads),
+           JF.conv2d(jnp.asarray(x), jnp.asarray(w), padding=pads), 1e-5)
 
 
 @pytest.mark.parametrize("size,scale", [(None, 2), ((5, 3), None),
@@ -192,9 +194,10 @@ def test_interpolate_nearest_matches_jax(size, scale):
     want = JF.interpolate(jnp.asarray(xl), size, scale, "nearest",
                           data_format="NHWC")
     _close(TF.interpolate(torch.tensor(xl), size, scale, "nearest",
-                          "NHWC"), want, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.interpolate(torch.tensor(x), size, scale, "bilinear")
+                          data_format="NHWC"), want, 0)
+    # the bilinear mode, ported with the vision slice
+    _close(TF.interpolate(torch.tensor(x), size, scale, "bilinear"),
+           JF.interpolate(jnp.asarray(x), size, scale, "bilinear"), 1e-5)
 
 
 def test_layer_norm_and_timestep_embedding_match_jax():

@@ -1,8 +1,8 @@
-"""Helpers the port's transformer-family parity tests share
-(``tests/test_torch_{gpt,bert,t5,moe,transformer}.py``): numpy views of
-either framework's tensors, the tolerance check, carrying a JAX model's
-weights into its port counterpart, JAX's loss and gradients of a model,
-and the port's gradients held against them.
+"""Helpers the port's model parity tests share
+(``tests/test_torch_{gpt,bert,t5,moe,transformer,vit,vision_*}.py``):
+numpy views of either framework's tensors, the tolerance checks,
+carrying a JAX model's weights into its port counterpart, JAX's loss and
+gradients of a model, and the port's gradients held against them.
 
 Tolerances (float32 on both sides): 1e-5 for forwards, the two
 frameworks' float32 matmuls and reductions summing in other orders; 1e-4
@@ -31,11 +31,46 @@ def close(got, want, tol=FWD_TOL):
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=tol, atol=tol)
 
 
+def scaled_close(got, want, tol=GRAD_TOL):
+    """Every entry within ``tol`` of the largest magnitude of ``want``
+    (how the vision tests hold gradients)."""
+    g, w = as_np(got), as_np(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+    err = float(np.abs(g - w).max(initial=0.0))
+    assert err <= tol * scale, f"max error {err:.3e} > {tol} x {scale:.3e}"
+
+
 def carry(jmodel, tmodel):
     """``tmodel`` with ``jmodel``'s weights (strict: every key and shape
     must match)."""
     return load_numpy_state_dict(
         tmodel, {k: np.asarray(v) for k, v in jmodel.state_dict().items()})
+
+
+def jax_twin(make_jax, tmodel):
+    """The JAX model ``make_jax()`` builds, under JAX's meta init (no
+    initializer runs: each would compile one program a shape), holding
+    ``tmodel``'s weights and buffers (strict: every key and shape)."""
+    from paddle_tpu.core.meta import meta_init
+
+    with meta_init():
+        jmodel = make_jax()
+    state = {k: v.detach().float().cpu().numpy()
+             for k, v in tmodel.state_dict().items()}
+    own = jmodel.state_dict()
+    assert set(own) == set(state), sorted(set(own) ^ set(state))
+    assert all(tuple(own[k].shape) == state[k].shape for k in own)
+    jmodel.set_state_dict(state)
+    return jmodel
+
+
+def jit_o0(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled at XLA's backend optimisation level
+    0: the parity tests' programs run once, and compile in two thirds of
+    the default's time."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
 
 
 def jax_call(jmodel, *args, **kw):
