@@ -326,9 +326,30 @@ Phases, each of which raises on failure:
    print step ms (median of 5 after 2 warm-ups), tokens/s, MFU from the
    analytic FLOPs, peak GB and the flash kernels' device ms a step, and
    require exactly one launch of rows 6 and 8 a flash layer a step and of
-   row 5 a flash layer in an eval forward.
+   row 5 a flash layer in an eval forward;
+51. vision reference, train vit-l, train resnet50, vision zoo: ViT-L (2
+   layers) and ResNet-50 float32 card vs CPU (gradients against float64);
+   ViT-L b 32 and ResNet-50 b 64 (BatchNorm and the GroupNorm arm, rows
+   12-13) bf16 train steps; one bf16 eval forward of each zoo model;
+52. rwkv reference: the RWKV-4 169M widths cut to 2 layers, batch 2 x
+   1024, float32, card vs CPU from the same weights: logits, loss and
+   every gradient within ``RWKV_REF_TOL``; the card's WKV scan against the
+   float64 recurrence on [2, 1024, 64] and at k of +-90;
+53. train rwkv-169m: ``RWKVConfig.rwkv4_169m()`` uncut, float32, batch 4 x
+   1024, ``AdamW(1e-4, multi_precision=True)``: step ms, tokens/s, MFU
+   against 67 TFLOP/s, peak GB, one profiled step's busy share and
+   heaviest operators;
+54. losses and rnn reference: the 22 losses at moderate sizes (``ctc_loss``
+   T 256, B 16, C 32; ``rnnt_loss`` B 4, T 128, U 32, V 128) and
+   ``SimpleRNN``/``LSTM``/``GRU`` (2 layers bidirectional, 512, batch 16 x
+   256), float32 card vs CPU, values and every gradient, with forward +
+   backward ms;
+55. speech surface: ``LogMelSpectrogram`` and ``MFCC`` on [8, 64000] card
+   vs CPU; ``SpeechCTC`` (log-mel -> GRU -> Linear -> ``ctc_loss``): its
+   forward + backward ms and loss, card = CPU. Phases 51-55 launch no
+   kernel of rows 1-13.
 
-Every number phases 38-50 print stands beside the card's name and power
+Every number phases 38-55 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -338,6 +359,7 @@ no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import json
@@ -6873,6 +6895,453 @@ def vision_zoo_phase():
     return out
 
 
+RWKV_REF_TOL = {"logits": 1e-5, "loss": 1e-5, "grads": 1e-4, "wkv": 1e-5}
+
+
+def rwkv_wkv_checks():
+    """The card's ``wkv_associative`` against the float64 per-step
+    recurrence (``wkv_reference``) on [2, 1024, 64], decays as softplus
+    gives them, and on the +-90 k case of ``tests/test_rwkv.py``: the
+    largest error over the largest magnitude."""
+    from paddle_tpu_torch.models import wkv_associative, wkv_reference
+
+    rng = np.random.default_rng(21)
+    k = rng.standard_normal((2, 1024, 64)).astype(np.float32) * 0.6
+    v = rng.standard_normal((2, 1024, 64)).astype(np.float32)
+    w = rng.uniform(0.13, 0.32, 64).astype(np.float32)
+    u = np.full(64, 0.3, np.float32)
+    big = (np.asarray([[[80.0], [-90.0], [85.0], [0.0]]], np.float32),
+           np.ones((1, 4, 1), np.float32), np.asarray([0.5], np.float32),
+           np.asarray([0.2], np.float32))
+    errs = {}
+    for name, args in (("2x1024x64", (k, v, w, u)), ("large_k", big)):
+        got = wkv_associative(*(torch.as_tensor(a, device="cuda")
+                                for a in args))
+        ref = torch.as_tensor(wkv_reference(*args))
+        errs[name] = max_rel(got.double(), ref)
+        if not (torch.isfinite(got).all()
+                and errs[name] <= RWKV_REF_TOL["wkv"]):
+            raise AssertionError(f"rwkv wkv {name}: card vs float64 "
+                                 f"{errs[name]:.3e}")
+    return errs
+
+
+def rwkv_reference_phase():
+    """The RWKV-4 169M widths cut to 2 layers, batch 2 x 1024, float32,
+    the same seeded weights on the card and the CPU: a ``no_grad``
+    forward's logits, then the loss and every gradient, within
+    ``RWKV_REF_TOL`` of each tensor's largest magnitude; then the card's
+    WKV scan against the float64 recurrence (``rwkv_wkv_checks``). No
+    kernel of rows 1-13 launches."""
+    from paddle_tpu_torch.models import RWKVConfig, RWKVForCausalLM
+
+    cfg = dataclasses.replace(RWKVConfig.rwkv4_169m(), num_hidden_layers=2)
+    cpu, card = card_and_cpu(
+        lambda dev, seed: RWKVForCausalLM(cfg, device=dev, seed=seed), 21)
+    ids = np.random.default_rng(21).integers(0, cfg.vocab_size, (2, 1024))
+    got = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        t = torch.as_tensor(ids, device=dev)
+        reset_launches()
+        with torch.no_grad():
+            logits = model(t)
+        loss = model(t, t)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_launches()
+            check_counts("rwkv reference", counts, dict.fromkeys(counts, 0))
+        got[dev] = (logits, loss.detach(),
+                    {n: p.grad for n, p in model.named_parameters()})
+    (cl, closs, cg), (pl, ploss, pg) = got["cuda"], got["cpu"]
+    errs = {"logits": max_rel(cl, pl), "loss": max_rel(closs, ploss),
+            "grads": max(max_rel(cg[n], pg[n]) for n in pg)}
+    worst = max(pg, key=lambda n: max_rel(cg[n], pg[n]))
+    bad = [k for k, e in errs.items() if not e <= RWKV_REF_TOL[k]]
+    if bad or not torch.isfinite(cl).all() or len(pg) != 6 + 18 * 2:
+        raise AssertionError(f"rwkv reference: card vs CPU {errs} (worst "
+                             f"gradient {worst}), tol {RWKV_REF_TOL}")
+    errs["wkv"] = rwkv_wkv_checks()
+    print(f"rwkv reference: RWKV-4 169M widths, 2 layers, float32, batch 2 x "
+          f"1024, card vs CPU from the same weights: logits "
+          f"{errs['logits']:.3e}, loss {float(closs):.6f} vs "
+          f"{float(ploss):.6f} ({errs['loss']:.3e}), {len(pg)} gradients "
+          f"worst {errs['grads']:.3e} ({worst}) of each tensor's largest "
+          f"magnitude; the card's WKV scan vs the float64 recurrence "
+          f"{errs['wkv']} (tol {RWKV_REF_TOL}); no kernel launched",
+          flush=True)
+    return errs
+
+
+def rwkv_flops(cfg, tokens):
+    """6 N T for the N matmul weights a token passes (a layer's four h x h
+    time-mix matrices, the channel mix's h x f, f x h and h x h, and the
+    head; the embedding is a lookup); the WKV scan's elementwise work is
+    not counted."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    n = cfg.num_hidden_layers * (5 * h * h + 2 * h * f) + h * cfg.vocab_size
+    return 6 * n * tokens, n
+
+
+def train_rwkv_phase():
+    """The slice's full-width path: ``RWKVConfig.rwkv4_169m()`` (12 layers
+    of 768, FFN 3072, vocab 50277), float32 (the config's dtype),
+    batch 4 x 1024, ``AdamW(1e-4, multi_precision=True)`` through
+    ``TrainStep``: 2 warm-up and 5 timed steps (CUDA events), tokens/s,
+    MFU (6 N T against 67 TFLOP/s float32), peak GB, one profiled step's
+    busy share and heaviest operators; no kernel of rows 1-13 launches."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import RWKVConfig, RWKVForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg, b, s = RWKVConfig.rwkv4_169m(), 4, 1024
+    t0 = time.perf_counter()
+    model = RWKVForCausalLM(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    ts = TrainStep(model, topt.AdamW(1e-4, multi_precision=True))
+    torch.cuda.synchronize()
+    print(f"train rwkv-169m: {n_params} parameters, float32, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    losses, norms, step_ms, counts, peak_gb = train_steps(ts, batch)
+    check_counts("train rwkv-169m", counts, dict.fromkeys(counts, 0))
+    if not (all(math.isfinite(v) for v in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train rwkv-169m: losses {losses}, grad "
+                             f"norms {norms}")
+    med_ms = float(np.median(step_ms))
+    flops, n_matmul = rwkv_flops(cfg, b * s)
+    mfu = flops / (med_ms / 1e3) / H100_F32_FLOPS
+    prof = profile_step("train rwkv-169m", ts, batch, ())
+    busy = prof["device_ms"] / prof["wall_ms"]
+    print(f"train rwkv-169m: 5 timed steps {[round(v, 3) for v in step_ms]} "
+          f"ms (median {med_ms:.3f} ms, CUDA events around TrainStep.run), "
+          f"{b * s / (med_ms / 1e3):.1f} tokens/s, MFU {mfu:.4f} (6 N T, N "
+          f"{n_matmul} matmul weights: {flops / 1e12:.3f} TFLOP a step / 67 "
+          f"TFLOP/s: bound {flops / H100_F32_FLOPS * 1e3:.2f} ms), peak "
+          f"{peak_gb:.2f} GB, device busy {busy:.3f} of the profiled step; "
+          f"losses {losses}; {nvidia_smi_line()}", flush=True)
+    res = dict(step_ms=step_ms, step_ms_median=med_ms,
+               tokens_per_s=b * s / (med_ms / 1e3), mfu=mfu,
+               tflop_per_step=flops / 1e12, peak_gb=peak_gb,
+               parameters=n_params, busy=busy, losses=losses, profile=prof)
+    print(json.dumps({"train_rwkv_169m": res}), flush=True)
+    return res
+
+
+LOSS_REF_TOL = {"value": 1e-5, "grads": 1e-4}
+# a loss of a few hundred nats (``rnnt_loss`` over T 128 x U 32) or a 256
+# step recurrence is a sum float32 itself rounds by more than the
+# tolerance: on the host float32 is 1.0e-4 of the largest entry off
+# float64 in ``rnnt_loss``'s gradient. The card is then held to float64
+# within this factor of the CPU's float32 error, as the vision reference
+# holds its gradients
+LOSS_REF_SLACK = 10.0
+
+
+def loss_cases(rng):
+    """The 22 losses at moderate sizes, float32: (name, function, inputs,
+    keyword arguments); ``ctc_loss`` at T 256, B 16, C 32, labels up to
+    64, ``rnnt_loss`` at B 4, T 128, U 32, V 128."""
+    def f(*shape, lo=None, hi=None, scale=1.0):
+        if lo is not None:
+            return rng.uniform(lo, hi, shape).astype(np.float32)
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ids(*shape, n):
+        return rng.integers(0, n, shape)
+
+    def sign(*shape):
+        return np.where(rng.random(shape) < 0.5, -1.0, 1.0).astype(
+            np.float32)
+
+    n, c = 512, 1000
+    logp = f(n, c)
+    logp = logp - np.log(np.exp(logp).sum(-1, keepdims=True))
+    ctc_lab = ids(16, 64, n=31) + 1
+    ctc_len = rng.integers(32, 65, 16)
+    rnnt_len = rng.integers(16, 33, 4)
+    return [
+        ("cross_entropy", "cross_entropy", [f(n, c), ids(n, n=c)],
+         dict(label_smoothing=0.1)),
+        ("mse_loss", "mse_loss", [f(n, c), f(n, c)], {}),
+        ("l1_loss", "l1_loss", [f(n, c), f(n, c)], {}),
+        ("nll_loss", "nll_loss", [logp, ids(n, n=c)], {}),
+        ("binary_cross_entropy_with_logits",
+         "binary_cross_entropy_with_logits",
+         [f(n, c, scale=3), f(n, c, lo=0, hi=1)], {}),
+        ("ctc_loss", "ctc_loss",
+         [f(256, 16, 32, scale=2), ctc_lab, rng.integers(200, 257, 16),
+          ctc_len], {}),
+        ("rnnt_loss", "rnnt_loss",
+         [f(4, 128, 33, 128), ids(4, 32, n=127) + 1,
+          rng.integers(96, 129, 4), rnnt_len], {}),
+        ("kl_div", "kl_div", [logp, f(n, c, lo=0, hi=1)],
+         dict(reduction="batchmean")),
+        ("margin_ranking_loss", "margin_ranking_loss",
+         [f(n * c), f(n * c), sign(n * c)], dict(margin=0.1)),
+        ("smooth_l1_loss", "smooth_l1_loss", [f(n, c), f(n, c)], {}),
+        ("triplet_margin_loss", "triplet_margin_loss",
+         [f(n, 256), f(n, 256), f(n, 256)], dict(swap=True)),
+        ("cosine_embedding_loss", "cosine_embedding_loss",
+         [f(n, 256), f(n, 256), sign(n)], dict(margin=0.1)),
+        ("soft_margin_loss", "soft_margin_loss",
+         [f(n, c, scale=30), sign(n, c)], {}),
+        ("hinge_embedding_loss", "hinge_embedding_loss",
+         [f(n, c), sign(n, c)], {}),
+        ("poisson_nll_loss", "poisson_nll_loss",
+         [f(n, c, lo=0.5, hi=3), f(n, c, lo=0.2, hi=4)],
+         dict(log_input=False, full=True)),
+        ("gaussian_nll_loss", "gaussian_nll_loss",
+         [f(n, c), f(n, c), f(n, c, lo=0.1, hi=2)], dict(full=True)),
+        ("multi_label_soft_margin_loss", "multi_label_soft_margin_loss",
+         [f(n, c), ids(n, c, n=2).astype(np.float32)], {}),
+        ("sigmoid_focal_loss", "sigmoid_focal_loss",
+         [f(n, c, scale=2), ids(n, c, n=2)], {}),
+        ("dice_loss", "dice_loss", [f(16, 4096, 8, lo=0, hi=1),
+                                    ids(16, 4096, 1, n=8)], {}),
+        ("log_loss", "log_loss", [f(n * c, 1, lo=0.01, hi=0.99),
+                                  ids(n * c, 1, n=2).astype(np.float32)], {}),
+        ("square_error_cost", "square_error_cost", [f(n, c), f(n, c)], {}),
+        ("binary_cross_entropy", "binary_cross_entropy",
+         [f(n, c, lo=0.01, hi=0.99), f(n, c, lo=0, hi=1)], {}),
+    ]
+
+
+def card_cpu_value_and_grads(label, calls, inputs, weights_seed,
+                             modules=None):
+    """``calls[dev]`` on ``inputs`` (numpy) on the card and the CPU: the
+    outputs and the gradients of a fixed random weighting of them with
+    respect to every floating input and every parameter of
+    ``modules[dev]``. Each tensor's error is its largest difference over
+    the largest magnitude: card vs CPU within ``LOSS_REF_TOL``; where that
+    fails, the CPU runs again in float64 (``"f64"``), and a tensor whose
+    float32 CPU value is itself further than the tolerance from float64
+    holds the card within ``LOSS_REF_SLACK`` times the CPU's error of
+    float64. Returns the errors and the card's forward + backward ms (CUDA
+    events, the second of two runs)."""
+    def run(dev):
+        where = "cpu" if dev == "f64" else dev
+        params = [] if modules is None else list(modules[dev].parameters())
+        for p in params:
+            p.grad = None
+        ts = []
+        for a in inputs:
+            floating = np.issubdtype(np.asarray(a).dtype, np.floating)
+            t = torch.tensor(a, device=where)
+            if floating and dev == "f64":
+                t = t.double()
+            ts.append(t.requires_grad_(floating))
+        out = calls[dev](*ts)
+        flat = torch.cat([o.flatten() for o in out]) \
+            if isinstance(out, (tuple, list)) else out.flatten()
+        w = torch.as_tensor(np.random.default_rng(weights_seed).uniform(
+            0.5, 1.5, flat.numel()), device=where, dtype=flat.dtype)
+        (flat * w).sum().backward()
+        return [flat.detach()] + [t.grad for t in ts if t.requires_grad] \
+            + [p.grad for p in params]
+
+    run("cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    card = run("cuda")
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    cpu = run("cpu")
+    # an input the function only selects on (a sign label) has no gradient
+    keep = [i for i in range(1, len(cpu)) if cpu[i] is not None]
+    groups = (("value", [0]), ("grads", keep))
+    errs = {k: max((max_rel(card[i], cpu[i]) for i in idx), default=0.0)
+            for k, idx in groups}
+    worst = {}
+    if any(errs[k] > LOSS_REF_TOL[k] for k, _ in groups):
+        f64 = run("f64")
+        for key, idx in groups:
+            worst[key] = dict(card_vs_f64=0.0, cpu_vs_f64=0.0, ratio=0.0)
+            for i in idx:
+                if max_rel(card[i], cpu[i]) <= LOSS_REF_TOL[key]:
+                    continue
+                c64, h64 = max_rel(card[i], f64[i]), max_rel(cpu[i], f64[i])
+                allowed = max(LOSS_REF_TOL[key], LOSS_REF_SLACK * h64)
+                worst[key] = max(worst[key], dict(
+                    card_vs_f64=c64, cpu_vs_f64=h64, ratio=c64 / allowed),
+                    key=lambda d: d["ratio"])
+            if not worst[key]["ratio"] <= 1.0:
+                raise AssertionError(
+                    f"{label} {key}: card vs CPU {errs[key]:.3e}; the worst "
+                    f"tensor against float64 {worst[key]}; tol "
+                    f"{LOSS_REF_TOL}, slack {LOSS_REF_SLACK}")
+    if not torch.isfinite(card[0]).all():
+        raise AssertionError(f"{label}: outputs not finite")
+    return dict(errs, f64=worst, ms=ms, gradients=len(keep))
+
+
+def losses_rnn_reference_phase():
+    """Float32, card vs CPU, the value and every input gradient of each of
+    the 22 losses (``loss_cases``), then ``SimpleRNN``, ``LSTM`` and
+    ``GRU`` at 2 layers, bidirectional, input 80, hidden 512, batch 16 x
+    256 from the same weights: outputs, final states, the input's and
+    every parameter's gradient within ``LOSS_REF_TOL`` of each tensor's
+    largest magnitude, with the card's forward + backward ms. No kernel
+    of rows 1-13 launches."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn import functional as F
+
+    reset_launches()
+    out = {}
+    for name, fn, inputs, kw in loss_cases(np.random.default_rng(22)):
+        def call(*a, fn=fn, kw=kw):
+            return getattr(F, fn)(*a, **kw)
+
+        out[name] = card_cpu_value_and_grads(
+            f"loss {name}", dict.fromkeys(("cuda", "cpu", "f64"), call),
+            inputs, 1)
+    if set(out) != set(F.LOSSES):
+        raise AssertionError(f"losses checked {sorted(out)}")
+    held = {k: r["f64"] for k, r in out.items() if r["f64"]}
+    print(f"losses reference: 22 losses, float32, card vs CPU, value and "
+          f"every input gradient (tol {LOSS_REF_TOL}): worst value "
+          f"{max(r['value'] for r in out.values()):.3e}, worst gradient "
+          f"{max(r['grads'] for r in out.values()):.3e}; held to float64 "
+          f"instead (card, CPU float32 vs float64; slack "
+          f"{LOSS_REF_SLACK}): {held}; forward + backward "
+          f"ms on the card: " + ", ".join(
+              f"{k} {r['ms']:.2f}" for k, r in out.items())
+          + f"; {nvidia_smi_line()}", flush=True)
+    x = np.random.default_rng(23).standard_normal((16, 256, 80)).astype(
+        np.float32)
+    for name in ("SimpleRNN", "LSTM", "GRU"):
+        cpu, card = card_and_cpu(
+            lambda dev, seed, name=name: getattr(tnn, name)(
+                80, 512, num_layers=2, direction="bidirect", device=dev,
+                generator=torch.Generator(dev).manual_seed(seed)), 23)
+
+        def run(layer):
+            def call(a):
+                y, last = layer(a)
+                return (y, *last) if isinstance(last, tuple) else (y, last)
+            return call
+
+        ref = copy.deepcopy(cpu).double()
+        errs = card_cpu_value_and_grads(
+            f"rnn {name}", {"cuda": run(card), "cpu": run(cpu),
+                            "f64": run(ref)}, [x], 2,
+            modules={"cuda": card, "cpu": cpu, "f64": ref})
+        out[name] = errs
+        print(f"rnn reference {name}: 2 layers bidirectional, 80 -> 512, "
+              f"batch 16 x 256, float32, card vs CPU from the same weights: "
+              f"outputs and final states {errs['value']:.3e}, the input's "
+              f"and {errs['gradients'] - 1} parameters' gradients "
+              f"{errs['grads']:.3e} (tol {LOSS_REF_TOL}; held to float64 "
+              f"where over: {errs['f64']}); forward + backward "
+              f"{errs['ms']:.2f} ms on the card; {nvidia_smi_line()}",
+              flush=True)
+    counts = read_launches()
+    check_counts("losses and rnn reference", counts, dict.fromkeys(counts, 0))
+    print(json.dumps({"losses_rnn_reference": out}), flush=True)
+    return out
+
+
+class SpeechCTC(torch.nn.Module):
+    """A composition of the ported modules, not a model of the repo:
+    ``LogMelSpectrogram`` (16 kHz, n_fft 512, hop 160, 80 mels) ->
+    2-layer bidirectional ``GRU`` (hidden 512) -> ``Linear`` to 32 classes
+    -> ``ctc_loss`` (blank 0)."""
+
+    def __init__(self, device, seed):
+        super().__init__()
+        from paddle_tpu_torch import audio
+        from paddle_tpu_torch.nn import GRU, Linear
+
+        gen = torch.Generator(device).manual_seed(seed)
+        self.features = audio.LogMelSpectrogram(
+            sr=16000, n_fft=512, hop_length=160, n_mels=80, device=device)
+        self.rnn = GRU(80, 512, num_layers=2, direction="bidirect",
+                       device=device, generator=gen)
+        self.head = Linear(1024, 32, device=device, generator=gen)
+
+    def forward(self, wave, labels, label_lengths):
+        from paddle_tpu_torch.nn import functional as F
+
+        feats = self.features(wave).transpose(1, 2) / 40.0  # [b, t, mels]
+        h, _ = self.rnn(feats)
+        logits = self.head(h).transpose(0, 1)  # [t, b, classes]
+        lengths = torch.full((wave.shape[0],), logits.shape[0],
+                             device=wave.device)
+        return F.ctc_loss(logits, labels, lengths, label_lengths)
+
+
+def speech_phase():
+    """``LogMelSpectrogram(sr=16000, n_fft=512, hop_length=160,
+    n_mels=80)`` and ``MFCC`` on [8, 64000] seeded waveforms, card vs CPU
+    within 1e-5 of the largest magnitude; then ``SpeechCTC`` (features ->
+    GRU -> Linear -> ``ctc_loss``) from the same weights: the card's
+    forward + backward ms and its loss beside the CPU's. No kernel of rows
+    1-13 launches."""
+    from paddle_tpu_torch import audio
+
+    rng = np.random.default_rng(24)
+    wave = rng.standard_normal((8, 64000)).astype(np.float32)
+    reset_launches()
+    errs = {}
+    for name, make in (
+            ("logmel", lambda dev: audio.LogMelSpectrogram(
+                sr=16000, n_fft=512, hop_length=160, n_mels=80,
+                device=dev)),
+            ("mfcc", lambda dev: audio.MFCC(
+                sr=16000, n_mfcc=40, n_fft=512, hop_length=160, n_mels=80,
+                device=dev))):
+        card = make("cuda")(torch.as_tensor(wave, device="cuda"))
+        cpu = make("cpu")(torch.as_tensor(wave))
+        errs[name] = max_rel(card, cpu)
+        if card.shape != (8, 80 if name == "logmel" else 40, 401) \
+                or not errs[name] <= 1e-5:
+            raise AssertionError(f"speech {name}: {tuple(card.shape)}, card "
+                                 f"vs CPU {errs[name]:.3e}")
+    labels = rng.integers(1, 32, (8, 64))
+    label_lengths = rng.integers(32, 65, 8)
+    cpu, card = card_and_cpu(lambda dev, seed: SpeechCTC(dev, seed), 24)
+    losses = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        for _ in range(2 if dev == "cuda" else 1):  # the second run timed
+            model.zero_grad()
+            args = [torch.as_tensor(a, device=dev)
+                    for a in (wave, labels, label_lengths)]
+            if dev == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            loss = model(*args)
+            loss.backward()
+            if dev == "cuda":
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+        losses[dev] = loss.detach()
+    rel = max_rel(losses["cuda"], losses["cpu"])
+    counts = read_launches()
+    check_counts("speech surface", counts, dict.fromkeys(counts, 0))
+    if not (torch.isfinite(losses["cuda"]) and rel <= 1e-5):
+        raise AssertionError(f"speech ctc: card {float(losses['cuda'])} vs "
+                             f"CPU {float(losses['cpu'])}")
+    print(f"speech surface: [8, 64000] at 16 kHz, card vs CPU: log-mel "
+          f"{errs['logmel']:.3e}, MFCC {errs['mfcc']:.3e} of the largest "
+          f"magnitude; log-mel -> 2-layer bidirectional GRU (512) -> Linear "
+          f"-> ctc_loss (401 frames, labels up to 64): loss "
+          f"{float(losses['cuda']):.6f} card vs {float(losses['cpu']):.6f} "
+          f"CPU ({rel:.3e}), forward + backward {ms:.2f} ms on the card; "
+          f"{nvidia_smi_line()}", flush=True)
+    res = dict(errs, ctc_loss_card=float(losses["cuda"]),
+               ctc_loss_cpu=float(losses["cpu"]), ctc_rel=rel,
+               fwd_bwd_ms=ms)
+    print(json.dumps({"speech_surface": res}), flush=True)
+    return res
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -7048,6 +7517,13 @@ def main() -> int:
     phase("train resnet50", train_resnet50_phase)
     torch.cuda.empty_cache()
     phase("vision zoo", vision_zoo_phase)
+    torch.cuda.empty_cache()
+    phase("rwkv reference", rwkv_reference_phase)
+    torch.cuda.empty_cache()
+    phase("train rwkv-169m", train_rwkv_phase)
+    torch.cuda.empty_cache()
+    phase("losses and rnn reference", losses_rnn_reference_phase)
+    phase("speech surface", speech_phase)
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
                            qmm_row, *fa_rows.values(), *scan_rows.values(),
                            *gn_rows.values()]}

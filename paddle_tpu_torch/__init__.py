@@ -15,11 +15,13 @@ weights or int8/int4 weight-only quantized ones (``quantization``), and
 trains it on one card (``trainer.TrainStep`` with ``optimizer.AdamW``,
 float32 masters and the flash-attention kernels), as it trains Mamba
 (the selective-scan kernels, with quantization-aware training through
-``quantization.QAT``) and the SD UNet (channels-last, the fused GroupNorm
-kernels); ROADMAP.md lists what comes next.
+``quantization.QAT``), RWKV and the SD UNet (channels-last, the fused
+GroupNorm kernels). ``fft``, ``signal``, ``audio``, ``metric`` and
+``errors`` are the JAX package's modules of those names; ROADMAP.md
+lists what comes next.
 """
 
-from . import flags
+from . import errors, flags
 
 # PT_FLAGS_default_matmul_precision: applied once at import, as the JAX
 # package applies it; empty leaves torch's defaults
@@ -29,6 +31,8 @@ from .core.dtype import get_default_dtype, set_default_dtype
 from .core.parameter import ParamAttr
 from .core.random import get_seed, seed
 from .device import get_device, set_device
+from . import audio, fft, metric, signal
 
-__all__ = ["ParamAttr", "flags", "get_default_dtype", "get_device",
-           "get_seed", "seed", "set_default_dtype", "set_device"]
+__all__ = ["ParamAttr", "audio", "errors", "fft", "flags", "get_default_dtype",
+           "get_device", "get_seed", "metric", "seed", "set_default_dtype",
+           "set_device", "signal"]

@@ -7,7 +7,13 @@ with no renaming and no transposes::
     state = {k: np.asarray(v) for k, v in jax_model.state_dict().items()}
     load_numpy_state_dict(torch_model, state)
 
-and a JAX ``TrainStep.state_dict()`` (params, optimizer state, step
+The recurrent layers (``weight_ih_l{n}[_rev]`` ``[in, g * h]``, ...) and
+RWKV (``blocks.{n}.att.time_decay``, ``...att.key`` ``[h, h]``, ...) carry
+across the same way. ``rnn_state_dict_to_torch`` gives a recurrent
+layer's weights in ``torch.nn.RNN``/``LSTM``/``GRU``'s layout (gate
+orders agree: i, f, g, o and r, z, n).
+
+A JAX ``TrainStep.state_dict()`` (params, optimizer state, step
 count), as numpy arrays, resumes in the port's ``TrainStep``::
 
     load_numpy_train_state(torch_train_step,
@@ -102,3 +108,23 @@ def load_numpy_train_state(train_step, state: Mapping):
                        for n, v in src_opt.get("master", {}).items()}},
         "step": int(np.asarray(state.get("step", 0)))})
     return train_step
+
+
+def _rnn_value(value, transpose):
+    value = torch.as_tensor(value if isinstance(value, torch.Tensor)
+                            else _numpy(value))
+    return value.T.contiguous() if transpose else value
+
+
+def rnn_state_dict_to_torch(state: Mapping) -> dict:
+    """A ``SimpleRNN``/``LSTM``/``GRU`` state dict of the port or the JAX
+    package (tensors or arrays) in ``torch.nn.RNN``'s layout: the weights
+    transposed to ``[g * h, in]``, ``_rev`` named ``_reverse``; biases as
+    they are."""
+    out = {}
+    for name, value in state.items():
+        key = name[:-len("_rev")] + "_reverse" if name.endswith("_rev") \
+            else name
+        out[key] = _rnn_value(value, name.startswith("weight_"))
+    return out
+

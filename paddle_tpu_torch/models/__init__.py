@@ -14,6 +14,15 @@ from .ernie_moe import ErnieMoEConfig, ErnieMoEForCausalLM
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel
 from .llama import LlamaConfig, LlamaForCausalLM
 from .mamba import MambaConfig, MambaForCausalLM
+from .rwkv import (
+    RWKVBlock,
+    RWKVChannelMix,
+    RWKVConfig,
+    RWKVForCausalLM,
+    RWKVTimeMix,
+    wkv_associative,
+    wkv_reference,
+)
 from .t5 import T5Config, T5ForConditionalGeneration, T5Model
 from .unet import UNet2DConditionModel, UNetConfig
 from .unet_sites import unet_gn_sites
@@ -24,6 +33,8 @@ __all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
            "ErnieForSequenceClassification", "ErnieModel", "ErnieMoEConfig",
            "ErnieMoEForCausalLM", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "LlamaConfig", "LlamaForCausalLM", "MambaConfig",
-           "MambaForCausalLM", "T5Config", "T5ForConditionalGeneration",
+           "MambaForCausalLM", "RWKVBlock", "RWKVChannelMix", "RWKVConfig",
+           "RWKVForCausalLM", "RWKVTimeMix", "T5Config", "T5ForConditionalGeneration",
            "T5Model", "UNet2DConditionModel", "UNetConfig", "ViT",
-           "ViTBlock", "ViTConfig", "unet_gn_sites"]
+           "ViTBlock", "ViTConfig", "unet_gn_sites", "wkv_associative",
+           "wkv_reference"]

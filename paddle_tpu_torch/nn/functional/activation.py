@@ -33,6 +33,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return tf.silu(x)
 
 
+swish = silu
+
+
 def sigmoid(x):
     return torch.sigmoid(x)
 
@@ -153,3 +156,18 @@ def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True,
     slope.uniform_(lower, upper, generator=generator)
     return torch.where(x > 0, x, slope.to(x.dtype) * x)
 
+
+
+def maxout(x, groups, axis=1):
+    """Parity: paddle.nn.functional.maxout — the max over each block of
+    ``groups`` consecutive channels on ``axis``. ``amax``, as ``jnp.max``,
+    shares the gradient equally among tied maxima (``max(dim)`` would give
+    it to one)."""
+    axis = axis % x.dim()
+    c = x.shape[axis]
+    if c % groups:
+        raise ValueError(f"maxout: channels {c} not divisible by "
+                         f"groups {groups}")
+    shape = list(x.shape)
+    shape[axis: axis + 1] = [c // groups, groups]
+    return torch.amax(x.reshape(shape), dim=axis + 1)

@@ -133,7 +133,9 @@ def test_importing_the_port_loads_no_jax_module():
     assert "paddle_tpu_torch.inference.serving" in added
     assert "paddle_tpu_torch.serving_api.server" in added
     for mod in ("models.mamba", "models.unet", "kernels.selective_scan",
-                "kernels.group_norm", "nn.layout", "nn.functional.conv"):
+                "kernels.group_norm", "nn.layout", "nn.functional.conv",
+                "models.rwkv", "nn.layer.rnn", "nn.layer.loss", "fft",
+                "signal", "audio.features", "metric", "errors"):
         assert f"paddle_tpu_torch.{mod}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -247,3 +249,29 @@ def test_default_device_entry_points_raise_without_a_card():
         assert tobs.ProgramProfiler.mark(torch.device("cpu")) is None
     finally:
         tflags.set_flags(saved)
+
+
+def test_rwkv_rnn_and_audio_entry_points_default_to_the_card():
+    """RWKV, the recurrent layers, the audio features and ``fftfreq``
+    build on the card unless asked for the CPU, and raise without one;
+    the losses and the metrics take tensors wherever they are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from paddle_tpu_torch import audio, fft
+    from paddle_tpu_torch.models import RWKVConfig, RWKVForCausalLM
+    from paddle_tpu_torch.nn import GRU, LSTM, SimpleRNN
+
+    for make in (lambda **kw: RWKVForCausalLM(RWKVConfig.tiny(), **kw),
+                 lambda **kw: LSTM(4, 8, **kw),
+                 lambda **kw: GRU(4, 8, direction="bidirect", **kw),
+                 lambda **kw: SimpleRNN(4, 8, **kw),
+                 lambda **kw: audio.MFCC(sr=8000, n_fft=64, n_mels=8,
+                                         n_mfcc=4, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        layer = make(device="cpu")
+        assert all(t.device.type == "cpu"
+                   for t in [*layer.parameters(), *layer.buffers()])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fft.fftfreq(8)
+    assert fft.fftfreq(8, device="cpu").device.type == "cpu"
