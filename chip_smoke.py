@@ -347,9 +347,25 @@ Phases, each of which raises on failure:
 55. speech surface: ``LogMelSpectrogram`` and ``MFCC`` on [8, 64000] card
    vs CPU; ``SpeechCTC`` (log-mel -> GRU -> Linear -> ``ctc_loss``): its
    forward + backward ms and loss, card = CPU. Phases 51-55 launch no
-   kernel of rows 1-13.
+   kernel of rows 1-13;
+56. distributed: ``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 1`` runs this script with ``--dist-worker nccl`` in a
+   fresh process: every collective over NCCL at world size 1 on CUDA
+   tensors (results and ``comm_log()`` checked), then the 7B train
+   configuration 3 AdamW steps through ``TrainStep(mesh=build_mesh(),
+   strategy)`` at ZeRO stage 3 (degree 1) and 3 through the meshless
+   step from the same weights: the losses within 1e-4, rows 6 and 8
+   once a layer a step on the mesh path, each arm's step ms, tokens/s
+   and peak GB beside the card's name and power limit. At degree 1 the
+   mesh arm runs the mesh step's code (the count-weighted loss, the
+   slot and clip bookkeeping) but no all-gather, reduce-scatter or tp
+   collective: every axis has one rank. Those run over gloo in the
+   tests; over NCCL they wait for a 4-card cell. Then
+   ``--nproc_per_node 2`` over gloo on the host: the collectives and a
+   tiny Llama at dp = 2 against the meshless step (1e-5). Both runs'
+   exit codes and worker logs are checked and printed.
 
-Every number phases 38-55 print stands beside the card's name and power
+Every number phases 38-56 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -7342,6 +7358,286 @@ def speech_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# the distributed core: the launcher, every collective over NCCL at world
+# size 1, the 7B train step over a mesh at ZeRO-3 against the meshless
+# step, and a gloo dp = 2 host check
+# ---------------------------------------------------------------------------
+DIST_TIMEOUT = 600
+
+
+def dist_collectives_check(device):
+    """Every collective of ``distributed/collective.py`` over the whole
+    job on ``device`` tensors, each result checked against what the ranks
+    hold; ``comm_log()`` must record each op. Returns the ops logged."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import stream
+    from paddle_tpu_torch.observability import comm
+
+    n, r = D.get_world_size(), D.get_rank()
+    prev = flags.flag("telemetry")
+    flags.set_flags({"telemetry": True})
+    comm.reset_comm_log()
+
+    def ints(*shape, base=0.0):
+        return (torch.arange(int(np.prod(shape)), dtype=torch.float32,
+                             device=device).reshape(shape) + base)
+
+    def check(name, got, want):
+        if not torch.equal(got.float().cpu(), torch.as_tensor(
+                want, dtype=torch.float32).cpu()):
+            raise AssertionError(f"{name}: got {got}, want {want}")
+
+    every = torch.stack([ints(6, base=10.0 * k) for k in range(n)])
+    try:
+        check("all_reduce sum", D.all_reduce(ints(6, base=10.0 * r)),
+              every.sum(0))
+        for op, want in (("max", every.amax(0)), ("min", every.amin(0)),
+                         ("avg", every.mean(0)), ("prod", every.prod(0))):
+            check(f"all_reduce {op}", D.all_reduce(
+                ints(6, base=10.0 * r), op=op), want)
+        check("all_gather", D.all_gather(ints(6, base=10.0 * r)),
+              every.reshape(-1))
+        gl = D.all_gather([], ints(6, base=10.0 * r))
+        check("all_gather list", torch.stack(gl), every)
+        rs = torch.stack([ints(n, 3, base=10.0 * k) for k in range(n)])
+        check("reduce_scatter", D.reduce_scatter(ints(n, 3, base=10.0 * r)),
+              rs.sum(0)[r:r + 1])
+        a2a = torch.stack([ints(n, 2, base=100.0 * k) for k in range(n)])
+        check("alltoall", D.alltoall(ints(n, 2, base=100.0 * r)),
+              a2a[:, r].reshape(-1, 2))
+        check("alltoall_single", D.alltoall_single(
+            ints(n, 2, base=100.0 * r)), a2a[:, r].reshape(-1, 2))
+        sizes = [[(i + j) % 3 + 1 for j in range(n)] for i in range(n)]
+        local = ints(sum(sizes[r]), base=1000.0 * r)
+        got = D.alltoall_single(local, in_split_sizes=sizes)
+        want = []
+        for src in range(n):
+            off = sum(sizes[src][:r])
+            want += [1000.0 * src + off + i for i in range(sizes[src][r])]
+        check("alltoall_single ragged", got, want)
+        check("broadcast", D.broadcast(ints(6, base=10.0 * r), src=0),
+              every[0])
+        red = D.reduce(ints(6, base=10.0 * r), dst=0)
+        check("reduce", red, every.sum(0) if r == 0 else every[r])
+        pieces = [ints(3, base=7.0 * k) for k in range(n)]
+        check("scatter", D.scatter(None, pieces, src=0), pieces[r])
+        check("gather", torch.stack(D.gather(ints(6, base=10.0 * r))),
+              every)
+        recv = torch.zeros(6, device=device)
+        tasks = D.batch_isend_irecv([
+            D.P2POp(D.isend, ints(6, base=10.0 * r), (r + 1) % n),
+            D.P2POp(D.irecv, recv, (r - 1) % n)])
+        for t in tasks:
+            t.wait()
+        check("batch_isend_irecv", D.wait(recv), every[(r - 1) % n])
+        check("stream all_reduce", stream.all_reduce(
+            ints(6, base=10.0 * r), sync_op=False).wait(), every.sum(0))
+        D.barrier()
+        objs = D.all_gather_object([], {"rank": r})
+        box = [f"from {r}"]
+        D.broadcast_object_list(box, src=0)
+        if objs != [{"rank": k} for k in range(n)] or box != ["from 0"]:
+            raise AssertionError(f"object collectives: {objs}, {box}")
+        ops = sorted({e["op"] for e in comm.comm_log()})
+    finally:
+        flags.set_flags({"telemetry": prev})
+        comm.reset_comm_log()
+    want_ops = {"all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+                "alltoall_single", "broadcast", "reduce", "scatter",
+                "gather", "send", "recv"}
+    if not want_ops <= set(ops):
+        raise AssertionError(f"comm_log recorded {ops}")
+    return ops
+
+
+def dist_train_run(mesh, strategy, cfg, batch, steps, residency, device):
+    """``steps`` AdamW steps of the seed-0 Llama of ``cfg`` through
+    ``TrainStep(model, opt, mesh, strategy)``: losses, step ms (CUDA
+    events on the card), peak GB and the flash launches."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    opt = topt.AdamW(learning_rate=3e-4, weight_decay=0.01,
+                     multi_precision=True,
+                     grad_clip=topt.ClipGradByGlobalNorm(1.0))
+    ts = TrainStep(model, opt, mesh, strategy, master_residency=residency)
+    card = device == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        if card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = ts.run(batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        else:
+            loss = ts.run(batch)
+        losses.append(float(loss))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if card else None
+    del ts, model, opt
+    if card:
+        torch.cuda.empty_cache()
+    return losses, step_ms, peak, counts
+
+
+def dist_train_7b():
+    """Llama-2-7B width at 4 layers (``train_7b_config``), 3 AdamW steps
+    through ``TrainStep(mesh=build_mesh(), strategy)`` at ZeRO stage 3
+    (degree 1) and 3 through the meshless step from the same weights and
+    batch: the losses within ``same_losses``'s 1e-4, rows 6 and 8 once
+    per layer a step on the mesh path. With one rank on every axis no
+    gather, reduce-scatter or tp collective runs: the arm times the mesh
+    step's own code, not ZeRO-3's communication."""
+    from paddle_tpu_torch import distributed as D
+
+    cfg = train_7b_config()
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    strategy = D.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs.stage = 3
+    runs = {}
+    for label, mesh, strat in (("mesh_zero3", D.build_mesh(), strategy),
+                               ("meshless", None, None)):
+        losses, ms, peak, counts = dist_train_run(
+            mesh, strat, cfg, batch, 3, "master_only", "cuda")
+        timed = float(np.median(ms[1:]))
+        runs[label] = {"losses": losses, "step_ms": ms,
+                       "step_ms_median_2_3": timed,
+                       "tokens_per_s": b * s / (timed / 1e3),
+                       "peak_memory_gb": peak}
+        if label == "mesh_zero3":
+            want = train_launches_want(3, cfg.num_hidden_layers)
+            got = {k: counts[k] for k in want}
+            if got != want:
+                raise AssertionError(f"mesh step launches {got}, want {want}")
+            runs[label]["launches"] = got
+    gap = same_losses("distributed 7b", runs["mesh_zero3"]["losses"],
+                      runs["meshless"]["losses"])
+    return {"model": "llama2_7b width, 4 layers, random bf16 weights "
+                     "(seed 0), master_only", "batch": b, "seq": s,
+            "world_size": D.get_world_size(), "backend": "nccl",
+            "loss_rel_gap": gap, **runs}
+
+
+def dist_train_host_dp2():
+    """gloo, 2 ranks on the host: a tiny float32 Llama 3 steps at dp = 2
+    over the global batch (ignored labels on rank 0's rows only) against
+    the meshless step on each rank; the losses within 1e-5."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.tiny()
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32))
+    labels = ids.copy()
+    labels[0, 4:20] = -100
+    batch = {"input_ids": ids, "labels": labels}
+    strategy = D.DistributedStrategy()
+    strategy.hybrid_configs.dp_degree = 2
+    mesh_l = dist_train_run(D.build_mesh(dp=2), strategy, cfg, batch, 3,
+                            "paired", "cpu")[0]
+    plain_l = dist_train_run(None, None, cfg, batch, 3, "paired", "cpu")[0]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(mesh_l, plain_l))
+    if not gap <= 1e-5:
+        raise AssertionError(f"dp2 losses {mesh_l}, meshless {plain_l}")
+    return {"backend": "gloo", "world_size": D.get_world_size(),
+            "losses_dp2": mesh_l, "losses_meshless": plain_l,
+            "loss_rel_gap": gap}
+
+
+def dist_worker(backend: str) -> int:
+    """One rank under ``python -m paddle_tpu_torch.distributed.launch``:
+    joins the group (``init_parallel_env``), checks every collective and
+    trains (NCCL: the 7B step on the card; gloo: the host dp = 2 check),
+    printing its figures as JSON lines."""
+    from paddle_tpu_torch import distributed as D
+
+    D.init_parallel_env(backend=backend, timeout=300)
+    device = "cuda" if backend == "nccl" else "cpu"
+    if device == "cuda":
+        from paddle_tpu_torch.kernels import _build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.build()
+        print(nvidia_smi_line(), flush=True)
+    ops = dist_collectives_check(device)
+    print(f"collectives ok over {backend} at world size "
+          f"{D.get_world_size()}, rank {D.get_rank()}: {ops}", flush=True)
+    out = dist_train_7b() if device == "cuda" else dist_train_host_dp2()
+    print(json.dumps({f"distributed_{backend}": out}), flush=True)
+    if device == "cuda":
+        print(nvidia_smi_line(), flush=True)
+    D.destroy_process_group()
+    print("dist worker ok", flush=True)
+    return 0
+
+
+def distributed_phase():
+    """The launcher: ``--nproc_per_node 1`` over NCCL on the card (every
+    collective, then the 7B step over a mesh at ZeRO-3 against the
+    meshless step), then ``--nproc_per_node 2`` over gloo on the host (a
+    tiny Llama at dp = 2). Each run's exit code must be 0 and each
+    worker's log must end its run; the logs are printed. A run past
+    ``DIST_TIMEOUT`` s is killed with every process it started."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="pt_dist_")
+    try:
+        for backend, nproc in (("nccl", 1), ("gloo", 2)):
+            log_dir = os.path.join(root, backend)
+            cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+                   "--nproc_per_node", str(nproc), "--log_dir", log_dir,
+                   "--poll_interval", "0.5", os.path.join(here,
+                                                          "chip_smoke.py"),
+                   "--dist-worker", backend]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)
+            try:
+                out, _ = proc.communicate(timeout=DIST_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise
+            wall = time.perf_counter() - t0
+            print(f"launch {backend} x{nproc}: exit {proc.returncode} in "
+                  f"{wall:.1f} s; {out.strip()}", flush=True)
+            logs = []
+            for rank in range(nproc):
+                with open(os.path.join(log_dir, f"workerlog.{rank}")) as f:
+                    logs.append(f.read())
+                for line in logs[-1].splitlines():
+                    print(f"dist {backend} rank {rank}: {line}", flush=True)
+            if proc.returncode != 0 or any(
+                    "dist worker ok" not in log for log in logs):
+                raise AssertionError(f"launch {backend}: exit "
+                                     f"{proc.returncode}")
+            if backend == "gloo":
+                print("distributed host check (gloo, 2 ranks on the CPU): "
+                      "ok", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -7524,6 +7820,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("losses and rnn reference", losses_rnn_reference_phase)
     phase("speech surface", speech_phase)
+    torch.cuda.empty_cache()
+    phase("distributed", distributed_phase)
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,
                            qmm_row, *fa_rows.values(), *scan_rows.values(),
                            *gn_rows.values()]}
@@ -7549,4 +7847,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

@@ -101,15 +101,17 @@ class Layer(nn.Module):
     # construction
     # ------------------------------------------------------------------
     def create_parameter(self, shape, dtype=None, default_initializer=None,
-                         is_bias: bool = False, attr=None, name=None, *,
-                         device=None, generator=None) -> Parameter:
+                         is_bias: bool = False, attr=None, name=None,
+                         spec=None, *, device=None,
+                         generator=None) -> Parameter:
         """A new trainable ``Parameter`` of ``shape``, drawn now: biases
         default to zeros and weights to XavierNormal. ``attr`` (a
         ``ParamAttr``, also accepted as ``default_initializer``) gives the
         initializer, name, trainability and learning-rate scale. The
         dtype defaults to the layer's, the device to the current one, and
         the draw comes from ``generator`` or the port's generator for the
-        device."""
+        device. ``spec`` is the logical partition hint the sharding engine
+        reads (``Parameter.spec``), as in JAX."""
         if isinstance(default_initializer, ParamAttr):
             attr, default_initializer = default_initializer, None
         trainable, lr = True, 1.0
@@ -122,7 +124,7 @@ class Layer(nn.Module):
         init = init_mod.resolve(default_initializer, default)
         value = init(tuple(shape), dtype if dtype is not None
                      else self._dtype, device, generator)
-        param = Parameter(value, trainable=trainable, name=name)
+        param = Parameter(value, trainable=trainable, name=name, spec=spec)
         param.optimize_attr["learning_rate"] = lr
         return param
 

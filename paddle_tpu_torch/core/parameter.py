@@ -24,7 +24,7 @@ _counter = itertools.count(1)
 
 class Parameter(nn.Parameter):
     def __new__(cls, data=None, requires_grad=True, name=None,
-                trainable=None):
+                trainable=None, spec=None, is_distributed=False):
         if data is None:
             data = torch.empty(0)
         if trainable is not None:
@@ -32,9 +32,15 @@ class Parameter(nn.Parameter):
         return torch.Tensor._make_subclass(cls, data.detach(), requires_grad)
 
     def __init__(self, data=None, requires_grad=True,
-                 name: Optional[str] = None, trainable=None):
+                 name: Optional[str] = None, trainable=None, spec=None,
+                 is_distributed: bool = False):
         self._pname = name or f"param_{next(_counter)}"
         self.optimize_attr = {"learning_rate": 1.0}
+        # the logical partition hint, one entry a dim (a mesh axis name,
+        # a tuple of them, or None), as in JAX
+        self.spec = tuple(spec) if spec is not None else None
+        # parity: fleet marks tp-partitioned parameters
+        self.is_distributed = is_distributed
 
     # Tensor has a read-only ``name``; the parameter's shadows it
     @property

@@ -229,6 +229,12 @@ class GPTForCausalLM(Layer):
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
+    def loss_count(self, input_ids=None, labels=None, **_):
+        """The tokens the loss of ``forward(input_ids, labels)`` averages
+        over (labels[:, 1:] not -100), by which ``TrainStep`` over a mesh
+        weights each rank's mean."""
+        return (labels[:, 1:] != -100).sum()
+
     def forward(self, input_ids, labels=None, position_ids=None,
                 kv_caches=None, cache_index=None):
         """Logits ``[b, s, vocab]``; with ``labels`` the mean next-token

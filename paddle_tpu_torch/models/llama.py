@@ -43,6 +43,8 @@ from ..distributed.parallel_layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    copy_to_tp,
+    gather_from_tp,
 )
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..inference.paged import (
@@ -138,6 +140,11 @@ def _chunk_history_mask(cache_index, s, ctx_len):
 
 
 class LlamaAttention(Layer):
+    # at tp > 1 (``sharding.place_params_on_mesh``) this rank's heads:
+    # num_attention_heads // tp and num_key_value_heads // tp
+    tensor_parallel = True
+    tp = None
+
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         self.config = config
@@ -154,12 +161,25 @@ class LlamaAttention(Layer):
         self.o_proj = RowParallelLinear(
             config.num_attention_heads * d, h, **kw)
 
+    def check_tensor_parallel(self, tp: int):
+        cfg = self.config
+        if cfg.num_attention_heads % tp or cfg.num_key_value_heads % tp:
+            raise ValueError(
+                f"tp = {tp} must divide num_attention_heads "
+                f"({cfg.num_attention_heads}) and num_key_value_heads "
+                f"({cfg.num_key_value_heads})")
+
     def forward(self, x, cos, sin, position_ids=None, kv_cache=None,
                 cache_index=None):
         cfg = self.config
         b, s, _ = x.shape
-        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                       cfg.head_dim)
+        tp = self.tp.size if self.tp is not None else 1
+        nh, kvh, hd = (cfg.num_attention_heads // tp,
+                       cfg.num_key_value_heads // tp, cfg.head_dim)
+        if kv_cache is not None and tp > 1:
+            raise NotImplementedError(
+                f"the cache branches run on one card, not at tp = {tp} "
+                f"({_TODO}7)")
         q = self.q_proj(x).reshape(b, s, nh, hd)
         k = self.k_proj(x).reshape(b, s, kvh, hd)
         v = self.v_proj(x).reshape(b, s, kvh, hd)
@@ -348,6 +368,9 @@ class LlamaAttention(Layer):
 
 
 class LlamaMLP(Layer):
+    tensor_parallel = True
+    tp = None
+
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         kw = dict(std=config.initializer_range, has_bias=False,
@@ -413,6 +436,9 @@ def _recompute_context(policy_name: str):
 
 
 class LlamaModel(Layer):
+    tensor_parallel = True
+    tp = None
+
     def __init__(self, config: LlamaConfig, device, generator):
         super().__init__()
         self.config = config
@@ -457,7 +483,15 @@ class LlamaForCausalLM(Layer):
     raises).
     Weights are drawn from Normal(0, ``initializer_range``) with a
     ``torch.Generator`` seeded from ``seed`` on that device; parameters
-    are trainable."""
+    are trainable.
+
+    At tp > 1 (``sharding.place_params_on_mesh``) the head's
+    vocab-sharded logits are gathered over tp before the loss (the fused
+    chunked loss gathers the head's weight instead), so the loss is JAX's
+    cross-entropy over the full vocabulary."""
+
+    tensor_parallel = True
+    tp = None
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -476,9 +510,20 @@ class LlamaForCausalLM(Layer):
         return self.model.embed_tokens.weight.device
 
     def logits(self, hidden):
+        """``[..., vocab]`` logits (gathered over tp at tp > 1)."""
         if self.lm_head is not None:
-            return self.lm_head(hidden)
-        return F.linear(hidden, self.model.embed_tokens.weight.T)
+            out = self.lm_head(hidden)
+        else:
+            out = F.linear(copy_to_tp(hidden, self.tp),
+                           self.model.embed_tokens.weight.T)
+        return gather_from_tp(out, self.tp)
+
+    def loss_count(self, input_ids=None, labels=None, **_):
+        """The tokens the loss of ``forward(input_ids, labels)`` averages
+        over (labels[:, 1:] not -100): ``TrainStep`` over a mesh weights
+        each rank's mean by it, so the step's loss is the mean over the
+        global batch."""
+        return (labels[:, 1:] != -100).sum()
 
     def forward(self, input_ids, labels=None, position_ids=None,
                 kv_caches=None, cache_index=None):
@@ -506,14 +551,18 @@ class LlamaForCausalLM(Layer):
             # the chunked head + cross-entropy: the same function as the
             # full-logits path (the softmax is row-wise), peak memory one
             # chunk's logits
+            # (at tp > 1 on the head's weight gathered over tp)
             shift_hidden = hidden[:, :-1, :]
             if self.lm_head is not None:
                 return fused_linear_cross_entropy(
-                    shift_hidden, self.lm_head.weight, shift_labels,
-                    ignore_index=-100, seq_chunk=chunk)
+                    shift_hidden, gather_from_tp(self.lm_head.weight,
+                                                 self.tp, 1),
+                    shift_labels, ignore_index=-100, seq_chunk=chunk)
             return fused_linear_cross_entropy(
-                shift_hidden, self.model.embed_tokens.weight, shift_labels,
-                transpose_weight=True, ignore_index=-100, seq_chunk=chunk)
+                shift_hidden, gather_from_tp(
+                    self.model.embed_tokens.weight, self.tp, 0),
+                shift_labels, transpose_weight=True, ignore_index=-100,
+                seq_chunk=chunk)
         # next-token LM loss, float32 softmax over the vocabulary
         shift_logits = self.logits(hidden)[:, :-1, :]
         return F.cross_entropy(shift_logits, shift_labels, ignore_index=-100)

@@ -4,10 +4,9 @@
 In the JAX package the in-jit collectives call ``record`` while JAX is
 TRACING, so each entry reflects one collective op baked into one
 compiled program — per call-site (op, axis, payload bytes). The port's
-collectives are still to come (ROADMAP.md Queue A7): nothing calls
-``record`` yet, and ``comm_log()`` stays empty until they do. The table,
-its counters and the dump CLI's ``collectives`` key are in place for
-them.
+collectives (``distributed/collective.py``, the tensor-parallel layers,
+``TrainStep``'s gradient reductions and ZeRO gathers) call it at every
+launch with their local input, so an entry counts calls at run time.
 
 Bytes are the *input payload* of the collective (per participant);
 multiply by the axis size for ring volume as needed.

@@ -19,6 +19,11 @@ card's name (``_PEAK_BF16_FLOPS``: H100 bf16 dense, 989 TFLOP/s) and is
 None on the CPU, so no MFU is reported there. The FLOPs come from the
 trainer's probe (``torch.utils.flop_counter.FlopCounterMode`` over one
 step), which runs once, and only where a peak is known.
+
+Over a mesh each rank's ``TrainStep`` feeds its own telemetry with its
+own rows of the batch, so ``pt_train_tokens_total``, tokens/s and MFU
+are this rank's (the job's throughput is their sum over the data
+ranks); the loss and the grad norm are the global ones.
 """
 
 from __future__ import annotations

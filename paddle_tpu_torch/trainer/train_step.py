@@ -1,13 +1,11 @@
-"""The train step on one card (counterpart of
-``paddle_tpu/trainer/train_step.py: TrainStep``).
+"""The train step (counterpart of
+``paddle_tpu/trainer/train_step.py: TrainStep``), on one card or over a
+mesh.
 
 ``TrainStep(model, optimizer)`` runs forward, backward, the optimizer's
 clip and update, in that order, eagerly: PyTorch has no single compiled
-program to build. Its arguments are the JAX ones, held to what one card
-does: ``mesh`` must be ``None``, the strategy must ask for one device,
-``batch_seq_axis`` may be 1 or ``None`` (nothing is sharded, so the two
-are the same), ``donate`` must stay on (the update runs in place, which
-is what donation gives the JAX step) and ``run(sharded=True)`` raises.
+program to build. ``donate`` must stay on (the update runs in place,
+which is what donation gives the JAX step).
 
 - ``loss_fn``: ``None`` calls ``model(**batch)`` for a scalar loss (a
   Llama batch ``{"input_ids", "labels"}``); otherwise
@@ -27,6 +25,41 @@ is what donation gives the JAX step) and ``run(sharded=True)`` raises.
   operation of the port's step draws random numbers (Llama has no
   dropout; attention dropout draws from a generator its caller passes);
   the JAX step's key feeds only the model's random operations.
+
+**Over a mesh** (``mesh=`` a ``DeviceMesh`` from
+``distributed.build_mesh``; a strategy whose degrees multiply past 1
+builds one when ``mesh`` is None) the step runs the strategy's dp, fsdp
+(``sharding_degree``, ZeRO stage ``sharding_configs.stage``) and tp, one
+process a rank (pp, sep, cp and ep above 1, and ``abstract=True``, are
+the next slice). ``sharding.place_params_on_mesh`` cuts the model's
+parameters to this rank's blocks of ``param_partition_spec`` (names and
+``state_dict`` keys stay JAX's), and the tensor-parallel layers run their
+collectives. ``shard_batch`` gives each rank its ``("dp", "fsdp")`` rows
+of the global batch (with gradient merge, the rows of each global
+micro-batch, so micro-batch i is JAX's); ``run(sharded=True)`` takes a
+batch that is already local. Each rank's loss is weighted by its share
+of the global count, so the loss, the gradients and the returned loss
+are the global batch's mean, as in JAX, however unevenly the ignored
+labels fall. Called without ``loss_fn``, the model counts what its loss
+averages over with ``loss_count(**batch)`` (Llama and GPT: the tokens
+whose label is not -100); a model without one refuses dp x fsdp > 1.
+With ``loss_fn`` the count is the rows, for a loss that is a mean over
+rows. Gradients are merged, then reduced over dp and fsdp: all-reduced
+at stages 0-1, reduce-scattered into the slot blocks at stages 2-3. At
+stage 3 each parameter is kept as a block between steps; the step
+all-gathers every block over fsdp once and binds the gathered tensors in
+the model for all its micro-batches (so the step's peak holds the whole
+parameters, as at stage 2), and their merged gradients are
+reduce-scattered once after the last. From stage 1 the optimizer's
+moments and masters are this rank's blocks of
+``opt_slot_partition_spec``: the update runs on the block, and at stages
+1-2 the parameter is all-gathered over fsdp after it. The global-norm
+clip sums the squares of sharded gradients over their groups
+and counts replicated ones once. Lamb and Lars (per-parameter norms) and
+``ClipGradByNorm`` refuse sharded state. ``state_dict``/
+``set_state_dict``/``sync_to_model`` gather and cut by the same specs, so
+a JAX ``TrainStep.state_dict`` loads on any mesh. Telemetry's tokens and
+MFU count this rank's tokens.
 
 ``run`` returns the step's loss as a 0-d tensor without a host sync.
 While the step's norm is live (telemetry on, or one of the debug flags
@@ -53,8 +86,7 @@ anomaly watchdog. MFU's FLOPs come from one step counted by
 ``torch.utils.flop_counter.FlopCounterMode`` (aten operations only: the
 port's flash-attention kernels, launched through their own autograd
 functions, are not in the count), probed once and only where the card's
-peak is known. ``abstract=True`` and ``lower()`` wait for the
-distributed stack (ROADMAP.md Queue A7).
+peak is known.
 """
 
 from __future__ import annotations
@@ -65,14 +97,16 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import flags, observability
+from ..distributed import sharding as shd
 from ..distributed.strategy import DistributedStrategy
-from ..optimizer.clip import global_norm
-from ..optimizer.optimizer import Optimizer
+from ..optimizer.clip import ClipGradByGlobalNorm, ClipGradByNorm, global_norm
+from ..optimizer.optimizer import Lamb, Lars, Optimizer
 
-_TODO = "see ROADMAP.md Queue A"
+_NEXT = "the next slice of the distributed port (ROADMAP.md Queue A7)"
 
 
 def _batch_tokens(batch) -> int:
@@ -98,12 +132,132 @@ def _as_tensor(v, device):
     return v
 
 
+def _refuse_next_slice(strategy: DistributedStrategy, mesh):
+    h = strategy.hybrid_configs
+    sizes = dict(pp=h.pp_degree, sep=h.sep_degree, cp=h.cp_degree,
+                 ep=h.ep_degree)
+    if mesh is not None:
+        for a in ("pp", "sep", "ep"):
+            sizes[a] = max(sizes[a], shd._size(mesh, a))
+    big = {a: n for a, n in sizes.items() if n > 1}
+    if big:
+        raise NotImplementedError(
+            f"TrainStep runs dp, fsdp and tp; {big} is {_NEXT}")
+
+
+class _MeshPlan:
+    """What the step over a mesh keeps for each parameter: its global
+    shape, its parameter and slot specs, and the collectives between
+    them."""
+
+    def __init__(self, params: Dict[str, nn.Parameter], mesh, strategy):
+        self.mesh = mesh
+        self.params = params
+        self.stage = strategy.sharding_stage
+        self.fsdp = shd._size(mesh, "fsdp")
+        self.info = {}
+        for n, p in params.items():
+            shape = tuple(getattr(p, "global_shape", None) or p.shape)
+            lspec = getattr(p, "spec", None)
+            pspec = shd.param_partition_spec(n, shape, lspec, strategy)
+            sspec = shd.opt_slot_partition_spec(n, shape, lspec, strategy)
+            if getattr(p, "placement", pspec) != pspec:
+                raise ValueError(f"{n} was placed as {p.placement}, not as "
+                                 f"this strategy's {pspec}")
+            on_use = self.fsdp > 1 and "fsdp" in shd._axes_used(pspec)
+            extra = self.fsdp > 1 and not on_use \
+                and "fsdp" in shd._axes_used(sspec)
+            rel = None
+            if extra:
+                d = shd.axis_dim(sspec, "fsdp")
+                plo = shd.dim_range(shape[d], shd.entry_axes(pspec[d]),
+                                    mesh)[0]
+                slo, shi, _ = shd.dim_range(
+                    shape[d], shd.entry_axes(sspec[d]), mesh)
+                rel = (d, slo - plo, shi - slo)
+            self.info[n] = dict(shape=shape, pspec=pspec, sspec=sspec,
+                                on_use=on_use, rel=rel)
+
+    def sharded_state(self) -> bool:
+        return any(shd.is_sharded(i["sspec"], self.mesh)
+                   for n, i in self.info.items()
+                   if self.params[n].requires_grad)
+
+    def slot_view(self, n, t):
+        """The slot block of a parameter block (a view)."""
+        rel = self.info[n]["rel"]
+        return t if rel is None else t.narrow(*rel)
+
+    def param_from_slot(self, n, blk):
+        """The parameter block from every fsdp rank's slot block."""
+        i = self.info[n]
+        if i["rel"] is None:
+            return blk
+        return shd.gather_axis(blk, i["sspec"], i["shape"], self.mesh,
+                               "fsdp")[0]
+
+    def all_reduce(self, t, axes):
+        from ..distributed.collective import _record
+
+        for a in axes:
+            if shd._size(self.mesh, a) > 1:
+                _record("all_reduce", a, t)
+                dist.all_reduce(t, group=self.mesh.get_group(a))
+        return t
+
+    def reduce_grad(self, n, g):
+        """The global gradient's slot block from this rank's gradient of
+        its parameter block, or at stage 3 of its gathered tensor (summed
+        over dp and fsdp)."""
+        i = self.info[n]
+        g = g.contiguous()
+        if i["on_use"] or (i["rel"] is not None and self.stage >= 2):
+            # at stage 3 ``g`` is the gathered tensor's gradient
+            g = shd.scatter_axis(g, i["sspec"], i["shape"], self.mesh,
+                                 "fsdp")
+            return self.all_reduce(g, ("dp",))
+        g = self.all_reduce(g, ("dp", "fsdp"))
+        return self.slot_view(n, g)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The float32 norm of the global gradients from their slot
+        blocks: each group of blocks sharded over the same axes sums its
+        squares over those axes; replicated ones count once."""
+        sums: Dict[tuple, torch.Tensor] = {}
+        for n, g in grads.items():
+            key = tuple(a for a in shd._axes_used(self.info[n]["sspec"])
+                        if shd._size(self.mesh, a) > 1)
+            key = tuple(sorted(key))
+            sq = torch.sum(torch.square(g.float()))
+            sums[key] = sq if key not in sums else sums[key] + sq
+        total = None
+        for key in sorted(sums):
+            s = self.all_reduce(sums[key].clone(), key)
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+
+    def gather(self, n, t, slot: bool):
+        i = self.info[n]
+        return shd.gather_full(t.contiguous(), i["sspec" if slot else "pspec"],
+                               i["shape"], self.mesh)
+
+    def cut(self, n, t, slot: bool):
+        i = self.info[n]
+        return shd.cut(t, i["sspec" if slot else "pspec"], self.mesh)
+
+
 class TrainStep:
     """Usage::
 
         ts = TrainStep(model, AdamW(...))
         loss = ts.run({"input_ids": ids, "labels": ids})
         ts.sync_to_model()
+
+    Over a mesh, in every rank's process::
+
+        mesh = distributed.build_mesh(dp=2, tp=2)
+        ts = TrainStep(model, AdamW(...), mesh, strategy)
+        loss = ts.run(global_batch)   # each rank takes its rows
     """
 
     def __init__(self, model: nn.Module, optimizer: Optimizer, mesh=None,
@@ -112,17 +266,9 @@ class TrainStep:
                  batch_seq_axis: Optional[int] = 1, donate: bool = True,
                  rng_seed: int = 0, abstract: bool = False,
                  master_residency: str = "paired", telemetry=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"TrainStep runs on one card: mesh must be None ({_TODO}, "
-                "distributed)")
         if abstract:
             raise NotImplementedError(
-                f"abstract=True (AOT lowering) is not ported ({_TODO})")
-        if batch_seq_axis not in (1, None):
-            raise NotImplementedError(
-                f"batch_seq_axis={batch_seq_axis}: on one card the batch "
-                f"is not sharded; 1 or None ({_TODO}, distributed)")
+                f"abstract=True (AOT lowering) is {_NEXT}")
         if not donate:
             raise NotImplementedError(
                 "donate=False: the port's update writes the parameters "
@@ -131,19 +277,38 @@ class TrainStep:
             raise ValueError(
                 f"master_residency must be 'paired' or 'master_only', "
                 f"got {master_residency!r}")
+        self.strategy = strategy or DistributedStrategy()
+        _refuse_next_slice(self.strategy, mesh)
+        if mesh is None and self.strategy.hybrid_configs.total() > 1:
+            from ..distributed.topology import build_mesh
+
+            mesh = build_mesh(dp=self.strategy.dp, fsdp=self.strategy.fsdp,
+                              tp=self.strategy.tp)
+        self.mesh = mesh
         self.model = model
         self.optimizer = optimizer
-        self.strategy = strategy or DistributedStrategy()
-        self.strategy.check_one_device()
         self.loss_fn = loss_fn
+        self.batch_seq_axis = batch_seq_axis
         self.master_residency = master_residency
+        if mesh is not None:
+            self._refuse_uncounted_loss()
+            shd.place_params_on_mesh(model, mesh, self.strategy)
         self._param_objs: Dict[str, nn.Parameter] = {
             n: p for n, p in model.named_parameters() if p.requires_grad}
         if not self._param_objs:
             raise ValueError("the model has no trainable parameters")
         self.device = next(iter(self._param_objs.values())).device
+        self._plan = None
+        self._bound = []
+        if mesh is not None:
+            # every parameter, frozen ones too (they are cut and gathered
+            # alike; only the trainable ones have slots)
+            self._plan = _MeshPlan(dict(model.named_parameters()), mesh,
+                                   self.strategy)
+            self._refuse_sharded_norms(optimizer)
         self.opt_state = optimizer.init(
-            {n: p.detach() for n, p in self._param_objs.items()})
+            {n: self._slot_view(n, p.detach())
+             for n, p in self._param_objs.items()})
         masters = self.opt_state.get("master", {})
         if master_residency == "master_only" and not masters:
             raise ValueError(
@@ -173,6 +338,69 @@ class TrainStep:
         self._flops_probed = False
 
     # ------------------------------------------------------------------
+    # the mesh's parameter layout
+    # ------------------------------------------------------------------
+    def _refuse_sharded_norms(self, optimizer):
+        if not self._plan.sharded_state():
+            return
+        if isinstance(optimizer, (Lamb, Lars)):
+            raise NotImplementedError(
+                f"{type(optimizer).__name__} takes per-parameter norms, "
+                f"which sharded state would need collectives for: {_NEXT}")
+        if isinstance(optimizer.grad_clip, ClipGradByNorm):
+            raise NotImplementedError(
+                f"ClipGradByNorm over sharded gradients is {_NEXT}")
+
+    def _refuse_uncounted_loss(self):
+        if self.loss_fn is not None or hasattr(self.model, "loss_count") \
+                or shd._size(self.mesh, "dp") * shd._size(self.mesh,
+                                                          "fsdp") == 1:
+            return
+        raise NotImplementedError(
+            f"{type(self.model).__name__} has no loss_count, so its loss "
+            f"cannot be made the global batch's mean over dp x fsdp: "
+            f"{_NEXT}")
+
+    def _bind_gathered(self) -> Dict[str, torch.Tensor]:
+        """ZeRO-3: all-gather each parameter block of ``on_use`` over fsdp
+        and bind the gathered tensor, a leaf of its own, in every module
+        slot holding the block; returns them by name. ``_unbind`` puts
+        the blocks back."""
+        plan = self._plan
+        full: Dict[str, torch.Tensor] = {}
+        if plan is None:
+            return full
+        by_id = {}
+        with torch.no_grad():
+            for n, p in plan.params.items():
+                i = plan.info[n]
+                if i["on_use"]:
+                    full[n] = shd.gather_axis(
+                        p.detach(), i["pspec"], i["shape"], plan.mesh,
+                        "fsdp")[0].requires_grad_(p.requires_grad)
+                    by_id[id(p)] = full[n]
+        for mod in self.model.modules():
+            for local, p in mod._parameters.items():
+                if p is not None and id(p) in by_id:
+                    mod._parameters[local] = by_id[id(p)]
+                    self._bound.append((mod, local, p))
+        return full
+
+    def _unbind(self):
+        for mod, local, blk in self._bound:
+            mod._parameters[local] = blk
+        self._bound = []
+
+    def _slot_view(self, n, t):
+        return t if self._plan is None else self._plan.slot_view(n, t)
+
+    def _param_value(self, n, slot_value):
+        """A parameter block from its slot block."""
+        if self._plan is None:
+            return slot_value
+        return self._plan.param_from_slot(n, slot_value)
+
+    # ------------------------------------------------------------------
     def _release_copies(self):
         """master_only: free each master-backed parameter's storage."""
         for n, dt in self._master_dtypes.items():
@@ -181,12 +409,23 @@ class TrainStep:
 
     def _cast_from_masters(self):
         for n, dt in self._master_dtypes.items():
-            self._param_objs[n].data = self.opt_state["master"][n].to(dt)
+            self._param_objs[n].data = self._param_value(
+                n, self.opt_state["master"][n].to(dt))
 
     def _loss(self, batch):
         if self.loss_fn is None:
             return self.model(**batch)
         return self.loss_fn(self.model(batch["input"]), batch["label"])
+
+    def _loss_count(self, batch) -> torch.Tensor:
+        """What this rank's loss averages over: the model's
+        ``loss_count`` (tokens), else the rows of the batch."""
+        count = getattr(self.model, "loss_count", None)
+        if self.loss_fn is None and count is not None:
+            return count(**batch).float()
+        rows = next(v.shape[0] for v in batch.values()
+                    if isinstance(v, torch.Tensor) and v.dim() > 0)
+        return torch.tensor(float(rows), device=self.device)
 
     def _micro_batches(self, batch):
         k = self.gradient_merge_k
@@ -205,59 +444,76 @@ class TrainStep:
                     part[name] = v
         return parts
 
+    def shard_batch(self, batch: Dict) -> Dict:
+        """This rank's rows of a global batch: block ``(dp, fsdp)`` of
+        dim 0 (with gradient merge, that block of each of the k global
+        micro-batches, in order). Without a mesh, the batch as given."""
+        batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
+        if self.mesh is None:
+            return batch
+        k = self.gradient_merge_k
+        out = {}
+        for name, v in batch.items():
+            if not (isinstance(v, torch.Tensor) and v.dim() > 0):
+                out[name] = v
+                continue
+            n = (shd._size(self.mesh, "dp") * shd._size(self.mesh, "fsdp"))
+            if v.shape[0] % (n * k):
+                raise ValueError(
+                    f"batch {name}: {v.shape[0]} rows do not split over "
+                    f"dp x fsdp = {n} ranks x {k} micro-batches")
+            parts = v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
+            lo, hi, _ = shd.dim_range(parts.shape[1], ("dp", "fsdp"),
+                                      self.mesh)
+            out[name] = parts[:, lo:hi].reshape(
+                (k * (hi - lo),) + tuple(v.shape[1:])).contiguous()
+        return out
+
     def run(self, batch: Dict, sharded: bool = False) -> torch.Tensor:
         """One optimizer step over ``batch`` (numpy arrays or tensors,
-        moved to the model's device); returns the loss. ``sharded``
-        (a batch already laid out over a mesh) has no meaning on one card
-        and raises."""
-        if sharded:
-            raise NotImplementedError(
-                f"run(sharded=True): the step runs on one card ({_TODO}, "
-                "distributed)")
+        moved to the model's device); returns the loss. Over a mesh,
+        ``batch`` is the global batch, or with ``sharded`` this rank's
+        rows of it (``shard_batch``)."""
         tel = self.telemetry
         bench = bool(flags.flag("benchmark"))
         check = bool(flags.flag("check_nan_inf"))
         t0 = time.perf_counter() if tel is not None or bench else 0.0
-        batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
+        if sharded:
+            batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
+        else:
+            batch = self.shard_batch(batch)
         params = self._param_objs
         self._cast_from_masters()
         for p in params.values():
             p.grad = None
-        micro = self._micro_batches(batch)
-        if len(micro) == 1:
-            loss = self._loss(micro[0])
-            loss.backward()
-            grads = {n: p.grad for n, p in params.items()
-                     if p.grad is not None}
-            loss = loss.detach()
-        else:
-            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=self.device)
-                   for n, p in params.items()}
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=self.device)
-            for mb in micro:
-                loss = self._loss(mb)
-                loss.backward()
-                with torch.no_grad():
-                    for n, p in params.items():
-                        if p.grad is not None:
-                            acc[n] += p.grad.float()
-                            p.grad = None
-                    loss_sum += loss.detach().float()
-            k = len(micro)
-            grads = {n: a / k for n, a in acc.items()}
-            loss = loss_sum / k
+        try:
+            if self._plan is None:
+                loss, grads = self._forward_backward(batch)
+            else:
+                loss, grads = self._mesh_forward_backward(batch)
+        finally:
+            self._unbind()
+        clip_norm = isinstance(self.optimizer.grad_clip,
+                               ClipGradByGlobalNorm)
         with torch.no_grad():
             # the norm only while something reads it (the clip computes
-            # its own otherwise)
-            self.last_grad_norm = (global_norm(grads)
-                                   if tel is not None or bench or check
-                                   else None)
-            carried = {n: p.detach() for n, p in params.items()
+            # its own otherwise, on one card)
+            want = tel is not None or bench or check
+            norm = None
+            if self._plan is not None and (want or clip_norm):
+                norm = self._plan.global_norm(grads)
+            elif want:
+                norm = global_norm(grads)
+            self.last_grad_norm = norm if want else None
+            carried = {n: self._slot_view(n, p.detach())
+                       for n, p in params.items()
                        if n not in self._master_dtypes}
             self.optimizer.update(grads, self.opt_state, carried,
-                                  grad_norm=self.last_grad_norm)
+                                  grad_norm=norm)
+            if self._plan is not None:
+                for n, v in carried.items():
+                    if self._plan.info[n]["rel"] is not None:
+                        params[n].data.copy_(self._param_value(n, v))
         for p in params.values():
             p.grad = None
         del grads
@@ -267,7 +523,8 @@ class TrainStep:
             self._debug_flags(loss, bench, check, t0)
         if tel is not None:
             # loss and norm stay on the device unless this step is
-            # sampled (TrainTelemetry fetches them only then)
+            # sampled (TrainTelemetry fetches them only then); over a
+            # mesh the tokens are this rank's
             tel.on_step(self.step_count, loss, self.last_grad_norm,
                         tokens=_batch_tokens(batch),
                         wall_s=time.perf_counter() - t0,
@@ -275,6 +532,63 @@ class TrainStep:
         if self.optimizer._lr_scheduler is not None:
             self.optimizer._lr_scheduler.step()
         return loss
+
+    def _forward_backward(self, batch):
+        params = self._param_objs
+        micro = self._micro_batches(batch)
+        if len(micro) == 1:
+            loss = self._loss(micro[0])
+            loss.backward()
+            grads = {n: p.grad for n, p in params.items()
+                     if p.grad is not None}
+            return loss.detach(), grads
+        acc = {n: torch.zeros(p.shape, dtype=torch.float32,
+                              device=self.device)
+               for n, p in params.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for mb in micro:
+            loss = self._loss(mb)
+            loss.backward()
+            with torch.no_grad():
+                for n, p in params.items():
+                    if p.grad is not None:
+                        acc[n] += p.grad.float()
+                        p.grad = None
+                loss_sum += loss.detach().float()
+        k = len(micro)
+        return loss_sum / k, {n: a / k for n, a in acc.items()}
+
+    def _mesh_forward_backward(self, batch):
+        """The global batch's loss and this rank's slot blocks of the
+        global gradients: each micro-batch's local mean is weighted by
+        its share of the micro-batch's global count (a mean over no token
+        is 0), the gradients merged, then reduced."""
+        plan, params = self._plan, self._param_objs
+        micro = self._micro_batches(batch)
+        k = len(micro)
+        counts = torch.stack([self._loss_count(mb) for mb in micro])
+        totals = plan.all_reduce(counts.clone(), ("dp", "fsdp"))
+        weights = counts.clamp(min=1) / totals.clamp(min=1) / k
+        full = self._bind_gathered()
+        acc: Dict[str, torch.Tensor] = {}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i, mb in enumerate(micro):
+            loss = self._loss(mb).float() * weights[i]
+            loss.backward()
+            with torch.no_grad():
+                for n, p in params.items():
+                    src = full.get(n, p)
+                    if src.grad is None:
+                        continue
+                    g = src.grad if k == 1 else src.grad.float()
+                    acc[n] = g if n not in acc else acc[n] + g
+                    src.grad = None
+                loss_sum += loss.detach()
+        self._unbind()
+        with torch.no_grad():
+            loss = plan.all_reduce(loss_sum, ("dp", "fsdp"))
+            grads = {n: plan.reduce_grad(n, g) for n, g in acc.items()}
+        return loss, grads
 
     def _debug_flags(self, loss, bench, check, t0):
         """``PT_FLAGS_benchmark`` and ``PT_FLAGS_check_nan_inf``: one host
@@ -296,10 +610,10 @@ class TrainStep:
                     f"grad_norm={gnorm_f})")
 
     def _cost_flops(self, batch) -> Optional[float]:
-        """Per-step FLOPs of one forward and backward over ``batch``,
-        counted by ``FlopCounterMode`` and probed once (the parameters
-        and the optimizer state are not touched; the gradients are
-        dropped); None when nothing was counted."""
+        """Per-step FLOPs of one forward and backward over ``batch``
+        (this rank's), counted by ``FlopCounterMode`` and probed once
+        (the parameters and the optimizer state are not touched; the
+        gradients are dropped); None when nothing was counted."""
         if self._flops_probed:
             return self._flops_per_step
         self._flops_probed = True
@@ -307,6 +621,7 @@ class TrainStep:
 
         self._cast_from_masters()
         try:
+            self._bind_gathered()
             with FlopCounterMode(display=False) as counter:
                 for mb in self._micro_batches(batch):
                     self._loss(mb).backward()
@@ -314,6 +629,7 @@ class TrainStep:
         except Exception:
             flops = 0
         finally:
+            self._unbind()
             for p in self._param_objs.values():
                 p.grad = None
             self._release_copies()
@@ -322,48 +638,77 @@ class TrainStep:
 
     # ------------------------------------------------------------------
     def _materialized_params(self):
-        """Every trainable parameter at the model's dtype; master-only
-        ones cast from their masters."""
+        """Every trainable parameter at the model's dtype (this rank's
+        blocks over a mesh); master-only ones cast from their masters."""
         out = {}
         for n, p in self._param_objs.items():
             if n in self._master_dtypes:
-                out[n] = self.opt_state["master"][n].to(
-                    self._master_dtypes[n])
+                out[n] = self._param_value(n, self.opt_state["master"][n].to(
+                    self._master_dtypes[n]))
             else:
                 out[n] = p.detach()
         return out
 
     def sync_to_model(self):
         """Write the current values into the model's parameters (under
-        master_only, casts of the masters; a no-op otherwise)."""
+        master_only, casts of the masters; a no-op otherwise). Over a mesh
+        the model holds this rank's blocks; ``state_dict()["params"]``
+        gives the global values."""
         self._cast_from_masters()
 
     def state_dict(self):
-        return {"params": self._materialized_params(),
-                "opt_state": self.opt_state, "step": self.step_count}
+        """``{"params", "opt_state", "step"}`` at the global shapes (over
+        a mesh, gathered by the parameter and slot specs: every rank
+        takes part, every rank gets the whole)."""
+        params = self._materialized_params()
+        if self._plan is None:
+            return {"params": params, "opt_state": self.opt_state,
+                    "step": self.step_count}
+        plan = self._plan
+        gparams = {n: plan.gather(n, v, slot=False) for n, v in params.items()}
+        st = self.opt_state
+        slots = {}
+        for n, sl in st["slots"].items():
+            blk = tuple(plan.slot_view(n, self._param_objs[n].detach()).shape) \
+                if n not in self._master_dtypes else \
+                tuple(st["master"][n].shape)
+            slots[n] = {k: (plan.gather(n, v, slot=True)
+                            if tuple(v.shape) == blk else v)
+                        for k, v in sl.items()}
+        opt = {"step": st["step"], "slots": slots}
+        if "master" in st:
+            opt["master"] = {n: plan.gather(n, m, slot=True)
+                             for n, m in st["master"].items()}
+        return {"params": gparams, "opt_state": opt, "step": self.step_count}
 
     @torch.no_grad()
     def set_state_dict(self, sd):
         """Restore from ``state_dict()``'s layout (tensors or numpy
-        arrays), copying into the held tensors; a params-only restore
+        arrays, at the global shapes), copying into the held tensors
+        (over a mesh, cut to this rank's blocks); a params-only restore
         refreshes the float32 masters too."""
+        plan = self._plan
+
+        def src(n, v, slot):
+            t = _as_tensor(v, self.device)
+            if plan is None or tuple(t.shape) != plan.info[n]["shape"]:
+                return t
+            return plan.cut(n, t, slot)
+
         for n, v in sd["params"].items():
             if n not in self._master_dtypes:
-                p = self._param_objs[n]
-                p.data.copy_(_as_tensor(v, self.device))
+                self._param_objs[n].data.copy_(src(n, v, False))
         masters = self.opt_state.get("master", {})
         if "opt_state" not in sd:
             for n, m in masters.items():
                 if n in sd["params"]:
-                    m.copy_(_as_tensor(sd["params"][n], self.device))
+                    m.copy_(src(n, sd["params"][n], True))
         else:
-            src = sd["opt_state"]
-            self.opt_state["step"].copy_(_as_tensor(src["step"],
-                                                    self.device))
-            for n, slots in src["slots"].items():
+            s = sd["opt_state"]
+            self.opt_state["step"].copy_(_as_tensor(s["step"], self.device))
+            for n, slots in s["slots"].items():
                 for k, v in slots.items():
-                    self.opt_state["slots"][n][k].copy_(
-                        _as_tensor(v, self.device))
-            for n, v in src.get("master", {}).items():
-                masters[n].copy_(_as_tensor(v, self.device))
+                    self.opt_state["slots"][n][k].copy_(src(n, v, True))
+            for n, v in s.get("master", {}).items():
+                masters[n].copy_(src(n, v, True))
         self.step_count = int(sd.get("step", 0))

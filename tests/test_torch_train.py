@@ -380,25 +380,37 @@ def test_state_dict_round_trip_and_resume_from_jax():
 
 
 def test_train_step_refuses_what_it_does_not_run():
+    """What the step still refuses: pipeline, sequence, context and
+    expert parallelism (the next slice), ``abstract=True``, ``donate=False``
+    and a bad residency. A mesh, a strategy over several ranks, any
+    ``batch_seq_axis`` and ``run(sharded=True)`` now run: over gloo in
+    ``tests/test_torch_dist_train.py``, and on one process here."""
     _, tmodel = _pair()
-    with pytest.raises(NotImplementedError, match="one card"):
-        TrainStep(tmodel, topt.AdamW(), mesh=object())
-    with pytest.raises(NotImplementedError, match="one card"):
-        TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
-            hybrid_configs=HybridConfig(dp_degree=2)))
+    for degree in ("pp_degree", "sep_degree", "cp_degree", "ep_degree"):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
+                hybrid_configs=HybridConfig(**{degree: 2})))
+    with pytest.raises(NotImplementedError, match="abstract"):
+        TrainStep(tmodel, topt.AdamW(), abstract=True)
     with pytest.raises(ValueError, match="master_only"):
         TrainStep(tmodel, topt.AdamW(), master_residency="master_only")
     with pytest.raises(ValueError, match="master_residency"):
         TrainStep(tmodel, topt.AdamW(), master_residency="offload")
-    # options that mean nothing on one card refuse a value that would
-    # change something on a mesh
-    with pytest.raises(NotImplementedError, match="batch_seq_axis"):
-        TrainStep(tmodel, topt.AdamW(), batch_seq_axis=0)
     with pytest.raises(NotImplementedError, match="donate"):
         TrainStep(tmodel, topt.AdamW(), donate=False)
-    ts = TrainStep(tmodel, topt.AdamW(), batch_seq_axis=None)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ts.run(_batch(), sharded=True)
+    # a strategy over two ranks builds its mesh: on the default NCCL
+    # group, which needs a card
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
+                hybrid_configs=HybridConfig(dp_degree=2)))
+    # without a mesh the batch is already this process's: sharded or
+    # not, and whatever batch_seq_axis says, the step is the same
+    _, other = _pair()
+    a = TrainStep(tmodel, topt.AdamW(), batch_seq_axis=0)
+    b = TrainStep(other, topt.AdamW(), batch_seq_axis=None)
+    for _ in range(2):
+        assert float(a.run(_batch(), sharded=True)) == float(b.run(_batch()))
 
 
 def test_train_step_computes_the_grad_norm_once(monkeypatch):
