@@ -348,7 +348,27 @@ Phases, each of which raises on failure:
    vs CPU; ``SpeechCTC`` (log-mel -> GRU -> Linear -> ``ctc_loss``): its
    forward + backward ms and loss, card = CPU. Phases 51-55 launch no
    kernel of rows 1-13;
-56. distributed: ``python -m paddle_tpu_torch.distributed.launch
+56. ring attention: ``kernels/ring_attention.py``'s bodies of 4
+   virtual ranks run in lockstep on the card (``run_ring_virtual``), b 1,
+   s 8192, 32 x 128 heads, bf16, zigzag causal, contiguous causal and
+   non-causal, forward and backward: held against one whole-sequence row-6
+   call and its backward (bf16 2e-2 row-wise, LSE 4 x 1e-5: a merge of
+   up to 4 block LSEs); row 6 a block,
+   row 8 a block's backward (rows 7 and 9 in the contiguous layout, run
+   at ``flash_attention_block_k=256``), counted exactly; the ring's and
+   the whole call's device ms;
+57. checkpoint: Llama-2-7B width at 2 layers, bf16 master_only, b 4 x
+   2048, through ``TrainStep(mesh=build_mesh())`` over NCCL at world size
+   1 (this process joins the group): 3 steps, ``AsyncCheckpointer.save``,
+   steps 4-5 while it writes, a fresh step loads it and repeats steps
+   4-5 with equal losses; the state's GB, the blocking snapshot's, the
+   commit's and the load's seconds, the native writer's GB/s;
+58. pipeline: ``llama_pipeline_module`` at 7B width, 4 layers, untied,
+   bf16, b 4 x 2048 in 4 micro-batches, ``PipelineTrainStep`` at pp 1
+   over NCCL under 1F1B, VPP (vpp 2) and F-then-B, 3 steps each: losses
+   within 2e-4 of each other, rows 6 and 8 once a layer a micro-batch;
+   ms a step, tokens/s, peak GB. The process then leaves its group;
+59. distributed: ``python -m paddle_tpu_torch.distributed.launch
    --nproc_per_node 1`` runs this script with ``--dist-worker nccl`` in a
    fresh process: every collective over NCCL at world size 1 on CUDA
    tensors (results and ``comm_log()`` checked), then the 7B train
@@ -361,11 +381,14 @@ Phases, each of which raises on failure:
    slot and clip bookkeeping) but no all-gather, reduce-scatter or tp
    collective: every axis has one rank. Those run over gloo in the
    tests; over NCCL they wait for a 4-card cell. Then
-   ``--nproc_per_node 2`` over gloo on the host: the collectives and a
-   tiny Llama at dp = 2 against the meshless step (1e-5). Both runs'
-   exit codes and worker logs are checked and printed.
+   ``--nproc_per_node 2`` over gloo on the host: the collectives, a tiny
+   Llama at dp = 2, a pipeline at pp = 2 (1F1B), sep = 2 with ring and
+   with Ulysses attention, a dropless MoE layer at ep = 2 forward and
+   backward, and a checkpoint saved at dp = 2 and loaded at fsdp = 2
+   (ZeRO-3), each against the meshless result. Both runs' exit codes and
+   worker logs are checked and printed.
 
-Every number phases 38-56 print stands beside the card's name and power
+Every number phases 38-59 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -7363,6 +7386,354 @@ def speech_phase():
 # size 1, the 7B train step over a mesh at ZeRO-3 against the meshless
 # step, and a gloo dp = 2 host check
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the distributed core's second half: ring attention, sharded checkpoints
+# and pipelines on the card (the gloo worker below adds pp, sep, ep and a
+# checkpoint across meshes on the host)
+# ---------------------------------------------------------------------------
+RING_SHAPE = dict(n=4, b=1, s=8192, h=32, d=128)
+RING_ROWS = ("flash_attention_fwd_lse", "flash_attention_bwd_fused",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def ring_rows(kind, r, n, sl):
+    """The sequence rows rank ``r``'s ring state holds: its contiguous
+    chunk, or (zigzag) half-chunks r and 2n-1-r."""
+    if kind != "zigzag":
+        return list(range(r * sl, (r + 1) * sl))
+    h = sl // 2
+    return list(range(r * h, (r + 1) * h)) + list(
+        range((2 * n - 1 - r) * h, (2 * n - r) * h))
+
+
+def ring_phase():
+    """Ring attention (``kernels/ring_attention.py``) as n = 4 virtual
+    ranks on one card (``run_ring_virtual`` drives their bodies in
+    lockstep), b 1, s 8192, 32 x 128 heads, bf16: the zigzag causal, the
+    contiguous causal and the non-causal layouts, each forward and
+    backward, held against one whole-sequence call of row 6 and its
+    backward (rows 7 and 9 at s 8192) with ``fa_check``'s row-wise
+    tolerance (bf16 2e-2) and the LSE within n x 1e-5 absolutely (each
+    row's LSE is the logsumexp merge of up to n block LSEs, each with the
+    kernel's own float32 rounding; the first run saw 1.34e-5). The
+    contiguous layout's backward runs at ``flash_attention_block_k=256``
+    (its 2048-row kv blocks take rows 7 and 9), the others at the default
+    (row 8). Launches of rows 6-9 are counted over the ring's own calls;
+    device ms from CUDA events around the ring (all 4 ranks' blocks in
+    turn, after one untimed forward and backward) and around the whole
+    call."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.kernels import mha as fa
+    from paddle_tpu_torch.kernels import ring_attention as ring
+
+    t = RING_SHAPE
+    n, b, s, h, d = (t[x] for x in ("n", "b", "s", "h", "d"))
+    sl = s // n
+    scale = d ** -0.5
+    smi = nvidia_smi_line()
+
+    def events(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        z.record()
+        z.synchronize()
+        return out, a.elapsed_time(z)
+
+    out_rows = {}
+    for seed, (kind, causal, block_k) in enumerate((
+            ("zigzag", True, 1024), ("contiguous", True, 256),
+            ("plain", False, 1024))):
+        q, k, v, do, _ = fa_inputs(b, s, h, h, d, torch.bfloat16,
+                                   seed=90 + seed)
+        parts = [[x[:, r * sl:(r + 1) * sl] for x in (q, k, v, do)]
+                 for r in range(n)]
+
+        def forward():
+            return ring.run_ring_virtual([
+                ring.ring_forward_body(kind, *parts[r][:3], r, n, scale)
+                for r in range(n)])
+
+        def backward(fwd):
+            return ring.run_ring_virtual([
+                ring.ring_backward_body(kind, fwd[r][1], parts[r][3], r, n,
+                                        scale) for r in range(n)])
+
+        flags.set_flags({"flash_attention_block_k": block_k})
+        try:
+            backward(forward())  # warm-up: the first launches load them
+            reset_launches()
+            fwd, fwd_ms = events(forward)
+            grads, bwd_ms = events(lambda: backward(fwd))
+            counts = {r_: read_launches()[r_] for r_ in RING_ROWS}
+        finally:
+            flags.set_flags({"flash_attention_block_k": 1024})
+        (o, lse), whole_fwd_ms = events(lambda: fa.flash_forward(
+            q, k, v, causal, scale, with_lse=True))
+        want, whole_bwd_ms = events(lambda: fa.mha_backward(
+            q, k, v, o, lse, do, None, causal, scale))
+        got = {"o": torch.cat([f[0] for f in fwd], dim=1),
+               "lse": torch.cat([f[1][4] for f in fwd], dim=2),
+               "dq": torch.cat([g[0] for g in grads], dim=1),
+               "dk": torch.cat([g[1] for g in grads], dim=1),
+               "dv": torch.cat([g[2] for g in grads], dim=1)}
+        rows = [i for r in range(n) for i in ring_rows(kind, r, n, sl)]
+        ref = {"o": o, "lse": lse[:, :, rows], "dq": want[0],
+               "dk": want[1], "dv": want[2]}
+        errs, failed = fa_compare(f"ring {kind}", got, ref,
+                                  FA_ROW_TOL[torch.bfloat16],
+                                  lse_tol=n * FA_LSE_TOL)
+        blocks = {"zigzag": n * n, "plain": n * n,
+                  "contiguous": n * (n + 1) // 2}[kind]
+        two = block_k == 256
+        want_counts = {"flash_attention_fwd_lse": blocks,
+                       "flash_attention_bwd_fused": 0 if two else blocks,
+                       "flash_attention_bwd_dq": blocks if two else 0,
+                       "flash_attention_bwd_dkv": blocks if two else 0}
+        if failed or counts != want_counts:
+            raise AssertionError(f"ring {kind}: failed {failed} ({errs}); "
+                                 f"launches {counts}, want {want_counts}")
+        out_rows[kind] = {
+            "causal": causal, "flash_attention_block_k": block_k,
+            "ring_fwd_ms": fwd_ms, "ring_bwd_ms": bwd_ms,
+            "whole_fwd_ms": whole_fwd_ms, "whole_bwd_ms": whole_bwd_ms,
+            "errors": {key: e[0] for key, e in errs.items()},
+            "launches": counts}
+        print(f"ring {kind}: {n} virtual ranks, b={b} s={s} h={h} d={d} "
+              f"bf16, causal {causal}: forward {fwd_ms:.3f} ms, backward "
+              f"{bwd_ms:.3f} ms (CUDA events around the ring's {blocks} "
+              f"blocks in turn, with the merges and the exchanges as "
+              f"list passing) against the whole-sequence call's "
+              f"{whole_fwd_ms:.3f} / {whole_bwd_ms:.3f} ms; row errors "
+              f"{ {key: round(e[0], 7) for key, e in errs.items()} } "
+              f"(bf16 2e-2, lse {n} x 1e-5 abs); launches {counts}; {smi}",
+              flush=True)
+        del q, k, v, do, parts, fwd, grads, got, ref, o, lse, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"ring_attention": {
+        "shape": dict(t), "dtype": "bfloat16", "device": smi,
+        **out_rows}}), flush=True)
+    return out_rows
+
+
+def state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def ckpt_train_step(cfg, mesh):
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    opt = topt.AdamW(learning_rate=3e-4, weight_decay=0.01,
+                     multi_precision=True,
+                     grad_clip=topt.ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, opt, mesh, master_residency="master_only")
+
+
+def checkpoint_phase():
+    """Llama-2-7B width cut to 2 layers (0.67 B parameters: about 8 GB of
+    float32 masters and AdamW moments), bf16 ``master_only``, b 4 x 2048,
+    through ``TrainStep(mesh=build_mesh())`` over NCCL at world size 1:
+    3 steps, ``AsyncCheckpointer.save(ts.state_dict(), dir)``, steps 4-5
+    while the chunks are written, ``wait_until_finished``; then a fresh
+    step loads the checkpoint (``load_state_dict(dir, shardings=
+    ts.state_shardings())``) and runs steps 4-5 again: the losses equal
+    the uninterrupted ones (identical, or within 1e-5 relative where the
+    step is not deterministic; which one is printed). The directory is
+    removed after."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.io import native
+
+    cfg = dataclasses.replace(train_7b_config(), num_hidden_layers=2)
+    mesh = D.build_mesh()
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    smi = nvidia_smi_line()
+    ts = ckpt_train_step(cfg, mesh)
+    first = [float(ts.run(batch)) for _ in range(3)]
+    state = ts.state_dict()
+    nbytes = state_bytes(state)
+    root = tempfile.mkdtemp(prefix="pt_ckpt_")
+    path = os.path.join(root, "step_3")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 2 * nbytes:
+            raise RuntimeError(f"checkpoint phase: {free / 1e9:.1f} GB free "
+                               f"under {root}, the state is "
+                               f"{nbytes / 1e9:.2f} GB")
+        saver = ckpt.AsyncCheckpointer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(state, path)
+        blocking_s = time.perf_counter() - t0
+        del state
+        cont = [float(ts.run(batch)) for _ in range(2)]
+        t0 = time.perf_counter()
+        saver.wait_until_finished()
+        waited_s = time.perf_counter() - t0
+        commit_s = saver.last["commit_s"]
+        if not ckpt.is_committed(path):
+            raise AssertionError("the checkpoint was not committed")
+        del ts
+        torch.cuda.empty_cache()
+        fresh = ckpt_train_step(cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.set_state_dict(ckpt.load_state_dict(
+            path, shardings=fresh.state_shardings()))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resumed = [float(fresh.run(batch)) for _ in range(2)]
+        identical = resumed == cont
+        gap = max(abs(a - c) / abs(c) for a, c in zip(resumed, cont))
+        if not (identical or gap <= 1e-5) or fresh.step_count != 5:
+            raise AssertionError(f"resumed losses {resumed}, uninterrupted "
+                                 f"{cont} (rel gap {gap})")
+        writer = native.build("ckptio.cpp")
+        files = len(os.listdir(path))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"model": "llama2_7b width, 2 layers, random bf16 weights (seed "
+                    "0), master_only", "batch": b, "seq": s,
+           "state_gb": nbytes / 1e9, "blocking_snapshot_s": blocking_s,
+           "commit_s": commit_s, "commit_gb_per_s": nbytes / 1e9 / commit_s,
+           "wait_after_steps_s": waited_s, "load_s": load_s,
+           "files": files, "losses_1_3": first, "losses_4_5": cont,
+           "resumed_losses_4_5": resumed, "identical": identical,
+           "rel_gap": gap, "native_writer": str(writer), "device": smi}
+    print(f"checkpoint: {nbytes / 1e9:.2f} GB of state (bf16 weights cast "
+          f"from the masters, float32 masters and moments) in {files} "
+          f"files; blocking snapshot {blocking_s:.3f} s, write and commit "
+          f"{commit_s:.3f} s ({nbytes / 1e9 / commit_s:.2f} GB/s, native "
+          f"writer {writer}, fsync on; the page cache was warm) beside "
+          f"steps 4-5; wait after them {waited_s:.3f} s; load into a fresh "
+          f"step {load_s:.3f} s; resumed losses {resumed} "
+          f"{'identical to' if identical else f'within {gap:.2e} of'} "
+          f"the uninterrupted {cont}; {smi}", flush=True)
+    print(json.dumps({"checkpoint": out}), flush=True)
+    del fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase():
+    """``llama_pipeline_module`` at Llama-2-7B width, 4 layers, untied,
+    bf16 (float32 masters, ``master_only``), b 4 x 2048 in
+    ``accumulate_steps`` 4 micro-batches, through ``PipelineTrainStep``
+    at pp = 1 over NCCL (``build_mesh()``) under 1F1B, VPP
+    (``vpp_degree`` 2: two virtual stages of 2 layers) and F-then-B, 3
+    steps each from the same seed-0 weights: the losses agree within rtol
+    2e-4 (the JAX suite's ``test_llama_pipeline_module_trains``), rows 6
+    and 8 once a layer a micro-batch. Prints each schedule's ms a step
+    (CUDA events, median of steps 2-3), tokens/s, peak GB and
+    launches."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import llama_pipeline_module
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = train_7b_config()
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    n_micro, layers = 4, cfg.num_hidden_layers
+    mesh = D.build_mesh()
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                          device="cuda")
+    labels = torch.roll(ids, -1, dims=1)
+    smi = nvidia_smi_line()
+
+    def loss_fn(logits, lab):
+        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size).float(),
+                               lab.reshape(-1))
+
+    runs = {}
+    for schedule, vpp in (("1F1B", 1), ("VPP", 2), ("F-then-B", 1)):
+        module = llama_pipeline_module(cfg, 1, device="cuda", seed=0)
+        strategy = D.DistributedStrategy()
+        strategy.pipeline_configs.schedule_mode = schedule
+        strategy.pipeline_configs.vpp_degree = vpp
+        strategy.pipeline_configs.accumulate_steps = n_micro
+        opt = topt.AdamW(learning_rate=3e-4, weight_decay=0.01,
+                         multi_precision=True,
+                         grad_clip=topt.ClipGradByGlobalNorm(1.0))
+        ts = D.PipelineTrainStep(module, opt, mesh, strategy, loss_fn,
+                                 master_residency="master_only")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, step_ms = [], []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = ts.run(ids, labels)
+            z.record()
+            z.synchronize()
+            step_ms.append(a.elapsed_time(z))
+            losses.append(float(loss))
+        counts = read_launches()
+        got = {r_: counts[r_] for r_ in ("flash_attention_fwd_lse",
+                                          "flash_attention_bwd_fused")}
+        want = dict.fromkeys(got, 3 * n_micro * layers)
+        if got != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"pipeline {schedule}: launches {got}, "
+                                 f"want {want}; losses {losses}")
+        med = float(np.median(step_ms[1:]))
+        runs[schedule] = {"vpp_degree": vpp, "losses": losses,
+                          "step_ms": step_ms, "step_ms_median_2_3": med,
+                          "tokens_per_s": b * s / (med / 1e3),
+                          "peak_memory_gb":
+                              torch.cuda.max_memory_allocated() / 1e9,
+                          "launches": got}
+        print(f"pipeline {schedule} (vpp {vpp}, {n_micro} micro-batches of "
+              f"{b // n_micro} x {s}): steps {[round(x, 3) for x in step_ms]}"
+              f" ms (median of 2-3 {med:.3f} ms), "
+              f"{b * s / (med / 1e3):.1f} tokens/s, peak "
+              f"{runs[schedule]['peak_memory_gb']:.2f} GB, losses {losses}, "
+              f"launches {got}; {smi}", flush=True)
+        del module, ts, opt
+        torch.cuda.empty_cache()
+    base = runs["1F1B"]["losses"]
+    for name, r_ in runs.items():
+        gap = max(abs(a - c) / abs(c) for a, c in zip(r_["losses"], base))
+        r_["rel_gap_to_1f1b"] = gap
+        if not gap <= 2e-4:
+            raise AssertionError(f"pipeline {name} losses {r_['losses']} "
+                                 f"against 1F1B {base}")
+    print(json.dumps({"pipeline": {
+        "model": "llama2_7b width, 4 layers, untied, random bf16 weights "
+                 "(seed 0), master_only", "batch": b, "seq": s,
+        "accumulate_steps": n_micro, "pp": 1, "backend": "nccl",
+        "device": smi, **runs}}), flush=True)
+    return runs
+
+
+def leave_process_group():
+    """Leave the NCCL group the checkpoint and pipeline phases joined."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import topology
+
+    if dist.is_initialized():
+        topology.set_hybrid_communicate_group(None)
+        dist.destroy_process_group()
+
+
 DIST_TIMEOUT = 600
 
 
@@ -7558,11 +7929,177 @@ def dist_train_host_dp2():
             "loss_rel_gap": gap}
 
 
+def dist_host_pipeline():
+    """gloo, 2 ranks on the host: the tiny Llama's pipeline module (4
+    layers, untied, float32) 3 AdamW steps of ``PipelineTrainStep`` at
+    pp = 2 under 1F1B (2 micro-batches) against the same module's
+    meshless ``PipelineTrainStep`` on each rank: the losses within 1e-5
+    relative, the gathered parameters within 1e-4 (atol 1e-6)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import LlamaConfig, llama_pipeline_module
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = LlamaConfig.tiny(num_hidden_layers=4)
+    rng = np.random.default_rng(2)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
+
+    def loss_fn(logits, lab):
+        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               lab.reshape(-1))
+
+    strategy = D.DistributedStrategy()
+    strategy.pipeline_configs.schedule_mode = "1F1B"
+    strategy.pipeline_configs.accumulate_steps = 2
+    out = {}
+    for label, mesh in (("pp2", D.build_mesh(pp=2)), ("meshless", None)):
+        ts = D.PipelineTrainStep(
+            llama_pipeline_module(cfg, 2, device="cpu", seed=0),
+            topt.AdamW(learning_rate=1e-3, epsilon=1e-6), mesh, strategy,
+            loss_fn)
+        losses = [float(ts.run(ids, labels)) for _ in range(3)]
+        out[label] = (losses, ts.state_dict()["params"])
+    (got, gp), (want, wp) = out["pp2"], out["meshless"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    for n, w in wp.items():
+        if not torch.allclose(gp[n], w, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"pp2 parameter {n} differs")
+    if not gap <= 1e-5:
+        raise AssertionError(f"pp2 losses {got}, meshless {want}")
+    return {"losses_pp2": got, "losses_meshless": want,
+            "loss_rel_gap": gap}
+
+
+def dist_host_sep(mode):
+    """gloo, 2 ranks: the tiny Llama 3 AdamW steps at sep = 2 (``mode``:
+    ring or Ulysses attention; the sequence cut over the ranks, the
+    labels shifted before the cut, -100 on the chunk boundary) against
+    the meshless step: the losses within 1e-5 relative."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.tiny(sep_attention=mode)
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32))
+    labels = ids.copy()
+    labels[0, 15:17] = -100
+    batch = {"input_ids": ids, "labels": labels}
+    strategy = D.DistributedStrategy()
+    strategy.hybrid_configs.sep_degree = 2
+    mesh_l = dist_train_run(D.build_mesh(sep=2), strategy, cfg, batch, 3,
+                            "paired", "cpu")[0]
+    plain_l = dist_train_run(None, None, cfg, batch, 3, "paired", "cpu")[0]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(mesh_l, plain_l))
+    if not gap <= 1e-5:
+        raise AssertionError(f"sep2 {mode} losses {mesh_l}, meshless "
+                             f"{plain_l}")
+    return {"losses_sep2": mesh_l, "losses_meshless": plain_l,
+            "loss_rel_gap": gap}
+
+
+def dist_host_ep():
+    """gloo, 2 ranks: a dropless MoE layer (4 experts, top 2) over ep = 2,
+    forward and backward of ``sum(y**2) + aux``, against the meshless
+    layer from the same weights: y and aux within 1e-5, every gradient
+    (the experts' gathered from their ranks) within 1e-4."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import moe
+    from paddle_tpu_torch.distributed import sharding as shd
+
+    def build():
+        return moe.DroplessMoELayer(16, 4, d_hidden=32, top_k=2,
+                                    device="cpu",
+                                    generator=torch.Generator().manual_seed(
+                                        4))
+
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, 8, 16)).astype(np.float32))
+    ref = build()
+    y_ref, aux_ref = ref(x)
+    ((y_ref ** 2).sum() + aux_ref).backward()
+    layer = build()
+    mesh = D.build_mesh(ep=2)
+    D.place_params_on_mesh(layer, mesh, D.DistributedStrategy())
+    with shd.mesh_context(mesh):
+        y, aux = layer(x)
+    ((y ** 2).sum() + aux).backward()
+    err = {"y": (y - y_ref).abs().max().item(),
+           "aux": abs(aux.item() - aux_ref.item())}
+    for n, p in layer.named_parameters():
+        g = shd.gather_full(p.grad.contiguous(), p.placement,
+                            p.global_shape, mesh)
+        want = dict(ref.named_parameters())[n].grad
+        err[n] = ((g - want).abs().max() / want.abs().max()).item()
+    if err["y"] > 1e-5 or err["aux"] > 1e-5 or any(
+            e > 1e-4 for k, e in err.items() if k not in ("y", "aux")):
+        raise AssertionError(f"ep2 errors {err}")
+    return {"max_errors": err,
+            "local_w1": list(layer.experts.w1.shape)}
+
+
+def dist_host_checkpoint():
+    """gloo, 2 ranks: the tiny Llama 2 steps at dp = 2, its state saved
+    block by block (``state_dict(sharded=True)``), 2 more steps; a step at
+    fsdp = 2 (ZeRO-3) loads the checkpoint (each rank its blocks) and its
+    2 steps match: losses within 1e-5 relative."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep
+
+    cfg = LlamaConfig.tiny()
+    ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 16))
+    batch = {"input_ids": ids, "labels": ids}
+    box = [tempfile.mkdtemp(prefix="pt_ckpt_") if D.get_rank() == 0
+           else None]
+    D.broadcast_object_list(box, src=0)
+    path = os.path.join(box[0], "step_2")
+
+    def step(mesh, strategy):
+        model = LlamaForCausalLM(cfg, device="cpu", seed=0)
+        return TrainStep(model, topt.AdamW(learning_rate=1e-3,
+                                           epsilon=1e-6), mesh, strategy)
+
+    try:
+        s_dp = D.DistributedStrategy()
+        s_dp.hybrid_configs.dp_degree = 2
+        ts = step(D.build_mesh(dp=2), s_dp)
+        for _ in range(2):
+            ts.run(batch)
+        ckpt.save_state_dict(ts.state_dict(sharded=True), path)
+        want = [float(ts.run(batch)) for _ in range(2)]
+        s_f = D.DistributedStrategy()
+        s_f.hybrid_configs.sharding_degree = 2
+        s_f.sharding = True
+        s_f.sharding_configs.stage = 3
+        ts2 = step(D.build_mesh(fsdp=2), s_f)
+        ts2.set_state_dict(ckpt.load_state_dict(
+            path, shardings=ts2.state_shardings()))
+        got = [float(ts2.run(batch)) for _ in range(2)]
+        files = len(os.listdir(path))
+    finally:
+        D.barrier()
+        if D.get_rank() == 0:
+            shutil.rmtree(box[0], ignore_errors=True)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not gap <= 1e-5:
+        raise AssertionError(f"fsdp2 resumed {got}, dp2 went on {want}")
+    return {"losses_dp2_steps_3_4": want, "losses_fsdp2_resumed": got,
+            "loss_rel_gap": gap, "files": files}
+
+
 def dist_worker(backend: str) -> int:
     """One rank under ``python -m paddle_tpu_torch.distributed.launch``:
     joins the group (``init_parallel_env``), checks every collective and
-    trains (NCCL: the 7B step on the card; gloo: the host dp = 2 check),
-    printing its figures as JSON lines."""
+    trains (NCCL: the 7B step on the card; gloo: the host checks at dp 2,
+    pp 2, sep 2 with ring and with Ulysses attention, ep 2, and a
+    checkpoint saved at dp 2 and loaded at fsdp 2), printing its figures
+    as JSON lines."""
     from paddle_tpu_torch import distributed as D
 
     D.init_parallel_env(backend=backend, timeout=300)
@@ -7577,7 +8114,14 @@ def dist_worker(backend: str) -> int:
     ops = dist_collectives_check(device)
     print(f"collectives ok over {backend} at world size "
           f"{D.get_world_size()}, rank {D.get_rank()}: {ops}", flush=True)
-    out = dist_train_7b() if device == "cuda" else dist_train_host_dp2()
+    if device == "cuda":
+        out = dist_train_7b()
+    else:
+        out = {"dp2": dist_train_host_dp2(), "pp2": dist_host_pipeline(),
+               "sep2_ring": dist_host_sep("ring"),
+               "sep2_ulysses": dist_host_sep("ulysses"),
+               "ep2_dropless_moe": dist_host_ep(),
+               "checkpoint_dp2_to_fsdp2": dist_host_checkpoint()}
     print(json.dumps({f"distributed_{backend}": out}), flush=True)
     if device == "cuda":
         print(nvidia_smi_line(), flush=True)
@@ -7589,9 +8133,10 @@ def dist_worker(backend: str) -> int:
 def distributed_phase():
     """The launcher: ``--nproc_per_node 1`` over NCCL on the card (every
     collective, then the 7B step over a mesh at ZeRO-3 against the
-    meshless step), then ``--nproc_per_node 2`` over gloo on the host (a
-    tiny Llama at dp = 2). Each run's exit code must be 0 and each
-    worker's log must end its run; the logs are printed. A run past
+    meshless step), then ``--nproc_per_node 2`` over gloo on the host
+    (``dist_worker``'s host checks against the meshless results). Each
+    run's exit code must be 0 and each worker's log must end its run;
+    the logs are printed. A run past
     ``DIST_TIMEOUT`` s is killed with every process it started."""
     import os
     import shutil
@@ -7632,8 +8177,9 @@ def distributed_phase():
                 raise AssertionError(f"launch {backend}: exit "
                                      f"{proc.returncode}")
             if backend == "gloo":
-                print("distributed host check (gloo, 2 ranks on the CPU): "
-                      "ok", flush=True)
+                print("distributed host checks (gloo, 2 ranks on the CPU: "
+                      "dp 2, pp 2, sep 2 ring and Ulysses, ep 2, a "
+                      "checkpoint from dp 2 to fsdp 2): ok", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -7820,6 +8366,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("losses and rnn reference", losses_rnn_reference_phase)
     phase("speech surface", speech_phase)
+    torch.cuda.empty_cache()
+    phase("ring attention", ring_phase)
+    torch.cuda.empty_cache()
+    phase("checkpoint", checkpoint_phase)
+    torch.cuda.empty_cache()
+    phase("pipeline", pipeline_phase)
+    leave_process_group()
     torch.cuda.empty_cache()
     phase("distributed", distributed_phase)
     kernels = {"kernels": [row, row_i8, fused_row, fused_row_i8, block_row,

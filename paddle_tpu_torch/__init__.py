@@ -16,9 +16,11 @@ trains it on one card (``trainer.TrainStep`` with ``optimizer.AdamW``,
 float32 masters and the flash-attention kernels), as it trains Mamba
 (the selective-scan kernels, with quantization-aware training through
 ``quantization.QAT``), RWKV and the SD UNet (channels-last, the fused
-GroupNorm kernels). ``fft``, ``signal``, ``audio``, ``metric`` and
-``errors`` are the JAX package's modules of those names; ROADMAP.md
-lists what comes next.
+GroupNorm kernels). ``distributed`` trains over a mesh of processes
+(data, tensor, sequence, expert and pipeline parallelism, ZeRO 1-3) and
+saves sharded checkpoints in the JAX package's layout. ``fft``,
+``signal``, ``audio``, ``metric`` and ``errors`` are the JAX package's
+modules of those names; ROADMAP.md lists what comes next.
 """
 
 from . import errors, flags

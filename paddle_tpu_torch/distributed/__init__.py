@@ -6,13 +6,14 @@ launch).
 One process a rank on ``torch.distributed`` (NCCL on the card, gloo on
 the host when asked), the hybrid mesh a ``DeviceMesh`` with the JAX axis
 order, tensor parallelism and ZeRO stages 1-3 written here with their own
-collectives, and ``TrainStep`` over the mesh. Checkpointing, pipeline
-parallelism, ring/Ulysses attention and expert parallelism are the next
-slice (ROADMAP.md Queue A7); ``DroplessMoELayer`` and ``MoELayer`` run on
-one card.
+collectives, and ``TrainStep`` over the mesh with sequence (ring or
+Ulysses attention) and expert parallelism. ``checkpoint`` saves sharded
+state from one mesh and loads it onto another in the JAX package's
+layout; ``pipeline`` runs the 1F1B, VPP and F-then-B schedules
+(``PipelineTrainStep``).
 """
 
-from . import fleet, launch, parallel_layers, stream  # noqa: F401
+from . import checkpoint, fleet, launch, parallel_layers, stream  # noqa: F401
 from .auto_parallel import (  # noqa: F401
     Partial,
     Placement,
@@ -103,3 +104,17 @@ from .topology import (  # noqa: F401
     get_hybrid_communicate_group,
     set_hybrid_communicate_group,
 )
+
+# the pipeline subclasses trainer.TrainStep, whose module imports this
+# package: its names load on first use
+_PIPELINE = ("LayerDesc", "PipelineLayer", "PipelineModule",
+             "PipelineTrainStep", "SharedLayerDesc", "pipeline")
+
+
+def __getattr__(name):
+    if name in _PIPELINE:
+        import importlib
+
+        mod = importlib.import_module(f"{__name__}.pipeline")
+        return mod if name == "pipeline" else getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -22,6 +22,8 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from .checkpoint import COMMITTED_MARKER, is_committed  # noqa: F401
+
 
 @dataclass
 class WorldSpec:
@@ -195,18 +197,6 @@ class ElasticManager:
         return None
 
 
-# the marker a finished checkpoint directory carries (the JAX
-# package's ``checkpoint.COMMITTED_MARKER``)
-COMMITTED_MARKER = "COMMITTED"
-
-
-def _is_committed(path: str) -> bool:
-    """A complete checkpoint directory: the commit marker, or (the older
-    layout) merged metadata."""
-    return os.path.isfile(os.path.join(path, COMMITTED_MARKER)) or \
-        os.path.isfile(os.path.join(path, "metadata.json"))
-
-
 def latest_checkpoint(ckpt_root: str, prefix: str = "step_"
                       ) -> Optional[str]:
     """Newest complete checkpoint dir (the resume point after an elastic
@@ -219,7 +209,7 @@ def latest_checkpoint(ckpt_root: str, prefix: str = "step_"
     for name in os.listdir(ckpt_root):
         if not name.startswith(prefix):
             continue
-        if not _is_committed(os.path.join(ckpt_root, name)):
+        if not is_committed(os.path.join(ckpt_root, name)):
             continue
         try:
             step = int(name[len(prefix):])

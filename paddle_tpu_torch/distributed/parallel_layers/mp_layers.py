@@ -46,29 +46,69 @@ _NEXT = "tensor parallelism of this model is the next slice (ROADMAP.md "\
 
 
 class TPGroup:
-    """This rank's place on the tp axis: ``size``, ``rank`` and the torch
-    ``group``."""
+    """This rank's place on one mesh axis (``axis``, by default tp):
+    ``size``, ``rank`` and the torch ``group``. The autograd collectives
+    below take it for any axis."""
 
-    def __init__(self, size: int, rank: int, group):
+    def __init__(self, size: int, rank: int, group, axis: str = "tp"):
         self.size, self.rank, self.group = size, rank, group
+        self.axis = axis
 
     def __repr__(self):
-        return f"TPGroup(size={self.size}, rank={self.rank})"
+        return f"TPGroup(axis={self.axis!r}, size={self.size}, " \
+            f"rank={self.rank})"
+
+
+def axis_group(mesh, axis: str) -> Optional[TPGroup]:
+    """This rank's ``TPGroup`` on ``axis`` of ``mesh``, or None where the
+    axis is missing or of size 1."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return None
+    size = mesh.size(mesh.mesh_dim_names.index(axis))
+    if size == 1:
+        return None
+    return TPGroup(size, mesh.get_local_rank(axis), mesh.get_group(axis),
+                   axis)
+
+
+def p2p_exchange(grp, sends, recvs):
+    """Point-to-point on ``grp`` (a ``TPGroup``, or one of size 1 with no
+    torch group): ``sends`` [(dst rank, tensor, tag)] and ``recvs`` [(src
+    rank, buffer, tag)], ranks on the group, in one ``batch_isend_irecv``
+    in the order given (each pair's messages in the same order on both
+    sides). A message to this rank itself is copied into the buffer of
+    its tag."""
+    from ..collective import _record
+
+    mine = {tag: t for d, t, tag in sends if d == grp.rank}
+    for s, buf, tag in recvs:
+        if s == grp.rank:
+            buf.copy_(mine[tag])
+    ops = []
+    for d, t, tag in sends:
+        if d != grp.rank:
+            _record("send_recv", grp.axis, t)
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  dist.get_global_rank(grp.group, d),
+                                  grp.group, tag))
+    for s, buf, tag in recvs:
+        if s != grp.rank:
+            ops.append(dist.P2POp(dist.irecv, buf,
+                                  dist.get_global_rank(grp.group, s),
+                                  grp.group, tag))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
 
 
 def _tp_of(mesh) -> Optional[TPGroup]:
-    if mesh is None or "tp" not in mesh.mesh_dim_names:
-        return None
-    size = mesh.size(mesh.mesh_dim_names.index("tp"))
-    if size == 1:
-        return None
-    return TPGroup(size, mesh.get_local_rank("tp"), mesh.get_group("tp"))
+    return axis_group(mesh, "tp")
 
 
 def _all_reduce(x, tp: TPGroup, op=dist.ReduceOp.SUM):
     from ..collective import _record
 
-    _record("all_reduce", "tp", x)
+    _record("all_reduce", tp.axis, x)
     x = x.contiguous()
     dist.all_reduce(x, op, group=tp.group)
     return x
@@ -77,7 +117,7 @@ def _all_reduce(x, tp: TPGroup, op=dist.ReduceOp.SUM):
 def _gather_last(x, tp: TPGroup, dim: int):
     from ..collective import _record
 
-    _record("all_gather", "tp", x)
+    _record("all_gather", tp.axis, x)
     xs = x.movedim(dim, 0).contiguous()
     out = xs.new_empty((tp.size * xs.shape[0],) + tuple(xs.shape[1:]))
     dist.all_gather_into_tensor(out, xs, group=tp.group)

@@ -12,7 +12,12 @@ from .bert import (
 )
 from .ernie_moe import ErnieMoEConfig, ErnieMoEForCausalLM
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    LlamaPipeBlock,
+    llama_pipeline_module,
+)
 from .mamba import MambaConfig, MambaForCausalLM
 from .rwkv import (
     RWKVBlock,

@@ -25,6 +25,16 @@ through plain SDPA. Caches are float or int8: int8 contiguous caches are
 quantized on append and attention reads them dequantized. KV caches are
 updated in place, where the JAX model returns new arrays that its engine
 donates.
+
+Sequence parallelism (``sequence_parallel = True``: ``TrainStep`` cuts
+the batch's sequence over the mesh's sep axis): under a mesh whose sep
+axis is above 1 (``sharding.current_mesh()``) each rank holds a chunk of
+the sequence; its RoPE positions start at ``rank * s_local``, attention
+is the ring (``config.sep_attention == "ring"``) or Ulysses, and the loss
+takes ``shifted_labels``, the global labels shifted by one before the
+cut (the last position -100), so a chunk's last token predicts the next
+chunk's first. ``llama_pipeline_module`` builds the model as a
+``distributed.pipeline.PipelineModule`` for ``PipelineTrainStep``.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from torch.utils import checkpoint as ckpt
 from ..core.device import current_device
 from ..core.module import Layer
 from ..core.random import make_generator
+from ..distributed.parallel_layers.mp_layers import axis_group
+from ..distributed.sharding import current_mesh
 from ..distributed.parallel_layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -60,7 +72,9 @@ from ..inference.paged import (
 from ..kernels import decode_attention as da
 from ..kernels import flash_attention as fa
 from ..kernels import paged_attention as pa
+from ..kernels.ring_attention import ring_attention
 from ..kernels.rope import apply_rope, rope_frequencies
+from ..kernels.ulysses import ulysses_attention
 from ..nn import functional as F
 from ..nn.layer.common import LayerList
 from ..nn.layer.norm import RMSNorm
@@ -85,7 +99,8 @@ class LlamaConfig:
     # the no-cache branch: flash attention (the Hopper kernels on the
     # card) or plain SDPA
     use_flash_attention: bool = True
-    # sequence-parallel attention needs a mesh, which the port lacks yet
+    # the attention of a sequence cut over the mesh's sep axis: "ulysses"
+    # (all-to-all over heads) or "ring" (the KV blocks round the ring)
     sep_attention: str = "ulysses"
     use_recompute: bool = False
     recompute_policy: str = "dots_with_no_batch_dims_saveable"
@@ -185,7 +200,10 @@ class LlamaAttention(Layer):
         v = self.v_proj(x).reshape(b, s, kvh, hd)
         if kv_cache is None:
             q, k = apply_rope(q, k, cos, sin, position_ids)
-            if cfg.use_flash_attention:
+            mesh = current_mesh()
+            if axis_group(mesh, "sep") is not None:
+                out = self._sequence_parallel(q, k, v, mesh)
+            elif cfg.use_flash_attention:
                 out = fa.flash_attention(q, k, v, causal=True,
                                          training=self.training)
             else:
@@ -196,6 +214,15 @@ class LlamaAttention(Layer):
                                cache_index)
         out = self.o_proj(out.reshape(b, s, nh * hd))
         return (out, kv_cache) if kv_cache is not None else out
+
+    def _sequence_parallel(self, q, k, v, mesh):
+        """Attention over a sequence cut over sep: the ring (row 6 a KV
+        block, rows 7-9 in the backward) or the Ulysses all-to-all."""
+        if self.config.sep_attention == "ring":
+            return ring_attention(q, k, v, mesh=mesh, causal=True)
+        return ulysses_attention(q, k, v, causal=True,
+                                 training=self.training,
+                                 use_flash=self.config.use_flash_attention)
 
     def _cached(self, q, k, v, cos, sin, position_ids, kv_cache,
                 cache_index):
@@ -462,6 +489,14 @@ class LlamaModel(Layer):
         cfg = self.config
         h = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos, self.rope_sin
+        sep = axis_group(current_mesh(), "sep") if kv_caches is None \
+            else None
+        if sep is not None and position_ids is None:
+            # this rank's chunk of the sequence cut over sep
+            s = input_ids.shape[1]
+            position_ids = (torch.arange(s, device=input_ids.device)
+                            + sep.rank * s)[None].expand(
+                                input_ids.shape[0], s)
         for i, layer in enumerate(self.layers):
             if kv_caches is not None:
                 h, _ = layer(h, cos, sin, position_ids, kv_caches[i],
@@ -491,6 +526,7 @@ class LlamaForCausalLM(Layer):
     cross-entropy over the full vocabulary."""
 
     tensor_parallel = True
+    sequence_parallel = True
     tp = None
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
@@ -518,15 +554,18 @@ class LlamaForCausalLM(Layer):
                            self.model.embed_tokens.weight.T)
         return gather_from_tp(out, self.tp)
 
-    def loss_count(self, input_ids=None, labels=None, **_):
+    def loss_count(self, input_ids=None, labels=None, shifted_labels=None,
+                   **_):
         """The tokens the loss of ``forward(input_ids, labels)`` averages
-        over (labels[:, 1:] not -100): ``TrainStep`` over a mesh weights
-        each rank's mean by it, so the step's loss is the mean over the
-        global batch."""
+        over (labels[:, 1:] not -100; with ``shifted_labels``, those not
+        -100): ``TrainStep`` over a mesh weights each rank's mean by it,
+        so the step's loss is the mean over the global batch."""
+        if shifted_labels is not None:
+            return (shifted_labels != -100).sum()
         return (labels[:, 1:] != -100).sum()
 
     def forward(self, input_ids, labels=None, position_ids=None,
-                kv_caches=None, cache_index=None):
+                kv_caches=None, cache_index=None, shifted_labels=None):
         """Logits ``[b, s, vocab]``; with ``labels`` [b, s] the mean
         next-token cross-entropy of ``logits[:, :-1]`` against
         ``labels[:, 1:]`` (float32; ids of -100 are ignored). With
@@ -536,23 +575,28 @@ class LlamaForCausalLM(Layer):
         kv_caches)``. With labels and ``fused_head_loss_chunk`` set, the
         same loss comes from ``incubate.nn.functional.
         fused_linear_cross_entropy`` a sequence chunk at a time, never
-        holding the ``[b, s, vocab]`` logits."""
+        holding the ``[b, s, vocab]`` logits. ``shifted_labels`` [b, s]
+        (labels already shifted: position i predicts it) takes the loss
+        over every position, as a chunk of a sequence cut over sep
+        needs."""
         if kv_caches is not None:
             with torch.no_grad():
                 hidden, kv_caches = self.model(input_ids, position_ids,
                                                kv_caches, cache_index)
                 return self.logits(hidden), kv_caches
         hidden = self.model(input_ids, position_ids)
-        if labels is None:
+        if labels is None and shifted_labels is None:
             return self.logits(hidden)
-        shift_labels = labels[:, 1:]
+        if shifted_labels is not None:
+            shift_labels, shift_hidden = shifted_labels, hidden
+        else:
+            shift_labels, shift_hidden = labels[:, 1:], hidden[:, :-1, :]
         chunk = self.config.fused_head_loss_chunk
         if chunk:
             # the chunked head + cross-entropy: the same function as the
             # full-logits path (the softmax is row-wise), peak memory one
             # chunk's logits
             # (at tp > 1 on the head's weight gathered over tp)
-            shift_hidden = hidden[:, :-1, :]
             if self.lm_head is not None:
                 return fused_linear_cross_entropy(
                     shift_hidden, gather_from_tp(self.lm_head.weight,
@@ -564,8 +608,8 @@ class LlamaForCausalLM(Layer):
                 shift_labels, transpose_weight=True, ignore_index=-100,
                 seq_chunk=chunk)
         # next-token LM loss, float32 softmax over the vocabulary
-        shift_logits = self.logits(hidden)[:, :-1, :]
-        return F.cross_entropy(shift_logits, shift_labels, ignore_index=-100)
+        return F.cross_entropy(self.logits(shift_hidden), shift_labels,
+                               ignore_index=-100)
 
     def init_kv_caches(self, batch_size: int, max_len: int,
                        dtype=torch.bfloat16) -> List[Tuple]:
@@ -587,3 +631,66 @@ class LlamaForCausalLM(Layer):
                                               device=self.device))
 
         return [(side(), side()) for _ in range(cfg.num_hidden_layers)]
+
+
+class LlamaPipeBlock(Layer):
+    """One decoder layer with a single activation, for the pipeline's
+    trunk: it builds the RoPE tables of its sequence itself, so only the
+    hidden states cross the stages (parity: PaddleNLP's
+    LlamaForCausalLMPipe blocks)."""
+
+    def __init__(self, config: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        dev = current_device(device)
+        self.config = config
+        self.block = LlamaDecoderLayer(
+            config, dev, generator if generator is not None
+            else make_generator(0, dev))
+
+    def forward(self, x):
+        cfg = self.config
+        cos, sin = rope_frequencies(cfg.head_dim, x.shape[1], cfg.rope_theta,
+                                    device=x.device)
+        return self.block(x, cos, sin)
+
+
+def _tied_head(layer, x):
+    """The tied LM head: ``x @ embedding.T``, gathered over tp."""
+    return gather_from_tp(F.linear(copy_to_tp(x, layer.tp), layer.weight.T),
+                          layer.tp)
+
+
+def llama_pipeline_module(config: LlamaConfig, num_stages: int, device=None,
+                          seed: int = 0):
+    """The Llama as a ``distributed.pipeline.PipelineModule`` (parity:
+    PaddleNLP LlamaForCausalLMPipe): the embedding (tied or not), the
+    decoder layers (the trunk, ``LlamaPipeBlock``), the final norm and
+    the head, whose logits are gathered over tp. Weights drawn on
+    ``device`` with a generator seeded from ``seed``. Train it with
+    ``distributed.PipelineTrainStep``; the loss runs on the last stage."""
+    from ..distributed.pipeline import (
+        LayerDesc,
+        PipelineModule,
+        SharedLayerDesc,
+    )
+
+    dev = current_device(device)
+    kw = dict(std=config.initializer_range, dtype=config.torch_dtype,
+              device=dev, generator=make_generator(seed, dev))
+    h, vocab = config.hidden_size, config.vocab_size
+    if config.tie_word_embeddings:
+        embed = SharedLayerDesc("embed", VocabParallelEmbedding, vocab, h,
+                                **kw)
+        head = SharedLayerDesc("embed", VocabParallelEmbedding, vocab, h,
+                               forward_func=_tied_head, **kw)
+    else:
+        embed = LayerDesc(VocabParallelEmbedding, vocab, h, **kw)
+        head = LayerDesc(ColumnParallelLinear, h, vocab, has_bias=False,
+                         gather_output=True, **kw)
+    descs = ([embed]
+             + [LayerDesc(LlamaPipeBlock, config, device=dev,
+                          generator=kw["generator"])
+                for _ in range(config.num_hidden_layers)]
+             + [LayerDesc(RMSNorm, h, config.rms_norm_eps,
+                          dtype=config.torch_dtype, device=dev), head])
+    return PipelineModule(descs, num_stages=num_stages)

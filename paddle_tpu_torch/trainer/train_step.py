@@ -29,10 +29,14 @@ which is what donation gives the JAX step).
 **Over a mesh** (``mesh=`` a ``DeviceMesh`` from
 ``distributed.build_mesh``; a strategy whose degrees multiply past 1
 builds one when ``mesh`` is None) the step runs the strategy's dp, fsdp
-(``sharding_degree``, ZeRO stage ``sharding_configs.stage``) and tp, one
-process a rank (pp, sep, cp and ep above 1, and ``abstract=True``, are
-the next slice). ``sharding.place_params_on_mesh`` cuts the model's
-parameters to this rank's blocks of ``param_partition_spec`` (names and
+(``sharding_degree``, ZeRO stage ``sharding_configs.stage``), tp, sep
+(``sep_degree``, or ``cp_degree``, which maps onto the same axis) and
+ep, one process a rank, with the model's forward under
+``sharding.mesh_context(mesh)`` (``abstract=True`` is the next slice).
+A pp axis is replicated, as the JAX step leaves it: pipeline models run
+through ``distributed.PipelineTrainStep``.
+``sharding.place_params_on_mesh`` cuts the model's parameters to this
+rank's blocks of ``param_partition_spec`` (names and
 ``state_dict`` keys stay JAX's), and the tensor-parallel layers run their
 collectives. ``shard_batch`` gives each rank its ``("dp", "fsdp")`` rows
 of the global batch (with gradient merge, the rows of each global
@@ -44,8 +48,15 @@ labels fall. Called without ``loss_fn``, the model counts what its loss
 averages over with ``loss_count(**batch)`` (Llama and GPT: the tokens
 whose label is not -100); a model without one refuses dp x fsdp > 1.
 With ``loss_fn`` the count is the rows, for a loss that is a mean over
-rows. Gradients are merged, then reduced over dp and fsdp: all-reduced
-at stages 0-1, reduce-scattered into the slot blocks at stages 2-3. At
+rows. At sep > 1 (a model that declares ``sequence_parallel``, the
+Llama; others refuse) ``shard_batch`` also cuts the sequence axis
+(``batch_seq_axis``) over sep, after shifting the global labels by one
+into ``shifted_labels`` (the last position -100), and the count and the
+loss are taken over dp x fsdp x sep. At ep > 1 the experts are cut over
+ep and the batch is not (JAX's ``batch_spec``): the MoE layers route
+their tokens (``distributed/moe.py``). Gradients are merged, then
+reduced over dp, fsdp and sep: all-reduced at stages 0-1,
+reduce-scattered into the slot blocks at stages 2-3. At
 stage 3 each parameter is kept as a block between steps; the step
 all-gathers every block over fsdp once and binds the gathered tensors in
 the model for all its micro-batches (so the step's peak holds the whole
@@ -58,8 +69,11 @@ clip sums the squares of sharded gradients over their groups
 and counts replicated ones once. Lamb and Lars (per-parameter norms) and
 ``ClipGradByNorm`` refuse sharded state. ``state_dict``/
 ``set_state_dict``/``sync_to_model`` gather and cut by the same specs, so
-a JAX ``TrainStep.state_dict`` loads on any mesh. Telemetry's tokens and
-MFU count this rank's tokens.
+a JAX ``TrainStep.state_dict`` loads on any mesh; ``state_dict(
+sharded=True)`` gives this rank's blocks as ``checkpoint.Sharded``
+values, and ``state_shardings()`` their layout, so
+``distributed.checkpoint`` saves and loads blocks without gathering.
+Telemetry's tokens and MFU count this rank's tokens.
 
 ``run`` returns the step's loss as a 0-d tensor without a host sync.
 While the step's norm is live (telemetry on, or one of the debug flags
@@ -106,7 +120,9 @@ from ..distributed.strategy import DistributedStrategy
 from ..optimizer.clip import ClipGradByGlobalNorm, ClipGradByNorm, global_norm
 from ..optimizer.optimizer import Lamb, Lars, Optimizer
 
-_NEXT = "the next slice of the distributed port (ROADMAP.md Queue A7)"
+_NEXT = ("the next slice of the port (ROADMAP.md Queue A8, beside "
+         "jit.py)")
+_NOT_PORTED = "not in the port (ROADMAP.md Queue C)"
 
 
 def _batch_tokens(batch) -> int:
@@ -132,17 +148,14 @@ def _as_tensor(v, device):
     return v
 
 
-def _refuse_next_slice(strategy: DistributedStrategy, mesh):
+def _sep_degree(strategy: DistributedStrategy) -> int:
+    """sep and cp map onto the one sep axis; both above 1 is refused."""
     h = strategy.hybrid_configs
-    sizes = dict(pp=h.pp_degree, sep=h.sep_degree, cp=h.cp_degree,
-                 ep=h.ep_degree)
-    if mesh is not None:
-        for a in ("pp", "sep", "ep"):
-            sizes[a] = max(sizes[a], shd._size(mesh, a))
-    big = {a: n for a, n in sizes.items() if n > 1}
-    if big:
-        raise NotImplementedError(
-            f"TrainStep runs dp, fsdp and tp; {big} is {_NEXT}")
+    if h.sep_degree > 1 and h.cp_degree > 1:
+        raise ValueError(
+            f"sep_degree {h.sep_degree} and cp_degree {h.cp_degree}: both "
+            f"map onto the sep axis; set one")
+    return max(h.sep_degree, h.cp_degree)
 
 
 class _MeshPlan:
@@ -155,6 +168,9 @@ class _MeshPlan:
         self.params = params
         self.stage = strategy.sharding_stage
         self.fsdp = shd._size(mesh, "fsdp")
+        # parameters whose blocks differ over an axis their specs do not
+        # name (a pipeline stage's layers over pp): {name: axes}
+        self.layer_axes: Dict[str, tuple] = {}
         self.info = {}
         for n, p in params.items():
             shape = tuple(getattr(p, "global_shape", None) or p.shape)
@@ -196,7 +212,7 @@ class _MeshPlan:
         return shd.gather_axis(blk, i["sspec"], i["shape"], self.mesh,
                                "fsdp")[0]
 
-    def all_reduce(self, t, axes):
+    def all_reduce(self, t, axes=("dp", "fsdp", "sep")):
         from ..distributed.collective import _record
 
         for a in axes:
@@ -208,15 +224,15 @@ class _MeshPlan:
     def reduce_grad(self, n, g):
         """The global gradient's slot block from this rank's gradient of
         its parameter block, or at stage 3 of its gathered tensor (summed
-        over dp and fsdp)."""
+        over dp, fsdp and sep)."""
         i = self.info[n]
         g = g.contiguous()
         if i["on_use"] or (i["rel"] is not None and self.stage >= 2):
             # at stage 3 ``g`` is the gathered tensor's gradient
             g = shd.scatter_axis(g, i["sspec"], i["shape"], self.mesh,
                                  "fsdp")
-            return self.all_reduce(g, ("dp",))
-        g = self.all_reduce(g, ("dp", "fsdp"))
+            return self.all_reduce(g, ("dp", "sep"))
+        g = self.all_reduce(g)
         return self.slot_view(n, g)
 
     def global_norm(self, grads) -> torch.Tensor:
@@ -227,7 +243,7 @@ class _MeshPlan:
         for n, g in grads.items():
             key = tuple(a for a in shd._axes_used(self.info[n]["sspec"])
                         if shd._size(self.mesh, a) > 1)
-            key = tuple(sorted(key))
+            key = tuple(sorted(key + self.layer_axes.get(n, ())))
             sq = torch.sum(torch.square(g.float()))
             sums[key] = sq if key not in sums else sums[key] + sq
         total = None
@@ -278,12 +294,14 @@ class TrainStep:
                 f"master_residency must be 'paired' or 'master_only', "
                 f"got {master_residency!r}")
         self.strategy = strategy or DistributedStrategy()
-        _refuse_next_slice(self.strategy, mesh)
+        sep = _sep_degree(self.strategy)
         if mesh is None and self.strategy.hybrid_configs.total() > 1:
             from ..distributed.topology import build_mesh
 
-            mesh = build_mesh(dp=self.strategy.dp, fsdp=self.strategy.fsdp,
-                              tp=self.strategy.tp)
+            h = self.strategy.hybrid_configs
+            mesh = build_mesh(dp=h.dp_degree, pp=h.pp_degree,
+                              fsdp=h.sharding_degree, ep=h.ep_degree,
+                              sep=sep, tp=h.mp_degree)
         self.mesh = mesh
         self.model = model
         self.optimizer = optimizer
@@ -291,6 +309,7 @@ class TrainStep:
         self.batch_seq_axis = batch_seq_axis
         self.master_residency = master_residency
         if mesh is not None:
+            self._check_model(mesh)
             self._refuse_uncounted_loss()
             shd.place_params_on_mesh(model, mesh, self.strategy)
         self._param_objs: Dict[str, nn.Parameter] = {
@@ -340,26 +359,47 @@ class TrainStep:
     # ------------------------------------------------------------------
     # the mesh's parameter layout
     # ------------------------------------------------------------------
+    def _check_model(self, mesh):
+        """What a model refuses over ``mesh``: sep > 1 unless it declares
+        ``sequence_parallel``; a pipeline model over pp > 1 (its schedules
+        are ``PipelineTrainStep``'s)."""
+        from ..distributed.pipeline import PipelineModule
+
+        sep = shd._size(mesh, "sep")
+        if sep > 1 and not getattr(self.model, "sequence_parallel", False):
+            raise NotImplementedError(
+                f"{type(self.model).__name__} does not run sequence "
+                f"parallelism (sep = {sep}): only the Llama does "
+                f"({_NOT_PORTED})")
+        if isinstance(self.model, PipelineModule) \
+                and shd._size(mesh, "pp") > 1:
+            raise NotImplementedError(
+                "a PipelineModule over pp > 1 trains through "
+                "distributed.PipelineTrainStep, which runs its schedules")
+
     def _refuse_sharded_norms(self, optimizer):
         if not self._plan.sharded_state():
             return
         if isinstance(optimizer, (Lamb, Lars)):
             raise NotImplementedError(
                 f"{type(optimizer).__name__} takes per-parameter norms, "
-                f"which sharded state would need collectives for: {_NEXT}")
+                f"which sharded state would need collectives for: "
+                f"{_NOT_PORTED}")
         if isinstance(optimizer.grad_clip, ClipGradByNorm):
             raise NotImplementedError(
-                f"ClipGradByNorm over sharded gradients is {_NEXT}")
+                f"ClipGradByNorm over sharded gradients is {_NOT_PORTED}")
 
     def _refuse_uncounted_loss(self):
         if self.loss_fn is not None or hasattr(self.model, "loss_count") \
-                or shd._size(self.mesh, "dp") * shd._size(self.mesh,
-                                                          "fsdp") == 1:
+                or self._batch_ranks() == 1:
             return
         raise NotImplementedError(
             f"{type(self.model).__name__} has no loss_count, so its loss "
             f"cannot be made the global batch's mean over dp x fsdp: "
-            f"{_NEXT}")
+            f"{_NOT_PORTED}")
+
+    def _batch_ranks(self) -> int:
+        return shd._size(self.mesh, "dp") * shd._size(self.mesh, "fsdp")
 
     def _bind_gathered(self) -> Dict[str, torch.Tensor]:
         """ZeRO-3: all-gather each parameter block of ``on_use`` over fsdp
@@ -445,19 +485,27 @@ class TrainStep:
         return parts
 
     def shard_batch(self, batch: Dict) -> Dict:
-        """This rank's rows of a global batch: block ``(dp, fsdp)`` of
+        """This rank's part of a global batch: block ``(dp, fsdp)`` of
         dim 0 (with gradient merge, that block of each of the k global
-        micro-batches, in order). Without a mesh, the batch as given."""
+        micro-batches, in order) and, at sep > 1, block ``sep`` of the
+        sequence axis, after ``labels`` became ``shifted_labels`` (a
+        model's own loss only). Without a mesh, the batch as given."""
         batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
         if self.mesh is None:
             return batch
+        sep = shd._size(self.mesh, "sep")
+        if sep > 1 and self.loss_fn is None and "labels" in batch:
+            labels = batch.pop("labels")
+            pad = torch.full_like(labels[:, :1], -100)
+            batch["shifted_labels"] = torch.cat([labels[:, 1:], pad], 1)
         k = self.gradient_merge_k
+        n = self._batch_ranks()
+        ax = self.batch_seq_axis
         out = {}
         for name, v in batch.items():
             if not (isinstance(v, torch.Tensor) and v.dim() > 0):
                 out[name] = v
                 continue
-            n = (shd._size(self.mesh, "dp") * shd._size(self.mesh, "fsdp"))
             if v.shape[0] % (n * k):
                 raise ValueError(
                     f"batch {name}: {v.shape[0]} rows do not split over "
@@ -465,8 +513,15 @@ class TrainStep:
             parts = v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
             lo, hi, _ = shd.dim_range(parts.shape[1], ("dp", "fsdp"),
                                       self.mesh)
-            out[name] = parts[:, lo:hi].reshape(
-                (k * (hi - lo),) + tuple(v.shape[1:])).contiguous()
+            v = parts[:, lo:hi].reshape((k * (hi - lo),) + tuple(v.shape[1:]))
+            if sep > 1 and ax is not None and v.dim() > ax:
+                if v.shape[ax] % sep:
+                    raise ValueError(
+                        f"batch {name}: sequence {v.shape[ax]} does not "
+                        f"split over sep = {sep}")
+                lo, hi, _ = shd.dim_range(v.shape[ax], ("sep",), self.mesh)
+                v = v.narrow(ax, lo, hi - lo)
+            out[name] = v.contiguous()
         return out
 
     def run(self, batch: Dict, sharded: bool = False) -> torch.Tensor:
@@ -567,14 +622,15 @@ class TrainStep:
         micro = self._micro_batches(batch)
         k = len(micro)
         counts = torch.stack([self._loss_count(mb) for mb in micro])
-        totals = plan.all_reduce(counts.clone(), ("dp", "fsdp"))
+        totals = plan.all_reduce(counts.clone())
         weights = counts.clamp(min=1) / totals.clamp(min=1) / k
         full = self._bind_gathered()
         acc: Dict[str, torch.Tensor] = {}
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, mb in enumerate(micro):
-            loss = self._loss(mb).float() * weights[i]
-            loss.backward()
+            with shd.mesh_context(plan.mesh):
+                loss = self._loss(mb).float() * weights[i]
+                loss.backward()
             with torch.no_grad():
                 for n, p in params.items():
                     src = full.get(n, p)
@@ -586,7 +642,7 @@ class TrainStep:
                 loss_sum += loss.detach()
         self._unbind()
         with torch.no_grad():
-            loss = plan.all_reduce(loss_sum, ("dp", "fsdp"))
+            loss = plan.all_reduce(loss_sum)
             grads = {n: plan.reduce_grad(n, g) for n, g in acc.items()}
         return loss, grads
 
@@ -622,7 +678,8 @@ class TrainStep:
         self._cast_from_masters()
         try:
             self._bind_gathered()
-            with FlopCounterMode(display=False) as counter:
+            with FlopCounterMode(display=False) as counter, \
+                    shd.mesh_context(self.mesh):
                 for mb in self._micro_batches(batch):
                     self._loss(mb).backward()
             flops = counter.get_total_flops()
@@ -656,30 +713,73 @@ class TrainStep:
         gives the global values."""
         self._cast_from_masters()
 
-    def state_dict(self):
+    def _slot_shaped(self, n, v) -> bool:
+        """A slot laid out like its parameter's slot block (the others,
+        such as scalars, are whole on every rank)."""
+        blk = tuple(self.opt_state["master"][n].shape) \
+            if n in self._master_dtypes else \
+            tuple(self._plan.slot_view(n, self._param_objs[n].detach()).shape)
+        return tuple(v.shape) == blk
+
+    def state_dict(self, sharded: bool = False):
         """``{"params", "opt_state", "step"}`` at the global shapes (over
         a mesh, gathered by the parameter and slot specs: every rank
-        takes part, every rank gets the whole)."""
+        takes part, every rank gets the whole). ``sharded=True``: over a
+        mesh, this rank's blocks as ``checkpoint.Sharded`` values
+        instead, nothing gathered (what ``checkpoint.save_state_dict``
+        writes block by block)."""
         params = self._materialized_params()
         if self._plan is None:
             return {"params": params, "opt_state": self.opt_state,
                     "step": self.step_count}
         plan = self._plan
-        gparams = {n: plan.gather(n, v, slot=False) for n, v in params.items()}
+        if sharded:
+            from ..distributed.checkpoint import Sharded
+
+            def take(n, v, slot):
+                i = plan.info[n]
+                return Sharded(v, i["shape"], i["sspec" if slot else
+                                                 "pspec"], plan.mesh)
+        else:
+            def take(n, v, slot):
+                return plan.gather(n, v, slot=slot)
         st = self.opt_state
-        slots = {}
-        for n, sl in st["slots"].items():
-            blk = tuple(plan.slot_view(n, self._param_objs[n].detach()).shape) \
-                if n not in self._master_dtypes else \
-                tuple(st["master"][n].shape)
-            slots[n] = {k: (plan.gather(n, v, slot=True)
-                            if tuple(v.shape) == blk else v)
-                        for k, v in sl.items()}
+        slots = {n: {k: (take(n, v, True) if self._slot_shaped(n, v) else v)
+                     for k, v in sl.items()}
+                 for n, sl in st["slots"].items()}
         opt = {"step": st["step"], "slots": slots}
         if "master" in st:
-            opt["master"] = {n: plan.gather(n, m, slot=True)
+            opt["master"] = {n: take(n, m, True)
                              for n, m in st["master"].items()}
-        return {"params": gparams, "opt_state": opt, "step": self.step_count}
+        return {"params": {n: take(n, v, False) for n, v in params.items()},
+                "opt_state": opt, "step": self.step_count}
+
+    def state_shardings(self):
+        """The layout of ``state_dict()``'s tensors on this mesh:
+        ``sharding.Sharding(mesh, spec)`` for each parameter and each slot
+        laid out like it, None for the rest (what
+        ``checkpoint.load_state_dict(path, shardings=...)`` reads this
+        rank's blocks by). None without a mesh."""
+        plan = self._plan
+        if plan is None:
+            return None
+
+        def sh(n, slot):
+            i = plan.info[n]
+            return shd.Sharding(plan.mesh, i["sspec" if slot else "pspec"])
+
+        st = self.opt_state
+        out = {"params": {n: sh(n, False) for n in self._param_objs},
+               "opt_state": {
+                   "step": None,
+                   "slots": {n: {k: (sh(n, True) if self._slot_shaped(n, v)
+                                     else None) for k, v in sl.items()}
+                             for n, sl in st["slots"].items()}},
+               "step": None}
+        if "master" in st:
+            out["opt_state"]["master"] = {n: sh(n, True)
+                                          for n in st["master"]}
+        return out
 
     @torch.no_grad()
     def set_state_dict(self, sd):

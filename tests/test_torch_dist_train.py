@@ -1,8 +1,9 @@
 """``TrainStep`` over a mesh against the JAX ``TrainStep`` on the same
 mesh: 5-step AdamW trajectories of ``LlamaConfig.tiny()`` with global-norm
 clipping at 1.0 and a batch whose ``-100`` labels fall unevenly over the
-ranks, at (dp 4), (fsdp 4) x ZeRO stages 1, 2 and 3, (dp 2, tp 2) and
-(fsdp 2, tp 2, stage 3), plus gradient merge at (dp 2, fsdp 2, stage 3),
+ranks, at (dp 4), (fsdp 4) x ZeRO stages 1, 2 and 3, (dp 2, tp 2),
+(fsdp 2, tp 2, stage 3) and (dp 2, pp 2) (a pp axis the step
+replicates, as JAX's does), plus gradient merge at (dp 2, fsdp 2, stage 3),
 the tied head through the chunked loss at tp 2, a GPT at (dp 4), and a
 JAX ``state_dict`` resumed on another mesh.
 
@@ -100,7 +101,7 @@ def _check(got, losses, want_params):
 
 MESHES = [dict(dp=4), dict(fsdp=4, stage=1), dict(fsdp=4, stage=2),
           dict(fsdp=4, stage=3), dict(dp=2, tp=2),
-          dict(fsdp=2, tp=2, stage=3)]
+          dict(fsdp=2, tp=2, stage=3), dict(dp=2, pp=2)]
 
 
 @pytest.mark.parametrize("mesh_kw", MESHES,
@@ -172,7 +173,11 @@ def test_what_a_mesh_refuses(pool):
             in res["heads"][1]
         assert res["lamb"][0] == "NotImplementedError"
         assert res["pp_mesh"][0] == "NotImplementedError" and "pp" in \
-            res["pp_mesh"][1]
+            res["pp_mesh"][1] and "PipelineTrainStep" in res["pp_mesh"][1]
+        name, msg = res["gpt_sep"]
+        assert name == "NotImplementedError" and "GPT" in msg \
+            and "sequence parallelism" in msg
+        assert res["sep_and_cp"][0] == "ValueError"
         name, msg = res["bert_fsdp"]
         assert name == "NotImplementedError" and "loss_count" in msg
         assert res["bert_uncut"]

@@ -956,6 +956,69 @@ def test_flash_attention_takes_ragged_lengths_on_the_card(card, s):
         _fa_close(f"d{name}", leaf.grad, w, tol)
 
 
+@pytest.mark.parametrize("kind,causal,k_block", [
+    ("zigzag", True, 1024), ("contiguous", True, 128), ("plain", False, 1024)])
+def test_ring_attention_bodies_match_whole_attention_on_the_card(
+        card, kind, causal, k_block):
+    """The ring's bodies of 4 virtual ranks in one process
+    (``run_ring_virtual``): each block is row 6, each block's backward row
+    8 (k block 1024) or rows 7 and 9 (k block 128: eight spans of 1024
+    kv rows); the output and LSE held against one whole-sequence row-6
+    call (the LSE within n x ``FA_LSE_TOL``: each row merges up to n
+    block LSEs, each rounded by the kernel), the gradients against its
+    backward, row by row."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.kernels import ring_attention as ring
+
+    n, s = 4, 4096
+    q, k, v, do, _, _ = _fa_inputs(1, s, s, 8, 2, 128, torch.bfloat16,
+                                   None, seed=9)
+    scale = 128 ** -0.5
+    sl = s // n
+    parts = [[t[:, r * sl:(r + 1) * sl] for t in (q, k, v, do)]
+             for r in range(n)]
+    before = dict(fa.LAUNCHES)
+    prev = flags.flag("flash_attention_block_k")
+    flags.set_flags({"flash_attention_block_k": k_block})
+    try:
+        fwd = ring.run_ring_virtual([
+            ring.ring_forward_body(kind, *parts[r][:3], r, n, scale)
+            for r in range(n)])
+        bwd = ring.run_ring_virtual([
+            ring.ring_backward_body(kind, fwd[r][1], parts[r][3], r, n,
+                                    scale) for r in range(n)])
+    finally:
+        flags.set_flags({"flash_attention_block_k": prev})
+    torch.cuda.synchronize()
+    blocks = {"zigzag": 16, "contiguous": 10, "plain": 16}[kind]
+    two = k_block == 128
+    want_counts = {"flash_attention_fwd_lse": blocks,
+                   "flash_attention_bwd_fused": 0 if two else blocks,
+                   "flash_attention_bwd_dq": blocks if two else 0,
+                   "flash_attention_bwd_dkv": blocks if two else 0}
+    assert {n_: fa.LAUNCHES[n_] - before[n_] for n_ in want_counts} \
+        == want_counts
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = fa.mha_with_lse(*leaves, causal=causal)
+    o.backward(do)
+    tol = FA_TOL[torch.bfloat16]
+    _fa_close("o", torch.cat([f[0] for f in fwd], dim=1), o, tol)
+    # the merged LSE, each rank's rows (zigzag: half-chunks r, 2n-1-r)
+    for r in range(n):
+        got = fwd[r][1][4]
+        if kind == "zigzag":
+            h = sl // 2
+            rows = list(range(r * h, (r + 1) * h)) + list(
+                range((2 * n - 1 - r) * h, (2 * n - r) * h))
+        else:
+            rows = list(range(r * sl, (r + 1) * sl))
+        err = (got - lse.detach()[:, :, rows]).abs().max().item()
+        assert err <= n * FA_LSE_TOL, f"lse: max abs err {err}"
+    for i, name in enumerate("qkv"):
+        _fa_close(f"d{name}", torch.cat([g[i] for g in bwd], dim=1),
+                  leaves[i].grad, tol)
+
+
 def test_flash_attention_kernels_raise_on_what_they_do_not_take(card):
     q, k, v, do, _, _ = _fa_inputs(1, 128, 128, 4, 2, 64, torch.bfloat16,
                                    None)

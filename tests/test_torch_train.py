@@ -380,16 +380,18 @@ def test_state_dict_round_trip_and_resume_from_jax():
 
 
 def test_train_step_refuses_what_it_does_not_run():
-    """What the step still refuses: pipeline, sequence, context and
-    expert parallelism (the next slice), ``abstract=True``, ``donate=False``
-    and a bad residency. A mesh, a strategy over several ranks, any
-    ``batch_seq_axis`` and ``run(sharded=True)`` now run: over gloo in
-    ``tests/test_torch_dist_train.py``, and on one process here."""
+    """What the step still refuses: ``abstract=True`` (the next slice),
+    ``donate=False``, a bad residency, and sep with cp (one axis). A
+    mesh, a strategy over several ranks (pp, sep, cp and ep included),
+    any ``batch_seq_axis`` and ``run(sharded=True)`` now run: over gloo
+    in ``tests/test_torch_dist_train.py`` and the distributed tests of
+    the port, and on one process here."""
     _, tmodel = _pair()
-    for degree in ("pp_degree", "sep_degree", "cp_degree", "ep_degree"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
-                hybrid_configs=HybridConfig(**{degree: 2})))
+    with pytest.raises(ValueError, match="sep axis"):
+        TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
+            hybrid_configs=HybridConfig(sep_degree=2, cp_degree=2)))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TrainStep(tmodel, topt.AdamW(), abstract=True)
     with pytest.raises(NotImplementedError, match="abstract"):
         TrainStep(tmodel, topt.AdamW(), abstract=True)
     with pytest.raises(ValueError, match="master_only"):
@@ -401,9 +403,12 @@ def test_train_step_refuses_what_it_does_not_run():
     # a strategy over two ranks builds its mesh: on the default NCCL
     # group, which needs a card
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
-                hybrid_configs=HybridConfig(dp_degree=2)))
+        for degree in ("dp_degree", "pp_degree", "sep_degree", "cp_degree",
+                       "ep_degree"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                TrainStep(tmodel, topt.AdamW(),
+                          strategy=DistributedStrategy(
+                              hybrid_configs=HybridConfig(**{degree: 2})))
     # without a mesh the batch is already this process's: sharded or
     # not, and whatever batch_seq_axis says, the step is the same
     _, other = _pair()

@@ -409,7 +409,9 @@ def train_job(mesh_kw, state, cfg, batch, steps, opt_kw, merge_k=1,
 def refusals_job():
     """What a mesh refuses: tp over a model whose layers do not run it,
     a tp that does not divide the heads, a model whose loss the step
-    cannot count at dp > 1, and the next slice's axes."""
+    cannot count at dp > 1, a pipeline model over pp (its step is
+    ``PipelineTrainStep``), sep over a model that does not run it, and
+    sep with cp."""
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models import (
@@ -443,9 +445,19 @@ def refusals_job():
     catch("lamb", lambda: TrainStep(
         LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"), topt.Lamb(),
         D.build_mesh(fsdp=4), sf))
+    from paddle_tpu_torch.models import llama_pipeline_module
+
     catch("pp_mesh", lambda: TrainStep(
+        llama_pipeline_module(LlamaConfig.tiny(), 2, device="cpu"),
+        topt.AdamW(), D.build_mesh(pp=2, dp=2)))
+    catch("gpt_sep", lambda: TrainStep(
+        GPTForCausalLM(GPTConfig.tiny(), device="cpu"), topt.AdamW(),
+        D.build_mesh(dp=2, sep=2)))
+    s_both = D.DistributedStrategy()
+    s_both.hybrid_configs = D.HybridConfig(sep_degree=2, cp_degree=2)
+    catch("sep_and_cp", lambda: TrainStep(
         LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"), topt.AdamW(),
-        D.build_mesh(pp=2, dp=2)))
+        None, s_both))
     # a masked LM's loss has no loss_count: refused over fsdp, before
     # ZeRO-3 cuts its parameters
     _, s3 = _strategy(dict(fsdp=4, stage=3))
