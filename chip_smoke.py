@@ -386,9 +386,21 @@ Phases, each of which raises on failure:
    with Ulysses attention, a dropless MoE layer at ep = 2 forward and
    backward, and a checkpoint saved at dp = 2 and loaded at fsdp = 2
    (ZeRO-3), each against the meshless result. Both runs' exit codes and
-   worker logs are checked and printed.
+   worker logs are checked and printed;
+60. hapi 7b (after phase 44): the paddle namespace's high-level path,
+   ``import paddle_tpu_torch as paddle``: phase 20's configuration through
+   ``paddle.amp.decorate`` (O2, float32 masters) trains with
+   ``paddle.Model(model).prepare(AdamW, loss).fit`` over a
+   ``paddle.io.DataLoader`` (shuffled, 2 thread workers) of 7 seeded
+   batches: 2 warm-up and 5 timed steps, held to a ``TrainStep`` on the
+   same batches and to the model's own first loss; ``evaluate`` and
+   ``predict``; rows 5, 6 and 8 counted exactly and against their plain
+   versions at this shape; ``summary``/``flops`` on the meta device;
+   ``prefetch_to_device`` against synchronous copies; ``Model.save`` and
+   ``load`` at 2 layers. Step ms, tokens/s, peak GB and the host's idle
+   share beside the TrainStep's and phase 20's steps (``hapi_phase``).
 
-Every number phases 38-59 print stands beside the card's name and power
+Every number phases 38-60 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -8184,6 +8196,320 @@ def distributed_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the paddle namespace's high-level path: Model.fit at the 7B width
+# ---------------------------------------------------------------------------
+HAPI_WARMUP, HAPI_TIMED = 2, 5
+HAPI_LOSS_TOL = 1e-3    # Model.fit against TrainStep, relative, per step
+HAPI_OWN_TOL = 1e-3     # the first step's loss against the model's own
+
+
+def hapi_lm_loss(logits, labels):
+    """The next-token loss of the Llama's own ``forward(labels=)``, as a
+    ``Model.prepare`` loss of (logits, labels)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(logits[:, :-1], labels[:, 1:], ignore_index=-100)
+
+
+def hapi_build(layers, seed):
+    """The seed's Llama-2-7B-width model at ``layers`` layers on the card
+    through ``amp.decorate`` at O2 with the JAX ``Model``'s optimizer
+    (AdamW lr 3e-4, weight decay 0.01, no clip): float32 masters. The
+    optimizer notes the host time its update was enqueued by."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    class TimedAdamW(paddle.optimizer.AdamW):
+        t_update = 0.0
+
+        def update(self, *args, **kw):
+            out = super().update(*args, **kw)
+            self.t_update = time.perf_counter()
+            return out
+
+    cfg = dataclasses.replace(train_7b_config(), num_hidden_layers=layers)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = TimedAdamW(learning_rate=3e-4, weight_decay=0.01)
+    return paddle.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def hapi_timer(opt, warmup):
+    """A callback timing each train batch: CUDA events from its begin to
+    its end (``fit`` copies the batch to the card after the begin and
+    reads the loss to the host before the end), the host
+    clock, and the share of the step the host spent waiting for the card
+    (from the end of the optimizer's enqueue to the end of the step); the
+    peak memory from the first timed step on."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepTimer(Callback):
+        def __init__(self):
+            self.losses, self.ms, self.wall_ms, self.host_idle = \
+                [], [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == warmup:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            self.t0 = time.perf_counter()
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+        def on_train_batch_end(self, step, logs=None):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            t1 = time.perf_counter()
+            end.synchronize()
+            self.losses.append(logs["loss"])
+            if step >= warmup:
+                self.ms.append(self.start.elapsed_time(end))
+                self.wall_ms.append((t1 - self.t0) * 1e3)
+                self.host_idle.append((t1 - opt.t_update) / (t1 - self.t0))
+
+    return StepTimer()
+
+
+def hapi_phase(train_7b):
+    """The paddle namespace's high-level path at the Llama-2-7B width, 4
+    layers (``train_7b_config``), bf16 through ``amp.decorate`` (O2,
+    float32 masters), with ``import paddle_tpu_torch as paddle``:
+
+    1. ``paddle.Model(model).prepare(AdamW, loss).fit`` over a
+       ``DataLoader(TensorDataset([ids, labels]), batch_size=4,
+       shuffle=True, num_workers=2)`` of 7 seeded batches of 4 x 2048,
+       one epoch: 2 warm-up and 5 timed steps, rows 6 and 8 once per
+       layer a step and no other flash row; the first loss equals the
+       model's own loss on that batch (within ``HAPI_OWN_TOL``);
+    2. a ``TrainStep`` from the same weights with the same optimizer (no
+       clip, as in the JAX ``Model``), the same loss and the same batches
+       in the loader's order: the losses agree within ``HAPI_LOSS_TOL``
+       relative (the same kernels in the same order: identical unless the
+       float32 atomics of a backward sum in another order; which one is
+       printed); its timed steps beside fit's and beside
+       ``train_7b_phase``'s clipped master-only step;
+    3. ``evaluate`` and ``predict`` on 2 batches: row 5 once per layer a
+       batch and no other; finite logits of [8, 2048, 32000];
+    4. rows 5, 6 and 8 against their plain versions at this path's shape
+       (``fa_check``);
+    5. ``summary`` and ``flops`` at full width on the ``meta`` device:
+       the parameter count and 2 x tokens x matmul weights;
+    6. ``prefetch_to_device`` over the same loader equals synchronous
+       copies, batch for batch, each read as soon as it is handed out;
+    7. ``Model.save`` of a 2-layer model after one step, ``Model.load``
+       into a fresh 2-layer model of another seed: the same ``evaluate``
+       loss and optimizer step. Two layers keep the pickle (bf16 weights,
+       float32 masters and moments) near 9 GB; the directory is removed
+       after.
+    Returns the phase's figures."""
+    import os
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.trainer import TrainStep
+
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    cfg = train_7b_config()
+    layers = cfg.num_hidden_layers
+    smi = nvidia_smi_line()
+    n_batches = HAPI_WARMUP + HAPI_TIMED
+    # seeded tokens of the first 1024 ids: a unigram the steps can learn,
+    # so the loss falls over distinct batches
+    ids = np.random.default_rng(24).integers(
+        0, 1024, (n_batches * b, s)).astype(np.int64)
+    loader = paddle.io.DataLoader(paddle.io.TensorDataset([ids, ids]),
+                                  batch_size=b, shuffle=True, num_workers=2)
+    loader.batch_sampler.set_epoch(0)  # fit's first epoch
+    order = list(loader.batch_sampler)
+
+    # 1. Model.fit
+    model, opt = hapi_build(layers, 0)
+    first = torch.from_numpy(ids[order[0]]).cuda()
+    with torch.no_grad():
+        own = float(model(input_ids=first, labels=first))
+    del first
+    hm = paddle.Model(model).prepare(opt, hapi_lm_loss)
+    timer = hapi_timer(opt, HAPI_WARMUP)
+    reset_launches()
+    t0 = time.perf_counter()
+    hm.fit(loader, epochs=1, verbose=0, callbacks=[timer])
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = train_launches_want(n_batches, layers)
+    if {n: fit_counts[n] for n in want} != want:
+        raise AssertionError(f"hapi fit launches {fit_counts}, want {want}")
+    losses = timer.losses
+    if len(losses) != n_batches or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"hapi fit losses {losses}")
+    own_gap = abs(losses[0] - own) / abs(own)
+    if not own_gap <= HAPI_OWN_TOL:
+        raise AssertionError(f"hapi fit: first loss {losses[0]} against the "
+                             f"model's own {own} (rel {own_gap})")
+
+    # 3. evaluate and predict on 2 batches
+    two = ids[:2 * b]
+    reset_launches()
+    ev = hm.evaluate(paddle.io.TensorDataset([two, two]), batch_size=b,
+                     verbose=0)["loss"]
+    eval_counts = read_launches()
+    reset_launches()
+    pred = hm.predict(paddle.io.TensorDataset([two]), batch_size=b)
+    pred_counts = read_launches()
+    row5 = {"flash_attention_fwd": 2 * layers, "flash_attention_fwd_lse": 0,
+            "flash_attention_bwd_fused": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    for label, c in (("evaluate", eval_counts), ("predict", pred_counts)):
+        if {n: c[n] for n in row5} != row5:
+            raise AssertionError(f"hapi {label} launches {c}, want {row5}")
+    if pred.shape != (2 * b, s, cfg.vocab_size) or not math.isfinite(ev) \
+            or not np.isfinite(pred).all():
+        raise AssertionError(f"hapi predict {pred.shape}, evaluate {ev}")
+    del pred
+
+    # 5. summary and flops on meta, at full width
+    t0 = time.perf_counter()
+    info = paddle.summary(model, (b, s), dtypes="int64")
+    fl = paddle.flops(model, (b, s), dtypes="int64")
+    meta_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    _, n_matmul = train_flops(cfg, b, s)
+    if info != {"total_params": n_params, "trainable_params": n_params} \
+            or fl != 2 * b * s * n_matmul:
+        raise AssertionError(f"hapi summary {info}, flops {fl}; want "
+                             f"{n_params} parameters, "
+                             f"{2 * b * s * n_matmul} FLOPs")
+    del hm, model, opt
+    torch.cuda.empty_cache()
+
+    # 2. TrainStep from the same weights over the same batches
+    model, opt = hapi_build(layers, 0)
+    ts = TrainStep(model, opt, loss_fn=hapi_lm_loss)
+    ts_losses, ts_ms = [], []
+    for i, idx in enumerate(order):
+        x = torch.from_numpy(ids[idx]).cuda()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = float(ts.run({"input": x, "label": x}))
+        end.record()
+        end.synchronize()
+        ts_losses.append(loss)
+        if i >= HAPI_WARMUP:
+            ts_ms.append(start.elapsed_time(end))
+    gap = max(abs(a - c) / abs(c) for a, c in zip(losses, ts_losses))
+    identical = losses == ts_losses
+    if not gap <= HAPI_LOSS_TOL:
+        raise AssertionError(f"hapi fit losses {losses} against TrainStep "
+                             f"{ts_losses} (rel gap {gap})")
+    ts.sync_to_model()
+    with torch.no_grad():
+        ts_ev = float(np.mean([float(hapi_lm_loss(model(x), x)) for x in (
+            torch.from_numpy(two[i * b:(i + 1) * b]).cuda()
+            for i in range(2))]))
+    if not abs(ts_ev - ev) <= HAPI_LOSS_TOL * abs(ev):
+        raise AssertionError(f"hapi evaluate {ev} against the TrainStep "
+                             f"model's {ts_ev}")
+    del ts, model, opt
+    torch.cuda.empty_cache()
+
+    # 4. rows 5, 6 and 8 against their plain versions at this shape
+    errs = fa_check("hapi path", b, s, cfg.num_attention_heads,
+                    cfg.num_key_value_heads, cfg.head_dim, torch.bfloat16,
+                    seed=24)
+
+    # 6. prefetch_to_device against synchronous copies
+    loader.batch_sampler.set_epoch(0)
+    sync = [[torch.from_numpy(a).cuda() for a in batch] for batch in loader]
+    loader.batch_sampler.set_epoch(0)
+    n_pref = 0
+    for got, want_b in zip(paddle.io.prefetch_to_device(iter(loader)), sync):
+        if not all(torch.equal(g, w) for g, w in zip(got, want_b)):
+            raise AssertionError(f"prefetch_to_device batch {n_pref} "
+                                 "differs from its synchronous copy")
+        torch.cuda._sleep(2_000_000)  # a consumer slower than the copies
+        n_pref += 1
+    if n_pref != len(sync):
+        raise AssertionError(f"prefetch_to_device gave {n_pref} of "
+                             f"{len(sync)} batches")
+    del sync
+
+    # 7. save and load at 2 layers
+    m2, o2 = hapi_build(2, 0)
+    hm2 = paddle.Model(m2).prepare(o2, hapi_lm_loss)
+    hm2.fit(paddle.io.TensorDataset([ids[:b], ids[:b]]), batch_size=b,
+            verbose=0)
+    ev_ds = paddle.io.TensorDataset([two, two])
+    ev_a = hm2.evaluate(ev_ds, batch_size=b, verbose=0)["loss"]
+    root = tempfile.mkdtemp(prefix="pt_hapi_")
+    path = os.path.join(root, "llama")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hm2.save(path)
+        save_s = time.perf_counter() - t0
+        file_gb = sum(os.path.getsize(path + ext)
+                      for ext in (".pdparams", ".pdopt")) / 1e9
+        del hm2, m2, o2
+        torch.cuda.empty_cache()
+        m3, o3 = hapi_build(2, 1)
+        hm3 = paddle.Model(m3).prepare(o3, hapi_lm_loss)
+        t0 = time.perf_counter()
+        hm3.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ev_b = hm3.evaluate(ev_ds, batch_size=b, verbose=0)["loss"]
+        steps_b = int(hm3._opt_state["step"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not abs(ev_b - ev_a) <= 1e-6 * abs(ev_a) or steps_b != 1:
+        raise AssertionError(f"hapi save/load: evaluate {ev_b} against "
+                             f"{ev_a}, optimizer step {steps_b}")
+    del hm3, m3, o3
+    torch.cuda.empty_cache()
+
+    med = float(np.median(timer.ms))
+    ts_med = float(np.median(ts_ms))
+    out = {"model": "llama2_7b width, 4 layers, random bf16 weights (seed "
+                    "0), amp.decorate O2 (float32 masters), AdamW no clip",
+           "batch": b, "seq": s, "losses": losses,
+           "trainstep_losses": ts_losses, "identical": identical,
+           "rel_gap": gap, "own_loss": own, "step_ms": timer.ms,
+           "step_ms_median": med, "wall_ms": timer.wall_ms,
+           "tokens_per_s": b * s / (med / 1e3), "peak_memory_gb": peak_gb,
+           "host_idle_share": float(np.median(timer.host_idle)),
+           "trainstep_step_ms": ts_ms, "trainstep_step_ms_median": ts_med,
+           "train_7b_step_ms_median": train_7b["step_ms_median"],
+           "fit_s": fit_s, "launches": {
+               "fit": {n: fit_counts[n] for n in FLASH_TRAIN_ROWS},
+               "evaluate": row5, "predict": row5},
+           "evaluate_loss": ev, "trainstep_evaluate_loss": ts_ev,
+           "kernel_max_abs_err": errs, "summary": info, "flops": fl,
+           "meta_pass_s": meta_s, "prefetched_batches": n_pref,
+           "save_s": save_s, "load_s": load_s, "file_gb": file_gb,
+           "reloaded_evaluate_loss": ev_b, "device": smi}
+    print(f"hapi: Model.fit (amp O2, AdamW no clip) 5 timed steps "
+          f"{[round(x, 3) for x in timer.ms]} ms (median {med:.3f} ms, "
+          f"CUDA events from on_train_batch_begin to on_train_batch_end), "
+          f"{b * s / (med / 1e3):.1f} tokens/s, peak {peak_gb:.2f} GB, host "
+          f"idle share {out['host_idle_share']:.3f}; TrainStep on the same "
+          f"batches {[round(x, 3) for x in ts_ms]} ms (median "
+          f"{ts_med:.3f} ms); train_7b_phase's clipped master-only step "
+          f"median {train_7b['step_ms_median']:.3f} ms; losses "
+          f"{'identical to' if identical else f'within {gap:.2e} of'} "
+          f"TrainStep's {ts_losses}; first loss {losses[0]:.6f} against "
+          f"the model's own {own:.6f}; evaluate {ev:.6f} (TrainStep's "
+          f"model {ts_ev:.6f}); save {save_s:.2f} s, load {load_s:.2f} s "
+          f"of {file_gb:.2f} GB at 2 layers, reloaded evaluate {ev_b:.6f} "
+          f"against {ev_a:.6f}; summary {info}, flops {fl} on meta in "
+          f"{meta_s:.2f} s; prefetch {n_pref} batches equal; {smi}",
+          flush=True)
+    print(json.dumps({"hapi": out}), flush=True)
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -8324,6 +8650,8 @@ def main() -> int:
     phase("train 7b lamb", train_7b_lamb_phase)
     torch.cuda.empty_cache()
     phase("train 7b telemetry", train_7b_telemetry_phase)
+    torch.cuda.empty_cache()
+    phase("hapi 7b", hapi_phase, unfused)
     torch.cuda.empty_cache()
     phase("optimizers reference", optimizers_reference_phase)
     phase("dropout and nan checks", dropout_and_nan_phase)

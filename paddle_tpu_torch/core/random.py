@@ -1,5 +1,7 @@
 """Random generators (counterpart of ``paddle_tpu/core/random.py``: ``seed``,
-``get_seed``) and the float32 fills the initializers draw with.
+``get_seed``, the draws ``uniform``/``normal``/``randint``/``randperm``,
+``shuffle_numpy`` and ``RNGStatesTracker``) and the float32 fills the
+initializers draw with.
 
 The JAX package threads ``jax.random`` keys; the port threads
 ``torch.Generator`` objects. A caller may create one from a seed
@@ -14,7 +16,9 @@ compare them make their inputs with numpy and carry weights across
 from __future__ import annotations
 
 import contextlib
+from typing import Dict
 
+import numpy as np
 import torch
 
 from .device import resolve_device
@@ -94,3 +98,119 @@ def uniform_(tensor: torch.Tensor, low: float, high: float,
                       device=tensor.device)
     tmp.uniform_(low, high, generator=generator)
     return tensor.copy_(tmp)
+
+
+# ---------------------------------------------------------------------------
+# the tensor surface's draws (``tensor.rand`` .. ``tensor.randperm``) and the
+# named generator states of tensor-parallel models
+# ---------------------------------------------------------------------------
+def _draw_generator(device) -> tuple:
+    dev = resolve_device(device)
+    return dev, default_generator(dev)
+
+
+def uniform(shape, dtype=None, min=0.0, max=1.0,  # noqa: A002
+            device="cuda") -> torch.Tensor:
+    """U[min, max) of ``shape`` from the port's generator for ``device``
+    (torch's numbers, not JAX's; JAX draws from its key stream)."""
+    from .dtype import convert_dtype
+
+    dev, gen = _draw_generator(device)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    out.uniform_(float(min), float(max), generator=gen)
+    return out.to(convert_dtype(dtype))
+
+
+def normal(shape, dtype=None, mean=0.0, std=1.0,
+           device="cuda") -> torch.Tensor:
+    """``mean + std * N(0, 1)`` of ``shape``, as JAX composes it."""
+    from .dtype import convert_dtype
+
+    dev, gen = _draw_generator(device)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    out.normal_(0.0, 1.0, generator=gen)
+    return (mean + std * out).to(convert_dtype(dtype))
+
+
+def randint(low, high=None, shape=(), dtype="int64",
+            device="cuda") -> torch.Tensor:
+    """Integers in [low, high) (``randint(n)`` is [0, n))."""
+    from .dtype import convert_dtype
+
+    if high is None:
+        low, high = 0, low
+    dev, gen = _draw_generator(device)
+    return torch.randint(int(low), int(high), tuple(shape), generator=gen,
+                         device=dev, dtype=convert_dtype(dtype))
+
+
+def randperm(n: int, dtype="int64", device="cuda") -> torch.Tensor:
+    from .dtype import convert_dtype
+
+    dev, gen = _draw_generator(device)
+    return torch.randperm(int(n), generator=gen, device=dev).to(
+        convert_dtype(dtype))
+
+
+def shuffle_numpy(arr: np.ndarray, epoch_seed: int) -> np.ndarray:
+    """Host-side deterministic shuffle used by the data pipeline (numpy's
+    generator: the same order as the JAX package's)."""
+    rng = np.random.default_rng(epoch_seed)
+    perm = rng.permutation(len(arr))
+    return arr[perm]
+
+
+class RNGStatesTracker:
+    """Named generator states (parity: ``get_rng_state_tracker``).
+
+    Tensor-parallel models register a "local_seed" (different per TP rank)
+    and a "global_seed" (the same on every rank). ``add`` records a seed;
+    ``rng_state(name)`` makes a generator seeded with it the port's
+    generator for its device inside the block (JAX binds a key there).
+    """
+
+    def __init__(self):
+        self.states_: Dict[str, int] = {}
+        self.seeds_ = set()
+
+    def reset(self):
+        self.states_ = {}
+        self.seeds_ = set()
+
+    def add(self, name: str, seed_val: int):
+        if seed_val in self.seeds_:
+            raise ValueError(f"seed {seed_val} already exists")
+        if name in self.states_:
+            raise ValueError(f"state {name} already exists")
+        self.seeds_.add(seed_val)
+        self.states_[name] = seed_val
+
+    def get_states_tracker(self):
+        return dict(self.states_)
+
+    def set_states_tracker(self, states):
+        self.states_ = dict(states)
+        self.seeds_ = set(states.values())
+
+    @contextlib.contextmanager
+    def rng_state(self, name: str = "global_seed", device="cuda"):
+        if name not in self.states_:
+            raise ValueError(f"state {name} does not exist")
+        with generator_scope(make_generator(self.states_[name], device)):
+            yield
+
+
+_RNG_STATE_TRACKER = RNGStatesTracker()
+
+
+def get_rng_state_tracker() -> RNGStatesTracker:
+    return _RNG_STATE_TRACKER
+
+
+def model_parallel_random_seed(seed_val: int, tp_rank: int = 0):
+    """Initialize the tracker the way Fleet does: a global stream shared by
+    all TP ranks and a local stream offset by the TP rank."""
+    tracker = get_rng_state_tracker()
+    tracker.reset()
+    tracker.add("global_seed", seed_val)
+    tracker.add("local_seed", seed_val + 1024 + tp_rank)

@@ -148,6 +148,9 @@ define_flag("log_memory_stats", False,
             "record the card's bytes_in_use/peak_bytes_in_use "
             "(torch.cuda.memory_stats) through the telemetry registry on "
             "sampled train steps")
+define_flag("io_prefetch_depth", 2,
+            "host-to-device prefetch buffers (io.prefetch_to_device "
+            "default queue depth)")
 define_flag("telemetry", True,
             "always-on runtime telemetry (observability.MetricsRegistry); "
             "off = every instrumented path is a no-op")

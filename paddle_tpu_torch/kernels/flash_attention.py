@@ -82,9 +82,12 @@ def _segment_reference_attention(q, k, v, segment_ids, causal=False,
 
 
 def use_kernel(q) -> bool:
-    """The dispatch rule: every tensor that is not on the CPU goes to the
-    kernels (``mha`` raises for a device other than the card)."""
-    return q.device.type != "cpu"
+    """The dispatch rule: every tensor that is neither on the CPU nor on
+    the ``meta`` device goes to the kernels (``mha`` raises for a device
+    other than the card). A meta tensor takes the plain version, which
+    computes shapes only: a shape-only pass (``hapi.summary``) reaches
+    no kernel."""
+    return q.device.type not in ("cpu", "meta")
 
 
 def _dropout_attention(q, k, v, causal, dropout_p, scale, segment_ids,

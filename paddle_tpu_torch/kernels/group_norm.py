@@ -83,6 +83,18 @@ def supports_fused(shape, num_groups: int) -> bool:
     return _pick_c_block(h * w, c, c // num_groups) is not None
 
 
+def use_fused(x, num_groups: int) -> bool:
+    """The dispatch rule of a 4-D NHWC GroupNorm with the
+    ``fused_group_norm`` flag on: every tensor off the CPU goes to the
+    kernels (the wrapper raises for a device other than the card), a CPU
+    tensor where the JAX gate ``supports_fused`` holds; a ``meta`` tensor
+    takes the plain version, which computes shapes only (a shape-only
+    pass such as ``hapi.summary`` reaches no kernel)."""
+    if x.device.type == "meta":
+        return False
+    return x.device.type != "cpu" or supports_fused(x.shape, num_groups)
+
+
 # the launch plan's limits on the H100 (csrc/group_norm.cu checks them)
 SMEM_BUDGET = 113 * 1024   # a resident tile's CTA: two CTAs an SM
 WAVE_THREADS_PER_SM = 256  # a wave's threads: more add no speed (PERF.md)

@@ -56,14 +56,13 @@ def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
     VMEM gate does not apply, so there is no dense fall-back on the
     card); on the CPU when the JAX gate ``supports_fused`` holds, as in
     JAX. Otherwise, and with the flag off, the plain NHWC reference.
-    NCHW is plain torch, as the JAX ``jnp`` branch."""
+    NCHW is plain torch, as the JAX ``jnp`` branch. A ``meta`` tensor (a
+    shape-only pass such as ``hapi.summary``) takes the plain version."""
     if x.dim() == 4:
         data_format = layout.resolve(data_format)
     if data_format == "NHWC" and x.dim() == 4:
         c = x.shape[-1]
-        fused = flags.flag("fused_group_norm") and (
-            x.device.type != "cpu" or gn.supports_fused(x.shape, num_groups))
-        if fused:
+        if flags.flag("fused_group_norm") and gn.use_fused(x, num_groups):
             gamma = weight if weight is not None else torch.ones(
                 (c,), dtype=torch.float32, device=x.device)
             beta = bias if bias is not None else torch.zeros(

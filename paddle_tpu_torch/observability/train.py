@@ -209,8 +209,8 @@ class TrainTelemetry:
 
 def record_scalars(prefix: str, logs: Optional[dict], step=None):
     """Publish a dict of scalar logs as ``pt_<prefix>_<key>`` gauges —
-    the shared funnel the JAX package's hapi callbacks emit through (the
-    port's hapi is still to come). Non-numeric values are skipped."""
+    the shared funnel the hapi callbacks (``hapi/callbacks.py``) emit
+    through. Non-numeric values are skipped."""
     if not logs:
         return
     reg = get_registry()

@@ -526,7 +526,9 @@ class TrainStep:
 
     def run(self, batch: Dict, sharded: bool = False) -> torch.Tensor:
         """One optimizer step over ``batch`` (numpy arrays or tensors,
-        moved to the model's device); returns the loss. Over a mesh,
+        moved to the model's device); returns the loss. It takes its
+        gradients inside ``no_grad()`` or ``set_grad_enabled(False)``
+        too, as the JAX step does. Over a mesh,
         ``batch`` is the global batch, or with ``sharded`` this rank's
         rows of it (``shard_batch``)."""
         tel = self.telemetry
@@ -542,10 +544,12 @@ class TrainStep:
         for p in params.values():
             p.grad = None
         try:
-            if self._plan is None:
-                loss, grads = self._forward_backward(batch)
-            else:
-                loss, grads = self._mesh_forward_backward(batch)
+            # a step trains inside no_grad() too, as the JAX step does
+            with torch.enable_grad():
+                if self._plan is None:
+                    loss, grads = self._forward_backward(batch)
+                else:
+                    loss, grads = self._mesh_forward_backward(batch)
         finally:
             self._unbind()
         clip_norm = isinstance(self.optimizer.grad_clip,

@@ -8,6 +8,7 @@ fused and the two-pass plain backward, with an LSE cotangent, against
 with one seed."""
 
 import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+import types
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,19 +169,29 @@ def test_dispatch_matches_jax_flash_attention_on_the_cpu(kw):
     _close(got, want, 1e-5)
 
 
-def test_dispatch_rules():
+def test_dispatch_rules(monkeypatch):
     def t(s, d, device="cpu"):
         return torch.zeros((1, s, 2, d), device=device)
 
-    # CPU tensors never reach the kernels; every other tensor does, at any
-    # shape: a sequence of 100 rows on a device that is not the card
-    # reaches the kernel wrapper, which refuses the device, and never the
-    # dense reference
+    # CPU and meta tensors never reach the kernels; every other tensor
+    # does, at any shape (a sequence of 100 rows on the card), and the
+    # kernel wrapper refuses a device that is not the card. A meta tensor
+    # (a shape-only pass) takes the dense reference
     assert not tfa.use_kernel(t(256, 128))
-    assert tfa.use_kernel(t(100, 12, "meta"))
+    assert not tfa.use_kernel(t(100, 12, "meta"))
+    assert tfa.use_kernel(types.SimpleNamespace(device=torch.device("cuda")))
     meta = t(100, 32, "meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tfa.flash_attention(meta, meta, meta, causal=True)
+        tm.mha(meta, meta, meta, causal=True)
+    out = tfa.flash_attention(meta, meta, meta, causal=True)
+    assert out.shape == meta.shape and out.device.type == "meta"
+    # flash_attention goes to the wrapper exactly where the rule says
+    reached = []
+    monkeypatch.setattr(tfa, "use_kernel", lambda q: True)
+    monkeypatch.setattr(tfa, "mha", lambda *a, **kw: reached.append(kw))
+    tfa.flash_attention(t(100, 32), t(100, 32), t(100, 32), causal=True)
+    assert len(reached) == 1 and reached[0]["causal"]
+    monkeypatch.undo()
     q = torch.zeros((1, 128, 2, 32))
     with pytest.raises(ValueError, match="requires causal"):
         tfa.flash_attention(q, q, q, causal=False, window_size=16)

@@ -1384,3 +1384,100 @@ def test_group_norm_autograd_and_dispatch_on_the_card(card):
         _gn_close(name, a.grad.cpu(), c.grad, 1e-5)
     with pytest.raises(ValueError, match="not divisible"):
         F.group_norm(x[..., :1000].contiguous(), 32, data_format="NHWC")
+
+
+# ---------------------------------------------------------------------------
+# io on the card: prefetch_to_device, fork workers, bf16 files
+# ---------------------------------------------------------------------------
+def test_prefetch_to_device_equals_synchronous_copies(card):
+    """Every prefetched batch equals its synchronous copy, with a fast and
+    a slow consumer. The fast one reads each batch on an idle stream the
+    moment it is handed out, from a source slower than the copies (a
+    batch read before its side-stream copy finished would differ). The
+    slow one queues its reads behind a sleep on the card, so the producer
+    runs ahead and a batch's memory must not be reused while a read of it
+    is still queued."""
+    import time
+
+    from paddle_tpu_torch import io as tio
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.standard_normal((64, 1024, 256)).astype(np.float32),
+                rng.integers(0, 1000, (64, 1024)))
+               for _ in range(6)]
+
+    def slow_source():
+        for b in batches:
+            time.sleep(0.02)
+            yield b
+
+    for source, slow in ((slow_source(), False), (iter(batches), True)):
+        got = []
+        for x, y in tio.prefetch_to_device(source, size=2):
+            assert x.device.type == "cuda" and y.device.type == "cuda"
+            got.append((x.sum(dtype=torch.float64), x.clone(), y.clone()))
+            if slow:
+                torch.cuda._sleep(100_000_000)  # ~50 ms: the producer runs ahead
+        assert len(got) == len(batches)
+        for (s, x, y), (hx, hy) in zip(got, batches):
+            want = torch.from_numpy(hx).to(card)
+            assert torch.equal(x, want) and torch.equal(
+                y, torch.from_numpy(hy).to(card)), slow
+            assert float(s) == float(want.sum(dtype=torch.float64))
+
+
+class _HostOnly:
+    """A dataset that records, in the worker, whether torch there has a
+    CUDA context (it must not: the worker loads numpy only)."""
+
+    def __init__(self, n):
+        self.x = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+
+    def __getitem__(self, i):
+        import os
+
+        return self.x[i], np.int64(os.getpid()), np.bool_(
+            torch.cuda.is_initialized())
+
+    def __len__(self):
+        return len(self.x)
+
+
+def test_fork_workers_stay_off_the_device(card):
+    import os
+
+    from paddle_tpu_torch import io as tio
+
+    torch.ones(1, device=card).sum().item()  # the parent's CUDA context
+    assert torch.cuda.is_initialized()
+    ds = _HostOnly(16)
+    loader = tio.DataLoader(ds, batch_size=4, shuffle=True, num_workers=2,
+                            use_process_workers=True)
+    seen = []
+    for x, pid, cuda_on in loader:
+        seen.append(x)
+        assert (pid != os.getpid()).all()  # loaded in a forked worker
+        assert not cuda_on.any()
+    plain = list(tio.DataLoader(ds, batch_size=4, shuffle=True))
+    for a, b in zip(seen, plain):
+        np.testing.assert_array_equal(a, b[0])
+    # the parent's context is unharmed
+    assert float(torch.ones(2, device=card).sum()) == 2.0
+
+
+def test_framework_io_round_trips_bf16_without_ml_dtypes(card, tmp_path,
+                                                         monkeypatch):
+    from paddle_tpu_torch.framework import io as fio
+
+    monkeypatch.setattr(fio, "_ml_bfloat16", lambda: None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {"w": torch.randn(64, 32, generator=gen,
+                              device=card).bfloat16(),
+             "step": torch.tensor(3, dtype=torch.int32, device=card)}
+    path = str(tmp_path / "bf16.pdparams")
+    fio.save(state, path)
+    got = fio.load(path)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16),
+                       state["w"].view(torch.int16))
+    assert got["step"].dtype == torch.int32 and int(got["step"]) == 3

@@ -10,6 +10,7 @@ card-test shape, and the UNet's GroupNorm sites against the model's own
 calls. Inputs come from numpy with one seed."""
 
 import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+import types
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,9 +160,10 @@ def test_dispatch_rules(monkeypatch):
     """Inside a channels-last scope a 4-D tensor declared NCHW takes the
     NHWC branch. CPU tensors go to the fused path within the JAX VMEM
     budget and to the reference beyond it, as in JAX; every other tensor
-    goes to the kernels whatever its size (here a device that is not the
-    card, which the kernel wrapper refuses: the reference would have run
-    on it). The flag off selects the reference explicitly."""
+    but a ``meta`` one goes to the kernels whatever its size (the rule,
+    ``use_fused``, on a tensor placed on the card; the kernel wrapper
+    refuses any other device). A meta tensor (a shape-only pass) takes
+    the reference. The flag off selects the reference explicitly."""
     calls = []
     real = tgn.fused_group_norm
 
@@ -182,19 +184,25 @@ def test_dispatch_rules(monkeypatch):
     monkeypatch.setattr(tgn, "supports_fused", lambda shape, g: False)
     TF.group_norm(small, 32, data_format="NHWC")
     assert len(calls) == 1
+    card = types.SimpleNamespace(device=torch.device("cuda"), shape=big)
+    assert tgn.use_fused(card, 32)  # any size on the card
+    odd_card = types.SimpleNamespace(device=torch.device("cuda"),
+                                     shape=(1, 4, 4, 30))
+    assert tgn.use_fused(odd_card, 32)  # the kernel raises for c % g
     meta = torch.empty(big, device="meta")
+    assert not tgn.use_fused(meta, 32)
+    out = TF.group_norm(meta, 32, data_format="NHWC", activation="silu")
+    assert out.shape == big and out.device.type == "meta"
+    assert len(calls) == 1
     with pytest.raises(ValueError, match="unsupported device"):
-        TF.group_norm(meta, 32, data_format="NHWC", activation="silu")
-    assert calls[-1] == big
-    odd = torch.empty((1, 4, 4, 30), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        TF.group_norm(odd, 32, data_format="NHWC")
+        real(meta, torch.ones(1024, device="meta"),
+             torch.zeros(1024, device="meta"), 32, activation="silu")
     flags.set_flags({"fused_group_norm": False})
     try:
         out = TF.group_norm(meta, 32, data_format="NHWC")
     finally:
         flags.set_flags({"fused_group_norm": True})
-    assert out.shape == big and len(calls) == 3
+    assert out.shape == big and len(calls) == 1
     with pytest.raises(ValueError, match="activation"):
         real(small, torch.ones(64), torch.zeros(64), 32, activation="relu")
 

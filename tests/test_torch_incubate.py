@@ -433,3 +433,78 @@ def test_ema_matches_jax(kw):
     out_j, out_t = je.apply(js, jp), te.apply(ts, tp)
     for n in params:
         _close(out_t[n], out_j[n], 1e-6)
+
+
+# ------------------------------------------- segment ops, graph, softmax
+SEG_CASES = [
+    dict(kind="sum"), dict(kind="mean"), dict(kind="max"), dict(kind="min"),
+    dict(kind="sum", num_segments=7), dict(kind="mean", num_segments=7),
+    dict(kind="max", num_segments=7), dict(kind="min", num_segments=7),
+    dict(kind="max", num_segments=3), dict(kind="sum", ints=True),
+    dict(kind="max", ints=True, num_segments=6),
+    dict(kind="min", ints=True, num_segments=6),
+]
+
+
+@pytest.mark.parametrize("case", SEG_CASES,
+                         ids=[str(sorted(c.items())) for c in SEG_CASES])
+def test_segment_ops_match_jax(case):
+    """JAX's values for an empty segment (0 for sum and mean, the lowest
+    value for max, the highest for min) and ids past ``num_segments``
+    dropped. float32 within 1e-6; integers exactly."""
+    rng = np.random.default_rng(12)
+    ids = np.array([0, 0, 2, 4, 2, 4, 4], np.int32)
+    data = rng.standard_normal((7, 3)).astype(np.float32)
+    if case.get("ints"):
+        data = rng.integers(-9, 9, (7, 3)).astype(np.int32)
+    kind, n = case["kind"], case.get("num_segments")
+    want = getattr(jinc, f"segment_{kind}")(jnp.asarray(data),
+                                            jnp.asarray(ids), num_segments=n)
+    got = getattr(tinc, f"segment_{kind}")(torch.tensor(data),
+                                           torch.tensor(ids), num_segments=n)
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy().astype(np.float64),
+                               np.asarray(want).astype(np.float64),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("pool", ["sum", "mean", "max", "min"])
+def test_graph_send_recv_matches_jax(pool):
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((5, 4)).astype(np.float32)
+    src = np.array([0, 1, 2, 3, 4, 0], np.int32)
+    dst = np.array([1, 1, 3, 0, 3, 3], np.int32)
+    for out_size in (None, 6):
+        want = jinc.graph_send_recv(jnp.asarray(x), jnp.asarray(src),
+                                    jnp.asarray(dst), pool, out_size)
+        got = tinc.graph_send_recv(torch.tensor(x), torch.tensor(src),
+                                   torch.tensor(dst), pool, out_size)
+        _close(got, want, 1e-6)
+    with pytest.raises(ValueError):
+        tinc.graph_send_recv(torch.tensor(x), torch.tensor(src),
+                             torch.tensor(dst), "prod")
+
+
+def test_fused_softmax_masks_and_identity_loss_match_jax():
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 3, 5, 6)).astype(np.float32)
+    mask = np.where(rng.random((2, 1, 5, 6)) > 0.3, 0.0, -1e4).astype(
+        np.float32)
+    _close(tinc.softmax_mask_fuse(torch.tensor(x), torch.tensor(mask)),
+           jinc.softmax_mask_fuse(jnp.asarray(x), jnp.asarray(mask)), 1e-6)
+    for shape in ((2, 3, 5, 5), (1, 2, 4, 6)):
+        xs = rng.standard_normal(shape).astype(np.float32)
+        _close(tinc.softmax_mask_fuse_upper_triangle(torch.tensor(xs)),
+               jinc.softmax_mask_fuse_upper_triangle(jnp.asarray(xs)), 1e-6)
+    xb = torch.tensor(x).bfloat16()
+    got = tinc.softmax_mask_fuse_upper_triangle(xb)
+    assert got.dtype == torch.bfloat16
+    _close(got, jinc.softmax_mask_fuse_upper_triangle(
+        jnp.asarray(x, jnp.bfloat16)), 2e-2)
+    v = rng.standard_normal(6).astype(np.float32)
+    for red in ("none", "sum", "mean", 0, 1, 2):
+        _close(tinc.identity_loss(torch.tensor(v), red),
+               jinc.identity_loss(jnp.asarray(v), red), 1e-6)
+    with pytest.raises(ValueError):
+        tinc.identity_loss(torch.tensor(v), "max")
+    assert set(jinc.__all__) == set(tinc.__all__)

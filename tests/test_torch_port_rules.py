@@ -249,6 +249,43 @@ def test_default_device_entry_points_raise_without_a_card():
         assert tobs.ProgramProfiler.mark(torch.device("cpu")) is None
     finally:
         tflags.set_flags(saved)
+    # the paddle namespace and the high-level API: the tensor functions,
+    # paddle.load, run_check, prefetch_to_device and Model's batch
+    # transfer default to the card too, and take the CPU only when asked
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+
+    tmp = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                       f"port_rules_{os.getpid()}.pdparams")
+    paddle.save({"w": torch.ones(2)}, tmp)
+    try:
+        for call in (lambda: paddle.to_tensor([1.0, 2.0]),
+                     lambda: paddle.zeros((2, 3)),
+                     lambda: paddle.arange(4),
+                     lambda: paddle.rand((2,)),
+                     lambda: paddle.randint(0, 4, (3,)),
+                     lambda: paddle.load(tmp),
+                     lambda: paddle.utils.run_check(),
+                     lambda: next(paddle.io.prefetch_to_device(
+                         iter([np.ones(2)])))):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        assert paddle.load(tmp, device="cpu")["w"].device.type == "cpu"
+        assert isinstance(paddle.load(tmp, return_numpy=True)["w"],
+                          np.ndarray)
+    finally:
+        os.remove(tmp)
+    assert paddle.to_tensor([1.0], place="cpu").device.type == "cpu"
+    assert paddle.rand((2,), device="cpu").device.type == "cpu"
+
+    class Bare(paddle.nn.Layer):  # no parameters: Model takes the card
+        def forward(self, x):
+            return x
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle.Model(Bare())
+    assert paddle.Model(cpu_model).device.type == "cpu"
 
 
 def test_rwkv_rnn_and_audio_entry_points_default_to_the_card():

@@ -467,3 +467,20 @@ def refusals_job():
                                          D.build_mesh(fsdp=4), s3))
     out["bert_uncut"] = shapes == [tuple(p.shape) for p in bert.parameters()]
     return out
+
+
+# ---------------------------------------------------------------------------
+# io
+# ---------------------------------------------------------------------------
+def batch_sampler_job(n_items, batch_size, shuffle, epochs):
+    """This rank's batches of a ``DistributedBatchSampler`` built without
+    ``num_replicas``/``rank`` (read from the gloo group), per epoch."""
+    from paddle_tpu_torch import io
+
+    sampler = io.DistributedBatchSampler(list(range(n_items)), batch_size,
+                                         shuffle=shuffle)
+    out = []
+    for e in range(epochs):
+        sampler.set_epoch(e)
+        out.append([list(b) for b in sampler])
+    return sampler.nranks, sampler.local_rank, out
