@@ -1,8 +1,11 @@
 """Compare two trees of the PyTorch port on one NVIDIA H100: the 4-layer
 7B-width Llama train step, the Mamba-130m train step and the contiguous
-bf16 engine's TTFT p50, each from that tree's own ``chip_smoke.py``.
+bf16 engine's TTFT p50, each from that tree's own ``chip_smoke.py``; with
+``--serving``, the serving side alone: the contiguous engine's TTFT p50
+and decode tok/s, and ``obs_7b_phase``'s TPOT p50 and TTFT p50 with
+telemetry off and on (the paged 7B-width engine, medians of 5 runs).
 
-    python3 chip_ab.py PARENT_DIR CHANGE_DIR [--out DIR]
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [--out DIR] [--serving]
 
 Both directories hold a whole tree (for instance unpacked with ``git
 archive``). Each run is a process of its own, in the order parent,
@@ -41,9 +44,26 @@ torch.cuda.empty_cache()
 c.mamba_train_phase()
 """
 
-# the JSON line each phase prints, and the number this script reads there
-METRICS = {"engine": "ttft_p50_ms", "train_7b": "step_ms_median",
-           "train_mamba130m": "step_ms_median"}
+RUN_SERVING = """
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as c
+from paddle_tpu_torch.kernels import _build
+_build.build()
+model, prompts = c.build_7b()
+c.engine_phase(model, prompts)
+c.obs_7b_phase(model, prompts)
+"""
+
+# the JSON line each phase prints, and the numbers this script reads there
+# (a dotted path into the line's document)
+METRICS = {"engine": ["ttft_p50_ms"], "train_7b": ["step_ms_median"],
+           "train_mamba130m": ["step_ms_median"]}
+METRICS_SERVING = {
+    "engine": ["ttft_p50_ms", "decode_tokens_per_s"],
+    "obs_7b": ["medians.off.tpot_p50_ms", "medians.on.tpot_p50_ms",
+               "medians.off.ttft_p50_ms", "medians.on.ttft_p50_ms"]}
 
 
 def share_builds(trees):
@@ -57,9 +77,10 @@ def share_builds(trees):
                     shutil.copytree(built, dst / built.name)
 
 
-def run(tree: Path, log: Path, timeout: int) -> dict:
+def run(tree: Path, log: Path, timeout: int, code: str,
+        metrics: dict) -> dict:
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", RUN], cwd=tree,
+    res = subprocess.run([sys.executable, "-c", code], cwd=tree,
                          capture_output=True, text=True, timeout=timeout)
     log.write_text(res.stdout + "\n--- stderr ---\n" + res.stderr)
     if res.returncode != 0:
@@ -69,10 +90,13 @@ def run(tree: Path, log: Path, timeout: int) -> dict:
         if not line.startswith("{"):
             continue
         doc = json.loads(line)
-        for key, field in METRICS.items():
-            if key in doc:
-                out[f"{key}.{field}"] = doc[key][field]
-    missing = [f"{k}.{f}" for k, f in METRICS.items()
+        for key, fields in metrics.items():
+            for field in fields if key in doc else ():
+                val = doc[key]
+                for part in field.split("."):
+                    val = val[part]
+                out[f"{key}.{field}"] = val
+    missing = [f"{k}.{f}" for k, fs in metrics.items() for f in fs
                if f"{k}.{f}" not in out]
     if missing:
         raise RuntimeError(f"{tree}: no {missing} in the output; see {log}")
@@ -85,7 +109,11 @@ def main() -> int:
     ap.add_argument("change", type=Path)
     ap.add_argument("--out", type=Path, default=Path("build") / "ab")
     ap.add_argument("--timeout", type=int, default=900)
+    ap.add_argument("--serving", action="store_true",
+                    help="the serving metrics alone (engine and obs_7b)")
     args = ap.parse_args()
+    code, metrics = ((RUN_SERVING, METRICS_SERVING) if args.serving
+                     else (RUN, METRICS))
     import torch
 
     if not torch.cuda.is_available():
@@ -100,7 +128,8 @@ def main() -> int:
     trees = {"parent": args.parent.resolve(), "change": args.change.resolve()}
     runs = []
     for i, name in enumerate(("parent", "change", "change", "parent")):
-        r = run(trees[name], args.out / f"ab_{i}_{name}.log", args.timeout)
+        r = run(trees[name], args.out / f"ab_{i}_{name}.log", args.timeout,
+                code, metrics)
         r["name"] = name
         print(json.dumps(r), flush=True)
         runs.append(r)

@@ -399,8 +399,34 @@ Phases, each of which raises on failure:
    ``prefetch_to_device`` against synchronous copies; ``Model.save`` and
    ``load`` at 2 layers. Step ms, tokens/s, peak GB and the host's idle
    share beside the TrainStep's and phase 20's steps (``hapi_phase``).
+61. kernel ops (after phase 4's kernels): ``torch.library.opcheck`` of
+   each of the 14 ``paddle_tpu::*`` ops (rows 1-13) on the card at
+   float32, float16 and bfloat16, int8 caches and int8 / int4 weights
+   (``kernel_ops_phase``);
+62. jit 7b (after phase 60): ``jit.save`` / ``jit.load`` of the phase-20
+   model in eval (``InputSpec([None, 2048])``, called at b 1 and 4), an
+   int8 weight-only Llama at 2 layers, Mamba-130m at b 4 x 1024 and the
+   SD-UNet at sample 32, b 4: the loaded outputs bitwise equal to the
+   eager ones, the kernel ops as graph nodes and exactly rows 5, 4, 10
+   and 12's launches a call; export, save and load seconds, the file's
+   GB, eager and loaded ms (``jit_7b_phase``);
+63. abstract 7b: ``TrainStep(abstract=True)`` of Llama-2-7B at 32 layers
+   under ``meta_init`` planned without allocating; the 4-layer plan's
+   arguments exactly the real step's and its peak against 5 real steps'
+   ``max_memory_allocated`` (``abstract_7b_phase``);
+64. profiler 7b: ``paddle.profiler`` over 4 steps of that step, one
+   record window, its chrome trace parsed, the flash ops' calls equal to
+   their launches (``profiler_7b_phase``);
+65. vision data and ops: ``FakeData`` through the transforms and a
+   4-worker ``DataLoader`` into ResNet-50 bf16 eval (images/s), ``nms``,
+   ``roi_align`` (forward and backward) and ``deform_conv2d`` at Faster
+   R-CNN R50-FPN sizes against float64 (``vision_data_ops_phase``);
+66. linalg, distribution, sparse: seven decompositions at 4096 and a
+   batch of 1024 32 x 32 matrices against float64, densities card = CPU
+   and the moments of 10^7 draws, an 8192 x 8192 1% sparse product card =
+   CPU (``linalg_dist_sparse_phase``).
 
-Every number phases 38-60 print stands beside the card's name and power
+Every number phases 38-66 print stands beside the card's name and power
 limit. Each phase prints its wall time. Every kernel's launch count is set to 0
 just before the run that reports it and read just after.
 
@@ -8510,6 +8536,649 @@ def hapi_phase(train_7b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 61-66: the kernel entries as torch.library ops, jit save/load on
+# torch.export, the abstract step's memory plan, the profiler, and the
+# vision, linalg, distribution and sparse surfaces
+# ---------------------------------------------------------------------------
+OPCHECK_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def kernel_ops_phase():
+    """``torch.library.opcheck`` of every ``paddle_tpu::*`` op on the card
+    at every dtype its library is built for (``kernels/op_samples.py``):
+    the schema and its mutations, the fake against the kernel's outputs
+    (shapes, dtypes, strides), a dynamic-shape trace. Launches made here
+    are comparisons, not the main path's."""
+    from paddle_tpu_torch.kernels import _ops, op_samples
+
+    done = {}
+    t0 = time.perf_counter()
+    for name, args in op_samples.samples("cuda", OPCHECK_DTYPES):
+        res = torch.library.opcheck(_ops.OPS[name][1], args)
+        bad = {k: v for k, v in res.items() if v != "SUCCESS"}
+        tags = sorted({str(a.dtype).split(".")[1] for a in args
+                       if isinstance(a, torch.Tensor)
+                       and (a.is_floating_point() or a.dtype == torch.int8)
+                       and a.dim() > 1})
+        if bad:
+            raise AssertionError(f"opcheck {name} {tags}: {bad}")
+        done.setdefault(name, []).append("/".join(tags))
+    missing = set(_ops.OPS) - set(done)
+    if missing:
+        raise AssertionError(f"ops never checked: {sorted(missing)}")
+    out = {name: {"row": _ops.OPS[name][0], "opcheck": "passed",
+                  "cases": cases} for name, cases in sorted(done.items())}
+    print(f"kernel ops: opcheck passed for all {len(out)} ops of rows 1-13 "
+          f"in {sum(len(c) for c in done.values())} cases, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernel_ops": out}), flush=True)
+
+
+def events_ms(fn, runs=3):
+    """Median of ``runs`` CUDA-event timings of ``fn()``."""
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def jit_check(label, model, spec, calls, op, launch_key, per_call, tol,
+              workdir):
+    """Export ``model`` for ``spec``, save it, load it; per call in
+    ``calls`` (argument tuples) the loaded output against the eager
+    ``no_grad`` forward (bitwise, or within ``tol`` of the eager output's
+    largest magnitude) and exactly ``per_call`` launches of
+    ``launch_key``; the graph holds ``per_call`` ``op`` nodes."""
+    from paddle_tpu_torch import jit
+
+    path = str(workdir / label)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program, meta = jit.export_program(model, spec)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jit.write_program(program, meta, path)
+    save_s = time.perf_counter() - t0
+    size_gb = (workdir / f"{label}.pdmodel").stat().st_size / 1e9
+    del program
+    t0 = time.perf_counter()
+    loaded = jit.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nodes = loaded.op_counts()[f"paddle_tpu.{op}.default"]
+    if nodes != per_call or loaded.meta["device_type"] != "cuda":
+        raise AssertionError(f"jit {label}: {nodes} {op} nodes, want "
+                             f"{per_call}; meta {loaded.meta}")
+    rows = []
+    for args in calls:
+        with torch.no_grad():
+            eager = model(*args)
+            reset_launches()
+            got = loaded(*args)
+            torch.cuda.synchronize()
+            n = read_launches()[launch_key]
+            eager_ms = events_ms(lambda: model(*args))
+            loaded_ms = events_ms(lambda: loaded(*args))
+        if n != per_call:
+            raise AssertionError(f"jit {label}: {n} launches of "
+                                 f"{launch_key} a call, want {per_call}")
+        bitwise = bool(torch.equal(got, eager))
+        err = float((got.float() - eager.float()).abs().max())
+        scale = float(eager.float().abs().max())
+        if not (bitwise or err <= tol * scale) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"jit {label}: loaded differs from eager by "
+                                 f"{err} (scale {scale}, tol {tol})")
+        rows.append({"batch": int(args[0].shape[0]), "bitwise": bitwise,
+                     "max_abs_err": err, "eager_ms": eager_ms,
+                     "loaded_ms": loaded_ms, "launches": n})
+    (workdir / f"{label}.pdmodel").unlink()
+    del loaded
+    torch.cuda.empty_cache()
+    out = {"export_s": export_s, "save_s": save_s, "load_s": load_s,
+           "file_gb": size_gb, "nodes": nodes, "calls": rows}
+    print(f"jit {label}: export {export_s:.2f} s, save {save_s:.2f} s "
+          f"({size_gb:.3f} GB), load {load_s:.2f} s; {nodes} {op} nodes; "
+          + "; ".join(f"b {r['batch']}: eager {r['eager_ms']:.2f} ms, "
+                      f"loaded {r['loaded_ms']:.2f} ms, "
+                      f"{'bitwise equal' if r['bitwise'] else 'max err ' + format(r['max_abs_err'], '.3g')}, "
+                      f"{r['launches']} launches" for r in rows)
+          + f"; {nvidia_smi_line()}", flush=True)
+    return out
+
+
+def jit_7b_phase():
+    """``jit.save``/``jit.load`` on the card (the programs hold the kernel
+    ops): ``train_7b_config()`` (Llama-2-7B width, 4 layers, bf16) in eval
+    with ``InputSpec([None, 2048], "int64")`` called at b 1 and 4 (row 5
+    four times a call); the int8 weight-only Llama at those widths and 2
+    layers (row 4: 7 a layer and the head, 15 a call); Mamba-130m at b 4 x
+    1024 (row 10 without states, 24 a call); the SD-UNet at sample 32, b
+    4, bf16 channels-last (row 12, 56 a call). The loaded outputs against
+    the eager ones (the same kernels: bitwise, or bf16's 2e-2 / float32's
+    1e-5 of the largest magnitude where the exported graph orders an
+    operation otherwise)."""
+    from pathlib import Path
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import (LlamaForCausalLM, MambaConfig,
+                                         MambaForCausalLM,
+                                         UNet2DConditionModel, UNetConfig,
+                                         unet_gn_sites)
+    from paddle_tpu_torch.quantization import quantize_model_weight_only
+
+    workdir = Path(__file__).resolve().parent / "build" / "jit_smoke"
+    workdir.mkdir(parents=True, exist_ok=True)
+    s = TRAIN_SHAPE["s"]
+    rng = np.random.default_rng(0)
+    out = {"card": nvidia_smi_line()}
+    cfg = train_7b_config()
+
+    def ids(b, vocab, n=s):
+        return (torch.as_tensor(rng.integers(0, vocab, (b, n)),
+                                device="cuda"),)
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0).eval()
+    out["llama_7b_4l"] = jit_check(
+        "llama_7b_4l", model, [static.InputSpec([None, s], "int64")],
+        [ids(1, cfg.vocab_size), ids(4, cfg.vocab_size)], "flash_forward",
+        "flash_attention_fwd", cfg.num_hidden_layers, 2e-2, workdir)
+    del model
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = quantize_model_weight_only(
+        LlamaForCausalLM(cfg2, device="cuda", seed=0), "int8",
+        group_size=128).eval()
+    out["llama_7b_2l_int8w"] = jit_check(
+        "llama_7b_2l_int8w", model, [static.InputSpec([None, s], "int64")],
+        [ids(1, cfg.vocab_size), ids(4, cfg.vocab_size)],
+        "weight_only_matmul", "weight_only_matmul",
+        7 * cfg2.num_hidden_layers + 1, 2e-2, workdir)
+    del model
+    torch.cuda.empty_cache()
+    mcfg = MambaConfig(use_chunked_scan=True)
+    model = MambaForCausalLM(mcfg, device="cuda", seed=0).eval()
+    b, ms = SCAN_SHAPE["b"], SCAN_SHAPE["s"]
+    out["mamba_130m"] = jit_check(
+        "mamba_130m", model, [static.InputSpec([None, ms], "int64")],
+        [ids(b, mcfg.vocab_size, ms)], "selective_scan_fwd",
+        "selective_scan_fwd", mcfg.num_hidden_layers, 1e-5, workdir)
+    del model
+    torch.cuda.empty_cache()
+    ucfg = UNetConfig(sample_size=UNET_SIZE)
+    unet = UNet2DConditionModel(ucfg, device="cuda", seed=0).to(
+        torch.bfloat16).eval()
+    x = torch.as_tensor(rng.standard_normal(
+        (UNET_BATCH, ucfg.in_channels, UNET_SIZE, UNET_SIZE)),
+        device="cuda").to(torch.bfloat16)
+    t = torch.as_tensor(rng.integers(0, 1000, (UNET_BATCH,)), device="cuda")
+    ctx = torch.as_tensor(rng.standard_normal(
+        (UNET_BATCH, 77, ucfg.cross_attention_dim)),
+        device="cuda").to(torch.bfloat16)
+    out["sd_unet"] = jit_check(
+        "sd_unet", unet, [x, t, ctx], [(x, t, ctx)], "group_norm_fwd",
+        "group_norm_fwd", len(unet_gn_sites(ucfg, UNET_SIZE)), 2e-2, workdir)
+    del unet
+    torch.cuda.empty_cache()
+    print(json.dumps({"jit_7b": out}), flush=True)
+    return out
+
+
+def abstract_7b_phase():
+    """``TrainStep(abstract=True)``: Llama-2-7B at all 32 layers (6.74 B
+    parameters) under ``meta_init``, ``master_only`` AdamW, lowered at 4 x
+    2048 on the card's fake tensors: the plan printed, and
+    ``memory_allocated`` grows by at most 64 MB over it. Then the 4-layer
+    step of phase 20: its planned arguments exactly the bytes the real
+    step holds, its planned peak (arguments + temp) against
+    ``max_memory_allocated`` over 5 real steps, less what was allocated
+    before the step was built (within 25%), and the trace
+    reaching the fakes of rows 6 and 8 once a layer. Returns the real
+    4-layer step and its batch for the profiler phase."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.core.meta import meta_init
+    from paddle_tpu_torch.kernels import _ops
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.trainer import TrainStep, memplan
+
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    batch = {"input_ids": np.zeros((b, s), np.int64),
+             "labels": np.zeros((b, s), np.int64)}
+
+    def plan(layers):
+        cfg = dataclasses.replace(train_7b_config(), num_hidden_layers=layers)
+        with meta_init():
+            model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        n = sum(p.numel() for p in model.parameters())
+        ts = TrainStep(model, topt.AdamW(
+            learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+            grad_clip=topt.ClipGradByGlobalNorm(1.0)), abstract=True,
+            master_residency="master_only")
+        before = dict(_ops.FAKE_CALLS)
+        t0 = time.perf_counter()
+        ma = ts.lower(batch).compile().memory_analysis()
+        secs = time.perf_counter() - t0
+        fakes = {k: _ops.FAKE_CALLS[k] - before[k] for k in before
+                 if _ops.FAKE_CALLS[k] != before[k]}
+        return n, ma, fakes, secs
+
+    smi = nvidia_smi_line()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    n32, ma32, fakes32, secs32 = plan(32)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - mem0
+    print(f"abstract 7b: Llama-2-7B, 32 layers, {n32} parameters, "
+          f"master_only AdamW at {b} x {s}: arguments "
+          f"{ma32.argument_size_in_bytes / 1e9:.3f} GB, temp "
+          f"{ma32.temp_size_in_bytes / 1e9:.3f} GB, output "
+          f"{ma32.output_size_in_bytes / 1e9:.3f} GB, alias "
+          f"{ma32.alias_size_in_bytes / 1e9:.3f} GB (peak "
+          f"{(ma32.argument_size_in_bytes + ma32.temp_size_in_bytes) / 1e9:.3f}"
+          f" GB against the card's 80) in {secs32:.2f} s; fakes {fakes32}; "
+          f"memory_allocated grew {grew / 2**20:.2f} MiB; {smi}", flush=True)
+    if grew > 64 * 2**20:
+        raise AssertionError(f"the abstract plan allocated {grew} bytes")
+    if fakes32.get("flash_forward_lse") != 32 or \
+            fakes32.get("flash_bwd_fused") != 32:
+        raise AssertionError(f"abstract 7b fakes: {fakes32}")
+    n4, ma4, fakes4, secs4 = plan(4)
+    if fakes4.get("flash_forward_lse") != 4 or \
+            fakes4.get("flash_bwd_fused") != 4:
+        raise AssertionError(f"abstract 4-layer fakes: {fakes4}")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    model, ts, tbatch = train_7b_step(train_7b_config())
+    # telemetry's one-off FLOPs probe (a forward and backward under
+    # FlopCounterMode) would land inside the profiler phase's window
+    ts._flops_probed = True
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - mem1
+    held = memplan.nbytes({n: p for n, p in ts._param_objs.items()
+                           if n not in ts._master_dtypes}) \
+        + memplan.nbytes(ts.opt_state) + memplan.nbytes(tbatch)
+    if held != ma4.argument_size_in_bytes:
+        raise AssertionError(f"planned arguments "
+                             f"{ma4.argument_size_in_bytes} != held {held}")
+    losses, _, step_ms, counts, peak_gb = train_steps(ts, tbatch, warmup=1,
+                                                      timed=5)
+    planned = (ma4.argument_size_in_bytes + ma4.temp_size_in_bytes) / 1e9
+    # the step's own peak: what earlier phases left allocated is not its
+    base_gb = mem1 / 1e9
+    ratio = planned / (peak_gb - base_gb)
+    print(f"abstract 4 layers: {n4} parameters; planned arguments "
+          f"{ma4.argument_size_in_bytes / 1e9:.4f} GB = the real step's "
+          f"{held / 1e9:.4f} GB (memory_allocated grew "
+          f"{built / 1e9:.4f} GB building it); temp "
+          f"{ma4.temp_size_in_bytes / 1e9:.4f} GB; planned peak "
+          f"{planned:.3f} GB against max_memory_allocated {peak_gb:.3f} GB "
+          f"less the {base_gb:.3f} GB allocated before the step was built, "
+          f"over 5 steps ({float(np.median(step_ms)):.1f} ms each): ratio "
+          f"{ratio:.4f}; planned in {secs4:.2f} s; {smi}", flush=True)
+    if not 0.75 <= ratio <= 1.25:
+        raise AssertionError(f"the planned peak is {ratio:.3f} of the real")
+    print(json.dumps({"abstract_7b": {
+        "card": smi, "params_32": n32, "plan_32": ma32._asdict(),
+        "plan_32_s": secs32, "allocated_growth_bytes": grew,
+        "params_4": n4, "plan_4": ma4._asdict(), "held_4": held,
+        "built_4_bytes": built, "peak_4_gb": peak_gb, "base_gb": base_gb,
+        "planned_peak_4_gb": planned, "ratio": ratio, "fakes_32": fakes32,
+        "fakes_4": fakes4, "step_ms": step_ms, "losses": losses}}),
+        flush=True)
+    return model, ts, tbatch
+
+
+def profiler_7b_phase(model, ts, batch):
+    """``paddle.profiler.Profiler`` (CPU and CUDA activities) with
+    ``make_scheduler(closed=1, ready=1, record=2)`` over 4 steps of the
+    4-layer step: one window over steps 2-3, its chrome trace written and
+    parsed; ``summary()`` names the flash kernel ops with calls equal to
+    the launches over the recorded steps."""
+    from pathlib import Path
+
+    from paddle_tpu_torch import profiler
+
+    log_dir = Path(__file__).resolve().parent / "build" / "profiler_7b"
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(closed=1, ready=1, record=2),
+        log_dir=str(log_dir))
+    grew = None
+    with prof:
+        for i in range(4):
+            if i == 2:
+                torch.cuda.synchronize()
+                reset_launches()
+            ts.run(batch)
+            if i == 3:
+                torch.cuda.synchronize()
+                grew = read_launches()
+            prof.step()
+    ops = prof.op_summary()
+    want = {"paddle_tpu::flash_forward_lse": grew["flash_attention_fwd_lse"],
+            "paddle_tpu::flash_bwd_fused": grew["flash_attention_bwd_fused"]}
+    got = {k: ops.get(k, {}).get("calls") for k in want}
+    if got != want or min(want.values()) != 8:
+        raise AssertionError(f"profiler 7b: op calls {got}, launches {want}")
+    with open(prof.traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "fwd_kernel" in e.get("name", "")
+             or "dkv_kernel" in e.get("name", "")]
+    size_mb = Path(prof.traces[0]).stat().st_size / 1e6
+    text = prof.summary(op_top=12)
+    print(text, flush=True)
+    print(f"profiler 7b: window over steps 2-3, trace {size_mb:.1f} MB with "
+          f"{len(events)} events, {len(kernels)} kernels ({len(flash)} of "
+          f"the flash bodies); op calls {got} = launches; "
+          f"{nvidia_smi_line()}", flush=True)
+    if not flash:
+        raise AssertionError("profiler 7b: no flash kernel in the trace")
+    for p in prof.traces:
+        Path(p).unlink()
+    print(json.dumps({"profiler_7b": {
+        "op_calls": got, "trace_events": len(events),
+        "kernel_events": len(kernels), "flash_kernel_events": len(flash),
+        "trace_mb": size_mb,
+        "device_ms": {k: ops[k]["device_ms"] for k in want}}}), flush=True)
+
+
+def held_to_f64(label, card, cpu32, ref64, tol=VISION_REF_TOL["logits"]):
+    """``card`` within ``tol`` of the float64 reference (relative to its
+    largest magnitude) or, where the CPU's own float32 result is further
+    from float64 than that, within 10x the CPU's error: the pattern of
+    ``vision_reference``."""
+    scale = max(float(ref64.abs().max()), 1e-30)
+    card_err = float((card.double().cpu() - ref64).abs().max()) / scale
+    cpu_err = float((cpu32.double() - ref64).abs().max()) / scale
+    if card_err > max(tol, VISION_GRAD_SLACK * cpu_err):
+        raise AssertionError(f"{label}: card error {card_err:.3g} against "
+                             f"the CPU's {cpu_err:.3g} (tol {tol})")
+    return {"card_err": card_err, "cpu_err": cpu_err}
+
+
+def vision_data_ops_phase():
+    """The vision surface on the card: ``FakeData`` -> ``Compose(
+    [RandomResizedCrop(224), RandomHorizontalFlip(), Normalize,
+    Transpose()])`` -> ``DataLoader`` with 4 workers -> ResNet-50 eval in
+    bf16 (images/s with the host work included); then the Faster R-CNN
+    R50-FPN sizes: ``nms`` of 2000 proposals at IoU 0.7 (indices identical
+    to the CPU's), ``roi_align`` of 512 RoIs on [2, 256, 200, 304] at 7 x
+    7, ``sampling_ratio`` 2, forward and backward, and ``deform_conv2d``
+    on [2, 256, 100, 152], 3 x 3, 256 -> 256, each held to float64 on the
+    CPU (image 0) by ``held_to_f64`` (1e-4 of the scale for values, 1e-3
+    for the gradient: float32 resolves a sampling coordinate of a few
+    hundred pixels to ~3e-5 of a pixel), and timed."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.vision import datasets, ops, transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    smi = nvidia_smi_line()
+    pipeline = T.Compose([
+        T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+        T.Normalize([123.675, 116.28, 103.53], [58.395, 57.12, 57.375],
+                    data_format="HWC"), T.Transpose()])
+    n_img, bsz = 512, 64
+    loader = tio.DataLoader(
+        datasets.FakeData(n_img, (256, 256, 3), 1000, transform=pipeline),
+        batch_size=bsz, num_workers=4)
+    model = resnet50(device="cuda", seed=0).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        model(torch.zeros(bsz, 3, 224, 224, device="cuda",
+                          dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen = 0
+        for x, y in loader:
+            logits = model(torch.as_tensor(x).to("cuda").to(torch.bfloat16))
+            seen += x.shape[0]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if seen != n_img or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"vision data: {seen} images, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    ips = n_img / wall
+    print(f"vision data: FakeData 256 x 256 -> RandomResizedCrop(224), "
+          f"flip, Normalize, Transpose -> DataLoader (4 workers, b {bsz}) "
+          f"-> ResNet-50 bf16 eval: {ips:.1f} images/s with the host work "
+          f"({n_img} images in {wall:.2f} s); {smi}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    out = {"images_per_s": ips, "card": smi}
+    # nms: 2000 proposals over an 800 x 1216 image
+    xy = rng.random((2000, 2)) * [1216, 800]
+    wh = rng.random((2000, 2)) * 200 + 8
+    boxes = torch.as_tensor(np.concatenate([xy, xy + wh], 1),
+                            dtype=torch.float32)
+    scores = torch.as_tensor(rng.random(2000), dtype=torch.float32)
+    keep = ops.nms(boxes.cuda(), 0.7, scores.cuda())
+    keep_cpu = ops.nms(boxes, 0.7, scores)
+    if not torch.equal(keep.cpu(), keep_cpu):
+        raise AssertionError("nms: card indices differ from the CPU's")
+    out["nms"] = {"kept": int(keep.numel()), "ms": events_ms(
+        lambda: ops.nms(boxes.cuda(), 0.7, scores.cuda()), 5)}
+    # roi_align at the FPN level-2 map
+    feat = torch.as_tensor(rng.standard_normal((2, 256, 200, 304)),
+                           dtype=torch.float32)
+    rxy = rng.random((512, 2)) * [1100, 700]
+    rwh = rng.random((512, 2)) * 300 + 16
+    rois = torch.as_tensor(np.concatenate([rxy, rxy + rwh], 1),
+                           dtype=torch.float32)
+    num = np.array([256, 256])
+    kw = dict(output_size=7, spatial_scale=0.25, sampling_ratio=2)
+    g = torch.as_tensor(rng.standard_normal((512, 256, 7, 7)),
+                        dtype=torch.float32)
+
+    def align(x, r, n, grad_of):
+        x = x.clone().requires_grad_(True)
+        y = ops.roi_align(x, r, n, **kw)
+        (y * grad_of).sum().backward()
+        return y.detach(), x.grad
+
+    fc, gc, rc = feat.cuda(), g.cuda(), rois.cuda()
+    y_card, dx_card = align(fc, rc, num, gc)
+    xr = fc.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        xr.grad = None
+        (ops.roi_align(xr, rc, num, **kw) * gc).sum().backward()
+
+    half = (rois[:256], np.array([256]), g[:256])
+    y32, dx32 = align(feat[:1], half[0], half[1], half[2])
+    y64, dx64 = align(feat[:1].double(), half[0].double(), half[1],
+                      half[2].double())
+    out["roi_align"] = {
+        "forward": held_to_f64("roi_align", y_card[:256], y32, y64),
+        "backward": held_to_f64("roi_align grad", dx_card[:1], dx32, dx64,
+                                VISION_REF_TOL["grads"]),
+        "ms": events_ms(lambda: ops.roi_align(fc, rc, num, **kw), 5),
+        "fwd_bwd_ms": events_ms(fwd_bwd, 5)}
+    del fc, gc, xr, y_card, dx_card
+    # deform_conv2d at the FPN level-3 map
+    x = torch.as_tensor(rng.standard_normal((2, 256, 100, 152)) * 0.5,
+                        dtype=torch.float32)
+    off = torch.as_tensor(rng.standard_normal((2, 18, 100, 152)) * 2,
+                          dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((256, 256, 3, 3)) * 0.02,
+                        dtype=torch.float32)
+    d_card = ops.deform_conv2d(x.cuda(), off.cuda(), w.cuda(), padding=1)
+    d32 = ops.deform_conv2d(x[:1], off[:1], w, padding=1)
+    d64 = ops.deform_conv2d(x[:1].double(), off[:1].double(), w.double(),
+                            padding=1)
+    xc, oc, wc = x.cuda(), off.cuda(), w.cuda()
+    out["deform_conv2d"] = {
+        **held_to_f64("deform_conv2d", d_card[:1], d32, d64),
+        "ms": events_ms(lambda: ops.deform_conv2d(xc, oc, wc, padding=1),
+                        5)}
+    print(f"vision ops ({smi}): nms of 2000 at IoU 0.7 kept "
+          f"{out['nms']['kept']} (= CPU) in {out['nms']['ms']:.3f} ms; "
+          f"roi_align 512 RoIs {out['roi_align']['ms']:.3f} ms, forward + "
+          f"backward {out['roi_align']['fwd_bwd_ms']:.3f} ms, errors "
+          f"{out['roi_align']['forward']} / {out['roi_align']['backward']}; "
+          f"deform_conv2d {out['deform_conv2d']['ms']:.3f} ms, error "
+          f"{out['deform_conv2d']['card_err']:.3g} (CPU "
+          f"{out['deform_conv2d']['cpu_err']:.3g})", flush=True)
+    print(json.dumps({"vision_data_ops": out}), flush=True)
+
+
+def linalg_dist_sparse_phase():
+    """``linalg`` at 4096 in float32 (solve, cholesky, eigh, svd, qr, inv,
+    lstsq), each held to the card's float64 result by what it defines
+    (residuals and reconstructions, values) within 10 n eps of the scale
+    (4.9e-3: a backward-stable float32 factorization errs by about n
+    eps), and timed; a batch of 1024
+    matrices of 32 x 32 held to float64 on the CPU (``held_to_f64``);
+    ``distribution`` log_prob, entropy and kl card = CPU at 1e-5, the
+    means and variances of 10^7 draws within 5 standard errors;
+    ``sparse.matmul`` of 8192 x 8192 at 1% by 8192 x 256, card = CPU."""
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch import linalg as L
+    from paddle_tpu_torch import sparse as S
+
+    smi = nvidia_smi_line()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = 4096
+    a = torch.randn(n, n, device="cuda", generator=g) / n ** 0.5 \
+        + 2 * torch.eye(n, device="cuda")
+    spd = a @ a.T
+    rhs = torch.randn(n, 64, device="cuda", generator=g)
+    # a backward-stable float32 factorization errs by about n eps of the
+    # matrix's scale; 10 n eps is the allowance (4.9e-3 at 4096)
+    tol = 10 * n * torch.finfo(torch.float32).eps
+    out = {"card": smi, "tol_4096": tol}
+
+    def rel(x, y):
+        return float((x.double() - y).abs().max() / y.abs().max())
+
+    checks = {
+        "solve": (lambda m: L.solve(m, rhs.to(m.dtype)), a,
+                  lambda m, x: rel(m.double() @ x.double(),
+                                   rhs.double())),
+        "inv": (L.inv, a, lambda m, x: rel(m.double() @ x.double(),
+                                           torch.eye(n, device="cuda",
+                                                     dtype=torch.float64))),
+        "cholesky": (L.cholesky, spd, lambda m, x: rel(
+            x.double() @ x.double().T, m.double())),
+        "qr": (L.qr, a, lambda m, qr_: rel(
+            qr_[0].double() @ qr_[1].double(), m.double())),
+        "eigh": (L.eigh, spd, lambda m, wv: rel(
+            (wv[1].double() * wv[0].double()) @ wv[1].double().T,
+            m.double())),
+        "svd": (L.svd, a, lambda m, usv: rel(
+            (usv[0].double() * usv[1].double()) @ usv[2].double(),
+            m.double())),
+        "lstsq": (lambda m: L.lstsq(m, rhs.to(m.dtype))[0], a,
+                  lambda m, x: rel(m.double() @ x.double(),
+                                   rhs.double())),
+    }
+    res = {}
+    for name, (fn, m, err_of) in checks.items():
+        got = fn(m)
+        torch.cuda.synchronize()
+        err = err_of(m, got)
+        if name in ("eigh", "svd"):
+            vals = got[0] if name == "eigh" else got[1]
+            want = (L.eigvalsh(m.double()) if name == "eigh"
+                    else L.svdvals(m.double()))
+            err = max(err, rel(vals, want))
+        if not err <= tol:
+            raise AssertionError(f"linalg {name} at {n}: error {err} > "
+                                 f"{tol}")
+        res[name] = {"err": err, "ms": events_ms(lambda: fn(m), 1)}
+        del got
+    # a batch of 1024 small systems, held to float64 on the CPU
+    bm = torch.randn(1024, 32, 32, generator=torch.Generator().manual_seed(
+        1)) + 4 * torch.eye(32)
+    br = torch.randn(1024, 32, 4, generator=torch.Generator().manual_seed(2))
+    batch = {}
+    for name, fn in (("solve", lambda m: L.solve(m, br.to(m))),
+                     ("inv", L.inv), ("det", L.det),
+                     ("eigvalsh", lambda m: L.eigvalsh(m @ m.mT))):
+        card = fn(bm.cuda())
+        batch[name] = held_to_f64(f"batched {name}", card, fn(bm),
+                                  fn(bm.double()))
+        batch[name]["ms"] = events_ms(lambda: fn(bm.cuda()), 3)
+    out["linalg_4096"] = res
+    out["linalg_batch_1024x32"] = batch
+    # distributions: densities card = CPU; moments of 10^7 draws
+    v = torch.linspace(0.05, 0.95, 64)
+    def t(x, dev):
+        return torch.tensor(x, device=dev)
+
+    # each distribution as a function of the device and a shift of its
+    # parameters (the shifted one is the other side of the KL)
+    dists = {
+        "Normal": lambda dev, k=0: D.Normal(t(0.3 - k, dev), t(1.7 - k, dev)),
+        "Gamma": lambda dev, k=0: D.Gamma(t(2.5 + k, dev), t(1.5 - k, dev)),
+        "Beta": lambda dev, k=0: D.Beta(t(2.0 + k, dev), t(3.5 - k, dev)),
+        "Laplace": lambda dev, k=0: D.Laplace(t(0.1 + k, dev),
+                                              t(0.8 + k, dev)),
+        "Exponential": lambda dev, k=0: D.Exponential(t(1.3 + k, dev)),
+    }
+    moments = {"Normal": (0.3, 1.7 ** 2), "Gamma": (2.5 / 1.5, 2.5 / 2.25),
+               "Beta": (2.0 / 5.5, 2.0 * 3.5 / (5.5 ** 2 * 6.5)),
+               "Laplace": (0.1, 2 * 0.8 ** 2),
+               "Exponential": (1 / 1.3, 1 / 1.69)}
+    dres = {}
+    for name, make in dists.items():
+        card, cpu = make("cuda"), make("cpu")
+        pairs = [("log_prob", card.log_prob(v.cuda()), cpu.log_prob(v)),
+                 ("entropy", card.entropy(), cpu.entropy())]
+        if name != "Laplace":  # no closed form among the built-in pairs
+            pairs.append(("kl", D.kl_divergence(card, make("cuda", 0.4)),
+                          D.kl_divergence(cpu, make("cpu", 0.4))))
+        for what, tc, tp in pairs:
+            diff = float((tc.cpu() - tp).abs().max())
+            if diff > 1e-5 * max(1.0, float(tp.abs().max())):
+                raise AssertionError(f"{name} {what}: card - CPU {diff}")
+        x = card.sample((10 ** 7,), generator=torch.Generator(
+            device="cuda").manual_seed(3)).double()
+        mean, var = moments[name]
+        m, s2 = float(x.mean()), float(x.var())
+        m4 = float(((x - m) ** 4).mean())
+        se_m, se_v = (var / 1e7) ** 0.5, ((m4 - s2 ** 2) / 1e7) ** 0.5
+        if abs(m - mean) > 5 * se_m or abs(s2 - var) > 5 * se_v:
+            raise AssertionError(f"{name} draws: mean {m} (want {mean}, se "
+                                 f"{se_m}), var {s2} (want {var}, se {se_v})")
+        dres[name] = {"mean_z": (m - mean) / se_m, "var_z": (s2 - var) / se_v,
+                      "sample_ms": events_ms(lambda: card.sample(
+                          (10 ** 7,)), 3)}
+    out["distribution"] = dres
+    # sparse: 8192 x 8192 at 1% by 8192 x 256
+    gen = torch.Generator().manual_seed(4)
+    nnz = 8192 * 8192 // 100
+    idx = torch.randint(0, 8192, (2, nnz), generator=gen)
+    vals = torch.randn(nnz, generator=gen)
+    sp = S.coalesce(S.sparse_coo_tensor(idx, vals, (8192, 8192)))
+    dense = torch.randn(8192, 256, generator=gen)
+    want = S.matmul(sp, dense)
+    spc, dc = sp.cuda(), dense.cuda()
+    got = S.matmul(spc, dc)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"sparse matmul: card - CPU {err}")
+    out["sparse_matmul"] = {"nnz": int(S.nnz(sp)), "rel_err": err,
+                            "ms": events_ms(lambda: S.matmul(spc, dc), 5)}
+    print(f"linalg 4096 ({smi}): " + ", ".join(
+        f"{k} {r['ms']:.1f} ms (err {r['err']:.2g})" for k, r in res.items())
+        + "; batch 1024 x 32: " + ", ".join(
+            f"{k} {r['ms']:.2f} ms" for k, r in batch.items())
+        + "; distributions card = CPU, 10^7 draws: " + ", ".join(
+            f"{k} z {r['mean_z']:+.2f}/{r['var_z']:+.2f}"
+            for k, r in dres.items())
+        + f"; sparse matmul {out['sparse_matmul']['ms']:.3f} ms "
+          f"(err {err:.2g})", flush=True)
+    print(json.dumps({"linalg_dist_sparse": out}), flush=True)
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -8568,6 +9237,7 @@ def main() -> int:
     fa_rows = phase("flash kernels", flash_kernel_phase)
     scan_rows = phase("scan kernels", scan_kernel_phase)
     gn_rows = phase("group norm kernels", gn_kernel_phase)
+    phase("kernel ops", kernel_ops_phase)
     phase("reference", reference_phase)
     phase("paged reference", reference_phase, True)
     phase("quant reference", quant_reference_phase)
@@ -8652,6 +9322,16 @@ def main() -> int:
     phase("train 7b telemetry", train_7b_telemetry_phase)
     torch.cuda.empty_cache()
     phase("hapi 7b", hapi_phase, unfused)
+    torch.cuda.empty_cache()
+    phase("jit 7b", jit_7b_phase)
+    torch.cuda.empty_cache()
+    step = phase("abstract 7b", abstract_7b_phase)
+    phase("profiler 7b", profiler_7b_phase, *step)
+    del step
+    torch.cuda.empty_cache()
+    phase("vision data and ops", vision_data_ops_phase)
+    torch.cuda.empty_cache()
+    phase("linalg, distribution, sparse", linalg_dist_sparse_phase)
     torch.cuda.empty_cache()
     phase("optimizers reference", optimizers_reference_phase)
     phase("dropout and nan checks", dropout_and_nan_phase)

@@ -14,7 +14,8 @@ JAX package's top level: the tensor functions (``tensor.py``:
 ``no_grad``/``grad``/``set_grad_enabled``, ``DataParallel``, the
 places, ``Model`` with ``summary``/``flops`` and the subpackages (``amp``,
 ``autograd``, ``io``, ``nn``, ``optimizer``, ``distributed``,
-``inference``, ``models``, ...). Importing it builds nothing and touches
+``inference``, ``models``, ``jit`` and ``static`` on ``torch.export``,
+``linalg``, ``distribution``, ``sparse``, ``profiler``, ...). Importing it builds nothing and touches
 no CUDA context; the tensor is ``torch.Tensor``, whose methods the port
 does not patch.
 
@@ -45,15 +46,20 @@ from . import amp  # noqa: F401,E402
 from . import audio  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
 from . import device  # noqa: F401,E402
+from . import distribution  # noqa: F401,E402
 from . import fft  # noqa: F401,E402
 from . import generation  # noqa: F401,E402
 from . import incubate  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import linalg  # noqa: F401,E402
 from . import metric  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
 from . import signal  # noqa: F401,E402
+from . import static  # noqa: F401,E402
 from . import utils  # noqa: F401,E402
 from .hapi.summary import flops, summary  # noqa: F401,E402
+from . import sparse  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
 from .core.dtype import (  # noqa: F401,E402
     bfloat16,
@@ -113,6 +119,7 @@ def finfo(dtype):
 from . import observability  # noqa: F401,E402
 from . import distributed  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
+from . import profiler  # noqa: F401,E402
 from . import io  # noqa: F401,E402
 from . import models  # noqa: F401,E402
 from .core.parameter import ParamAttr  # noqa: F401,E402
@@ -223,3 +230,5 @@ class DataParallel(Layer):
 
 from .hapi import Model  # noqa: F401,E402
 from .hapi import callbacks  # noqa: F401,E402
+from . import onnx  # noqa: F401,E402
+from . import hub  # noqa: F401,E402

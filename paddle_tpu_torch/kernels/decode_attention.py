@@ -30,6 +30,7 @@ import torch
 
 from .. import flags
 from ..inference.paged import quantize_kv_rows
+from . import _ops
 from ._card import SMS, clusters_model, held_clusters, sm_count
 from .rope import apply_rope
 
@@ -338,24 +339,31 @@ def fused_contiguous_decode_attention(q, k_new, v_new, ck, cv, seq_lens,
     ``positions[i] < max_pos``; the kernel clamps values outside.
 
     Returns ``(out [slots, kv_heads, group, d] in q's dtype, ck, cv)``,
-    plus ``(k_scale, v_scale)`` for int8 caches. CPU tensors run
-    ``fused_contiguous_decode_plain``; CUDA tensors launch the kernel on
-    the current stream without synchronising, or raise.
+    plus ``(k_scale, v_scale)`` for int8 caches. The call goes through
+    the op ``paddle_tpu::fused_contiguous_decode``, which mutates the
+    caches (and scales): CPU tensors run ``fused_contiguous_decode_plain``;
+    CUDA tensors launch the kernel on the current stream without
+    synchronising, or raise.
     """
+    _ops.check_device(q, "the fused decode kernel")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    out = DECODE_OP(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin,
+                    float(scale), k_scale, v_scale)
+    if k_scale is not None:
+        return out, ck, cv, k_scale, v_scale
+    return out, ck, cv
+
+
+def _decode_cuda(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin,
+                 scale, k_scale, v_scale):
+    """The op's CUDA implementation: the launch."""
     global LAUNCHES
-    if q.device.type == "cpu":
-        return fused_contiguous_decode_plain(q, k_new, v_new, ck, cv,
-                                             seq_lens, positions, cos, sin,
-                                             scale, k_scale, v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check(q, k_new, v_new, ck, cv, seq_lens, positions, cos, sin, k_scale,
            v_scale)
     from . import _build
 
     slots, kvh, group, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
     fn = getattr(_build.library(),
                  f"pt_fused_contig_decode_{_CACHE_TAG[ck.dtype]}")
     fn.argtypes = _ARGTYPES
@@ -377,9 +385,16 @@ def fused_contiguous_decode_attention(q, k_new, v_new, ck, cv, seq_lens,
             f"fused decode attention kernel failed to launch: CUDA error "
             f"{err}")
     LAUNCHES += 1
-    if k_scale is not None:
-        return out, ck, cv, k_scale, v_scale
-    return out, ck, cv
+    return out
+
+
+DECODE_OP = _ops.define(
+    "fused_contiguous_decode",
+    "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) ck, Tensor(b!) cv, "
+    "Tensor seq_lens, Tensor positions, Tensor cos, Tensor sin, "
+    "float scale, Tensor(c!)? k_scale, Tensor(d!)? v_scale) -> Tensor", 1,
+    lambda *a: fused_contiguous_decode_plain(*a)[0].contiguous(),
+    _decode_cuda, lambda q, *a: q.new_empty(q.shape))
 
 
 def _ptr(t):

@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import _ops
 from ._card import SMEM_LIMIT, SMS, clusters_model, held_clusters, sm_count
 
 # kernel launches in this process: row 12 (forward), row 13 (backward)
@@ -288,14 +289,6 @@ def group_norm_reference(x, gamma=None, beta=None, num_groups: int = 1,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _device_ok(t) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
-
-
 def _check(x3, num_groups, tensors):
     if x3.dim() != 3 or x3.dtype not in _TAG:
         raise ValueError(f"x must be [n, hw, c] of {list(_TAG)}; got "
@@ -360,12 +353,7 @@ def _card_plan(x3, g, backward, *tensors):
     return _PLANS[key]
 
 
-def group_norm_fwd(x3, gamma, beta, num_groups: int, eps: float, act=None):
-    """Row 12: y, mean, rstd as ``group_norm_fwd_plain``; x3 contiguous
-    [n, hw, c], gamma and beta float32 [c]."""
-    _check_act(act)
-    if not _device_ok(x3):
-        return group_norm_fwd_plain(x3, gamma, beta, num_groups, eps, act)
+def _fwd_cuda(x3, gamma, beta, num_groups, eps, act):
     n, hw, c = x3.shape
     _check(x3, num_groups, [("x", x3, x3.dtype, (n, hw, c)),
                             ("gamma", gamma, _F32, (c,)),
@@ -389,14 +377,7 @@ def group_norm_fwd(x3, gamma, beta, num_groups: int, eps: float, act=None):
     return y, mean, rstd
 
 
-def group_norm_bwd(x3, dy3, gamma, beta, mean, rstd, num_groups: int,
-                   act=None):
-    """Row 13: dx and the per-sample dgamma, dbeta partials [n, c], as
-    ``group_norm_bwd_plain``."""
-    _check_act(act)
-    if not _device_ok(x3):
-        return group_norm_bwd_plain(x3, dy3, gamma, beta, mean, rstd,
-                                    num_groups, act)
+def _bwd_cuda(x3, dy3, gamma, beta, mean, rstd, num_groups, act):
     n, hw, c = x3.shape
     g = num_groups
     _check(x3, g, [("x", x3, x3.dtype, (n, hw, c)),
@@ -421,6 +402,46 @@ def group_norm_bwd(x3, dy3, gamma, beta, mean, rstd, num_groups: int,
                            f"error {err}")
     LAUNCHES["group_norm_bwd"] += 1
     return dx, dgamma, dbeta
+
+
+def _stats_like(x3, cols):
+    return x3.new_empty((x3.shape[0], cols), dtype=_F32)
+
+
+FWD_OP = _ops.define(
+    "group_norm_fwd",
+    "(Tensor x3, Tensor gamma, Tensor beta, int num_groups, float eps, "
+    "str? act) -> (Tensor, Tensor, Tensor)", 12,
+    lambda *a: tuple(t.contiguous() for t in group_norm_fwd_plain(*a)),
+    _fwd_cuda,
+    lambda x3, gamma, beta, g, eps, act: (
+        x3.new_empty(x3.shape), _stats_like(x3, g), _stats_like(x3, g)))
+BWD_OP = _ops.define(
+    "group_norm_bwd",
+    "(Tensor x3, Tensor dy3, Tensor gamma, Tensor beta, Tensor mean, "
+    "Tensor rstd, int num_groups, str? act) -> (Tensor, Tensor, Tensor)",
+    13, lambda *a: tuple(t.contiguous() for t in group_norm_bwd_plain(*a)),
+    _bwd_cuda,
+    lambda x3, *a: (x3.new_empty(x3.shape), _stats_like(x3, x3.shape[2]),
+                    _stats_like(x3, x3.shape[2])))
+
+
+def group_norm_fwd(x3, gamma, beta, num_groups: int, eps: float, act=None):
+    """Row 12 (op ``paddle_tpu::group_norm_fwd``): y, mean, rstd as
+    ``group_norm_fwd_plain``; x3 contiguous [n, hw, c], gamma and beta
+    float32 [c]."""
+    _check_act(act)
+    _ops.check_device(x3, "the group norm kernels")
+    return FWD_OP(x3, gamma, beta, int(num_groups), float(eps), act)
+
+
+def group_norm_bwd(x3, dy3, gamma, beta, mean, rstd, num_groups: int,
+                   act=None):
+    """Row 13 (op ``paddle_tpu::group_norm_bwd``): dx and the per-sample
+    dgamma, dbeta partials [n, c], as ``group_norm_bwd_plain``."""
+    _check_act(act)
+    _ops.check_device(x3, "the group norm kernels")
+    return BWD_OP(x3, dy3, gamma, beta, mean, rstd, int(num_groups), act)
 
 
 # ---------------------------------------------------------------------------

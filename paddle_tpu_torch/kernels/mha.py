@@ -36,9 +36,12 @@ The causal mask is aligned bottom-right, key j visible to query i iff
 kernel aligns it top-left; the two agree when ``sq == sk`` (ROADMAP.md
 Queue C). A query row that sees no key at all is not defined.
 
-Every wrapper runs its plain version for tensors on the CPU, and for
-CUDA tensors launches its kernel on the current stream or raises; it
-adds one to ``LAUNCHES[name]`` per launch.
+Each wrapper calls its ``torch.library`` op (``kernels/_ops.py``):
+``paddle_tpu::flash_forward``, ``flash_forward_lse``, ``flash_bwd_dq``,
+``flash_bwd_fused`` and ``flash_bwd_dkv``. The op runs its plain version
+for tensors on the CPU, and for CUDA tensors launches its kernel on the
+current stream or raises; it adds one to ``LAUNCHES[name]`` per launch.
+A fake tensor reaches the op's fake, which gives the launch's shapes.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from . import _ops
 
 DEFAULT_K_BLOCK = 1024
 NEG_INF = -1e30
@@ -288,14 +293,6 @@ def _launch(kernel, name, q, k, v, do, lse_in, delta, qseg, kseg, out0,
     LAUNCHES[name] += 1
 
 
-def _device_ok(q):
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return True
-
-
 def _check_rows(q, lse, delta):
     b, sq, hq, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
@@ -303,69 +300,50 @@ def _check_rows(q, lse, delta):
             raise ValueError(f"{name} must be float32 {(b, hq, sq)}")
 
 
-def flash_forward(q, k, v, causal=False, sm_scale=None, qseg=None,
-                  kseg=None, window=0, with_lse=False):
-    """The forward (row 5, or row 6 with ``with_lse``): returns ``(o, lse
-    or None)``, lse [b, hq, sq] float32."""
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-    if not _device_ok(q):
-        o, lse = mha_forward_plain(q, k, v, causal, scale, qseg, kseg,
-                                   window)
-        return o, (lse if with_lse else None)
+def _lse_like(q):
+    return q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                       dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the ops' CUDA implementations: the launches
+# ---------------------------------------------------------------------------
+def _fwd_cuda(q, k, v, qseg, kseg, causal, scale, window, with_lse):
     _check(q, k, v, qseg, kseg)
-    o = torch.empty_like(q)
-    lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]),
-                       dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = _lse_like(q) if with_lse else None
     _launch("fwd", "flash_attention_fwd_lse" if with_lse
             else "flash_attention_fwd", q, k, v, None, None, None, qseg,
             kseg, o, None, None, lse, causal, window, 0, 0, scale)
-    return o, lse
+    return (o, lse) if with_lse else o
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, sm_scale=None,
-                 qseg=None, kseg=None, window=0):
-    """dq of the two-pass backward (row 7)."""
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-    if not _device_ok(q):
-        return mha_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
-                                qseg, kseg, window)
+def _bwd_checks(q, k, v, do, lse, delta, qseg, kseg):
     _check(q, k, v, qseg, kseg, (("do", do), ("lse", lse),
                                  ("delta", delta)))
     _check_rows(q, lse, delta)
-    dq = torch.empty_like(q)
+
+
+def _dq_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, scale, window):
+    _bwd_checks(q, k, v, do, lse, delta, qseg, kseg)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch("bwd_dq", "flash_attention_bwd_dq", q, k, v, do, lse, delta,
             qseg, kseg, dq, None, None, None, causal, window, 0, 0, scale)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, sm_scale=None,
-                  qseg=None, kseg=None, window=0):
-    """dk, dv of the two-pass backward (row 9)."""
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-    if not _device_ok(q):
-        return mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
-                                 qseg, kseg, window)
-    _check(q, k, v, qseg, kseg, (("do", do), ("lse", lse),
-                                 ("delta", delta)))
-    _check_rows(q, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+def _dkv_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, scale, window):
+    _bwd_checks(q, k, v, do, lse, delta, qseg, kseg)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("bwd_dkv", "flash_attention_bwd_dkv", q, k, v, do, lse, delta,
             qseg, kseg, dk, dv, None, None, causal, window, 0, 0, scale)
     return dk, dv
 
 
-def flash_bwd_fused(q, k, v, do, lse, delta, causal=False, sm_scale=None,
-                    qseg=None, kseg=None, window=0, span=DEFAULT_K_BLOCK):
-    """The fused backward (row 8): dk, dv and float32 dq partials, one per
-    kv span of ``span`` rows, summed in span order. Returns dq, dk, dv."""
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-    if not _device_ok(q):
-        return mha_bwd_fused_plain(q, k, v, do, lse, delta, causal, scale,
-                                   qseg, kseg, window, span)
-    _check(q, k, v, qseg, kseg, (("do", do), ("lse", lse),
-                                 ("delta", delta)))
-    _check_rows(q, lse, delta)
+def _fused_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, scale, window,
+                span):
+    _bwd_checks(q, k, v, do, lse, delta, qseg, kseg)
     if span < 1:
         raise ValueError(f"span must be positive; got {span}")
     b, sq, hq, d = q.shape
@@ -373,14 +351,121 @@ def flash_bwd_fused(q, k, v, do, lse, delta, causal=False, sm_scale=None,
     sq_pad = -(-sq // _PART_ROWS) * _PART_ROWS
     part = torch.zeros((n_span, b, sq_pad, hq, padded_head_dim(d)),
                        dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("bwd_fused", "flash_attention_bwd_fused", q, k, v, do, lse,
             delta, qseg, kseg, part, dk, dv, None, causal, window, span,
             sq_pad, scale)
     dq = part[0]
     for i in range(1, n_span):
         dq = dq + part[i]
-    return dq[:, :sq, :, :d].to(q.dtype), dk, dv
+    dq = dq[:, :sq, :, :d].to(q.dtype)
+    # an output of its own, contiguous (as the op's fake says)
+    if dq.untyped_storage().data_ptr() == part.untyped_storage().data_ptr():
+        dq = dq.clone()
+    return dq.contiguous(), dk, dv
+
+
+def _fwd_plain(q, k, v, qseg, kseg, causal, scale, window):
+    o, lse = mha_forward_plain(q, k, v, causal, scale, qseg, kseg, window)
+    return o.contiguous(), lse.contiguous()
+
+
+def _new_like(t):
+    return t.new_empty(t.shape)
+
+
+def _fused_fake(q, k, v, do, lse, delta, qseg, kseg, causal, scale, window,
+                span):
+    """The fused backward's outputs; notes the workspace its launch holds:
+    the float32 dq partials and, over several spans, their running sum."""
+    b, sq, hq, d = q.shape
+    n_span = -(-k.shape[1] // span)
+    part = b * (-(-sq // _PART_ROWS) * _PART_ROWS) * hq * padded_head_dim(d)
+    _ops.workspace(4 * part * (n_span + (1 if n_span > 1 else 0)))
+    return _new_like(q), _new_like(k), _new_like(v)
+
+
+_ROW = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+        "Tensor delta, Tensor? qseg, Tensor? kseg, bool causal, "
+        "float scale, int window")
+_FWD = ("(Tensor q, Tensor k, Tensor v, Tensor? qseg, Tensor? kseg, "
+        "bool causal, float scale, int window)")
+FORWARD_OP = _ops.define(
+    "flash_forward", _FWD + " -> Tensor", 5,
+    lambda *a: _fwd_plain(*a)[0],
+    lambda *a: _fwd_cuda(*a, with_lse=False),
+    lambda q, *a: _new_like(q))
+FORWARD_LSE_OP = _ops.define(
+    "flash_forward_lse", _FWD + " -> (Tensor, Tensor)", 6, _fwd_plain,
+    lambda *a: _fwd_cuda(*a, with_lse=True),
+    lambda q, *a: (_new_like(q), _lse_like(q)))
+BWD_DQ_OP = _ops.define(
+    "flash_bwd_dq", _ROW + ") -> Tensor", 7,
+    lambda q, k, v, do, lse, delta, qseg, kseg, causal, scale, window:
+    mha_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale, qseg, kseg,
+                     window).contiguous(),
+    _dq_cuda, lambda q, *a: _new_like(q))
+BWD_FUSED_OP = _ops.define(
+    "flash_bwd_fused", _ROW + ", int span) -> (Tensor, Tensor, Tensor)", 8,
+    lambda q, k, v, do, lse, delta, qseg, kseg, causal, scale, window,
+    span: tuple(t.contiguous() for t in mha_bwd_fused_plain(
+        q, k, v, do, lse, delta, causal, scale, qseg, kseg, window, span)),
+    _fused_cuda, _fused_fake)
+BWD_DKV_OP = _ops.define(
+    "flash_bwd_dkv", _ROW + ") -> (Tensor, Tensor)", 9,
+    lambda q, k, v, do, lse, delta, qseg, kseg, causal, scale, window:
+    tuple(t.contiguous() for t in mha_bwd_dkv_plain(
+        q, k, v, do, lse, delta, causal, scale, qseg, kseg, window)),
+    _dkv_cuda, lambda q, k, v, *a: (_new_like(k), _new_like(v)))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+def flash_forward(q, k, v, causal=False, sm_scale=None, qseg=None,
+                  kseg=None, window=0, with_lse=False):
+    """The forward (row 5, op ``paddle_tpu::flash_forward``, or row 6,
+    ``flash_forward_lse``, with ``with_lse``): returns ``(o, lse or
+    None)``, lse [b, hq, sq] float32."""
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    _ops.check_device(q, "the flash attention kernels")
+    args = (q, k, v, qseg, kseg, bool(causal), float(scale), int(window))
+    if with_lse:
+        return FORWARD_LSE_OP(*args)
+    return FORWARD_OP(*args), None
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, sm_scale, qseg, kseg,
+              window):
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    _ops.check_device(q, "the flash attention kernels")
+    return (q, k, v, do, lse, delta, qseg, kseg, bool(causal), float(scale),
+            int(window))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, sm_scale=None,
+                 qseg=None, kseg=None, window=0):
+    """dq of the two-pass backward (row 7, ``paddle_tpu::flash_bwd_dq``)."""
+    return BWD_DQ_OP(*_bwd_args(q, k, v, do, lse, delta, causal, sm_scale,
+                                qseg, kseg, window))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, sm_scale=None,
+                  qseg=None, kseg=None, window=0):
+    """dk, dv of the two-pass backward (row 9,
+    ``paddle_tpu::flash_bwd_dkv``)."""
+    return BWD_DKV_OP(*_bwd_args(q, k, v, do, lse, delta, causal, sm_scale,
+                                 qseg, kseg, window))
+
+
+def flash_bwd_fused(q, k, v, do, lse, delta, causal=False, sm_scale=None,
+                    qseg=None, kseg=None, window=0, span=DEFAULT_K_BLOCK):
+    """The fused backward (row 8, ``paddle_tpu::flash_bwd_fused``): dk, dv
+    and float32 dq partials, one per kv span of ``span`` rows, summed in
+    span order. Returns dq, dk, dv."""
+    return BWD_FUSED_OP(*_bwd_args(q, k, v, do, lse, delta, causal,
+                                   sm_scale, qseg, kseg, window), int(span))
 
 
 def mha_backward(q, k, v, o, lse, do, dlse=None, causal=False,

@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from . import _ops
 from ..inference.paged import (  # noqa: F401  (KV_QUANT_EPS: re-export)
     KV_QUANT_EPS,
     PagedLayerCache,
@@ -194,11 +195,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
 
     CPU tensors run ``paged_decode_plain``; CUDA tensors launch the
     kernel on the current stream without synchronising, or raise."""
-    if q.device.type == "cpu":
-        return paged_decode_plain(q, k_pages, v_pages, block_tables,
-                                  seq_lens, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    _ops.check_device(q, "the block-table decode kernel")
+    return PAGED_OP(q, k_pages, v_pages, block_tables, seq_lens,
+                    float(q.shape[-1] ** -0.5 if scale is None else scale))
+
+
+def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale):
     if k_pages.dtype == torch.int8:
         raise ValueError("the block-table decode kernel takes float pools "
                          "only; int8 pools decode through "
@@ -216,11 +218,22 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
         err = fn(q.data_ptr(), _ACT_CODE[q.dtype], k_pages.data_ptr(),
                  v_pages.data_ptr(), block_tables.data_ptr(),
                  seq_lens.data_ptr(), out.data_ptr(), slots, kvh, group, d,
-                 n_pages, page_size, block_tables.shape[1],
-                 float(d ** -0.5 if scale is None else scale), plan.ranks,
-                 torch.cuda.current_stream().cuda_stream)
+                 n_pages, page_size, block_tables.shape[1], float(scale),
+                 plan.ranks, torch.cuda.current_stream().cuda_stream)
     _launched("paged_decode_attention", err)
     return out
+
+
+def _paged_plain(q, k_pages, v_pages, block_tables, seq_lens, scale):
+    return paged_decode_plain(q, k_pages, v_pages, block_tables, seq_lens,
+                              scale).contiguous()
+
+
+PAGED_OP = _ops.define(
+    "paged_decode",
+    "(Tensor q, Tensor k_pages, Tensor v_pages, Tensor block_tables, "
+    "Tensor seq_lens, float scale) -> Tensor", 3, _paged_plain, _paged_cuda,
+    lambda q, *a: q.new_empty(q.shape))
 
 
 def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
@@ -252,12 +265,19 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
     v_pages)``, plus ``(k_scale, v_scale)`` for an int8 pool. CPU tensors
     run ``fused_paged_decode_plain``; CUDA tensors launch the kernel on
     the current stream without synchronising, or raise."""
-    if q.device.type == "cpu":
-        return fused_paged_decode_plain(q, k_new, v_new, k_pages, v_pages,
-                                        block_tables, seq_lens, positions,
-                                        cos, sin, scale, k_scale, v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    _ops.check_device(q, "the fused paged decode kernel")
+    out = FUSED_PAGED_OP(q, k_new, v_new, k_pages, v_pages, block_tables,
+                         seq_lens, positions, cos, sin,
+                         float(q.shape[-1] ** -0.5 if scale is None
+                               else scale), k_scale, v_scale)
+    if k_scale is not None:
+        return out, k_pages, v_pages, k_scale, v_scale
+    return out, k_pages, v_pages
+
+
+def _fused_paged_cuda(q, k_new, v_new, k_pages, v_pages, block_tables,
+                      seq_lens, positions, cos, sin, scale, k_scale,
+                      v_scale):
     _check(q, k_pages, v_pages, block_tables, seq_lens, k_scale, v_scale,
            k_new=k_new, v_new=v_new, positions=positions, cos=cos, sin=sin)
     slots, kvh, group, d = q.shape
@@ -274,9 +294,17 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
                  seq_lens.data_ptr(), positions.data_ptr(), cos.data_ptr(),
                  sin.data_ptr(), out.data_ptr(), slots, kvh, group, d,
                  n_pages, page_size, block_tables.shape[1], cos.shape[0],
-                 float(d ** -0.5 if scale is None else scale), plan.ranks,
+                 float(scale), plan.ranks,
                  torch.cuda.current_stream().cuda_stream)
     _launched("fused_paged_decode_attention", err)
-    if k_scale is not None:
-        return out, k_pages, v_pages, k_scale, v_scale
-    return out, k_pages, v_pages
+    return out
+
+
+FUSED_PAGED_OP = _ops.define(
+    "fused_paged_decode",
+    "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) k_pages, "
+    "Tensor(b!) v_pages, Tensor block_tables, Tensor seq_lens, "
+    "Tensor positions, Tensor cos, Tensor sin, float scale, "
+    "Tensor(c!)? k_scale, Tensor(d!)? v_scale) -> Tensor", 2,
+    lambda *a: fused_paged_decode_plain(*a)[0].contiguous(),
+    _fused_paged_cuda, lambda q, *a: q.new_empty(q.shape))

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from . import _ops
 from .decode_attention import _ACT_CODE
 
 # kernel launches by ``weight_only_matmul`` in this process: one per call
@@ -165,15 +166,16 @@ def weight_only_matmul(x, qweight, scale, *, group_size=128,
     [k/group_size, n], any ``group_size`` that divides k. Returns [m, n]
     in x's dtype.
 
-    CPU tensors run ``weight_only_matmul_plain``; CUDA tensors launch the
-    kernel on the current stream without synchronising, or raise."""
+    The op ``paddle_tpu::weight_only_matmul`` runs
+    ``weight_only_matmul_plain`` for CPU tensors; for CUDA tensors it
+    launches the kernel on the current stream without synchronising, or
+    raises."""
+    _ops.check_device(x, "the weight-only matmul kernel")
+    return MATMUL_OP(x, qweight, scale, group_size, weight_dtype)
+
+
+def _matmul_cuda(x, qweight, scale, group_size, weight_dtype):
     global LAUNCHES
-    if x.device.type == "cpu":
-        return weight_only_matmul_plain(x, qweight, scale,
-                                        group_size=group_size,
-                                        weight_dtype=weight_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     _check(x, qweight, scale, group_size, weight_dtype)
     from . import _build
 
@@ -192,3 +194,13 @@ def weight_only_matmul(x, qweight, scale, *, group_size=128,
                            f"CUDA error {err}")
     LAUNCHES += 1
     return y
+
+
+MATMUL_OP = _ops.define(
+    "weight_only_matmul",
+    "(Tensor x, Tensor qweight, Tensor scale, int group_size, "
+    "str weight_dtype) -> Tensor", 4,
+    lambda x, qw, sc, gs, wd: weight_only_matmul_plain(
+        x, qw, sc, group_size=gs, weight_dtype=wd).contiguous(),
+    _matmul_cuda,
+    lambda x, qw, sc, gs, wd: x.new_empty((x.shape[0], qw.shape[1])))

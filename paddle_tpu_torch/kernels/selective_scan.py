@@ -60,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import _ops
 from ._card import SMEM_LIMIT, SMS, clusters_model, held_clusters, sm_count
 
 # kernel launches in this process: row 10 without states (a no_grad
@@ -310,14 +311,6 @@ def resident_warps(plan: ScanPlan, b: int, d: int, held: int,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _device_ok(t) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
-
-
 def _check(u, delta, B, C, at, chunk, others=()):
     b, s, d = u.shape
     n = at.shape[0]
@@ -383,12 +376,7 @@ def _card_plan(device, b, s, d, n, chunk, backward):
     return _PLANS[key]
 
 
-def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
-    """Row 10: ``y``, or ``(y, h0s)`` with ``with_states``, as
-    ``selective_scan_fwd_plain``; float32 contiguous inputs."""
-    if not _device_ok(u):
-        return selective_scan_fwd_plain(u, delta, B, C, at, chunk,
-                                        with_states)
+def _fwd_cuda(u, delta, B, C, at, chunk, with_states):
     _check(u, delta, B, C, at, chunk)
     b, s, d = u.shape
     n = at.shape[0]
@@ -410,12 +398,7 @@ def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
     return (y, h0s) if with_states else y
 
 
-def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
-    """Row 11: du, ddelta, dB, dC, dat as ``selective_scan_bwd_plain``;
-    the kernel's per-channel-tile dB/dC partials and per-(batch, rank) dat
-    partials are summed here in a fixed order."""
-    if not _device_ok(u):
-        return selective_scan_bwd_plain(u, delta, B, C, at, h0s, g, chunk)
+def _bwd_cuda(u, delta, B, C, at, h0s, g, chunk):
     _check(u, delta, B, C, at, chunk, (("h0s", h0s), ("g", g)))
     b, s, d = u.shape
     n = at.shape[0]
@@ -447,6 +430,60 @@ def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
     LAUNCHES["selective_scan_bwd"] += 1
     return du, ddelta, db_part.sum(dim=0), dc_part.sum(dim=0), \
         dat_part.sum(dim=(0, 1))
+
+
+def _states_like(u, at, chunk):
+    b, s, d = u.shape
+    return u.new_empty((b, _n_chunks(s, chunk), at.shape[0], d),
+                       dtype=_F32)
+
+
+def _f32_like(t, shape=None):
+    return t.new_empty(t.shape if shape is None else shape, dtype=_F32)
+
+
+_SCAN = "(Tensor u, Tensor delta, Tensor B, Tensor C, Tensor at, int chunk)"
+FWD_OP = _ops.define(
+    "selective_scan_fwd", _SCAN + " -> Tensor", 10,
+    lambda *a: selective_scan_fwd_plain(*a, False).contiguous(),
+    lambda *a: _fwd_cuda(*a, False), lambda u, *a: _f32_like(u))
+FWD_STATES_OP = _ops.define(
+    "selective_scan_fwd_states", _SCAN + " -> (Tensor, Tensor)", 10,
+    lambda *a: tuple(t.contiguous()
+                     for t in selective_scan_fwd_plain(*a, True)),
+    lambda *a: _fwd_cuda(*a, True),
+    lambda u, delta, B, C, at, chunk: (_f32_like(u),
+                                       _states_like(u, at, chunk)))
+BWD_OP = _ops.define(
+    "selective_scan_bwd",
+    "(Tensor u, Tensor delta, Tensor B, Tensor C, Tensor at, Tensor h0s, "
+    "Tensor g, int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)", 11,
+    lambda *a: tuple(t.contiguous() for t in selective_scan_bwd_plain(*a)),
+    _bwd_cuda,
+    lambda u, delta, B, C, at, h0s, g, chunk: (
+        u.new_empty(u.shape), u.new_empty(u.shape),
+        _f32_like(u, (*u.shape[:2], at.shape[0])),
+        _f32_like(u, (*u.shape[:2], at.shape[0])), _f32_like(at)))
+
+
+def selective_scan_fwd(u, delta, B, C, at, chunk: int, with_states: bool):
+    """Row 10 (ops ``paddle_tpu::selective_scan_fwd`` and
+    ``selective_scan_fwd_states``): ``y``, or ``(y, h0s)`` with
+    ``with_states``, as ``selective_scan_fwd_plain``; float32 contiguous
+    inputs."""
+    _ops.check_device(u, "the selective scan kernels")
+    if with_states:
+        return FWD_STATES_OP(u, delta, B, C, at, int(chunk))
+    return FWD_OP(u, delta, B, C, at, int(chunk))
+
+
+def selective_scan_bwd(u, delta, B, C, at, h0s, g, chunk: int):
+    """Row 11 (op ``paddle_tpu::selective_scan_bwd``): du, ddelta, dB, dC,
+    dat as ``selective_scan_bwd_plain``; the kernel's per-channel-tile
+    dB/dC partials and per-(batch, rank) dat partials are summed in the
+    launch in a fixed order."""
+    _ops.check_device(u, "the selective scan kernels")
+    return BWD_OP(u, delta, B, C, at, h0s, g, int(chunk))
 
 
 def _blocks(n: int):

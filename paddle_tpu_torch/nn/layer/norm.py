@@ -14,7 +14,6 @@ import torch
 from ...core import initializer as I
 from ...core.device import current_device
 from ...core.module import Layer
-from ...core.parameter import Parameter
 from ...core.random import default_generator
 from .. import layout
 from ..functional.norm import (group_norm, layer_norm, local_response_norm,
@@ -29,9 +28,9 @@ class RMSNorm(Layer):
         super().__init__(dtype=dtype)
         self.hidden_size = hidden_size
         self.epsilon = epsilon
-        self.weight = Parameter(
-            torch.ones((hidden_size,), dtype=dtype,
-                       device=current_device(device)))
+        self.weight = self.create_parameter(
+            (hidden_size,), dtype=dtype, default_initializer=I.Constant(1.0),
+            device=current_device(device))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
@@ -52,10 +51,11 @@ class LayerNorm(Layer):
         device = current_device(device)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = Parameter(torch.ones(self.normalized_shape,
-                                              dtype=dtype, device=device))
-        self.bias = Parameter(torch.zeros(self.normalized_shape,
-                                             dtype=dtype, device=device))
+        self.weight = self.create_parameter(
+            self.normalized_shape, dtype=dtype,
+            default_initializer=I.Constant(1.0), device=device)
+        self.bias = self.create_parameter(
+            self.normalized_shape, dtype=dtype, is_bias=True, device=device)
 
     def forward(self, x):
         return layer_norm(x, self.normalized_shape, self.weight, self.bias,
@@ -83,10 +83,11 @@ class GroupNorm(Layer):
         self.epsilon = epsilon
         self.data_format = data_format
         self.activation = activation
-        self.weight = Parameter(torch.ones((num_channels,), dtype=dtype,
-                                              device=device))
-        self.bias = Parameter(torch.zeros((num_channels,), dtype=dtype,
-                                             device=device))
+        self.weight = self.create_parameter(
+            (num_channels,), dtype=dtype, default_initializer=I.Constant(1.0),
+            device=device)
+        self.bias = self.create_parameter(
+            (num_channels,), dtype=dtype, is_bias=True, device=device)
 
     def forward(self, x):
         return group_norm(x, self.num_groups, self.weight, self.bias,

@@ -32,7 +32,7 @@ builds one when ``mesh`` is None) the step runs the strategy's dp, fsdp
 (``sharding_degree``, ZeRO stage ``sharding_configs.stage``), tp, sep
 (``sep_degree``, or ``cp_degree``, which maps onto the same axis) and
 ep, one process a rank, with the model's forward under
-``sharding.mesh_context(mesh)`` (``abstract=True`` is the next slice).
+``sharding.mesh_context(mesh)``.
 A pp axis is replicated, as the JAX step leaves it: pipeline models run
 through ``distributed.PipelineTrainStep``.
 ``sharding.place_params_on_mesh`` cuts the model's parameters to this
@@ -74,6 +74,12 @@ sharded=True)`` gives this rank's blocks as ``checkpoint.Sharded``
 values, and ``state_shardings()`` their layout, so
 ``distributed.checkpoint`` saves and loads blocks without gathering.
 Telemetry's tokens and MFU count this rank's tokens.
+
+``abstract=True`` builds the step from a model whose parameters are
+``meta`` tensors (``core.meta.meta_init``) or real ones, holds nothing
+and refuses ``run``; ``lower(batch_shapes).compile().memory_analysis()``
+gives the argument, output, temp and alias bytes of one step on this
+rank (``trainer/memplan.py``; the temp of a step over a mesh is None).
 
 ``run`` returns the step's loss as a 0-d tensor without a host sync.
 While the step's norm is live (telemetry on, or one of the debug flags
@@ -119,9 +125,9 @@ from ..distributed import sharding as shd
 from ..distributed.strategy import DistributedStrategy
 from ..optimizer.clip import ClipGradByGlobalNorm, ClipGradByNorm, global_norm
 from ..optimizer.optimizer import Lamb, Lars, Optimizer
+from . import memplan
+from .memplan import target_device as _target_device
 
-_NEXT = ("the next slice of the port (ROADMAP.md Queue A8, beside "
-         "jit.py)")
 _NOT_PORTED = "not in the port (ROADMAP.md Queue C)"
 
 
@@ -282,9 +288,9 @@ class TrainStep:
                  batch_seq_axis: Optional[int] = 1, donate: bool = True,
                  rng_seed: int = 0, abstract: bool = False,
                  master_residency: str = "paired", telemetry=None):
-        if abstract:
-            raise NotImplementedError(
-                f"abstract=True (AOT lowering) is {_NEXT}")
+        self.abstract = bool(abstract)
+        if self.abstract:
+            telemetry = False
         if not donate:
             raise NotImplementedError(
                 "donate=False: the port's update writes the parameters "
@@ -316,7 +322,7 @@ class TrainStep:
             n: p for n, p in model.named_parameters() if p.requires_grad}
         if not self._param_objs:
             raise ValueError("the model has no trainable parameters")
-        self.device = next(iter(self._param_objs.values())).device
+        self.device = _target_device(next(iter(self._param_objs.values())))
         self._plan = None
         self._bound = []
         if mesh is not None:
@@ -442,7 +448,10 @@ class TrainStep:
 
     # ------------------------------------------------------------------
     def _release_copies(self):
-        """master_only: free each master-backed parameter's storage."""
+        """master_only: free each master-backed parameter's storage (an
+        abstract step holds none)."""
+        if self.abstract:
+            return
         for n, dt in self._master_dtypes.items():
             self._param_objs[n].data = torch.empty(0, dtype=dt,
                                                    device=self.device)
@@ -484,13 +493,15 @@ class TrainStep:
                     part[name] = v
         return parts
 
-    def shard_batch(self, batch: Dict) -> Dict:
+    def shard_batch(self, batch: Dict, device=None) -> Dict:
         """This rank's part of a global batch: block ``(dp, fsdp)`` of
         dim 0 (with gradient merge, that block of each of the k global
         micro-batches, in order) and, at sep > 1, block ``sep`` of the
         sequence axis, after ``labels`` became ``shifted_labels`` (a
-        model's own loss only). Without a mesh, the batch as given."""
-        batch = {n: _as_tensor(v, self.device) for n, v in batch.items()}
+        model's own loss only), on ``device`` (the step's by default).
+        Without a mesh, the batch as given."""
+        device = self.device if device is None else device
+        batch = {n: _as_tensor(v, device) for n, v in batch.items()}
         if self.mesh is None:
             return batch
         sep = shd._size(self.mesh, "sep")
@@ -530,7 +541,13 @@ class TrainStep:
         gradients inside ``no_grad()`` or ``set_grad_enabled(False)``
         too, as the JAX step does. Over a mesh,
         ``batch`` is the global batch, or with ``sharded`` this rank's
-        rows of it (``shard_batch``)."""
+        rows of it (``shard_batch``). An abstract step raises
+        ``RuntimeError``: it holds no parameters (``lower`` plans it)."""
+        if self.abstract:
+            raise RuntimeError(
+                "TrainStep(abstract=True) holds no real parameters; use "
+                "lower() for its memory plan, or build the step without "
+                "abstract to run it")
         tel = self.telemetry
         bench = bool(flags.flag("benchmark"))
         check = bool(flags.flag("check_nan_inf"))
@@ -591,6 +608,14 @@ class TrainStep:
         if self.optimizer._lr_scheduler is not None:
             self.optimizer._lr_scheduler.step()
         return loss
+
+    def lower(self, batch_shapes: Dict) -> memplan.Lowered:
+        """The step against abstract inputs (``batch_shapes``: arrays,
+        tensors or anything with ``shape`` and ``dtype``, at the global
+        batch's shapes); ``.compile().memory_analysis()`` gives this
+        rank's argument, output, temp and alias bytes
+        (``trainer/memplan.py``). Nothing is allocated on the device."""
+        return memplan.Lowered(self, batch_shapes)
 
     def _forward_backward(self, batch):
         params = self._param_objs

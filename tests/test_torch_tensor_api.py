@@ -697,16 +697,15 @@ TOP_LEVEL = (
     "load", "iinfo", "finfo", "Tensor", "CPUPlace", "CUDAPlace", "XPUPlace",
     "DataParallel", "__version__", "no_grad", "grad", "set_grad_enabled",
     "is_grad_enabled", "get_device", "set_device")
-# what waits for the next slice, and what is about JAX itself
-NOT_YET = {"linalg", "sparse", "static", "jit", "profiler", "onnx", "hub",
-           "distribution"}
+# what waits for a later slice (nothing now), and what is about JAX itself
+NOT_YET = set()
 JAX_ONLY = {"jax", "jnp", "jax_compat", "dtype_mod", "annotations",
             "builtins"}
 
 
 def test_top_level_names():
-    """Every name of the JAX top level is in the port's, but the modules
-    of the next slice and those about JAX itself. (Which submodules are
+    """Every name of the JAX top level is in the port's, but those about
+    JAX itself. (Which submodules are
     attributes depends on what the process imported, so a module counts
     where the port has one of its name.)"""
     import importlib.util

@@ -380,8 +380,8 @@ def test_state_dict_round_trip_and_resume_from_jax():
 
 
 def test_train_step_refuses_what_it_does_not_run():
-    """What the step still refuses: ``abstract=True`` (the next slice),
-    ``donate=False``, a bad residency, and sep with cp (one axis). A
+    """What the step still refuses: ``run`` of an ``abstract=True`` step
+    (it plans, ``tests/test_torch_meta.py``), ``donate=False``, a bad residency, and sep with cp (one axis). A
     mesh, a strategy over several ranks (pp, sep, cp and ep included),
     any ``batch_seq_axis`` and ``run(sharded=True)`` now run: over gloo
     in ``tests/test_torch_dist_train.py`` and the distributed tests of
@@ -390,10 +390,10 @@ def test_train_step_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="sep axis"):
         TrainStep(tmodel, topt.AdamW(), strategy=DistributedStrategy(
             hybrid_configs=HybridConfig(sep_degree=2, cp_degree=2)))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TrainStep(tmodel, topt.AdamW(), abstract=True)
-    with pytest.raises(NotImplementedError, match="abstract"):
-        TrainStep(tmodel, topt.AdamW(), abstract=True)
+    abstract = TrainStep(tmodel, topt.AdamW(), abstract=True)
+    with pytest.raises(RuntimeError, match="abstract"):
+        abstract.run({"input_ids": np.zeros((1, 4), np.int64),
+                      "labels": np.zeros((1, 4), np.int64)})
     with pytest.raises(ValueError, match="master_only"):
         TrainStep(tmodel, topt.AdamW(), master_residency="master_only")
     with pytest.raises(ValueError, match="master_residency"):

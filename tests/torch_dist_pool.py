@@ -484,3 +484,44 @@ def batch_sampler_job(n_items, batch_size, shuffle, epochs):
         sampler.set_epoch(e)
         out.append([list(b) for b in sampler])
     return sampler.nranks, sampler.local_rank, out
+
+
+# ---------------------------------------------------------------------------
+# the abstract step's memory plan
+# ---------------------------------------------------------------------------
+def abstract_plan_job(mesh_kw, cfg, batch):
+    """This rank's planned argument bytes of ``TrainStep(abstract=True)``
+    over ``build_mesh(**mesh_kw)`` (the tiny Llama built under
+    ``meta_init``), and the bytes the real step holds on this rank: its
+    carried parameters, masters, slots, step and batch rows."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.core.meta import meta_init
+    from paddle_tpu_torch.trainer import TrainStep, memplan
+
+    kw, s = _strategy(mesh_kw)
+    out = {}
+    for abstract in (True, False):
+        mesh = D.build_mesh(**kw)
+        config = models.LlamaConfig.tiny(**cfg)
+        if abstract:
+            with meta_init():
+                model = models.LlamaForCausalLM(config, device="cpu")
+        else:
+            model = models.LlamaForCausalLM(config, device="cpu")
+        ts = TrainStep(model, topt.AdamW(1e-3, multi_precision=True), mesh,
+                       s, abstract=abstract)
+        if abstract:
+            ma = ts.lower(batch).compile().memory_analysis()
+            out["planned"] = ma.argument_size_in_bytes
+            out["alias"] = ma.alias_size_in_bytes
+            out["meta"] = all(p.device.type == "meta"
+                              for p in model.parameters())
+        else:
+            out["held"] = memplan.nbytes(
+                {n: p for n, p in ts._param_objs.items()
+                 if n not in ts._master_dtypes}) \
+                + memplan.nbytes(ts.opt_state) \
+                + memplan.nbytes(ts.shard_batch(batch))
+    return out
